@@ -1,0 +1,116 @@
+#!/usr/bin/env python3
+"""Where an Algorithm-1 round of the PyTorch port spends its time, on one
+NVIDIA GPU, at the paper's width (N=60000, P=784, J=128, L=10, I=10, B=100).
+
+    python3 scripts/profile_torch_round.py [--rounds 20] [--json PATH]
+
+For dense and int8+EF uploads: rounds/s over a timed window (host clock,
+ending in a synchronize), then a torch.profiler window over the same number
+of rounds: device kernel time per round and its share of the wall time (the
+rest is the device idling while the host launches), kernel launches per
+round, the top kernels by device time and the top host operators by self
+CPU time. Prints one JSON line per configuration; --json PATH writes all
+of it, top kernels and host operators included, to PATH.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--rounds", type=int, default=20)
+    ap.add_argument("--json", type=Path, default=None,
+                    help="write the full profile here")
+    args = ap.parse_args()
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if not torch.cuda.is_available():
+        print("profile_torch_round: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import device as device_lib
+    from repro_torch import random as rnd
+    from repro_torch.comm import codecs
+    from repro_torch.configs.base import MNIST_MLP as cfg
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core import algorithms, fed
+    from repro_torch.data.synthetic import classification_dataset
+    from repro_torch.models import mlp
+
+    device_lib.resolve(None)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    (z, y, _), _ = classification_dataset(rnd.PRNGKey(0), n=cfg.num_samples,
+                                          num_features=cfg.num_features,
+                                          num_classes=cfg.num_classes,
+                                          noise=4.0)
+    data = fed.partition_samples(z, y, cfg.num_clients)
+    params0 = mlp.init(rnd.PRNGKey(1), cfg.num_features, cfg.hidden,
+                       cfg.num_classes)
+    fl = FLConfig(num_clients=cfg.num_clients, batch_size=cfg.batch_size,
+                  a1=0.3, a2=0.3, alpha_rho=0.1, alpha_gamma=0.6, tau=0.05,
+                  l2_lambda=1e-5)
+
+    def run(codec, rounds):
+        return algorithms.algorithm1(mlp.per_sample_loss, params0, data, fl,
+                                     rounds=rounds, key=rnd.PRNGKey(2),
+                                     codec=codecs.make_codec(codec))
+
+    out = {"device": smi, "rounds": args.rounds, "configs": {}}
+    for codec in (None, "int8"):
+        run(codec, 5)                               # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(codec, args.rounds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run(codec, args.rounds)
+            torch.cuda.synchronize()
+        kernels, host = [], []
+        for e in prof.key_averages():
+            dev_us = e.self_device_time_total
+            if dev_us > 0 and e.cpu_time_total == 0:
+                kernels.append((dev_us, e.count, e.key))
+            elif e.self_cpu_time_total > 0:
+                host.append((e.self_cpu_time_total, e.count, e.key))
+        kernels.sort(reverse=True)
+        host.sort(reverse=True)
+        dev_total_us = sum(k[0] for k in kernels)
+        launches = sum(k[1] for k in kernels)
+        per_round_ms = wall / args.rounds * 1e3
+        res = {
+            "codec": codec or "none",
+            "rounds_per_s": args.rounds / wall,
+            "ms_per_round": per_round_ms,
+            "device_kernel_ms_per_round": dev_total_us / 1e3 / args.rounds,
+            "device_busy_share": dev_total_us / 1e3 / args.rounds / per_round_ms,
+            "kernel_launches_per_round": launches / args.rounds,
+            "top_kernels": [{"us_per_round": t / args.rounds,
+                             "launches_per_round": c / args.rounds,
+                             "name": k[:90]} for t, c, k in kernels[:12]],
+            "top_host_ops": [{"self_cpu_us_per_round": t / args.rounds,
+                              "calls_per_round": c / args.rounds, "name": k}
+                             for t, c, k in host[:12]],
+        }
+        out["configs"][res["codec"]] = res
+        print(json.dumps({k: res[k] for k in list(res)[:6]}), flush=True)
+    if args.json is not None:
+        args.json.parent.mkdir(parents=True, exist_ok=True)
+        args.json.write_text(json.dumps(out, indent=1))
+    print(smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,69 @@
+"""Carry state between the JAX reference and the port as numpy arrays.
+
+The parity tests hand the same numbers to both packages: params dicts,
+``SSCAState`` (params, surrogate buffer, round counter), PRNG keys (uint32
+pairs) and client datasets. This module never imports jax: the JAX side
+is given and taken as numpy (``np.asarray`` of a jax array).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import device as device_lib
+from repro_torch.core import optimizer
+from repro_torch.core.fed import SampleFedData
+
+
+def tensor_from_numpy(a, device=None) -> torch.Tensor:
+    """numpy array (bfloat16 from ml_dtypes included) -> tensor on device."""
+    a = np.asarray(a)
+    dev = device_lib.resolve(device)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(dev, torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def tensor_to_numpy(t) -> np.ndarray:
+    """tensor -> numpy (bfloat16 widened to float32, which is exact)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def params_from_numpy(tree, device=None) -> dict:
+    return {k: tensor_from_numpy(v, device) for k, v in tree.items()}
+
+
+def params_to_numpy(tree) -> dict:
+    return {k: tensor_to_numpy(v) for k, v in tree.items()}
+
+
+def key_from_numpy(key, device=None) -> torch.Tensor:
+    """uint32 key array (..., 2) -> the port's int64 key tensor."""
+    return tensor_from_numpy(np.asarray(key, dtype=np.uint32).astype(np.int64),
+                             device)
+
+
+def key_to_numpy(key) -> np.ndarray:
+    return key.detach().cpu().numpy().astype(np.uint32)
+
+
+def ssca_state_from_numpy(params, g, t, device=None) -> optimizer.SSCAState:
+    """The reference's SSCAState(params, g, t), as numpy, -> the port's
+    (flat buffers with dict views)."""
+    state = optimizer.ssca_init(params_from_numpy(params, device))
+    for k, v in g.items():
+        state.g[k].copy_(tensor_from_numpy(v, device))
+    return state._replace(t=int(np.asarray(t)))
+
+
+def ssca_state_to_numpy(state) -> dict:
+    return {"params": params_to_numpy(state.params),
+            "g": params_to_numpy(state.g), "t": np.int32(state.t)}
+
+
+def sample_fed_data_from_numpy(features, labels, counts,
+                               device=None) -> SampleFedData:
+    return SampleFedData(tensor_from_numpy(features, device),
+                         tensor_from_numpy(labels, device),
+                         tensor_from_numpy(np.asarray(counts, np.int32), device))

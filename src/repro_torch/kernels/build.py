@@ -1,0 +1,125 @@
+"""Build the CUDA sources under ``csrc/`` at first use and load them.
+
+Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -Xptxas -v -o lib<name>-<hash>.so <name>.cu
+
+into ``build/repro_torch/`` at the repository root (listed in .gitignore),
+then loads with ``ctypes``: a few seconds per file, where a source that
+includes PyTorch's headers takes minutes. The library's name carries a hash
+of its source, so an edited kernel is never served from a stale build.
+``--use_fast_math`` is never passed: the quantize kernel's bit-exactness
+rests on IEEE division.
+
+Every C entry returns ``cudaGetLastError()`` after its launch; `check`
+raises on a non-zero code (a refused launch never runs, and a later
+synchronize would not report it).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _F, _LL, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_longlong, ctypes.c_int
+# C entry -> argtypes; every pointer and the stream are void* (ctypes would
+# otherwise pass a Python int as a 32-bit int and cut the pointer)
+SIGNATURES = {
+    "ssca_update": {
+        "ssca_update_f32": [_P, _P, _P, _P, _F, _F, _LL, _P],
+        "ssca_update_bf16": [_P, _P, _P, _P, _F, _F, _LL, _P],
+    },
+    "quantize": {
+        "stochastic_quantize": [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _F, _I,
+                                _P],
+    },
+}
+
+_LIBS: dict = {}
+BUILD_LOG: dict = {}       # name -> {"seconds": float, "ptxas": [lines]}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
+                       "repro_torch's kernels (PATH or /usr/local/cuda/bin)")
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()
+                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _start(name: str):
+    """Start nvcc for one source; returns (process, temp path, target, t0),
+    or None when the library is already built."""
+    out = _target(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out, time.perf_counter()
+
+
+def _finish(name: str, started) -> None:
+    proc, tmp, out, t0 = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
+                           f"(exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)
+    BUILD_LOG[name] = {
+        "seconds": time.perf_counter() - t0,
+        "ptxas": [ln.strip() for ln in log.splitlines()
+                  if "ptxas" in ln and ("registers" in ln or "spill" in ln)]}
+
+
+def _load(name: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(_target(name)))
+    for fn, argtypes in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def build_all(names=None) -> dict:
+    """Build every named source (default: all), one nvcc each, all started
+    together; returns name -> loaded library."""
+    wanted = list(names or SIGNATURES)
+    started = {n: _start(n) for n in wanted if n not in _LIBS}
+    for n, s in started.items():
+        if s is not None:
+            _finish(n, s)
+        _LIBS[n] = _load(n)
+    return {n: _LIBS[n] for n in wanted}
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built at first use."""
+    if name not in _LIBS:
+        build_all([name])
+    return _LIBS[name]
+
+
+def check(code: int, entry: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"CUDA launch of {entry} failed: cudaError {code}")
