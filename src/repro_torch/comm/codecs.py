@@ -16,7 +16,9 @@ version on the card.
 Quantizers use stochastic rounding, which is unbiased. The uniform noise
 comes from raw threefry bits via ``uniform_from_bits`` — the formula the
 kernel applies to its bits operand — so kernel and plain version agree bit
-for bit, and both agree with the JAX reference on the same key.
+for bit, and both agree with the JAX reference on the same key. That math
+(``uniform_from_bits``, ``chunk_pad``, ``stochastic_round_chunks``) lives
+in ``kernels/ref.py`` and is re-exported here under the reference's names.
 ``TopK`` and ``Chain`` are not ported yet.
 """
 from __future__ import annotations
@@ -25,46 +27,15 @@ import math
 from dataclasses import dataclass
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from repro_torch import random as rnd
 from repro_torch.core.tree import leaves
 from repro_torch.kernels.quantize import stochastic_quantize
+from repro_torch.kernels.ref import (  # noqa: F401  (re-exported)
+    chunk_pad, stochastic_round_chunks, uniform_from_bits)
 
 F32_BYTES = 4
-
-
-# ---------------------------------------------------------------------------
-# shared quantization math (also the plain version of kernels/quantize.py)
-# ---------------------------------------------------------------------------
-
-
-def uniform_from_bits(bits):
-    """uint32 random bits (in an int32 or int64 tensor) -> Uniform[0,1) with
-    24-bit mantissa precision; exact, as the kernel computes it."""
-    return (((bits.to(torch.int64) & 0xFFFFFFFF) >> 8).to(torch.float32)
-            * (1.0 / (1 << 24)))
-
-
-def chunk_pad(x, chunk: int):
-    """(..., P) -> (..., C, chunk) zero-padded, C = ceil(P/chunk)."""
-    p = x.shape[-1]
-    pad = (-p) % chunk
-    xp = torch.nn.functional.pad(x.float(), (0, pad))
-    return xp.reshape(*x.shape[:-1], -1, chunk)
-
-
-def stochastic_round_chunks(xc, u, qmax: int):
-    """Per-chunk absmax scale + stochastic rounding. xc, u: (..., C, chunk).
-    Returns (q int8 (..., C, chunk), scales fp32 (..., C)). The scale is
-    absmax times the float32 constant fp32(1/qmax), rounded once from the
-    double, exactly as the reference and the kernel compute it."""
-    absmax = torch.amax(torch.abs(xc), dim=-1, keepdim=True)
-    scale = absmax * torch.tensor(np.float32(1.0 / qmax), device=xc.device)
-    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
-    q = torch.clamp(torch.floor(xc / safe + u), -qmax, qmax)
-    return q.to(torch.int8), scale[..., 0]
 
 
 # ---------------------------------------------------------------------------
@@ -137,16 +108,16 @@ class StochasticQuantizer:
         return num_chunks * F32_BYTES + math.ceil(p * self.bits / 8)
 
 
-def make_codec(name, chunk: int = 256):
+def make_codec(name):
     """CLI-name -> codec instance; "none"/None -> None (dense fp32 path)."""
     if name is None or name == "none":
         return None
     if name == "identity":
         codec = Identity()
     elif name == "int8":
-        codec = StochasticQuantizer(bits=8, chunk=chunk)
+        codec = StochasticQuantizer(bits=8)
     elif name == "int4":
-        codec = StochasticQuantizer(bits=4, chunk=chunk)
+        codec = StochasticQuantizer(bits=4)
     else:
         raise ValueError(f"unknown codec {name!r} (choose "
                          "none|identity|int8|int4; topk/topk8 are not ported)")
@@ -159,12 +130,9 @@ def make_codec(name, chunk: int = 256):
 # ---------------------------------------------------------------------------
 
 
-def tree_flat_dim(tree, stacked: bool = False) -> int:
-    """Total scalar count of a params dict; with stacked=True, per-client
-    count of a dict whose leaves carry a leading client axis."""
-    ls = leaves(tree)
-    total = sum(leaf.numel() for leaf in ls)
-    return total // ls[0].shape[0] if stacked else total
+def tree_flat_dim(tree) -> int:
+    """Total scalar count of a params dict."""
+    return sum(leaf.numel() for leaf in leaves(tree))
 
 
 def flatten_tree(tree):

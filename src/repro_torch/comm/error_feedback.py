@@ -44,20 +44,15 @@ def with_comm_carry(codec, body):
     return step
 
 
-def ef_roundtrip(codec, x, residual, key=None, active=None):
+def ef_roundtrip(codec, x, residual, key=None):
     """One error-feedback compression step on flat uploads: x and residual
     are (P,) with a (2,) key, or stacked (I, P) with (I, 2) keys — the whole
     stack goes through the codec in one call.
 
-    Returns (enc, x_hat, new_residual). ``active`` (0/1 per client) freezes
-    the residual of a client that did not upload this round.
+    Returns (enc, x_hat, new_residual).
 
     Conservation invariant (any codec): x_hat + new_residual == x + residual.
     """
     target = x + residual
     enc, x_hat = codec.roundtrip(target, key)
-    new_residual = target - x_hat
-    if active is not None:
-        new_residual = torch.where(active[..., None] > 0, new_residual,
-                                   residual)
-    return enc, x_hat, new_residual
+    return enc, x_hat, target - x_hat

@@ -10,8 +10,6 @@ keep the reference's names: ``loss_est``, ``stat_res``, ``upload_bytes``,
 """
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 from repro_torch import device as device_lib
@@ -25,14 +23,13 @@ from repro_torch.core.fed import SampleFedData
 from repro_torch.core.rounds import RunResult
 
 
-def _sample_upload_bytes(uploads, grad_est, data, participation):
+def _sample_upload_bytes(uploads, grad_est, data):
     """Static per-round uplink bytes: the codec's exact wire bytes from
     fed.sample_round, or dense fp32 bytes derived from the grad shapes."""
     if uploads["upload_nbytes"] is not None:
         return float(uploads["upload_nbytes"])
     return float(comm_accounting.sample_round_bytes(
-        comm_codecs.tree_flat_dim(grad_est), data.num_clients, None,
-        participation=participation)["up"])
+        comm_codecs.tree_flat_dim(grad_est), data.num_clients)["up"])
 
 
 def _stat_res(new_flat, old_flat, gamma_t):
@@ -48,23 +45,20 @@ def _ef_norm(ef):
 
 
 def make_algorithm1_step(per_sample_loss, data: SampleFedData, fl,
-                         participation: Optional[int] = None, codec=None,
-                         topology=None):
+                         codec=None):
     """One full Algorithm-1 round as a (state, RoundInputs-slice) step. With
     a codec the state is a CommCarry(opt=SSCAState, ef=(I, P) residuals)."""
 
     def body(state, inp, ef):
         grad_est, val_est, up = fed.sample_round(
             per_sample_loss, state.params, data, inp.key, fl.batch_size,
-            participation=participation, codec=codec, ef=ef,
-            topology=topology)
+            codec=codec, ef=ef)
         old = state.w_flat.clone()      # ssca_step updates in place
         new = optimizer.ssca_step(state, grad_est, fl,
                                   rho_t=inp.rho, gamma_t=inp.gamma)
         metrics = {"loss_est": val_est,
                    "stat_res": _stat_res(new.w_flat, old, inp.gamma),
-                   "upload_bytes": _sample_upload_bytes(
-                       up, grad_est, data, participation),
+                   "upload_bytes": _sample_upload_bytes(up, grad_est, data),
                    "axis_bytes": 0.0}
         if codec is not None:
             metrics["ef_norm"] = _ef_norm(up["ef"])
@@ -74,16 +68,14 @@ def make_algorithm1_step(per_sample_loss, data: SampleFedData, fl,
 
 
 def algorithm1(per_sample_loss, params0, data: SampleFedData, fl, rounds: int,
-               key, eval_fn=None, eval_every: int = 10,
-               participation: Optional[int] = None, codec=None,
-               topology=None, device=None) -> RunResult:
+               key, eval_fn=None, eval_every: int = 10, codec=None,
+               device=None) -> RunResult:
     """Runs on ``device`` (default: the CUDA card; raises without one).
     params0, data and key are moved there; params0 itself is not written."""
     dev = device_lib.resolve(device)
     data = data.to(dev)
     params0 = {k: v.to(dev) for k, v in params0.items()}
-    step = make_algorithm1_step(per_sample_loss, data, fl, participation,
-                                codec, topology)
+    step = make_algorithm1_step(per_sample_loss, data, fl, codec)
     state = optimizer.ssca_init(params0)
     if codec is not None:
         state = CommCarry(opt=state, ef=ef_init_stacked(

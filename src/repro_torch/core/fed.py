@@ -6,9 +6,10 @@ returns an ``uploads`` dict so tests can assert exactly what crossed the
 boundary. With ``codec=`` each client's flat q-upload is compressed (with
 per-client error feedback) before the server decodes and aggregates.
 
-Ported: full participation, with or without a codec. Partial participation
-(the keyed Feistel draw), the cohort engine, DP and the feature-based round
-are not ported yet and raise.
+Ported: full participation on one device, with or without a codec. Partial
+participation (the keyed Feistel draw), the key-shuffled partition, the
+cohort engine, DP, the sharded topology and the feature-based round are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -41,12 +42,8 @@ class SampleFedData(NamedTuple):
         return SampleFedData(*(t.to(device) for t in self))
 
 
-def partition_samples(features, labels, num_clients, key=None) -> SampleFedData:
+def partition_samples(features, labels, num_clients) -> SampleFedData:
     """Split N samples into I (near-)equal client shards, in order."""
-    if key is not None:
-        raise NotImplementedError(
-            "partition_samples(key=...) shuffles with jax.random.permutation, "
-            "which the port does not have yet; pass key=None")
     n = features.shape[0]
     per = n // num_clients
     features = features[: per * num_clients].reshape(num_clients, per, -1)
@@ -78,16 +75,11 @@ def batch_mask(counts, batch_size: int):
     return (ar[None, :] < b_i[:, None]).float()
 
 
-def aggregation_weights(counts, batch_size: int, part_mask=None):
-    """Server weights w_i = N_i/(B_i·N) with B_i = min(B, N_i); with a
-    participation mask m (S of I) they become m_i·(I/S)·N_i/(B_i·N)."""
+def aggregation_weights(counts, batch_size: int):
+    """Server weights w_i = N_i/(B_i·N) with B_i = min(B, N_i)."""
     counts = counts.float()
     b_i = torch.clamp(counts, max=float(batch_size))
-    w = counts / (b_i * torch.sum(counts))
-    if part_mask is not None:
-        scale = counts.shape[0] / torch.sum(part_mask)
-        w = w * part_mask * scale
-    return w
+    return counts / (b_i * torch.sum(counts))
 
 
 def _client_fn(per_sample_loss: Callable, params):
@@ -109,9 +101,8 @@ def _client_fn(per_sample_loss: Callable, params):
 
 
 def sample_round(per_sample_loss: Callable, params, data: SampleFedData, key,
-                 batch_size: int, with_value: bool = False,
-                 participation: int | None = None, codec=None, ef=None,
-                 codec_key=None, topology=None, dp=None):
+                 batch_size: int, with_value: bool = False, codec=None,
+                 ef=None):
     """Computes client uploads q_i = Σ_{n∈batch} ∇f(ω;x_n) (and Σ f) then
     the server aggregate ĝ = Σ_i N_i/(B_i·N) q_i (and F̂ likewise).
 
@@ -122,14 +113,6 @@ def sample_round(per_sample_loss: Callable, params, data: SampleFedData, key,
     ``client_keys(fold_in(key, 0xC0DEC), arange(I))``, as in the reference.
 
     Returns (grad_est dict, value_est, uploads)."""
-    if participation is not None and participation < 1:
-        raise ValueError(f"participation must be >= 1, got {participation}")
-    if participation is not None and participation < data.num_clients:
-        raise NotImplementedError(
-            "partial participation (participation < num_clients) is not "
-            "ported yet")
-    if dp is not None:
-        raise NotImplementedError("dp= is not ported yet")
     if codec is None and ef is not None:
         raise ValueError(
             "sample_round: error-feedback residuals (ef=) were passed "
@@ -140,24 +123,20 @@ def sample_round(per_sample_loss: Callable, params, data: SampleFedData, key,
         raise ValueError(
             f"sample_round: error-feedback residuals have shape "
             f"{tuple(ef.shape)}, expected {(data.num_clients, dim)}")
-    topo = topology if topology is not None else topology_lib.LOCAL
     idx = sample_batches(data, key, batch_size)      # (I, B)
     bmask = batch_mask(data.counts, batch_size)      # (I, B)
     ckeys = nbytes = None
     if codec is not None:
-        if codec_key is None:
-            codec_key = rnd.fold_in(key, 0xC0DEC)
-        ckeys = client_keys(codec_key, torch.arange(data.num_clients,
-                                                    device=key.device))
+        ckeys = client_keys(rnd.fold_in(key, 0xC0DEC),
+                            torch.arange(data.num_clients, device=key.device))
         nbytes = comm_accounting.sample_round_bytes(
-            dim, data.num_clients, codec, participation=participation,
-            with_value=with_value)["up"]
+            dim, data.num_clients, codec, with_value=with_value)["up"]
     w = aggregation_weights(data.counts, batch_size)
-    s = topo.weighted_sum(_client_fn(per_sample_loss, params),
-                          (data.features, data.labels, idx, bmask), w,
-                          codec=codec, ef=ef, codec_keys=ckeys)
+    s = topology_lib.LOCAL.weighted_sum(
+        _client_fn(per_sample_loss, params),
+        (data.features, data.labels, idx, bmask), w,
+        codec=codec, ef=ef, codec_keys=ckeys)
     uploads = {"q_grad_sums": s.uploads,
                "q_value_sums": s.values if with_value else None,
-               "participants": None, "encoded": s.encoded, "ef": s.ef,
-               "upload_nbytes": nbytes}
+               "encoded": s.encoded, "ef": s.ef, "upload_nbytes": nbytes}
     return s.weighted, s.value, uploads

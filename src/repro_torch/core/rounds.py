@@ -65,10 +65,6 @@ def unwrap_comm(state):
     return state
 
 
-def _default_extract(state):
-    return unwrap_comm(state).params
-
-
 def chunk_sizes(rounds: int, chunk: int):
     """Split `rounds` into chunk-sized runs, never dropping the partial
     final chunk."""
@@ -100,23 +96,21 @@ def _series(values, device):
 
 
 def run_rounds(step_fn: Callable, state, fl, key, rounds: int,
-               eval_fn: Optional[Callable] = None, eval_every: int = 0,
-               extract_params: Optional[Callable] = None,
-               t_start: int = 1) -> RunResult:
+               eval_fn: Optional[Callable] = None,
+               eval_every: int = 0) -> RunResult:
     """Run ``rounds`` rounds of ``step_fn(state, RoundInputs-slice) ->
-    (state, metrics)``, with ``eval_fn(params, state)`` every ``eval_every``
-    rounds (chunk ends). history carries the eval series under their own
-    names keyed by "round", plus every step metric as a (K,) per-round series
-    under "round_<name>" (with "round_t" = t_start..t_start+K-1)."""
-    extract_params = extract_params or _default_extract
+    (state, metrics)`` from round t=1, with ``eval_fn(params, state)`` every
+    ``eval_every`` rounds (chunk ends). history carries the eval series under
+    their own names keyed by "round", plus every step metric as a (K,)
+    per-round series under "round_<name>" (with "round_t" = 1..K)."""
     dev = key.device
     if rounds <= 0:
-        return RunResult(extract_params(state),
+        return RunResult(unwrap_comm(state).params,
                          {"round": torch.zeros((0,), device=dev)}, state)
     chunk = (max(1, eval_every) if eval_fn is not None else rounds)
     hist: dict = {"round": []}
     per_round: dict = {}
-    t0 = t_start
+    t0 = 1
     for size in chunk_sizes(rounds, chunk):
         key, sub = rnd.split(key).unbind(0)
         inputs = make_inputs(fl, t0, size, sub)
@@ -128,13 +122,13 @@ def run_rounds(step_fn: Callable, state, fl, key, rounds: int,
             per_round.setdefault(k, []).append(_series([m[k] for m in ms], dev))
         t0 += size
         if eval_fn is not None:
-            metrics = eval_fn(extract_params(state), state)
+            metrics = eval_fn(unwrap_comm(state).params, state)
             _check_eval_keys(metrics, per_round)
             for k, v in metrics.items():
                 hist.setdefault(k, []).append(v)
-            hist["round"].append(t0 - t_start)
+            hist["round"].append(t0 - 1)
     history = {k: _series(v, dev) for k, v in hist.items()}
     for k, parts in per_round.items():
         history["round_" + k] = torch.cat(parts)
-    history["round_t"] = torch.arange(t_start, t0, device=dev)
-    return RunResult(extract_params(state), history, state)
+    history["round_t"] = torch.arange(1, t0, device=dev)
+    return RunResult(unwrap_comm(state).params, history, state)

@@ -32,15 +32,14 @@ class ClientSums(NamedTuple):
     ef: object                # updated EF residuals (I, P) (None if dense)
 
 
-def _compress_stacked(codec, uploads, ef, codec_keys, active):
+def _compress_stacked(codec, uploads, ef, codec_keys):
     """Client-boundary compression: flatten each client's upload to one
     (P,) row, run the (I, P) stack through an error-feedback roundtrip, and
     hand back the decoded uploads the server will aggregate."""
     uf, unflatten = comm_codecs.flatten_stacked(uploads)
     if ef is None:
         ef = torch.zeros_like(uf)
-    enc, u_hat, new_ef = comm_ef.ef_roundtrip(codec, uf, ef, codec_keys,
-                                              active)
+    enc, u_hat, new_ef = comm_ef.ef_roundtrip(codec, uf, ef, codec_keys)
     return enc, unflatten(u_hat), new_ef
 
 
@@ -54,15 +53,14 @@ class LocalTopology:
     """All clients on one device (the reference engine)."""
 
     def weighted_sum(self, client_fn: Callable, args, weights, *,
-                     codec=None, ef=None, codec_keys=None,
-                     active=None) -> ClientSums:
+                     codec=None, ef=None, codec_keys=None) -> ClientSums:
         """client_fn(*args) -> (stacked upload dict (I, ...), values (I,));
         args are (I, ...)-leading tensors; returns all of :class:`ClientSums`."""
         uploads, values = client_fn(*args)
         enc = new_ef = None
         if codec is not None:
             enc, uploads, new_ef = _compress_stacked(codec, uploads, ef,
-                                                     codec_keys, active)
+                                                     codec_keys)
         weighted, value = _weighted(weights, uploads, values)
         return ClientSums(weighted=weighted, value=value, uploads=uploads,
                           values=values, encoded=enc, ef=new_ef)

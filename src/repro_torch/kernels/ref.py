@@ -1,7 +1,12 @@
 """Plain PyTorch versions of the hand-written kernels: the CPU path of each
-wrapper and the oracle each kernel is held against on the card."""
+wrapper and the oracle each kernel is held against on the card.
+
+The quantization math (``uniform_from_bits``, ``chunk_pad``,
+``stochastic_round_chunks``) lives here and ``comm/codecs.py`` imports it,
+so the codec and the kernel's plain version are one formula."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -25,16 +30,40 @@ def ssca_update_ref(w, buf, grad, rho, gamma, tau, lam):
     return new_w.to(w.dtype), new_buf
 
 
+def uniform_from_bits(bits):
+    """uint32 random bits (in an int32 or int64 tensor) -> Uniform[0,1) with
+    24-bit mantissa precision; exact, as the kernel computes it."""
+    return (((bits.to(torch.int64) & 0xFFFFFFFF) >> 8).to(torch.float32)
+            * (1.0 / (1 << 24)))
+
+
+def chunk_pad(x, chunk: int):
+    """(..., P) -> (..., C, chunk) zero-padded, C = ceil(P/chunk)."""
+    p = x.shape[-1]
+    pad = (-p) % chunk
+    xp = torch.nn.functional.pad(x.float(), (0, pad))
+    return xp.reshape(*x.shape[:-1], -1, chunk)
+
+
+def stochastic_round_chunks(xc, u, qmax: int):
+    """Per-chunk absmax scale + stochastic rounding. xc, u: (..., C, chunk).
+    Returns (q int8 (..., C, chunk), scales fp32 (..., C)). The scale is
+    absmax times the float32 constant fp32(1/qmax), rounded once from the
+    double, exactly as the reference and the kernel compute it."""
+    absmax = torch.amax(torch.abs(xc), dim=-1, keepdim=True)
+    scale = absmax * torch.tensor(np.float32(1.0 / qmax), device=xc.device)
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = torch.clamp(torch.floor(xc / safe + u), -qmax, qmax)
+    return q.to(torch.int8), scale[..., 0]
+
+
 def stochastic_quantize_ref(x, bits, qmax: int, chunk: int = 256):
-    """Per-chunk absmax scales + stochastic rounding from raw uint32 bits,
-    through the same ``comm/codecs.py`` math the codec uses.
+    """Per-chunk absmax scales + stochastic rounding from raw uint32 bits.
 
     x: (..., P) float32; bits: (..., C·chunk) uint32 values (int32 or int64
     tensor). Returns (values int8 (..., C·chunk), scales fp32 (..., C),
     xhat fp32 (..., P)).
     """
-    from repro_torch.comm.codecs import (chunk_pad, stochastic_round_chunks,
-                                         uniform_from_bits)
     p = x.shape[-1]
     xc = chunk_pad(x, chunk)
     u = uniform_from_bits(bits.reshape(xc.shape))

@@ -135,7 +135,7 @@ def test_algorithm1_int8_ef_wire_and_loss_match(setup):
             jkeys, None)
         tenc, _, tr = ttopo._compress_stacked(
             tcodecs.make_codec("int8"), convert.params_from_numpy(up, "cpu"),
-            torch.from_numpy(ef), tkeys, None)
+            torch.from_numpy(ef), tkeys)
         np.testing.assert_array_equal(tenc.values.numpy(),
                                       np.asarray(jenc.values))
         np.testing.assert_array_equal(tenc.scales.numpy(),
