@@ -7,20 +7,32 @@ Phases, one JSON line each:
   device   the card, and nvidia-smi's name and power limit line
   build    nvcc of every kernel under src/repro_torch/kernels/csrc (parallel)
   kernels  each kernel against its plain PyTorch version on the card, at the
-           main path's shapes and at ragged ones, with its time, the plain
-           version's time and its memory bound
+           main paths' shapes and at ragged ones, with its time, the plain
+           version's time, one PyTorch library call's time where one
+           computes the same function, and its bound
   dense    Algorithm 1 at the paper's width (N=60000, P=784, J=128, L=10,
            I=10, B=100), 200 rounds, dense uploads
   int8     the same with int8 uploads and error feedback
   parity   5 rounds on the card against 5 rounds on the CPU from the same
            params, data and keys
-The kernels' JSON line comes second to last and the verdict
+  serve    qwen2.5-3b at full width and depth in bf16 through
+           repro_torch.launch.serve.generate: batch 8, prompt 512, 32
+           generated tokens, seed 0; launches per forward, prefill ms,
+           decode tokens/s, peak memory
+  serve_consistency  prefill-then-decode consistency of those weights, in
+           bf16 and in fp32
+  serve_parity  full width, 2 layers, fp32, batch 2, prompt 61, 8 tokens:
+           the card against the CPU from the same weights
+Each main path (dense, int8, serve) runs with every launch counter set to 0
+just before it and read just after. The kernels' JSON line comes second to
+last and the verdict
 {"ok": true, "device": {...}} last. Any failed check raises, so the script
 exits non-zero without printing a verdict; so does a machine without a CUDA
 device or a directory without the repository.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -31,8 +43,11 @@ from types import SimpleNamespace
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12           # H100 SXM, fp32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12          # H100 SXM, bf16 tensor cores, dense
 ROUNDS = 200
 EVAL_EVERY = 50
+SERVE = dict(batch=8, prompt_len=512, gen=32, seed=0)
+PARITY_SERVE = dict(batch=2, prompt_len=61, gen=8)
 
 
 def check(ok, message) -> None:
@@ -46,10 +61,18 @@ def emit(phase, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, peak=FP32_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def close_err(got, want, tol):
+    """(max |got - want|, whether every entry is within tol + tol·|want|):
+    the absolute-plus-relative test of numpy's allclose."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    return err.max().item(), bool((err <= tol + tol * w.abs()).all())
 
 
 def event_ms(fn, iters=200, warmup=10):
@@ -203,12 +226,287 @@ def check_quantize(torch, qz, build):
             "shape": [rows, p], "bytes": nbytes}
 
 
+def check_rmsnorm(torch, rms, build):
+    """Kernel vs plain version at the serve path's shapes (4096 prefill rows
+    and 8 decode rows of 2048, bf16) and at ragged widths, fp32 and bf16.
+    Tolerance, absolute plus relative: 1e-5 in fp32 (another summation
+    order, CUDA's 2-ulp rsqrtf), 2e-2 in bf16 (the JAX kernel test's)."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    worst = {}
+    for rows, d in ((4096, 2048), (8, 2048), (37, 512), (5, 100), (3, 3000)):
+        for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
+            x = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
+            sc = (torch.randn(d, generator=gen, device="cuda") * 0.1).to(dtype)
+            got = rms.rmsnorm(x, sc, 1e-6)
+            torch.cuda.synchronize()
+            err, ok = close_err(got, rms.plain(x, sc, 1e-6), tol)
+            check(ok, f"rmsnorm ({rows}, {d}) {dtype}: max |diff| {err}")
+            worst[f"{rows}x{d}/{str(dtype)[6:]}"] = err
+    lib = build.library("rmsnorm")
+    timings = {}
+    for tag, rows in (("prefill", 4096), ("decode", 8)):
+        d = 2048
+        x = torch.randn(rows, d, generator=gen, device="cuda").to(torch.bfloat16)
+        sc = (torch.randn(d, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+        weight = 1.0 + sc
+        out = torch.empty_like(x)
+
+        def launch():
+            code = lib.rmsnorm(x.data_ptr(), sc.data_ptr(), out.data_ptr(), rows,
+                               d, 1e-6, 1, torch.cuda.current_stream().cuda_stream)
+            build.check(code, "rmsnorm")
+
+        nbytes = 2 * (2 * rows * d + d)
+        b_ms, b_by = bound_ms(nbytes, 4 * rows * d)
+        timings[tag] = {
+            "shape": [rows, d], "bytes": nbytes, "ms": graph_ms(launch),
+            "eager_ms": event_ms(launch),
+            "plain_ms": event_ms(lambda: rms.plain(x, sc, 1e-6)),
+            "library_ms": event_ms(lambda: F.rms_norm(x, (d,), weight=weight,
+                                                      eps=1e-6)),
+            "bound_ms": b_ms, "bound_by": b_by}
+    return {"name": "rmsnorm", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+            "replaces": "src/repro/kernels/rmsnorm.py:30",
+            "max_abs_err": max(worst.values()), "max_abs_err_by_case": worst,
+            **timings["prefill"], "decode": timings["decode"]}
+
+
+def attn_operands(torch, gen, b, h, kv, sq, sk, d, dtype, cache_rows=None):
+    """q, k, v as the model hands them to the kernel: q a transposed
+    (B, Sq, H, D) projection; k, v transposed (B, Sk, KV, D) projections or,
+    with ``cache_rows``, the first Sk rows of a (B, cache_rows, KV, D) cache."""
+    q = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dtype)
+    rows = cache_rows or sk
+    k = torch.randn(b, rows, kv, d, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(b, rows, kv, d, generator=gen, device="cuda").to(dtype)
+    return (q.transpose(1, 2), k.transpose(1, 2)[:, :, :sk],
+            v.transpose(1, 2)[:, :, :sk])
+
+
+def attn_work(b, h, kv, sq, sk, d, esize, window=0):
+    """Bytes (q, k, v read once, o written once) and causal FLOPs (4·d per
+    visible query-key pair) of one attention call."""
+    pairs = 0
+    for i in range(sq):
+        seen = max(0, min(sk, i + sk - sq + 1))
+        pairs += min(seen, window) if window else seen
+    nbytes = esize * d * (2 * b * h * sq + 2 * b * kv * sk)
+    return nbytes, 4 * d * pairs * b * h
+
+
+def check_flash(torch, fa, build):
+    """Kernel vs plain version at the serve path's shapes (prefill: 8×16
+    heads over 2 KV heads, 512 tokens, head dim 128; decode: one token
+    against 543 rows of a 544-row cache), bf16, and at ragged lengths,
+    strided cache views and fully masked rows, fp32 and bf16. Tolerance,
+    absolute plus relative: 2e-5 in fp32, 3e-2 in bf16 (the JAX kernel
+    test's; the online softmax sums in another order)."""
+    import ctypes
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # b, h, kv, sq, sk, d, dtype, cache_rows, window
+        (8, 16, 2, 512, 512, 128, bf16, None, 0),
+        (8, 16, 2, 1, 543, 128, bf16, 544, 0),
+        (2, 16, 2, 61, 61, 128, f32, None, 0),
+        (2, 16, 2, 61, 61, 128, bf16, None, 0),
+        (2, 16, 2, 1, 37, 128, f32, 69, 0),
+        (2, 16, 2, 1, 37, 128, bf16, 69, 0),
+        (1, 4, 2, 128, 64, 64, f32, None, 0),       # rows 0..63 see no key
+        (1, 4, 4, 256, 256, 32, f32, None, 32),     # windows skip whole tiles
+    ]
+    worst = {}
+    for b, h, kv, sq, sk, d, dtype, rows, window in cases:
+        q, k, v = attn_operands(torch, gen, b, h, kv, sq, sk, d, dtype, rows)
+        got = fa.flash_attention(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"flash {q.shape}: not finite")
+        if sq > sk:
+            check(not got[:, :, :sq - sk].any(), "flash: masked rows not 0")
+        tol = 2e-5 if dtype == f32 else 3e-2
+        err, ok = close_err(got, fa.plain(q, k, v, causal=True, window=window), tol)
+        check(ok, f"flash b={b} h={h} kv={kv} sq={sq} sk={sk} d={d} {dtype} "
+                  f"window={window}: max |diff| {err}")
+        worst[f"{b}x{h}/{kv}x{sq}x{sk}x{d}/w{window}/{str(dtype)[6:]}"] = err
+
+    lib = build.library("flash_attention")
+    timings = {}
+    for tag, sq, sk, rows in (("prefill", 512, 512, None), ("decode", 1, 543, 544)):
+        b, h, kv, d = 8, 16, 2, 128
+        q, k, v = attn_operands(torch, gen, b, h, kv, sq, sk, d, bf16, rows)
+        out = torch.empty_like(q)
+        strides = (ctypes.c_longlong * 12)(*[t.stride(i) for t in (q, k, v, out)
+                                            for i in range(3)])
+        scale = 1.0 / d ** 0.5
+
+        def launch():
+            code = lib.flash_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
+                b, h, kv, sq, sk, d, 1, 0, scale, 1,
+                torch.cuda.current_stream().cuda_stream)
+            build.check(code, "flash_attention")
+
+        nbytes, flops = attn_work(b, h, kv, sq, sk, d, 2)
+        b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+        # the library's causal mask is top-left aligned: right-aligned is
+        # causal=True at Sq = Sk and no mask at Sq = 1
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, is_causal=sq > 1, enable_gqa=True)
+        timings[tag] = {
+            "shape": {"q": list(q.shape), "kv": list(k.shape)}, "bytes": nbytes,
+            "flops": flops, "ms": graph_ms(launch), "eager_ms": event_ms(launch),
+            "plain_ms": event_ms(lambda: fa.plain(q, k, v), iters=20),
+            "library_ms": event_ms(library), "bound_ms": b_ms, "bound_by": b_by}
+        err, ok = close_err(library(), fa.plain(q, k, v), 3e-2)
+        check(ok, f"flash {tag}: the library yardstick disagrees by {err}")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:84",
+            "max_abs_err": max(worst.values()), "max_abs_err_by_case": worst,
+            **timings["prefill"], "decode": timings["decode"]}
+
+
+def zero_counts(counted) -> None:
+    for fn in counted.values():
+        fn.launches = 0
+
+
+def read_counts(counted) -> dict:
+    return {name: fn.launches for name, fn in counted.items()}
+
+
+def run_serve(torch, m):
+    """qwen2.5-3b at full width and depth through the serving entry point,
+    with the launch counters zeroed just before and read just after."""
+    serve, cfg = m.serve, m.qwen
+    # warm-up of cuBLAS and the allocator at these shapes; not counted
+    serve.generate("qwen2.5-3b", **dict(SERVE, gen=2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(m.counted)
+    t0 = time.perf_counter()
+    seqs, stats = serve.generate("qwen2.5-3b", **SERVE)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts(m.counted)
+    peak = torch.cuda.max_memory_allocated()
+    forwards = SERVE["gen"]                 # one prefill, gen - 1 decode steps
+    per_forward = {k: v / forwards for k, v in counts.items()}
+    want = {"ssca_update": 0, "stochastic_quantize": 0,
+            "rmsnorm": 2 * cfg.n_layers + 1, "flash_attention": cfg.n_layers}
+    check(per_forward == want, f"serve launches per forward {per_forward} != {want}")
+    check(tuple(seqs.shape) == (SERVE["batch"], SERVE["gen"]), seqs.shape)
+    check(0 <= int(seqs.min()) and int(seqs.max()) < cfg.vocab_size,
+          "generated tokens outside the vocabulary")
+
+    return {"arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.n_layers, **SERVE,
+            "seconds": seconds, "prefill_ms": stats["prefill_ms"],
+            "decode_tokens_per_s": stats["tokens_per_s"],
+            "decode_ms_per_step": SERVE["batch"] * 1e3 / stats["tokens_per_s"],
+            "peak_mem_bytes": peak, "launches": counts,
+            "launches_per_forward": per_forward}, counts, seqs
+
+
+def tree_map(fn, tree):
+    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def check_serve_consistency(torch, m, seqs):
+    """Prefill-then-decode consistency (tests/test_models_smoke.py:78) at
+    full width and depth, from the serve run's weights and prompt:
+    decode_step at position S after a prefill of S tokens against the full
+    forward over S+1 tokens, last-position logits.
+
+    In bf16 the two paths round differently (products of 8 rows against
+    4,104, bf16 residual adds over 36 layers), so the reference test's 5e-2
+    bound (absolute plus relative) is held in fp32 on the same weights,
+    where a fault of the cache, the rope positions or the decode mask would
+    show; and each bf16 path is held against that fp32 forward: decode no
+    farther from it than twice the bf16 full forward is, plus 5e-2. Emits
+    its numbers before it checks them."""
+    rnd, cfg = m.rnd, m.qwen
+    model = m.get_model(cfg)
+    key = rnd.PRNGKey(SERVE["seed"])
+    b, s = SERVE["batch"], SERVE["prompt_len"]
+    prompt = rnd.randint(rnd.fold_in(key, 1), (b, s), 0, cfg.vocab_size)
+    extended = torch.cat([prompt, seqs[:, :1]], 1)
+
+    def last_logits(params, c):
+        cache = model.init_cache(c, b, s + 1)
+        logits_p, cache = model.prefill(params, {"tokens": prompt}, c, cache=cache)
+        logits_d, _ = model.decode_step(params, cache, seqs[:, :1], s, c)
+        logits_f, _ = model.prefill(params, {"tokens": extended}, c)
+        return [lg[:, -1].float() for lg in (logits_p, logits_d, logits_f)]
+
+    params = model.init(key, cfg)
+    p16, d16, f16 = last_logits(params, cfg)
+    params = tree_map(lambda t: t.float(), params)
+    _, d32, f32 = last_logits(params, dataclasses.replace(cfg, dtype="float32"))
+    del params
+    err32, ok32 = close_err(d32, f32, 5e-2)
+    err16, ok16 = close_err(d16, f16, 5e-2)
+    dev_d = (d16 - f32).abs().max().item()
+    dev_f = (f16 - f32).abs().max().item()
+    out = {"fp32_decode_vs_full": err32, "bf16_decode_vs_full": err16,
+           "bf16_within_5e-2": ok16,
+           "bf16_outside_5e-2": ((d16 - f16).abs() > 5e-2 + 5e-2 * f16.abs())
+           .float().mean().item(),
+           "bf16_decode_vs_fp32_full": dev_d, "bf16_full_vs_fp32_full": dev_f,
+           "logits_abs_max": f32.abs().max().item(),
+           "logits_rms": f32.pow(2).mean().sqrt().item()}
+    emit("serve_consistency", **out)
+    for name, lg in (("prefill", p16), ("decode", d16), ("full", f16),
+                     ("fp32 decode", d32), ("fp32 full", f32)):
+        check(bool(torch.isfinite(lg).all()), f"{name} logits not finite")
+    check(torch.equal(torch.argmax(p16, -1).to(torch.int32), seqs[:, 0]),
+          "prefill of the same weights and prompt gives another first token")
+    check(ok32, f"fp32 prefill-then-decode: logits differ by up to {err32}")
+    check(dev_d <= 2 * dev_f + 5e-2, f"bf16 decode is {dev_d} from the fp32 "
+                                     f"forward, the bf16 full forward {dev_f}")
+
+
+def run_serve_parity(torch, m):
+    """Full width, 2 layers, fp32: weights drawn on the card and copied to
+    the CPU; the same prompt through prefill and greedy decode steps on
+    both. fp32 sums run in another order on the two devices (and in the
+    flash kernel's online softmax), hence logits within 1e-4."""
+    rnd = m.rnd
+    cfg = dataclasses.replace(m.qwen, n_layers=2, dtype="float32")
+    model = m.get_model(cfg)
+    key = rnd.PRNGKey(1)
+    params = model.init(key, cfg)
+    on_cpu = tree_map(lambda t: t.cpu(), params)
+    b, s, gen = PARITY_SERVE["batch"], PARITY_SERVE["prompt_len"], PARITY_SERVE["gen"]
+    prompt = rnd.randint(rnd.fold_in(key, 1), (b, s), 0, cfg.vocab_size)
+
+    def greedy(p, tokens, device):
+        cache = model.init_cache(cfg, b, s + gen, device=device)
+        logits, cache = model.prefill(p, {"tokens": tokens}, cfg, cache=cache)
+        steps, toks = [logits[:, -1]], []
+        for i in range(gen):
+            toks.append(torch.argmax(steps[-1], -1).to(torch.int32)[:, None])
+            if i < gen - 1:
+                logits, cache = model.decode_step(p, cache, toks[-1], s + i, cfg)
+                steps.append(logits[:, -1])
+        return torch.cat(toks, 1).cpu(), torch.stack(steps).cpu()
+
+    card_toks, card_logits = greedy(params, prompt, None)
+    cpu_toks, cpu_logits = greedy(on_cpu, prompt.cpu(), "cpu")
+    diff = (card_logits - cpu_logits).abs().max().item()
+    check(torch.equal(card_toks, cpu_toks), "card and CPU generate other tokens")
+    check(diff <= 1e-4, f"card vs CPU logits differ by {diff}")
+    return {"layers": 2, "dtype": "float32", **PARITY_SERVE,
+            "max_abs_logit_diff": diff, "tokens_equal": True}
+
+
 def run_slice(torch, m, codec_name, data, params0, test):
     """Algorithm 1 at full width for ROUNDS rounds through the entry point a
     user calls; the kernels' counters are zeroed just before and read just
     after. Returns the summary and the counts."""
     algorithms, mlp, codecs, rnd, fl = m.algorithms, m.mlp, m.codecs, m.rnd, m.fl
-    ssca, qz = m.ssca, m.qz
     z_eval, y_eval, zt, labt = test
 
     def eval_fn(params, state):
@@ -218,8 +516,7 @@ def run_slice(torch, m, codec_name, data, params0, test):
     codec = codecs.make_codec(codec_name)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ssca.ssca_update_.launches = 0
-    qz.stochastic_quantize.launches = 0
+    zero_counts(m.counted)
     t0 = time.perf_counter()
     res = algorithms.algorithm1(mlp.per_sample_loss, params0, data, fl,
                                 rounds=ROUNDS, key=rnd.PRNGKey(2),
@@ -227,8 +524,7 @@ def run_slice(torch, m, codec_name, data, params0, test):
                                 codec=codec)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = {"ssca_update": ssca.ssca_update_.launches,
-              "stochastic_quantize": qz.stochastic_quantize.launches}
+    counts = read_counts(m.counted)
     h = {k: v.cpu() for k, v in res.history.items()}
     loss = h["round_loss_est"]
     check(loss.shape == (ROUNDS,) and torch.isfinite(loss).all(), "loss not finite")
@@ -264,10 +560,15 @@ def main() -> int:
     from repro_torch.configs.base import MNIST_MLP, FLConfig
     from repro_torch.core import algorithms, fed
     from repro_torch.data.synthetic import classification_dataset
+    from repro_torch.configs.registry import get_config
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quantize as qz
+    from repro_torch.kernels import rmsnorm as rms
     from repro_torch.kernels import ssca_update as ssca
+    from repro_torch.launch import serve
     from repro_torch.models import mlp
+    from repro_torch.models.api import get_model
 
     device_lib.resolve(None)            # pins fp32 matmuls: no TF32
     name = torch.cuda.get_device_name(0)
@@ -282,8 +583,13 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0, log=build.BUILD_LOG)
 
     kernels = [check_ssca_update(torch, ssca, build),
-               check_quantize(torch, qz, build)]
+               check_quantize(torch, qz, build),
+               check_rmsnorm(torch, rms, build),
+               check_flash(torch, fa, build)]
     emit("kernels", checks=[{k: v for k, v in kr.items()} for kr in kernels])
+    counted = {"ssca_update": ssca.ssca_update_,
+               "stochastic_quantize": qz.stochastic_quantize,
+               "rmsnorm": rms.rmsnorm, "flash_attention": fa.flash_attention}
 
     cfg = MNIST_MLP
     (z, y, _), (zt, _, labt) = classification_dataset(
@@ -298,7 +604,8 @@ def main() -> int:
                   a1=0.3, a2=0.3, alpha_rho=0.1, alpha_gamma=0.6, tau=0.05,
                   l2_lambda=1e-5)
     mods = SimpleNamespace(algorithms=algorithms, mlp=mlp, codecs=codecs,
-                           rnd=rnd, fl=fl, ssca=ssca, qz=qz)
+                           rnd=rnd, fl=fl, counted=counted, serve=serve,
+                           get_model=get_model, qwen=get_config("qwen2.5-3b"))
     test = (z[:4000], y[:4000], zt, labt)
 
     # warm-up (cuBLAS handles, first launches); not counted
@@ -306,12 +613,13 @@ def main() -> int:
                           key=rnd.PRNGKey(9), codec=codecs.make_codec("int8"))
     dense, dense_counts = run_slice(torch, mods, None, data, params0, test)
     check(dense["upload_bytes"] == [4_065_280.0], dense["upload_bytes"])
-    check(dense_counts == {"ssca_update": ROUNDS, "stochastic_quantize": 0}, dense_counts)
+    check(dense_counts == {"ssca_update": ROUNDS, "stochastic_quantize": 0,
+                           "rmsnorm": 0, "flash_attention": 0}, dense_counts)
     emit("dense", **dense, device=name, power=smi)
     int8, int8_counts = run_slice(torch, mods, "int8", data, params0, test)
     check(int8["upload_bytes"] == [1_032_200.0], int8["upload_bytes"])
-    check(int8_counts == {"ssca_update": ROUNDS,
-                           "stochastic_quantize": ROUNDS}, int8_counts)
+    check(int8_counts == {"ssca_update": ROUNDS, "stochastic_quantize": ROUNDS,
+                          "rmsnorm": 0, "flash_attention": 0}, int8_counts)
     emit("int8", **int8, device=name, power=smi,
          bytes_ratio=dense["upload_bytes"][0] / int8["upload_bytes"][0])
 
@@ -331,9 +639,15 @@ def main() -> int:
     check(diff <= 1e-4, f"card vs CPU params differ by {diff}")
     emit("parity", rounds=5, max_abs_param_diff=diff, max_abs_loss_diff=loss_diff)
 
-    for kr, n in zip(kernels, ("ssca_update", "stochastic_quantize")):
-        kr["launches"] = dense_counts[n] + int8_counts[n]
-        check(kr["launches"] > 0, f"{n} never launched on the main path")
+    served, serve_counts, seqs = run_serve(torch, mods)
+    emit("serve", **served, device=name, power=smi)
+    check_serve_consistency(torch, mods, seqs)
+    emit("serve_parity", **run_serve_parity(torch, mods))
+
+    for kr in kernels:
+        n = kr["name"]
+        kr["launches"] = dense_counts[n] + int8_counts[n] + serve_counts[n]
+        check(kr["launches"] > 0, f"{n} never launched on a main path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi, flush=True)

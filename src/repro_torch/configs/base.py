@@ -1,7 +1,58 @@
-"""Federated-learning configuration and the paper's model widths."""
+"""Federated-learning configuration, the paper's model widths, and the model
+zoo's ``ModelConfig`` (the fields the dense transformer reads)."""
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """``repro.configs.base.ModelConfig`` cut to the dense decoder with tied
+    embeddings and full causal attention: the fields its forward reads, plus
+    ``n_experts``/``num_prefix_tokens`` so that a MoE or VLM config is
+    recognised and refused."""
+    name: str
+    family: str                       # dense (the only family ported)
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                 # 0 -> d_model // n_heads
+    n_experts: int = 0
+    activation: str = "swiglu"
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-6
+    num_prefix_tokens: int = 0
+    dtype: str = "bfloat16"
+    source: str = ""
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    def smoke(self) -> "ModelConfig":
+        """The reference's reduced variant: 2 layers, d_model <= 256, <= 4
+        heads, vocab <= 512, fp32."""
+        d = min(self.d_model, 256)
+        n_heads = min(self.n_heads, 4)
+        small = dict(
+            name=self.name + "-smoke",
+            n_layers=2,
+            d_model=d,
+            n_heads=n_heads,
+            n_kv_heads=max(1, min(self.n_kv_heads, n_heads)),
+            d_ff=min(self.d_ff, 512) if self.d_ff else 0,
+            head_dim=min(self.resolved_head_dim, d // n_heads),
+            vocab_size=min(self.vocab_size, 512),
+            n_experts=min(self.n_experts, 4),
+            num_prefix_tokens=min(self.num_prefix_tokens, 8),
+            dtype="float32",
+        )
+        return dataclasses.replace(self, **small)
 
 
 @dataclass(frozen=True)

@@ -1,8 +1,9 @@
 """Carry state between the JAX reference and the port as numpy arrays.
 
-The parity tests hand the same numbers to both packages: params dicts,
-``SSCAState`` (params, surrogate buffer, round counter), PRNG keys (uint32
-pairs) and client datasets. This module never imports jax: the JAX side
+The parity tests hand the same numbers to both packages: params dicts
+(nested, as the model zoo's are), KV caches, ``SSCAState`` (params,
+surrogate buffer, round counter), PRNG keys (uint32 pairs) and client
+datasets. This module never imports jax: the JAX side
 is given and taken as numpy (``np.asarray`` of a jax array).
 """
 from __future__ import annotations
@@ -31,11 +32,38 @@ def tensor_to_numpy(t) -> np.ndarray:
 
 
 def params_from_numpy(tree, device=None) -> dict:
-    return {k: tensor_from_numpy(v, device) for k, v in tree.items()}
+    """A nested dict of numpy arrays (a params pytree, stacked layers
+    included) -> the same nesting of tensors on device."""
+    return {k: params_from_numpy(v, device) if isinstance(v, dict)
+            else tensor_from_numpy(v, device) for k, v in tree.items()}
 
 
 def params_to_numpy(tree) -> dict:
-    return {k: tensor_to_numpy(v) for k, v in tree.items()}
+    return {k: params_to_numpy(v) if isinstance(v, dict) else tensor_to_numpy(v)
+            for k, v in tree.items()}
+
+
+def cache_from_numpy(cache, max_seq=None, device=None) -> dict:
+    """A KV cache {"k", "v"}: (L, B, S, KV, Hd) arrays -> tensors with the
+    sequence axis zero-padded to ``max_seq`` rows (default: S), so a cache
+    from the reference's prefill can take the port's decode steps in place."""
+    out = {}
+    for k, v in cache.items():
+        t = tensor_from_numpy(v, device)
+        extra = (max_seq or t.shape[2]) - t.shape[2]
+        if extra < 0:
+            raise ValueError(f"cache_from_numpy: {k} has {t.shape[2]} rows, "
+                             f"more than max_seq={max_seq}")
+        if extra:
+            pad = t.new_zeros((*t.shape[:2], extra, *t.shape[3:]))
+            t = torch.cat([t, pad], dim=2)
+        out[k] = t
+    return out
+
+
+def cache_to_numpy(cache, length=None) -> dict:
+    """The port's cache -> numpy, its first ``length`` rows (default: all)."""
+    return {k: tensor_to_numpy(v[:, :, :length]) for k, v in cache.items()}
 
 
 def key_from_numpy(key, device=None) -> torch.Tensor:

@@ -32,8 +32,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _F, _LL, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_longlong, ctypes.c_int
-# C entry -> argtypes; every pointer and the stream are void* (ctypes would
-# otherwise pass a Python int as a 32-bit int and cut the pointer)
+_PLL = ctypes.POINTER(ctypes.c_longlong)     # a host array of strides
+# C entry -> argtypes; every device pointer and the stream are void* (ctypes
+# would otherwise pass a Python int as a 32-bit int and cut the pointer)
 SIGNATURES = {
     "ssca_update": {
         "ssca_update_f32": [_P, _P, _P, _P, _F, _F, _LL, _P],
@@ -42,6 +43,13 @@ SIGNATURES = {
     "quantize": {
         "stochastic_quantize": [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _F, _I,
                                 _P],
+    },
+    "rmsnorm": {
+        "rmsnorm": [_P, _P, _P, _LL, _I, _F, _I, _P],
+    },
+    "flash_attention": {
+        "flash_attention": [_P, _P, _P, _P, _PLL, _LL, _I, _I, _I, _I, _I, _I,
+                            _I, _F, _I, _P],
     },
 }
 

@@ -6,8 +6,45 @@ The quantization math (``uniform_from_bits``, ``chunk_pad``,
 so the codec and the kernel's plain version are one formula."""
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+
+
+def rmsnorm_ref(x, scale, eps: float = 1e-6):
+    """x: (..., D); scale: (D,). Gemma-style ``x·rsqrt(mean(x²)+eps)·(1+scale)``
+    with fp32 statistics; the result in x's dtype."""
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
+    """q: (B, H, Sq, D); k, v: (B, KV, Sk, D), H % KV == 0 (query head h
+    reads KV head h // (H/KV)). Scores scaled by 1/sqrt(D), fp32 softmax.
+    The causal mask is right-aligned when Sq < Sk (query row i sits at
+    position i + Sk - Sq); ``window`` > 0 keeps keys less than ``window``
+    positions back. A row with no visible key gives 0, as the flash kernels
+    do, not NaN."""
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    rep = h // kvh
+    qg = q.reshape(b, kvh, rep, sq, d).float()
+    logits = torch.einsum("bkrqd,bksd->bkrqs", qg, k.float()) * scale
+    qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= qpos - kpos < window
+    w = torch.softmax(logits.masked_fill(~mask, float("-inf")), dim=-1)
+    w = torch.where(mask.any(dim=-1, keepdim=True), w, 0.0)
+    out = torch.einsum("bkrqs,bksd->bkrqd", w, v.float())
+    return out.reshape(b, h, sq, d).to(q.dtype)
 
 
 def ssca_update_ref(w, buf, grad, rho, gamma, tau, lam):

@@ -1,0 +1,33 @@
+"""Model registry: the reference's uniform interface over the zoo, for the
+families the port serves so far (``dense``).
+
+  init(key, cfg, device=None) -> params
+  prefill(params, batch, cfg, cache=None) -> (logits, cache)
+  decode_step(params, cache, token, pos, cfg) -> (logits, cache)
+  init_cache(cfg, batch, max_seq, device=None) -> cache
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+from repro_torch.models import transformer
+
+
+@dataclass(frozen=True)
+class Model:
+    name: str
+    init: Callable
+    prefill: Callable
+    decode_step: Callable
+    init_cache: Callable
+
+
+def get_model(cfg) -> Model:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r}: the port has the dense decoder only; MoE, "
+            "VLM, SSM/hybrid and encoder-decoder families come in later slices")
+    m = transformer
+    return Model(name=cfg.name, init=m.init, prefill=m.prefill,
+                 decode_step=m.decode_step, init_cache=m.init_cache)

@@ -1,0 +1,171 @@
+"""Decoder-only transformer LM, dense (llama/qwen style): the counterpart of
+``repro.models.transformer`` for serving (init, prefill, decode_step).
+
+Parameters are the reference's nested dicts with the layers stacked on a
+leading L axis; its ``lax.scan`` over layers is a Python loop over that
+axis. Each layer runs two RMSNorms (``ln1``, ``ln2``) and one attention,
+and the final norm ``ln_f`` one more: 2·L + 1 rmsnorm launches and L flash
+launches per forward on a card. The KV cache (L, B, S_max, KV, Hd) is
+written in place. MoE layers and VLM prefixes are refused: they come with
+later slices.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import device as device_lib
+from repro_torch import random as rnd
+from repro_torch.models import layers as L
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _dt(cfg):
+    return DTYPES[cfg.dtype]
+
+
+def _check_dense(cfg):
+    if cfg.family != "dense" or cfg.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} with {cfg.n_experts} experts; "
+            "the port serves dense decoders only (MoE comes in a later slice)")
+    if cfg.num_prefix_tokens:
+        raise NotImplementedError(
+            f"{cfg.name}: VLM prefix tokens come in a later slice")
+
+
+def _map(fn, tree):
+    return {k: _map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def _layer(layers, i: int):
+    """Layer i's parameters: views into the stacked (L, ...) tensors."""
+    return _map(lambda t: t[i], layers)
+
+
+def _copy_into(dst, src):
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _copy_into(dst[k], v)
+        else:
+            dst[k].copy_(v)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def init_layer(key, cfg):
+    dt = _dt(cfg)
+    ks = rnd.split(key, 4)
+    return {
+        "ln1": L.rmsnorm_init(cfg.d_model, dt, key.device),
+        "attn": L.attn_init(ks[0], cfg, dt),
+        "ln2": L.rmsnorm_init(cfg.d_model, dt, key.device),
+        "mlp": L.mlp_init(ks[1], cfg.d_model, cfg.d_ff, cfg.activation, dt),
+    }
+
+
+def init(key, cfg, device=None):
+    """``repro.models.transformer.init``: the same keys and draws, so the
+    weights equal the reference's up to erfinv's few ulps. The layers are
+    drawn one key at a time (as ``jax.vmap(init_layer)`` draws per key) into
+    preallocated stacked tensors, so the draw's temporaries never exceed one
+    layer's."""
+    _check_dense(cfg)
+    key = key.to(device_lib.resolve(device))
+    dt = _dt(cfg)
+    # the reference draws an untied unembedding from the third key
+    k_embed, k_layers, _ = rnd.split(key, 3).unbind(0)
+    layer_keys = rnd.split(k_layers, cfg.n_layers)
+    params = {"embed": L.embed_init(k_embed, (cfg.vocab_size, cfg.d_model), dt)}
+    stacked = None
+    for i in range(cfg.n_layers):
+        lp = init_layer(layer_keys[i], cfg)
+        if stacked is None:
+            stacked = _map(lambda t: t.new_empty((cfg.n_layers, *t.shape)), lp)
+        _copy_into(_layer(stacked, i), lp)
+    params["layers"] = stacked
+    params["ln_f"] = L.rmsnorm_init(cfg.d_model, dt, key.device)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+
+def embed(params, tokens, cfg):
+    """Token embeddings times sqrt(d_model), the factor rounded to the
+    model's dtype first, as the reference does."""
+    dt = _dt(cfg)
+    factor = float(torch.tensor(np.float32(np.sqrt(float(cfg.d_model)))).to(dt))
+    return params["embed"][tokens].to(dt) * factor
+
+
+def logits_fn(params, h, cfg):
+    """Tied embeddings: logits = h · embedᵀ."""
+    return h @ params["embed"].T.to(h.dtype)
+
+
+def _block_tail(lp, h, cfg):
+    y = L.norm(lp["ln2"], h, cfg)
+    return h + L.mlp(lp["mlp"], y, cfg.activation)
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg, batch, max_seq, device=None):
+    dt = _dt(cfg)
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+    dev = device_lib.resolve(device)
+    return {"k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+
+def prefill(params, batch, cfg, cache=None):
+    """Full-sequence forward: last-position logits (B, 1, V) and the cache
+    filled at rows 0..S-1. ``cache`` (from ``init_cache``, S_max >= S) is
+    written in place; without one, a cache of exactly S rows is made, the
+    shape the reference returns."""
+    _check_dense(cfg)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    if cache is None:
+        cache = init_cache(cfg, b, s, device=tokens.device)
+    h = embed(params, tokens, cfg)
+    positions = torch.arange(s, device=tokens.device)[None, :]
+    rope_cs = L.rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        hn = L.norm(lp["ln1"], h, cfg)
+        h = h + L.attention(lp["attn"], hn, rope_cs, cfg,
+                            cache["k"][i], cache["v"][i])
+        h = _block_tail(lp, h, cfg)
+    h = L.norm(params["ln_f"], h, cfg)
+    return logits_fn(params, h[:, -1:, :], cfg), cache
+
+
+def decode_step(params, cache, token, pos: int, cfg):
+    """One-token decode. token: (B, 1) integers; ``pos`` (a Python int) is
+    the row the token's k and v take in the cache, which is written in
+    place and returned. Returns (logits (B, 1, V), cache)."""
+    _check_dense(cfg)
+    pos = int(pos)
+    h = embed(params, token, cfg)
+    positions = torch.full((1, 1), pos, dtype=torch.int64, device=token.device)
+    rope_cs = L.rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        hn = L.norm(lp["ln1"], h, cfg)
+        o, _, _ = L.attention_decode(lp["attn"], hn, cache["k"][i],
+                                     cache["v"][i], pos, rope_cs, cfg)
+        h = _block_tail(lp, h + o, cfg)
+    h = L.norm(params["ln_f"], h, cfg)
+    return logits_fn(params, h, cfg), cache

@@ -75,15 +75,22 @@ def fold_in(key, data):
     return torch.stack(torch.broadcast_tensors(b1, b2), dim=-1)
 
 
+def _bits_range(key, start: int, count: int) -> torch.Tensor:
+    """Elements ``start .. start+count`` of the flat ``bits`` draw:
+    ``(..., 2)`` keys -> ``(..., count)``."""
+    idx = torch.arange(start, start + count, dtype=torch.int64,
+                       device=key.device)
+    b1, b2 = threefry2x32(key[..., 0, None], key[..., 1, None],
+                          idx >> 32, idx & MASK)
+    return b1 ^ b2
+
+
 def bits(key, shape) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)`` as int64 values in
     [0, 2^32): ``(..., 2)`` keys -> ``(..., *shape)``."""
     shape = tuple(shape)
-    n = math.prod(shape)
-    idx = torch.arange(n, dtype=torch.int64, device=key.device)
-    b1, b2 = threefry2x32(key[..., 0, None], key[..., 1, None],
-                          idx >> 32, idx & MASK)
-    return (b1 ^ b2).reshape(*key.shape[:-1], *shape)
+    return _bits_range(key, 0, math.prod(shape)).reshape(*key.shape[:-1],
+                                                         *shape)
 
 
 def _wrap_int32(v):
@@ -114,22 +121,40 @@ def randint(key, shape, minval, maxval) -> torch.Tensor:
     return _wrap_int32(minval + _wrap_int32(offset)).to(torch.int32)
 
 
-def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0):
-    """``jax.random.uniform`` in float32: 23 random mantissa bits under a
-    fixed exponent give [1, 2), shifted and scaled to [minval, maxval)."""
-    dev = key.device
-    lo = torch.tensor(minval, dtype=torch.float32, device=dev)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=dev)
-    fbits = (bits(key, shape) >> 9) | 0x3F800000      # < 2^31: fits int32
+def _uniform_from_bits(raw, minval: float, maxval: float):
+    lo = torch.tensor(minval, dtype=torch.float32, device=raw.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=raw.device)
+    fbits = (raw >> 9) | 0x3F800000                    # < 2^31: fits int32
     floats = fbits.to(torch.int32).view(torch.float32) - 1.0
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
+def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0):
+    """``jax.random.uniform`` in float32: 23 random mantissa bits under a
+    fixed exponent give [1, 2), shifted and scaled to [minval, maxval)."""
+    return _uniform_from_bits(bits(key, shape), minval, maxval)
+
+
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_SQRT2 = float(np.float32(np.sqrt(2.0)))
+NORMAL_CHUNK = 1 << 24
 
 
 def normal(key, shape):
     """``jax.random.normal`` in float32: ``sqrt(2)·erfinv(u)`` with u
-    uniform on (-1, 1). Agrees with jax to a few ulps (erfinv differs)."""
-    u = uniform(key, shape, _NORMAL_LO, 1.0)
-    return float(np.float32(np.sqrt(2.0))) * torch.erfinv(u)
+    uniform on (-1, 1). Agrees with jax to a few ulps (erfinv differs).
+
+    A draw of more than ``NORMAL_CHUNK`` values from one key is made
+    ``NORMAL_CHUNK`` counters at a time into its output (the same values):
+    the int64 threefry temporaries of a 311M-value embedding draw would
+    otherwise take ~20 GB."""
+    shape = tuple(shape)
+    n = math.prod(shape)
+    if key.dim() > 1 or n <= NORMAL_CHUNK:
+        return _SQRT2 * torch.erfinv(uniform(key, shape, _NORMAL_LO, 1.0))
+    out = torch.empty(n, dtype=torch.float32, device=key.device)
+    for start in range(0, n, NORMAL_CHUNK):
+        count = min(NORMAL_CHUNK, n - start)
+        u = _uniform_from_bits(_bits_range(key, start, count), _NORMAL_LO, 1.0)
+        out[start:start + count] = _SQRT2 * torch.erfinv(u)
+    return out.reshape(shape)

@@ -7,7 +7,10 @@ only PyTorch:
     python -m pytest tests/test_torch_gpu.py -m gpu -q
 
 Tolerances: ssca_update 1e-5 in fp32 and 2e-2 in bf16 (nvcc's FMAs round
-once where the plain version rounds twice); the quantizer is bit-exact.
+once where the plain version rounds twice); the quantizer is bit-exact;
+rmsnorm 1e-5 in fp32 (another summation order, CUDA's 2-ulp rsqrtf) and
+2e-2 in bf16; flash attention 2e-5 in fp32 and 3e-2 in bf16, the JAX
+kernel tests' (the online softmax sums in another order).
 """
 import pytest
 import torch
@@ -17,7 +20,8 @@ from repro_torch.comm import codecs
 from repro_torch.configs.base import FLConfig
 from repro_torch.core import algorithms, fed
 from repro_torch.data.synthetic import classification_dataset
-from repro_torch.kernels import quantize, ssca_update
+from repro_torch.kernels import flash_attention, quantize, rmsnorm, ssca_update
+from repro_torch.launch import serve
 from repro_torch.models import mlp
 
 pytestmark = pytest.mark.gpu
@@ -109,3 +113,126 @@ def test_algorithm1_card_matches_cpu(cuda):
             for k in card.params:
                 torch.testing.assert_close(card.params[k].cpu(), cpu.params[k],
                                            atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(4, 128), (3, 7, 256), (2, 37, 512), (5, 100),
+                                   (3, 3000), (8, 2048), (4096, 2048)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    sc = (torch.randn(shape[-1], generator=gen, device=cuda) * 0.1).to(dtype)
+    before = rmsnorm.rmsnorm.launches
+    got = rmsnorm.rmsnorm(x, sc, 1e-6)
+    torch.cuda.synchronize()
+    assert rmsnorm.rmsnorm.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), rmsnorm.plain(x, sc, 1e-6).float(),
+                               atol=tol, rtol=tol)
+
+
+def test_rmsnorm_kernel_rejects_bad_operands(cuda):
+    x = torch.randn(37, 512, device=cuda).to(torch.bfloat16)
+    with pytest.raises(TypeError, match="dtype"):
+        rmsnorm.rmsnorm(x, torch.zeros(512, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        rmsnorm.rmsnorm(x.T, torch.zeros(37, device=cuda, dtype=x.dtype))
+
+
+def _attn_inputs(cuda, b, h, kv, sq, sk, d, dtype, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=cuda).to(dtype)
+            for shape in ((b, h, sq, d), (b, kv, sk, d), (b, kv, sk, d))]
+
+
+@pytest.mark.parametrize("b,h,kv,sq,sk,d", [
+    (1, 4, 4, 128, 128, 64),       # tests/test_kernels.py's cases
+    (2, 8, 2, 128, 128, 64),
+    (1, 8, 1, 64, 256, 128),
+    (1, 4, 4, 256, 256, 32),
+    (2, 4, 2, 1, 37, 64),          # ragged: decode against 37 rows
+    (2, 4, 2, 61, 61, 64),         # ragged prompt
+    (1, 16, 2, 1, 37, 128),        # GQA rep 8 at decode
+    (2, 16, 2, 45, 45, 128),       # GQA rep 8 at prefill
+    (1, 16, 2, 7, 50, 128),        # short query right-aligned in its keys
+    (2, 16, 2, 512, 512, 128),     # the serve path's prefill, batch cut to 2
+])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 20), (False, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(cuda, b, h, kv, sq, sk, d, causal, window, dtype):
+    q, k, v = _attn_inputs(cuda, b, h, kv, sq, sk, d, dtype, sq * 131 + sk + d)
+    before = flash_attention.flash_attention.launches
+    got = flash_attention.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    want = flash_attention.plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("pos", [0, 31, 32, 100, 543])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_reads_strided_cache_views(cuda, pos, dtype):
+    """Decode's operands: q a transposed (B, 1, H, D) projection, k and v
+    the first pos+1 rows of a (B, S_max, KV, D) cache as permuted views;
+    the output comes back in q's layout."""
+    gen = torch.Generator(device=cuda).manual_seed(pos)
+    ck = torch.randn(3, 544, 2, 128, generator=gen, device=cuda).to(dtype)
+    cv = torch.randn(3, 544, 2, 128, generator=gen, device=cuda).to(dtype)
+    q = torch.randn(3, 1, 16, 128, generator=gen, device=cuda).to(dtype)
+    kview = ck.permute(0, 2, 1, 3)[:, :, :pos + 1]
+    vview = cv.permute(0, 2, 1, 3)[:, :, :pos + 1]
+    got = flash_attention.flash_attention(q.transpose(1, 2), kview, vview)
+    assert got.transpose(1, 2).is_contiguous()
+    want = flash_attention.plain(q.transpose(1, 2).contiguous(), kview.contiguous(),
+                                 vview.contiguous())
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("sq,sk,window", [(128, 64, 0), (70, 33, 0), (256, 256, 32)])
+def test_flash_kernel_fully_masked_rows_are_zero(cuda, sq, sk, window):
+    """Rows with no visible key (Sq > Sk under the right-aligned causal
+    mask) give 0, and windows that mask whole tiles give no NaN."""
+    q, k, v = _attn_inputs(cuda, 1, 4, 2, sq, sk, 64, torch.float32, sq + sk)
+    got = flash_attention.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    if sq > sk:
+        assert not got[:, :, :sq - sk].any()
+    want = flash_attention.plain(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+def test_flash_kernel_rejects_bad_operands(cuda):
+    q = torch.zeros(1, 4, 8, 48, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.flash_attention(q, q, q)
+    q = torch.zeros(1, 4, 8, 64, device=cuda)
+    with pytest.raises(ValueError, match="query heads"):
+        flash_attention.flash_attention(q, q[:, :3], q[:, :3])
+    with pytest.raises(TypeError, match="dtype"):
+        flash_attention.flash_attention(q, q.half(), q.half())
+    kt = torch.zeros(1, 4, 64, 8, device=cuda).transpose(2, 3)   # stride(-1) = 8
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention.flash_attention(q, kt, kt)
+    ragged = torch.zeros(1, 4, 8 * 64 + 1, device=cuda)[:, :, 1:].view(1, 4, 8, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention.flash_attention(ragged, q, q)
+
+
+def test_serve_smoke_card_matches_cpu_and_counts_launches(cuda):
+    """qwen2.5-3b's smoke variant served on the card and on the CPU: the
+    same tokens; 2·L+1 rmsnorm and L flash launches per forward."""
+    gen, n_layers = 6, 2
+    r0, f0 = rmsnorm.rmsnorm.launches, flash_attention.flash_attention.launches
+    card, stats = serve.generate("qwen2.5-3b", smoke=True, batch=2, prompt_len=21,
+                                 gen=gen, device=cuda)
+    forwards = gen                       # one prefill, gen - 1 decode steps
+    assert rmsnorm.rmsnorm.launches - r0 == (2 * n_layers + 1) * forwards
+    assert flash_attention.flash_attention.launches - f0 == n_layers * forwards
+    cpu, _ = serve.generate("qwen2.5-3b", smoke=True, batch=2, prompt_len=21,
+                            gen=gen, device="cpu")
+    assert torch.equal(card.cpu(), cpu) and stats["tokens_per_s"] > 0

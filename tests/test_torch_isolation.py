@@ -34,7 +34,11 @@ def test_port_files_exist():
     for needed in ("repro_torch/random.py", "repro_torch/convert.py",
                    "repro_torch/core/algorithms.py",
                    "repro_torch/kernels/ssca_update.py",
-                   "repro_torch/kernels/quantize.py"):
+                   "repro_torch/kernels/quantize.py",
+                   "repro_torch/kernels/rmsnorm.py",
+                   "repro_torch/kernels/flash_attention.py",
+                   "repro_torch/models/transformer.py",
+                   "repro_torch/launch/serve.py"):
         assert needed in names
     assert (ROOT / "chip_smoke.py").exists()
 
@@ -54,7 +58,8 @@ def test_forbidden_rule_catches_and_spares():
 
 def test_importing_the_slice_loads_no_jax():
     code = ("import sys; import repro_torch.core.algorithms, "
-            "repro_torch.convert, repro_torch.data.synthetic; "
+            "repro_torch.convert, repro_torch.data.synthetic, "
+            "repro_torch.launch.serve; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); assert not bad, bad")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -99,6 +99,22 @@ def test_uniform_bit_equal_and_normal_close(seed):
         np.asarray(jax.random.normal(_jkey(seed), shape)), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("chunk", [1000, 4103])
+def test_chunked_normal_matches_one_draw_and_jax(monkeypatch, chunk):
+    """A draw larger than NORMAL_CHUNK is made a chunk of counters at a time:
+    the same uniforms (bit-equal), so the same normals up to erfinv's
+    vectorised and scalar paths on the CPU (1e-6), and jax's within 1e-5."""
+    shape = (7, 1500)
+    whole = rnd.normal(_tkey(5), shape)
+    monkeypatch.setattr(rnd, "NORMAL_CHUNK", chunk)
+    chunked = rnd.normal(_tkey(5), shape)
+    assert chunked.shape == shape and chunked.dtype == torch.float32
+    np.testing.assert_allclose(chunked.numpy(), whole.numpy(), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(chunked.numpy(),
+                               np.asarray(jax.random.normal(_jkey(5), shape)),
+                               rtol=1e-5, atol=1e-5)
+
+
 def test_default_device_raises_without_a_card(monkeypatch):
     """Entry points default to the card; with none present they refuse
     rather than run on the CPU."""
