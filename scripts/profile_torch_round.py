@@ -4,13 +4,14 @@ NVIDIA GPU, at the paper's width (N=60000, P=784, J=128, L=10, I=10, B=100).
 
     python3 scripts/profile_torch_round.py [--rounds 20] [--json PATH]
 
-For dense and int8+EF uploads: rounds/s over a timed window (host clock,
-ending in a synchronize), then a torch.profiler window over the same number
-of rounds: device kernel time per round and its share of the wall time (the
-rest is the device idling while the host launches), kernel launches per
-round, the top kernels by device time and the top host operators by self
-CPU time. Prints one JSON line per configuration; --json PATH writes all
-of it, top kernels and host operators included, to PATH.
+For dense and int8+EF uploads, through ``profile_window``: rounds/s over a
+timed window (host clock, ending in a synchronize), then a torch.profiler
+window over the same number of rounds: its host time, device kernel time
+per round and its share of that window's host time (the rest is the device
+idling while the host launches), kernel launches per round, the top
+kernels by device time and the top host operators by self CPU time. Prints
+one JSON line per configuration; --json PATH writes all of it, top kernels
+and host operators included, to PATH.
 """
 from __future__ import annotations
 
@@ -24,6 +25,51 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 
+def profile_window(fn, per: int) -> dict:
+    """Run fn three times: to warm up, timed on the host clock (ending in a
+    synchronize), and under torch.profiler (CPU and CUDA activities, also
+    ending in a synchronize). Every number is divided by ``per``, the
+    rounds or decode steps one call of fn makes. The busy share divides the profiled
+    device kernel time by the profiled window's own host time: both come
+    from one window. ``ms_per_call`` is the unprofiled window's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / per
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3 / per
+    kernels, host = [], []
+    for e in prof.key_averages():
+        dev_us = e.self_device_time_total
+        if dev_us > 0 and e.cpu_time_total == 0:
+            kernels.append((dev_us, e.count, e.key))
+        elif e.self_cpu_time_total > 0:
+            host.append((e.self_cpu_time_total, e.count, e.key))
+    kernels.sort(reverse=True)
+    host.sort(reverse=True)
+    dev_ms = sum(k[0] for k in kernels) / 1e3 / per
+    return {
+        "ms_per_call": wall_ms,
+        "profiled_ms_per_call": prof_ms,
+        "device_kernel_ms_per_call": dev_ms,
+        "device_busy_share": dev_ms / prof_ms,
+        "kernel_launches_per_call": sum(k[1] for k in kernels) / per,
+        "top_kernels": [{"us_per_call": t / per, "launches_per_call": c / per,
+                         "name": k[:90]} for t, c, k in kernels[:12]],
+        "top_host_ops": [{"self_cpu_us_per_call": t / per,
+                          "calls_per_call": c / per, "name": k}
+                         for t, c, k in host[:12]],
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rounds", type=int, default=20)
@@ -31,7 +77,6 @@ def main() -> int:
                     help="write the full profile here")
     args = ap.parse_args()
     import torch
-    from torch.profiler import ProfilerActivity, profile
     if not torch.cuda.is_available():
         print("profile_torch_round: no CUDA device", file=sys.stderr)
         return 2
@@ -67,44 +112,12 @@ def main() -> int:
 
     out = {"device": smi, "rounds": args.rounds, "configs": {}}
     for codec in (None, "int8"):
-        run(codec, 5)                               # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run(codec, args.rounds)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run(codec, args.rounds)
-            torch.cuda.synchronize()
-        kernels, host = [], []
-        for e in prof.key_averages():
-            dev_us = e.self_device_time_total
-            if dev_us > 0 and e.cpu_time_total == 0:
-                kernels.append((dev_us, e.count, e.key))
-            elif e.self_cpu_time_total > 0:
-                host.append((e.self_cpu_time_total, e.count, e.key))
-        kernels.sort(reverse=True)
-        host.sort(reverse=True)
-        dev_total_us = sum(k[0] for k in kernels)
-        launches = sum(k[1] for k in kernels)
-        per_round_ms = wall / args.rounds * 1e3
-        res = {
-            "codec": codec or "none",
-            "rounds_per_s": args.rounds / wall,
-            "ms_per_round": per_round_ms,
-            "device_kernel_ms_per_round": dev_total_us / 1e3 / args.rounds,
-            "device_busy_share": dev_total_us / 1e3 / args.rounds / per_round_ms,
-            "kernel_launches_per_round": launches / args.rounds,
-            "top_kernels": [{"us_per_round": t / args.rounds,
-                             "launches_per_round": c / args.rounds,
-                             "name": k[:90]} for t, c, k in kernels[:12]],
-            "top_host_ops": [{"self_cpu_us_per_round": t / args.rounds,
-                              "calls_per_round": c / args.rounds, "name": k}
-                             for t, c, k in host[:12]],
-        }
+        res = {"codec": codec or "none",
+               **profile_window(lambda: run(codec, args.rounds), args.rounds)}
+        res["rounds_per_s"] = 1e3 / res["ms_per_call"]
         out["configs"][res["codec"]] = res
-        print(json.dumps({k: res[k] for k in list(res)[:6]}), flush=True)
+        print(json.dumps({k: v for k, v in res.items()
+                          if not k.startswith("top_")}), flush=True)
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(out, indent=1))

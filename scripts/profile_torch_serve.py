@@ -5,13 +5,13 @@ NVIDIA GPU, at full width and depth in bf16 (the weights from seed 0).
     python3 scripts/profile_torch_serve.py [--batch 8] [--prompt-len 512]
                                            [--steps 16] [--json PATH]
 
-Prefill of the prompt, then decode steps from position prompt_len on: for
-each, the host-clock time of a window ending in a synchronize (one prefill,
-``--steps`` decode steps), then a torch.profiler window over the same work:
-device kernel time and its share of the wall time (the rest is the device
-idling while the host launches), kernel launches, the top kernels by device
-time and the top host operators by self CPU time. Prints one JSON line per
-phase; --json PATH writes all of it to PATH.
+Prefill of the prompt, then decode steps from position prompt_len on,
+each through profile_torch_round.profile_window (one prefill, ``--steps``
+decode steps): host-clock time per call, unprofiled and profiled, device
+kernel time and its share of the profiled window's host time (the rest is
+the device idling while the host launches), kernel launches, the top
+kernels by device time and the top host operators by self CPU time. Prints
+one JSON line per phase; --json PATH writes all of it to PATH.
 """
 from __future__ import annotations
 
@@ -19,8 +19,9 @@ import argparse
 import json
 import subprocess
 import sys
-import time
 from pathlib import Path
+
+from profile_torch_round import profile_window
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -34,7 +35,6 @@ def main() -> int:
                     help="write the full profile here")
     args = ap.parse_args()
     import torch
-    from torch.profiler import ProfilerActivity, profile
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
         return 2
@@ -71,39 +71,9 @@ def main() -> int:
     out = {"device": smi, "arch": cfg.name, "batch": b, "prompt_len": s,
            "steps": n, "phases": {}}
     for name, fn, per in (("prefill", prefill, 1), ("decode", decode, n)):
-        fn()                                        # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / per
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        kernels, host = [], []
-        for e in prof.key_averages():
-            dev_us = e.self_device_time_total
-            if dev_us > 0 and e.cpu_time_total == 0:
-                kernels.append((dev_us, e.count, e.key))
-            elif e.self_cpu_time_total > 0:
-                host.append((e.self_cpu_time_total, e.count, e.key))
-        kernels.sort(reverse=True)
-        host.sort(reverse=True)
-        dev_ms = sum(k[0] for k in kernels) / 1e3 / per
-        res = {
-            "phase": name, "ms_per_call": wall_ms,
-            "device_kernel_ms_per_call": dev_ms,
-            "device_busy_share": dev_ms / wall_ms,
-            "kernel_launches_per_call": sum(k[1] for k in kernels) / per,
-            "top_kernels": [{"us_per_call": t / per, "launches_per_call": c / per,
-                             "name": k[:90]} for t, c, k in kernels[:12]],
-            "top_host_ops": [{"self_cpu_us_per_call": t / per,
-                              "calls_per_call": c / per, "name": k}
-                             for t, c, k in host[:12]],
-        }
+        res = {"phase": name, **profile_window(fn, per)}
         if name == "decode":
-            res["tokens_per_s"] = b * 1e3 / wall_ms
+            res["tokens_per_s"] = b * 1e3 / res["ms_per_call"]
         out["phases"][name] = res
         print(json.dumps({k: v for k, v in res.items()
                           if not k.startswith("top_")}), flush=True)

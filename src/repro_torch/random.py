@@ -144,17 +144,15 @@ def normal(key, shape):
     """``jax.random.normal`` in float32: ``sqrt(2)·erfinv(u)`` with u
     uniform on (-1, 1). Agrees with jax to a few ulps (erfinv differs).
 
-    A draw of more than ``NORMAL_CHUNK`` values from one key is made
-    ``NORMAL_CHUNK`` counters at a time into its output (the same values):
-    the int64 threefry temporaries of a 311M-value embedding draw would
-    otherwise take ~20 GB."""
+    The draw is made ``NORMAL_CHUNK`` counters at a time into its output
+    (the same values as one whole draw): the int64 threefry temporaries of
+    a 311M-value embedding draw would otherwise take ~20 GB."""
     shape = tuple(shape)
     n = math.prod(shape)
-    if key.dim() > 1 or n <= NORMAL_CHUNK:
-        return _SQRT2 * torch.erfinv(uniform(key, shape, _NORMAL_LO, 1.0))
-    out = torch.empty(n, dtype=torch.float32, device=key.device)
+    out = torch.empty(*key.shape[:-1], n, dtype=torch.float32,
+                      device=key.device)
     for start in range(0, n, NORMAL_CHUNK):
         count = min(NORMAL_CHUNK, n - start)
         u = _uniform_from_bits(_bits_range(key, start, count), _NORMAL_LO, 1.0)
-        out[start:start + count] = _SQRT2 * torch.erfinv(u)
-    return out.reshape(shape)
+        out[..., start:start + count] = _SQRT2 * torch.erfinv(u)
+    return out.reshape(*key.shape[:-1], *shape)
