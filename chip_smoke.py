@@ -6,10 +6,13 @@
 Phases, one JSON line each:
   device   the card, and nvidia-smi's name and power limit line
   build    nvcc of every kernel under src/repro_torch/kernels/csrc (parallel)
+  ptxas    registers and spills of each rmsnorm and flash kernel (-Xptxas -v)
   kernels  each kernel against its plain PyTorch version on the card, at the
            main paths' shapes and at ragged ones, with its time, the plain
            version's time, one PyTorch library call's time where one
-           computes the same function, and its bound
+           computes the same function (timed as the kernel is, and the
+           ratio to it), and its bound; at the serve prefill shapes both
+           also with operands rotated past the L2 ("cold")
   dense    Algorithm 1 at the paper's width (N=60000, P=784, J=128, L=10,
            I=10, B=100), 200 rounds, dense uploads
   int8     the same with int8 uploads and error feedback
@@ -33,6 +36,7 @@ device or a directory without the repository.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -44,6 +48,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12           # H100 SXM, fp32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12          # H100 SXM, bf16 tensor cores, dense
+L2_BYTES = 50 * 2**20             # H100 SXM
 ROUNDS = 200
 EVAL_EVERY = 50
 SERVE = dict(batch=8, prompt_len=512, gen=32, seed=0)
@@ -119,6 +124,34 @@ def graph_ms(launch, iters=200):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def rotating(fn, sets):
+    """A closure that calls fn on the next operand set of `sets` each time:
+    for cold timings, where the sets together exceed the L2 so that each
+    call reads its operands from HBM."""
+    nxt = itertools.cycle(sets).__next__
+    return lambda: fn(*nxt())
+
+
+def cold_sets(make, nbytes):
+    """Enough operand sets from make() that all but one exceed twice the
+    L2: consecutive launches of a rotating() graph then miss it."""
+    return [make() for _ in range(2 + 2 * L2_BYTES // nbytes)]
+
+
+def timed_pair(kernel, library, sets, cold):
+    """Device ms of the kernel and of the library call, both replayed from a
+    CUDA graph (graph_ms), on one operand set (warm: it stays in the L2)
+    and, with `cold`, rotating over all of `sets`; with the ratios."""
+    t = {"ms": graph_ms(rotating(kernel, sets[:1])),
+         "library_ms": graph_ms(rotating(library, sets[:1]))}
+    t["ratio_to_library"] = t["ms"] / t["library_ms"]
+    if cold:
+        t["cold_ms"] = graph_ms(rotating(kernel, sets))
+        t["library_cold_ms"] = graph_ms(rotating(library, sets))
+        t["cold_ratio_to_library"] = t["cold_ms"] / t["library_cold_ms"]
+    return t
 
 
 def check_ssca_update(torch, ssca, build):
@@ -248,27 +281,36 @@ def check_rmsnorm(torch, rms, build):
             worst[f"{rows}x{d}/{str(dtype)[6:]}"] = err
     lib = build.library("rmsnorm")
     timings = {}
+    d = 2048
     for tag, rows in (("prefill", 4096), ("decode", 8)):
-        d = 2048
-        x = torch.randn(rows, d, generator=gen, device="cuda").to(torch.bfloat16)
-        sc = (torch.randn(d, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
-        weight = 1.0 + sc
-        out = torch.empty_like(x)
+        nbytes = 2 * (2 * rows * d + d)
 
-        def launch():
-            code = lib.rmsnorm(x.data_ptr(), sc.data_ptr(), out.data_ptr(), rows,
-                               d, 1e-6, 1, torch.cuda.current_stream().cuda_stream)
+        def make():
+            x = torch.randn(rows, d, generator=gen, device="cuda").to(torch.bfloat16)
+            sc = (torch.randn(d, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+            return x, sc, 1.0 + sc, torch.empty_like(x)
+
+        def launch(x, sc, weight, out):
+            code = lib.rmsnorm(x.data_ptr(), sc.data_ptr(), out.data_ptr(),
+                               x.shape[0], d, 1e-6, 1,
+                               torch.cuda.current_stream().cuda_stream)
             build.check(code, "rmsnorm")
 
-        nbytes = 2 * (2 * rows * d + d)
+        def library(x, sc, weight, out):
+            F.rms_norm(x, (d,), weight=weight, eps=1e-6)
+
+        cold = tag == "prefill"
+        sets = cold_sets(make, nbytes) if cold else [make()]
         b_ms, b_by = bound_ms(nbytes, 4 * rows * d)
+        x, sc = sets[0][:2]
         timings[tag] = {
-            "shape": [rows, d], "bytes": nbytes, "ms": graph_ms(launch),
-            "eager_ms": event_ms(launch),
+            "shape": [rows, d], "bytes": nbytes,
+            **timed_pair(launch, library, sets, cold),
+            "eager_ms": event_ms(rotating(launch, sets[:1])),
+            "library_eager_ms": event_ms(rotating(library, sets[:1])),
             "plain_ms": event_ms(lambda: rms.plain(x, sc, 1e-6)),
-            "library_ms": event_ms(lambda: F.rms_norm(x, (d,), weight=weight,
-                                                      eps=1e-6)),
             "bound_ms": b_ms, "bound_by": b_by}
+        del sets
     return {"name": "rmsnorm", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
             "replaces": "src/repro/kernels/rmsnorm.py:30",
@@ -306,7 +348,6 @@ def check_flash(torch, fa, build):
     strided cache views and fully masked rows, fp32 and bf16. Tolerance,
     absolute plus relative: 2e-5 in fp32, 3e-2 in bf16 (the JAX kernel
     test's; the online softmax sums in another order)."""
-    import ctypes
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(3)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -319,6 +360,14 @@ def check_flash(torch, fa, build):
         (2, 16, 2, 1, 37, 128, bf16, 69, 0),
         (1, 4, 2, 128, 64, 64, f32, None, 0),       # rows 0..63 see no key
         (1, 4, 4, 256, 256, 32, f32, None, 32),     # windows skip whole tiles
+        # bf16 on the redesigned kernels: a decode window that leaves 8 of 9
+        # key splits empty; rep 1 at head dim 64, decode and prefill; a
+        # prefill window that skips whole tiles; rows that see no key
+        (8, 16, 2, 1, 543, 128, bf16, 544, 20),
+        (2, 4, 4, 1, 300, 64, bf16, 320, 0),
+        (2, 4, 4, 61, 61, 64, bf16, None, 0),
+        (2, 16, 2, 512, 512, 128, bf16, None, 64),
+        (1, 4, 2, 128, 64, 64, bf16, None, 0),
     ]
     worst = {}
     for b, h, kv, sq, sk, d, dtype, rows, window in cases:
@@ -336,34 +385,39 @@ def check_flash(torch, fa, build):
 
     lib = build.library("flash_attention")
     timings = {}
+    b, h, kv, d = 8, 16, 2, 128
     for tag, sq, sk, rows in (("prefill", 512, 512, None), ("decode", 1, 543, 544)):
-        b, h, kv, d = 8, 16, 2, 128
-        q, k, v = attn_operands(torch, gen, b, h, kv, sq, sk, d, bf16, rows)
-        out = torch.empty_like(q)
-        strides = (ctypes.c_longlong * 12)(*[t.stride(i) for t in (q, k, v, out)
-                                            for i in range(3)])
-        scale = 1.0 / d ** 0.5
+        nbytes, flops = attn_work(b, h, kv, sq, sk, d, 2)
 
-        def launch():
-            code = lib.flash_attention(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-                b, h, kv, sq, sk, d, 1, 0, scale, 1,
-                torch.cuda.current_stream().cuda_stream)
+        def make():
+            q, k, v = attn_operands(torch, gen, b, h, kv, sq, sk, d, bf16, rows)
+            out = torch.empty_like(q)       # held here: args hold its pointer
+            return q, k, v, out, fa.kernel_args(q, k, v, out, causal=True)
+
+        def launch(q, k, v, out, args):
+            code = lib.flash_attention(*args, torch.cuda.current_stream().cuda_stream)
             build.check(code, "flash_attention")
 
-        nbytes, flops = attn_work(b, h, kv, sq, sk, d, 2)
-        b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
         # the library's causal mask is top-left aligned: right-aligned is
         # causal=True at Sq = Sk and no mask at Sq = 1
-        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            q, k, v, is_causal=sq > 1, enable_gqa=True)
+        def library(q, k, v, out, args):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=sq > 1,
+                                                  enable_gqa=True)
+
+        cold = tag == "prefill"
+        sets = cold_sets(make, nbytes) if cold else [make()]
+        b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+        q, k, v, _, args = sets[0]
         timings[tag] = {
             "shape": {"q": list(q.shape), "kv": list(k.shape)}, "bytes": nbytes,
-            "flops": flops, "ms": graph_ms(launch), "eager_ms": event_ms(launch),
+            "flops": flops, **timed_pair(launch, library, sets, cold),
+            "eager_ms": event_ms(rotating(launch, sets[:1])),
+            "library_eager_ms": event_ms(rotating(library, sets[:1])),
             "plain_ms": event_ms(lambda: fa.plain(q, k, v), iters=20),
-            "library_ms": event_ms(library), "bound_ms": b_ms, "bound_by": b_by}
-        err, ok = close_err(library(), fa.plain(q, k, v), 3e-2)
+            "bound_ms": b_ms, "bound_by": b_by, "decode_splits": args[-1]}
+        err, ok = close_err(library(*sets[0]), fa.plain(q, k, v), 3e-2)
         check(ok, f"flash {tag}: the library yardstick disagrees by {err}")
+        del sets
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:84",
@@ -601,6 +655,8 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all()
     emit("build", seconds=time.perf_counter() - t0, log=build.BUILD_LOG)
+    emit("ptxas", **{n: build.BUILD_LOG[n]["ptxas"]
+                     for n in ("flash_attention", "rmsnorm")})
 
     kernels = [check_ssca_update(torch, ssca, build),
                check_quantize(torch, qz, build),

@@ -49,12 +49,12 @@ SIGNATURES = {
     },
     "flash_attention": {
         "flash_attention": [_P, _P, _P, _P, _PLL, _LL, _I, _I, _I, _I, _I, _I,
-                            _I, _F, _I, _P],
+                            _I, _F, _I, _I, _P],
     },
 }
 
 _LIBS: dict = {}
-BUILD_LOG: dict = {}       # name -> {"seconds": float, "ptxas": [lines]}
+BUILD_LOG: dict = {}       # name -> {"seconds": float, "ptxas": [kernels]}
 
 
 def _nvcc() -> str:
@@ -95,10 +95,26 @@ def _finish(name: str, started) -> None:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)
-    BUILD_LOG[name] = {
-        "seconds": time.perf_counter() - t0,
-        "ptxas": [ln.strip() for ln in log.splitlines()
-                  if "ptxas" in ln and ("registers" in ln or "spill" in ln)]}
+    BUILD_LOG[name] = {"seconds": time.perf_counter() - t0,
+                       "ptxas": ptxas_kernels(log)}
+
+
+def ptxas_kernels(log: str) -> list:
+    """`-Xptxas -v` output -> one dict per compiled kernel: its (mangled)
+    name, registers a thread, and bytes of stack, spill stores and spill
+    loads."""
+    kernels, cur = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            cur = {"kernel": ln.split("'")[1] if "'" in ln else ln.strip()}
+            kernels.append(cur)
+        elif cur is not None and "spill stores" in ln:
+            nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
+            cur.update(zip(("stack", "spill_stores", "spill_loads"), nums))
+        elif cur is not None and "Used" in ln and "registers" in ln:
+            words = ln.split()
+            cur["registers"] = int(words[words.index("Used") + 1])
+    return kernels
 
 
 def _load(name: str) -> ctypes.CDLL:

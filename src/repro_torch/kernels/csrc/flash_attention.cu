@@ -5,135 +5,882 @@
 // o: (B, H, Sq, D); query head h reads KV head h / (H / KV). Every operand is
 // addressed through its own (b, h, s) element strides with a contiguous last
 // dimension, so decode reads the first pos+1 rows of a (B, S, KV, D) cache
-// as a permuted view, without a copy.
+// as a permuted view, without a copy. Lengths need not divide any tile: keys
+// past Sk and rows past Sq are masked here (the TPU kernel asserts
+// divisibility). The scale is an argument, 1/sqrt(D) by default.
 //
 // Replaces: src/repro/kernels/flash_attention.py:flash_attention_pallas
 // (_flash_kernel).
 //
-// Bound: at the serve path's prefill (B=8, H=16, KV=2, S=512, D=128, bf16)
-// the bytes, 37,748,736 (q, k, v read once, o written once): 11.3 us at
-// 3.35 TB/s, against 8.6 GFLOP of causal work, 8.7 us at the bf16 tensor
-// rate. Decode (Sq=1 against pos+1 keys) is bytes: the cache rows.
+// Three kernels, chosen by type and shape (one launch per call):
 //
-// Design (simple first; no tensor cores, no async copies): one block per
-// (q tile, head, batch). A block of W warps owns BQ = W·R query rows, R per
-// warp, staged in shared memory as fp32. It walks the K/V tiles of 32 keys
-// that its rows can see, skipping whole tiles before the window and after
-// the causal edge (as the TPU kernel's pl.when does), and stages each tile
-// in shared memory as fp32, K padded to D+1 floats a row so that lane j
-// reading key j's row hits a bank of its own. Each thread first loads its
-// share of a tile as 16-byte vectors into registers, all loads in flight at
-// once, then converts and stores them (one scalar load at a time would wait
-// out the memory latency once per element). Per tile, lane j scores key j
-// against each of the warp's rows, the running max and sum update with two
-// warp reductions per row, and the fp32 accumulator (D/32 per lane per row,
-// in registers) adds p·V with p broadcast by shuffles. Lengths need not
-// divide the tiles: keys past Sk and rows past Sq are masked here (the TPU
-// kernel asserts divisibility). The scale is an argument, 1/sqrt(D) by
-// default. All arithmetic is fp32; expf is the accurate one (no
-// --use_fast_math).
+// bf16 prefill, flash_tc_kernel. Bound: at the serve path's prefill (B=8,
+// H=16, KV=2, S=512, D=128) the bytes, 37,748,736 (q, k, v read once, o
+// written once): 11.3 us at 3.35 TB/s, against 8.6 GFLOP of causal work,
+// 8.7 us at the bf16 tensor rate. So the products must run on the tensor
+// cores at Hopper's warpgroup rate and the tiles must arrive while they
+// run. One warpgroup (4 warps) per (64-row q tile, head, batch), the longest
+// rows first. The q tile and a two-stage ring of 64-key K and V tiles sit in
+// shared memory as bf16 in the swizzled layout wgmma reads (128-byte rows
+// of 64 columns, 16-byte chunks XORed with the row), filled by cp.async
+// 16-byte copies, the next tile's copies in flight while the current one
+// is used. S = Q·Kᵀ is wgmma m64n64k16 with both operands from shared
+// memory; the online softmax runs on S's fp32 accumulator fragment with
+// exp2f (log2 e folded into the scale); P, rounded to bf16, stays in
+// registers as the A operand of O += P·V, wgmma m64nDk16 with V from shared
+// memory read transposed, accumulating in fp32. The loop is software
+// pipelined: the softmax of tile t runs on the CUDA cores while the tensor
+// cores add tile t-1's P·V. Whole tiles before the window or past the causal
+// edge are skipped, and only the tiles at an edge are masked element by
+// element. The output goes out through the q tile in shared memory as
+// 16-byte stores. What still bounds it: a block's tiles run one after the
+// other (2 blocks an SM, at 208 registers a thread at D = 128), with the
+// copies, the softmax and both products each a part of the time.
+//
+// bf16 decode (rep·Sq <= 16 query rows per KV head), flash_split_kernel.
+// Bound: the cache bytes (at the serve path's decode, 543 rows of 2 KV heads
+// for 8 sequences: 4.5 MB, 1.35 us), but at that size latency rules: a
+// launch, one HBM round trip and a merge across blocks. One block (8 warps)
+// per (key split, KV head, batch) takes all rep·Sq query rows of its group,
+// so each K and V row is read once, and the key splits (9 of 61 keys at
+// Sk = 543) fill the SMs. q's loads go out first, then K's and V's cp.async
+// groups, so the scores start when K is in. The group's rows, padded to 16,
+// are one mma.sync.m16n8k16 M tile: S = Q·Kᵀ (q in registers, a warp per 8
+// keys) and O += P·V (P rounded to bf16, a warp per 8-column tile) run on the
+// tensor cores in fp32; the online softmax runs a warp per row. The splits of
+// a group form one thread-block cluster. Each split scatters its partial
+// (O, m, l) through distributed shared memory, 16-byte chunks to the block
+// that merges them, so no block receives more than its share; one cluster
+// barrier later every block merges its chunks from its own shared memory
+// with weights exp2(m_s - M), an empty split (m = -inf) weighing 0. No
+// scratch in global memory, no second launch.
+//
+// fp32, flash_f32_kernel: exact fp32 on the CUDA cores (TF32 would break the
+// fp32 tolerances the serve parity gates hold). One block per (64-row q
+// tile, head, batch) walks 32-key tiles staged in shared memory as fp32;
+// lane j scores key j, the accumulator adds p·V with p broadcast by
+// shuffles; expf is the accurate one.
+//
+// No --use_fast_math anywhere.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BK = 32;               // keys per tile: one per lane
-constexpr float NEG_INF = -1e30f;    // the TPU kernel's mask value
+namespace cg = cooperative_groups;
 
-__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
+using bf16 = __nv_bfloat16;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr unsigned FULL = 0xffffffffu;
 
 struct Strides {
   long long b, h, s;                 // in elements; the D axis has stride 1
 };
 
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, off));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
+  return v;
+}
+
+// 8 bf16 <-> 8 floats
+__device__ __forceinline__ void widen8(const uint4& raw, float* f) {
+  const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(e[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+__device__ __forceinline__ uint4 narrow8(const float* f) {
+  uint4 raw;
+  __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) e[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+  return raw;
+}
+
+// ---------------------------------------------------------------------------
+// async copies, shared-memory tiles and warpgroup products
+// ---------------------------------------------------------------------------
+
+// 16 bytes global -> shared; zeros when !valid (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// shared-memory writes of this thread (cp.async's included) made visible to
+// the tensor cores' reads, which go through the async proxy
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// A bf16 tile of R rows by D columns in shared memory, in the layout the
+// warpgroup products read with a swizzle: columns in blocks of W (64 at
+// D >= 64, 128-byte rows; 32 at D = 32, 64-byte rows), each block R rows of W,
+// and the 16-byte chunk c of row r stored at c ^ (r % 8) (128-byte swizzle)
+// or c ^ ((r / 2) % 4) (64-byte swizzle). Element offset of chunk c (8
+// columns) of row r:
+template <int D>
+struct Tile {
+  static constexpr int W = D >= 64 ? 64 : 32;
+  static constexpr int SWIZZLE = D >= 64 ? 1 : 2;   // the descriptor's mode: 128 B, 64 B
+  static constexpr int SBO = 8 * W * 2;             // bytes from 8 rows to the next 8
+  template <int R>
+  __device__ static __forceinline__ int off(int r, int c) {
+    const int blk = c / (W / 8), cc = c % (W / 8);
+    const int sw = D >= 64 ? cc ^ (r & 7) : cc ^ ((r >> 1) & 3);
+    return blk * R * W + r * W + sw * 8;
+  }
+};
+
+// the warpgroup products' shared-memory matrix descriptor
+__device__ __forceinline__ uint64_t smem_desc(const void* p, int lbo, int sbo, int swizzle) {
+  const uint64_t a = (unsigned)__cvta_generic_to_shared(p);
+  return ((a & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)swizzle << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>                     // until at most N committed groups run
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Registers an asynchronous product reads or writes, pinned at this point:
+// the compiler may neither move their uses above a wait nor reuse them for
+// other values while the product runs.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
+// The products' operand lists are written out: PTX takes no register
+// arrays.
+// d (64 x 64 fp32, the accumulator fragment) (+)= A·B, A (64 x 16) and B
+// (16 x 64, K-major) from shared-memory descriptors; d's old value is
+// ignored unless `accumulate`.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+// d (64 x 32 fp32) += A·B, A (64 x 16 bf16) from registers in the
+// accumulator's row layout, B (16 x 32, N-major) from a shared-memory
+// descriptor, read transposed.
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+// d (64 x 64 fp32) += A·B, A (64 x 16 bf16) from registers in the
+// accumulator's row layout, B (16 x 64, N-major) from a shared-memory
+// descriptor, read transposed.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+// d (64 x 128 fp32) += A·B, A (64 x 16 bf16) from registers in the
+// accumulator's row layout, B (16 x 128, N-major) from a shared-memory
+// descriptor, read transposed.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (D == 128)
+    wgmma_rs_n128(d, a, db);
+  else if constexpr (D == 64)
+    wgmma_rs_n64(d, a, db);
+  else
+    wgmma_rs_n32(d, a, db);
+}
+
+// ROWS rows of a D-wide bf16 operand (row i at src + i·stride) into a Tile
+// by cp.async; rows at or past `valid` become zeros.
+template <int D, int ROWS, int THREADS>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long stride,
+                                          int valid) {
+  constexpr int CPR = D / 8;
+  static_assert(ROWS * CPR % THREADS == 0, "tile chunks must split evenly");
+#pragma unroll
+  for (int n = 0; n < ROWS * CPR / THREADS; ++n) {
+    const int i = threadIdx.x + n * THREADS;
+    const int r = i / CPR, c = i % CPR;
+    const bool ok = r < valid;
+    cp_async16(dst + Tile<D>::template off<ROWS>(r, c),
+               src + (ok ? (int64_t)r * stride + c * 8 : 0), ok);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 prefill: warpgroup products on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int TC_BQ = 64;            // query rows per block: one warpgroup
+constexpr int TC_BK = 64;            // keys per K/V tile
+constexpr int TC_THREADS = 128;
+
+template <int D>
+constexpr int tc_smem_bytes() {      // q tile, 2 K and 2 V tiles, 1 KB to align
+  return (TC_BQ + 4 * TC_BK) * D * (int)sizeof(bf16) + 1024;
+}
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS)
+flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, bf16* __restrict__ o, Strides qs, Strides ks,
+                Strides vs, Strides os, int rep, int sq, int sk, int causal, int window,
+                float scale_log2) {
+  using T = Tile<D>;
+  constexpr int W = T::W, CPR = D / 8;
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzle repeats every 1024 bytes: tiles start on such a boundary
+  bf16* q_s = reinterpret_cast<bf16*>(
+      smem_raw + ((1024 - ((unsigned)__cvta_generic_to_shared(smem_raw) & 1023)) & 1023));
+  bf16* k_s = q_s + TC_BQ * D;       // 2 stages of (TC_BK, D)
+  bf16* v_s = k_s + 2 * TC_BK * D;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int h = blockIdx.y;
+  const int64_t b = blockIdx.z;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * TC_BQ;   // the longest rows first
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* kb = k + b * ks.b + (h / rep) * ks.h;
+  const bf16* vb = v + b * vs.b + (h / rep) * vs.h;
+  bf16* ob = o + b * os.b + h * os.h;
+
+  // the key tiles any row of this block can see
+  const int off = sk - sq;
+  const int last = min(q0 + TC_BQ, sq) - 1;
+  const int k_end = causal ? min(sk, last + off + 1) : sk;
+  const int k_beg = window ? max(0, q0 + off - window + 1) : 0;
+  const int t_beg = k_beg / TC_BK;
+  const int t_end = k_end > 0 ? (k_end + TC_BK - 1) / TC_BK : 0;
+
+  auto load_k = [&](int t) {         // K tile t into stage t % 2, by cp.async
+    const int t0 = t * TC_BK;
+    load_tile<D, TC_BK, TC_THREADS>(k_s + (t & 1) * TC_BK * D, kb + (int64_t)t0 * ks.s, ks.s,
+                                    sk - t0);
+  };
+  auto load_v = [&](int t) {
+    const int t0 = t * TC_BK;
+    load_tile<D, TC_BK, TC_THREADS>(v_s + (t & 1) * TC_BK * D, vb + (int64_t)t0 * vs.s, vs.s,
+                                    sk - t0);
+  };
+  // copy groups, in order: {q, K, V of the first tile}, {K of the second},
+  // {V of the second}, then per tile t a group {K of t+1} and a group {V of
+  // t+1} (empty past the last tile), so a fixed wait count finds each
+  load_tile<D, TC_BQ, TC_THREADS>(q_s, qb + (int64_t)q0 * qs.s, qs.s, sq - q0);
+  if (t_beg < t_end) {
+    load_k(t_beg);
+    load_v(t_beg);
+  }
+  cp_async_commit();
+  if (t_beg + 1 < t_end) load_k(t_beg + 1);
+  cp_async_commit();
+  if (t_beg + 1 < t_end) load_v(t_beg + 1);
+  cp_async_commit();
+
+  float acc[D / 2];                  // O: the 64 x D accumulator fragment
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  float s[TC_BK / 2];                // S: s[4n + e] holds key 8n + 2·tig + (e & 1)
+                                     // of row g + 8·(e >> 1) of the warp's 16
+  uint32_t pa[TC_BK / 16][4];        // P in bf16: S's fragment is the A operand's
+                                     // register layout, 16 keys a product
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, alpha[2];
+  const int qp0 = q0 + warp * 16 + g + off;        // row g's position; row g+8 is 8 on
+
+  auto qk_async = [&](int t) {        // S = Q·K_tᵀ (64 x 64), asynchronous
+#pragma unroll
+    for (int i = 0; i < TC_BK / 2; ++i) s[i] = 0.0f;
+    const bf16* kt = k_s + (t & 1) * TC_BK * D;
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd) {
+      const int col = (16 * kd / W) * W, within = (16 * kd) % W;
+      wgmma_ss_n64(s, smem_desc(q_s + col * TC_BQ + within, 16, T::SBO, T::SWIZZLE),
+                      smem_desc(kt + col * TC_BK + within, 16, T::SBO, T::SWIZZLE), kd > 0);
+    }
+    wgmma_commit();
+  };
+  auto pv_async = [&](int t) {       // O += P·V_t, asynchronous
+    const bf16* vt = v_s + (t & 1) * TC_BK * D;
+#pragma unroll
+    for (int kk = 0; kk < TC_BK / 16; ++kk)
+      wgmma_rs<D>(acc, pa[kk], smem_desc(vt + 16 * kk * W, TC_BK * W * 2, T::SBO, T::SWIZZLE));
+    wgmma_commit();
+  };
+  // S of tile t -> p = exp2(s·scale - m) in s, the new m and l, and alpha,
+  // the factor the accumulator must take before this tile's P·V is added
+  auto softmax = [&](int t) {
+    const int t0 = t * TC_BK;
+    const bool edge = t0 + TC_BK > sk || (causal && t0 + TC_BK - 1 > q0 + off) ||
+                      (window && q0 + TC_BQ - 1 + off - t0 >= window);
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < TC_BK / 2; ++i) {
+        const int kp = t0 + (i >> 2) * 8 + 2 * tig + (i & 1);
+        const int qp = qp0 + ((i >> 1) & 1) * 8;
+        bool ok = kp < sk;
+        if (causal) ok = ok && kp <= qp;
+        if (window) ok = ok && qp - kp < window;
+        if (!ok) s[i] = -INFINITY;
+      }
+    }
+    // rows g (r = 0) and g+8 (r = 1); a row's 64 scores lie in its quad
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < TC_BK / 8; ++n)
+        mx = fmaxf(mx, fmaxf(s[4 * n + 2 * r], s[4 * n + 2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+      const float m_new = fmaxf(m[r], mx * scale_log2);
+      const float m_use = m_new == -INFINITY ? 0.0f : m_new;   // no -inf - -inf
+      alpha[r] = exp2f(m[r] - m_use);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+#pragma unroll
+      for (int n = 0; n < TC_BK / 8; ++n)
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          const float p = exp2f(fmaf(s[4 * n + e], scale_log2, -m_use));
+          s[4 * n + e] = p;
+          l[r] += p;
+        }
+    }
+  };
+  auto rescale_pack = [&]() {        // acc *= alpha; P = bf16(p)
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+    for (int kk = 0; kk < TC_BK / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pa[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+  };
+
+  // Software pipeline: while the softmax of tile t runs on the CUDA cores,
+  // the tensor cores add tile t-1's P·V. K of tile t+1 is copied under tile
+  // t, V of tile t+1 once tile t-1's P·V has left its stage.
+  if (t_beg < t_end) {
+    cp_async_wait<2>();              // q and the first tile
+    fence_async_shared();
+    __syncthreads();
+    wgmma_fence();
+    qk_async(t_beg);
+    wgmma_wait<0>();
+    reg_fence(s);
+    softmax(t_beg);
+    rescale_pack();
+  }
+  for (int t = t_beg + 1; t < t_end; ++t) {
+    cp_async_wait<1>();              // K of t and V of t-1 (V of t may still fly)
+    fence_async_shared();
+    __syncthreads();                 // ... for every thread; K of t-1 is consumed
+    if (t + 1 < t_end) load_k(t + 1);
+    cp_async_commit();
+    wgmma_fence();
+    qk_async(t);
+    pv_async(t - 1);
+    wgmma_wait<1>();                 // S of t is in; P·V of t-1 may still run
+    reg_fence(s);
+    softmax(t);
+    wgmma_wait<0>();
+    reg_fence(acc);
+    reg_fence(pa);
+    rescale_pack();
+    __syncthreads();                 // every warp's P·V of t-1 has left V's stage
+    if (t + 1 < t_end) load_v(t + 1);
+    cp_async_commit();
+  }
+  if (t_beg < t_end) {               // the last tile's P·V
+    cp_async_wait<0>();
+    fence_async_shared();
+    __syncthreads();
+    wgmma_fence();
+    pv_async(t_end - 1);
+    wgmma_wait<0>();
+    reg_fence(acc);
+  }
+
+  cp_async_wait<0>();                // the q tile's copies, when no key tile ran
+  __syncthreads();
+
+  // O / l through the q tile in shared memory (no longer read), then out as
+  // 16-byte stores
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lr = l[r];
+    lr += __shfl_xor_sync(FULL, lr, 1);
+    lr += __shfl_xor_sync(FULL, lr, 2);
+    inv[r] = lr > 0.0f ? 1.0f / lr : 0.0f;         // fully masked row -> 0
+  }
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<__nv_bfloat162*>(
+          q_s + T::template off<TC_BQ>(warp * 16 + g + 8 * r, n) + 2 * tig) =
+          __floats2bfloat162_rn(acc[4 * n + 2 * r] * inv[r], acc[4 * n + 2 * r + 1] * inv[r]);
+  __syncwarp();
+#pragma unroll
+  for (int n = 0; n < CPR / 2; ++n) {    // the warp's 16 rows of CPR chunks
+    const int i = lane + 32 * n, r = warp * 16 + i / CPR, c = i % CPR;
+    if (q0 + r < sq)
+      *reinterpret_cast<uint4*>(ob + (int64_t)(q0 + r) * os.s + c * 8) =
+          *reinterpret_cast<const uint4*>(q_s + T::template off<TC_BQ>(r, c));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 decode: GQA-packed, split over keys, merged within a cluster
+// ---------------------------------------------------------------------------
+
+constexpr int SPLIT_BK = 64;         // keys per tile of a split
+constexpr int SPLIT_THREADS = 256;   // 8 warps
+constexpr int SPLIT_ROWS = 16;       // at most rep·Sq query rows per group: one mma M
+constexpr int SPLIT_MAX = 16;        // key splits at most: the largest cluster
+
+// d (16 x 8 fp32) += a (16 x 16 bf16, row-major fragment) · b (16 x 8 bf16,
+// column-major fragment): lane (g = lane / 4, t = lane % 4) holds a's rows g
+// and g + 8 at columns 2t, 2t + 1 (a[0], a[1]) and 2t + 8, 2t + 9 (a[2],
+// a[3]); b's rows 2t, 2t + 1 (b0) and 2t + 8, 2t + 9 (b1) at column g; d's
+// rows g (d[0], d[1]) and g + 8 (d[2], d[3]) at columns 2t, 2t + 1
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {   // two adjacent bf16
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+__device__ __forceinline__ uint32_t ld_two(const bf16* lo, const bf16* hi) {
+  return (uint32_t)*reinterpret_cast<const uint16_t*>(lo) |
+         ((uint32_t)*reinterpret_cast<const uint16_t*>(hi) << 16);
+}
+
+// cluster barrier halves: arrive (release: this thread's writes, shared
+// memory of other blocks included, are visible to whoever waits after it;
+// relaxed: no ordering) and wait (acquire)
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Bytes of each block's merge buffer (dynamic shared memory): every split's
+// unnormalised O for the group's rows (of which the block receives only the
+// 4-column chunks it merges), then every split's (m, l) per row.
+template <int D>
+constexpr int split_merge_bytes(int splits, int rows) {
+  return splits * rows * (D + 2) * (int)sizeof(float);
+}
+
+// One block per (key split, KV head, batch); the splits of a (batch, KV head)
+// form one cluster of `splits` blocks along x.
+template <int D>
+__global__ void __launch_bounds__(SPLIT_THREADS)
+flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, bf16* __restrict__ o, Strides qs, Strides ks,
+                   Strides vs, Strides os, int rep, int sq, int sk, int causal, int window,
+                   float scale_log2, int chunk) {
+  constexpr int THREADS = SPLIT_THREADS, R = SPLIT_ROWS, BK = SPLIT_BK;
+  constexpr int CPR = D / 8, P = D + 8;        // 16-byte chunks a row; q, K, V row pitch
+  constexpr int PP = BK + 8;                   // P's row pitch
+  constexpr int NT = (D / 8 + 7) / 8;          // P·V's 8-column tiles a warp
+  constexpr int C4 = D / 4;                    // 4-column chunks of an output row
+  static_assert(BK == 8 * (THREADS / 32), "a warp scores 8 keys of a tile");
+  static_assert(BK * CPR % THREADS == 0, "whole K/V tiles a thread");
+  static_assert(R * D * sizeof(float) <= BK * P * sizeof(bf16), "the partial fits in k_s");
+  __shared__ __align__(16) bf16 q_s[R * P];
+  __shared__ __align__(16) bf16 k_s[BK * P];   // after the walk: this split's partial
+  __shared__ __align__(16) bf16 v_s[BK * P];
+  __shared__ float s_s[R][BK + 1];             // scaled scores
+  __shared__ __align__(16) bf16 p_s[R * PP];   // P in bf16, the A operand of P·V
+  __shared__ float m_s[R], l_s[R], a_s[R];
+  extern __shared__ __align__(16) float merge_s[];   // split_merge_bytes
+
+  // every block of the cluster is running before any writes to another
+  // block's shared memory: arrive here, wait just before those writes
+  cluster_arrive_relaxed();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  const int split = blockIdx.x, splits = gridDim.x;
+  const int grp = blockIdx.y;
+  const int64_t b = blockIdx.z;
+  const int rows = rep * sq, off = sk - sq;
+  const bf16* kb = k + b * ks.b + grp * ks.h;
+  const bf16* vb = v + b * vs.b + grp * vs.h;
+  // query row r of the group: head grp·rep + r / sq, position r % sq
+  auto q_row = [&](int r) { return q + b * qs.b + (grp * rep + r / sq) * qs.h + (r % sq) * qs.s; };
+  auto o_row = [&](int r) { return o + b * os.b + (grp * rep + r / sq) * os.h + (r % sq) * os.s; };
+
+  // this split's keys, cut to those some row can see (possibly none)
+  const int k_lo = window ? max(0, off - window + 1) : 0;
+  const int k_first = max(split * chunk, k_lo), k_stop = min((split + 1) * chunk, sk);
+  // keys t0.. of the split by cp.async, zeros past it: K, then V, one group each
+  auto load = [&](bf16* dst, const bf16* src, long long stride, int t0) {
+    const int n = min(BK, k_stop - t0);
+#pragma unroll
+    for (int it = 0; it < BK * CPR / THREADS; ++it) {
+      const int i = tid + it * THREADS, r = i / CPR, c = i % CPR;
+      const bool ok = r < n;
+      cp_async16(dst + r * P + c * 8, src + (ok ? (int64_t)(t0 + r) * stride + c * 8 : 0), ok);
+    }
+    cp_async_commit();
+  };
+  // the group's q rows (zeros past them) first, then K and V behind them
+  constexpr int QN = (R * CPR + THREADS - 1) / THREADS;
+  uint4 qraw[QN];
+#pragma unroll
+  for (int n = 0; n < QN; ++n) {
+    const int i = tid + n * THREADS, r = i / CPR;
+    qraw[n] = i < R * CPR && r < rows ? *reinterpret_cast<const uint4*>(q_row(r) + (i % CPR) * 8)
+                                      : make_uint4(0, 0, 0, 0);
+  }
+  if (k_first < k_stop) {
+    load(k_s, kb, ks.s, k_first);
+    load(v_s, vb, vs.s, k_first);
+  }
+#pragma unroll
+  for (int n = 0; n < QN; ++n) {
+    const int i = tid + n * THREADS;
+    if (i < R * CPR) *reinterpret_cast<uint4*>(q_s + (i / CPR) * P + (i % CPR) * 8) = qraw[n];
+  }
+  if (tid < R) {
+    m_s[tid] = -INFINITY;
+    l_s[tid] = 0.0f;
+  }
+  __syncthreads();
+  uint32_t qa[D / 16][4];            // q as the A operand of S = Q·Kᵀ, for every tile
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    qa[kk][0] = ld_pair(q_s + g * P + kk * 16 + 2 * t);
+    qa[kk][1] = ld_pair(q_s + (g + 8) * P + kk * 16 + 2 * t);
+    qa[kk][2] = ld_pair(q_s + g * P + kk * 16 + 2 * t + 8);
+    qa[kk][3] = ld_pair(q_s + (g + 8) * P + kk * 16 + 2 * t + 8);
+  }
+
+  // positions of this thread's score rows g and g + 8 (-1: past the group's rows)
+  const int qp0 = g < rows ? g % sq + off : -1, qp1 = g + 8 < rows ? (g + 8) % sq + off : -1;
+  float acc[NT][4];                  // O, rows g and g + 8 of the warp's column tiles
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
+
+  for (int t0 = k_first; t0 < k_stop; t0 += BK) {
+    const int n = min(BK, k_stop - t0);
+    cp_async_wait<1>();
+    __syncthreads();                 // K is in (V may still be arriving)
+
+    {  // S = Q·Kᵀ: warp w takes keys 8w .. 8w + 7 of the tile
+      float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      const bf16* kr = k_s + (warp * 8 + g) * P + 2 * t;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        mma_16816(s, qa[kk], ld_pair(kr + kk * 16), ld_pair(kr + kk * 16 + 8));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = g + 8 * (e >> 1), j = warp * 8 + 2 * t + (e & 1);
+        const int kp = t0 + j, qp = e < 2 ? qp0 : qp1;
+        bool ok = j < n && qp >= 0;
+        if (causal) ok = ok && kp <= qp;
+        if (window) ok = ok && qp - kp < window;
+        s_s[r][j] = ok ? s[e] * scale_log2 : -INFINITY;
+      }
+    }
+    __syncthreads();
+
+    // per row (warp w takes rows w and w + 8): the running max, P, the sum
+#pragma unroll
+    for (int r = warp; r < R; r += THREADS / 32) {
+      const float x0 = s_s[r][lane], x1 = s_s[r][lane + 32];
+      const float m_old = m_s[r];
+      const float m_new = fmaxf(m_old, warp_max(fmaxf(x0, x1)));
+      const float m_use = m_new == -INFINITY ? 0.0f : m_new;
+      const float p0 = exp2f(x0 - m_use), p1 = exp2f(x1 - m_use);
+      p_s[r * PP + lane] = __float2bfloat16_rn(p0);
+      p_s[r * PP + lane + 32] = __float2bfloat16_rn(p1);
+      const float sum = warp_sum(p0 + p1);
+      if (lane == 0) {
+        const float alpha = exp2f(m_old - m_use);
+        a_s[r] = alpha;
+        l_s[r] = l_s[r] * alpha + sum;
+        m_s[r] = m_new;
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();                 // V and P are in
+
+    // O = alpha·O + P·V: warp w takes the 8-column tiles w, w + 8, ...
+    {
+      const float al0 = a_s[g], al1 = a_s[g + 8];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        acc[nt][0] *= al0;
+        acc[nt][1] *= al0;
+        acc[nt][2] *= al1;
+        acc[nt][3] *= al1;
+      }
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        if (kk * 16 >= n) break;     // keys past the tile's: P and V are 0
+        uint32_t pa[4];
+        pa[0] = ld_pair(p_s + g * PP + kk * 16 + 2 * t);
+        pa[1] = ld_pair(p_s + (g + 8) * PP + kk * 16 + 2 * t);
+        pa[2] = ld_pair(p_s + g * PP + kk * 16 + 2 * t + 8);
+        pa[3] = ld_pair(p_s + (g + 8) * PP + kk * 16 + 2 * t + 8);
+        const bf16* vr = v_s + (kk * 16 + 2 * t) * P + g;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int col = (warp + 8 * nt) * 8;
+          if (col < D)
+            mma_16816(acc[nt], pa, ld_two(vr + col, vr + P + col),
+                      ld_two(vr + 8 * P + col, vr + 9 * P + col));
+        }
+      }
+    }
+    __syncthreads();                 // k_s, v_s, s_s and p_s are consumed
+    if (t0 + BK < k_stop) {
+      load(k_s, kb, ks.s, t0 + BK);
+      load(v_s, vb, vs.s, t0 + BK);
+    }
+  }
+
+  // This split's partial, O unnormalised, into k_s (free now); then
+  // scattered: 4-column chunk c of every row to block c % splits, which
+  // merges that chunk, and (m, l) of every row to every block. Then each
+  // block merges its chunks from its own shared memory.
+  __syncthreads();
+  float* o_s = reinterpret_cast<float*>(k_s);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int col = (warp + 8 * nt) * 8 + 2 * t;
+    if (col < D) {
+      *reinterpret_cast<float2*>(o_s + g * D + col) = make_float2(acc[nt][0], acc[nt][1]);
+      *reinterpret_cast<float2*>(o_s + (g + 8) * D + col) = make_float2(acc[nt][2], acc[nt][3]);
+    }
+  }
+  __syncthreads();
+  cg::cluster_group cluster = cg::this_cluster();
+  float2* ml_s = reinterpret_cast<float2*>(merge_s + splits * rows * D);
+  cluster_wait();
+  for (int i = tid; i < rows * C4; i += THREADS) {
+    const int r = i / C4, c = i % C4;
+    float* to = cluster.map_shared_rank(merge_s, c % splits);
+    *reinterpret_cast<float4*>(to + (split * rows + r) * D + c * 4) =
+        *reinterpret_cast<const float4*>(o_s + r * D + c * 4);
+  }
+  if (tid < rows * splits)
+    cluster.map_shared_rank(ml_s, tid / rows)[split * rows + tid % rows] =
+        make_float2(m_s[tid % rows], l_s[tid % rows]);
+  cluster_arrive_release();
+  cluster_wait();                    // every partial this block merges is in
+
+  // each (row, chunk) of this block: weights exp2(m_s - M) over the splits'
+  // maxima M, an empty split (m = -inf) weighing 0, normalised by Σ
+  // exp2(m_s - M)·l_s; a row no split sees (every l = 0) gives 0
+  const int mine = (C4 - split + splits - 1) / splits;   // chunks split, split + splits, ...
+  for (int i = tid; i < rows * mine; i += THREADS) {
+    const int r = i / mine, c = split + (i % mine) * splits;
+    float2 ml[SPLIT_MAX];
+    float4 a[SPLIT_MAX];
+#pragma unroll
+    for (int sp = 0; sp < SPLIT_MAX; ++sp) {
+      const bool in = sp < splits;
+      ml[sp] = in ? ml_s[sp * rows + r] : make_float2(-INFINITY, 0.0f);
+      a[sp] = in ? *reinterpret_cast<const float4*>(merge_s + (sp * rows + r) * D + c * 4)
+                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+    float mx = -INFINITY;
+#pragma unroll
+    for (int sp = 0; sp < SPLIT_MAX; ++sp) mx = fmaxf(mx, ml[sp].x);
+    float lsum = 0.0f, f[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int sp = 0; sp < SPLIT_MAX; ++sp) {
+      const float w = ml[sp].x == -INFINITY ? 0.0f : exp2f(ml[sp].x - mx);
+      lsum += w * ml[sp].y;
+      f[0] += w * a[sp].x;
+      f[1] += w * a[sp].y;
+      f[2] += w * a[sp].z;
+      f[3] += w * a[sp].w;
+    }
+    const float inv = lsum > 0.0f ? 1.0f / lsum : 0.0f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) f[e] *= inv;
+    uint2 out;
+    *reinterpret_cast<__nv_bfloat162*>(&out.x) = __floats2bfloat162_rn(f[0], f[1]);
+    *reinterpret_cast<__nv_bfloat162*>(&out.y) = __floats2bfloat162_rn(f[2], f[3]);
+    *reinterpret_cast<uint2*>(o_row(r) + c * 4) = out;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fp32: exact, on the CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int F32_BK = 32;           // keys per tile: one per lane
+constexpr float F32_NEG_INF = -1e30f;   // the TPU kernel's mask value
+
 template <int D, int R, int W>
-constexpr int smem_bytes() {
-  return (W * R * D + BK * (D + 1) + BK * D) * (int)sizeof(float);
+constexpr int f32_smem_bytes() {
+  return (W * R * D + F32_BK * (D + 1) + F32_BK * D) * (int)sizeof(float);
 }
 
-// 16 bytes of T (8 bf16 or 4 fp32) widened to fp32
-__device__ __forceinline__ void widen(const uint4& raw, float* dst, const float*) {
-  const float* e = reinterpret_cast<const float*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) dst[i] = e[i];
-}
-__device__ __forceinline__ void widen(const uint4& raw, float* dst, const __nv_bfloat16*) {
-  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) dst[i] = __bfloat162float(e[i]);
-}
-
-// Stage NROWS rows of D elements (row i at src + i·stride, 16-byte
-// aligned) into dst (row i at dst + i·dst_stride) as fp32; rows at or past
-// `valid` read as zeros. Every thread loads its vectors before storing any.
-template <typename T, int D, int THREADS, int NROWS>
-__device__ __forceinline__ void stage(const T* __restrict__ src, long long stride,
-                                      int valid, float* dst, int dst_stride) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int PER_ROW = D / VEC;
+// Stage NROWS rows of D floats (row i at src + i·stride, 16-byte aligned)
+// into dst (row i at dst + i·dst_stride); rows at or past `valid` read as
+// zeros. Every thread loads its vectors before storing any.
+template <int D, int THREADS, int NROWS>
+__device__ __forceinline__ void stage_f32(const float* __restrict__ src, long long stride,
+                                          int valid, float* dst, int dst_stride) {
+  constexpr int PER_ROW = D / 4;
   constexpr int TOTAL = NROWS * PER_ROW;
   constexpr int PER_THREAD = (TOTAL + THREADS - 1) / THREADS;
-  uint4 raw[PER_THREAD];
+  float4 raw[PER_THREAD];
 #pragma unroll
   for (int n = 0; n < PER_THREAD; ++n) {
     const int i = threadIdx.x + n * THREADS;
-    const int row = i / PER_ROW, col = (i % PER_ROW) * VEC;
-    raw[n] = make_uint4(0, 0, 0, 0);
+    const int row = i / PER_ROW, col = (i % PER_ROW) * 4;
+    raw[n] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     if (i < TOTAL && row < valid)
-      raw[n] = *reinterpret_cast<const uint4*>(src + (int64_t)row * stride + col);
+      raw[n] = *reinterpret_cast<const float4*>(src + (int64_t)row * stride + col);
   }
 #pragma unroll
   for (int n = 0; n < PER_THREAD; ++n) {
     const int i = threadIdx.x + n * THREADS;
     if (i < TOTAL) {
-      const int row = i / PER_ROW, col = (i % PER_ROW) * VEC;
-      float f[VEC];
-      widen(raw[n], f, src);
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) dst[row * dst_stride + col + e] = f[e];
+      float* d = dst + (i / PER_ROW) * dst_stride + (i % PER_ROW) * 4;
+      d[0] = raw[n].x;
+      d[1] = raw[n].y;
+      d[2] = raw[n].z;
+      d[3] = raw[n].w;
     }
   }
 }
 
-template <typename T, int D, int R, int W>
+template <int D, int R, int W>
 __global__ void __launch_bounds__(W * 32)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, Strides qs,
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, Strides qs,
                  Strides ks, Strides vs, Strides os, int rep, int sq, int sk,
                  int causal, int window, float scale) {
   extern __shared__ __align__(16) float smem[];
   constexpr int bq = W * R;
   float* q_s = smem;                     // (bq, D)
-  float* k_s = q_s + bq * D;             // (BK, D + 1)
-  float* v_s = k_s + BK * (D + 1);       // (BK, D)
+  float* k_s = q_s + bq * D;             // (F32_BK, D + 1)
+  float* v_s = k_s + F32_BK * (D + 1);   // (F32_BK, D)
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int h = blockIdx.y;
   const int64_t b = blockIdx.z;
   const int q0 = blockIdx.x * bq;
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + (h / rep) * ks.h;
-  const T* vb = v + b * vs.b + (h / rep) * vs.h;
-  T* ob = o + b * os.b + h * os.h;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + (h / rep) * ks.h;
+  const float* vb = v + b * vs.b + (h / rep) * vs.h;
+  float* ob = o + b * os.b + h * os.h;
 
-  stage<T, D, W * 32, bq>(qb + (int64_t)q0 * qs.s, qs.s, sq - q0, q_s, D);
+  stage_f32<D, W * 32, bq>(qb + (int64_t)q0 * qs.s, qs.s, sq - q0, q_s, D);
 
   // the keys any row of this block can see
   const int off = sk - sq;
@@ -144,7 +891,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float m[R], l[R], acc[R][D / 32];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    m[r] = NEG_INF;
+    m[r] = F32_NEG_INF;
     l[r] = 0.0f;
 #pragma unroll
     for (int i = 0; i < D / 32; ++i) acc[r][i] = 0.0f;
@@ -152,10 +899,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float* qw = q_s + warp * R * D;
   const bool active = q0 + warp * R < sq;
 
-  for (int t0 = (k_beg / BK) * BK; t0 < k_end; t0 += BK) {
+  for (int t0 = (k_beg / F32_BK) * F32_BK; t0 < k_end; t0 += F32_BK) {
     __syncthreads();                     // the previous tile is consumed
-    stage<T, D, W * 32, BK>(kb + (int64_t)t0 * ks.s, ks.s, sk - t0, k_s, D + 1);
-    stage<T, D, W * 32, BK>(vb + (int64_t)t0 * vs.s, vs.s, sk - t0, v_s, D);
+    stage_f32<D, W * 32, F32_BK>(kb + (int64_t)t0 * ks.s, ks.s, sk - t0, k_s, D + 1);
+    stage_f32<D, W * 32, F32_BK>(vb + (int64_t)t0 * vs.s, vs.s, sk - t0, v_s, D);
     __syncthreads();
     if (!active) continue;               // warp-uniform: all of its rows lie past Sq
 
@@ -185,7 +932,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       bool ok = kp < sk;
       if (causal) ok = ok && kp <= qp;
       if (window) ok = ok && qp - kp < window;
-      const float sc = ok ? s[r] * scale : NEG_INF;
+      const float sc = ok ? s[r] * scale : F32_NEG_INF;
       const float m_new = fmaxf(m[r], warp_max(sc));
       const float p = ok ? expf(sc - m_new) : 0.0f;
       const float alpha = expf(m[r] - m_new);
@@ -198,13 +945,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // acc[r][i] += sum_j p_j · v[j][lane + 32 i]
 #pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
+    for (int j = 0; j < F32_BK; ++j) {
       float vj[D / 32];
 #pragma unroll
       for (int i = 0; i < D / 32; ++i) vj[i] = v_s[j * D + lane + 32 * i];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        const float pj = __shfl_sync(0xffffffffu, s[r], j);
+        const float pj = __shfl_sync(FULL, s[r], j);
 #pragma unroll
         for (int i = 0; i < D / 32; ++i) acc[r][i] += pj * vj[i];
       }
@@ -217,57 +964,109 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (row < sq) {
       const float denom = l[r] == 0.0f ? 1.0f : l[r];   // fully masked row -> 0
 #pragma unroll
-      for (int i = 0; i < D / 32; ++i)
-        store_f32(ob + (int64_t)row * os.s + lane + 32 * i, acc[r][i] / denom);
+      for (int i = 0; i < D / 32; ++i) ob[(int64_t)row * os.s + lane + 32 * i] = acc[r][i] / denom;
     }
   }
 }
 
-template <typename T, int D, int R, int W>
-int launch_cfg(const void* q, const void* k, const void* v, void* o,
-               const Strides* st, long long b, int h, int rep, int sq, int sk,
-               int causal, int window, float scale, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<D, R, W>();
-  // above 48 KB a block's shared memory must be opted into, once per kernel
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+
+struct Args {
+  const void *q, *k, *v;
+  void* o;
+  Strides st[4];
+  long long b;
+  int h, kvh, rep, sq, sk, causal, window;
+  float scale;
+  cudaStream_t stream;
+};
+
+// above 48 KB a block's shared memory must be opted into, once per kernel
+template <typename Kernel>
+int opt_in(Kernel kernel, int bytes, bool& done) {
+  if (done) return 0;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
+  done = true;
+  return 0;
+}
+
+template <int D, int R, int W>
+int launch_f32(const Args& a) {
+  constexpr int bytes = f32_smem_bytes<D, R, W>();
   static bool opted = false;
-  if (!opted) {
-    cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<T, D, R, W>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         bytes);
-    if (e != cudaSuccess) return (int)e;
-    opted = true;
-  }
+  if (int e = opt_in(flash_f32_kernel<D, R, W>, bytes, opted)) return e;
   constexpr int bq = W * R;
-  dim3 grid((unsigned)((sq + bq - 1) / bq), (unsigned)h, (unsigned)b);
-  flash_fwd_kernel<T, D, R, W><<<grid, W * 32, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, st[0], st[1], st[2], st[3], rep,
-      sq, sk, causal, window, scale);
+  const dim3 grid((unsigned)((a.sq + bq - 1) / bq), (unsigned)a.h, (unsigned)a.b);
+  flash_f32_kernel<D, R, W><<<grid, W * 32, bytes, a.stream>>>(
+      (const float*)a.q, (const float*)a.k, (const float*)a.v, (float*)a.o, a.st[0], a.st[1],
+      a.st[2], a.st[3], a.rep, a.sq, a.sk, a.causal, a.window, a.scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int launch_d(const void* q, const void* k, const void* v, void* o, const Strides* st,
-             long long b, int h, int rep, int sq, int sk, int causal, int window,
-             float scale, cudaStream_t stream) {
-  // prefill: 8 warps of 8 rows (64-row tiles); decode and other short
-  // queries: 4 warps of one row each, so that the K/V loads have 128 threads
-  if (sq >= 8)
-    return launch_cfg<T, D, 8, 8>(q, k, v, o, st, b, h, rep, sq, sk, causal, window,
-                                  scale, stream);
-  return launch_cfg<T, D, 1, 4>(q, k, v, o, st, b, h, rep, sq, sk, causal, window,
-                                scale, stream);
+template <int D>
+int launch_tc(const Args& a) {
+  constexpr int bytes = tc_smem_bytes<D>();
+  static bool opted = false;
+  if (int e = opt_in(flash_tc_kernel<D>, bytes, opted)) return e;
+  const dim3 grid((unsigned)((a.sq + TC_BQ - 1) / TC_BQ), (unsigned)a.h, (unsigned)a.b);
+  flash_tc_kernel<D><<<grid, TC_THREADS, bytes, a.stream>>>(
+      (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v, (bf16*)a.o, a.st[0], a.st[1],
+      a.st[2], a.st[3], a.rep, a.sq, a.sk, a.causal, a.window, a.scale * LOG2E);
+  return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_t(const void* q, const void* k, const void* v, void* o, const Strides* st,
-             long long b, int h, int rep, int sq, int sk, int d, int causal, int window,
-             float scale, cudaStream_t stream) {
-  switch (d) {
-    case 32: return launch_d<T, 32>(q, k, v, o, st, b, h, rep, sq, sk, causal, window, scale, stream);
-    case 64: return launch_d<T, 64>(q, k, v, o, st, b, h, rep, sq, sk, causal, window, scale, stream);
-    case 128: return launch_d<T, 128>(q, k, v, o, st, b, h, rep, sq, sk, causal, window, scale, stream);
-    default: return (int)cudaErrorInvalidValue;
+// a cluster of `splits` blocks along x; above 8 (the portable most) a
+// cluster must be allowed, and above 48 KB of shared memory a block's must be
+// opted into, once per kernel
+template <int D>
+int launch_split(const Args& a, int chunk, int splits) {
+  static bool allowed = false;
+  if (!allowed) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_split_kernel<D>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(flash_split_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               split_merge_bytes<D>(SPLIT_MAX, SPLIT_ROWS));
+    if (e != cudaSuccess) return (int)e;
+    allowed = true;
   }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)splits, (unsigned)a.kvh, (unsigned)a.b);
+  cfg.blockDim = dim3(SPLIT_THREADS);
+  cfg.dynamicSmemBytes = (size_t)split_merge_bytes<D>(splits, a.rep * a.sq);
+  cfg.stream = a.stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = (unsigned)splits;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, flash_split_kernel<D>, (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
+      (bf16*)a.o, a.st[0], a.st[1], a.st[2], a.st[3], a.rep, a.sq, a.sk, a.causal, a.window,
+      a.scale * LOG2E, chunk);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_d(const Args& a, int is_bf16, int splits) {
+  if (!is_bf16) {
+    // 8 warps of 8 rows (64-row tiles); short queries: 4 warps of one row
+    // each, so that the K/V loads have 128 threads
+    if (a.sq >= 8) return launch_f32<D, 8, 8>(a);
+    return launch_f32<D, 1, 4>(a);
+  }
+  if (splits > 0) {
+    const int chunk = (a.sk + splits - 1) / splits;
+    return launch_split<D>(a, chunk, splits);
+  }
+  return launch_tc<D>(a);
 }
 
 }  // namespace
@@ -275,18 +1074,41 @@ int launch_t(const void* q, const void* k, const void* v, void* o, const Strides
 // strides: 12 element strides, (b, h, s) for q, k, v and o in that order;
 // q, k, v 16-byte aligned with their (b, h, s) strides multiples of 16
 // bytes. d in {32, 64, 128}; h a multiple of kvh; b, h at most 65535.
+// splits: 0 for the bf16 prefill kernel; for the bf16 decode kernel the
+// number of key splits (at most 16, each ceil(sk / splits) keys; h / kvh ·
+// sq <= 16 query rows per group). fp32 ignores splits.
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o,
                                const long long* strides, long long b, int h, int kvh,
                                int sq, int sk, int d, int causal, int window,
-                               float scale, int is_bf16, void* stream) {
+                               float scale, int is_bf16, int splits, void* stream) {
   if (b <= 0 || sq <= 0) return 0;
-  if (kvh <= 0 || h % kvh != 0 || b > 65535 || h > 65535 || sk <= 0)
+  if (kvh <= 0 || h % kvh != 0 || b > 65535 || h > 65535 || sk <= 0 || splits < 0)
     return (int)cudaErrorInvalidValue;
-  Strides st[4];
-  for (int i = 0; i < 4; ++i) st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  cudaStream_t s = (cudaStream_t)stream;
-  const int rep = h / kvh;
-  if (is_bf16)
-    return launch_t<__nv_bfloat16>(q, k, v, o, st, b, h, rep, sq, sk, d, causal, window, scale, s);
-  return launch_t<float>(q, k, v, o, st, b, h, rep, sq, sk, d, causal, window, scale, s);
+  Args a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.o = o;
+  for (int i = 0; i < 4; ++i)
+    a.st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  a.b = b;
+  a.h = h;
+  a.kvh = kvh;
+  a.rep = h / kvh;
+  a.sq = sq;
+  a.sk = sk;
+  a.causal = causal;
+  a.window = window;
+  a.scale = scale;
+  a.stream = (cudaStream_t)stream;
+  if (is_bf16 && splits > 0) {
+    if (a.rep * sq > SPLIT_ROWS || splits > SPLIT_MAX || splits > sk)
+      return (int)cudaErrorInvalidValue;
+  }
+  switch (d) {
+    case 32: return launch_d<32>(a, is_bf16, splits);
+    case 64: return launch_d<64>(a, is_bf16, splits);
+    case 128: return launch_d<128>(a, is_bf16, splits);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -13,17 +13,25 @@
 // (B·S = 4096 rows of 2048 bf16) that is 33,558,528 B: 10.0 us at 3.35 TB/s;
 // at decode (8 rows) 69,632 B, far below one launch.
 //
-// Design: one block per row, so the grid needs no padding to a row block
-// (the TPU kernel pads the rows up to 256) and the ragged edge does not
-// exist. Pass 1 sums x² in fp32: each thread a strided share, then a
-// warp-shuffle reduction and one across the block's warps in shared memory.
-// Pass 2 reads the row again (it is still in L1/L2) and writes y. No
-// --use_fast_math: rsqrtf is CUDA's (2 ulp), the mean a true division.
+// Design: one warp per row and one pass over it. A lane loads its share of
+// the row as 16-byte vectors, all in flight at once, and keeps them in
+// registers (NV vectors a lane: 8 at d = 2048 bf16); Σx² is a warp shuffle
+// reduction, and the row is written once from those registers. No shared
+// memory, no block barrier. Each warp loads its share of the scale once and
+// walks rows with a stride of the grid's warps. Blocks hold 4 warps (4 rows)
+// when there are many rows and 1 warp when there are few (decode's 8 rows
+// then spread over 8 SMs). Widths that are not a multiple of 16 bytes, or
+// too wide for the registers, or unaligned operands take the general kernel:
+// one warp per row, scalar loads, two passes (the second from cache).
+// Numerics are the plain version's: fp32 sums, a true division for the mean,
+// CUDA's rsqrtf (2 ulp; no --use_fast_math), one rounding at the store.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr int MAX_BLOCKS = 2048;     // warps beyond these walk more rows
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -38,55 +46,131 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// 16 bytes of T as VEC floats, and back
 template <typename T>
-__global__ void __launch_bounds__(256)
-rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ scale,
-               T* __restrict__ out, int d, float eps) {
-  __shared__ float partial[32];
-  const T* xr = x + (int64_t)blockIdx.x * d;
-  T* outr = out + (int64_t)blockIdx.x * d;
+__device__ __forceinline__ void widen(const uint4& raw, float* f) {
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < (int)(16 / sizeof(T)); ++i) f[i] = to_f32(e[i]);
+}
+template <typename T>
+__device__ __forceinline__ uint4 narrow(const float* f) {
+  uint4 raw;
+  T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < (int)(16 / sizeof(T)); ++i) store_f32(e + i, f[i]);
+  return raw;
+}
+
+// d a multiple of VEC, at most 32·NV·VEC; operands 16-byte aligned
+template <typename T, int NV>
+__global__ void __launch_bounds__(128)
+rmsnorm_vec_kernel(const T* __restrict__ x, const T* __restrict__ scale,
+                   T* __restrict__ out, long long rows, int d, float eps) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int nvec = d / VEC;
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const long long stride = (long long)gridDim.x * warps;
+  const uint4* sv = reinterpret_cast<const uint4*>(scale);
 
-  float ss = 0.0f;
-  for (int i = threadIdx.x; i < d; i += blockDim.x) {
-    const float v = to_f32(xr[i]);
-    ss += v * v;
-  }
-  ss = warp_sum(ss);
-  if (lane == 0) partial[warp] = ss;
-  __syncthreads();
-  if (warp == 0) {
-    ss = lane < (int)(blockDim.x >> 5) ? partial[lane] : 0.0f;
-    ss = warp_sum(ss);
-    if (lane == 0) partial[0] = ss;
-  }
-  __syncthreads();
-  const float r = rsqrtf(partial[0] / (float)d + eps);
+  uint4 sraw[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+    if (lane + 32 * i < nvec) sraw[i] = sv[lane + 32 * i];
 
-  for (int i = threadIdx.x; i < d; i += blockDim.x) {
-    const float y = to_f32(xr[i]) * r;
-    store_f32(outr + i, y * (1.0f + to_f32(scale[i])));
+  for (long long row = (long long)blockIdx.x * warps + (threadIdx.x >> 5); row < rows;
+       row += stride) {
+    const uint4* xv = reinterpret_cast<const uint4*>(x + row * d);
+    uint4* ov = reinterpret_cast<uint4*>(out + row * d);
+    uint4 raw[NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+      if (lane + 32 * i < nvec) raw[i] = xv[lane + 32 * i];
+    float ss = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      if (lane + 32 * i < nvec) {
+        float f[VEC];
+        widen<T>(raw[i], f);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) ss += f[e] * f[e];
+      }
+    }
+    const float r = rsqrtf(warp_sum(ss) / (float)d + eps);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      if (lane + 32 * i < nvec) {
+        float f[VEC], s[VEC];
+        widen<T>(raw[i], f);
+        widen<T>(sraw[i], s);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) f[e] = f[e] * r * (1.0f + s[e]);
+        ov[lane + 32 * i] = narrow<T>(f);
+      }
+    }
+  }
+}
+
+// any width and alignment: one warp per row, two passes
+template <typename T>
+__global__ void __launch_bounds__(128)
+rmsnorm_any_kernel(const T* __restrict__ x, const T* __restrict__ scale,
+                   T* __restrict__ out, long long rows, int d, float eps) {
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const long long stride = (long long)gridDim.x * warps;
+  for (long long row = (long long)blockIdx.x * warps + (threadIdx.x >> 5); row < rows;
+       row += stride) {
+    const T* xr = x + row * d;
+    T* outr = out + row * d;
+    float ss = 0.0f;
+#pragma unroll 4
+    for (int i = lane; i < d; i += 32) {
+      const float v = to_f32(xr[i]);
+      ss += v * v;
+    }
+    const float r = rsqrtf(warp_sum(ss) / (float)d + eps);
+#pragma unroll 4
+    for (int i = lane; i < d; i += 32)
+      store_f32(outr + i, to_f32(xr[i]) * r * (1.0f + to_f32(scale[i])));
   }
 }
 
 template <typename T>
 int launch(const void* x, const void* scale, void* out, long long rows, int d,
            float eps, cudaStream_t stream) {
-  const int threads = d >= 256 ? 256 : ((d + 31) / 32) * 32;
-  rmsnorm_kernel<T><<<(unsigned)rows, threads, 0, stream>>>(
-      (const T*)x, (const T*)scale, (T*)out, d, eps);
+  constexpr int VEC = 16 / sizeof(T);
+  const int warps = rows >= 1024 ? 4 : 1;
+  const long long blocks = (rows + warps - 1) / warps;
+  const dim3 grid((unsigned)(blocks < MAX_BLOCKS ? blocks : MAX_BLOCKS));
+  const int per_lane = (d / VEC + 31) / 32;
+  const bool aligned = ((uintptr_t)x | (uintptr_t)scale | (uintptr_t)out) % 16 == 0;
+  const T* xt = (const T*)x;
+  const T* st = (const T*)scale;
+  T* ot = (T*)out;
+  if (!aligned || d % VEC != 0 || per_lane > 16)
+    rmsnorm_any_kernel<T><<<grid, 32 * warps, 0, stream>>>(xt, st, ot, rows, d, eps);
+  else if (per_lane <= 1)
+    rmsnorm_vec_kernel<T, 1><<<grid, 32 * warps, 0, stream>>>(xt, st, ot, rows, d, eps);
+  else if (per_lane <= 2)
+    rmsnorm_vec_kernel<T, 2><<<grid, 32 * warps, 0, stream>>>(xt, st, ot, rows, d, eps);
+  else if (per_lane <= 4)
+    rmsnorm_vec_kernel<T, 4><<<grid, 32 * warps, 0, stream>>>(xt, st, ot, rows, d, eps);
+  else if (per_lane <= 8)
+    rmsnorm_vec_kernel<T, 8><<<grid, 32 * warps, 0, stream>>>(xt, st, ot, rows, d, eps);
+  else
+    rmsnorm_vec_kernel<T, 16><<<grid, 32 * warps, 0, stream>>>(xt, st, ot, rows, d, eps);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x, out: (rows, d) contiguous and scale: (d,), all fp32 (is_bf16 = 0) or
-// all bf16 (is_bf16 = 1). One block per row.
+// all bf16 (is_bf16 = 1). One warp per row, one launch.
 extern "C" int rmsnorm(const void* x, const void* scale, void* out, long long rows,
                        int d, float eps, int is_bf16, void* stream) {
   if (rows <= 0 || d <= 0) return 0;
-  if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   return is_bf16 ? launch<__nv_bfloat16>(x, scale, out, rows, d, eps, s)
                  : launch<float>(x, scale, out, rows, d, eps, s);

@@ -47,6 +47,42 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     return out.reshape(b, h, sq, d).to(q.dtype)
 
 
+def flash_attention_split_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                              splits: int = 1):
+    """``flash_attention_ref`` computed as the bf16 decode kernel computes
+    it: the keys cut into ``splits`` chunks of ceil(Sk/splits), each giving
+    a partial (m, l, acc) in fp32 (its max score, and its exp(s - m)-weighted
+    count and value sum), merged with weights exp(m_s - M), where a chunk
+    that sees no key (m = -inf) weighs 0. A row with no visible key gives
+    0. fp32 throughout (the kernel rounds P to bf16 for its P·V product).
+    Used by the tests only."""
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    qg = q.reshape(b, kvh, h // kvh, sq, d).float()
+    logits = torch.einsum("bkrqd,bksd->bkrqs", qg, k.float()) * (1.0 / math.sqrt(d))
+    qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    visible = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        visible &= kpos <= qpos
+    if window:
+        visible &= qpos - kpos < window
+    chunk = -(-sk // splits)
+    pad = chunk * splits - sk                      # trailing chunks may be empty
+    inf = float("-inf")
+    logits = torch.nn.functional.pad(logits.masked_fill(~visible, inf), (0, pad),
+                                     value=inf).unflatten(-1, (splits, chunk))
+    vs = torch.nn.functional.pad(v.float(), (0, 0, 0, pad)).unflatten(2, (splits, chunk))
+    m = logits.amax(dim=-1)                        # (B, KV, rep, Sq, splits)
+    p = torch.exp(logits - torch.where(m == inf, 0.0, m)[..., None])
+    acc = torch.einsum("bkrqsc,bkscd->bkrqsd", p, vs)
+    top = m.amax(dim=-1, keepdim=True)
+    w = torch.where(m == inf, 0.0, torch.exp(m - torch.where(top == inf, 0.0, top)))
+    l_tot = (w * p.sum(dim=-1)).sum(dim=-1, keepdim=True)
+    out = (w[..., None] * acc).sum(dim=-2) / torch.where(l_tot > 0, l_tot, 1.0)
+    return out.reshape(q.shape).to(q.dtype)
+
+
 def ssca_update_ref(w, buf, grad, rho, gamma, tau, lam):
     """The fused Algorithm-1-example update chain (eqs. (9)+(10)+(5), λ folded):
 

@@ -115,8 +115,16 @@ def test_algorithm1_card_matches_cpu(cuda):
                                            atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("shape", [(4, 128), (3, 7, 256), (2, 37, 512), (5, 100),
-                                   (3, 3000), (8, 2048), (4096, 2048)])
+# then every rows x width of the one-pass kernel (a multiple of 16 bytes, up
+# to 16 vectors a lane) and the general one (d = 100 in bf16, 4096 in fp32),
+# at one row, decode's 8, a ragged 37 and prefill's 4096 (4 rows a block)
+RMS_SHAPES = [(4, 128), (3, 7, 256), (2, 37, 512), (5, 100), (3, 3000), (8, 2048),
+              (4096, 2048)]
+RMS_SHAPES += [(r, d) for r in (1, 8, 37, 4096) for d in (100, 512, 2048, 3000, 4096)
+               if (r, d) not in RMS_SHAPES]
+
+
+@pytest.mark.parametrize("shape", RMS_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
     gen = torch.Generator(device=cuda).manual_seed(sum(shape))
@@ -127,6 +135,21 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
     torch.cuda.synchronize()
     assert rmsnorm.rmsnorm.launches == before + 1
     assert got.dtype == dtype and got.shape == x.shape
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), rmsnorm.plain(x, sc, 1e-6).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_takes_unaligned_rows(cuda, dtype):
+    """A contiguous x that starts 2 or 4 bytes past a 16-byte boundary takes
+    the general kernel, with the same result."""
+    rows, d = 37, 512
+    flat = torch.randn(rows * d + 1, device=cuda).to(dtype)
+    x = flat[1:].view(rows, d)
+    assert x.data_ptr() % 16
+    sc = (torch.randn(d, device=cuda) * 0.1).to(dtype)
+    got = rmsnorm.rmsnorm(x, sc, 1e-6)
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), rmsnorm.plain(x, sc, 1e-6).float(),
                                atol=tol, rtol=tol)
@@ -204,6 +227,92 @@ def test_flash_kernel_fully_masked_rows_are_zero(cuda, sq, sk, window):
         assert not got[:, :, :sq - sk].any()
     want = flash_attention.plain(q, k, v, causal=True, window=window)
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("sq", [1, 7, 61, 64, 65, 127, 512])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("rep", [1, 2, 8])
+def test_flash_bf16_paths_match_plain(cuda, sq, d, rep):
+    """bf16 on the tensor-core prefill kernel (more than 16 query rows per
+    KV head) and on the split decode kernel (at most 16): Sq around the
+    64-row q tile, right-aligned in Sk = Sq + 37 keys. One launch a call."""
+    kv, sk = 2, sq + 37
+    q, k, v = _attn_inputs(cuda, 2, kv * rep, kv, sq, sk, d, torch.bfloat16,
+                           sq * 1009 + d * 31 + rep)
+    splits = flash_attention.decode_splits(q.dtype, 2, kv * rep, kv, sq, sk)
+    assert (splits > 0) == (rep * sq <= flash_attention.SPLIT_ROWS)
+    before = flash_attention.flash_attention.launches
+    got = flash_attention.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.launches == before + 1
+    want = flash_attention.plain(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("b,h,kv,sq,sk,d,window", [
+    (8, 16, 2, 1, 543, 128, 20),     # decode: 8 of 9 splits see no key
+    (2, 2, 2, 1, 543, 64, 100),      # rep 1, head dim 64
+    (2, 4, 2, 7, 300, 32, 10),       # a 7-row chunk against a short window
+    (2, 16, 2, 512, 512, 128, 64),   # prefill: the window skips whole tiles
+    (1, 4, 4, 256, 256, 32, 32),
+    (1, 8, 1, 200, 333, 64, 150),    # MQA, ragged, right-aligned
+])
+def test_flash_bf16_windows_match_plain(cuda, b, h, kv, sq, sk, d, window):
+    q, k, v = _attn_inputs(cuda, b, h, kv, sq, sk, d, torch.bfloat16, sk + window)
+    got = flash_attention.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    want = flash_attention.plain(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("sq,sk", [(61, 61), (61, 200), (512, 512)])
+def test_flash_bf16_prefill_reads_transposed_views(cuda, sq, sk):
+    """The model's prefill operands: q a transposed (B, S, H, D) projection,
+    k and v the first Sk rows of (B, S_max, KV, D) caches; the output comes
+    back in q's layout."""
+    gen = torch.Generator(device=cuda).manual_seed(sq + sk)
+    q = torch.randn(2, sq, 16, 128, generator=gen, device=cuda).to(torch.bfloat16)
+    ck = torch.randn(2, sk + 9, 2, 128, generator=gen, device=cuda).to(torch.bfloat16)
+    cv = torch.randn(2, sk + 9, 2, 128, generator=gen, device=cuda).to(torch.bfloat16)
+    kview = ck.permute(0, 2, 1, 3)[:, :, :sk]
+    vview = cv.permute(0, 2, 1, 3)[:, :, :sk]
+    got = flash_attention.flash_attention(q.transpose(1, 2), kview, vview)
+    assert got.transpose(1, 2).is_contiguous()
+    want = flash_attention.plain(q.transpose(1, 2).contiguous(), kview.contiguous(),
+                                 vview.contiguous())
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("h,sq,sk,window", [(4, 128, 64, 0), (4, 70, 33, 0),
+                                            (4, 256, 256, 32), (4, 7, 3, 0),
+                                            (2, 9, 2, 0)])
+def test_flash_bf16_fully_masked_rows_are_zero(cuda, h, sq, sk, window):
+    """bf16 rows with no visible key give 0 on both bf16 kernels (7 and 9
+    rows against 3 and 2 keys take the split decode kernel)."""
+    q, k, v = _attn_inputs(cuda, 1, h, 2, sq, sk, 64, torch.bfloat16, sq * sk)
+    got = flash_attention.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    if sq > sk:
+        assert not got[:, :, :sq - sk].any()
+    want = flash_attention.plain(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("b,sk,splits", [(8, 543, 9), (1, 37, 1), (8, 512, 8),
+                                         (1, 4096, 16)])
+def test_flash_decode_clusters_merge_and_repeat(cuda, b, sk, splits):
+    """The split decode kernel at cluster sizes 1, 8 (the portable most), 9
+    (the serve path's) and 16 (the largest): back-to-back launches give
+    the same output, the plain version's."""
+    q, k, v = _attn_inputs(cuda, b, 16, 2, 1, sk, 128, torch.bfloat16, sk + b)
+    assert flash_attention.decode_splits(q.dtype, b, 16, 2, 1, sk) == splits
+    outs = [flash_attention.flash_attention(q, k, v) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+    want = flash_attention.plain(q, k, v)
+    torch.testing.assert_close(outs[0].float(), want.float(), atol=3e-2, rtol=3e-2)
 
 
 def test_flash_kernel_rejects_bad_operands(cuda):
