@@ -6,13 +6,16 @@
 Phases, one JSON line each:
   device   the card, and nvidia-smi's name and power limit line
   build    nvcc of every kernel under src/repro_torch/kernels/csrc (parallel)
-  ptxas    registers and spills of each rmsnorm and flash kernel (-Xptxas -v)
+  ptxas    registers and spills of each ssca_update, rmsnorm and flash
+           kernel (-Xptxas -v)
   kernels  each kernel against its plain PyTorch version on the card, at the
            main paths' shapes and at ragged ones, with its time, the plain
            version's time, one PyTorch library call's time where one
            computes the same function (timed as the kernel is, and the
-           ratio to it), and its bound; at the serve prefill shapes both
-           also with operands rotated past the L2 ("cold")
+           ratio to it), and its bound; at the serve prefill shapes and
+           for ssca_update both also with operands rotated past the L2
+           ("cold"), and for ssca_update the launch floor (an empty kernel
+           of the same grid and arguments)
   dense    Algorithm 1 at the paper's width (N=60000, P=784, J=128, L=10,
            I=10, B=100), 200 rounds, dense uploads
   int8     the same with int8 uploads and error feedback
@@ -100,10 +103,11 @@ def event_ms(fn, iters=200, warmup=10):
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(launch, iters=200):
+def graph_ms(launch, iters=200, replays=5):
     """Mean device ms per launch: `iters` launches captured in one CUDA
     graph and replayed between CUDA events, so the host's launch rate does
-    not hide the kernel's own time."""
+    not hide the kernel's own time; the median of `replays` timed replays
+    after an untimed one."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -117,13 +121,16 @@ def graph_ms(launch, iters=200):
             launch()
     graph.replay()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return sorted(times)[replays // 2]
 
 
 def rotating(fn, sets):
@@ -154,53 +161,111 @@ def timed_pair(kernel, library, sets, cold):
     return t
 
 
+SSCA_SIZES = (1, 3, 4, 7, 8, 9, 17, 1000, 4096, 70_000, 101_632, 2**20 + 3)
+
+
+def fused_sgd_step(torch, w, g, v, rho, gamma, gamma_prev, tau, lam):
+    """Remark 2's momentum form of one SSCA update as one PyTorch call (the
+    kernel's library yardstick; the port never calls it): momentum
+    (1-ρ)(1-γ_prev), dampening 1-ρ/(2τ), weight decay 2λ, lr γ, in place on
+    w and v = w + buf/(2τ)."""
+    torch._fused_sgd_([w], [g], [v], weight_decay=2 * lam,
+                      momentum=(1 - rho) * (1 - gamma_prev), lr=gamma,
+                      dampening=1 - rho / (2 * tau), nesterov=False,
+                      maximize=False, is_first_step=False)
+
+
 def check_ssca_update(torch, ssca, build):
-    """Kernel vs plain version: fp32 and bf16 at the main path's size and at
-    ragged ones. Tolerance: the kernel's FMAs round once where the plain
-    version rounds twice, about an ulp (the JAX tests' 1e-5 fp32, 2e-2 bf16)."""
+    """Kernel vs plain version, fp32 and bf16, at every ragged end of the
+    16-byte vectors, the main path's size and a grid-strided 2^20+3, aligned
+    and at an offset of one element (the scalar path), with ρ/γ read from
+    entry 3 of (6,) arrays. Tolerance: the kernel's FMAs round once where
+    the plain version rounds twice, a few ulps (the JAX tests' 1e-5 fp32,
+    2e-2 bf16, 1e-5 on buf). Then, at the main path's 101,632 fp32, from a
+    CUDA graph: warm, cold (operand sets rotated past the L2), the launch
+    floor (an empty kernel of the same grid and arguments) and the library
+    yardstick torch._fused_sgd_ on the same operands, warm and cold, after
+    holding it to 5 rounds of the plain update."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rho, gamma, tau, lam = 0.7, 0.25, 0.2, 1e-4
+    rho_k = torch.linspace(0.5, 0.9, 6, device="cuda")
+    gamma_k = torch.linspace(0.1, 0.35, 6, device="cuda")
+    rho, gamma, tau, lam = rho_k[3], gamma_k[3], 0.2, 1e-4
     worst = {}
-    for n in (101_632, 17, 70_000):
+    for n in SSCA_SIZES:
         for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-            w = torch.randn(n, generator=gen, device="cuda").to(dtype)
-            buf = torch.randn(n, generator=gen, device="cuda")
-            g = torch.randn(n, generator=gen, device="cuda").to(dtype)
-            want_w, want_b = ssca.plain(w, buf, g, rho, gamma, tau, lam)
-            got_w, got_b = ssca.ssca_update_(w.clone(), buf.clone(), g, rho,
-                                             gamma, tau, lam)
-            torch.cuda.synchronize()
-            err_w = (got_w.float() - want_w.float()).abs().max().item()
-            err_b = (got_b - want_b).abs().max().item()
-            check(err_w <= tol and err_b <= 1e-5, (
-                f"ssca_update n={n} {dtype}: |dw|={err_w} |dbuf|={err_b}"))
-            worst[f"{n}/{str(dtype)[6:]}"] = max(err_w, err_b)
-    # timing at the main path's shape: 101,632 fp32 parameters
-    n = 101_632
-    w = torch.randn(n, generator=gen, device="cuda")
-    buf = torch.randn(n, generator=gen, device="cuda")
-    g = torch.randn(n, generator=gen, device="cuda")
-    sched = torch.tensor([0.3, 0.3], device="cuda")
+            for off in (0, 1):
+                w, buf, g = (torch.randn(n + off, generator=gen, device="cuda")
+                             .to(dt)[off:] for dt in (dtype, torch.float32, dtype))
+                want_w, want_b = ssca.plain(w, buf, g, rho, gamma, tau, lam)
+                got_w, got_b = ssca.ssca_update_(w, buf, g, rho, gamma, tau, lam)
+                torch.cuda.synchronize()
+                err_w = (got_w.float() - want_w.float()).abs().max().item()
+                err_b = (got_b - want_b).abs().max().item()
+                check(err_w <= tol and err_b <= 1e-5, (
+                    f"ssca_update n={n} {dtype} offset {off}: |dw|={err_w} "
+                    f"|dbuf|={err_b}"))
+                worst[f"{n}/{str(dtype)[6:]}/+{off}"] = max(err_w, err_b)
+
+    n, tau, lam = 101_632, 0.05, 1e-5
+    # the yardstick computes the same function: 5 rounds from ρ = 1, the
+    # first (momentum 0, refused with a buffer list) by hand
+    w0 = torch.randn(n, generator=gen, device="cuda") / 10
+    w_ref, buf_ref, w, v = w0.clone(), torch.zeros(n, device="cuda"), w0, None
+    gamma_prev = 0.0
+    for t in range(1, 6):
+        g = torch.randn(n, generator=gen, device="cuda")
+        r, gm = (1.0 if t == 1 else 0.3 / t ** 0.1), 0.3 / t ** 0.6
+        w_ref, buf_ref = ssca.plain(w_ref, buf_ref, g, r, gm, tau, lam)
+        if t == 1:
+            v = r / (2 * tau) * (g + 2 * lam * w)
+            w = w - gm * v
+        else:
+            fused_sgd_step(torch, w, g, v, r, gm, gamma_prev, tau, lam)
+        gamma_prev = gm
+    lib_err, lib_ok = close_err(w, w_ref, 1e-5)
+    check(lib_ok, f"ssca_update: the library yardstick disagrees by {lib_err}")
+
+    rho_s = torch.tensor(0.3, device="cuda")
+    gamma_s = torch.tensor(0.3, device="cuda")
     lib = build.library("ssca_update")
 
-    def launch():
-        code = lib.ssca_update_f32(w.data_ptr(), buf.data_ptr(), g.data_ptr(),
-                                   sched.data_ptr(), 2e-5 - 0.1, 0.1, n,
-                                   torch.cuda.current_stream().cuda_stream)
+    def make():
+        return tuple(torch.randn(n, generator=gen, device="cuda") for _ in range(3))
+
+    def launch(w, buf, g):
+        code = lib.ssca_update_f32(
+            *ssca.kernel_args(w, buf, g, rho_s, gamma_s, tau, lam),
+            torch.cuda.current_stream().cuda_stream)
         build.check(code, "ssca_update_f32")
 
-    ms = graph_ms(launch)
-    eager = event_ms(launch)
-    plain_ms = event_ms(lambda: ssca.plain(w, buf, g, sched[0], sched[1],
-                                           0.05, 1e-5))
-    b_ms, b_by = bound_ms(20 * n, 7 * n)
-    return {"name": "ssca_update", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/ssca_update.cu",
-            "replaces": "src/repro/kernels/ssca_update.py:43",
-            "max_abs_err": max(worst.values()), "max_abs_err_by_case": worst,
-            "ms": ms, "eager_ms": eager, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "shape": [n], "bytes": 20 * n}
+    def empty(w, buf, g):
+        code = lib.ssca_update_empty(
+            *ssca.kernel_args(w, buf, g, rho_s, gamma_s, tau, lam),
+            torch.cuda.current_stream().cuda_stream)
+        build.check(code, "ssca_update_empty")
+
+    def library(w, buf, g):
+        fused_sgd_step(torch, w, g, buf, 0.3, 0.3, 0.3, tau, lam)
+
+    nbytes = 20 * n
+    sets = cold_sets(make, 12 * n)      # by footprint: w, buf, g of a set
+    w, buf, g = sets[0]
+    timed = timed_pair(launch, library, sets, True)
+    layout = ssca.layout_for(w, buf, g, ssca._sms(torch.cuda.current_device()))
+    b_ms, b_by = bound_ms(nbytes, 7 * n)
+    out = {"name": "ssca_update", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/ssca_update.cu",
+           "replaces": "src/repro/kernels/ssca_update.py:43",
+           "max_abs_err": max(worst.values()), "max_abs_err_by_case": worst,
+           "library_max_abs_err": lib_err, **timed,
+           "floor_ms": graph_ms(rotating(empty, sets[:1])),
+           "eager_ms": event_ms(rotating(launch, sets[:1])),
+           "plain_ms": event_ms(lambda: ssca.plain(w, buf, g, rho_s, gamma_s,
+                                                   tau, lam)),
+           "bound_ms": b_ms, "bound_by": b_by, "shape": [n], "bytes": nbytes,
+           "layout": layout._asdict()}
+    del sets
+    return out
 
 
 def check_quantize(torch, qz, build):
@@ -656,7 +721,7 @@ def main() -> int:
     build.build_all()
     emit("build", seconds=time.perf_counter() - t0, log=build.BUILD_LOG)
     emit("ptxas", **{n: build.BUILD_LOG[n]["ptxas"]
-                     for n in ("flash_attention", "rmsnorm")})
+                     for n in ("ssca_update", "flash_attention", "rmsnorm")})
 
     kernels = [check_ssca_update(torch, ssca, build),
                check_quantize(torch, qz, build),
@@ -726,9 +791,11 @@ def main() -> int:
         check(kr["launches"] > 0, f"{n} never launched on a main path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    extra = ("cold_ms", "library_cold_ms", "floor_ms")      # where measured
     print(smi, flush=True)
-    print(json.dumps({"kernels": [{k: kr[k] for k in keys} for kr in kernels]}),
-          flush=True)
+    print(json.dumps({"kernels": [{**{k: kr[k] for k in keys},
+                                   **{k: kr[k] for k in extra if k in kr}}
+                                  for kr in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

@@ -42,15 +42,18 @@ def _flat(tree):
     return torch.cat([tree[k].reshape(-1) for k in sorted(tree)])
 
 
-def _sched(fl, t, rho_t=None, gamma_t=None):
+def _sched(fl, t, rho_t=None, gamma_t=None, device=None):
     # the paper's examples choose ρ^(1) = 1 (§III-A, before eq. (11)): the
     # t=1 surrogate is then a pure batch estimate, independent of the zero
-    # init. run_rounds passes precomputed per-round (rho_t, gamma_t).
+    # init. run_rounds passes precomputed per-round (rho_t, gamma_t); the
+    # ones computed here are 0-d fp32 tensors on `device`.
     if rho_t is None:
-        rho_t = (torch.tensor(1.0) if int(t) == 1
-                 else schedules.rho(int(t), fl.a1, fl.alpha_rho))
+        rho_t = (torch.ones((), device=device) if int(t) == 1 else
+                 schedules.rho(torch.tensor(int(t), device=device), fl.a1,
+                               fl.alpha_rho))
     if gamma_t is None:
-        gamma_t = schedules.gamma(int(t), fl.a2, fl.alpha_gamma)
+        gamma_t = schedules.gamma(torch.tensor(int(t), device=device), fl.a2,
+                                  fl.alpha_gamma)
     return rho_t, gamma_t
 
 
@@ -75,13 +78,14 @@ def ssca_init(params) -> SSCAState:
 def ssca_step(state: SSCAState, grad, fl, rho_t=None, gamma_t=None) -> SSCAState:
     """grad: aggregated mini-batch gradient estimate of the *data* loss F, a
     dict like params or a flat (P,) tensor (the λ‖ω‖² regularizer is
-    injected here, not in grad). ρ^t/γ^t are floats or 0-d tensors.
+    injected here, not in grad). ρ^t/γ^t are floats or 0-d fp32 tensors on
+    the params' device (``RoundInputs.round(r)`` views pass as they are).
 
     Updates IN PLACE: the state's flat params and surrogate buffer (and so
     every view of them, the input state's included) hold the new values
     after the call; the returned state shares those buffers, with t + 1.
     grad is cast to the params' dtype, as the kernel takes it."""
-    rho_t, gamma_t = _sched(fl, state.t, rho_t, gamma_t)
+    rho_t, gamma_t = _sched(fl, state.t, rho_t, gamma_t, state.w_flat.device)
     g = grad if isinstance(grad, torch.Tensor) else _flat(grad)
     g = g.to(state.w_flat.dtype).contiguous()
     ssca_update_(state.w_flat, state.g_flat, g, rho_t, gamma_t,

@@ -35,10 +35,14 @@ _P, _F, _LL, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_longlong, ctypes.c_i
 _PLL = ctypes.POINTER(ctypes.c_longlong)     # a host array of strides
 # C entry -> argtypes; every device pointer and the stream are void* (ctypes
 # would otherwise pass a Python int as a 32-bit int and cut the pointer)
+# w, buf, grad, rho, gamma, c, 2τ, n, then the layout (vec, per_thread,
+# threads, blocks, tail_start), and the stream
+_SSCA = [_P, _P, _P, _P, _P, _F, _F, _LL, _I, _I, _I, _I, _LL, _P]
 SIGNATURES = {
     "ssca_update": {
-        "ssca_update_f32": [_P, _P, _P, _P, _F, _F, _LL, _P],
-        "ssca_update_bf16": [_P, _P, _P, _P, _F, _F, _LL, _P],
+        "ssca_update_f32": _SSCA,
+        "ssca_update_bf16": _SSCA,
+        "ssca_update_empty": _SSCA,
     },
     "quantize": {
         "stochastic_quantize": [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _F, _I,

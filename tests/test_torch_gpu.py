@@ -6,8 +6,8 @@ only PyTorch:
 
     python -m pytest tests/test_torch_gpu.py -m gpu -q
 
-Tolerances: ssca_update 1e-5 in fp32 and 2e-2 in bf16 (nvcc's FMAs round
-once where the plain version rounds twice); the quantizer is bit-exact;
+Tolerances: ssca_update 1e-5 in fp32 and 2e-2 in bf16 (the kernel's FMAs
+round once where the plain version rounds twice); the quantizer is bit-exact;
 rmsnorm 1e-5 in fp32 (another summation order, CUDA's 2-ulp rsqrtf) and
 2e-2 in bf16; flash attention 2e-5 in fp32 and 3e-2 in bf16, the JAX
 kernel tests' (the online softmax sums in another order).
@@ -34,22 +34,64 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n", [17, 1000, 4096, 70000, 101_632])
+# every ragged end of the 16-byte vectors (4 fp32, 8 bf16), the main path's
+# 101,632 and a grid-strided 2^20+3
+SSCA_SIZES = [1, 3, 4, 7, 8, 9, 17, 1000, 4096, 70000, 101_632, 2**20 + 3]
+
+
+def _ssca_operands(cuda, n, dtype, offset, seed):
+    """w, buf, grad at an element offset into larger buffers (offset 1: not
+    16-byte aligned, the kernel's scalar path), and ρ, γ as entry 3 of (6,)
+    schedule arrays whose entries all differ (as run_rounds passes them)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def draw(dt):
+        return torch.randn(n + offset, generator=gen, device=cuda).to(dt)[offset:]
+
+    rho = torch.linspace(0.5, 0.9, 6, device=cuda)
+    gamma = torch.linspace(0.1, 0.35, 6, device=cuda)
+    return draw(dtype), draw(torch.float32), draw(dtype), rho[3], gamma[3]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", SSCA_SIZES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ssca_update_kernel_matches_plain(cuda, n, dtype):
-    gen = torch.Generator(device=cuda).manual_seed(n)
-    w = torch.randn(n, generator=gen, device=cuda).to(dtype)
-    buf = torch.randn(n, generator=gen, device=cuda)
-    g = torch.randn(n, generator=gen, device=cuda).to(dtype)
-    want_w, want_b = ssca_update.plain(w, buf, g, 0.7, 0.25, 0.2, 1e-4)
+def test_ssca_update_kernel_matches_plain(cuda, n, dtype, offset):
+    w, buf, g, rho, gamma = _ssca_operands(cuda, n, dtype, offset, n + offset)
+    assert (w.data_ptr() % 16 == 0) == (offset == 0)
+    want_w, want_b = ssca_update.plain(w, buf, g, rho, gamma, 0.2, 1e-4)
     before = ssca_update.ssca_update_.launches
-    got_w, got_b = ssca_update.ssca_update_(w, buf, g, torch.tensor(0.7, device=cuda),
-                                            torch.tensor(0.25, device=cuda), 0.2, 1e-4)
+    got_w, got_b = ssca_update.ssca_update_(w, buf, g, rho, gamma, 0.2, 1e-4)
     torch.cuda.synchronize()
     assert got_w is w and ssca_update.ssca_update_.launches == before + 1
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got_w.float(), want_w.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(got_b, want_b, atol=1e-5, rtol=1e-5)
+
+
+def test_ssca_update_is_one_kernel_per_call(cuda):
+    """With ρ/γ 0-d fp32 views on the card, a call launches the kernel and
+    nothing else (the profiler's CUDA events: no copy, no stack)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    w, buf, g, rho, gamma = _ssca_operands(cuda, 101_632, torch.float32, 0, 1)
+    ssca_update.ssca_update_(w, buf, g, rho, gamma, 0.05, 1e-5)   # builds
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ssca_update.ssca_update_(w, buf, g, rho, gamma, 0.05, 1e-5)
+        torch.cuda.synchronize()
+    device = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(device) == 1 and "ssca_update_kernel" in device[0], device
+
+
+def test_ssca_update_refuses_other_schedule_dtypes_and_devices(cuda):
+    w, buf, g, rho, gamma = _ssca_operands(cuda, 1000, torch.float32, 0, 2)
+    with pytest.raises(TypeError, match="rho"):
+        ssca_update.ssca_update_(w, buf, g, rho.double(), gamma, 0.2, 1e-4)
+    with pytest.raises(ValueError, match="rho"):
+        ssca_update.ssca_update_(w, buf, g, rho.cpu(), gamma, 0.2, 1e-4)
+    with pytest.raises(ValueError, match="gamma"):
+        ssca_update.ssca_update_(w, buf, g, rho, gamma.cpu(), 0.2, 1e-4)
 
 
 @pytest.mark.parametrize("rows,p", [(1, 17), (3, 1000), (2, 70000), (10, 101_632)])

@@ -67,6 +67,103 @@ def test_ssca_update_wrapper_on_cpu_is_in_place_plain():
     assert ssca_update.ssca_update_.launches == before   # no kernel on CPU
 
 
+def test_ssca_update_refuses_schedules_it_would_have_to_convert():
+    """ρ/γ are floats or 0-d fp32 tensors on w's device; the wrapper never
+    converts another dtype, device or shape (on the card it hands the
+    kernel their data pointers)."""
+    w, buf, g = (torch.from_numpy(a) for a in _ssca_inputs(64, seed=4))
+    for rho, err in ((torch.tensor(0.5, dtype=torch.float64), TypeError),
+                     (torch.tensor(0.5, device="meta"), ValueError),
+                     (torch.tensor([0.5]), ValueError), ("0.5", TypeError)):
+        with pytest.raises(err, match="rho"):
+            ssca_update.ssca_update_(w, buf, g, rho, 0.1, 0.05, 1e-5)
+    with pytest.raises(TypeError, match="gamma"):
+        ssca_update.ssca_update_(w, buf, g, 0.5, torch.tensor(0.1).half(),
+                                 0.05, 1e-5)
+
+
+def _covered(lay, n):
+    """How often the kernel's indexing (csrc/ssca_update.cu) touches each of
+    [0, n) under layout ``lay``: vector v = base + j·threads of each pass,
+    base = (pass·blocks + block)·threads·per_thread + thread, then the
+    scalar tail in block 0."""
+    nvec = lay.tail_start // lay.vec
+    tile = lay.threads * lay.per_thread
+    passes = max(1, -(-nvec // (lay.blocks * tile)))
+    base = ((np.arange(passes)[:, None, None] * lay.blocks
+             + np.arange(lay.blocks)[None, :, None]) * tile
+            + np.arange(lay.threads)[None, None, :])
+    v = (base[..., None] + np.arange(lay.per_thread) * lay.threads).ravel()
+    v = v[v < nvec]
+    body = (v[:, None] * lay.vec + np.arange(lay.vec)).ravel()
+    tail = lay.tail_start + np.arange(min(lay.threads, n - lay.tail_start))
+    return np.bincount(np.concatenate([body, tail]), minlength=n)
+
+
+@pytest.mark.parametrize("threads,per_thread", [
+    (ssca_update.THREADS, ssca_update.PER_THREAD), (128, 2), (64, 4)])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssca_layout_covers_every_element_once(dtype, aligned, threads,
+                                               per_thread):
+    """For n = 1..1100, the main path's 101,632 and 2^20+3 (grid-strided),
+    16-byte vectors with a scalar tail, or scalars when unaligned; at the
+    default layout and at the others the kernel takes."""
+    want_vec = 16 // dtype.itemsize if aligned else 1
+    for n in [*range(1, 1101), 101_632, 2**20 + 3]:
+        lay = ssca_update.launch_layout(n, dtype, aligned, sms=132,
+                                        threads=threads, per_thread=per_thread)
+        assert lay.vec == want_vec and 0 <= n - lay.tail_start < lay.vec
+        assert lay.tail_start % lay.vec == 0 and lay.blocks >= 1
+        counts = _covered(lay, n)
+        assert counts.shape == (n,) and (counts == 1).all(), n
+
+
+def test_ssca_layout_picks_vectors_from_the_pointers():
+    """Operands at an offset of one element are not 16-byte aligned and go
+    through the scalar path; the main path's layout is one wave of 132 SMs
+    and one pass over its 25,408 float4 vectors."""
+    flat = torch.zeros(101_632 + 4)
+    w, buf, g = flat[:101_632], torch.zeros(101_632), torch.zeros(101_632)
+    lay = ssca_update.layout_for(w, buf, g, sms=132)
+    assert lay.vec == 4 and lay.tail_start == 101_632
+    assert lay.blocks <= 132 * (ssca_update.THREADS_PER_SM // lay.threads)
+    assert lay.blocks * lay.threads * lay.per_thread * lay.vec >= 101_632
+    assert ssca_update.layout_for(flat[1:101_633], buf, g, sms=132).vec == 1
+    assert ssca_update.layout_for(w, buf, flat[1:101_633], sms=132).vec == 1
+    bf = torch.zeros(20, dtype=torch.bfloat16)
+    assert ssca_update.layout_for(bf[:19], torch.zeros(19), bf[:19]).vec == 8
+
+
+def _fma(a, b, c):
+    """fp32 fused multiply-add: exact in float64 for fp32 a·b, one rounding
+    to fp32 (a second, float64 rounding of the sum is below fp32's ulp
+    except in rare ties)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def test_ssca_kernel_operation_order_within_tolerance():
+    """The kernel's arithmetic, in its order (two FMAs, two multiplies,
+    −γ/(2τ) formed once), against the plain version at 2^20+3 elements:
+    within 1e-5 in fp32 and on buf, 2e-2 in bf16 (absolute plus relative),
+    as the source header says."""
+    n = 2**20 + 3
+    rng = np.random.default_rng(6)
+    w, buf, g = (torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+                 for _ in range(3))
+    rho, gamma, tau, lam = (torch.tensor(v) for v in (0.7, 0.25, 0.2, 1e-4))
+    c, step = 2 * lam - 2 * tau, -gamma / (2 * tau)
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        wd, gd = w.to(dtype).float(), g.to(dtype).float()
+        nb = _fma(1 - rho, buf, rho * _fma(c, wd, gd))
+        nw = _fma(1 - gamma, wd, step * nb).to(dtype)
+        want_w, want_b = ssca_update.plain(w.to(dtype), buf, g.to(dtype), rho,
+                                           gamma, 0.2, 1e-4)
+        torch.testing.assert_close(nw.float(), want_w.float(), atol=tol,
+                                   rtol=tol)
+        torch.testing.assert_close(nb, want_b, atol=1e-5, rtol=1e-5)
+
+
 def _quant_inputs(rows, n, seed=5):
     rng = np.random.default_rng(seed)
     x = (rng.standard_normal((rows, n)) * 3.0).astype(np.float32)

@@ -215,3 +215,41 @@ def test_remark2_momentum_form_equals_ssca_step():
             np.testing.assert_allclose(m.params[k].numpy(),
                                        s.params[k].numpy(), atol=1e-5,
                                        rtol=1e-5)
+
+
+@pytest.mark.parametrize("tau", [0.05, 0.2])
+def test_fused_sgd_momentum_form_is_the_ssca_update(tau):
+    """Remark 2 (eqs. (11)-(12)) as one PyTorch call: ``torch._fused_sgd_``
+    with momentum (1-ρ)(1-γ_prev), dampening 1-ρ/(2τ), weight decay 2λ and
+    lr γ gives ssca_update's w over 5 rounds at the paper's 101,632 fp32
+    parameters, from ρ = 1. It reads w, g and v and writes w and v, the
+    kernel's five streams, so chip_smoke.py times it as the kernel's library
+    yardstick; the port never calls it. Round 1 has momentum 0, which
+    _fused_sgd_ refuses with a buffer list: momentum_form_step takes it.
+    Tolerance 1e-5 (absolute plus relative): the two forms round apart."""
+    from repro_torch.kernels import ssca_update
+    fl = FLConfig(**dict(FL_KW, tau=tau))
+    n = MNIST_MLP.num_params
+    rng = np.random.default_rng(12)
+    w0 = torch.from_numpy((rng.standard_normal(n) / 10).astype(np.float32))
+    w_ssca, buf = w0.clone(), torch.zeros(n)
+    mom = topt.momentum_form_init({"w": w0.clone()})
+    v = w = None
+    for t in range(1, 6):
+        g = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+        rho, gamma = topt._sched(fl, t)
+        assert t > 1 or float(rho) == 1.0
+        ssca_update.ssca_update_(w_ssca, buf, g, rho, gamma, fl.tau, fl.l2_lambda)
+        if t == 1:
+            mom = topt.momentum_form_step(mom, {"w": g}, fl, rho, gamma)
+            w, v = mom.params["w"], mom.v["w"]
+        else:
+            torch._fused_sgd_([w], [g], [v], weight_decay=2 * fl.l2_lambda,
+                              momentum=(1 - float(rho)) * (1 - gamma_prev),
+                              lr=float(gamma),
+                              dampening=1 - float(rho) / (2 * fl.tau),
+                              nesterov=False, maximize=False,
+                              is_first_step=False)
+        gamma_prev = float(gamma)
+        np.testing.assert_allclose(w.numpy(), w_ssca.numpy(), atol=1e-5,
+                                   rtol=1e-5)
