@@ -103,11 +103,10 @@ def event_ms(fn, iters=200, warmup=10):
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(launch, iters=200, replays=5):
+def graph_ms(launch, iters=200):
     """Mean device ms per launch: `iters` launches captured in one CUDA
     graph and replayed between CUDA events, so the host's launch rate does
-    not hide the kernel's own time; the median of `replays` timed replays
-    after an untimed one."""
+    not hide the kernel's own time."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -121,16 +120,13 @@ def graph_ms(launch, iters=200, replays=5):
             launch()
     graph.replay()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(replays):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    return sorted(times)[replays // 2]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def rotating(fn, sets):
@@ -173,6 +169,19 @@ def fused_sgd_step(torch, w, g, v, rho, gamma, gamma_prev, tau, lam):
                       momentum=(1 - rho) * (1 - gamma_prev), lr=gamma,
                       dampening=1 - rho / (2 * tau), nesterov=False,
                       maximize=False, is_first_step=False)
+
+
+def ssca_wrapper_ms(torch, ssca, n=101_632):
+    """Mean ms per call of ``ssca.ssca_update_`` as Algorithm 1 calls it
+    (101,632 fp32 in place, ρ and γ 0-d views of (K,) schedule arrays) from
+    the host: 200 calls between CUDA events, so the wrapper's host time
+    where it exceeds the kernel's. ``ssca`` is any module with that
+    function, an earlier tree's included."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    w, buf, g = (torch.randn(n, generator=gen, device="cuda") for _ in range(3))
+    rho = torch.linspace(0.5, 0.9, 6, device="cuda")[3]
+    gamma = torch.linspace(0.1, 0.35, 6, device="cuda")[3]
+    return event_ms(lambda: ssca.ssca_update_(w, buf, g, rho, gamma, 0.05, 1e-5))
 
 
 def check_ssca_update(torch, ssca, build):
@@ -252,6 +261,12 @@ def check_ssca_update(torch, ssca, build):
     w, buf, g = sets[0]
     timed = timed_pair(launch, library, sets, True)
     layout = ssca.layout_for(w, buf, g, ssca._sms(torch.cuda.current_device()))
+    args = ssca.kernel_args(w, buf, g, rho_s, gamma_s, tau, lam, layout)
+
+    def launch_ready():     # the C call alone, its arguments made once
+        code = lib.ssca_update_f32(*args, torch.cuda.current_stream().cuda_stream)
+        build.check(code, "ssca_update_f32")
+
     b_ms, b_by = bound_ms(nbytes, 7 * n)
     out = {"name": "ssca_update", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/ssca_update.cu",
@@ -259,7 +274,8 @@ def check_ssca_update(torch, ssca, build):
            "max_abs_err": max(worst.values()), "max_abs_err_by_case": worst,
            "library_max_abs_err": lib_err, **timed,
            "floor_ms": graph_ms(rotating(empty, sets[:1])),
-           "eager_ms": event_ms(rotating(launch, sets[:1])),
+           "eager_ms": event_ms(launch_ready),
+           "wrapper_ms": ssca_wrapper_ms(torch, ssca),
            "plain_ms": event_ms(lambda: ssca.plain(w, buf, g, rho_s, gamma_s,
                                                    tau, lam)),
            "bound_ms": b_ms, "bound_by": b_by, "shape": [n], "bytes": nbytes,
@@ -718,7 +734,7 @@ def main() -> int:
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    build.build_all()
+    build.build_all(rebuild=True)   # from the checkout's sources, every run
     emit("build", seconds=time.perf_counter() - t0, log=build.BUILD_LOG)
     emit("ptxas", **{n: build.BUILD_LOG[n]["ptxas"]
                      for n in ("ssca_update", "flash_attention", "rmsnorm")})

@@ -35,9 +35,9 @@ _P, _F, _LL, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_longlong, ctypes.c_i
 _PLL = ctypes.POINTER(ctypes.c_longlong)     # a host array of strides
 # C entry -> argtypes; every device pointer and the stream are void* (ctypes
 # would otherwise pass a Python int as a 32-bit int and cut the pointer)
-# w, buf, grad, rho, gamma, c, 2τ, n, then the layout (vec, per_thread,
-# threads, blocks, tail_start), and the stream
-_SSCA = [_P, _P, _P, _P, _P, _F, _F, _LL, _I, _I, _I, _I, _LL, _P]
+# w, buf, grad, rho, gamma, c, 2τ, n, then the layout (vec, blocks,
+# tail_start), and the stream
+_SSCA = [_P, _P, _P, _P, _P, _F, _F, _LL, _I, _I, _LL, _P]
 SIGNATURES = {
     "ssca_update": {
         "ssca_update_f32": _SSCA,
@@ -78,11 +78,11 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def _start(name: str):
+def _start(name: str, rebuild: bool = False):
     """Start nvcc for one source; returns (process, temp path, target, t0),
-    or None when the library is already built."""
+    or None when the library is already built and ``rebuild`` is off."""
     out = _target(name)
-    if out.exists():
+    if out.exists() and not rebuild:
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -129,11 +129,13 @@ def _load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def build_all(names=None) -> dict:
+def build_all(names=None, rebuild: bool = False) -> dict:
     """Build every named source (default: all), one nvcc each, all started
-    together; returns name -> loaded library."""
+    together; returns name -> loaded library. ``rebuild`` compiles even a
+    source whose library is on disk, so that BUILD_LOG holds its nvcc time
+    and ptxas report."""
     wanted = list(names or SIGNATURES)
-    started = {n: _start(n) for n in wanted if n not in _LIBS}
+    started = {n: _start(n, rebuild) for n in wanted if n not in _LIBS}
     for n, s in started.items():
         if s is not None:
             _finish(n, s)

@@ -24,15 +24,15 @@
 //   aligned; the last n mod V elements go through a scalar tail of the same
 //   launch, and unaligned operands (a view at an odd offset) through the
 //   same kernel instantiated with V = 1. Nothing goes back to PyTorch.
-// - All loads before any arithmetic. Each thread owns K vectors of a pass
-//   (K = 1, 2 or 4, vectors K·threads apart so that a warp's accesses stay
-//   contiguous) and issues all 3K loads before it computes, so their
-//   latencies overlap. The layout (V, K, threads, blocks, tail start) comes
-//   from the Python wrapper (kernels/ssca_update.py::launch_layout). At the
-//   main path's size it is 100 blocks of 256 threads, one float4 each: one
-//   wave, the fastest of the layouts scripts/compare_ssca_update.py times
-//   (more vectors a thread were slower). A grid-stride loop takes any
-//   larger n.
+// - All loads before any arithmetic. Each thread owns one vector of a pass
+//   and issues its three data loads, then those of ρ and γ (see
+//   load_scalar), before it computes, so their latencies overlap. Blocks are kThreads = 256
+//   threads; the vector width, the grid and the tail start come from the
+//   Python wrapper (kernels/ssca_update.py::launch_layout). At the main
+//   path's size that is 100 blocks, one float4 a thread: one wave on 132
+//   SMs, the fastest of the layouts timed on the H100 (PERF.md: two or four
+//   vectors a thread were slower at every block size). A grid-stride loop
+//   takes any larger n.
 // - No division per element. −γ/(2τ) is formed once per thread and pass,
 //   after the pass's data loads are issued (see load_scalar), and each
 //   element costs two FMAs and two multiplies in a fixed order (explicit
@@ -158,10 +158,11 @@ __device__ __forceinline__ void update(float& w, float& b, float g,
   w = __fmaf_rn(k.keep_w, w, __fmul_rn(k.step, b));
 }
 
-// Vector i of the body covers elements [i·V, i·V + V) of [0, tail_start);
-// pass p of block b covers vectors [(p·grid + b)·K·threads, + K·threads),
-// thread t the K of them that lie threads apart from vector t of the pass.
-template <typename T, int V, int K>
+constexpr int kThreads = 256;   // a block; kernels/ssca_update.py's THREADS
+
+// Vector v of the body covers elements [v·V, v·V + V) of [0, tail_start);
+// thread t of block b takes vector b·kThreads + t of each pass of the grid.
+template <typename T, int V>
 __global__ void ssca_update_kernel(T* __restrict__ w, float* __restrict__ buf,
                                    const T* __restrict__ grad,
                                    const float* __restrict__ rho_p,
@@ -169,30 +170,17 @@ __global__ void ssca_update_kernel(T* __restrict__ w, float* __restrict__ buf,
                                    float two_tau, int64_t n,
                                    int64_t tail_start) {
   const int64_t nvec = tail_start / V;
-  const int64_t tile = (int64_t)blockDim.x * K;
-  for (int64_t base = (int64_t)blockIdx.x * tile + threadIdx.x; base < nvec;
-       base += (int64_t)gridDim.x * tile) {
-    float wv[K][V], bv[K][V], gv[K][V];
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      const int64_t v = base + (int64_t)j * blockDim.x;
-      if (v < nvec) {
-        load_v<V>(w, v * V, wv[j]);
-        load_v<V>(buf, v * V, bv[j]);
-        load_v<V>(grad, v * V, gv[j]);
-      }
-    }
+  for (int64_t v = (int64_t)blockIdx.x * kThreads + threadIdx.x; v < nvec;
+       v += (int64_t)gridDim.x * kThreads) {
+    float wv[V], bv[V], gv[V];
+    load_v<V>(w, v * V, wv);
+    load_v<V>(buf, v * V, bv);
+    load_v<V>(grad, v * V, gv);
     const Coef k = coef(rho_p, gamma_p, c, two_tau);
 #pragma unroll
-    for (int j = 0; j < K; ++j) {
-      const int64_t v = base + (int64_t)j * blockDim.x;
-      if (v < nvec) {
-#pragma unroll
-        for (int e = 0; e < V; ++e) update(wv[j][e], bv[j][e], gv[j][e], k);
-        store_v<V>(w, v * V, wv[j]);
-        store_v<V>(buf, v * V, bv[j]);
-      }
-    }
+    for (int e = 0; e < V; ++e) update(wv[e], bv[e], gv[e], k);
+    store_v<V>(w, v * V, wv);
+    store_v<V>(buf, v * V, bv);
   }
   // the scalar tail: the last n - tail_start (< V) elements, in block 0
   if (blockIdx.x == 0 && threadIdx.x < n - tail_start) {
@@ -212,34 +200,14 @@ __global__ void ssca_update_empty_kernel(float*, float*, const float*,
                                          const float*, const float*, float,
                                          float, int64_t, int64_t) {}
 
-template <typename T, int V, int K>
-int launch_k(void* w, void* buf, const void* grad, const void* rho,
+template <typename T, int V>
+int launch_v(void* w, void* buf, const void* grad, const void* rho,
              const void* gamma, float c, float two_tau, long long n,
-             long long tail_start, int threads, int blocks, void* stream) {
-  ssca_update_kernel<T, V, K><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+             long long tail_start, int blocks, void* stream) {
+  ssca_update_kernel<T, V><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (T*)w, (float*)buf, (const T*)grad, (const float*)rho,
       (const float*)gamma, c, two_tau, (int64_t)n, (int64_t)tail_start);
   return (int)cudaGetLastError();
-}
-
-template <typename T, int V>
-int launch_v(int per_thread, void* w, void* buf, const void* grad,
-             const void* rho, const void* gamma, float c, float two_tau,
-             long long n, long long tail_start, int threads, int blocks,
-             void* stream) {
-  switch (per_thread) {
-    case 1:
-      return launch_k<T, V, 1>(w, buf, grad, rho, gamma, c, two_tau, n,
-                               tail_start, threads, blocks, stream);
-    case 2:
-      return launch_k<T, V, 2>(w, buf, grad, rho, gamma, c, two_tau, n,
-                               tail_start, threads, blocks, stream);
-    case 4:
-      return launch_k<T, V, 4>(w, buf, grad, rho, gamma, c, two_tau, n,
-                               tail_start, threads, blocks, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
 }
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
@@ -250,41 +218,37 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 template <typename T>
 int launch(void* w, void* buf, const void* grad, const void* rho,
            const void* gamma, float c, float two_tau, long long n, int vec,
-           int per_thread, int threads, int blocks, long long tail_start,
-           void* stream) {
+           int blocks, long long tail_start, void* stream) {
   if (n <= 0) return 0;
   constexpr int kVec = 16 / sizeof(T);
   const bool ok = (vec == 1 || (vec == kVec && aligned16(w) &&
                                 aligned16(buf) && aligned16(grad))) &&
-                  tail_start == n - n % vec && threads >= 32 &&
-                  threads <= 1024 && threads % 32 == 0 && blocks >= 1;
+                  tail_start == n - n % vec && blocks >= 1;
   if (!ok) return (int)cudaErrorInvalidValue;
   if (vec == 1)
-    return launch_v<T, 1>(per_thread, w, buf, grad, rho, gamma, c, two_tau, n,
-                          tail_start, threads, blocks, stream);
-  return launch_v<T, kVec>(per_thread, w, buf, grad, rho, gamma, c, two_tau,
-                           n, tail_start, threads, blocks, stream);
+    return launch_v<T, 1>(w, buf, grad, rho, gamma, c, two_tau, n,
+                          tail_start, blocks, stream);
+  return launch_v<T, kVec>(w, buf, grad, rho, gamma, c, two_tau, n,
+                           tail_start, blocks, stream);
 }
 
 }  // namespace
 
 extern "C" int ssca_update_f32(void* w, void* buf, const void* grad,
                                const void* rho, const void* gamma, float c,
-                               float two_tau, long long n, int vec,
-                               int per_thread, int threads, int blocks,
+                               float two_tau, long long n, int vec, int blocks,
                                long long tail_start, void* stream) {
-  return launch<float>(w, buf, grad, rho, gamma, c, two_tau, n, vec,
-                       per_thread, threads, blocks, tail_start, stream);
+  return launch<float>(w, buf, grad, rho, gamma, c, two_tau, n, vec, blocks,
+                       tail_start, stream);
 }
 
 extern "C" int ssca_update_bf16(void* w, void* buf, const void* grad,
                                 const void* rho, const void* gamma, float c,
                                 float two_tau, long long n, int vec,
-                                int per_thread, int threads, int blocks,
-                                long long tail_start, void* stream) {
+                                int blocks, long long tail_start,
+                                void* stream) {
   return launch<__nv_bfloat16>(w, buf, grad, rho, gamma, c, two_tau, n, vec,
-                               per_thread, threads, blocks, tail_start,
-                               stream);
+                               blocks, tail_start, stream);
 }
 
 // Measurement only (chip_smoke.py's floor_ms): an empty kernel launched
@@ -292,11 +256,10 @@ extern "C" int ssca_update_bf16(void* w, void* buf, const void* grad,
 extern "C" int ssca_update_empty(void* w, void* buf, const void* grad,
                                  const void* rho, const void* gamma, float c,
                                  float two_tau, long long n, int vec,
-                                 int per_thread, int threads, int blocks,
-                                 long long tail_start, void* stream) {
+                                 int blocks, long long tail_start,
+                                 void* stream) {
   (void)vec;
-  (void)per_thread;
-  ssca_update_empty_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  ssca_update_empty_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (float*)w, (float*)buf, (const float*)grad, (const float*)rho,
       (const float*)gamma, c, two_tau, (int64_t)n, (int64_t)tail_start);
   return (int)cudaGetLastError();

@@ -12,8 +12,8 @@ and surrogate buffers. It is memory-bound (3 reads, 2 writes, 7 flops per
 element); at the main path's 101,632 fp32 parameters it moves 2,032,640 B,
 0.61 µs at the H100's 3.35 TB/s, less than the fixed cost of one launch. It
 moves 16-byte vectors when the operands are 16-byte aligned and single
-elements when they are not, with a scalar tail; `launch_layout` chooses the
-vector width, the vectors each thread owns, the grid and where the tail
+elements when they are not, with a scalar tail, one vector a thread;
+`launch_layout` chooses the vector width, the grid and where the tail
 starts. ρ/γ are read through device pointers to 0-d fp32 tensors, such as
 the per-round entries of run_rounds' schedule arrays: the host never waits
 for them and nothing is launched to assemble them. τ/λ are float arguments.
@@ -35,47 +35,40 @@ from repro_torch.kernels.ref import ssca_update_ref
 plain = ssca_update_ref
 
 _ENTRY = {torch.float32: "ssca_update_f32", torch.bfloat16: "ssca_update_bf16"}
-# the fastest of the layouts scripts/compare_ssca_update.py times at the
-# main path's size (PERF.md): 100 blocks of 256 threads, a float4 each
-THREADS = 256             # a block
-PER_THREAD = 1            # 16-byte vectors a thread owns per pass
+THREADS = 256             # a block: csrc/ssca_update.cu's kThreads
 SMS = 132                 # an H100 SXM's SMs; the wrapper asks the card
 THREADS_PER_SM = 2048     # resident threads an SM holds (Hopper)
 
 
 class Layout(NamedTuple):
-    """How one launch covers n elements: vectors of ``vec`` elements (1: the
-    scalar path of unaligned operands) over [0, tail_start), ``per_thread``
-    of them a thread per pass of ``blocks`` × ``threads``, grid-strided;
-    the last n - tail_start (< vec) elements go through the scalar tail."""
+    """How one launch covers n elements: one vector of ``vec`` elements (1:
+    the scalar path of unaligned operands) a thread, over [0, tail_start),
+    in ``blocks`` of THREADS threads, grid-strided; the last n - tail_start
+    (< vec) elements go through the scalar tail."""
     vec: int
-    per_thread: int
-    threads: int
     blocks: int
     tail_start: int
 
 
-def launch_layout(n: int, dtype, aligned: bool, sms: int = SMS,
-                  threads: int = THREADS,
-                  per_thread: int = PER_THREAD) -> Layout:
+@functools.lru_cache(maxsize=None)
+def launch_layout(n: int, dtype, aligned: bool, sms: int = SMS) -> Layout:
     """The layout of an update of n elements of w's ``dtype``: 16-byte
     vectors (4 fp32 or 8 bf16) when w, buf and grad are 16-byte aligned.
     The grid covers the vectors in one pass where one wave of the card
     (``sms`` SMs of THREADS_PER_SM threads) holds it, and grid-strides
-    beyond that."""
+    beyond that. Cached: a run updates one size over and over."""
     vec = 16 // dtype.itemsize if aligned else 1
     tail_start = n - n % vec
-    tile = threads * per_thread
-    blocks = -(-(tail_start // vec) // tile)
-    blocks = max(1, min(blocks, sms * (THREADS_PER_SM // threads)))
-    return Layout(vec, per_thread, threads, blocks, tail_start)
+    blocks = -(-(tail_start // vec) // THREADS)
+    blocks = max(1, min(blocks, sms * (THREADS_PER_SM // THREADS)))
+    return Layout(vec, blocks, tail_start)
 
 
 def layout_for(w, buf, grad, sms: int = SMS) -> Layout:
     """`launch_layout` for these operands: vectors when all three are
     16-byte aligned."""
-    aligned = all(t.data_ptr() % 16 == 0 for t in (w, buf, grad))
-    return launch_layout(w.numel(), w.dtype, aligned, sms=sms)
+    aligned = (w.data_ptr() | buf.data_ptr() | grad.data_ptr()) % 16 == 0
+    return launch_layout(w.numel(), w.dtype, aligned, sms)
 
 
 @functools.lru_cache(maxsize=None)
@@ -129,8 +122,7 @@ def kernel_args(w, buf, grad, rho, gamma, tau: float, lam: float,
         layout = layout_for(w, buf, grad, _sms(w.device.index))
     return (w.data_ptr(), buf.data_ptr(), grad.data_ptr(), rho.data_ptr(),
             gamma.data_ptr(), float(2 * lam - 2 * tau), float(2 * tau),
-            w.numel(), layout.vec, layout.per_thread, layout.threads,
-            layout.blocks, layout.tail_start)
+            w.numel(), layout.vec, layout.blocks, layout.tail_start)
 
 
 def ssca_update_(w, buf, grad, rho, gamma, tau: float, lam: float):

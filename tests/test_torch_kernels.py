@@ -84,35 +84,30 @@ def test_ssca_update_refuses_schedules_it_would_have_to_convert():
 
 def _covered(lay, n):
     """How often the kernel's indexing (csrc/ssca_update.cu) touches each of
-    [0, n) under layout ``lay``: vector v = base + j·threads of each pass,
-    base = (pass·blocks + block)·threads·per_thread + thread, then the
-    scalar tail in block 0."""
+    [0, n) under layout ``lay``: vector v = (pass·blocks + block)·THREADS +
+    thread of each pass, then the scalar tail in block 0."""
     nvec = lay.tail_start // lay.vec
-    tile = lay.threads * lay.per_thread
-    passes = max(1, -(-nvec // (lay.blocks * tile)))
-    base = ((np.arange(passes)[:, None, None] * lay.blocks
-             + np.arange(lay.blocks)[None, :, None]) * tile
-            + np.arange(lay.threads)[None, None, :])
-    v = (base[..., None] + np.arange(lay.per_thread) * lay.threads).ravel()
+    threads = ssca_update.THREADS
+    passes = max(1, -(-nvec // (lay.blocks * threads)))
+    v = ((np.arange(passes)[:, None, None] * lay.blocks
+          + np.arange(lay.blocks)[None, :, None]) * threads
+         + np.arange(threads)[None, None, :]).ravel()
     v = v[v < nvec]
     body = (v[:, None] * lay.vec + np.arange(lay.vec)).ravel()
-    tail = lay.tail_start + np.arange(min(lay.threads, n - lay.tail_start))
+    tail = lay.tail_start + np.arange(min(threads, n - lay.tail_start))
     return np.bincount(np.concatenate([body, tail]), minlength=n)
 
 
-@pytest.mark.parametrize("threads,per_thread", [
-    (ssca_update.THREADS, ssca_update.PER_THREAD), (128, 2), (64, 4)])
+@pytest.mark.parametrize("sizes", [range(1, 1101), [101_632], [2**20 + 3]],
+                         ids=["1-1100", "101632", "2^20+3"])
 @pytest.mark.parametrize("aligned", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ssca_layout_covers_every_element_once(dtype, aligned, threads,
-                                               per_thread):
+def test_ssca_layout_covers_every_element_once(dtype, aligned, sizes):
     """For n = 1..1100, the main path's 101,632 and 2^20+3 (grid-strided),
-    16-byte vectors with a scalar tail, or scalars when unaligned; at the
-    default layout and at the others the kernel takes."""
+    16-byte vectors with a scalar tail, or scalars when unaligned."""
     want_vec = 16 // dtype.itemsize if aligned else 1
-    for n in [*range(1, 1101), 101_632, 2**20 + 3]:
-        lay = ssca_update.launch_layout(n, dtype, aligned, sms=132,
-                                        threads=threads, per_thread=per_thread)
+    for n in sizes:
+        lay = ssca_update.launch_layout(n, dtype, aligned, sms=132)
         assert lay.vec == want_vec and 0 <= n - lay.tail_start < lay.vec
         assert lay.tail_start % lay.vec == 0 and lay.blocks >= 1
         counts = _covered(lay, n)
@@ -127,8 +122,8 @@ def test_ssca_layout_picks_vectors_from_the_pointers():
     w, buf, g = flat[:101_632], torch.zeros(101_632), torch.zeros(101_632)
     lay = ssca_update.layout_for(w, buf, g, sms=132)
     assert lay.vec == 4 and lay.tail_start == 101_632
-    assert lay.blocks <= 132 * (ssca_update.THREADS_PER_SM // lay.threads)
-    assert lay.blocks * lay.threads * lay.per_thread * lay.vec >= 101_632
+    assert lay.blocks <= 132 * (ssca_update.THREADS_PER_SM // ssca_update.THREADS)
+    assert lay.blocks * ssca_update.THREADS * lay.vec >= 101_632
     assert ssca_update.layout_for(flat[1:101_633], buf, g, sms=132).vec == 1
     assert ssca_update.layout_for(w, buf, flat[1:101_633], sms=132).vec == 1
     bf = torch.zeros(20, dtype=torch.bfloat16)
