@@ -29,8 +29,20 @@ Phases, one JSON line each:
            bf16 and in fp32, and a planted off-by-one the fp32 gate catches
   serve_parity  full width, 2 layers, fp32, batch 2, prompt 61, 8 tokens:
            the card against the CPU from the same weights
-Each main path (dense, int8, serve) runs with every launch counter set to 0
-just before it and read just after. The kernels' JSON line comes second to
+  train    qwen2.5-3b at full width and depth in bf16 through
+           repro_torch.launch.train.train_loop (batch 8, sequence 512,
+           remat), from serve_consistency's weights: 2 warm-up and 5 timed
+           steps; step ms, tokens/s, mfu, peak memory, each step's loss,
+           launches per step (asserted)
+  ssca_train_size  ssca_update on the train state's buffers (3.09 B bf16
+           params, fp32 surrogate buffer), 10 launches, against its bound
+  train_parity  full width, 2 layers, fp32, batch 2, seq 64, 3 steps: the
+           card against the CPU from the same weights, tokens and keys
+The kernels phase also holds the backward kernels (rmsnorm_bwd,
+flash_attention_bwd) against their plain versions and times them against
+the PyTorch library's backward calls. Each main path (dense, int8, serve,
+train) runs with every launch counter set to 0 just before it and read
+just after. The kernels' JSON line comes second to
 last and the verdict
 {"ok": true, "device": {...}} last. Any failed check raises, so the script
 exits non-zero without printing a verdict; so does a machine without a CUDA
@@ -41,6 +53,8 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
+import math
+import statistics
 import subprocess
 import sys
 import time
@@ -56,6 +70,10 @@ ROUNDS = 200
 EVAL_EVERY = 50
 SERVE = dict(batch=8, prompt_len=512, gen=32, seed=0)
 PARITY_SERVE = dict(batch=2, prompt_len=61, gen=8)
+TRAIN = dict(batch=8, seq=512)
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+TRAIN_PARITY = dict(batch=2, seq=64, steps=3)
+TRAIN_PARITY_PARAM_STEPS = 2       # steps after which the params are gated
 # prefill-then-decode gates at full depth, set from H100 readings (PERF.md)
 CONSISTENCY_FP32 = 1e-4
 CONSISTENCY_BF16_RATIO = 1.25
@@ -399,6 +417,100 @@ def check_rmsnorm(torch, rms, build):
             **timings["prefill"], "decode": timings["decode"]}
 
 
+def rms_terms(torch, x, dy, eps=1e-6):
+    """Σ_rows |x·dy·r| per column: the magnitude of the terms summed into
+    dscale, against which its fp32 error is measured (the kernel and the
+    plain version sum 4096 cancelling terms in other orders)."""
+    d = x.shape[-1]
+    x32, dy32 = x.float().reshape(-1, d), dy.float().reshape(-1, d)
+    r = torch.rsqrt(x32.pow(2).mean(-1, keepdim=True) + eps)
+    return (x32 * dy32 * r).abs().sum(0)
+
+
+def check_rmsnorm_bwd(torch, rms, build):
+    """The backward kernel vs its plain version at the train path's shape
+    (4096 rows of 2048: batch 8 × sequence 512) and at ragged widths, fp32
+    and bf16. Tolerance, absolute plus relative: dx 1e-5 in fp32 and 2e-2
+    in bf16, as the forward; dscale, a sum over the rows, within the same
+    tolerance of the sum of its terms' magnitudes in fp32. Timed warm and
+    cold at the train shape in bf16 from a CUDA graph, against
+    torch.ops.aten._fused_rms_norm_backward (weight 1 + scale, rstd given)
+    where this torch has it."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    worst = {}
+    for rows, d in ((4096, 2048), (37, 512), (5, 100), (3, 3000), (1, 2048)):
+        for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
+            x = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
+            sc = (torch.randn(d, generator=gen, device="cuda") * 0.1).to(dtype)
+            dy = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
+            dx, ds = rms.rmsnorm_bwd(x, sc, dy, 1e-6)
+            torch.cuda.synchronize()
+            want_dx, want_ds = rms.plain_bwd(x, sc, dy, 1e-6)
+            err, ok = close_err(dx, want_dx, tol)
+            check(ok, f"rmsnorm_bwd dx ({rows}, {d}) {dtype}: max |diff| {err}")
+            scale = rms_terms(torch, x, dy) if dtype == torch.float32 else want_ds.float().abs()
+            err_s = (ds.float() - want_ds.float()).abs()
+            check(bool((err_s <= tol * (1 + scale)).all()),
+                  f"rmsnorm_bwd dscale ({rows}, {d}) {dtype}: max |diff| {err_s.max().item()}")
+            again = rms.rmsnorm_bwd(x, sc, dy, 1e-6)
+            check(torch.equal(again[0], dx) and torch.equal(again[1], ds),
+                  "rmsnorm_bwd: two runs differ")
+            worst[f"{rows}x{d}/{str(dtype)[6:]}"] = max(err, err_s.max().item())
+
+    lib = build.library("rmsnorm")
+    rows, d = 4096, 2048
+    nbytes = 2 * (3 * rows * d + 2 * d)
+    blocks = rms.bwd_blocks(rows)
+    fused = getattr(torch.ops.aten, "_fused_rms_norm_backward", None)
+
+    def make():
+        x = torch.randn(rows, d, generator=gen, device="cuda").to(torch.bfloat16)
+        sc = (torch.randn(d, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+        dy = torch.randn(rows, d, generator=gen, device="cuda").to(torch.bfloat16)
+        r = torch.rsqrt(x.float().pow(2).mean(-1, keepdim=True) + 1e-6)
+        return (x, sc, dy, torch.empty_like(x), torch.empty_like(sc),
+                torch.empty(blocks, d, device="cuda"), 1.0 + sc, r)
+
+    def launch(x, sc, dy, dx, ds, part, weight, r):
+        code = lib.rmsnorm_bwd(x.data_ptr(), sc.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                               ds.data_ptr(), part.data_ptr(), rows, d, 1e-6, 1, blocks,
+                               torch.cuda.current_stream().cuda_stream)
+        build.check(code, "rmsnorm_bwd")
+
+    def library(x, sc, dy, dx, ds, part, weight, r):
+        return fused(dy, x, [d], r, weight, [True, True])
+
+    sets = cold_sets(make, nbytes)
+    b_ms, b_by = bound_ms(nbytes, 10 * rows * d)
+    x, sc, dy = sets[0][:3]
+    lib_note = None
+    if fused is not None:
+        try:
+            got = library(*sets[0])
+            err, ok = close_err(got[0], rms.plain_bwd(x, sc, dy, 1e-6)[0], 2e-2)
+            check(ok, f"rmsnorm_bwd: the library yardstick disagrees by {err}")
+            timed = timed_pair(launch, library, sets, True)
+        except RuntimeError as e:
+            lib_note = f"aten._fused_rms_norm_backward failed here: {str(e)[:200]}"
+            fused = None
+    if fused is None:
+        lib_note = lib_note or "this torch has no aten._fused_rms_norm_backward"
+        timed = {"ms": graph_ms(rotating(launch, sets[:1])), "library_ms": None,
+                 "cold_ms": graph_ms(rotating(launch, sets)), "library_cold_ms": None}
+    out = {"name": "rmsnorm_bwd", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+           "replaces": "src/repro/models/layers.py:146",
+           "max_abs_err": max(worst.values()), "max_abs_err_by_case": worst,
+           "shape": [rows, d], "bytes": nbytes, **timed,
+           "eager_ms": event_ms(rotating(launch, sets[:1])),
+           "plain_ms": event_ms(lambda: rms.plain_bwd(x, sc, dy, 1e-6)),
+           "bound_ms": b_ms, "bound_by": b_by, "blocks": blocks}
+    if lib_note:
+        out["library_note"] = lib_note
+    del sets
+    return out
+
+
 def attn_operands(torch, gen, b, h, kv, sq, sk, d, dtype, cache_rows=None):
     """q, k, v as the model hands them to the kernel: q a transposed
     (B, Sq, H, D) projection; k, v transposed (B, Sk, KV, D) projections or,
@@ -506,6 +618,130 @@ def check_flash(torch, fa, build):
             **timings["prefill"], "decode": timings["decode"]}
 
 
+TRAIN_ATTN = (8, 16, 2, 512, 512, 128)      # b, h, kv, sq, sk, d at batch 8, seq 512
+
+
+def check_flash_bwd(torch, fa, build):
+    """The backward kernels vs their plain version: the train path's shape
+    in bf16 and fp32, ragged lengths (61, 200), GQA rep 1 and 8, causal and
+    not, a window, head dims 64 and 128. Also the forward's logsumexp
+    (2e-5; -inf exactly where a row sees no key). Tolerance, absolute plus
+    relative: 2e-5 in fp32, 3e-2 in bf16, as the forward. Two runs give
+    equal bits. Timed warm and cold at the train shape in bf16 from a CUDA
+    graph, against aten._scaled_dot_product_flash_attention_backward on K/V
+    expanded to the 16 query heads (its dK, dV then need a sum over each
+    group, not timed)."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # b, h, kv, sq, sk, d, dtype, causal, window
+        (*TRAIN_ATTN, bf16, True, 0),
+        (2, *TRAIN_ATTN[1:], f32, True, 0),
+        (2, 16, 2, 61, 61, 128, bf16, True, 0),
+        (2, 16, 2, 200, 200, 128, f32, True, 0),
+        (2, 4, 4, 61, 61, 64, f32, True, 0),
+        (2, 4, 4, 200, 200, 64, bf16, False, 0),
+        (1, 16, 2, 200, 200, 128, bf16, True, 37),
+        (1, 8, 1, 128, 64, 64, f32, True, 0),       # rows 0..63 see no key
+    ]
+    worst = {}
+    for b, h, kv, sq, sk, d, dtype, causal, window in cases:
+        q, k, v = attn_operands(torch, gen, b, h, kv, sq, sk, d, dtype)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+        o, lse = fa.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+        _, want_lse = fa.plain(q, k, v, causal=causal, window=window, return_lse=True)
+        seen = torch.isfinite(want_lse)
+        check(bool(torch.isneginf(lse[~seen]).all()), "flash lse: masked rows not -inf")
+        err_l, ok = close_err(lse[seen], want_lse[seen], 2e-5)
+        check(ok, f"flash lse {q.shape} {dtype}: max |diff| {err_l}")
+        grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+        torch.cuda.synchronize()
+        want = fa.plain_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+        tol = 2e-5 if dtype == f32 else 3e-2
+        tag = f"{b}x{h}/{kv}x{sq}x{sk}x{d}/c{int(causal)}w{window}/{str(dtype)[6:]}"
+        errs = []
+        for name, got, w in zip(("dq", "dk", "dv"), grads, want):
+            check(bool(torch.isfinite(got).all()), f"flash_bwd {name} {tag}: not finite")
+            err, ok = close_err(got, w, tol)
+            check(ok, f"flash_bwd {name} {tag}: max |diff| {err}")
+            errs.append(err)
+        again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+        check(all(torch.equal(a, c) for a, c in zip(again, grads)),
+              f"flash_bwd {tag}: two runs differ")
+        worst[tag] = max(errs + [err_l])
+
+    lib = build.library("flash_attention")
+    b, h, kv, sq, sk, d = TRAIN_ATTN
+    rep = h // kv
+    fwd_bytes, fwd_flops = attn_work(b, h, kv, sq, sk, d, 2)
+    nbytes = 2 * d * (4 * b * h * sq + 4 * b * kv * sk) + 2 * 4 * b * h * sq
+    flops = 5 * fwd_flops // 2
+    sdpa = getattr(torch.ops.aten, "_scaled_dot_product_flash_attention", None)
+    sdpa_bwd = getattr(torch.ops.aten, "_scaled_dot_product_flash_attention_backward", None)
+
+    def make():
+        q, k, v = attn_operands(torch, gen, b, h, kv, sq, sk, d, bf16)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(bf16)
+        o, lse = fa.flash_attention(q, k, v, return_lse=True)
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        delta = torch.empty(q.shape[:3], device="cuda")
+        args = fa.bwd_kernel_args(q, k, v, o, lse, do, dq, dk, dv, delta)
+        return q, k, v, o, lse, do, dq, dk, dv, delta, args, None
+
+    def launch(*ops):
+        code = lib.flash_attention_bwd(*ops[10], torch.cuda.current_stream().cuda_stream)
+        build.check(code, "flash_attention_bwd")
+
+    def with_library(ops):
+        q, k, v, _, _, do = ops[:6]
+        qc = q.contiguous()
+        ke = k.repeat_interleave(rep, dim=1).contiguous()
+        ve = v.repeat_interleave(rep, dim=1).contiguous()
+        res = sdpa(qc, ke, ve, 0.0, True, False)
+        return (*ops[:11], (qc, ke, ve, res, do.contiguous()))
+
+    def library(*ops):
+        qc, ke, ve, res, doc = ops[11]
+        return sdpa_bwd(doc, qc, ke, ve, res[0], res[1], res[2], res[3], res[4], res[5],
+                        0.0, True, res[6], res[7])
+
+    sets = cold_sets(make, nbytes)
+    b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+    q, k, v, o, lse, do = sets[0][:6]
+    note = None
+    if sdpa is not None and sdpa_bwd is not None:
+        try:
+            lsets = [with_library(s_) for s_ in sets]
+            gq, gk, gv = library(*lsets[0])
+            want = fa.plain_bwd(q, k, v, o, lse, do)
+            gk = gk.view(b, kv, rep, sk, d).float().sum(2)
+            gv = gv.view(b, kv, rep, sk, d).float().sum(2)
+            for name, got, w in (("dq", gq, want[0]), ("dk", gk, want[1]), ("dv", gv, want[2])):
+                err, ok = close_err(got, w, 3e-2)
+                check(ok, f"flash_bwd {name}: the library yardstick disagrees by {err}")
+            timed = timed_pair(launch, library, lsets, True)
+            sets = lsets
+        except RuntimeError as e:
+            note = f"aten flash backward failed here: {str(e)[:200]}"
+    else:
+        note = "this torch has no aten._scaled_dot_product_flash_attention_backward"
+    if note:
+        timed = {"ms": graph_ms(rotating(launch, sets[:1])), "library_ms": None,
+                 "cold_ms": graph_ms(rotating(launch, sets)), "library_cold_ms": None}
+    out = {"name": "flash_attention_bwd", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "replaces": "src/repro/models/layers.py:329",
+           "max_abs_err": max(worst.values()), "max_abs_err_by_case": worst,
+           "shape": {"q": list(q.shape), "kv": list(k.shape)}, "bytes": nbytes,
+           "flops": flops, **timed,
+           "eager_ms": event_ms(rotating(launch, sets[:1]), iters=20),
+           "plain_ms": event_ms(lambda: fa.plain_bwd(q, k, v, o, lse, do), iters=5),
+           "bound_ms": b_ms, "bound_by": b_by}
+    if note:
+        out["library_note"] = note
+    del sets
+    return out
+
+
 def zero_counts(counted) -> None:
     for fn in counted.values():
         fn.launches = 0
@@ -533,7 +769,8 @@ def run_serve(torch, m):
     forwards = SERVE["gen"]                 # one prefill, gen - 1 decode steps
     per_forward = {k: v / forwards for k, v in counts.items()}
     want = {"ssca_update": 0, "stochastic_quantize": 0,
-            "rmsnorm": 2 * cfg.n_layers + 1, "flash_attention": cfg.n_layers}
+            "rmsnorm": 2 * cfg.n_layers + 1, "flash_attention": cfg.n_layers,
+            "rmsnorm_bwd": 0, "flash_attention_bwd": 0}
     check(per_forward == want, f"serve launches per forward {per_forward} != {want}")
     check(tuple(seqs.shape) == (SERVE["batch"], SERVE["gen"]), seqs.shape)
     check(0 <= int(seqs.min()) and int(seqs.max()) < cfg.vocab_size,
@@ -566,7 +803,8 @@ def check_serve_consistency(torch, m, seqs):
     token decoded at position S+1, over an empty cache row S) must not; and
     the bf16 decode may be at most CONSISTENCY_BF16_RATIO times as far from
     the fp32 forward as the bf16 full forward is. Emits its numbers before
-    it checks them."""
+    it checks them. Returns the bf16 weights (serve's, from the same seed),
+    which the train phase starts from."""
     rnd, cfg = m.rnd, m.qwen
     model = m.get_model(cfg)
     key = rnd.PRNGKey(SERVE["seed"])
@@ -585,9 +823,9 @@ def check_serve_consistency(torch, m, seqs):
         return [lg[:, -1].float()
                 for lg in (logits_p, logits_d, logits_f, logits_x)]
 
-    params = model.init(key, cfg)
-    p16, d16, f16, x16 = last_logits(params, cfg)
-    params = tree_map(lambda t: t.float(), params)
+    weights = model.init(key, cfg)
+    p16, d16, f16, x16 = last_logits(weights, cfg)
+    params = tree_map(lambda t: t.float(), weights)
     _, d32, f32, x32 = last_logits(params,
                                    dataclasses.replace(cfg, dtype="float32"))
     del params
@@ -621,6 +859,7 @@ def check_serve_consistency(torch, m, seqs):
     check(dev_d <= CONSISTENCY_BF16_RATIO * dev_f,
           f"bf16 decode is {dev_d} from the fp32 forward, the bf16 full "
           f"forward {dev_f}")
+    return weights
 
 
 def run_serve_parity(torch, m):
@@ -655,6 +894,141 @@ def run_serve_parity(torch, m):
     check(diff <= 1e-4, f"card vs CPU logits differ by {diff}")
     return {"layers": 2, "dtype": "float32", **PARITY_SERVE,
             "max_abs_logit_diff": diff, "tokens_equal": True}
+
+
+def run_train(torch, m, weights):
+    """qwen2.5-3b at full width and depth in bf16 through
+    repro_torch.launch.train.train_loop (batch 8, sequence 512, the
+    reference's FLConfig), from the serve phase's weights, which the
+    optimizer copies into its flat buffer (``weights`` is emptied, so the
+    serve copy is freed): TRAIN_WARMUP + TRAIN_TIMED steps, a line each,
+    with every launch counter zeroed just before and read just after. Step
+    time from the host clock between the per-step lines (each ends in a
+    synchronize: the loss is read), the median of the timed steps."""
+    cfg, batch, seq = m.qwen, TRAIN["batch"], TRAIN["seq"]
+    steps = TRAIN_WARMUP + TRAIN_TIMED
+    n_params = sum(t.numel() for t in m.leaves(weights["params"]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(m.counted)
+    state, logs = m.train.train_loop("qwen2.5-3b", steps, batch, seq, log_every=1,
+                                     seed=SERVE["seed"], params=weights.pop("params"))
+    torch.cuda.synchronize()
+    counts = read_counts(m.counted)
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: v / steps for k, v in counts.items()}
+    L = cfg.n_layers
+    want = {"ssca_update": 1, "stochastic_quantize": 0,
+            "rmsnorm": 2 * (2 * L + 1) - 1, "rmsnorm_bwd": 2 * L + 1,
+            "flash_attention": 2 * L, "flash_attention_bwd": L}
+    check(per_step == want, f"train launches per step {per_step} != {want}")
+    losses = [lg["loss"] for lg in logs]
+    check(all(map(math.isfinite, losses)), f"train losses not finite: {losses}")
+    check(state.t == steps + 1 and bool(torch.isfinite(state.w_flat).all()),
+          "train: the state did not take every step, or its params are not finite")
+    walls = [0.0] + [lg["wall_s"] for lg in logs]
+    step_s = [b - a for a, b in zip(walls, walls[1:])]
+    med = statistics.median(step_s[TRAIN_WARMUP:])
+    tokens = batch * seq
+    return state, {
+        "arch": cfg.name, "dtype": cfg.dtype, "layers": L, "remat": cfg.remat,
+        "params": n_params, **TRAIN, "warmup_steps": TRAIN_WARMUP,
+        "timed_steps": TRAIN_TIMED, "step_ms": med * 1e3,
+        "step_ms_each": [t * 1e3 for t in step_s],
+        "tokens_per_s": tokens / med,
+        "mfu": 6 * n_params * tokens / (med * BF16_FLOPS_PER_S),
+        "peak_mem_bytes": peak, "losses": losses, "launches": counts,
+        "launches_per_step": per_step}, counts
+
+
+def ssca_at_train_size(torch, ssca, state, fl, launches=10):
+    """ssca_update on the train state's own flat buffers (bf16 params, fp32
+    surrogate buffer) and a bf16 gradient of the same size: device ms a
+    launch over `launches` launches between CUDA events, against its bound
+    (14 B an element: w read and written, buf read and written, grad
+    read)."""
+    n = state.w_flat.numel()
+    grad = torch.randn(n, device="cuda", dtype=torch.bfloat16)
+    ms = event_ms(lambda: ssca.ssca_update_(state.w_flat, state.g_flat, grad, 0.5, 0.3,
+                                            fl.tau, fl.l2_lambda), iters=launches, warmup=1)
+    nbytes = 14 * n
+    b_ms, b_by = bound_ms(nbytes, 7 * n)
+    check(bool(torch.isfinite(state.g_flat[:4096]).all()), "ssca at train size: not finite")
+    return {"elements": n, "dtype": "bfloat16", "launches": launches, "ms": ms,
+            "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
+            "share_of_bound": b_ms / ms}
+
+
+def run_train_parity(torch, m):
+    """Full width, 2 layers, fp32, batch 2, seq 64, 3 SSCA steps through
+    make_scanned_step from the same weights (drawn on the card, copied to
+    the CPU), tokens and round keys, on the card and on the CPU (the plain
+    kernel versions); the params compared after every step. fp32 sums run
+    in another order on the two devices. Gates: each step's loss within
+    rtol 1e-5; the params within atol 1e-4 after steps 1 and 2
+    (TRAIN_PARITY_PARAM_STEPS).
+    After step 3 they are reported, not gated: the schedule's first step
+    (ρ = 1, γ = 0.5: w ← w - 1.25·ĝ) grows this 2-layer model's tied
+    embedding from 0.2 to 6 and then 23 at its largest (loss 27.6, 13.8,
+    93.9), its logits to where fp32 resolves p only to about 1e-4, and step
+    3 alone, taken from the card's state on both devices, differs by more
+    than 1e-4 too (reported; PERF.md, PR 15)."""
+    rnd, train, rounds, optimizer = m.rnd, m.train, m.rounds, m.optimizer
+    cfg = dataclasses.replace(m.qwen, n_layers=2, dtype="float32")
+    model = m.get_model(cfg)
+    key = rnd.PRNGKey(3)
+    params = model.init(key, cfg)
+    fl = m.train_fl
+    b, s, steps = TRAIN_PARITY["batch"], TRAIN_PARITY["seq"], TRAIN_PARITY["steps"]
+    toks = m.token_dataset(rnd.fold_in(key, 1), cfg.vocab_size, 200_000)
+
+    def run(p, device, first=0, start=None):
+        """Steps first+1 .. steps from p, or from the flat (w, g) `start`;
+        the params after each, its loss, and the state before the last."""
+        dev_key = key.to(device)
+        step = train.make_scanned_step(model, cfg, fl, toks.to(device), b, s)
+        inputs = rounds.make_inputs(fl, 1, steps, rnd.fold_in(dev_key, 2))
+        state, ws, losses = optimizer.ssca_init(p), [], []
+        if start is not None:
+            state.w_flat.copy_(start[0])
+            state.g_flat.copy_(start[1])
+            state = state._replace(t=first + 1)
+        for r in range(first, steps):
+            if r == steps - 1:
+                before = (state.w_flat.to("cpu", copy=True), state.g_flat.to("cpu", copy=True))
+            state, ms = step(state, inputs.round(r))
+            ws.append(state.w_flat.to("cpu", copy=True))
+            losses.append(ms["loss"].item())
+        return ws, losses, before
+
+    t0 = time.perf_counter()
+    card_w, card_loss, card_before = run(params, "cuda")
+    card_s = time.perf_counter() - t0
+    on_cpu = tree_map(lambda t: t.cpu(), params)
+    del params
+    t0 = time.perf_counter()
+    cpu_w, cpu_loss, _ = run(on_cpu, "cpu")
+    cpu_s = time.perf_counter() - t0
+    # the last step alone on the CPU, from the card's state before it
+    same_w, _, _ = run(on_cpu, "cpu", first=steps - 1, start=card_before)
+    last_from_same = (card_w[-1] - same_w[-1]).abs().max().item()
+    diff = [(a - c).abs().max().item() for a, c in zip(card_w, cpu_w)]
+    normwise = [((a - c).norm() / c.norm()).item() for a, c in zip(card_w, cpu_w)]
+    loss_rel = [abs(a - c) / abs(c) for a, c in zip(card_loss, cpu_loss)]
+    out = {"layers": 2, "dtype": "float32", **TRAIN_PARITY,
+           "losses_card": card_loss, "losses_cpu": cpu_loss,
+           "max_rel_loss_diff_by_step": loss_rel,
+           "max_abs_param_diff_by_step": diff,
+           "normwise_param_diff_by_step": normwise,
+           "max_abs_param_by_step": [c.abs().max().item() for c in cpu_w],
+           "last_step_from_same_state_max_abs_param_diff": last_from_same,
+           "card_s": card_s, "cpu_s": cpu_s}
+    emit("train_parity", **out)
+    check(all(map(math.isfinite, card_loss)), "train parity: losses not finite")
+    check(max(loss_rel) <= 1e-5, f"train parity: card vs CPU losses differ by {loss_rel}")
+    gated = diff[:TRAIN_PARITY_PARAM_STEPS]
+    check(max(gated) <= 1e-4, f"train parity: card vs CPU params differ by {gated}")
+    return out
 
 
 def run_slice(torch, m, codec_name, data, params0, test):
@@ -721,7 +1095,10 @@ def main() -> int:
     from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import rmsnorm as rms
     from repro_torch.kernels import ssca_update as ssca
-    from repro_torch.launch import serve
+    from repro_torch.core import optimizer, rounds
+    from repro_torch.core.tree import leaves
+    from repro_torch.data.synthetic import token_dataset
+    from repro_torch.launch import serve, train
     from repro_torch.models import mlp
     from repro_torch.models.api import get_model
 
@@ -742,11 +1119,15 @@ def main() -> int:
     kernels = [check_ssca_update(torch, ssca, build),
                check_quantize(torch, qz, build),
                check_rmsnorm(torch, rms, build),
-               check_flash(torch, fa, build)]
+               check_flash(torch, fa, build),
+               check_rmsnorm_bwd(torch, rms, build),
+               check_flash_bwd(torch, fa, build)]
     emit("kernels", checks=[{k: v for k, v in kr.items()} for kr in kernels])
     counted = {"ssca_update": ssca.ssca_update_,
                "stochastic_quantize": qz.stochastic_quantize,
-               "rmsnorm": rms.rmsnorm, "flash_attention": fa.flash_attention}
+               "rmsnorm": rms.rmsnorm, "flash_attention": fa.flash_attention,
+               "rmsnorm_bwd": rms.rmsnorm_bwd,
+               "flash_attention_bwd": fa.flash_attention_bwd}
 
     cfg = MNIST_MLP
     (z, y, _), (zt, _, labt) = classification_dataset(
@@ -762,7 +1143,13 @@ def main() -> int:
                   l2_lambda=1e-5)
     mods = SimpleNamespace(algorithms=algorithms, mlp=mlp, codecs=codecs,
                            rnd=rnd, fl=fl, counted=counted, serve=serve,
-                           get_model=get_model, qwen=get_config("qwen2.5-3b"))
+                           get_model=get_model, qwen=get_config("qwen2.5-3b"),
+                           train=train, rounds=rounds, optimizer=optimizer,
+                           leaves=leaves, token_dataset=token_dataset,
+                           # train_loop's default: the reference's FLConfig
+                           train_fl=FLConfig(a1=0.9, a2=0.5, alpha_rho=0.1,
+                                             alpha_gamma=0.6, tau=0.2,
+                                             l2_lambda=1e-5))
     test = (z[:4000], y[:4000], zt, labt)
 
     # warm-up (cuBLAS handles, first launches); not counted
@@ -770,13 +1157,15 @@ def main() -> int:
                           key=rnd.PRNGKey(9), codec=codecs.make_codec("int8"))
     dense, dense_counts = run_slice(torch, mods, None, data, params0, test)
     check(dense["upload_bytes"] == [4_065_280.0], dense["upload_bytes"])
+    no_zoo = {"rmsnorm": 0, "flash_attention": 0, "rmsnorm_bwd": 0,
+              "flash_attention_bwd": 0}
     check(dense_counts == {"ssca_update": ROUNDS, "stochastic_quantize": 0,
-                           "rmsnorm": 0, "flash_attention": 0}, dense_counts)
+                           **no_zoo}, dense_counts)
     emit("dense", **dense, device=name, power=smi)
     int8, int8_counts = run_slice(torch, mods, "int8", data, params0, test)
     check(int8["upload_bytes"] == [1_032_200.0], int8["upload_bytes"])
     check(int8_counts == {"ssca_update": ROUNDS, "stochastic_quantize": ROUNDS,
-                          "rmsnorm": 0, "flash_attention": 0}, int8_counts)
+                          **no_zoo}, int8_counts)
     emit("int8", **int8, device=name, power=smi,
          bytes_ratio=dense["upload_bytes"][0] / int8["upload_bytes"][0])
 
@@ -798,16 +1187,24 @@ def main() -> int:
 
     served, serve_counts, seqs = run_serve(torch, mods)
     emit("serve", **served, device=name, power=smi)
-    check_serve_consistency(torch, mods, seqs)
+    weights = {"params": check_serve_consistency(torch, mods, seqs)}
     emit("serve_parity", **run_serve_parity(torch, mods))
+
+    state, trained, train_counts = run_train(torch, mods, weights)
+    emit("train", **trained, device=name, power=smi)
+    emit("ssca_train_size", **ssca_at_train_size(torch, ssca, state, mods.train_fl),
+         device=name, power=smi)
+    del state
+    run_train_parity(torch, mods)
 
     for kr in kernels:
         n = kr["name"]
-        kr["launches"] = dense_counts[n] + int8_counts[n] + serve_counts[n]
+        kr["launches"] = (dense_counts[n] + int8_counts[n] + serve_counts[n]
+                          + train_counts[n])
         check(kr["launches"] > 0, f"{n} never launched on a main path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("cold_ms", "library_cold_ms", "floor_ms")      # where measured
+    extra = ("cold_ms", "library_cold_ms", "floor_ms", "library_note")  # where measured
     print(smi, flush=True)
     print(json.dumps({"kernels": [{**{k: kr[k] for k in keys},
                                    **{k: kr[k] for k in extra if k in kr}}

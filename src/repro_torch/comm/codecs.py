@@ -30,7 +30,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch import random as rnd
-from repro_torch.core.tree import leaves
+from repro_torch.core.tree import leaves, tree_map
 from repro_torch.kernels.quantize import stochastic_quantize
 from repro_torch.kernels.ref import (  # noqa: F401  (re-exported)
     chunk_pad, stochastic_round_chunks, uniform_from_bits)
@@ -126,29 +126,33 @@ def make_codec(name):
 
 
 # ---------------------------------------------------------------------------
-# dict-of-tensors <-> flat-vector adapters (leaves in sorted-key order)
+# dict-of-tensors <-> flat-vector adapters (leaves in jax.tree order: sorted
+# keys, recursively)
 # ---------------------------------------------------------------------------
 
 
 def tree_flat_dim(tree) -> int:
-    """Total scalar count of a params dict."""
+    """Total scalar count of a (nested) params dict."""
     return sum(leaf.numel() for leaf in leaves(tree))
 
 
 def flatten_tree(tree):
-    """dict -> ((P,) fp32 flat vector, unflatten)."""
-    keys = sorted(tree)
-    shapes = [tree[k].shape for k in keys]
-    dtypes = [tree[k].dtype for k in keys]
-    flat = torch.cat([tree[k].reshape(-1).float() for k in keys])
+    """(nested) dict -> ((P,) fp32 flat vector, unflatten), the leaves in
+    ``jax.tree.leaves`` order, so the layout is the reference's."""
+    flat = torch.cat([leaf.reshape(-1).float() for leaf in leaves(tree)])
+    like = tree_map(lambda t: (t.shape, t.dtype), tree)
 
     def unflatten(f):
-        out, o = {}, 0
-        for k, s, dt in zip(keys, shapes, dtypes):
-            n = math.prod(s)
-            out[k] = f[o:o + n].reshape(s).to(dt)
+        o = 0
+
+        def take(spec):
+            nonlocal o
+            shape, dt = spec
+            n = math.prod(shape)
             o += n
-        return out
+            return f[o - n:o].reshape(shape).to(dt)
+
+        return tree_map(take, like)          # leaves in order: o walks f
 
     return flat, unflatten
 

@@ -9,7 +9,8 @@ from dataclasses import dataclass
 @dataclass(frozen=True)
 class ModelConfig:
     """``repro.configs.base.ModelConfig`` cut to the dense decoder with tied
-    embeddings and full causal attention: the fields its forward reads, plus
+    embeddings and full causal attention: the fields its forward and
+    backward read (``remat``: each layer recomputed in the backward), plus
     ``n_experts``/``num_prefix_tokens`` so that a MoE or VLM config is
     recognised and refused."""
     name: str
@@ -28,6 +29,7 @@ class ModelConfig:
     norm_eps: float = 1e-6
     num_prefix_tokens: int = 0
     dtype: str = "bfloat16"
+    remat: bool = True                # recompute each layer in the backward
     source: str = ""
 
     @property
@@ -36,7 +38,7 @@ class ModelConfig:
 
     def smoke(self) -> "ModelConfig":
         """The reference's reduced variant: 2 layers, d_model <= 256, <= 4
-        heads, vocab <= 512, fp32."""
+        heads, vocab <= 512, fp32, no remat."""
         d = min(self.d_model, 256)
         n_heads = min(self.n_heads, 4)
         small = dict(
@@ -51,6 +53,7 @@ class ModelConfig:
             n_experts=min(self.n_experts, 4),
             num_prefix_tokens=min(self.num_prefix_tokens, 8),
             dtype="float32",
+            remat=False,
         )
         return dataclasses.replace(self, **small)
 

@@ -14,6 +14,7 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.core import optimizer
 from repro_torch.core.fed import SampleFedData
+from repro_torch.core.tree import leaves
 
 
 def tensor_from_numpy(a, device=None) -> torch.Tensor:
@@ -77,11 +78,12 @@ def key_to_numpy(key) -> np.ndarray:
 
 
 def ssca_state_from_numpy(params, g, t, device=None) -> optimizer.SSCAState:
-    """The reference's SSCAState(params, g, t), as numpy, -> the port's
-    (flat buffers with dict views)."""
+    """The reference's SSCAState(params, g, t), as numpy (params and g
+    nested dicts, as the zoo's are), -> the port's (flat buffers with dict
+    views)."""
     state = optimizer.ssca_init(params_from_numpy(params, device))
-    for k, v in g.items():
-        state.g[k].copy_(tensor_from_numpy(v, device))
+    for dst, src in zip(leaves(state.g), leaves(g)):
+        dst.copy_(tensor_from_numpy(src, device))
     return state._replace(t=int(np.asarray(t)))
 
 

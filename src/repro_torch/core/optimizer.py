@@ -4,7 +4,8 @@
 λ‖ω‖² regularizer folded into the surrogate buffer) and runs on the fused
 ``ssca_update`` kernel: the state keeps params and the fp32 surrogate buffer
 as views into one flat contiguous buffer each, so a round updates every
-leaf in ONE launch.
+leaf in ONE launch. Params may be nested dicts (the model zoo's); the flat
+layout takes the leaves in ``jax.tree.leaves`` order, the reference's.
 
 `momentum_form_*` implements eqs. (11)-(12), the identical sequence written
 as momentum SGD (Remark 2), in plain PyTorch.
@@ -17,7 +18,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import schedules
-from repro_torch.core.tree import tree_map, tree_zeros_like
+from repro_torch.core.tree import leaves, tree_map, tree_zeros_like
 from repro_torch.kernels.ssca_update import ssca_update_
 
 
@@ -25,21 +26,26 @@ class SSCAState(NamedTuple):
     params: dict              # views into w_flat
     g: dict                   # linear surrogate buffer (eq. 9, λ folded): views into g_flat
     t: int                    # 1-based round counter
-    w_flat: torch.Tensor      # (P,) all params, leaves in sorted-key order
+    w_flat: torch.Tensor      # (P,) all params, leaves in jax.tree order
     g_flat: torch.Tensor      # (P,) fp32 surrogate buffer, same layout
 
 
-def _views(flat, like):
-    out, o = {}, 0
-    for k in sorted(like):
-        n = math.prod(like[k].shape)
-        out[k] = flat[o:o + n].view(like[k].shape)
+def views(flat, like):
+    """``like``'s (nested) dict of shapes laid over the flat (P,) buffer:
+    views of consecutive spans, leaves in ``jax.tree.leaves`` order."""
+    o = 0
+
+    def view(t):
+        nonlocal o
+        n = math.prod(t.shape)
         o += n
-    return out
+        return flat[o - n:o].view(t.shape)
+
+    return tree_map(view, like)
 
 
 def _flat(tree):
-    return torch.cat([tree[k].reshape(-1) for k in sorted(tree)])
+    return torch.cat([leaf.reshape(-1) for leaf in leaves(tree)])
 
 
 def _sched(fl, t, rho_t=None, gamma_t=None, device=None):
@@ -63,28 +69,35 @@ def _sched(fl, t, rho_t=None, gamma_t=None, device=None):
 
 
 def ssca_init(params) -> SSCAState:
-    """Copies ``params`` (all leaves of one dtype) into one flat buffer; the
-    caller's tensors are never written."""
-    dtypes = {params[k].dtype for k in params}
+    """Copies ``params`` (a nested dict, all leaves of one dtype) into one
+    flat buffer, leaf by leaf; the caller's tensors are never written."""
+    src = leaves(params)
+    dtypes = {t.dtype for t in src}
     if len(dtypes) != 1:
         raise TypeError(f"ssca_init: all params need one dtype, got {dtypes}")
-    w_flat = _flat(params).contiguous().clone()
+    w_flat = torch.empty(sum(t.numel() for t in src), dtype=src[0].dtype,
+                         device=src[0].device)
+    state_params = views(w_flat, params)
+    for dst, t in zip(leaves(state_params), src):
+        dst.copy_(t)
     g_flat = torch.zeros(w_flat.shape, dtype=torch.float32,
                          device=w_flat.device)
-    return SSCAState(params=_views(w_flat, params), g=_views(g_flat, params),
-                     t=1, w_flat=w_flat, g_flat=g_flat)
+    return SSCAState(params=state_params, g=views(g_flat, params), t=1,
+                     w_flat=w_flat, g_flat=g_flat)
 
 
 def ssca_step(state: SSCAState, grad, fl, rho_t=None, gamma_t=None) -> SSCAState:
     """grad: aggregated mini-batch gradient estimate of the *data* loss F, a
-    dict like params or a flat (P,) tensor (the λ‖ω‖² regularizer is
-    injected here, not in grad). ρ^t/γ^t are floats or 0-d fp32 tensors on
-    the params' device (``RoundInputs.round(r)`` views pass as they are).
+    (nested) dict like params or a flat (P,) tensor in w_flat's layout (the
+    λ‖ω‖² regularizer is injected here, not in grad). ρ^t/γ^t are floats or
+    0-d fp32 tensors on the params' device (``RoundInputs.round(r)`` views
+    pass as they are).
 
     Updates IN PLACE: the state's flat params and surrogate buffer (and so
     every view of them, the input state's included) hold the new values
     after the call; the returned state shares those buffers, with t + 1.
-    grad is cast to the params' dtype, as the kernel takes it."""
+    grad is cast to the params' dtype, as the kernel takes it (no copy when
+    it is a flat contiguous tensor of that dtype already)."""
     rho_t, gamma_t = _sched(fl, state.t, rho_t, gamma_t, state.w_flat.device)
     g = grad if isinstance(grad, torch.Tensor) else _flat(grad)
     g = g.to(state.w_flat.dtype).contiguous()
@@ -106,7 +119,7 @@ class MomentumForm(NamedTuple):
 
 
 def momentum_form_init(params) -> MomentumForm:
-    dev = next(iter(params.values())).device
+    dev = leaves(params)[0].device
     return MomentumForm(params=dict(params),
                         v=tree_zeros_like(params, torch.float32), t=1,
                         gamma_prev=torch.zeros((), device=dev))

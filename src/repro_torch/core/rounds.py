@@ -51,6 +51,25 @@ def make_inputs(fl, t_start: int, num_rounds: int, key) -> RoundInputs:
                                       dtype=torch.int32, device=key.device))
 
 
+def loop_rounds(step_fn: Callable, state, inputs: RoundInputs):
+    """Run ``step_fn(state, inputs.round(r)) -> (state, metrics)`` for every
+    round of ``inputs``; returns the last state and each metric stacked into
+    a (K,) series. The reference has two drivers, "scan" (K rounds in one
+    ``lax.scan`` dispatch) and "loop" (one jitted dispatch a round); the
+    port runs eagerly, so both names map to this Python loop (``ENGINES``),
+    and the steps' metrics stay on the device until the chunk's end."""
+    ms = []
+    for r in range(inputs.num_rounds):
+        state, m = step_fn(state, inputs.round(r))
+        ms.append(m)
+    dev = inputs.rho.device
+    return state, ({k: _series([m[k] for m in ms], dev) for k in ms[0]}
+                   if ms else {})
+
+
+ENGINES = {"scan": loop_rounds, "loop": loop_rounds}
+
+
 class RunResult(NamedTuple):
     params: object
     history: dict             # eval-metric name -> (n_evals,) + per-round series
@@ -113,13 +132,9 @@ def run_rounds(step_fn: Callable, state, fl, key, rounds: int,
     t0 = 1
     for size in chunk_sizes(rounds, chunk):
         key, sub = rnd.split(key).unbind(0)
-        inputs = make_inputs(fl, t0, size, sub)
-        ms = []
-        for r in range(size):
-            state, m = step_fn(state, inputs.round(r))
-            ms.append(m)
-        for k in ms[0]:
-            per_round.setdefault(k, []).append(_series([m[k] for m in ms], dev))
+        state, ms = loop_rounds(step_fn, state, make_inputs(fl, t0, size, sub))
+        for k, v in ms.items():
+            per_round.setdefault(k, []).append(v)
         t0 += size
         if eval_fn is not None:
             metrics = eval_fn(unwrap_comm(state).params, state)

@@ -1,18 +1,24 @@
-"""Arithmetic over parameter dicts (the port's pytrees: ``dict`` of tensors,
-leaves taken in sorted-key order as ``jax.tree`` takes them). Inner products
-accumulate in float32 regardless of leaf dtype."""
+"""Arithmetic over parameter dicts (the port's pytrees: dicts of tensors,
+nested as the model zoo's are, leaves taken in sorted-key order at every
+level, as ``jax.tree`` takes them). Inner products accumulate in float32
+regardless of leaf dtype."""
 from __future__ import annotations
 
 import torch
 
 
 def leaves(tree):
-    """Leaves of a dict of tensors in ``jax.tree.leaves`` order."""
-    return [tree[k] for k in sorted(tree)]
+    """Leaves of a (nested) dict of tensors in ``jax.tree.leaves`` order."""
+    out = []
+    for k in sorted(tree):
+        out.extend(leaves(tree[k]) if isinstance(tree[k], dict) else [tree[k]])
+    return out
 
 
 def tree_map(fn, *trees):
-    return {k: fn(*(t[k] for t in trees)) for k in sorted(trees[0])}
+    return {k: tree_map(fn, *(t[k] for t in trees))
+            if isinstance(trees[0][k], dict) else fn(*(t[k] for t in trees))
+            for k in sorted(trees[0])}
 
 
 def tree_axpy(a, x, b, y):

@@ -50,10 +50,15 @@ SIGNATURES = {
     },
     "rmsnorm": {
         "rmsnorm": [_P, _P, _P, _LL, _I, _F, _I, _P],
+        "rmsnorm_bwd": [_P, _P, _P, _P, _P, _P, _LL, _I, _F, _I, _I, _P],
     },
     "flash_attention": {
-        "flash_attention": [_P, _P, _P, _P, _PLL, _LL, _I, _I, _I, _I, _I, _I,
-                            _I, _F, _I, _I, _P],
+        "flash_attention": [_P, _P, _P, _P, _PLL, _P, _LL, _I, _I, _I, _I, _I,
+                            _I, _I, _F, _I, _I, _P],
+        # q, k, v, o, do, lse, dq, dk, dv, delta, strides, b, h, kvh, sq,
+        # sk, d, causal, window, scale, is_bf16, stream
+        "flash_attention_bwd": [_P] * 10 + [_PLL, _LL] + [_I] * 7
+        + [_F, _I, _P],
     },
 }
 

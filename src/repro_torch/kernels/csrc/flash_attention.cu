@@ -61,6 +61,54 @@
 // lane j scores key j, the accumulator adds p·V with p broadcast by
 // shuffles; expf is the accurate one.
 //
+// The bf16 prefill and the fp32 kernel also write, when asked (lse not
+// null), each row's logsumexp of its scaled scores in natural-log units,
+// fp32, (B, H, Sq) contiguous: m·ln 2 + ln l from the prefill kernel's log2
+// units, m + ln l from the fp32 one, -inf for a row that sees no key. The
+// backward reads it. The decode kernel refuses lse: training never decodes.
+//
+// Backward (flash_attention_bwd), replacing the reference's XLA-level
+// recompute backward src/repro/models/layers.py:_cattn_bwd (the Pallas kernel
+// has no backward): with scale = 1/sqrt(D), p = exp(s·scale - lse)
+// recomputed from q, k and lse, delta = Σ_d dO∘O,
+//
+//     dV = Pᵀ·dO,  dP = dO·Vᵀ,  dS = P∘(dP - delta)·scale,
+//     dQ = dS·K,   dK = dSᵀ·Q,
+//
+// with dK and dV summed over the H/KV query heads of each KV head. Bound at
+// the train path's shape (B 8, H 16, KV 2, S 512, D 128, bf16, causal): q, o,
+// dO and dq (16.8 MB each), k, v, dk, dv (2.1 MB each), lse and delta: 76.0
+// MB, 22.7 us at 3.35 TB/s, against 2.5 × 8.59 GFLOP of products, 21.7 us
+// at the bf16 tensor rate. Two kernels a call, in this order: a dq kernel,
+// one block per (q tile, head, batch), whose prologue computes delta for its
+// rows and writes it, then walks the visible key tiles, recomputing S and
+// dP and adding dS·K into dQ; then a dk/dv kernel, one block per (key tile,
+// KV head, batch), which walks the group's query heads and their visible q
+// tiles, adding Pᵀ·dO into dV and dSᵀ·Q into dK within the block: no
+// atomics, so two runs give the same bits. Both skip tiles a mask hides
+// entirely; a row that sees no key (lse = -inf) has p = 0 and so zero
+// gradients.
+//   bf16, flash_bwd_dq_tc_kernel / flash_bwd_dkdv_tc_kernel: every product
+//     is mma.sync.m16n8k16 on the tensor cores (bf16 in, fp32
+//     accumulators), its operands loaded from shared memory (pitch D + 8,
+//     conflict-free) by ldmatrix, transposed where the product needs it,
+//     and dS (or Pᵀ, dSᵀ) rounded to bf16 straight from the accumulator
+//     fragments as the A operand of the next product, as in the decode
+//     kernel's P·V. The dq kernel: 4 warps, 16 of the block's 64 q rows
+//     each, against 64-key tiles in a two-stage cp.async ring; delta from
+//     16-byte loads of O and dO, all in flight at once. The dk/dv kernel:
+//     64 keys a block, 16 a warp, in two groups of 4 warps that take the
+//     (head, 32-row q tile) steps in turn, each group with its own
+//     two-stage ring and named barrier; the groups' dK and dV are added in
+//     order through shared memory at the end. What bounds them: the dk/dv
+//     kernel has one block per (key tile, KV head, batch), 128 at the train
+//     shape, fewer than the SMs, and its first key tile walks every q tile
+//     of every head of the group (causal): that block sets its time.
+//   fp32, flash_bwd_dq_kernel / flash_bwd_dkdv_kernel: exact fp32 on the
+//     CUDA cores (32-row and 32-key tiles staged in shared memory, each
+//     thread a 2×2 block of S and dP and two rows of its accumulators), for
+//     the card-against-CPU gates.
+//
 // No --use_fast_math anywhere.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -74,6 +122,7 @@ namespace cg = cooperative_groups;
 
 using bf16 = __nv_bfloat16;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Strides {
@@ -319,7 +368,7 @@ __global__ void __launch_bounds__(TC_THREADS)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, bf16* __restrict__ o, Strides qs, Strides ks,
                 Strides vs, Strides os, int rep, int sq, int sk, int causal, int window,
-                float scale_log2) {
+                float scale_log2, float* __restrict__ lse) {
   using T = Tile<D>;
   constexpr int W = T::W, CPR = D / 8;
   extern __shared__ unsigned char smem_raw[];
@@ -506,6 +555,9 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     lr += __shfl_xor_sync(FULL, lr, 1);
     lr += __shfl_xor_sync(FULL, lr, 2);
     inv[r] = lr > 0.0f ? 1.0f / lr : 0.0f;         // fully masked row -> 0
+    const int row = q0 + warp * 16 + g + 8 * r;
+    if (lse != nullptr && tig == 0 && row < sq)
+      lse[(b * gridDim.y + h) * sq + row] = lr > 0.0f ? m[r] * LN2 + logf(lr) : -INFINITY;
   }
 #pragma unroll
   for (int n = 0; n < D / 8; ++n)
@@ -863,7 +915,7 @@ __global__ void __launch_bounds__(W * 32)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, Strides qs,
                  Strides ks, Strides vs, Strides os, int rep, int sq, int sk,
-                 int causal, int window, float scale) {
+                 int causal, int window, float scale, float* __restrict__ lse) {
   extern __shared__ __align__(16) float smem[];
   constexpr int bq = W * R;
   float* q_s = smem;                     // (bq, D)
@@ -965,6 +1017,691 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float denom = l[r] == 0.0f ? 1.0f : l[r];   // fully masked row -> 0
 #pragma unroll
       for (int i = 0; i < D / 32; ++i) ob[(int64_t)row * os.s + lane + 32 * i] = acc[r][i] / denom;
+      if (lse != nullptr && lane == 0)
+        lse[(b * gridDim.y + h) * sq + row] = l[r] > 0.0f ? m[r] + logf(l[r]) : -INFINITY;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward, fp32: exact, on the CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int BWD_BQ = 32;           // query rows per tile
+constexpr int BWD_BK = 32;           // keys per tile
+constexpr int BWD_THREADS = 256;
+
+__device__ __forceinline__ float ld_f32(const float* p) { return *p; }
+__device__ __forceinline__ float ld_f32(const bf16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void st_f32(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st_f32(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// ROWS rows of D elements of T (row i at src + i·stride, 16-byte aligned)
+// into fp32 shared memory of row pitch D + 1; rows at or past `valid` are 0
+template <typename T, int D, int ROWS>
+__device__ __forceinline__ void stage_bwd(float* dst, const T* __restrict__ src, long long stride,
+                                          int valid) {
+  constexpr int VEC = 16 / sizeof(T), CPR = D / VEC;
+  for (int i = threadIdx.x; i < ROWS * CPR; i += BWD_THREADS) {
+    const int r = i / CPR, c = (i % CPR) * VEC;
+    float* d = dst + r * (D + 1) + c;
+    if (r < valid) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(src + (int64_t)r * stride + c);
+      const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) d[j] = ld_f32(e + j);
+    } else {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) d[j] = 0.0f;
+    }
+  }
+}
+
+template <int D>
+constexpr int bwd_smem_bytes() {     // four (32, D + 1) tiles, two (32, 33) ones
+  return (4 * 32 * (D + 1) + 2 * 32 * (BWD_BK + 1)) * (int)sizeof(float);
+}
+
+struct BwdArgs {
+  const void *q, *k, *v, *o, *dout;
+  const float* lse;
+  void *dq, *dk, *dv;
+  float* delta;
+  Strides q_st, k_st, v_st, o_st, do_st, dq_st, dk_st, dv_st;
+  long long b;
+  int h, kvh, rep, sq, sk, causal, window;
+  float scale;
+  cudaStream_t stream;
+};
+
+// whether query row i (position i + off) sees key kp
+__device__ __forceinline__ bool visible(int i, int kp, int sq, int sk, int off, int causal,
+                                        int window) {
+  const int qp = i + off;
+  bool ok = i < sq && kp < sk;
+  if (causal) ok = ok && kp <= qp;
+  if (window) ok = ok && qp - kp < window;
+  return ok;
+}
+
+// The S and dP of rows a_s (q or its rows) against b_s (k), thread t's 2×2
+// block: rows 2·(t / 16) + {0, 1}, columns 2·(t % 16) + {0, 1}; then p and
+// ds into p_s (optional) and ds_s, pitch BWD_BK + 1, from the rows' lse and
+// delta. i0: the q tile's first row; k0: the key tile's first key.
+template <int D>
+__device__ __forceinline__ void bwd_scores(const float* q_s, const float* do_s, const float* k_s,
+                                           const float* v_s, const float* lse_s,
+                                           const float* delta_s, float* p_s, float* ds_s,
+                                           int i0, int k0, int sq, int sk, int off, int causal,
+                                           int window, float scale) {
+  const int ti = threadIdx.x / 16, tj = threadIdx.x % 16;
+  float s[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}}, dp[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+  const float* q0 = q_s + (2 * ti) * (D + 1);
+  const float* o0 = do_s + (2 * ti) * (D + 1);
+  const float* k0r = k_s + (2 * tj) * (D + 1);
+  const float* v0r = v_s + (2 * tj) * (D + 1);
+#pragma unroll 8
+  for (int d = 0; d < D; ++d) {
+    const float qa = q0[d], qb = q0[D + 1 + d], ka = k0r[d], kb = k0r[D + 1 + d];
+    const float oa = o0[d], ob = o0[D + 1 + d], va = v0r[d], vb = v0r[D + 1 + d];
+    s[0][0] += qa * ka;
+    s[0][1] += qa * kb;
+    s[1][0] += qb * ka;
+    s[1][1] += qb * kb;
+    dp[0][0] += oa * va;
+    dp[0][1] += oa * vb;
+    dp[1][0] += ob * va;
+    dp[1][1] += ob * vb;
+  }
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const int r = 2 * ti + a;
+    const float l = lse_s[r];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int j = 2 * tj + c;
+      const bool ok = l != -INFINITY && visible(i0 + r, k0 + j, sq, sk, off, causal, window);
+      const float p = ok ? expf(s[a][c] * scale - l) : 0.0f;
+      if (p_s != nullptr) p_s[r * (BWD_BK + 1) + j] = p;
+      ds_s[r * (BWD_BK + 1) + j] = p * (dp[a][c] - delta_s[r]) * scale;
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(BWD_THREADS)
+flash_bwd_dq_kernel(BwdArgs a) {
+  extern __shared__ __align__(16) float bwd_smem[];
+  constexpr int P = D + 1, PS = BWD_BK + 1, NC = D / 16;
+  float* q_s = bwd_smem;
+  float* do_s = q_s + BWD_BQ * P;
+  float* k_s = do_s + BWD_BQ * P;
+  float* v_s = k_s + BWD_BK * P;
+  float* ds_s = v_s + BWD_BK * P;
+  __shared__ float lse_s[BWD_BQ], delta_s[BWD_BQ];
+
+  const int h = blockIdx.y;
+  const int64_t b = blockIdx.z;
+  const int q0 = blockIdx.x * BWD_BQ, off = a.sk - a.sq;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const T* qb = (const T*)a.q + b * a.q_st.b + h * a.q_st.h;
+  const T* ob = (const T*)a.o + b * a.o_st.b + h * a.o_st.h;
+  const T* dob = (const T*)a.dout + b * a.do_st.b + h * a.do_st.h;
+  const T* kb = (const T*)a.k + b * a.k_st.b + (h / a.rep) * a.k_st.h;
+  const T* vb = (const T*)a.v + b * a.v_st.b + (h / a.rep) * a.v_st.h;
+  T* dqb = (T*)a.dq + b * a.dq_st.b + h * a.dq_st.h;
+  const int64_t row_base = (b * a.h + h) * a.sq;
+
+  stage_bwd<T, D, BWD_BQ>(q_s, qb + (int64_t)q0 * a.q_st.s, a.q_st.s, a.sq - q0);
+  stage_bwd<T, D, BWD_BQ>(do_s, dob + (int64_t)q0 * a.do_st.s, a.do_st.s, a.sq - q0);
+  // delta = Σ_d dO∘O of each row, a warp a row
+  for (int r = warp; r < BWD_BQ; r += BWD_THREADS / 32) {
+    const int i = q0 + r;
+    float acc = 0.0f;
+    if (i < a.sq)
+      for (int d = lane; d < D; d += 32)
+        acc += ld_f32(dob + (int64_t)i * a.do_st.s + d) * ld_f32(ob + (int64_t)i * a.o_st.s + d);
+    acc = warp_sum(acc);
+    if (lane == 0) {
+      delta_s[r] = acc;
+      lse_s[r] = i < a.sq ? a.lse[row_base + i] : -INFINITY;
+      if (i < a.sq) a.delta[row_base + i] = acc;
+    }
+  }
+
+  // the key tiles any row of this block can see
+  const int last = min(q0 + BWD_BQ, a.sq) - 1;
+  const int k_end = a.causal ? min(a.sk, last + off + 1) : a.sk;
+  const int k_beg = a.window ? max(0, q0 + off - a.window + 1) : 0;
+
+  const int rg = threadIdx.x / 16, cl = threadIdx.x % 16;   // rows rg, rg + 16
+  float acc[2][NC];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[r][c] = 0.0f;
+
+  for (int k0 = (k_beg / BWD_BK) * BWD_BK; k0 < k_end; k0 += BWD_BK) {
+    __syncthreads();                 // the previous tile is consumed
+    stage_bwd<T, D, BWD_BK>(k_s, kb + (int64_t)k0 * a.k_st.s, a.k_st.s, a.sk - k0);
+    stage_bwd<T, D, BWD_BK>(v_s, vb + (int64_t)k0 * a.v_st.s, a.v_st.s, a.sk - k0);
+    __syncthreads();
+    bwd_scores<D>(q_s, do_s, k_s, v_s, lse_s, delta_s, nullptr, ds_s, q0, k0, a.sq, a.sk, off,
+                  a.causal, a.window, a.scale);
+    __syncthreads();
+    // dQ += dS·K
+#pragma unroll 4
+    for (int j = 0; j < BWD_BK; ++j) {
+      const float d0 = ds_s[rg * PS + j], d1 = ds_s[(rg + 16) * PS + j];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const float kv = k_s[j * P + cl + 16 * c];
+        acc[0][c] += d0 * kv;
+        acc[1][c] += d1 * kv;
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = q0 + rg + 16 * r;
+    if (i < a.sq)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) st_f32(dqb + (int64_t)i * a.dq_st.s + cl + 16 * c, acc[r][c]);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(BWD_THREADS)
+flash_bwd_dkdv_kernel(BwdArgs a) {
+  extern __shared__ __align__(16) float bwd_smem[];
+  constexpr int P = D + 1, PS = BWD_BK + 1, NC = D / 16;
+  float* k_s = bwd_smem;
+  float* v_s = k_s + BWD_BK * P;
+  float* q_s = v_s + BWD_BK * P;
+  float* do_s = q_s + BWD_BQ * P;
+  float* p_s = do_s + BWD_BQ * P;
+  float* ds_s = p_s + BWD_BQ * PS;
+  __shared__ float lse_s[BWD_BQ], delta_s[BWD_BQ];
+
+  const int grp = blockIdx.y;
+  const int64_t b = blockIdx.z;
+  const int k0 = blockIdx.x * BWD_BK, off = a.sk - a.sq;
+  const T* kb = (const T*)a.k + b * a.k_st.b + grp * a.k_st.h;
+  const T* vb = (const T*)a.v + b * a.v_st.b + grp * a.v_st.h;
+  T* dkb = (T*)a.dk + b * a.dk_st.b + grp * a.dk_st.h;
+  T* dvb = (T*)a.dv + b * a.dv_st.b + grp * a.dv_st.h;
+
+  stage_bwd<T, D, BWD_BK>(k_s, kb + (int64_t)k0 * a.k_st.s, a.k_st.s, a.sk - k0);
+  stage_bwd<T, D, BWD_BK>(v_s, vb + (int64_t)k0 * a.v_st.s, a.v_st.s, a.sk - k0);
+
+  // the query rows that see some key of this tile
+  const int k_last = min(k0 + BWD_BK, a.sk) - 1;
+  const int i_beg = a.causal ? max(0, k0 - off) : 0;
+  const int i_end = a.window ? min(a.sq, k_last + a.window - off) : a.sq;
+
+  const int rg = threadIdx.x / 16, cl = threadIdx.x % 16;   // keys rg, rg + 16
+  float dk[2][NC], dv[2][NC];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) dk[r][c] = dv[r][c] = 0.0f;
+
+  for (int hh = grp * a.rep; hh < (grp + 1) * a.rep; ++hh) {
+    const T* qb = (const T*)a.q + b * a.q_st.b + hh * a.q_st.h;
+    const T* dob = (const T*)a.dout + b * a.do_st.b + hh * a.do_st.h;
+    const int64_t row_base = (b * a.h + hh) * a.sq;
+    for (int q0 = (i_beg / BWD_BQ) * BWD_BQ; q0 < i_end; q0 += BWD_BQ) {
+      __syncthreads();               // the previous q tile is consumed
+      stage_bwd<T, D, BWD_BQ>(q_s, qb + (int64_t)q0 * a.q_st.s, a.q_st.s, a.sq - q0);
+      stage_bwd<T, D, BWD_BQ>(do_s, dob + (int64_t)q0 * a.do_st.s, a.do_st.s, a.sq - q0);
+      if (threadIdx.x < BWD_BQ) {
+        const int i = q0 + threadIdx.x;
+        lse_s[threadIdx.x] = i < a.sq ? a.lse[row_base + i] : -INFINITY;
+        delta_s[threadIdx.x] = i < a.sq ? a.delta[row_base + i] : 0.0f;
+      }
+      __syncthreads();
+      bwd_scores<D>(q_s, do_s, k_s, v_s, lse_s, delta_s, p_s, ds_s, q0, k0, a.sq, a.sk, off,
+                    a.causal, a.window, a.scale);
+      __syncthreads();
+      // dV += Pᵀ·dO, dK += dSᵀ·Q
+#pragma unroll 4
+      for (int i = 0; i < BWD_BQ; ++i) {
+        const float p0 = p_s[i * PS + rg], p1 = p_s[i * PS + rg + 16];
+        const float s0 = ds_s[i * PS + rg], s1 = ds_s[i * PS + rg + 16];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const float ov = do_s[i * P + cl + 16 * c], qv = q_s[i * P + cl + 16 * c];
+          dv[0][c] += p0 * ov;
+          dv[1][c] += p1 * ov;
+          dk[0][c] += s0 * qv;
+          dk[1][c] += s1 * qv;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = k0 + rg + 16 * r;
+    if (j < a.sk)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        st_f32(dkb + (int64_t)j * a.dk_st.s + cl + 16 * c, dk[r][c]);
+        st_f32(dvb + (int64_t)j * a.dv_st.s + cl + 16 * c, dv[r][c]);
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward, bf16: products on the tensor cores (mma.sync.m16n8k16)
+// ---------------------------------------------------------------------------
+
+constexpr int TB_THREADS = 128;      // a warp group: 4 warps, 16 rows (q or keys) each
+constexpr int TB_BQ = 64;            // dq kernel: query rows a block
+constexpr int TB_BK = 64;            // dq kernel: keys a tile; dk/dv kernel: keys a block
+constexpr int TB_KQ = 32;            // dk/dv kernel: query rows a tile
+constexpr int TB_GROUPS = 2;         // dk/dv kernel: warp groups, each its own q tiles
+
+template <int D>
+constexpr int tb_dq_smem() {         // q, dO (64 rows), 2 stages of K and V (64 rows)
+  return 6 * 64 * (D + 8) * (int)sizeof(bf16);
+}
+template <int D>
+constexpr int tb_dkdv_smem() {       // K, V (64 rows); per group 2 stages of q and dO (32 rows)
+  return (2 * TB_BK + TB_GROUPS * 4 * TB_KQ) * (D + 8) * (int)sizeof(bf16);
+}
+static_assert(TB_BK * 128 * 2 * sizeof(float) <= TB_GROUPS * 4 * TB_KQ * (128 + 8) * sizeof(bf16),
+              "a group's dk, dv fit in the q and dO stages");
+
+// 4 bytes global -> shared; zeros when !valid (src is then not read)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// ROWS rows of D bf16 (row i at src + i·stride) into shared memory of row
+// pitch D + 8 by cp.async, by the TB_THREADS threads of a warp group (tid:
+// the thread's index in it); rows at or past `valid` become zeros
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, long long stride,
+                                          int valid, int tid) {
+  constexpr int CPR = D / 8, P = D + 8;
+  for (int i = tid; i < ROWS * CPR; i += TB_THREADS) {
+    const int r = i / CPR, c = i % CPR;
+    const bool ok = r < valid;
+    cp_async16(dst + r * P + c * 8, src + (ok ? (int64_t)r * stride + c * 8 : 0), ok);
+  }
+}
+
+// four 8 x 8 bf16 matrices from shared memory, lane l giving the address of
+// row l % 8 of matrix l / 8; .trans hands each lane the transposed pairs
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"((unsigned)__cvta_generic_to_shared(p)));
+}
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"((unsigned)__cvta_generic_to_shared(p)));
+}
+
+// the A fragment of rows r0 .. r0 + 15, columns 16·kk .. 16·kk + 15 of a
+// row-major pitch-P tile
+template <int P>
+__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const bf16* tile, int r0, int kk,
+                                       int lane) {
+  ldsm4(a, tile + (r0 + lane % 16) * P + kk * 16 + (lane / 16) * 8);
+}
+
+// acc[n0 / 8 + {0, 1}] += A · Bᵀ-tiles: B's 16 rows n0 .. n0 + 15 of a
+// row-major pitch-P tile are the product's columns, its columns 16·kk ..
+// 16·kk + 15 the depth (S = Q·Kᵀ: the K rows of two 8-key column tiles)
+template <int P>
+__device__ __forceinline__ void mma_nt2(float (&c0)[4], float (&c1)[4], const uint32_t (&a)[4],
+                                        const bf16* tile, int n0, int kk, int lane) {
+  uint32_t b[4];
+  ldsm4(b, tile + (n0 + (lane / 16) * 8 + lane % 8) * P + kk * 16 + ((lane / 8) % 2) * 8);
+  mma_16816(c0, a, b[0], b[1]);
+  mma_16816(c1, a, b[2], b[3]);
+}
+
+// the A fragment of a 16 x 16 block from two 16 x 8 accumulator fragments
+// (columns 0-7 in c0, 8-15 in c1), rounded to bf16
+__device__ __forceinline__ void a_from_c(uint32_t (&a)[4], const float (&c0)[4],
+                                         const float (&c1)[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// acc (16 x D) += A (16 x 16) · B, B's 16 rows starting at row k0 of a
+// row-major pitch-P tile (the rows are the product's depth, D columns),
+// loaded transposed, two 8-column tiles an ldmatrix
+template <int D, int P>
+__device__ __forceinline__ void mma_rows(float (&acc)[D / 8][4], const uint32_t (&a)[4],
+                                         const bf16* tile, int k0, int lane) {
+  const bf16* r = tile + (k0 + lane % 8 + ((lane / 8) % 2) * 8) * P + (lane / 16) * 8;
+#pragma unroll
+  for (int np = 0; np < D / 16; ++np) {
+    uint32_t b[4];
+    ldsm4_t(b, r + np * 16);
+    mma_16816(acc[2 * np], a, b[0], b[1]);
+    mma_16816(acc[2 * np + 1], a, b[2], b[3]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(TB_THREADS)
+flash_bwd_dq_tc_kernel(BwdArgs a) {
+  constexpr int P = D + 8, NT = D / 8, KT = TB_BK / 8;
+  extern __shared__ __align__(16) unsigned char tb_smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(tb_smem);
+  bf16* do_s = q_s + TB_BQ * P;
+  bf16* k_s = do_s + TB_BQ * P;      // 2 stages of (TB_BK, P)
+  bf16* v_s = k_s + 2 * TB_BK * P;   // 2 stages
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.y;
+  const int64_t b = blockIdx.z;
+  const int q0 = blockIdx.x * TB_BQ, off = a.sk - a.sq;
+  const bf16* qb = (const bf16*)a.q + b * a.q_st.b + h * a.q_st.h;
+  const bf16* ob = (const bf16*)a.o + b * a.o_st.b + h * a.o_st.h;
+  const bf16* dob = (const bf16*)a.dout + b * a.do_st.b + h * a.do_st.h;
+  const bf16* kb = (const bf16*)a.k + b * a.k_st.b + (h / a.rep) * a.k_st.h;
+  const bf16* vb = (const bf16*)a.v + b * a.v_st.b + (h / a.rep) * a.v_st.h;
+  bf16* dqb = (bf16*)a.dq + b * a.dq_st.b + h * a.dq_st.h;
+  const int64_t row_base = (b * a.h + h) * a.sq;
+
+  // the key tiles any row of this block can see
+  const int last = min(q0 + TB_BQ, a.sq) - 1;
+  const int k_end = a.causal ? min(a.sk, last + off + 1) : a.sk;
+  const int k_first = a.window ? (max(0, q0 + off - a.window + 1) / TB_BK) * TB_BK : 0;
+  const int tiles = k_end > k_first ? (k_end - k_first + TB_BK - 1) / TB_BK : 0;
+  auto load_kv = [&](int i) {        // key tile i into stage i % 2
+    const int k0 = k_first + i * TB_BK;
+    load_rows<D, TB_BK>(k_s + (i & 1) * TB_BK * P, kb + (int64_t)k0 * a.k_st.s, a.k_st.s,
+                        a.sk - k0, threadIdx.x);
+    load_rows<D, TB_BK>(v_s + (i & 1) * TB_BK * P, vb + (int64_t)k0 * a.v_st.s, a.v_st.s,
+                        a.sk - k0, threadIdx.x);
+  };
+
+  load_rows<D, TB_BQ>(q_s, qb + (int64_t)q0 * a.q_st.s, a.q_st.s, a.sq - q0, threadIdx.x);
+  load_rows<D, TB_BQ>(do_s, dob + (int64_t)q0 * a.do_st.s, a.do_st.s, a.sq - q0, threadIdx.x);
+  if (tiles > 0) load_kv(0);
+  cp_async_commit();
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;          // this thread's rows
+  const float l0 = r0 < a.sq ? a.lse[row_base + r0] * LOG2E : -INFINITY;
+  const float l1 = r1 < a.sq ? a.lse[row_base + r1] * LOG2E : -INFINITY;
+
+  // delta = Σ_d dO∘O of the warp's 16 rows, written for the dk/dv kernel:
+  // lanes 2r and 2r + 1 take half of row r each, all their 16-byte loads in
+  // flight at once (dO from global memory: its tile may still be in flight)
+  float dl0, dl1;
+  {
+    constexpr int NV = D / 16;       // 16-byte vectors a lane
+    const int i = q0 + warp * 16 + lane / 2, c0 = (lane & 1) * (D / 2);
+    uint4 ov[NV], dv[NV];
+#pragma unroll
+    for (int n = 0; n < NV; ++n) {
+      ov[n] = i < a.sq ? *reinterpret_cast<const uint4*>(ob + (int64_t)i * a.o_st.s + c0 + 8 * n)
+                       : make_uint4(0, 0, 0, 0);
+      dv[n] = i < a.sq ? *reinterpret_cast<const uint4*>(dob + (int64_t)i * a.do_st.s + c0 + 8 * n)
+                       : make_uint4(0, 0, 0, 0);
+    }
+    float acc = 0.0f;
+#pragma unroll
+    for (int n = 0; n < NV; ++n) {
+      float of[8], df[8];
+      widen8(ov[n], of);
+      widen8(dv[n], df);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc += of[e] * df[e];
+    }
+    acc += __shfl_xor_sync(FULL, acc, 1);
+    if ((lane & 1) == 0 && i < a.sq) a.delta[row_base + i] = acc;
+    dl0 = __shfl_sync(FULL, acc, 2 * g);
+    dl1 = __shfl_sync(FULL, acc, 2 * (g + 8));
+  }
+  const float scale_log2 = a.scale * LOG2E;
+
+  float dq[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[nt][e] = 0.0f;
+
+  for (int i = 0; i < tiles; ++i) {
+    if (i + 1 < tiles) load_kv(i + 1);        // in flight under this tile
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();                 // tile i (and q, dO) are in for every thread
+    const int k0 = k_first + i * TB_BK;
+    const bf16* ks = k_s + (i & 1) * TB_BK * P;
+    const bf16* vs = v_s + (i & 1) * TB_BK * P;
+
+    float s[KT][4], dp[KT][4];       // S and dP: rows g, g + 8; keys 8n + 2t, +1
+#pragma unroll
+    for (int n = 0; n < KT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t aq[4], ado[4];
+      a_frag<P>(aq, q_s, warp * 16, kk, lane);
+      a_frag<P>(ado, do_s, warp * 16, kk, lane);
+#pragma unroll
+      for (int n = 0; n < KT; n += 2) {
+        mma_nt2<P>(s[n], s[n + 1], aq, ks, n * 8, kk, lane);
+        mma_nt2<P>(dp[n], dp[n + 1], ado, vs, n * 8, kk, lane);
+      }
+    }
+    // dS = P∘(dP - delta)·scale, P = exp(S·scale - lse), into s
+#pragma unroll
+    for (int n = 0; n < KT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = e < 2 ? r0 : r1, key = k0 + n * 8 + 2 * t + (e & 1);
+        const float l = e < 2 ? l0 : l1;
+        const bool ok = l != -INFINITY && visible(row, key, a.sq, a.sk, off, a.causal, a.window);
+        const float p = ok ? exp2f(s[n][e] * scale_log2 - l) : 0.0f;
+        s[n][e] = p * (dp[n][e] - (e < 2 ? dl0 : dl1)) * a.scale;
+      }
+    // dQ += dS·K
+#pragma unroll
+    for (int kk = 0; kk < KT / 2; ++kk) {
+      uint32_t ads[4];
+      a_from_c(ads, s[2 * kk], s[2 * kk + 1]);
+      mma_rows<D, P>(dq, ads, ks, kk * 16, lane);
+    }
+    __syncthreads();                 // this stage is consumed before it is refilled
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int col = nt * 8 + 2 * t;
+    if (r0 < a.sq)
+      *reinterpret_cast<__nv_bfloat162*>(dqb + (int64_t)r0 * a.dq_st.s + col) =
+          __floats2bfloat162_rn(dq[nt][0], dq[nt][1]);
+    if (r1 < a.sq)
+      *reinterpret_cast<__nv_bfloat162*>(dqb + (int64_t)r1 * a.dq_st.s + col) =
+          __floats2bfloat162_rn(dq[nt][2], dq[nt][3]);
+  }
+}
+
+// The dk/dv kernel: TB_GROUPS warp groups of 4 warps, all on the block's
+// 64 keys (a warp 16 of them); the (head, q tile) steps of the group's
+// heads are dealt out to the groups in turn, each group with its own
+// two-stage ring and named barrier, and at the end the groups' dK and dV
+// are added in order through shared memory.
+template <int D>
+__global__ void __launch_bounds__(TB_GROUPS * TB_THREADS)
+flash_bwd_dkdv_tc_kernel(BwdArgs a) {
+  constexpr int P = D + 8, NT = D / 8, QT = TB_KQ / 8;
+  extern __shared__ __align__(16) unsigned char tb_smem[];
+  bf16* k_s = reinterpret_cast<bf16*>(tb_smem);
+  bf16* v_s = k_s + TB_BK * P;
+  __shared__ __align__(16) float lse_s[TB_GROUPS][2][TB_KQ], delta_s[TB_GROUPS][2][TB_KQ];
+
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int grp_w = threadIdx.x / TB_THREADS;              // this thread's warp group
+  const int gtid = threadIdx.x % TB_THREADS, warp = gtid >> 5;
+  bf16* q_s = v_s + TB_BK * P + grp_w * 4 * TB_KQ * P;    // 2 stages of (TB_KQ, P)
+  bf16* do_s = q_s + 2 * TB_KQ * P;                        // 2 stages
+  const int grp = blockIdx.y;
+  const int64_t b = blockIdx.z;
+  const int k0 = blockIdx.x * TB_BK, off = a.sk - a.sq;
+  const bf16* kb = (const bf16*)a.k + b * a.k_st.b + grp * a.k_st.h;
+  const bf16* vb = (const bf16*)a.v + b * a.v_st.b + grp * a.v_st.h;
+  bf16* dkb = (bf16*)a.dk + b * a.dk_st.b + grp * a.dk_st.h;
+  bf16* dvb = (bf16*)a.dv + b * a.dv_st.b + grp * a.dv_st.h;
+  const float scale_log2 = a.scale * LOG2E;
+  auto group_sync = [&]() {          // the warp group's own barrier (0 is __syncthreads)
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + grp_w), "r"(TB_THREADS) : "memory");
+  };
+
+  // K and V by the first warp group, then one barrier for all
+  if (grp_w == 0) {
+    load_rows<D, TB_BK>(k_s, kb + (int64_t)k0 * a.k_st.s, a.k_st.s, a.sk - k0, gtid);
+    load_rows<D, TB_BK>(v_s, vb + (int64_t)k0 * a.v_st.s, a.v_st.s, a.sk - k0, gtid);
+  }
+  cp_async_commit();
+
+  // the query rows that see some key of this tile, in tiles of TB_KQ, for
+  // each of the group's heads: step `it` is head grp·rep + it / n_qt, and
+  // warp group w takes the steps w, w + TB_GROUPS, ...
+  const int k_last = min(k0 + TB_BK, a.sk) - 1;
+  const int i_beg = a.causal ? max(0, k0 - off) : 0;
+  const int i_end = a.window ? min(a.sq, k_last + a.window - off) : a.sq;
+  const int qt_beg = (i_beg / TB_KQ) * TB_KQ;
+  const int n_qt = i_end > qt_beg ? (i_end - qt_beg + TB_KQ - 1) / TB_KQ : 0;
+  const int total = a.rep * n_qt;
+
+  // step `it` into stage j, with its rows' lse and delta; rows past Sq read
+  // as zeros, and no key is visible to them
+  auto load_q = [&](int it, int j) {
+    const int hh = grp * a.rep + it / n_qt, q0 = qt_beg + (it % n_qt) * TB_KQ;
+    const bf16* qb = (const bf16*)a.q + b * a.q_st.b + hh * a.q_st.h;
+    const bf16* dob = (const bf16*)a.dout + b * a.do_st.b + hh * a.do_st.h;
+    load_rows<D, TB_KQ>(q_s + j * TB_KQ * P, qb + (int64_t)q0 * a.q_st.s, a.q_st.s, a.sq - q0,
+                        gtid);
+    load_rows<D, TB_KQ>(do_s + j * TB_KQ * P, dob + (int64_t)q0 * a.do_st.s, a.do_st.s,
+                        a.sq - q0, gtid);
+    if (gtid < 2 * TB_KQ) {
+      const int r = gtid % TB_KQ, i = q0 + r;
+      const int64_t row = (b * a.h + hh) * a.sq + (i < a.sq ? i : 0);
+      if (gtid < TB_KQ)
+        cp_async4(&lse_s[grp_w][j][r], a.lse + row, i < a.sq);
+      else
+        cp_async4(&delta_s[grp_w][j][r], a.delta + row, i < a.sq);
+    }
+  };
+  if (grp_w < total) load_q(grp_w, 0);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();                   // K and V are in for every thread
+
+  float dk[NT][4], dv[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[nt][e] = dv[nt][e] = 0.0f;
+  const int kr0 = k0 + warp * 16 + g, kr1 = kr0 + 8;      // this thread's keys
+
+  for (int it = grp_w, j = 0; it < total; it += TB_GROUPS, j ^= 1) {
+    if (it + TB_GROUPS < total) load_q(it + TB_GROUPS, j ^ 1);   // in flight under this one
+    cp_async_commit();
+    cp_async_wait<1>();
+    group_sync();                    // step it is in for every thread of the group
+    const int q0 = qt_beg + (it % n_qt) * TB_KQ;
+    const bf16* qs = q_s + j * TB_KQ * P;
+    const bf16* dos = do_s + j * TB_KQ * P;
+
+    float st[QT][4], dpt[QT][4];     // Sᵀ, dPᵀ: keys g, g + 8; q rows 8n + 2t, +1
+#pragma unroll
+    for (int n = 0; n < QT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t ak[4], av[4];
+      a_frag<P>(ak, k_s, warp * 16, kk, lane);
+      a_frag<P>(av, v_s, warp * 16, kk, lane);
+#pragma unroll
+      for (int n = 0; n < QT; n += 2) {
+        mma_nt2<P>(st[n], st[n + 1], ak, qs, n * 8, kk, lane);
+        mma_nt2<P>(dpt[n], dpt[n + 1], av, dos, n * 8, kk, lane);
+      }
+    }
+    // Pᵀ into st, dSᵀ into dpt
+#pragma unroll
+    for (int n = 0; n < QT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ql = n * 8 + 2 * t + (e & 1), key = e < 2 ? kr0 : kr1;
+        const bool ok = visible(q0 + ql, key, a.sq, a.sk, off, a.causal, a.window);
+        const float l = lse_s[grp_w][j][ql] * LOG2E;
+        const float p = ok && l != -INFINITY ? exp2f(st[n][e] * scale_log2 - l) : 0.0f;
+        st[n][e] = p;
+        dpt[n][e] = p * (dpt[n][e] - delta_s[grp_w][j][ql]) * a.scale;
+      }
+    // dV += Pᵀ·dO, dK += dSᵀ·q
+#pragma unroll
+    for (int kk = 0; kk < QT / 2; ++kk) {
+      uint32_t ap[4], ads[4];
+      a_from_c(ap, st[2 * kk], st[2 * kk + 1]);
+      a_from_c(ads, dpt[2 * kk], dpt[2 * kk + 1]);
+      mma_rows<D, P>(dv, ap, dos, kk * 16, lane);
+      mma_rows<D, P>(dk, ads, qs, kk * 16, lane);
+    }
+    group_sync();                    // this stage is consumed before it is refilled
+  }
+  cp_async_wait<0>();
+  __syncthreads();                   // every group is done with its stages
+
+  // the groups' sums added in order: group w > 0 leaves its dK, dV in the
+  // q/dO stages (entry e of thread gtid at e·TB_THREADS + gtid), group 0
+  // adds them and writes the result
+  float* red = reinterpret_cast<float*>(v_s + TB_BK * P);
+  for (int w = 1; w < TB_GROUPS; ++w) {
+    if (grp_w == w) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          red[((nt * 4 + e) * 2) * TB_THREADS + gtid] = dk[nt][e];
+          red[((nt * 4 + e) * 2 + 1) * TB_THREADS + gtid] = dv[nt][e];
+        }
+    }
+    __syncthreads();
+    if (grp_w == 0) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dk[nt][e] += red[((nt * 4 + e) * 2) * TB_THREADS + gtid];
+          dv[nt][e] += red[((nt * 4 + e) * 2 + 1) * TB_THREADS + gtid];
+        }
+    }
+    __syncthreads();
+  }
+  if (grp_w != 0) return;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int col = nt * 8 + 2 * t;
+    if (kr0 < a.sk) {
+      *reinterpret_cast<__nv_bfloat162*>(dkb + (int64_t)kr0 * a.dk_st.s + col) =
+          __floats2bfloat162_rn(dk[nt][0], dk[nt][1]);
+      *reinterpret_cast<__nv_bfloat162*>(dvb + (int64_t)kr0 * a.dv_st.s + col) =
+          __floats2bfloat162_rn(dv[nt][0], dv[nt][1]);
+    }
+    if (kr1 < a.sk) {
+      *reinterpret_cast<__nv_bfloat162*>(dkb + (int64_t)kr1 * a.dk_st.s + col) =
+          __floats2bfloat162_rn(dk[nt][2], dk[nt][3]);
+      *reinterpret_cast<__nv_bfloat162*>(dvb + (int64_t)kr1 * a.dv_st.s + col) =
+          __floats2bfloat162_rn(dv[nt][2], dv[nt][3]);
     }
   }
 }
@@ -976,6 +1713,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 struct Args {
   const void *q, *k, *v;
   void* o;
+  float* lse;                        // (B, H, Sq) fp32, or null
   Strides st[4];
   long long b;
   int h, kvh, rep, sq, sk, causal, window;
@@ -1003,7 +1741,7 @@ int launch_f32(const Args& a) {
   const dim3 grid((unsigned)((a.sq + bq - 1) / bq), (unsigned)a.h, (unsigned)a.b);
   flash_f32_kernel<D, R, W><<<grid, W * 32, bytes, a.stream>>>(
       (const float*)a.q, (const float*)a.k, (const float*)a.v, (float*)a.o, a.st[0], a.st[1],
-      a.st[2], a.st[3], a.rep, a.sq, a.sk, a.causal, a.window, a.scale);
+      a.st[2], a.st[3], a.rep, a.sq, a.sk, a.causal, a.window, a.scale, a.lse);
   return (int)cudaGetLastError();
 }
 
@@ -1015,7 +1753,7 @@ int launch_tc(const Args& a) {
   const dim3 grid((unsigned)((a.sq + TC_BQ - 1) / TC_BQ), (unsigned)a.h, (unsigned)a.b);
   flash_tc_kernel<D><<<grid, TC_THREADS, bytes, a.stream>>>(
       (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v, (bf16*)a.o, a.st[0], a.st[1],
-      a.st[2], a.st[3], a.rep, a.sq, a.sk, a.causal, a.window, a.scale * LOG2E);
+      a.st[2], a.st[3], a.rep, a.sq, a.sk, a.causal, a.window, a.scale * LOG2E, a.lse);
   return (int)cudaGetLastError();
 }
 
@@ -1069,6 +1807,39 @@ int launch_d(const Args& a, int is_bf16, int splits) {
   return launch_tc<D>(a);
 }
 
+
+template <typename T, int D>
+int launch_bwd(const BwdArgs& a) {
+  constexpr int bytes = bwd_smem_bytes<D>();
+  static bool opted_dq = false, opted_dkdv = false;
+  if (int e = opt_in(flash_bwd_dq_kernel<T, D>, bytes, opted_dq)) return e;
+  if (int e = opt_in(flash_bwd_dkdv_kernel<T, D>, bytes, opted_dkdv)) return e;
+  const dim3 grid_q((unsigned)((a.sq + BWD_BQ - 1) / BWD_BQ), (unsigned)a.h, (unsigned)a.b);
+  flash_bwd_dq_kernel<T, D><<<grid_q, BWD_THREADS, bytes, a.stream>>>(a);
+  if (cudaError_t e = cudaGetLastError()) return (int)e;
+  const dim3 grid_k((unsigned)((a.sk + BWD_BK - 1) / BWD_BK), (unsigned)a.kvh, (unsigned)a.b);
+  flash_bwd_dkdv_kernel<T, D><<<grid_k, BWD_THREADS, bytes, a.stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_bwd_tc(const BwdArgs& a) {
+  static bool opted_dq = false, opted_dkdv = false;
+  if (int e = opt_in(flash_bwd_dq_tc_kernel<D>, tb_dq_smem<D>(), opted_dq)) return e;
+  if (int e = opt_in(flash_bwd_dkdv_tc_kernel<D>, tb_dkdv_smem<D>(), opted_dkdv)) return e;
+  const dim3 grid_q((unsigned)((a.sq + TB_BQ - 1) / TB_BQ), (unsigned)a.h, (unsigned)a.b);
+  flash_bwd_dq_tc_kernel<D><<<grid_q, TB_THREADS, tb_dq_smem<D>(), a.stream>>>(a);
+  if (cudaError_t e = cudaGetLastError()) return (int)e;
+  const dim3 grid_k((unsigned)((a.sk + TB_BK - 1) / TB_BK), (unsigned)a.kvh, (unsigned)a.b);
+  flash_bwd_dkdv_tc_kernel<D><<<grid_k, TB_GROUPS * TB_THREADS, tb_dkdv_smem<D>(), a.stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_bwd_d(const BwdArgs& a, int is_bf16) {
+  return is_bf16 ? launch_bwd_tc<D>(a) : launch_bwd<float, D>(a);
+}
+
 }  // namespace
 
 // strides: 12 element strides, (b, h, s) for q, k, v and o in that order;
@@ -1076,9 +1847,11 @@ int launch_d(const Args& a, int is_bf16, int splits) {
 // bytes. d in {32, 64, 128}; h a multiple of kvh; b, h at most 65535.
 // splits: 0 for the bf16 prefill kernel; for the bf16 decode kernel the
 // number of key splits (at most 16, each ceil(sk / splits) keys; h / kvh ·
-// sq <= 16 query rows per group). fp32 ignores splits.
+// sq <= 16 query rows per group). fp32 ignores splits. lse: null, or (b, h,
+// sq) fp32 for each row's logsumexp (the bf16 prefill and fp32 kernels; a
+// call with splits > 0 and an lse is refused).
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o,
-                               const long long* strides, long long b, int h, int kvh,
+                               const long long* strides, void* lse, long long b, int h, int kvh,
                                int sq, int sk, int d, int causal, int window,
                                float scale, int is_bf16, int splits, void* stream) {
   if (b <= 0 || sq <= 0) return 0;
@@ -1089,6 +1862,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
   a.k = k;
   a.v = v;
   a.o = o;
+  a.lse = (float*)lse;
   for (int i = 0; i < 4; ++i)
     a.st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   a.b = b;
@@ -1102,13 +1876,59 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
   a.scale = scale;
   a.stream = (cudaStream_t)stream;
   if (is_bf16 && splits > 0) {
-    if (a.rep * sq > SPLIT_ROWS || splits > SPLIT_MAX || splits > sk)
+    if (a.rep * sq > SPLIT_ROWS || splits > SPLIT_MAX || splits > sk || lse != nullptr)
       return (int)cudaErrorInvalidValue;
   }
   switch (d) {
     case 32: return launch_d<32>(a, is_bf16, splits);
     case 64: return launch_d<64>(a, is_bf16, splits);
     case 128: return launch_d<128>(a, is_bf16, splits);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The gradient of flash_attention: q, o, do, dq (b, h, sq, d); k, v, dk, dv
+// (b, kvh, sk, d); lse and delta (b, h, sq) fp32 contiguous, lse from the
+// forward, delta written here (scratch of the second kernel). strides: 24
+// element strides, (b, h, s) for q, k, v, o, do, dq, dk and dv in that order,
+// the last dim contiguous, the inputs 16-byte aligned with (b, h, s)
+// strides multiples of 16 bytes. d in {32, 64, 128}. Two launches: dq (and
+// delta), then dk and dv.
+extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
+                                   const void* dout, const void* lse, void* dq, void* dk,
+                                   void* dv, void* delta, const long long* strides, long long b,
+                                   int h, int kvh, int sq, int sk, int d, int causal, int window,
+                                   float scale, int is_bf16, void* stream) {
+  if (b <= 0 || sq <= 0 || sk <= 0) return 0;
+  if (kvh <= 0 || h % kvh != 0 || b > 65535 || h > 65535) return (int)cudaErrorInvalidValue;
+  BwdArgs a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.o = o;
+  a.dout = dout;
+  a.lse = (const float*)lse;
+  a.dq = dq;
+  a.dk = dk;
+  a.dv = dv;
+  a.delta = (float*)delta;
+  Strides* st[8] = {&a.q_st, &a.k_st, &a.v_st, &a.o_st, &a.do_st, &a.dq_st, &a.dk_st, &a.dv_st};
+  for (int i = 0; i < 8; ++i)
+    *st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  a.b = b;
+  a.h = h;
+  a.kvh = kvh;
+  a.rep = h / kvh;
+  a.sq = sq;
+  a.sk = sk;
+  a.causal = causal;
+  a.window = window;
+  a.scale = scale;
+  a.stream = (cudaStream_t)stream;
+  switch (d) {
+    case 32: return launch_bwd_d<32>(a, is_bf16);
+    case 64: return launch_bwd_d<64>(a, is_bf16);
+    case 128: return launch_bwd_d<128>(a, is_bf16);
     default: return (int)cudaErrorInvalidValue;
   }
 }

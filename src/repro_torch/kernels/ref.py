@@ -47,6 +47,89 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     return out.reshape(b, h, sq, d).to(q.dtype)
 
 
+def rmsnorm_bwd_ref(x, scale, dy, eps: float = 1e-6):
+    """The gradient of ``rmsnorm_ref`` (the math of the reference's
+    ``_rms_fused_bwd``): with g1 = 1 + scale and r = rsqrt(mean(x²) + eps),
+
+        dx     = g1·dy·r - x·r³·Σ(x·g1·dy)/D
+        dscale = Σ_rows x·dy·r
+
+    all in fp32, each result rounded once, dx to x's dtype and dscale to
+    scale's."""
+    d = x.shape[-1]
+    x32, dy32 = x.float(), dy.float()
+    g1 = 1.0 + scale.float()
+    r = torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
+    s1 = torch.sum(x32 * g1 * dy32, dim=-1, keepdim=True)
+    dx = g1 * dy32 * r - x32 * (r * r * r) * (s1 / d)
+    dscale = torch.sum((x32 * dy32 * r).reshape(-1, d), dim=0)
+    return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
+def _visible(sq: int, sk: int, causal: bool, window: int, device):
+    """(Sq, Sk) bool: which keys each query row sees (right-aligned causal
+    mask, optional window)."""
+    qpos = torch.arange(sq, device=device)[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= qpos - kpos < window
+    return mask
+
+
+def flash_attention_fwd_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                            return_lse: bool = False):
+    """``flash_attention_ref`` and, with ``return_lse``, the (B, H, Sq) fp32
+    logsumexp of each row's scaled scores, in natural-log units: -inf for a
+    row that sees no key. Returns ``out`` or ``(out, lse)``."""
+    out = flash_attention_ref(q, k, v, causal=causal, window=window)
+    if not return_lse:
+        return out
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    qg = q.reshape(b, kvh, h // kvh, sq, d).float()
+    logits = torch.einsum("bkrqd,bksd->bkrqs", qg, k.float()) * (1.0 / math.sqrt(d))
+    mask = _visible(sq, sk, causal, window, q.device)
+    lse = torch.logsumexp(logits.masked_fill(~mask, float("-inf")), dim=-1)
+    return out, lse.reshape(b, h, sq)
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
+                            window: int = 0):
+    """The recompute flash backward (the math of the reference's
+    ``_cattn_bwd``) for q (B, H, Sq, D), k, v (B, KV, Sk, D), the forward's
+    output o and logsumexp lse (B, H, Sq), and the output's gradient do:
+
+        delta = Σ_d do∘o,  p = exp(s - lse) (0 where masked or lse = -inf),
+        dv = pᵀ·do,  dp = do·vᵀ,  ds = p∘(dp - delta)·scale,
+        dq = ds·k,  dk = dsᵀ·q
+
+    with dk and dv summed over the H/KV query heads of each KV head. fp32
+    throughout; returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    rep = h // kvh
+    scale = 1.0 / math.sqrt(d)
+    qg = q.reshape(b, kvh, rep, sq, d).float()
+    dog = do.reshape(b, kvh, rep, sq, d).float()
+    og = o.reshape(b, kvh, rep, sq, d).float()
+    lse = lse.reshape(b, kvh, rep, sq, 1).float()
+    k32, v32 = k.float(), v.float()
+    s = torch.einsum("bkrqd,bksd->bkrqs", qg, k32) * scale
+    mask = _visible(sq, sk, causal, window, q.device) & torch.isfinite(lse)
+    p = torch.where(mask, torch.exp(s - torch.where(torch.isfinite(lse), lse, 0.0)),
+                    0.0)
+    delta = torch.sum(dog * og, dim=-1, keepdim=True)
+    dv = torch.einsum("bkrqs,bkrqd->bksd", p, dog)
+    dp = torch.einsum("bkrqd,bksd->bkrqs", dog, v32)
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bkrqs,bksd->bkrqd", ds, k32).reshape(b, h, sq, d)
+    dk = torch.einsum("bkrqs,bkrqd->bksd", ds, qg)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def flash_attention_split_ref(q, k, v, *, causal: bool = True, window: int = 0,
                               splits: int = 1):
     """``flash_attention_ref`` computed as the bf16 decode kernel computes

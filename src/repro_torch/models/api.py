@@ -5,6 +5,7 @@ families the port serves so far (``dense``).
   prefill(params, batch, cfg, cache=None) -> (logits, cache)
   decode_step(params, cache, token, pos, cfg) -> (logits, cache)
   init_cache(cfg, batch, max_seq, device=None) -> cache
+  loss_fn(params, batch, cfg) -> mean next-token cross-entropy (0-d)
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ class Model:
     prefill: Callable
     decode_step: Callable
     init_cache: Callable
+    loss_fn: Callable
 
 
 def get_model(cfg) -> Model:
@@ -30,4 +32,5 @@ def get_model(cfg) -> Model:
             "VLM, SSM/hybrid and encoder-decoder families come in later slices")
     m = transformer
     return Model(name=cfg.name, init=m.init, prefill=m.prefill,
-                 decode_step=m.decode_step, init_cache=m.init_cache)
+                 decode_step=m.decode_step, init_cache=m.init_cache,
+                 loss_fn=m.loss_fn)

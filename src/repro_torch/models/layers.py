@@ -4,10 +4,13 @@ as functions on tensors and nested dicts of parameters.
 Conventions, kept from the reference so that parameters and caches carry
 across one to one: activations (B, S, D); attention heads (B, S, H, Hd);
 stacked layer parameters with a leading L axis; the KV cache
-(L, B, S_max, KV, Hd). ``norm`` runs the rmsnorm kernel and both attention
-paths run the flash kernel on a CUDA device (their plain versions on the
-CPU); the reference's own forward calls neither Pallas kernel but jnp
-versions with the same math.
+(L, B, S_max, KV, Hd). ``norm`` runs the rmsnorm kernel (through its
+autograd Function, so its backward runs the rmsnorm backward kernel) and
+every attention path runs the flash kernel on a CUDA device (their plain
+versions on the CPU); ``self_attention``, the training path, runs it through
+its autograd Function, whose backward is the flash backward kernel. The
+reference's own forward calls neither Pallas kernel but jnp versions with
+the same math.
 """
 from __future__ import annotations
 
@@ -17,8 +20,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import random as rnd
-from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.flash_attention import FlashAttention, flash_attention
+from repro_torch.kernels.rmsnorm import RMSNorm
 
 # ---------------------------------------------------------------------------
 # init helpers
@@ -45,8 +48,9 @@ def rmsnorm_init(d, dtype, device=None):
 
 
 def norm(params, x, cfg):
-    """Gemma-style RMSNorm: one launch of the rmsnorm kernel on a card."""
-    return rmsnorm(x, params["scale"], cfg.norm_eps)
+    """Gemma-style RMSNorm: one launch of the rmsnorm kernel on a card, and
+    one call of its backward kernel in the backward pass."""
+    return RMSNorm.apply(x, params["scale"], cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------
@@ -130,6 +134,21 @@ def attention(params, x, rope_cs, cfg, cache_k, cache_v):
     cache_k[:, :s] = k
     cache_v[:, :s] = v
     return _flash(q, k, v) @ params["wo"]
+
+
+def self_attention(params, x, rope_cs, cfg):
+    """Training self-attention, with no cache: q/k/v (with bias), RoPE from
+    ``rope_cs`` (``rope_tables`` of positions 0..S-1), causal flash attention
+    through its autograd Function, then ``wo``. The reference's
+    ``attention(params, x, positions, cfg)`` with its causal mask (the
+    ``dot_attention`` path qwen2.5-3b takes)."""
+    q, k, v = _qkv(params, x, cfg)
+    q = apply_rope(q, *rope_cs)
+    k = apply_rope(k, *rope_cs)
+    o = FlashAttention.apply(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), True, 0)
+    b, s, h, hd = q.shape
+    return o.transpose(1, 2).reshape(b, s, h * hd) @ params["wo"]
 
 
 def attention_decode(params, x, cache_k, cache_v, pos: int, rope_cs, cfg):

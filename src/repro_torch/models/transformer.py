@@ -1,18 +1,26 @@
 """Decoder-only transformer LM, dense (llama/qwen style): the counterpart of
-``repro.models.transformer`` for serving (init, prefill, decode_step).
+``repro.models.transformer`` for serving (init, prefill, decode_step) and
+training (backbone, loss_fn).
 
 Parameters are the reference's nested dicts with the layers stacked on a
 leading L axis; its ``lax.scan`` over layers is a Python loop over that
-axis. Each layer runs two RMSNorms (``ln1``, ``ln2``) and one attention,
-and the final norm ``ln_f`` one more: 2·L + 1 rmsnorm launches and L flash
-launches per forward on a card. The KV cache (L, B, S_max, KV, Hd) is
-written in place. MoE layers and VLM prefixes are refused: they come with
-later slices.
+axis. The training path also takes ``params["layers"]`` as a list of L
+per-layer dicts (the optimizer's autograd leaves: views of one flat buffer
+whose gradients land in another, with no full-size zero tensor from a
+select's backward). Each layer runs two RMSNorms (``ln1``, ``ln2``) and one
+attention, and the final norm ``ln_f`` one more: 2·L + 1 rmsnorm launches
+and L flash launches per forward on a card; with ``cfg.remat`` the layers'
+forwards run again in the backward (``torch.utils.checkpoint``, the
+counterpart of the reference's ``jax.checkpoint``). The KV cache
+(L, B, S_max, KV, Hd) is written in place. MoE layers and VLM prefixes are
+refused: they come with later slices.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_lib
 from repro_torch import random as rnd
@@ -41,7 +49,10 @@ def _map(fn, tree):
 
 
 def _layer(layers, i: int):
-    """Layer i's parameters: views into the stacked (L, ...) tensors."""
+    """Layer i's parameters: views into the stacked (L, ...) tensors, or
+    entry i of a list of per-layer dicts."""
+    if isinstance(layers, (list, tuple)):
+        return layers[i]
     return _map(lambda t: t[i], layers)
 
 
@@ -114,6 +125,55 @@ def logits_fn(params, h, cfg):
 def _block_tail(lp, h, cfg):
     y = L.norm(lp["ln2"], h, cfg)
     return h + L.mlp(lp["mlp"], y, cfg.activation)
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+def _block(lp, x, rope_cs, cfg):
+    h = x + L.self_attention(lp["attn"], L.norm(lp["ln1"], x, cfg), rope_cs, cfg)
+    return _block_tail(lp, h, cfg)
+
+
+def backbone(params, x, rope_cs, cfg):
+    """x: (B, S, D) embedded inputs -> (B, S, D) final-normed states. With
+    ``cfg.remat`` each layer runs under ``checkpoint`` (non-reentrant): only
+    its input is kept, and its forward runs again in the backward."""
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        if cfg.remat:
+            x = checkpoint(_block, lp, x, rope_cs, cfg, use_reentrant=False)
+        else:
+            x = _block(lp, x, rope_cs, cfg)
+    return L.norm(params["ln_f"], x, cfg)
+
+
+def _inputs_to_states(params, batch, cfg):
+    """Plain LM inputs -> (h, rope tables of positions 0..S-1, text_start);
+    the loss applies from text_start on. VLM prefix embeddings are
+    refused: they come with the VLM slice."""
+    if cfg.num_prefix_tokens and "prefix_embeddings" in batch:
+        raise NotImplementedError(
+            f"{cfg.name}: VLM prefix embeddings come with the VLM slice "
+            "(ROADMAP queue 1, item 12)")
+    tokens = batch["tokens"]
+    x = embed(params, tokens, cfg)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    return x, L.rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta), 0
+
+
+def loss_fn(params, batch, cfg):
+    """Mean next-token cross-entropy. batch: tokens (B, S), targets (B, S).
+    The logits (tied embeddings) are cast to fp32 before the logsumexp, as
+    the reference does."""
+    _check_dense(cfg)
+    x, rope_cs, text_start = _inputs_to_states(params, batch, cfg)
+    h = backbone(params, x, rope_cs, cfg)[:, text_start:, :]
+    logits = logits_fn(params, h, cfg).float()
+    return F.cross_entropy(logits.flatten(0, 1),
+                           batch["targets"].flatten().long())
 
 
 # ---------------------------------------------------------------------------

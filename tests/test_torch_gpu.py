@@ -10,7 +10,11 @@ Tolerances: ssca_update 1e-5 in fp32 and 2e-2 in bf16 (the kernel's FMAs
 round once where the plain version rounds twice); the quantizer is bit-exact;
 rmsnorm 1e-5 in fp32 (another summation order, CUDA's 2-ulp rsqrtf) and
 2e-2 in bf16; flash attention 2e-5 in fp32 and 3e-2 in bf16, the JAX
-kernel tests' (the online softmax sums in another order).
+kernel tests' (the online softmax sums in another order). The backward
+kernels are held to the same tolerances; rmsnorm's dscale, a sum over 4096
+rows whose terms cancel, to them relative to the sum of its terms'
+magnitudes in fp32, since the kernel sums in another order than the plain
+version.
 """
 import pytest
 import torch
@@ -22,6 +26,7 @@ from repro_torch.core import algorithms, fed
 from repro_torch.data.synthetic import classification_dataset
 from repro_torch.kernels import flash_attention, quantize, rmsnorm, ssca_update
 from repro_torch.launch import serve
+from repro_torch.launch import train
 from repro_torch.models import mlp
 
 pytestmark = pytest.mark.gpu
@@ -387,3 +392,233 @@ def test_serve_smoke_card_matches_cpu_and_counts_launches(cuda):
     cpu, _ = serve.generate("qwen2.5-3b", smoke=True, batch=2, prompt_len=21,
                             gen=gen, device="cpu")
     assert torch.equal(card.cpu(), cpu) and stats["tokens_per_s"] > 0
+
+
+# ---------------------------------------------------------------------------
+# backward kernels (the training slice)
+# ---------------------------------------------------------------------------
+
+
+def _close_sum(got, want, scale, tol, what=""):
+    """|got - want| <= tol·(1 + scale) elementwise, where scale bounds the
+    magnitude of the terms summed into each entry."""
+    err = (got.float() - want.float()).abs()
+    bad = err > tol * (1 + scale.float())
+    assert not bad.any(), f"{what}: max |diff| {err.max().item()}"
+
+
+def _rms_bwd_inputs(cuda, shape, dtype, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    sc = (torch.randn(shape[-1], generator=gen, device=cuda) * 0.1).to(dtype)
+    dy = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    return x, sc, dy
+
+
+RMS_BWD_SHAPES = [(1, 2048), (4, 128), (3, 7, 256), (2, 37, 512), (5, 100), (3, 3000),
+                  (8, 2048), (4096, 2048), (1000, 4096), (1056, 2048)]
+
+
+@pytest.mark.parametrize("shape", RMS_BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_bwd_kernel_matches_plain(cuda, shape, dtype):
+    x, sc, dy = _rms_bwd_inputs(cuda, shape, dtype, sum(shape))
+    before = rmsnorm.rmsnorm_bwd.launches
+    dx, dscale = rmsnorm.rmsnorm_bwd(x, sc, dy, 1e-6)
+    torch.cuda.synchronize()
+    assert rmsnorm.rmsnorm_bwd.launches == before + 1
+    assert dx.dtype == dtype and dx.shape == x.shape and dscale.shape == sc.shape
+    want_dx, want_ds = rmsnorm.plain_bwd(x, sc, dy, 1e-6)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(dx.float(), want_dx.float(), atol=tol, rtol=tol)
+    x32 = x.float().reshape(-1, shape[-1])
+    r = torch.rsqrt(x32.pow(2).mean(-1, keepdim=True) + 1e-6)
+    terms = (x32 * dy.float().reshape(-1, shape[-1]) * r).abs().sum(0)
+    _close_sum(dscale, want_ds, terms if dtype == torch.float32 else want_ds.abs(),
+               tol, "dscale")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_bwd_takes_unaligned_rows(cuda, dtype):
+    rows, d = 37, 512
+    flat = torch.randn(2, rows * d + 1, device=cuda).to(dtype)
+    x, dy = flat[0, 1:].view(rows, d), flat[1, 1:].view(rows, d)
+    assert x.data_ptr() % 16
+    sc = (torch.randn(d, device=cuda) * 0.1).to(dtype)
+    dx, _ = rmsnorm.rmsnorm_bwd(x, sc, dy, 1e-6)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(dx.float(), rmsnorm.plain_bwd(x, sc, dy, 1e-6)[0].float(),
+                               atol=tol, rtol=tol)
+
+
+# One torch.profiler session over one rmsnorm_bwd call and then one
+# flash_attention_bwd call (bf16, the train path's shapes), in a fresh
+# process: a second profiler session in one process records no CUDA events
+# on the card's machine, and test_ssca_update_is_one_kernel_per_call holds
+# the first. Prints the CUDA kernels in the order they started.
+_PROFILE_BWD = """
+import json, torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.kernels import flash_attention as fa, rmsnorm as rms
+g = torch.Generator(device="cuda").manual_seed(5)
+def rn(*s):
+    return torch.randn(*s, generator=g, device="cuda").to(torch.bfloat16)
+x, dy, sc = rn(4096, 2048), rn(4096, 2048), rn(2048) * 0.1
+q, k, v, do = rn(8, 16, 512, 128), rn(8, 2, 512, 128), rn(8, 2, 512, 128), rn(8, 16, 512, 128)
+o, lse = fa.flash_attention(q, k, v, return_lse=True)
+rms.rmsnorm_bwd(x, sc, dy)
+fa.flash_attention_bwd(q, k, v, o, lse, do)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    rms.rmsnorm_bwd(x, sc, dy)
+    torch.cuda.synchronize()
+    fa.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+ev = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+            key=lambda e: e.time_range.start)
+print(json.dumps([e.name for e in ev]))
+"""
+
+
+@pytest.fixture(scope="module")
+def bwd_kernel_names():
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    src = Path(__file__).resolve().parents[1] / "src"
+    out = subprocess.run([sys.executable, "-c", _PROFILE_BWD], capture_output=True,
+                         text=True, timeout=600,
+                         env={**os.environ, "PYTHONPATH": str(src)})
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_rmsnorm_bwd_is_two_kernels_and_deterministic(cuda, bwd_kernel_names):
+    """A call is the dx kernel then the dscale kernel, nothing else (under
+    torch.profiler), and two calls give the same bits (no atomics)."""
+    names = bwd_kernel_names[:2]
+    assert "rmsnorm_bwd_kernel" in names[0] and "rmsnorm_dscale_kernel" in names[1], \
+        bwd_kernel_names
+    x, sc, dy = _rms_bwd_inputs(cuda, (4096, 2048), torch.bfloat16, 5)
+    first = rmsnorm.rmsnorm_bwd(x, sc, dy)
+    again = rmsnorm.rmsnorm_bwd(x, sc, dy)
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
+def test_rmsnorm_bwd_rejects_bad_operands(cuda):
+    x, sc, dy = _rms_bwd_inputs(cuda, (64, 256), torch.float32, 6)
+    with pytest.raises(ValueError, match="contiguous"):
+        rmsnorm.rmsnorm_bwd(x, sc, dy.T.contiguous().T)
+    with pytest.raises(ValueError, match="dy"):
+        rmsnorm.rmsnorm_bwd(x, sc, dy.to(torch.bfloat16))
+
+
+def _attn_bwd(cuda, b, h, kv, sq, sk, d, dtype, causal, window, seed):
+    q, k, v = _attn_inputs(cuda, b, h, kv, sq, sk, d, dtype, seed)
+    gen = torch.Generator(device=cuda).manual_seed(seed + 1)
+    do = torch.randn(q.shape, generator=gen, device=cuda).to(dtype)
+    o, lse = flash_attention.flash_attention(q, k, v, causal=causal, window=window,
+                                             return_lse=True)
+    return q, k, v, o, lse, do
+
+
+BWD_CASES = [  # b, h, kv, sq, sk, d
+    (2, 4, 4, 61, 61, 64),          # ragged, rep 1
+    (2, 8, 4, 200, 200, 128),       # ragged, rep 2
+    (2, 16, 2, 200, 200, 128),      # rep 8
+    (1, 16, 2, 64, 256, 128),       # a short query right-aligned in its keys
+    (1, 4, 2, 128, 64, 64),         # rows that see no key
+    (1, 4, 4, 96, 96, 32),
+    (2, 16, 2, 512, 512, 128),      # the train path's shape, batch cut to 2
+]
+
+
+@pytest.mark.parametrize("b,h,kv,sq,sk,d", BWD_CASES)
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 20), (False, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_matches_plain(cuda, b, h, kv, sq, sk, d, causal, window, dtype):
+    q, k, v, o, lse, do = _attn_bwd(cuda, b, h, kv, sq, sk, d, dtype, causal, window,
+                                    sq * 7 + sk + d)
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    want_o, want_lse = flash_attention.plain(q, k, v, causal=causal, window=window,
+                                             return_lse=True)
+    seen = torch.isfinite(want_lse)
+    assert torch.isneginf(lse[~seen]).all()
+    torch.testing.assert_close(lse[seen], want_lse[seen], atol=2e-5, rtol=2e-5)
+    before = flash_attention.flash_attention_bwd.launches
+    dq, dk, dv = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                                     window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention_bwd.launches == before + 1
+    want = flash_attention.plain_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+    for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert got.dtype == dtype and got.shape == w.shape, name
+        assert torch.isfinite(got).all(), name
+        _close_sum(got, w, w.abs(), tol, name)
+
+
+def test_flash_bwd_is_two_kernels_dq_first_and_deterministic(cuda, bwd_kernel_names):
+    """A call is the dq kernel then the dk/dv kernel, nothing else (under
+    torch.profiler, after the rmsnorm_bwd call's two), and two calls give
+    the same bits."""
+    names = bwd_kernel_names[2:]
+    assert len(names) == 2 and "flash_bwd_dq_tc_kernel" in names[0] \
+        and "flash_bwd_dkdv_tc_kernel" in names[1], bwd_kernel_names
+    args = _attn_bwd(cuda, 2, 16, 2, 512, 512, 128, torch.bfloat16, True, 0, 11)
+    first = flash_attention.flash_attention_bwd(*args)
+    again = flash_attention.flash_attention_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_flash_decode_split_path_refuses_lse(cuda):
+    """The C entry refuses an lse with the decode kernel's splits; the
+    wrapper never asks for it (a call with return_lse takes the prefill
+    kernel, and agrees with the plain version)."""
+    from repro_torch.kernels import build
+    q, k, v = _attn_inputs(cuda, 8, 16, 2, 1, 543, 128, torch.bfloat16, 3)
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], device=cuda)
+    args = list(flash_attention.kernel_args(q, k, v, out))
+    assert args[-1] == 9
+    args[5] = lse.data_ptr()
+    code = build.library("flash_attention").flash_attention(
+        *args, torch.cuda.current_stream().cuda_stream)
+    assert code != 0
+    got, got_lse = flash_attention.flash_attention(q, k, v, return_lse=True)
+    want, want_lse = flash_attention.plain(q, k, v, return_lse=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
+    torch.testing.assert_close(got_lse, want_lse, atol=2e-5, rtol=2e-5)
+
+
+def test_flash_bwd_rejects_bad_operands(cuda):
+    q, k, v, o, lse, do = _attn_bwd(cuda, 1, 4, 2, 64, 64, 64, torch.float32, True, 0, 4)
+    odd = torch.zeros(1, 4, 64, 64, 2, device=cuda)[..., 0]        # stride(-1) = 2
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention.flash_attention_bwd(q, k, v, o, lse, odd)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention.flash_attention_bwd(q, k, v, o, lse.double(), do)
+    with pytest.raises(TypeError, match="dtype"):
+        flash_attention.flash_attention_bwd(q, k, v, o, lse, do.to(torch.bfloat16))
+
+
+def test_train_smoke_card_matches_cpu_and_counts_launches(cuda):
+    """Three SSCA steps of qwen2.5-3b's smoke variant (fp32, no remat) on the
+    card and on the CPU: the same losses; per step 2·L+1 rmsnorm forwards
+    and backwards, L flash forwards and backwards, one ssca_update."""
+    steps, n_layers = 3, 2
+    counted = (rmsnorm.rmsnorm, rmsnorm.rmsnorm_bwd, flash_attention.flash_attention,
+               flash_attention.flash_attention_bwd, ssca_update.ssca_update_)
+    before = [f.launches for f in counted]
+    _, card = train.train_loop("qwen2.5-3b", steps, 2, 64, smoke=True, log_every=1,
+                               device=cuda)
+    per_step = [(f.launches - b0) / steps for f, b0 in zip(counted, before)]
+    assert per_step == [2 * n_layers + 1, 2 * n_layers + 1, n_layers, n_layers, 1]
+    _, cpu = train.train_loop("qwen2.5-3b", steps, 2, 64, smoke=True, log_every=1,
+                              device="cpu")
+    for a, b0 in zip(card, cpu):
+        assert abs(a["loss"] - b0["loss"]) <= 1e-5 * abs(b0["loss"])

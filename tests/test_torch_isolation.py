@@ -38,7 +38,8 @@ def test_port_files_exist():
                    "repro_torch/kernels/rmsnorm.py",
                    "repro_torch/kernels/flash_attention.py",
                    "repro_torch/models/transformer.py",
-                   "repro_torch/launch/serve.py"):
+                   "repro_torch/launch/serve.py",
+                   "repro_torch/launch/train.py"):
         assert needed in names
     assert (ROOT / "chip_smoke.py").exists()
 
@@ -59,7 +60,7 @@ def test_forbidden_rule_catches_and_spares():
 def test_importing_the_slice_loads_no_jax():
     code = ("import sys; import repro_torch.core.algorithms, "
             "repro_torch.convert, repro_torch.data.synthetic, "
-            "repro_torch.launch.serve; "
+            "repro_torch.launch.serve, repro_torch.launch.train; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); assert not bad, bad")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

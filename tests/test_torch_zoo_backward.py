@@ -1,0 +1,199 @@
+"""The port's backward plain versions (``kernels/ref.py``) and the autograd
+Functions of the rmsnorm and flash-attention wrappers, on the CPU, against
+the JAX reference's custom VJPs: ``repro.models.layers._rms_fused`` (and the
+autodiff of ``rmsnorm``) and ``chunked_attention`` (``_cattn``, the
+recompute flash backward), with K/V broadcast to the query heads for the
+reference and its dk, dv summed over each group.
+
+Tolerances (absolute plus relative): rmsnorm 1e-5 in fp32, 2e-2 in bf16
+(the JAX kernel test's); flash 2e-5 in fp32 (another summation order than
+the reference's blocked scan); the forward logsumexp 2e-5.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models import layers as jlayers
+from repro_torch.kernels import flash_attention as tflash
+from repro_torch.kernels import ref
+from repro_torch.kernels import rmsnorm as trms
+
+EPS = 1e-6
+
+
+def _np(t):
+    return t.detach().float().numpy()
+
+
+def _close(got, want, tol, what=""):
+    got = _np(got) if isinstance(got, torch.Tensor) else np.asarray(got, np.float32)
+    np.testing.assert_allclose(got, np.asarray(want, np.float32), rtol=tol,
+                               atol=tol, err_msg=what)
+
+
+def _rms_inputs(shape, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape).astype(np.float32)
+    sc = (rng.standard_normal(shape[-1]) * 0.1).astype(np.float32)
+    dy = rng.standard_normal(shape).astype(np.float32)
+    return x, sc, dy
+
+
+@pytest.mark.parametrize("shape", [(2, 7, 64), (3, 100), (4, 256)])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+def test_rmsnorm_bwd_ref_matches_jax_vjp(shape, dtype, tol):
+    x, sc, dy = _rms_inputs(shape)
+    jdt = jnp.dtype(dtype)
+    jx, jsc, jdy = (jnp.asarray(a, jdt) for a in (x, sc, dy))
+    tdt = getattr(torch, dtype)
+    tx, tsc, tdy = (torch.from_numpy(a).to(tdt) for a in (x, sc, dy))
+    dx, dscale = ref.rmsnorm_bwd_ref(tx, tsc, tdy, EPS)
+    assert dx.dtype == tdt and dscale.dtype == tdt
+    fused = jax.vjp(lambda a, s: jlayers._rms_fused(a, s, EPS), jx, jsc)[1](jdy)
+    _close(dx, fused[0].astype(jnp.float32), tol, "dx vs _rms_fused")
+    _close(dscale, fused[1].astype(jnp.float32), tol, "dscale vs _rms_fused")
+    if dtype == "float32":          # the reference's autodiff path is fp32 only
+        plain = jax.vjp(lambda a, s: jlayers.rmsnorm({"scale": s}, a, EPS),
+                        jx, jsc)[1](jdy)
+        _close(dx, plain[0], tol, "dx vs autodiff of rmsnorm")
+        _close(dscale, plain[1], tol, "dscale vs autodiff of rmsnorm")
+
+
+def test_rmsnorm_function_on_cpu_gives_the_plain_gradient():
+    x, sc, dy = (torch.from_numpy(a) for a in _rms_inputs((5, 3, 64), 1))
+    x.requires_grad_()
+    sc.requires_grad_()
+    trms.rmsnorm_bwd.launches = 0
+    trms.RMSNorm.apply(x, sc, EPS).backward(dy)
+    dx, dscale = ref.rmsnorm_bwd_ref(x.detach(), sc.detach(), dy, EPS)
+    assert torch.equal(x.grad, dx) and torch.equal(sc.grad, dscale)
+    assert trms.rmsnorm_bwd.launches == 0          # the CPU launches nothing
+
+
+def _attn_inputs(b, h, kv, sq, sk, d, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, h, sq, d)).astype(np.float32)
+    k = rng.standard_normal((b, kv, sk, d)).astype(np.float32)
+    v = rng.standard_normal((b, kv, sk, d)).astype(np.float32)
+    do = rng.standard_normal((b, h, sq, d)).astype(np.float32)
+    return q, k, v, do
+
+
+def _jax_cattn(q, k, v, causal, window, block=16):
+    """chunked_attention in the port's (B, H, S, D) layout, K/V broadcast to
+    the H query heads, the causal mask right-aligned when Sq < Sk."""
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    rep = h // kv
+    kb = jnp.repeat(jnp.asarray(k), rep, axis=1)
+    vb = jnp.repeat(jnp.asarray(v), rep, axis=1)
+    q_pos = jnp.arange(sq, dtype=jnp.int32)[None, :] + (sk - sq)
+    k_pos = jnp.arange(sk, dtype=jnp.int32)[None, :]
+
+    def f(qq, kk, vv):
+        out = jlayers.chunked_attention(
+            qq.transpose(0, 2, 1, 3), kk.transpose(0, 2, 1, 3),
+            vv.transpose(0, 2, 1, 3), q_pos, k_pos, causal=causal,
+            window=window, block=block)
+        return out.transpose(0, 2, 1, 3)
+
+    return f, jnp.asarray(q), kb, vb
+
+
+ATTN_CASES = [  # b, h, kv, sq, sk, d, causal, window
+    (2, 4, 2, 16, 16, 32, True, 0),
+    (1, 4, 4, 37, 37, 64, True, 0),       # ragged, rep 1
+    (2, 8, 1, 24, 24, 32, False, 0),      # rep 8, no mask
+    (1, 4, 2, 40, 40, 32, True, 7),       # a window
+    (1, 2, 1, 29, 45, 32, True, 0),       # Sq < Sk, right-aligned
+    (1, 2, 2, 33, 33, 64, False, 10),     # a window without causality
+]
+
+
+@pytest.mark.parametrize("b,h,kv,sq,sk,d,causal,window", ATTN_CASES)
+def test_flash_bwd_ref_matches_cattn_vjp(b, h, kv, sq, sk, d, causal, window):
+    q, k, v, do = _attn_inputs(b, h, kv, sq, sk, d)
+    f, jq, jk, jv = _jax_cattn(q, k, v, causal, window)
+    jo, vjp = jax.vjp(f, jq, jk, jv)
+    jdq, jdk, jdv = vjp(jnp.asarray(do))
+    rep = h // kv
+    jdk = np.asarray(jdk).reshape(b, kv, rep, sk, d).sum(axis=2)
+    jdv = np.asarray(jdv).reshape(b, kv, rep, sk, d).sum(axis=2)
+
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    o, lse = ref.flash_attention_fwd_ref(tq, tk, tv, causal=causal,
+                                         window=window, return_lse=True)
+    _close(o, jo, 2e-5, "forward")
+    dq, dk, dv = ref.flash_attention_bwd_ref(tq, tk, tv, o, lse, tdo,
+                                             causal=causal, window=window)
+    _close(dq, jdq, 2e-5, "dq")
+    _close(dk, jdk, 2e-5, "dk")
+    _close(dv, jdv, 2e-5, "dv")
+
+
+def test_flash_bwd_ref_gives_zero_for_rows_that_see_no_key():
+    """Sq > Sk, causal: the first Sq - Sk rows see no key (lse = -inf); their
+    dq is 0 and they add nothing to dk, dv (the backward's counterpart of
+    the forward's l == 0 guard)."""
+    q, k, v, do = (torch.from_numpy(a) for a in _attn_inputs(1, 4, 2, 24, 8, 32, 2))
+    o, lse = ref.flash_attention_fwd_ref(q, k, v, return_lse=True)
+    assert torch.isneginf(lse[:, :, :16]).all() and torch.isfinite(lse[:, :, 16:]).all()
+    dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, o, lse, do)
+    assert torch.isfinite(dq).all() and not dq[:, :, :16].any()
+    _, dk2, dv2 = ref.flash_attention_bwd_ref(q[:, :, 16:], k, v, o[:, :, 16:],
+                                              lse[:, :, 16:], do[:, :, 16:])
+    torch.testing.assert_close(dk, dk2, rtol=0, atol=0)
+    torch.testing.assert_close(dv, dv2, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b,h,kv,sq,sk,d,causal,window", ATTN_CASES[:4])
+def test_flash_fwd_lse_matches_cattn_fwd_scan(b, h, kv, sq, sk, d, causal, window):
+    q, k, v, _ = _attn_inputs(b, h, kv, sq, sk, d, seed=3)
+    rep, blk = h // kv, 16
+    n = -(-sk // blk)
+    pad = n * blk - sk
+    kb = np.pad(np.repeat(k, rep, axis=1), ((0, 0), (0, 0), (0, pad), (0, 0)))
+    vb = np.pad(np.repeat(v, rep, axis=1), ((0, 0), (0, 0), (0, pad), (0, 0)))
+    kb = jnp.asarray(kb.reshape(b, h, n, blk, d).transpose(2, 0, 1, 3, 4))
+    vb = jnp.asarray(vb.reshape(b, h, n, blk, d).transpose(2, 0, 1, 3, 4))
+    kp = np.pad(np.arange(sk, dtype=np.int32), (0, pad), constant_values=2**30)
+    kp = jnp.asarray(kp.reshape(n, 1, blk))
+    qp = jnp.asarray(np.arange(sq, dtype=np.int32)[None, :, None] + (sk - sq))
+    _, jlse = jlayers._cattn_fwd_scan(jnp.asarray(q), kb, vb, kp, qp,
+                                      1.0 / np.sqrt(d), causal, window, 0)
+    _, lse = ref.flash_attention_fwd_ref(*(torch.from_numpy(a) for a in (q, k, v)),
+                                         causal=causal, window=window,
+                                         return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, sq)
+    _close(lse, jlse, 2e-5, "lse")
+
+
+def test_flash_function_on_cpu_gives_the_plain_gradient():
+    q, k, v, do = (torch.from_numpy(a) for a in _attn_inputs(2, 4, 2, 19, 19, 32, 4))
+    for t in (q, k, v):
+        t.requires_grad_()
+    tflash.flash_attention_bwd.launches = tflash.flash_attention.launches = 0
+    out = tflash.FlashAttention.apply(q, k, v, True, 5)
+    out.backward(do)
+    o, lse = ref.flash_attention_fwd_ref(q.detach(), k.detach(), v.detach(),
+                                         window=5, return_lse=True)
+    assert torch.equal(out.detach(), o)
+    want = ref.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(), o,
+                                       lse, do, window=5)
+    for got, w in zip((q.grad, k.grad, v.grad), want):
+        assert torch.equal(got, w)
+    assert tflash.flash_attention.launches == tflash.flash_attention_bwd.launches == 0
+
+
+def test_flash_lse_kernel_args_take_the_prefill_kernel():
+    """A call that asks for the logsumexp never takes the decode kernel
+    (which refuses it): its split count is 0 even at decode shapes, and the
+    lse pointer follows the strides."""
+    q = torch.zeros(8, 16, 1, 128, dtype=torch.bfloat16)
+    k = torch.zeros(8, 2, 543, 128, dtype=torch.bfloat16)
+    lse = torch.zeros(8, 16, 1)
+    args = tflash.kernel_args(q, k, k, torch.empty_like(q), lse=lse)
+    assert args[-1] == 0 and args[5] == lse.data_ptr()
+    assert tflash.kernel_args(q, k, k, torch.empty_like(q))[-1] == 9
