@@ -972,7 +972,7 @@ def run_train_parity(torch, m):
     embedding from 0.2 to 6 and then 23 at its largest (loss 27.6, 13.8,
     93.9), its logits to where fp32 resolves p only to about 1e-4, and step
     3 alone, taken from the card's state on both devices, differs by more
-    than 1e-4 too (reported; PERF.md, PR 15)."""
+    than 1e-4 too (reported; PERF.md, Findings)."""
     rnd, train, rounds, optimizer = m.rnd, m.train, m.rounds, m.optimizer
     cfg = dataclasses.replace(m.qwen, n_layers=2, dtype="float32")
     model = m.get_model(cfg)

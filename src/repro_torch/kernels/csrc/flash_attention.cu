@@ -1031,29 +1031,21 @@ constexpr int BWD_BQ = 32;           // query rows per tile
 constexpr int BWD_BK = 32;           // keys per tile
 constexpr int BWD_THREADS = 256;
 
-__device__ __forceinline__ float ld_f32(const float* p) { return *p; }
-__device__ __forceinline__ float ld_f32(const bf16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void st_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void st_f32(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
-
-// ROWS rows of D elements of T (row i at src + i·stride, 16-byte aligned)
-// into fp32 shared memory of row pitch D + 1; rows at or past `valid` are 0
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void stage_bwd(float* dst, const T* __restrict__ src, long long stride,
-                                          int valid) {
-  constexpr int VEC = 16 / sizeof(T), CPR = D / VEC;
+// ROWS rows of D floats (row i at src + i·stride, 16-byte aligned) into
+// shared memory of row pitch D + 1; rows at or past `valid` are 0
+template <int D, int ROWS>
+__device__ __forceinline__ void stage_bwd(float* dst, const float* __restrict__ src,
+                                          long long stride, int valid) {
+  constexpr int CPR = D / 4;
   for (int i = threadIdx.x; i < ROWS * CPR; i += BWD_THREADS) {
-    const int r = i / CPR, c = (i % CPR) * VEC;
+    const int r = i / CPR, c = (i % CPR) * 4;
     float* d = dst + r * (D + 1) + c;
-    if (r < valid) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(src + (int64_t)r * stride + c);
-      const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) d[j] = ld_f32(e + j);
-    } else {
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) d[j] = 0.0f;
-    }
+    const float4 v = r < valid ? *reinterpret_cast<const float4*>(src + (int64_t)r * stride + c)
+                               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    d[0] = v.x;
+    d[1] = v.y;
+    d[2] = v.z;
+    d[3] = v.w;
   }
 }
 
@@ -1128,7 +1120,7 @@ __device__ __forceinline__ void bwd_scores(const float* q_s, const float* do_s, 
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(BWD_THREADS)
 flash_bwd_dq_kernel(BwdArgs a) {
   extern __shared__ __align__(16) float bwd_smem[];
@@ -1144,23 +1136,23 @@ flash_bwd_dq_kernel(BwdArgs a) {
   const int64_t b = blockIdx.z;
   const int q0 = blockIdx.x * BWD_BQ, off = a.sk - a.sq;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const T* qb = (const T*)a.q + b * a.q_st.b + h * a.q_st.h;
-  const T* ob = (const T*)a.o + b * a.o_st.b + h * a.o_st.h;
-  const T* dob = (const T*)a.dout + b * a.do_st.b + h * a.do_st.h;
-  const T* kb = (const T*)a.k + b * a.k_st.b + (h / a.rep) * a.k_st.h;
-  const T* vb = (const T*)a.v + b * a.v_st.b + (h / a.rep) * a.v_st.h;
-  T* dqb = (T*)a.dq + b * a.dq_st.b + h * a.dq_st.h;
+  const float* qb = (const float*)a.q + b * a.q_st.b + h * a.q_st.h;
+  const float* ob = (const float*)a.o + b * a.o_st.b + h * a.o_st.h;
+  const float* dob = (const float*)a.dout + b * a.do_st.b + h * a.do_st.h;
+  const float* kb = (const float*)a.k + b * a.k_st.b + (h / a.rep) * a.k_st.h;
+  const float* vb = (const float*)a.v + b * a.v_st.b + (h / a.rep) * a.v_st.h;
+  float* dqb = (float*)a.dq + b * a.dq_st.b + h * a.dq_st.h;
   const int64_t row_base = (b * a.h + h) * a.sq;
 
-  stage_bwd<T, D, BWD_BQ>(q_s, qb + (int64_t)q0 * a.q_st.s, a.q_st.s, a.sq - q0);
-  stage_bwd<T, D, BWD_BQ>(do_s, dob + (int64_t)q0 * a.do_st.s, a.do_st.s, a.sq - q0);
+  stage_bwd<D, BWD_BQ>(q_s, qb + (int64_t)q0 * a.q_st.s, a.q_st.s, a.sq - q0);
+  stage_bwd<D, BWD_BQ>(do_s, dob + (int64_t)q0 * a.do_st.s, a.do_st.s, a.sq - q0);
   // delta = Σ_d dO∘O of each row, a warp a row
   for (int r = warp; r < BWD_BQ; r += BWD_THREADS / 32) {
     const int i = q0 + r;
     float acc = 0.0f;
     if (i < a.sq)
       for (int d = lane; d < D; d += 32)
-        acc += ld_f32(dob + (int64_t)i * a.do_st.s + d) * ld_f32(ob + (int64_t)i * a.o_st.s + d);
+        acc += dob[(int64_t)i * a.do_st.s + d] * ob[(int64_t)i * a.o_st.s + d];
     acc = warp_sum(acc);
     if (lane == 0) {
       delta_s[r] = acc;
@@ -1183,8 +1175,8 @@ flash_bwd_dq_kernel(BwdArgs a) {
 
   for (int k0 = (k_beg / BWD_BK) * BWD_BK; k0 < k_end; k0 += BWD_BK) {
     __syncthreads();                 // the previous tile is consumed
-    stage_bwd<T, D, BWD_BK>(k_s, kb + (int64_t)k0 * a.k_st.s, a.k_st.s, a.sk - k0);
-    stage_bwd<T, D, BWD_BK>(v_s, vb + (int64_t)k0 * a.v_st.s, a.v_st.s, a.sk - k0);
+    stage_bwd<D, BWD_BK>(k_s, kb + (int64_t)k0 * a.k_st.s, a.k_st.s, a.sk - k0);
+    stage_bwd<D, BWD_BK>(v_s, vb + (int64_t)k0 * a.v_st.s, a.v_st.s, a.sk - k0);
     __syncthreads();
     bwd_scores<D>(q_s, do_s, k_s, v_s, lse_s, delta_s, nullptr, ds_s, q0, k0, a.sq, a.sk, off,
                   a.causal, a.window, a.scale);
@@ -1206,11 +1198,11 @@ flash_bwd_dq_kernel(BwdArgs a) {
     const int i = q0 + rg + 16 * r;
     if (i < a.sq)
 #pragma unroll
-      for (int c = 0; c < NC; ++c) st_f32(dqb + (int64_t)i * a.dq_st.s + cl + 16 * c, acc[r][c]);
+      for (int c = 0; c < NC; ++c) dqb[(int64_t)i * a.dq_st.s + cl + 16 * c] = acc[r][c];
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(BWD_THREADS)
 flash_bwd_dkdv_kernel(BwdArgs a) {
   extern __shared__ __align__(16) float bwd_smem[];
@@ -1226,13 +1218,13 @@ flash_bwd_dkdv_kernel(BwdArgs a) {
   const int grp = blockIdx.y;
   const int64_t b = blockIdx.z;
   const int k0 = blockIdx.x * BWD_BK, off = a.sk - a.sq;
-  const T* kb = (const T*)a.k + b * a.k_st.b + grp * a.k_st.h;
-  const T* vb = (const T*)a.v + b * a.v_st.b + grp * a.v_st.h;
-  T* dkb = (T*)a.dk + b * a.dk_st.b + grp * a.dk_st.h;
-  T* dvb = (T*)a.dv + b * a.dv_st.b + grp * a.dv_st.h;
+  const float* kb = (const float*)a.k + b * a.k_st.b + grp * a.k_st.h;
+  const float* vb = (const float*)a.v + b * a.v_st.b + grp * a.v_st.h;
+  float* dkb = (float*)a.dk + b * a.dk_st.b + grp * a.dk_st.h;
+  float* dvb = (float*)a.dv + b * a.dv_st.b + grp * a.dv_st.h;
 
-  stage_bwd<T, D, BWD_BK>(k_s, kb + (int64_t)k0 * a.k_st.s, a.k_st.s, a.sk - k0);
-  stage_bwd<T, D, BWD_BK>(v_s, vb + (int64_t)k0 * a.v_st.s, a.v_st.s, a.sk - k0);
+  stage_bwd<D, BWD_BK>(k_s, kb + (int64_t)k0 * a.k_st.s, a.k_st.s, a.sk - k0);
+  stage_bwd<D, BWD_BK>(v_s, vb + (int64_t)k0 * a.v_st.s, a.v_st.s, a.sk - k0);
 
   // the query rows that see some key of this tile
   const int k_last = min(k0 + BWD_BK, a.sk) - 1;
@@ -1247,13 +1239,13 @@ flash_bwd_dkdv_kernel(BwdArgs a) {
     for (int c = 0; c < NC; ++c) dk[r][c] = dv[r][c] = 0.0f;
 
   for (int hh = grp * a.rep; hh < (grp + 1) * a.rep; ++hh) {
-    const T* qb = (const T*)a.q + b * a.q_st.b + hh * a.q_st.h;
-    const T* dob = (const T*)a.dout + b * a.do_st.b + hh * a.do_st.h;
+    const float* qb = (const float*)a.q + b * a.q_st.b + hh * a.q_st.h;
+    const float* dob = (const float*)a.dout + b * a.do_st.b + hh * a.do_st.h;
     const int64_t row_base = (b * a.h + hh) * a.sq;
     for (int q0 = (i_beg / BWD_BQ) * BWD_BQ; q0 < i_end; q0 += BWD_BQ) {
       __syncthreads();               // the previous q tile is consumed
-      stage_bwd<T, D, BWD_BQ>(q_s, qb + (int64_t)q0 * a.q_st.s, a.q_st.s, a.sq - q0);
-      stage_bwd<T, D, BWD_BQ>(do_s, dob + (int64_t)q0 * a.do_st.s, a.do_st.s, a.sq - q0);
+      stage_bwd<D, BWD_BQ>(q_s, qb + (int64_t)q0 * a.q_st.s, a.q_st.s, a.sq - q0);
+      stage_bwd<D, BWD_BQ>(do_s, dob + (int64_t)q0 * a.do_st.s, a.do_st.s, a.sq - q0);
       if (threadIdx.x < BWD_BQ) {
         const int i = q0 + threadIdx.x;
         lse_s[threadIdx.x] = i < a.sq ? a.lse[row_base + i] : -INFINITY;
@@ -1285,8 +1277,8 @@ flash_bwd_dkdv_kernel(BwdArgs a) {
     if (j < a.sk)
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
-        st_f32(dkb + (int64_t)j * a.dk_st.s + cl + 16 * c, dk[r][c]);
-        st_f32(dvb + (int64_t)j * a.dv_st.s + cl + 16 * c, dv[r][c]);
+        dkb[(int64_t)j * a.dk_st.s + cl + 16 * c] = dk[r][c];
+        dvb[(int64_t)j * a.dv_st.s + cl + 16 * c] = dv[r][c];
       }
   }
 }
@@ -1808,17 +1800,17 @@ int launch_d(const Args& a, int is_bf16, int splits) {
 }
 
 
-template <typename T, int D>
-int launch_bwd(const BwdArgs& a) {
+template <int D>
+int launch_bwd_f32(const BwdArgs& a) {
   constexpr int bytes = bwd_smem_bytes<D>();
   static bool opted_dq = false, opted_dkdv = false;
-  if (int e = opt_in(flash_bwd_dq_kernel<T, D>, bytes, opted_dq)) return e;
-  if (int e = opt_in(flash_bwd_dkdv_kernel<T, D>, bytes, opted_dkdv)) return e;
+  if (int e = opt_in(flash_bwd_dq_kernel<D>, bytes, opted_dq)) return e;
+  if (int e = opt_in(flash_bwd_dkdv_kernel<D>, bytes, opted_dkdv)) return e;
   const dim3 grid_q((unsigned)((a.sq + BWD_BQ - 1) / BWD_BQ), (unsigned)a.h, (unsigned)a.b);
-  flash_bwd_dq_kernel<T, D><<<grid_q, BWD_THREADS, bytes, a.stream>>>(a);
+  flash_bwd_dq_kernel<D><<<grid_q, BWD_THREADS, bytes, a.stream>>>(a);
   if (cudaError_t e = cudaGetLastError()) return (int)e;
   const dim3 grid_k((unsigned)((a.sk + BWD_BK - 1) / BWD_BK), (unsigned)a.kvh, (unsigned)a.b);
-  flash_bwd_dkdv_kernel<T, D><<<grid_k, BWD_THREADS, bytes, a.stream>>>(a);
+  flash_bwd_dkdv_kernel<D><<<grid_k, BWD_THREADS, bytes, a.stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1837,7 +1829,7 @@ int launch_bwd_tc(const BwdArgs& a) {
 
 template <int D>
 int launch_bwd_d(const BwdArgs& a, int is_bf16) {
-  return is_bf16 ? launch_bwd_tc<D>(a) : launch_bwd<float, D>(a);
+  return is_bf16 ? launch_bwd_tc<D>(a) : launch_bwd_f32<D>(a);
 }
 
 }  // namespace

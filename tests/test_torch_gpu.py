@@ -453,9 +453,9 @@ def test_rmsnorm_bwd_takes_unaligned_rows(cuda, dtype):
 
 # One torch.profiler session over one rmsnorm_bwd call and then one
 # flash_attention_bwd call (bf16, the train path's shapes), in a fresh
-# process: a second profiler session in one process records no CUDA events
-# on the card's machine, and test_ssca_update_is_one_kernel_per_call holds
-# the first. Prints the CUDA kernels in the order they started.
+# process: on the H100 a second profiler session in one process recorded
+# no CUDA events, and test_ssca_update_is_one_kernel_per_call holds the
+# first. Prints the CUDA kernels in the order they started.
 _PROFILE_BWD = """
 import json, torch
 from torch.autograd import DeviceType
