@@ -25,16 +25,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def profile_window(fn, per: int, groups=None) -> dict:
+def profile_window(fn, per: int) -> dict:
     """Run fn three times: to warm up, timed on the host clock (ending in a
     synchronize), and under torch.profiler (CPU and CUDA activities, also
     ending in a synchronize). Every number is divided by ``per``, the
     rounds or decode steps one call of fn makes. The busy share divides the profiled
     device kernel time by the profiled window's own host time: both come
-    from one window. ``ms_per_call`` is the unprofiled window's. With
-    ``groups`` (name -> substrings of kernel names, matched in order and
-    in any case), the device time is also summed by group, the rest under
-    "other"."""
+    from one window. ``ms_per_call`` is the unprofiled window's."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -59,22 +56,12 @@ def profile_window(fn, per: int, groups=None) -> dict:
     kernels.sort(reverse=True)
     host.sort(reverse=True)
     dev_ms = sum(k[0] for k in kernels) / 1e3 / per
-    by_group = {}
-    for t, c, k in kernels if groups else ():
-        name = next((g for g, subs in groups.items()
-                     if any(sub.lower() in k.lower() for sub in subs)), "other")
-        ms, n = by_group.get(name, (0.0, 0))
-        by_group[name] = (ms + t / 1e3 / per, n + c / per)
     return {
         "ms_per_call": wall_ms,
         "profiled_ms_per_call": prof_ms,
         "device_kernel_ms_per_call": dev_ms,
         "device_busy_share": dev_ms / prof_ms,
         "kernel_launches_per_call": sum(k[1] for k in kernels) / per,
-        **({"device_ms_by_group": {g: {"ms_per_call": ms, "launches_per_call": n}
-                                   for g, (ms, n) in sorted(
-                                       by_group.items(), key=lambda x: -x[1][0])}}
-           if groups else {}),
         "top_kernels": [{"us_per_call": t / per, "launches_per_call": c / per,
                          "name": k[:90]} for t, c, k in kernels[:12]],
         "top_host_ops": [{"self_cpu_us_per_call": t / per,

@@ -9,12 +9,12 @@ batch 8, sequence 512, remat, the reference's FLConfig).
 ``--steps`` SSCA steps through ``launch.train.make_scanned_step``, each
 call through profile_torch_round.profile_window: host-clock ms per step,
 unprofiled and profiled, device kernel time and its share of the profiled
-window's host time (the device-busy share), kernel launches, and the
-device time by kernel group (cuBLAS products, flash forward and backward,
-rmsnorm forward and backward, ssca_update, the loss, the embedding's
-gather and scatter, the rest: elementwise work and copies). Prints one
-JSON line; --json PATH writes all of it, top kernels and host operators
-included, to PATH.
+window's host time (the device-busy share), kernel launches; and, from
+that same profiler session, the device time by kernel group (cuBLAS
+products, flash forward and backward, rmsnorm forward and backward,
+ssca_update, the loss, the embedding's gather and scatter, the rest:
+elementwise work and copies). Prints one JSON line; --json PATH writes all
+of it, top kernels and host operators included, to PATH.
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-from profile_torch_round import profile_window
+import profile_torch_round
 
 ROOT = Path(__file__).resolve().parents[1]
 GROUPS = {
@@ -37,6 +37,43 @@ GROUPS = {
     "loss": ("softmax", "nll_loss", "cross_entropy", "logsumexp"),
     "embedding": ("index", "embedding", "scatter", "gather"),
 }
+
+
+def by_group(prof, per: int) -> dict:
+    """Device ms and launches per call of each GROUPS entry (kernel names
+    matched in order, in any case; the rest under "other") in a finished
+    profiler session."""
+    out = {}
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0 and e.cpu_time_total == 0:
+            name = next((g for g, subs in GROUPS.items()
+                         if any(sub.lower() in e.key.lower() for sub in subs)), "other")
+            ms, n = out.get(name, (0.0, 0.0))
+            out[name] = (ms + e.self_device_time_total / 1e3 / per, n + e.count / per)
+    return {g: {"ms_per_call": ms, "launches_per_call": n}
+            for g, (ms, n) in sorted(out.items(), key=lambda x: -x[1][0])}
+
+
+def profile_with_groups(fn, per: int) -> dict:
+    """profile_torch_round.profile_window(fn, per), with the device time of
+    its profiled window summed by kernel group. A second profiler session
+    in one process recorded no CUDA events on the H100, so the window's own
+    session is kept: torch.profiler.profile is wrapped for the call to
+    catch it."""
+    import torch.profiler
+    sessions, real = [], torch.profiler.profile
+
+    class Caught(real):
+        def __enter__(self):
+            sessions.append(self)
+            return super().__enter__()
+
+    torch.profiler.profile = Caught
+    try:
+        res = profile_torch_round.profile_window(fn, per)
+    finally:
+        torch.profiler.profile = real
+    return {**res, "device_ms_by_group": by_group(sessions[-1], per)}
 
 
 def main() -> int:
@@ -82,7 +119,7 @@ def main() -> int:
         held["state"], ms = rounds.ENGINES["scan"](step, held["state"], inputs)
         return ms
 
-    res = profile_window(run, args.steps, GROUPS)
+    res = profile_with_groups(run, args.steps)
     tokens = args.batch * args.seq
     n_params = held["state"].w_flat.numel()
     res["tokens_per_s"] = tokens * 1e3 / res["ms_per_call"]
