@@ -74,9 +74,12 @@ TRAIN = dict(batch=8, seq=512)
 TRAIN_WARMUP, TRAIN_TIMED = 2, 5
 TRAIN_PARITY = dict(batch=2, seq=64, steps=3)
 TRAIN_PARITY_PARAM_STEPS = 2       # steps after which the params are gated
+TRAIN_PARITY_NORMWISE = 1e-2       # |card - CPU| / |CPU| of the params after the last
 # prefill-then-decode gates at full depth, set from H100 readings (PERF.md)
 CONSISTENCY_FP32 = 1e-4
 CONSISTENCY_BF16_RATIO = 1.25
+# the bf16 flash backward against its fp32 plain version, normwise
+BF16_BWD_REL_NORM = 1e-2
 
 
 def check(ok, message) -> None:
@@ -102,6 +105,12 @@ def close_err(got, want, tol):
     g, w = got.float(), want.float()
     err = (g - w).abs()
     return err.max().item(), bool((err <= tol + tol * w.abs()).all())
+
+
+def rel_norm(got, want) -> float:
+    """|got - want| / |want|, Frobenius norms over the whole tensor."""
+    g, w = got.float(), want.float()
+    return ((g - w).norm() / w.norm()).item()
 
 
 def event_ms(fn, iters=200, warmup=10):
@@ -434,8 +443,7 @@ def check_rmsnorm_bwd(torch, rms, build):
     in bf16, as the forward; dscale, a sum over the rows, within the same
     tolerance of the sum of its terms' magnitudes in fp32. Timed warm and
     cold at the train shape in bf16 from a CUDA graph, against
-    torch.ops.aten._fused_rms_norm_backward (weight 1 + scale, rstd given)
-    where this torch has it."""
+    torch.ops.aten._fused_rms_norm_backward (weight 1 + scale, rstd given)."""
     gen = torch.Generator(device="cuda").manual_seed(12)
     worst = {}
     for rows, d in ((4096, 2048), (37, 512), (5, 100), (3, 3000), (1, 2048)):
@@ -461,7 +469,6 @@ def check_rmsnorm_bwd(torch, rms, build):
     rows, d = 4096, 2048
     nbytes = 2 * (3 * rows * d + 2 * d)
     blocks = rms.bwd_blocks(rows)
-    fused = getattr(torch.ops.aten, "_fused_rms_norm_backward", None)
 
     def make():
         x = torch.randn(rows, d, generator=gen, device="cuda").to(torch.bfloat16)
@@ -478,35 +485,21 @@ def check_rmsnorm_bwd(torch, rms, build):
         build.check(code, "rmsnorm_bwd")
 
     def library(x, sc, dy, dx, ds, part, weight, r):
-        return fused(dy, x, [d], r, weight, [True, True])
+        return torch.ops.aten._fused_rms_norm_backward(dy, x, [d], r, weight, [True, True])
 
     sets = cold_sets(make, nbytes)
     b_ms, b_by = bound_ms(nbytes, 10 * rows * d)
     x, sc, dy = sets[0][:3]
-    lib_note = None
-    if fused is not None:
-        try:
-            got = library(*sets[0])
-            err, ok = close_err(got[0], rms.plain_bwd(x, sc, dy, 1e-6)[0], 2e-2)
-            check(ok, f"rmsnorm_bwd: the library yardstick disagrees by {err}")
-            timed = timed_pair(launch, library, sets, True)
-        except RuntimeError as e:
-            lib_note = f"aten._fused_rms_norm_backward failed here: {str(e)[:200]}"
-            fused = None
-    if fused is None:
-        lib_note = lib_note or "this torch has no aten._fused_rms_norm_backward"
-        timed = {"ms": graph_ms(rotating(launch, sets[:1])), "library_ms": None,
-                 "cold_ms": graph_ms(rotating(launch, sets)), "library_cold_ms": None}
+    err, ok = close_err(library(*sets[0])[0], rms.plain_bwd(x, sc, dy, 1e-6)[0], 2e-2)
+    check(ok, f"rmsnorm_bwd: the library yardstick disagrees by {err}")
     out = {"name": "rmsnorm_bwd", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
            "replaces": "src/repro/models/layers.py:146",
            "max_abs_err": max(worst.values()), "max_abs_err_by_case": worst,
-           "shape": [rows, d], "bytes": nbytes, **timed,
+           "shape": [rows, d], "bytes": nbytes, **timed_pair(launch, library, sets, True),
            "eager_ms": event_ms(rotating(launch, sets[:1])),
            "plain_ms": event_ms(lambda: rms.plain_bwd(x, sc, dy, 1e-6)),
            "bound_ms": b_ms, "bound_by": b_by, "blocks": blocks}
-    if lib_note:
-        out["library_note"] = lib_note
     del sets
     return out
 
@@ -626,8 +619,11 @@ def check_flash_bwd(torch, fa, build):
     in bf16 and fp32, ragged lengths (61, 200), GQA rep 1 and 8, causal and
     not, a window, head dims 64 and 128. Also the forward's logsumexp
     (2e-5; -inf exactly where a row sees no key). Tolerance, absolute plus
-    relative: 2e-5 in fp32, 3e-2 in bf16, as the forward. Two runs give
-    equal bits. Timed warm and cold at the train shape in bf16 from a CUDA
+    relative: 2e-5 in fp32, 3e-2 in bf16, as the forward; in bf16 also
+    normwise, |got - want| / |want| within BF16_BWD_REL_NORM for dq, dk and
+    dv each (an elementwise 3e-2 is over half a typical |dq| at the train
+    shape). Two runs give equal bits. Timed warm and cold at the train
+    shape in bf16 from a CUDA
     graph, against aten._scaled_dot_product_flash_attention_backward on K/V
     expanded to the 16 query heads (its dK, dV then need a sum over each
     group, not timed)."""
@@ -643,7 +639,7 @@ def check_flash_bwd(torch, fa, build):
         (1, 16, 2, 200, 200, 128, bf16, True, 37),
         (1, 8, 1, 128, 64, 64, f32, True, 0),       # rows 0..63 see no key
     ]
-    worst = {}
+    worst, rel_norms = {}, {}
     for b, h, kv, sq, sk, d, dtype, causal, window in cases:
         q, k, v = attn_operands(torch, gen, b, h, kv, sq, sk, d, dtype)
         do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
@@ -658,12 +654,16 @@ def check_flash_bwd(torch, fa, build):
         want = fa.plain_bwd(q, k, v, o, lse, do, causal=causal, window=window)
         tol = 2e-5 if dtype == f32 else 3e-2
         tag = f"{b}x{h}/{kv}x{sq}x{sk}x{d}/c{int(causal)}w{window}/{str(dtype)[6:]}"
-        errs = []
+        errs, rel = [], []
         for name, got, w in zip(("dq", "dk", "dv"), grads, want):
             check(bool(torch.isfinite(got).all()), f"flash_bwd {name} {tag}: not finite")
             err, ok = close_err(got, w, tol)
             check(ok, f"flash_bwd {name} {tag}: max |diff| {err}")
             errs.append(err)
+            rel.append(rel_norm(got, w))
+            check(dtype == f32 or rel[-1] <= BF16_BWD_REL_NORM,
+                  f"flash_bwd {name} {tag}: |diff| / |want| {rel[-1]}")
+        rel_norms[tag] = rel
         again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
         check(all(torch.equal(a, c) for a, c in zip(again, grads)),
               f"flash_bwd {tag}: two runs differ")
@@ -675,8 +675,6 @@ def check_flash_bwd(torch, fa, build):
     fwd_bytes, fwd_flops = attn_work(b, h, kv, sq, sk, d, 2)
     nbytes = 2 * d * (4 * b * h * sq + 4 * b * kv * sk) + 2 * 4 * b * h * sq
     flops = 5 * fwd_flops // 2
-    sdpa = getattr(torch.ops.aten, "_scaled_dot_product_flash_attention", None)
-    sdpa_bwd = getattr(torch.ops.aten, "_scaled_dot_product_flash_attention_backward", None)
 
     def make():
         q, k, v = attn_operands(torch, gen, b, h, kv, sq, sk, d, bf16)
@@ -696,48 +694,35 @@ def check_flash_bwd(torch, fa, build):
         qc = q.contiguous()
         ke = k.repeat_interleave(rep, dim=1).contiguous()
         ve = v.repeat_interleave(rep, dim=1).contiguous()
-        res = sdpa(qc, ke, ve, 0.0, True, False)
+        res = torch.ops.aten._scaled_dot_product_flash_attention(qc, ke, ve, 0.0, True,
+                                                                  False)
         return (*ops[:11], (qc, ke, ve, res, do.contiguous()))
 
     def library(*ops):
         qc, ke, ve, res, doc = ops[11]
-        return sdpa_bwd(doc, qc, ke, ve, res[0], res[1], res[2], res[3], res[4], res[5],
-                        0.0, True, res[6], res[7])
+        return torch.ops.aten._scaled_dot_product_flash_attention_backward(
+            doc, qc, ke, ve, *res[:6], 0.0, True, res[6], res[7])
 
-    sets = cold_sets(make, nbytes)
+    sets = [with_library(s_) for s_ in cold_sets(make, nbytes)]
     b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
     q, k, v, o, lse, do = sets[0][:6]
-    note = None
-    if sdpa is not None and sdpa_bwd is not None:
-        try:
-            lsets = [with_library(s_) for s_ in sets]
-            gq, gk, gv = library(*lsets[0])
-            want = fa.plain_bwd(q, k, v, o, lse, do)
-            gk = gk.view(b, kv, rep, sk, d).float().sum(2)
-            gv = gv.view(b, kv, rep, sk, d).float().sum(2)
-            for name, got, w in (("dq", gq, want[0]), ("dk", gk, want[1]), ("dv", gv, want[2])):
-                err, ok = close_err(got, w, 3e-2)
-                check(ok, f"flash_bwd {name}: the library yardstick disagrees by {err}")
-            timed = timed_pair(launch, library, lsets, True)
-            sets = lsets
-        except RuntimeError as e:
-            note = f"aten flash backward failed here: {str(e)[:200]}"
-    else:
-        note = "this torch has no aten._scaled_dot_product_flash_attention_backward"
-    if note:
-        timed = {"ms": graph_ms(rotating(launch, sets[:1])), "library_ms": None,
-                 "cold_ms": graph_ms(rotating(launch, sets)), "library_cold_ms": None}
+    gq, gk, gv = library(*sets[0])
+    want = fa.plain_bwd(q, k, v, o, lse, do)
+    gk = gk.view(b, kv, rep, sk, d).float().sum(2)
+    gv = gv.view(b, kv, rep, sk, d).float().sum(2)
+    for name, got, w in (("dq", gq, want[0]), ("dk", gk, want[1]), ("dv", gv, want[2])):
+        err, ok = close_err(got, w, 3e-2)
+        check(ok, f"flash_bwd {name}: the library yardstick disagrees by {err}")
     out = {"name": "flash_attention_bwd", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
            "replaces": "src/repro/models/layers.py:329",
            "max_abs_err": max(worst.values()), "max_abs_err_by_case": worst,
+           "rel_norm_err_by_case": rel_norms,
            "shape": {"q": list(q.shape), "kv": list(k.shape)}, "bytes": nbytes,
-           "flops": flops, **timed,
+           "flops": flops, **timed_pair(launch, library, sets, True),
            "eager_ms": event_ms(rotating(launch, sets[:1]), iters=20),
            "plain_ms": event_ms(lambda: fa.plain_bwd(q, k, v, o, lse, do), iters=5),
            "bound_ms": b_ms, "bound_by": b_by}
-    if note:
-        out["library_note"] = note
     del sets
     return out
 
@@ -966,13 +951,14 @@ def run_train_parity(torch, m):
     kernel versions); the params compared after every step. fp32 sums run
     in another order on the two devices. Gates: each step's loss within
     rtol 1e-5; the params within atol 1e-4 after steps 1 and 2
-    (TRAIN_PARITY_PARAM_STEPS).
-    After step 3 they are reported, not gated: the schedule's first step
-    (ρ = 1, γ = 0.5: w ← w - 1.25·ĝ) grows this 2-layer model's tied
-    embedding from 0.2 to 6 and then 23 at its largest (loss 27.6, 13.8,
-    93.9), its logits to where fp32 resolves p only to about 1e-4, and step
-    3 alone, taken from the card's state on both devices, differs by more
-    than 1e-4 too (reported; PERF.md, Findings)."""
+    (TRAIN_PARITY_PARAM_STEPS) and normwise within TRAIN_PARITY_NORMWISE
+    after step 3. The schedule's first step (ρ = 1, γ = 0.5: w ← w - 1.25·ĝ)
+    grows this 2-layer model's tied embedding from 0.2 to 6 and then 23 at
+    its largest (loss 27.6, 13.8, 93.9), its logits to where fp32 resolves p
+    only to about 1e-4, so step 3's params differ elementwise by more than
+    1e-4 (PERF.md, Findings). A control, the card again with TF32 matmuls,
+    must read above that normwise limit: the gate tells a loss of precision
+    that size from fp32."""
     rnd, train, rounds, optimizer = m.rnd, m.train, m.rounds, m.optimizer
     cfg = dataclasses.replace(m.qwen, n_layers=2, dtype="float32")
     model = m.get_model(cfg)
@@ -982,52 +968,56 @@ def run_train_parity(torch, m):
     b, s, steps = TRAIN_PARITY["batch"], TRAIN_PARITY["seq"], TRAIN_PARITY["steps"]
     toks = m.token_dataset(rnd.fold_in(key, 1), cfg.vocab_size, 200_000)
 
-    def run(p, device, first=0, start=None):
-        """Steps first+1 .. steps from p, or from the flat (w, g) `start`;
-        the params after each, its loss, and the state before the last."""
+    def run(p, device):
+        """The params after each step, and each step's loss."""
         dev_key = key.to(device)
         step = train.make_scanned_step(model, cfg, fl, toks.to(device), b, s)
         inputs = rounds.make_inputs(fl, 1, steps, rnd.fold_in(dev_key, 2))
         state, ws, losses = optimizer.ssca_init(p), [], []
-        if start is not None:
-            state.w_flat.copy_(start[0])
-            state.g_flat.copy_(start[1])
-            state = state._replace(t=first + 1)
-        for r in range(first, steps):
-            if r == steps - 1:
-                before = (state.w_flat.to("cpu", copy=True), state.g_flat.to("cpu", copy=True))
+        for r in range(steps):
             state, ms = step(state, inputs.round(r))
             ws.append(state.w_flat.to("cpu", copy=True))
             losses.append(ms["loss"].item())
-        return ws, losses, before
+        return ws, losses
 
     t0 = time.perf_counter()
-    card_w, card_loss, card_before = run(params, "cuda")
+    card_w, card_loss = run(params, "cuda")
     card_s = time.perf_counter() - t0
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32_w, tf32_loss = run(params, "cuda")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
     on_cpu = tree_map(lambda t: t.cpu(), params)
     del params
     t0 = time.perf_counter()
-    cpu_w, cpu_loss, _ = run(on_cpu, "cpu")
+    cpu_w, cpu_loss = run(on_cpu, "cpu")
     cpu_s = time.perf_counter() - t0
-    # the last step alone on the CPU, from the card's state before it
-    same_w, _, _ = run(on_cpu, "cpu", first=steps - 1, start=card_before)
-    last_from_same = (card_w[-1] - same_w[-1]).abs().max().item()
+
+    def normwise(ws):
+        return [((a - c).norm() / c.norm()).item() for a, c in zip(ws, cpu_w)]
+
     diff = [(a - c).abs().max().item() for a, c in zip(card_w, cpu_w)]
-    normwise = [((a - c).norm() / c.norm()).item() for a, c in zip(card_w, cpu_w)]
     loss_rel = [abs(a - c) / abs(c) for a, c in zip(card_loss, cpu_loss)]
     out = {"layers": 2, "dtype": "float32", **TRAIN_PARITY,
            "losses_card": card_loss, "losses_cpu": cpu_loss,
            "max_rel_loss_diff_by_step": loss_rel,
            "max_abs_param_diff_by_step": diff,
-           "normwise_param_diff_by_step": normwise,
+           "normwise_param_diff_by_step": normwise(card_w),
            "max_abs_param_by_step": [c.abs().max().item() for c in cpu_w],
-           "last_step_from_same_state_max_abs_param_diff": last_from_same,
+           "tf32_control": {"losses": tf32_loss, "normwise_param_diff_by_step":
+                            normwise(tf32_w)},
            "card_s": card_s, "cpu_s": cpu_s}
     emit("train_parity", **out)
     check(all(map(math.isfinite, card_loss)), "train parity: losses not finite")
     check(max(loss_rel) <= 1e-5, f"train parity: card vs CPU losses differ by {loss_rel}")
     gated = diff[:TRAIN_PARITY_PARAM_STEPS]
     check(max(gated) <= 1e-4, f"train parity: card vs CPU params differ by {gated}")
+    last, control = out["normwise_param_diff_by_step"][-1], normwise(tf32_w)[-1]
+    check(last <= TRAIN_PARITY_NORMWISE,
+          f"train parity: card vs CPU params differ normwise by {last} after the last step")
+    check(control > TRAIN_PARITY_NORMWISE,
+          f"train parity: the TF32 control reads {control}, within the fp32 limit")
     return out
 
 
@@ -1204,7 +1194,7 @@ def main() -> int:
         check(kr["launches"] > 0, f"{n} never launched on a main path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("cold_ms", "library_cold_ms", "floor_ms", "library_note")  # where measured
+    extra = ("cold_ms", "library_cold_ms", "floor_ms")  # where measured
     print(smi, flush=True)
     print(json.dumps({"kernels": [{**{k: kr[k] for k in keys},
                                    **{k: kr[k] for k in extra if k in kr}}
