@@ -38,11 +38,28 @@ Phases, one JSON line each:
            params, fp32 surrogate buffer), 10 launches, against its bound
   train_parity  full width, 2 layers, fp32, batch 2, seq 64, 3 steps: the
            card against the CPU from the same weights, tokens and keys
+  paper    the paper's §VI suite at its width (examples/paper_experiments.py's
+           settings), 200 rounds each from one dataset and params0, a line a
+           run: Algorithm 2, 2 (general), 3, 4, 3 with int8 + EF, FedSGD and
+           SGD-m (E=5); rounds/s, peak memory, losses, eval cost, ν and slack,
+           upload bytes, launches (asserted)
+  paper_parity  each of those runs for 5 rounds on the card against 5 on the
+           CPU from the same params, data and keys
+  train_constrained  qwen2.5-3b at full width and depth in bf16 through
+           train_loop(constrained=True) (min ‖ω‖² s.t. loss <= 3.0, Lemma 1),
+           from serve_consistency's weights: 2 warm-up and 3 timed steps; step
+           ms, tokens/s, peak memory against the train phase's, each step's
+           loss, ν, slack and ‖ω‖², launches per step (asserted); the
+           constrained update's own device ms at the train size beside its
+           bound
+  train_constrained_parity  full width, 2 layers, fp32, batch 2, seq 64, 3
+           constrained steps: the card against the CPU, and two planted
+           faults in the surrogate minimum's recursion that its gates catch
 The kernels phase also holds the backward kernels (rmsnorm_bwd,
 flash_attention_bwd) against their plain versions and times them against
 the PyTorch library's backward calls. Each main path (dense, int8, serve,
-train) runs with every launch counter set to 0 just before it and read
-just after. The kernels' JSON line comes second to
+train, each paper run, train_constrained) runs with every launch counter
+set to 0 just before it and read just after. The kernels' JSON line comes second to
 last and the verdict
 {"ok": true, "device": {...}} last. Any failed check raises, so the script
 exits non-zero without printing a verdict; so does a machine without a CUDA
@@ -75,6 +92,17 @@ TRAIN_WARMUP, TRAIN_TIMED = 2, 5
 TRAIN_PARITY = dict(batch=2, seq=64, steps=3)
 TRAIN_PARITY_PARAM_STEPS = 2       # steps after which the params are gated
 TRAIN_PARITY_NORMWISE = 1e-2       # |card - CPU| / |CPU| of the params after the last
+TRAIN_CONSTRAINED_TIMED = 3
+# ν's relative gap card vs CPU after steps 2-3, per unit of its interior
+# condition factor (1+ντ)/(2ντ): the gap of b/disc, Lemma 1's one input
+TRAIN_CONSTRAINED_NU_RTOL = 1e-3
+PAPER_PARITY_ROUNDS = 5
+# examples/paper_experiments.py's constrained FLConfig (fl_c)
+PAPER_FL_C = dict(batch_size=100, a1=0.9, a2=0.5, alpha_rho=0.1,
+                  alpha_gamma=0.6, tau=0.2, constrained=True, cost_limit=0.5,
+                  penalty_c=1e5)
+PAPER_RUNS = ("alg2", "alg2_general", "alg3", "alg4", "alg3_int8", "fedsgd",
+              "sgdm")
 # prefill-then-decode gates at full depth, set from H100 readings (PERF.md)
 CONSISTENCY_FP32 = 1e-4
 CONSISTENCY_BF16_RATIO = 1.25
@@ -939,9 +967,17 @@ def ssca_at_train_size(torch, ssca, state, fl, launches=10):
     nbytes = 14 * n
     b_ms, b_by = bound_ms(nbytes, 7 * n)
     check(bool(torch.isfinite(state.g_flat[:4096]).all()), "ssca at train size: not finite")
+    # the library yardstick, timed alike: torch._fused_sgd_ on Remark 2's
+    # momentum form over the same bf16 elements (a bf16 momentum buffer)
+    v = torch.zeros_like(state.w_flat)
+    lib_ms = event_ms(lambda: fused_sgd_step(torch, state.w_flat, grad, v, 0.5, 0.3,
+                                             0.2, fl.tau, fl.l2_lambda),
+                      iters=launches, warmup=1)
+    del v, grad
     return {"elements": n, "dtype": "bfloat16", "launches": launches, "ms": ms,
             "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
-            "share_of_bound": b_ms / ms}
+            "share_of_bound": b_ms / ms, "library_ms": lib_ms,
+            "library": "torch._fused_sgd_ (bf16 momentum buffer)"}
 
 
 def run_train_parity(torch, m):
@@ -1021,6 +1057,351 @@ def run_train_parity(torch, m):
     return out
 
 
+def paper_run(m, name, rounds, inputs, device=None, eval_fn=None):
+    """One run of the paper's §VI suite through the port's entry points, as
+    examples/paper_experiments.py drives it (its keys: 2 for the SGD
+    baselines, 3 for Algorithm 2, 4 for 3, 5 for 4; 6 for the general form,
+    as tests/test_system.py runs it, with the loss as objective and
+    constraint)."""
+    alg, bl, mlp, rnd = m.algorithms, m.baselines, m.mlp, m.rnd
+    data, fdata, p0, fp0, fl_u, fl_c = inputs
+    psl, head, ch = mlp.per_sample_loss, mlp.per_sample_loss_from_h, mlp.client_h
+    kw = dict(eval_fn=eval_fn, eval_every=EVAL_EVERY, device=device)
+
+    def key(seed):
+        return rnd.PRNGKey(seed, device=device)
+
+    if name == "alg2":
+        return alg.algorithm2(psl, p0, data, fl_c, rounds, key(3), **kw)
+    if name == "alg2_general":
+        return alg.algorithm2_general(psl, psl, p0, data, fl_c, rounds, key(6), **kw)
+    if name in ("alg3", "alg3_int8"):
+        codec = m.codecs.make_codec("int8" if name == "alg3_int8" else None)
+        return alg.algorithm3(head, ch, fp0, fdata, fl_u, rounds, key(4),
+                              codec=codec, **kw)
+    if name == "alg4":
+        return alg.algorithm4(head, ch, fp0, fdata, fl_c, rounds, key(5), **kw)
+    if name == "fedsgd":
+        cfg = bl.SGDConfig(lr_a=0.3, lr_alpha=0.3, local_batch=fl_u.batch_size)
+        return bl.sample_sgd(psl, p0, data, cfg, rounds, key(2), **kw)
+    cfg = bl.SGDConfig(lr_a=0.3, lr_alpha=0.0, momentum=0.1, local_steps=5,
+                       local_batch=max(fl_u.batch_size // 5, 2))
+    return bl.sample_sgd(psl, p0, data, cfg, rounds, key(2), momentum=True, **kw)
+
+
+def paper_expected(m, inputs):
+    """Per run: the upload bytes a round by the port's accounting, and the
+    launches of each kernel over ROUNDS rounds."""
+    acc, codecs = m.accounting, m.codecs
+    data, fdata, p0, fp0 = inputs[:4]
+    dim, num = sum(t.numel() for t in p0.values()), data.num_clients
+    head, block = fp0["w0"].numel(), fp0["blocks"][0].numel()
+    batch, hidden = inputs[4].batch_size, fp0["blocks"].shape[1]
+    sample = acc.sample_round_bytes(dim, num)["up"]
+    sample_v = acc.sample_round_bytes(dim, num, with_value=True)["up"]
+
+    def feature(codec=None):
+        return acc.feature_round_bytes(head, [block] * num, batch, hidden, num,
+                                       codec)["up"]
+
+    zero = {"ssca_update": 0, "stochastic_quantize": 0, "rmsnorm": 0,
+            "flash_attention": 0, "rmsnorm_bwd": 0, "flash_attention_bwd": 0}
+    kernel = dict(zero, ssca_update=ROUNDS)
+    return {"alg2": (sample_v, zero), "alg2_general": (sample + sample_v, zero),
+            "alg3": (feature(), kernel),
+            "alg4": (feature(), zero),
+            "alg3_int8": (feature(codecs.make_codec("int8")),
+                          dict(kernel, stochastic_quantize=2 * ROUNDS)),
+            "fedsgd": (sample, zero), "sgdm": (sample, zero)}
+
+
+def run_paper(torch, m, inputs, evals, name_power):
+    """The suite at the paper's width, ROUNDS rounds a run, each with every
+    launch counter zeroed just before it and read just after; a line a run.
+    Returns the launches summed over the runs."""
+    expected, totals = paper_expected(m, inputs), {}
+    c = inputs[5].penalty_c
+    for name in PAPER_RUNS:
+        paper_run(m, name, 2, inputs)          # warm-up of this path; not counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(m.counted)
+        t0 = time.perf_counter()
+        res = paper_run(m, name, ROUNDS, inputs,
+                        eval_fn=evals["feature" if "alg3" in name or name == "alg4"
+                                      else "sample"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts(m.counted)
+        h = {k: v.cpu().double() for k, v in res.history.items()}
+        for k, v in h.items():
+            check(bool(torch.isfinite(v).all()), f"paper {name}: {k} not finite")
+        for k, v in res.params.items():
+            check(bool(torch.isfinite(v).all()), f"paper {name}: param {k} not finite")
+        line = {"run": name, "rounds": ROUNDS, "seconds": seconds,
+                "rounds_per_s": ROUNDS / seconds,
+                "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                "eval_cost": h["cost"].tolist()}
+        if "acc" in h:
+            line["eval_acc"] = h["acc"].tolist()
+        for k in ("round_loss_est", "round_cons_est"):
+            if k in h:
+                line[k[6:] + "_first20"] = h[k][:20].mean().item()
+                line[k[6:] + "_last20"] = h[k][-20:].mean().item()
+        if "round_nu" in h:
+            nu, slack = h["round_nu"], h["round_slack"]
+            line.update(nu_first20=nu[:20].mean().item(), nu_last20=nu[-20:].mean().item(),
+                        nu_min=nu.min().item(), nu_max=nu.max().item(),
+                        slack_last20=slack[-20:].mean().item(),
+                        slack_max=slack.max().item())
+            check(bool(((nu >= 0) & (nu <= c)).all()), f"paper {name}: ν outside [0, {c}]")
+            check(bool((slack >= 0).all()), f"paper {name}: negative slack")
+        else:
+            check(h["cost"][-1] < h["cost"][0],
+                  f"paper {name}: eval cost did not fall: {h['cost'].tolist()}")
+        want_bytes, want_counts = expected[name]
+        line["upload_bytes"] = sorted(set(h["round_upload_bytes"].tolist()))
+        check(line["upload_bytes"] == [float(want_bytes)],
+              f"paper {name}: upload bytes {line['upload_bytes']} != {want_bytes}")
+        check(counts == want_counts, f"paper {name}: launches {counts} != {want_counts}")
+        line["launches"] = counts
+        emit("paper", **line, **name_power)
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+    return totals
+
+
+def run_paper_parity(torch, m, inputs):
+    """Each run of the suite for PAPER_PARITY_ROUNDS rounds on the card and
+    on the CPU (the plain kernel versions) from the same params, data and
+    keys; fp32 sums run in another order on the two devices, hence atol 1e-4
+    on the params, as the parity phase holds Algorithm 1."""
+    data, fdata, p0, fp0, fl_u, fl_c = inputs
+    on_cpu = (data.to("cpu"), fdata.to("cpu"),
+              *({k: v.cpu() for k, v in p.items()} for p in (p0, fp0)), fl_u, fl_c)
+    out = {}
+    for name in PAPER_RUNS:
+        card = paper_run(m, name, PAPER_PARITY_ROUNDS, inputs)
+        cpu = paper_run(m, name, PAPER_PARITY_ROUNDS, on_cpu, device="cpu")
+        diff = max((card.params[k].cpu() - cpu.params[k]).abs().max().item()
+                   for k in card.params)
+        row = {"max_abs_param_diff": diff}
+        for k in ("round_loss_est", "round_cons_est", "round_nu", "round_slack"):
+            if k in card.history:
+                a, b = card.history[k].cpu(), cpu.history[k]
+                row[f"max_abs_{k[6:]}_diff"] = (a - b).abs().max().item()
+                if k in ("round_nu", "round_slack"):
+                    row[f"{k[6:]}_card"], row[f"{k[6:]}_cpu"] = a.tolist(), b.tolist()
+        out[name] = row
+    emit("paper_parity", rounds=PAPER_PARITY_ROUNDS, runs=out)
+    for name, row in out.items():
+        check(row["max_abs_param_diff"] <= 1e-4,
+              f"paper parity {name}: card vs CPU params differ by {row['max_abs_param_diff']}")
+
+
+def constrained_update_ms(torch, m, state, fl):
+    """The constrained update (``optimizer.ssca_constrained_step``, Lemma 1)
+    on the train state's own flat buffers and a bf16 gradient of their
+    size: device ms of one call between CUDA events after one warm-up call,
+    in surrogate.CHUNK-element chunks. The bound: 20 B an element (pass 1
+    reads ĝ, ω and g and writes g; pass 2 reads g and ω and writes ω: 12 + 8
+    in bf16 params and gradient)."""
+    n = state.w_flat.numel()
+    grad = torch.randn(n, device="cuda", dtype=torch.bfloat16)
+    loss = torch.full((), 5.0, device="cuda")
+    rho, gamma = (torch.full((), x, device="cuda") for x in (0.5, 0.3))
+    ms = event_ms(lambda: m.optimizer.ssca_constrained_step(
+        state, grad, loss, fl, rho_t=rho, gamma_t=gamma), iters=1, warmup=1)
+    check(bool(torch.isfinite(state.w_flat[:4096].float()).all())
+          and bool(torch.isfinite(state.nu)), "constrained update: not finite")
+    del grad
+    b_ms, b_by = bound_ms(20 * n, 12 * n)
+    return {"elements": n, "dtype": "bfloat16", "ms": ms,
+            "chunk": m.surrogate.CHUNK, "bytes": 20 * n, "bound_ms": b_ms,
+            "bound_by": b_by, "share_of_bound": b_ms / ms}
+
+
+def run_train_constrained(torch, m, train_peak):
+    """qwen2.5-3b at full width and depth in bf16 through
+    train_loop(constrained=True) (train_loop's FLConfig: U = 3.0, c = 1e5)
+    from serve_consistency's weights, drawn again from their seed (the train
+    phase consumed the first copy): TRAIN_WARMUP + TRAIN_CONSTRAINED_TIMED
+    steps with every launch counter zeroed just before and read just after;
+    then the update's own device time. Peak memory within 10% of the train
+    phase's: a full-size fp32 temporary (12.3 GB) would break that."""
+    cfg, batch, seq = m.qwen, TRAIN["batch"], TRAIN["seq"]
+    steps = TRAIN_WARMUP + TRAIN_CONSTRAINED_TIMED
+    weights = {"params": m.get_model(cfg).init(m.rnd.PRNGKey(SERVE["seed"]), cfg)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(m.counted)
+    state, logs = m.train.train_loop("qwen2.5-3b", steps, batch, seq, log_every=1,
+                                     seed=SERVE["seed"], constrained=True,
+                                     params=weights.pop("params"))
+    torch.cuda.synchronize()
+    counts = read_counts(m.counted)
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: v / steps for k, v in counts.items()}
+    L = cfg.n_layers
+    want = {"ssca_update": 0, "stochastic_quantize": 0,
+            "rmsnorm": 2 * (2 * L + 1) - 1, "rmsnorm_bwd": 2 * L + 1,
+            "flash_attention": 2 * L, "flash_attention_bwd": L}
+    walls = [0.0] + [lg["wall_s"] for lg in logs]
+    step_s = [b - a for a, b in zip(walls, walls[1:])]
+    med = statistics.median(step_s[TRAIN_WARMUP:])
+    fl = m.train.TRAIN_FL
+    out = {"arch": cfg.name, "dtype": cfg.dtype, "layers": L, "remat": cfg.remat,
+           **TRAIN, "cost_limit": fl.cost_limit, "penalty_c": fl.penalty_c,
+           "warmup_steps": TRAIN_WARMUP, "timed_steps": TRAIN_CONSTRAINED_TIMED,
+           "step_ms": med * 1e3, "step_ms_each": [t * 1e3 for t in step_s],
+           "tokens_per_s": batch * seq / med, "peak_mem_bytes": peak,
+           "train_peak_mem_bytes": train_peak, "peak_ratio_to_train": peak / train_peak,
+           **{k: [lg[k] for lg in logs] for k in ("loss", "nu", "slack", "l2")},
+           "launches": counts, "launches_per_step": per_step}
+    check(per_step == want, f"train_constrained launches per step {per_step} != {want}")
+    check(all(map(math.isfinite, out["loss"] + out["l2"])),
+          f"train_constrained: losses or ‖ω‖² not finite: {out['loss']}, {out['l2']}")
+    check(all(0.0 <= nu <= fl.penalty_c for nu in out["nu"]),
+          f"train_constrained: ν outside [0, {fl.penalty_c}]: {out['nu']}")
+    check(all(sl >= 0.0 for sl in out["slack"]), f"negative slack: {out['slack']}")
+    check(peak <= 1.1 * train_peak,
+          f"train_constrained peak {peak} B is over 1.1x the train phase's {train_peak}")
+    check(state.t == steps + 1, "train_constrained: the state did not take every step")
+    out["update"] = constrained_update_ms(torch, m, state, fl)
+    return out, counts
+
+
+def planted_update(torch, m, drop):
+    """surrogate.update_surrogate_ with one carried term of the minimum's
+    recursion dropped: "carry" the (1-ρ)·m term, "jump" the
+    ρ(1-ρ)·‖inj − g‖²/(4τ) term. Both vanish at step 1 (ρ = 1)."""
+    def update_(g_flat, mn, rho_t, omega_flat, grad_flat, value_est, tau,
+                extra_linear=0.0):
+        rho_t = torch.as_tensor(rho_t, dtype=torch.float32, device=g_flat.device)
+        qmin, jump, bsq = m.surrogate.recurse_g_(g_flat, rho_t, omega_flat,
+                                                 grad_flat, tau, extra_linear)
+        carry = 0.0 if drop == "carry" else (1.0 - rho_t) * mn
+        jumped = 0.0 if drop == "jump" else rho_t * (1.0 - rho_t) * jump / (4.0 * tau)
+        return carry + rho_t * (value_est + qmin) + jumped, bsq
+    return update_
+
+
+def run_train_constrained_parity(torch, m):
+    """Full width, 2 layers, fp32, batch 2, seq 64, 3 constrained steps
+    through make_scanned_step(constrained=True) from the same weights (drawn
+    on the card, copied to the CPU), tokens and round keys, on the card and
+    on the CPU.
+
+    Step 1 starts from equal inputs on both devices, and every number is
+    gated as train_parity gates them: the loss and ν within rtol 1e-5, the
+    params within atol 1e-4. The slack, F̄_1(ω̄) = m + b/(4τ(1+ντ)²) with m
+    the surrogate's minimum, is 0 at an interior ν up to the rounding of
+    those two terms: it is held at rtol 1e-5 of their size, |m| + slack.
+
+    Steps 2 and 3 start from params 1e-6 apart at which fp32 resolves the
+    gradient only to about 1e-4 (m, −78,000 after step 2, reads 4.4e-5
+    apart); in Lemma 1's interior ν = (√(b/disc) − 1)/τ turns a relative
+    gap in b/disc into (1+ντ)/(2ντ) times that gap in ν (3 at step 2, 118
+    at step 3, where ν is near 0). So there ν is gated at that factor times
+    TRAIN_CONSTRAINED_NU_RTOL, the loss at step 2 at rtol 1e-5, and the
+    params normwise within TRAIN_PARITY_NORMWISE, as train_parity's last
+    step. Two controls run the card again with a carried term of the
+    minimum's recursion dropped (``planted_update``); each must break the
+    ν gate at step 2 or 3."""
+    rnd, train, rounds, optimizer = m.rnd, m.train, m.rounds, m.optimizer
+    cfg = dataclasses.replace(m.qwen, n_layers=2, dtype="float32")
+    model = m.get_model(cfg)
+    key = rnd.PRNGKey(3)
+    params = model.init(key, cfg)
+    fl = train.TRAIN_FL
+    b, s, steps = TRAIN_PARITY["batch"], TRAIN_PARITY["seq"], TRAIN_PARITY["steps"]
+    toks = m.token_dataset(rnd.fold_in(key, 1), cfg.vocab_size, 200_000)
+
+    def run(p, device):
+        """The params after each step, each step's metrics, and the
+        surrogate's minimum after each step."""
+        step = train.make_scanned_step(model, cfg, fl, toks.to(device), b, s,
+                                       constrained=True)
+        inputs = rounds.make_inputs(fl, 1, steps, rnd.fold_in(key.to(device), 2))
+        state, ws, ms_all, mins = optimizer.ssca_constrained_init(p), [], [], []
+        for r in range(steps):
+            state, ms = step(state, inputs.round(r))
+            ws.append(state.w_flat.to("cpu", copy=True))
+            ms_all.append({k: v.item() for k, v in ms.items()})
+            mins.append(state.cons_min.item())
+        return ws, ms_all, mins
+
+    t0 = time.perf_counter()
+    card_w, card_m, card_min = run(params, "cuda")
+    card_s = time.perf_counter() - t0
+    planted = {}
+    sound = optimizer.update_surrogate_
+    for drop in ("carry", "jump"):
+        optimizer.update_surrogate_ = planted_update(torch, m, drop)
+        try:
+            planted[drop] = run(params, "cuda")
+        finally:
+            optimizer.update_surrogate_ = sound
+    on_cpu = tree_map(lambda t: t.cpu(), params)
+    del params
+    t0 = time.perf_counter()
+    cpu_w, cpu_m, cpu_min = run(on_cpu, "cpu")
+    cpu_s = time.perf_counter() - t0
+
+    def rel(ms, k):
+        return [abs(a[k] - c[k]) / max(abs(c[k]), 1e-30) for a, c in zip(ms, cpu_m)]
+
+    def normwise(ws):
+        return [((a - c).norm() / c.norm()).item() for a, c in zip(ws, cpu_w)]
+
+    cond = [(1 + x["nu"] * fl.tau) / max(2 * x["nu"] * fl.tau, 1e-30) for x in cpu_m]
+    nu_limit = [c * TRAIN_CONSTRAINED_NU_RTOL for c in cond]
+
+    def nu_over_limit(ms):
+        """ν's gap over its limit at steps 2-3."""
+        return [g / lim for g, lim in zip(rel(ms, "nu")[1:], nu_limit[1:])]
+
+    diff = [(a - c).abs().max().item() for a, c in zip(card_w, cpu_w)]
+    slack_terms = [abs(mn) + c["slack"] for mn, c in zip(cpu_min, cpu_m)]
+    slack_rel_terms = [abs(a["slack"] - c["slack"]) / t
+                       for a, c, t in zip(card_m, cpu_m, slack_terms)]
+    controls = {f"no_{drop}": {"nu": [x["nu"] for x in ms], "rel_nu_diff_by_step": rel(ms, "nu"),
+                               "nu_gap_over_limit_steps_2_3": nu_over_limit(ms),
+                               "cons_min": mins,
+                               "normwise_param_diff_by_step": normwise(ws)}
+                for drop, (ws, ms, mins) in planted.items()}
+    out = {"layers": 2, "dtype": "float32", **TRAIN_PARITY,
+           "cost_limit": fl.cost_limit, "nu_condition_by_step": cond,
+           "nu_limit_by_step": [1e-5] + nu_limit[1:],
+           "rel_cons_min_diff_by_step": [abs(a - c) / abs(c) for a, c in zip(card_min, cpu_min)],
+           **{f"{k}_card": [x[k] for x in card_m] for k in ("loss", "nu", "slack", "l2")},
+           **{f"{k}_cpu": [x[k] for x in cpu_m] for k in ("loss", "nu", "slack", "l2")},
+           "cons_min_card": card_min, "cons_min_cpu": cpu_min,
+           "rel_loss_diff_by_step": rel(card_m, "loss"),
+           "rel_nu_diff_by_step": rel(card_m, "nu"),
+           "slack_diff_over_terms_by_step": slack_rel_terms,
+           "max_abs_param_diff_by_step": diff,
+           "normwise_param_diff_by_step": normwise(card_w),
+           "planted_controls": controls, "card_s": card_s, "cpu_s": cpu_s}
+    emit("train_constrained_parity", **out)
+    loss_rel, nu_rel = out["rel_loss_diff_by_step"], out["rel_nu_diff_by_step"]
+    check(all(math.isfinite(x["loss"]) for x in card_m), "constrained parity: losses not finite")
+    check(max(loss_rel[:2]) <= 1e-5,
+          f"constrained parity: losses differ by {loss_rel} (steps 1-2 gated)")
+    check(nu_rel[0] <= 1e-5, f"constrained parity: step-1 ν differs by {nu_rel[0]}")
+    check(max(nu_over_limit(card_m)) <= 1.0,
+          f"constrained parity: ν differs by {nu_rel[1:]} at steps 2-3, limits {nu_limit[1:]}")
+    check(slack_rel_terms[0] <= 1e-5,
+          f"constrained parity: step-1 slack differs by {slack_rel_terms[0]} of its terms")
+    check(diff[0] <= 1e-4, f"constrained parity: step-1 params differ by {diff[0]}")
+    check(max(out["normwise_param_diff_by_step"]) <= TRAIN_PARITY_NORMWISE,
+          f"constrained parity: params differ normwise by {out['normwise_param_diff_by_step']}")
+    for name, c in controls.items():
+        check(max(c["nu_gap_over_limit_steps_2_3"]) > 1.0,
+              f"constrained parity: the planted {name} control passes the ν gate: {c}")
+    return out
+
+
 def run_slice(torch, m, codec_name, data, params0, test):
     """Algorithm 1 at full width for ROUNDS rounds through the entry point a
     user calls; the kernels' counters are zeroed just before and read just
@@ -1076,8 +1457,10 @@ def main() -> int:
     from repro_torch import device as device_lib
     from repro_torch import random as rnd
     from repro_torch.comm import codecs
+    from repro_torch import convert
+    from repro_torch.comm import accounting
     from repro_torch.configs.base import MNIST_MLP, FLConfig
-    from repro_torch.core import algorithms, fed
+    from repro_torch.core import algorithms, baselines, fed, surrogate
     from repro_torch.data.synthetic import classification_dataset
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import build
@@ -1136,6 +1519,8 @@ def main() -> int:
                            get_model=get_model, qwen=get_config("qwen2.5-3b"),
                            train=train, rounds=rounds, optimizer=optimizer,
                            leaves=leaves, token_dataset=token_dataset,
+                           baselines=baselines, accounting=accounting,
+                           surrogate=surrogate,
                            # train_loop's default: the reference's FLConfig
                            train_fl=FLConfig(a1=0.9, a2=0.5, alpha_rho=0.1,
                                              alpha_gamma=0.6, tau=0.2,
@@ -1175,6 +1560,29 @@ def main() -> int:
     check(diff <= 1e-4, f"card vs CPU params differ by {diff}")
     emit("parity", rounds=5, max_abs_param_diff=diff, max_abs_loss_diff=loss_diff)
 
+    # the paper's §VI suite: the feature-based data and params built as
+    # examples/paper_experiments.py builds them, its constrained FLConfig
+    fdata = fed.partition_features(z, y, cfg.num_clients)
+    fparams0 = convert.feature_params_from_numpy(
+        params0["w0"].cpu().numpy(), params0["w1"].cpu().numpy(), cfg.num_clients)
+    paper_inputs = (data, fdata, params0, fparams0, fl,
+                    FLConfig(num_clients=cfg.num_clients, **PAPER_FL_C))
+    z_eval, y_eval, fb_eval = z[:5000], y[:5000], fdata.feature_blocks[:, :5000]
+
+    def sample_eval(params, state):
+        return {"cost": mlp.mean_loss(params, z_eval, y_eval),
+                "acc": mlp.accuracy(params, zt, labt)}
+
+    def feature_eval(params, state):
+        h = torch.sum(mlp.client_h(params["blocks"], fb_eval), dim=0)
+        return {"cost": torch.mean(mlp.per_sample_loss_from_h(params["w0"], h, y_eval))}
+
+    paper_counts = run_paper(torch, mods, paper_inputs,
+                             {"sample": sample_eval, "feature": feature_eval},
+                             {"device": name, "power": smi})
+    run_paper_parity(torch, mods, paper_inputs)
+    del paper_inputs, fdata, fb_eval
+
     served, serve_counts, seqs = run_serve(torch, mods)
     emit("serve", **served, device=name, power=smi)
     weights = {"params": check_serve_consistency(torch, mods, seqs)}
@@ -1185,12 +1593,17 @@ def main() -> int:
     emit("ssca_train_size", **ssca_at_train_size(torch, ssca, state, mods.train_fl),
          device=name, power=smi)
     del state
+    constrained, constrained_counts = run_train_constrained(
+        torch, mods, trained["peak_mem_bytes"])
+    emit("train_constrained", **constrained, device=name, power=smi)
     run_train_parity(torch, mods)
+    run_train_constrained_parity(torch, mods)
 
     for kr in kernels:
         n = kr["name"]
         kr["launches"] = (dense_counts[n] + int8_counts[n] + serve_counts[n]
-                          + train_counts[n])
+                          + train_counts[n] + paper_counts[n]
+                          + constrained_counts[n])
         check(kr["launches"] > 0, f"{n} never launched on a main path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -2,7 +2,11 @@
 """Where an Algorithm-1 round of the PyTorch port spends its time, on one
 NVIDIA GPU, at the paper's width (N=60000, P=784, J=128, L=10, I=10, B=100).
 
-    python3 scripts/profile_torch_round.py [--rounds 20] [--json PATH]
+    python3 scripts/profile_torch_round.py [--rounds 20] [--paper] [--json PATH]
+
+With ``--paper``, also each run of the paper's §VI suite as chip_smoke.py
+drives it (``chip_smoke.paper_run``: Algorithms 2, 2 general, 3, 4, 3 with
+int8 + EF, FedSGD, SGD-m with E=5), no evals.
 
 For dense and int8+EF uploads, through ``profile_window``: rounds/s over a
 timed window (host clock, ending in a synchronize), then a torch.profiler
@@ -70,11 +74,46 @@ def profile_window(fn, per: int) -> dict:
     }
 
 
+def profile_paper(data, params0, fl, rounds: int) -> dict:
+    """``profile_window`` over ``rounds`` rounds of each run of the paper's
+    suite, from chip_smoke.py's inputs (the feature params built as
+    examples/paper_experiments.py builds them)."""
+    from types import SimpleNamespace
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from repro_torch import convert
+    from repro_torch import random as rnd
+    from repro_torch.comm import codecs
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core import algorithms, baselines, fed
+    from repro_torch.models import mlp
+    num = data.num_clients
+    z = data.features.reshape(-1, data.features.shape[-1])
+    y = data.labels.reshape(-1, data.labels.shape[-1])
+    fparams0 = convert.feature_params_from_numpy(
+        params0["w0"].cpu().numpy(), params0["w1"].cpu().numpy(), num)
+    inputs = (data, fed.partition_features(z, y, num), params0, fparams0, fl,
+              FLConfig(num_clients=num, **chip_smoke.PAPER_FL_C))
+    m = SimpleNamespace(algorithms=algorithms, baselines=baselines, mlp=mlp,
+                        rnd=rnd, codecs=codecs)
+    out = {}
+    for name in chip_smoke.PAPER_RUNS:
+        res = {"run": name, **profile_window(
+            lambda: chip_smoke.paper_run(m, name, rounds, inputs), rounds)}
+        res["rounds_per_s"] = 1e3 / res["ms_per_call"]
+        out[name] = res
+        print(json.dumps({k: v for k, v in res.items()
+                          if not k.startswith("top_")}), flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rounds", type=int, default=20)
     ap.add_argument("--json", type=Path, default=None,
                     help="write the full profile here")
+    ap.add_argument("--paper", action="store_true",
+                    help="also profile each run of the paper's suite")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -118,6 +157,8 @@ def main() -> int:
         out["configs"][res["codec"]] = res
         print(json.dumps({k: v for k, v in res.items()
                           if not k.startswith("top_")}), flush=True)
+    if args.paper:
+        out["paper"] = profile_paper(data, params0, fl, args.rounds)
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(out, indent=1))

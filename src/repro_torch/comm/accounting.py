@@ -1,9 +1,10 @@
-"""Exact bytes-on-wire bookkeeping for sample-based rounds
+"""Exact bytes-on-wire bookkeeping for federated rounds
 (``repro.comm.accounting``): a compressed q-upload is charged its exact wire
-size (``codec.nbytes``), the downlink broadcast stays dense fp32."""
+size (``codec.nbytes``); the downlink broadcast and the feature-based
+h-exchange stay dense fp32."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence
 
 F32_BYTES = 4
 
@@ -28,3 +29,17 @@ def sample_round_bytes(d: int, num_clients: int, codec=None,
     up = num_clients * per_client
     down = num_clients * F32_BYTES * d
     return {"up": up, "down": down, "total": up + down}
+
+
+def feature_round_bytes(d_head: int, d_blocks: Sequence[int], batch_size: int,
+                        h_dim: int, num_clients: int,
+                        codec=None) -> Dict[str, int]:
+    """Bytes for one Algorithm-3/4 round: dense h-exchange between the I
+    clients (B·H floats from each client to each other client), compressed
+    q_{f,0,0} head upload and q_{f,0,i} block uploads, dense broadcast."""
+    h_x = F32_BYTES * batch_size * h_dim * num_clients * (num_clients - 1)
+    up = (vector_nbytes(d_head, codec)
+          + sum(vector_nbytes(db, codec) for db in d_blocks))
+    down = num_clients * F32_BYTES * (d_head + sum(d_blocks))
+    return {"up": up, "down": down, "h_exchange": h_x,
+            "total": up + down + h_x}

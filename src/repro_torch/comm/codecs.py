@@ -131,9 +131,11 @@ def make_codec(name):
 # ---------------------------------------------------------------------------
 
 
-def tree_flat_dim(tree) -> int:
-    """Total scalar count of a (nested) params dict."""
-    return sum(leaf.numel() for leaf in leaves(tree))
+def tree_flat_dim(tree, stacked: bool = False) -> int:
+    """Total scalar count of a (nested) params dict; with ``stacked``, the
+    count per client of a tree whose leaves lead with the (I,) client axis."""
+    total = sum(leaf.numel() for leaf in leaves(tree))
+    return total // leaves(tree)[0].shape[0] if stacked else total
 
 
 def flatten_tree(tree):
@@ -158,8 +160,11 @@ def flatten_tree(tree):
 
 
 def flatten_stacked(tree):
-    """dict of (I, ...) leaves -> ((I, P) fp32, unflatten): one flat upload
-    vector per client."""
+    """dict of (I, ...) leaves, or one (I, ...) tensor -> ((I, P) fp32,
+    unflatten): one flat upload vector per client."""
+    if not isinstance(tree, dict):
+        flat, unflatten = flatten_stacked({"": tree})
+        return flat, lambda f: unflatten(f)[""]
     keys = sorted(tree)
     num = tree[keys[0]].shape[0]
     shapes = [tree[k].shape for k in keys]

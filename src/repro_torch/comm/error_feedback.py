@@ -20,8 +20,14 @@ import torch
 
 class CommCarry(NamedTuple):
     """Round state = inner optimizer state + per-client EF residuals."""
-    opt: object                    # SSCAState (has .params)
-    ef: object                     # residuals: (I, P)
+    opt: object                    # the optimizer state (has .params)
+    ef: object                     # residuals: (I, P), or a dict of streams
+
+
+def ef_init(dim: int, device=None):
+    """Residual for a single P-dim upload stream (e.g. the feature-based
+    head upload)."""
+    return torch.zeros((dim,), dtype=torch.float32, device=device)
 
 
 def ef_init_stacked(num_clients: int, dim: int, device=None):
@@ -46,8 +52,8 @@ def with_comm_carry(codec, body):
 
 def ef_roundtrip(codec, x, residual, key=None):
     """One error-feedback compression step on flat uploads: x and residual
-    are (P,) with a (2,) key, or stacked (I, P) with (I, 2) keys — the whole
-    stack goes through the codec in one call.
+    are (P,) with a (2,) key, or stacked (I, P) with (I, 2) keys; either is
+    one stream, and the whole stack goes through the codec in one call.
 
     Returns (enc, x_hat, new_residual).
 

@@ -1,9 +1,9 @@
 """Carry state between the JAX reference and the port as numpy arrays.
 
 The parity tests hand the same numbers to both packages: params dicts
-(nested, as the model zoo's are), KV caches, ``SSCAState`` (params,
-surrogate buffer, round counter), PRNG keys (uint32 pairs) and client
-datasets. This module never imports jax: the JAX side
+(nested, as the model zoo's are), the feature-based params, KV caches,
+``SSCAState`` and ``SSCAConstrainedState`` (params, surrogate buffer and
+scalars, round counter), PRNG keys (uint32 pairs) and client datasets. This module never imports jax: the JAX side
 is given and taken as numpy (``np.asarray`` of a jax array).
 """
 from __future__ import annotations
@@ -13,7 +13,7 @@ import torch
 
 from repro_torch import device as device_lib
 from repro_torch.core import optimizer
-from repro_torch.core.fed import SampleFedData
+from repro_torch.core.fed import FeatureFedData, SampleFedData
 from repro_torch.core.tree import leaves
 
 
@@ -90,6 +90,53 @@ def ssca_state_from_numpy(params, g, t, device=None) -> optimizer.SSCAState:
 def ssca_state_to_numpy(state) -> dict:
     return {"params": params_to_numpy(state.params),
             "g": params_to_numpy(state.g), "t": np.int32(state.t)}
+
+
+def ssca_constrained_state_from_numpy(params, cons_g, cons_d, t, nu, slack,
+                                      tau: float, device=None):
+    """The reference's SSCAConstrainedState(params, QuadSurrogate(d, g), t,
+    nu, slack), as numpy, -> the port's (flat buffers with dict views; the
+    surrogate's minimum d - ‖g‖²/(4τ) from the surrogate's curvature τ)."""
+    state = optimizer.ssca_constrained_init(params_from_numpy(params, device))
+    for dst, src in zip(leaves(state.cons.g), leaves(cons_g)):
+        dst.copy_(tensor_from_numpy(src, device))
+
+    def scalar(x):
+        return tensor_from_numpy(np.asarray(x, np.float32), device)
+
+    d = scalar(cons_d)
+    return state._replace(cons=state.cons._replace(d=d), t=int(np.asarray(t)),
+                          nu=scalar(nu), slack=scalar(slack),
+                          cons_min=d - torch.dot(state.g_flat, state.g_flat)
+                          / (4.0 * tau))
+
+
+def ssca_constrained_state_to_numpy(state) -> dict:
+    return {"params": params_to_numpy(state.params),
+            "cons_g": params_to_numpy(state.cons.g),
+            "cons_d": tensor_to_numpy(state.cons.d), "t": np.int32(state.t),
+            "nu": tensor_to_numpy(state.nu),
+            "slack": tensor_to_numpy(state.slack)}
+
+
+def feature_params_from_numpy(w0, w1, num_clients: int, device=None) -> dict:
+    """The feature-based params {"w0", "blocks"} from the paper network's
+    w0 (L, J) and w1 (J, P), built as examples/paper_experiments.py builds
+    them: w1 padded with zero columns to I·P_i, then
+    ``reshape(J, I, P_i).transpose(1, 0, 2)``."""
+    w1 = np.asarray(w1)
+    j, p = w1.shape
+    pi = -(-p // num_clients)
+    w1p = np.pad(w1, ((0, 0), (0, num_clients * pi - p)))
+    blocks = np.ascontiguousarray(
+        w1p.reshape(j, num_clients, pi).transpose(1, 0, 2))
+    return params_from_numpy({"w0": w0, "blocks": blocks}, device)
+
+
+def feature_fed_data_from_numpy(feature_blocks, labels,
+                                device=None) -> FeatureFedData:
+    return FeatureFedData(tensor_from_numpy(feature_blocks, device),
+                          tensor_from_numpy(labels, device))
 
 
 def sample_fed_data_from_numpy(features, labels, counts,

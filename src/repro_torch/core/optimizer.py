@@ -9,16 +9,31 @@ layout takes the leaves in ``jax.tree.leaves`` order, the reference's.
 
 `momentum_form_*` implements eqs. (11)-(12), the identical sequence written
 as momentum SGD (Remark 2), in plain PyTorch.
+
+`ssca_constrained_step` is the Algorithm 2/4 example for the paper's
+constrained formulation (40), min ‖ω‖² s.t. mean-loss <= U, via Lemma 1;
+`ssca_general_constrained_step` the full Algorithm 2/4 (sampled objective
+and constraint, bisection). Their states keep the same flat layout: params
+as views of ``w_flat``, each surrogate buffer as views of one flat fp32
+buffer, so the zoo's train step (``train.grad_leaves``) works unchanged.
+They have no kernel (the reference has no Pallas counterpart): they run as
+PyTorch ops, in place, a chunk of ``surrogate.CHUNK`` elements at a time,
+so no full-size fp32 temporary is made at the train size. ν and slack stay
+0-d device tensors.
 """
 from __future__ import annotations
 
-import math
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.core import schedules
-from repro_torch.core.tree import leaves, tree_map, tree_zeros_like
+from repro_torch.core.solvers import (lemma1_nu_from_disc,
+                                      solve_constrained_single)
+from repro_torch.core.surrogate import (QuadSurrogate, chunks, recurse_g_,
+                                        update_surrogate_)
+from repro_torch.core.tree import (flatten, leaves, tree_map, tree_zeros_like,
+                                   views)
 from repro_torch.kernels.ssca_update import ssca_update_
 
 
@@ -28,24 +43,6 @@ class SSCAState(NamedTuple):
     t: int                    # 1-based round counter
     w_flat: torch.Tensor      # (P,) all params, leaves in jax.tree order
     g_flat: torch.Tensor      # (P,) fp32 surrogate buffer, same layout
-
-
-def views(flat, like):
-    """``like``'s (nested) dict of shapes laid over the flat (P,) buffer:
-    views of consecutive spans, leaves in ``jax.tree.leaves`` order."""
-    o = 0
-
-    def view(t):
-        nonlocal o
-        n = math.prod(t.shape)
-        o += n
-        return flat[o - n:o].view(t.shape)
-
-    return tree_map(view, like)
-
-
-def _flat(tree):
-    return torch.cat([leaf.reshape(-1) for leaf in leaves(tree)])
 
 
 def _sched(fl, t, rho_t=None, gamma_t=None, device=None):
@@ -68,9 +65,10 @@ def _sched(fl, t, rho_t=None, gamma_t=None, device=None):
 # ---------------------------------------------------------------------------
 
 
-def ssca_init(params) -> SSCAState:
+def _flat_params(params):
     """Copies ``params`` (a nested dict, all leaves of one dtype) into one
-    flat buffer, leaf by leaf; the caller's tensors are never written."""
+    flat buffer, leaf by leaf; the caller's tensors are never written.
+    Returns (the dict of views, the buffer)."""
     src = leaves(params)
     dtypes = {t.dtype for t in src}
     if len(dtypes) != 1:
@@ -80,8 +78,22 @@ def ssca_init(params) -> SSCAState:
     state_params = views(w_flat, params)
     for dst, t in zip(leaves(state_params), src):
         dst.copy_(t)
-    g_flat = torch.zeros(w_flat.shape, dtype=torch.float32,
-                         device=w_flat.device)
+    return state_params, w_flat
+
+
+def _zeros_flat(w_flat):
+    return torch.zeros(w_flat.shape, dtype=torch.float32, device=w_flat.device)
+
+
+def _as_flat(grad):
+    """A gradient given as a (nested) dict like params, or already flat in
+    w_flat's layout."""
+    return grad if isinstance(grad, torch.Tensor) else flatten(grad)
+
+
+def ssca_init(params) -> SSCAState:
+    state_params, w_flat = _flat_params(params)
+    g_flat = _zeros_flat(w_flat)
     return SSCAState(params=state_params, g=views(g_flat, params), t=1,
                      w_flat=w_flat, g_flat=g_flat)
 
@@ -99,8 +111,7 @@ def ssca_step(state: SSCAState, grad, fl, rho_t=None, gamma_t=None) -> SSCAState
     grad is cast to the params' dtype, as the kernel takes it (no copy when
     it is a flat contiguous tensor of that dtype already)."""
     rho_t, gamma_t = _sched(fl, state.t, rho_t, gamma_t, state.w_flat.device)
-    g = grad if isinstance(grad, torch.Tensor) else _flat(grad)
-    g = g.to(state.w_flat.dtype).contiguous()
+    g = _as_flat(grad).to(state.w_flat.dtype).contiguous()
     ssca_update_(state.w_flat, state.g_flat, g, rho_t, gamma_t,
                  fl.tau, fl.l2_lambda)
     return state._replace(t=state.t + 1)
@@ -141,3 +152,120 @@ def momentum_form_step(state: MomentumForm, grad, fl, rho_t=None,
     return MomentumForm(params=params, v=v, t=state.t + 1,
                         gamma_prev=torch.as_tensor(gamma_t,
                                                    dtype=torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# constrained (Algorithm 2 / 4 example; formulation (40) via Lemma 1)
+# ---------------------------------------------------------------------------
+
+
+class SSCAConstrainedState(NamedTuple):
+    params: dict              # views into w_flat
+    cons: QuadSurrogate       # constraint surrogate: d (0-d), g views into g_flat
+    t: int                    # 1-based round counter
+    nu: torch.Tensor          # last dual value (0-d; diagnostic)
+    slack: torch.Tensor       # last slack (0-d; Theorem 2: -> 0)
+    w_flat: torch.Tensor      # (P,) all params, leaves in jax.tree order
+    g_flat: torch.Tensor      # (P,) fp32 constraint surrogate buffer
+    cons_min: torch.Tensor    # 0-d min of the constraint surrogate, d - ‖g‖²/(4τ)
+
+
+def _zero(w_flat):
+    return torch.zeros((), device=w_flat.device)
+
+
+def ssca_constrained_init(params) -> SSCAConstrainedState:
+    state_params, w_flat = _flat_params(params)
+    g_flat = _zeros_flat(w_flat)
+    return SSCAConstrainedState(
+        params=state_params, cons=QuadSurrogate(d=_zero(w_flat),
+                                                g=views(g_flat, params)),
+        t=1, nu=_zero(w_flat), slack=_zero(w_flat), w_flat=w_flat,
+        g_flat=g_flat, cons_min=_zero(w_flat))
+
+
+def _tensor(x, like):
+    return torch.as_tensor(x, dtype=torch.float32, device=like.device)
+
+
+def _update_cons_(state, grad, value, fl, rho_t):
+    """The constraint surrogate's recursion in place on ``state.g_flat``;
+    returns (its new QuadSurrogate, its minimum, b = ‖g‖²)."""
+    m, b = update_surrogate_(state.g_flat, state.cons_min, rho_t, state.w_flat,
+                             _as_flat(grad), value - fl.cost_limit, fl.tau)
+    return QuadSurrogate(d=m + b / (4.0 * fl.tau), g=state.cons.g), m, b
+
+
+def ssca_constrained_step(state: SSCAConstrainedState, loss_grad, loss_value,
+                          fl, rho_t=None, gamma_t=None) -> SSCAConstrainedState:
+    """min ‖ω‖² s.t. F(ω) <= U  (eq. 40). The objective is deterministic and
+    kept exact (τ0 = 1 quadratic); the loss constraint is approximated per
+    (15). loss_grad is a dict like params or flat in w_flat's layout;
+    loss_value a 0-d tensor.
+
+    Updates IN PLACE, as ``ssca_step``, in two passes over the flat buffers
+    a chunk at a time: (1) the surrogate recursion of g, with its minimum m
+    and b = ‖g‖² (``surrogate.update_surrogate_``); then Lemma 1's ν* from
+    b and disc = -4τm; (2) ω ← (1-γ)ω + γω̄, ω̄ = -ν g/(2(1+ντ)). The slack
+    at the solution, F̄_1(ω̄) = m + b/(4τ(1+ντ)²), is the reference's
+    d + ⟨g, ω̄⟩ + τ‖ω̄‖² without the terms that cancel. Each element is read
+    and written once a pass: 20 B an element for bf16 params and gradient
+    (12 + 8)."""
+    rho_t, gamma_t = _sched(fl, state.t, rho_t, gamma_t, state.w_flat.device)
+    gamma_t = _tensor(gamma_t, state.w_flat)
+    cons, m, b = _update_cons_(state, loss_grad, loss_value, fl, rho_t)
+    nu = lemma1_nu_from_disc(b, -4.0 * fl.tau * m, fl.tau, fl.penalty_c)
+    t_ = 1.0 + nu * fl.tau
+    keep, step = 1.0 - gamma_t, gamma_t * (-nu / (2.0 * t_))
+    for sl in chunks(state.w_flat.numel()):
+        w = state.w_flat[sl]
+        w32 = w.float().mul_(keep) if w.dtype != torch.float32 else w.mul_(keep)
+        w32.addcmul_(state.g_flat[sl], step)
+        if w32 is not w:
+            w.copy_(w32)
+    slack = torch.clamp(m + b / (4.0 * fl.tau * t_ * t_), min=0.0)
+    return state._replace(cons=cons, t=state.t + 1, nu=nu, slack=slack,
+                          cons_min=m)
+
+
+class SSCAGeneralConstrainedState(NamedTuple):
+    """Full Algorithm 2/4 state: sampled objective + sampled constraint."""
+    params: dict              # views into w_flat
+    obj_g: dict               # objective linear buffer (eq. 9): views into obj_flat
+    cons: QuadSurrogate       # constraint surrogate: g views into g_flat
+    t: int
+    nu: torch.Tensor
+    slack: torch.Tensor
+    w_flat: torch.Tensor
+    obj_flat: torch.Tensor    # (P,) fp32
+    g_flat: torch.Tensor      # (P,) fp32
+    cons_min: torch.Tensor    # 0-d min of the constraint surrogate
+
+
+def ssca_general_constrained_init(params) -> SSCAGeneralConstrainedState:
+    state_params, w_flat = _flat_params(params)
+    obj_flat, g_flat = _zeros_flat(w_flat), _zeros_flat(w_flat)
+    return SSCAGeneralConstrainedState(
+        params=state_params, obj_g=views(obj_flat, params),
+        cons=QuadSurrogate(d=_zero(w_flat), g=views(g_flat, params)), t=1,
+        nu=_zero(w_flat), slack=_zero(w_flat), w_flat=w_flat,
+        obj_flat=obj_flat, g_flat=g_flat, cons_min=_zero(w_flat))
+
+
+def ssca_general_constrained_step(state: SSCAGeneralConstrainedState, obj_grad,
+                                  cons_grad, cons_value, fl, rho_t=None,
+                                  gamma_t=None) -> SSCAGeneralConstrainedState:
+    """Full Algorithm 2/4 example: both the objective and the constraint are
+    sampled nonconvex losses; Problem 5/10 solved by monotone bisection on
+    the Gram scalars. In place, as ``ssca_step``."""
+    rho_t, gamma_t = _sched(fl, state.t, rho_t, gamma_t, state.w_flat.device)
+    rho_t = _tensor(rho_t, state.w_flat)
+    recurse_g_(state.obj_flat, rho_t, state.w_flat, _as_flat(obj_grad), fl.tau)
+    cons, m, _ = _update_cons_(state, cons_grad, cons_value, fl, rho_t)
+    sol = solve_constrained_single(state.obj_flat, fl.tau,
+                                   cons._replace(g=state.g_flat), fl.tau,
+                                   fl.penalty_c)
+    w = state.w_flat
+    w.copy_((1 - gamma_t) * w.float() + gamma_t * sol.omega_bar)
+    return state._replace(cons=cons, t=state.t + 1, nu=sol.nu[0],
+                          slack=sol.slack[0], cons_min=m)

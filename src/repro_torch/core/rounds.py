@@ -147,3 +147,13 @@ def run_rounds(step_fn: Callable, state, fl, key, rounds: int,
         history["round_" + k] = torch.cat(parts)
     history["round_t"] = torch.arange(1, t0, device=dev)
     return RunResult(unwrap_comm(state).params, history, state)
+
+
+def run_feature_rounds(step_fn: Callable, state, fl, key, rounds: int,
+                       eval_fn: Optional[Callable] = None,
+                       eval_every: int = 0) -> RunResult:
+    """Feature-based (vertical FL, Algorithms 3/4) counterpart of
+    :func:`run_rounds`. The reference's differs only in where a sharded
+    topology places the feature EF carry; on one device it is run_rounds."""
+    return run_rounds(step_fn, state, fl, key, rounds, eval_fn=eval_fn,
+                      eval_every=eval_every)

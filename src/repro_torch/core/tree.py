@@ -1,24 +1,47 @@
 """Arithmetic over parameter dicts (the port's pytrees: dicts of tensors,
 nested as the model zoo's are, leaves taken in sorted-key order at every
-level, as ``jax.tree`` takes them). Inner products accumulate in float32
-regardless of leaf dtype."""
+level, as ``jax.tree`` takes them; a bare tensor is a tree of one leaf).
+Inner products accumulate in float32 regardless of leaf dtype."""
 from __future__ import annotations
+
+import math
 
 import torch
 
 
 def leaves(tree):
     """Leaves of a (nested) dict of tensors in ``jax.tree.leaves`` order."""
+    if not isinstance(tree, dict):
+        return [tree]
     out = []
     for k in sorted(tree):
-        out.extend(leaves(tree[k]) if isinstance(tree[k], dict) else [tree[k]])
+        out.extend(leaves(tree[k]))
     return out
 
 
 def tree_map(fn, *trees):
-    return {k: tree_map(fn, *(t[k] for t in trees))
-            if isinstance(trees[0][k], dict) else fn(*(t[k] for t in trees))
-            for k in sorted(trees[0])}
+    if not isinstance(trees[0], dict):
+        return fn(*trees)
+    return {k: tree_map(fn, *(t[k] for t in trees)) for k in sorted(trees[0])}
+
+
+def views(flat, like):
+    """``like``'s (nested) dict of shapes laid over the flat (P,) buffer:
+    views of consecutive spans, leaves in ``jax.tree.leaves`` order."""
+    o = 0
+
+    def view(t):
+        nonlocal o
+        n = math.prod(t.shape)
+        o += n
+        return flat[o - n:o].view(t.shape)
+
+    return tree_map(view, like)
+
+
+def flatten(tree):
+    """The leaves concatenated into one (P,) tensor, in ``leaves`` order."""
+    return torch.cat([leaf.reshape(-1) for leaf in leaves(tree)])
 
 
 def tree_axpy(a, x, b, y):

@@ -6,6 +6,12 @@ Parameters follow the paper exactly: ω0 ∈ R^{L×J} output weights ("w0"),
 ω1 ∈ R^{J×P} hidden weights ("w1") — no biases. The functions broadcast over
 leading axes (``mT`` transposes the last two), so one call takes a batch of
 samples ``(B, P)`` or a stack of clients ``(I, B, P)``.
+
+The feature-based (vertical FL) helpers expose the paper's composition
+f(ω;x) = g0(ω0, Σ_i h_i(ω_i, x_i)): client i holds the columns ω1[:, P_i]
+and contributes the partial pre-activation h_i = z_i @ ω1[:, P_i].T. They
+broadcast alike, so ``client_h`` of the (I, J, P_i) blocks and the
+(I, B, P_i) batch gives every client's h in one batched product.
 """
 from __future__ import annotations
 
@@ -64,3 +70,36 @@ def accuracy(params, z, labels):
 
 def l2_sq(params):
     return sum(torch.sum(torch.square(params[k])) for k in sorted(params))
+
+
+# ---------------------------------------------------------------------------
+# feature-based (vertical FL) composition structure
+# ---------------------------------------------------------------------------
+
+
+def feature_partition(num_features: int, num_clients: int):
+    """Contiguous partition of the feature indices P into P_i, i=1..I (the
+    first P mod I blocks one wider)."""
+    sizes = [num_features // num_clients] * num_clients
+    for i in range(num_features % num_clients):
+        sizes[i] += 1
+    idx, out = 0, []
+    for s in sizes:
+        out.append(torch.arange(idx, idx + s))
+        idx += s
+    return out
+
+
+def client_h(w1_block, z_block):
+    """h_{0,i}(ω_i, x_{n,i}) = z_i @ ω1[:, P_i].T: (..., B, J)."""
+    return z_block @ w1_block.mT
+
+
+def logits_from_h(w0, h_sum):
+    """g0 applied to the aggregated h: Q = softmax(w0 @ S(Σ_i h_i))."""
+    return swish(h_sum) @ w0.mT
+
+
+def per_sample_loss_from_h(w0, h_sum, y):
+    lg = logits_from_h(w0, h_sum).float()
+    return -torch.sum(y * torch.log_softmax(lg, dim=-1), dim=-1)

@@ -22,7 +22,8 @@ import torch
 from repro_torch import random as rnd
 from repro_torch.comm import codecs
 from repro_torch.configs.base import FLConfig
-from repro_torch.core import algorithms, fed
+from repro_torch import convert
+from repro_torch.core import algorithms, baselines, fed, optimizer, surrogate
 from repro_torch.data.synthetic import classification_dataset
 from repro_torch.kernels import flash_attention, quantize, rmsnorm, ssca_update
 from repro_torch.launch import serve
@@ -627,3 +628,115 @@ def test_train_smoke_card_matches_cpu_and_counts_launches(cuda):
                               device="cpu")
     for a, b0 in zip(card, cpu):
         assert abs(a["loss"] - b0["loss"]) <= 1e-5 * abs(b0["loss"])
+
+
+def _paper_small(cuda):
+    """The paper suite's inputs at a small width (P=32, J=16, L=10, I=4,
+    B=20) on the card, with the feature params built as
+    examples/paper_experiments.py builds them."""
+    (z, y, _), _ = classification_dataset(rnd.PRNGKey(0, device=cuda), n=400,
+                                          num_features=32, test_n=10, noise=4.0,
+                                          device=cuda)
+    p0 = mlp.init(rnd.PRNGKey(1, device=cuda), 32, 16, 10, device=cuda)
+    fp0 = convert.feature_params_from_numpy(p0["w0"].cpu().numpy(),
+                                            p0["w1"].cpu().numpy(), 4, cuda)
+    fl_u = FLConfig(num_clients=4, batch_size=20, a1=0.3, a2=0.3, tau=0.05)
+    fl_c = FLConfig(num_clients=4, batch_size=20, a1=0.9, a2=0.5, tau=0.2,
+                    constrained=True, cost_limit=2.2, penalty_c=1e5)
+    return (fed.partition_samples(z, y, 4), fed.partition_features(z, y, 4), p0,
+            fp0, fl_u, fl_c)
+
+
+def _paper_run(name, inputs, rounds, device):
+    data, fdata, p0, fp0, fl_u, fl_c = inputs
+    psl, head, ch = mlp.per_sample_loss, mlp.per_sample_loss_from_h, mlp.client_h
+    key = rnd.PRNGKey(7, device=device)
+    if name == "alg2":
+        return algorithms.algorithm2(psl, p0, data, fl_c, rounds, key, device=device)
+    if name == "alg2_general":
+        return algorithms.algorithm2_general(psl, psl, p0, data, fl_c, rounds, key,
+                                             device=device)
+    if name in ("alg3", "alg3_int8"):
+        return algorithms.algorithm3(head, ch, fp0, fdata, fl_u, rounds, key,
+                                     codec=codecs.make_codec(
+                                         "int8" if name == "alg3_int8" else None),
+                                     device=device)
+    if name == "alg4":
+        return algorithms.algorithm4(head, ch, fp0, fdata, fl_c, rounds, key,
+                                     device=device)
+    cfg = (baselines.SGDConfig(lr_alpha=0.0, momentum=0.1, local_steps=5, local_batch=4)
+           if name == "sgdm" else baselines.SGDConfig(local_batch=20))
+    return baselines.sample_sgd(psl, p0, data, cfg, rounds, key,
+                                momentum=name == "sgdm", device=device)
+
+
+@pytest.mark.parametrize("name", ["alg2", "alg2_general", "alg3", "alg3_int8",
+                                  "alg4", "fedsgd", "sgdm"])
+def test_paper_suite_card_matches_cpu(cuda, name):
+    """Six rounds of each run of the paper's suite at a small width on the card
+    and on the CPU from the same params, data and keys: the params and every
+    per-round series within 1e-5 (ν rtol 2e-4 in Lemma 1's interior, as the
+    CPU parity tests hold it); one ssca_update launch a round for Algorithm
+    3, two quantize launches (head and block streams) with int8."""
+    rounds = 6
+    inputs = _paper_small(cuda)
+    before = (ssca_update.ssca_update_.launches,
+              quantize.stochastic_quantize.launches)
+    card = _paper_run(name, inputs, rounds, None)
+    torch.cuda.synchronize()
+    launched = (ssca_update.ssca_update_.launches - before[0],
+                quantize.stochastic_quantize.launches - before[1])
+    assert launched == ((rounds if name.startswith("alg3") else 0),
+                        (2 * rounds if name == "alg3_int8" else 0))
+    data, fdata, p0, fp0, fl_u, fl_c = inputs
+    on_cpu = (data.to("cpu"), fdata.to("cpu"), {k: v.cpu() for k, v in p0.items()},
+              {k: v.cpu() for k, v in fp0.items()}, fl_u, fl_c)
+    cpu = _paper_run(name, on_cpu, rounds, "cpu")
+    assert set(card.history) == set(cpu.history)
+    for k, v in cpu.history.items():
+        rtol = 2e-4 if k == "round_nu" else 1e-5
+        torch.testing.assert_close(card.history[k].cpu(), v, atol=1e-5, rtol=rtol)
+    if name != "alg3_int8":         # a flipped rounding decision moves a step
+        for k in card.params:
+            torch.testing.assert_close(card.params[k].cpu(), cpu.params[k],
+                                       atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_constrained_step_chunked_on_card_matches_one_chunk(cuda, dtype, monkeypatch):
+    """The Lemma-1 update at 3·2^20+5 elements in 2^20-element chunks and in
+    one chunk: only the order of the fp32 sums differs. The gradient's scale
+    puts ν near 100, where ν moves by half the relative gap of its inputs."""
+    n = 3 * 2**20 + 5
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    w0 = (torch.randn(n, generator=gen, device=cuda) * 0.1).to(dtype)
+    grad = (torch.randn(n, generator=gen, device=cuda) * 1e-3).to(dtype)
+    fl = FLConfig(tau=0.2, cost_limit=1.0, penalty_c=1e5)
+    outs = []
+    for size in (1 << 25, 1 << 20):
+        monkeypatch.setattr(surrogate, "CHUNK", size)
+        state = optimizer.ssca_constrained_init({"w": w0})
+        for _ in range(3):
+            state = optimizer.ssca_constrained_step(state, grad, torch.tensor(3.0, device=cuda), fl)
+        outs.append(state)
+    a, b = outs
+    # in bf16 a 1-ulp ν difference can round a parameter to its neighbour,
+    # which the next steps' surrogate carries
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(b.w_flat.float(), a.w_flat.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(b.g_flat, a.g_flat, atol=tol, rtol=tol)
+    torch.testing.assert_close(b.nu, a.nu, atol=0, rtol=1e-5)
+
+
+def test_constrained_train_smoke_card_matches_cpu(cuda):
+    """Three constrained steps of qwen2.5-3b's smoke variant on the card and
+    on the CPU: losses, ν and ‖ω‖² within rtol 1e-5; no ssca_update launch."""
+    before = ssca_update.ssca_update_.launches
+    _, card = train.train_loop("qwen2.5-3b", 3, 2, 64, smoke=True, log_every=1,
+                               constrained=True, device=cuda)
+    assert ssca_update.ssca_update_.launches == before
+    _, cpu = train.train_loop("qwen2.5-3b", 3, 2, 64, smoke=True, log_every=1,
+                              constrained=True, device="cpu")
+    for a, b0 in zip(card, cpu):
+        for k in ("loss", "nu", "l2"):
+            assert abs(a[k] - b0[k]) <= 1e-5 * abs(b0[k]), (k, a[k], b0[k])

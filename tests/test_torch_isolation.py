@@ -33,6 +33,9 @@ def test_port_files_exist():
     names = {p.relative_to(ROOT / "src").as_posix() for p in PORT_FILES[:-1]}
     for needed in ("repro_torch/random.py", "repro_torch/convert.py",
                    "repro_torch/core/algorithms.py",
+                   "repro_torch/core/surrogate.py",
+                   "repro_torch/core/solvers.py",
+                   "repro_torch/core/baselines.py",
                    "repro_torch/kernels/ssca_update.py",
                    "repro_torch/kernels/quantize.py",
                    "repro_torch/kernels/rmsnorm.py",
@@ -59,6 +62,7 @@ def test_forbidden_rule_catches_and_spares():
 
 def test_importing_the_slice_loads_no_jax():
     code = ("import sys; import repro_torch.core.algorithms, "
+            "repro_torch.core.baselines, "
             "repro_torch.convert, repro_torch.data.synthetic, "
             "repro_torch.launch.serve, repro_torch.launch.train; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

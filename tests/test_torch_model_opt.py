@@ -160,7 +160,7 @@ def test_ssca_step_matches_reference():
             r, gm = np.float32(0.2 + 0.1 * i), np.float32(0.5 / i)
             js = jopt.ssca_step(js, {k: jnp.asarray(v) for k, v in g.items()},
                                 fl_j, rho_t=jnp.float32(r), gamma_t=jnp.float32(gm))
-            ts = topt.ssca_step(ts, topt._flat(_t(g)), fl_t,
+            ts = topt.ssca_step(ts, ttree.flatten(_t(g)), fl_t,
                                 rho_t=torch.tensor(r), gamma_t=torch.tensor(gm))
         assert ts.t == int(js.t)
         for k in p:

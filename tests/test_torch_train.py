@@ -230,7 +230,8 @@ def test_train_loop_runs_the_smoke_model_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("kw", [dict(codec="int8"), dict(topology="sharded"),
-                                dict(dp=object()), dict(constrained=True),
+                                dict(dp=object()),
+                                dict(constrained=True, codec="int8"),
                                 dict(log_jsonl="x.jsonl"),
                                 dict(profile_dir="prof"),
                                 dict(ckpt_path="ck")])
@@ -241,7 +242,10 @@ def test_refused_options_raise(kw):
 
 @pytest.mark.parametrize("mode", ["feature", "cohort"])
 def test_cli_refuses_other_modes(mode, monkeypatch):
-    monkeypatch.setattr("sys.argv", ["train", "--mode", mode])
+    """--mode cohort is refused; --mode feature runs, and refuses the
+    sharded topology."""
+    extra = ["--topology", "sharded", "--device", "cpu"] if mode == "feature" else []
+    monkeypatch.setattr("sys.argv", ["train", "--mode", mode, *extra])
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         ttrain.main()
 
