@@ -55,6 +55,21 @@ Phases, one JSON line each:
   train_constrained_parity  full width, 2 layers, fp32, batch 2, seq 64, 3
            constrained steps: the card against the CPU, and two planted
            faults in the surrogate minimum's recursion that its gates catch
+  cohort   repro_torch.launch.train.cohort_train_loop at the README's size:
+           a VirtualFedData population of 1,000,000 clients, 256 a round,
+           the mlp 32-16-4 (576 parameters), batch 16, 200 rounds, evals
+           every 50; Algorithm 1 dense, int8 + EF, topk8 + EF, and
+           Algorithm 2 int8 + EF (the EFStore: 1e6 x 576 fp32 on the card);
+           rounds/s, launches a round, device busy, peak memory, EF bytes,
+           the population total, eval losses, upload bytes (asserted), ids
+           unique and in range every round, kernel launches (asserted), EF
+           rows written, one round under sync-debug mode "error"
+  cohort_parity  I = 48, S = 12, 5 rounds, card against CPU: ids equal,
+           params within 1e-4, int8 + EF losses rtol 1e-3
+  hetero   examples/heterogeneous_fl.py's grid at its width (784-64-10 mlp,
+           N = 20,000, I = 10): Dirichlet alpha 100 and 0.1, S = all and 3,
+           codecs none, int8, topk at 5%; 100 rounds a cell; cost, accuracy,
+           upload MB (asserted), rounds/s
 The kernels phase also holds the backward kernels (rmsnorm_bwd,
 flash_attention_bwd) against their plain versions and times them against
 the PyTorch library's backward calls. Each main path (dense, int8, serve,
@@ -103,6 +118,16 @@ PAPER_FL_C = dict(batch_size=100, a1=0.9, a2=0.5, alpha_rho=0.1,
                   penalty_c=1e5)
 PAPER_RUNS = ("alg2", "alg2_general", "alg3", "alg4", "alg3_int8", "fedsgd",
               "sgdm")
+# the cohort engine at the README's size (cohort_train_loop's defaults)
+COHORT = dict(clients=1_000_000, participation=256, rounds=ROUNDS,
+              log_every=EVAL_EVERY)
+COHORT_RUNS = (("alg1_dense", None, False), ("alg1_int8", "int8", False),
+               ("alg1_topk8", "topk8", False), ("alg2_int8", "int8", True))
+COHORT_DIM = 4 * 16 + 16 * 32                     # mlp 32-16-4: 576
+COHORT_PROFILE_ROUNDS = 10
+COHORT_PARITY = dict(clients=48, participation=12, rounds=5, log_every=5)
+# examples/heterogeneous_fl.py: N, clients, S, rounds (its default is 200)
+HETERO = dict(n=20_000, clients=10, participation=3, rounds=100, topk_frac=0.05)
 # prefill-then-decode gates at full depth, set from H100 readings (PERF.md)
 CONSISTENCY_FP32 = 1e-4
 CONSISTENCY_BF16_RATIO = 1.25
@@ -212,7 +237,8 @@ def timed_pair(kernel, library, sets, cold):
     return t
 
 
-SSCA_SIZES = (1, 3, 4, 7, 8, 9, 17, 1000, 4096, 70_000, 101_632, 2**20 + 3)
+SSCA_SIZES = (1, 3, 4, 7, 8, 9, 17, 576, 1000, 4096, 50_816, 70_000, 101_632,
+              2**20 + 3)
 
 
 def fused_sgd_step(torch, w, g, v, rho, gamma, gamma_prev, tau, lam):
@@ -241,11 +267,12 @@ def ssca_wrapper_ms(torch, ssca, n=101_632):
 
 def check_ssca_update(torch, ssca, build):
     """Kernel vs plain version, fp32 and bf16, at every ragged end of the
-    16-byte vectors, the main path's size and a grid-strided 2^20+3, aligned
-    and at an offset of one element (the scalar path), with ρ/γ read from
-    entry 3 of (6,) arrays. Tolerance: the kernel's FMAs round once where
-    the plain version rounds twice, a few ulps (the JAX tests' 1e-5 fp32,
-    2e-2 bf16, 1e-5 on buf). Then, at the main path's 101,632 fp32, from a
+    16-byte vectors, the main paths' sizes (the cohort's 576, the
+    heterogeneous grid's 50,816, training's 101,632) and a grid-strided
+    2^20+3, aligned and at an offset of one element (the scalar path), with
+    ρ/γ read from entry 3 of (6,) arrays. Tolerance: the kernel's FMAs round
+    once where the plain version rounds twice, a few ulps (the JAX tests'
+    1e-5 fp32, 2e-2 bf16, 1e-5 on buf). Then, at training's 101,632 fp32, from a
     CUDA graph: warm, cold (operand sets rotated past the L2), the launch
     floor (an empty kernel of the same grid and arguments) and the library
     yardstick torch._fused_sgd_ on the same operands, warm and cold, after
@@ -341,12 +368,15 @@ def check_ssca_update(torch, ssca, build):
 
 def check_quantize(torch, qz, build):
     """Kernel vs plain version on the same bits: bit-exact (torch.equal on
-    values, scales and xhat), for the main path's stacked (10, 101632) and
+    values, scales and xhat), for the main path's stacked (10, 101632), the
+    cohort's (256, 576) uploads and Chain's (256, 6) kept values (one padded
+    chunk a row), the heterogeneous grid's (10, 50816) and (10, 2541), and
     ragged widths, int8 (qmax 127) and int4 (qmax 7)."""
     import numpy as np
     gen = torch.Generator(device="cuda").manual_seed(1)
     cases = 0
-    for rows, p in ((10, 101_632), (3, 17), (3, 1000), (2, 70_000)):
+    for rows, p in ((10, 101_632), (3, 17), (3, 1000), (2, 70_000), (256, 576),
+                    (256, 6), (10, 50_816), (10, 2541)):
         for qmax in (127, 7):
             chunks = -(-p // 256)
             x = torch.randn(rows, p, generator=gen, device="cuda") * 3.0
@@ -389,13 +419,121 @@ def check_quantize(torch, qz, build):
     plain_ms = event_ms(lambda: qz.plain(x, bits, 127, 256))
     nbytes = 13 * rows * p + 4 * rows * chunks
     b_ms, b_by = bound_ms(nbytes, 10 * rows * p)
+
+    def at_shape(r, n):
+        """Graph-timed ms and the bound at the cohort's and the grid's
+        shapes: x, bits and xhat over the real elements, the padded int8
+        values the interface writes, and the scales (a padded lane's bits
+        are not needed: its x is 0, so its value is 0 whatever they are)."""
+        c = -(-n // 256)
+        xs = torch.randn(r, n, generator=gen, device="cuda")
+        bs = torch.randint(-2**31, 2**31, (r, c * 256), generator=gen,
+                           device="cuda", dtype=torch.int64).to(torch.int32)
+        outs = (torch.empty((r, c * 256), dtype=torch.int8, device="cuda"),
+                torch.empty((r, c), device="cuda"), torch.empty((r, n), device="cuda"))
+
+        def go():
+            code = lib.stochastic_quantize(
+                xs.data_ptr(), bs.data_ptr(), *(t.data_ptr() for t in outs), r,
+                n, c, 256, inv, 127, torch.cuda.current_stream().cuda_stream)
+            build.check(code, "stochastic_quantize")
+
+        nb = 12 * r * n + r * c * 256 + 4 * r * c
+        return {"ms": graph_ms(go), "bound_ms": bound_ms(nb, 10 * r * n)[0],
+                "bytes": nb}
+
     return {"name": "stochastic_quantize", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/quantize.cu",
             "replaces": "src/repro/kernels/quantize.py:62",
             "max_abs_err": 0.0, "bit_exact_cases": cases,
             "ms": ms, "eager_ms": eager, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "shape": [rows, p], "bytes": nbytes}
+            "shape": [rows, p], "bytes": nbytes,
+            "by_shape": {f"{r}x{n}": at_shape(r, n)
+                         for r, n in ((256, 576), (256, 6), (10, 50_816))}}
+
+
+COHORT_SAMPLE_GRID = [(n, s) for n in (10, 48, 1_000_000)
+                      for s in sorted({1, max(1, n // 4), min(256, n)})]
+# integer operations a walk step costs a slot: six rounds of the murmur3 mix
+# (7), the key xor, the add and the mask, the split and the join, the test
+FEISTEL_STEP_OPS = 6 * 10 + 4 + 1
+
+
+def check_cohort_sample(torch, cs, build):
+    """The cohort draw's kernel against its plain walk on the same round
+    keys: bit-equal (torch.equal) over I in {10, 48, 1e6} and S in {1, I/4,
+    min(256, I)}, 4 key seeds each. Timed at the cohort phase's I = 1e6,
+    S = 256: warm from a CUDA graph of 200 launches, cold as single launches
+    between CUDA events after a 100 MB write that evicts the L2, and the
+    plain walk on the card. The bound: the walk steps this run's keys need,
+    FEISTEL_STEP_OPS integer operations each, at the card's 32-bit
+    non-tensor rate, against 24 B read and 4 B a slot written."""
+    cases = 0
+    for num, cohort in COHORT_SAMPLE_GRID:
+        for seed in range(4):
+            keys = torch.randint(0, 2**32, (6,), dtype=torch.int64,
+                                 generator=torch.Generator().manual_seed(
+                                     seed * 1000 + num)).cuda()
+            want = cs.plain(keys, num, cohort, *cs.domain_bits(num))
+            got = cs.cohort_sample(keys, num, cohort)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), (
+                f"cohort_sample I={num} S={cohort} seed {seed}: "
+                f"{int((got != want).sum())} ids differ"))
+            check(got.unique().numel() == cohort and int(got.min()) >= 0
+                  and int(got.max()) < num,
+                  f"cohort_sample I={num} S={cohort}: ids not distinct in range")
+            cases += 1
+    num, cohort = COHORT["clients"], COHORT["participation"]
+    hi, lo = cs.domain_bits(num)
+    keys = torch.randint(0, 2**32, (6,), dtype=torch.int64,
+                         generator=torch.Generator().manual_seed(7)).cuda()
+    keys32 = keys.to(torch.int32)
+    ids = torch.empty((cohort,), dtype=torch.int32, device="cuda")
+    lib = build.library("cohort_sample")
+
+    def launch():
+        code = lib.cohort_sample(keys32.data_ptr(), 6, ids.data_ptr(), cohort,
+                                 num, hi, lo,
+                                 torch.cuda.current_stream().cuda_stream)
+        build.check(code, "cohort_sample")
+
+    ms = graph_ms(launch)
+    flush = torch.empty(100 * 2**20 // 4, device="cuda")
+    cold = []
+    for _ in range(20):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch()
+        end.record()
+        end.synchronize()
+        cold.append(start.elapsed_time(end))
+    del flush
+    # the walk steps these keys need: one, plus one a re-walk
+    from repro_torch.kernels.ref import feistel
+    ks = [int(k) for k in keys.cpu()]
+    x = feistel(torch.arange(cohort, dtype=torch.int64), ks, hi, lo)
+    steps = torch.ones(cohort, dtype=torch.int64)
+    while bool((x >= num).any()):
+        out = x >= num
+        steps += out.long()
+        x = torch.where(out, feistel(x, ks, hi, lo), x)
+    ops = int(steps.sum()) * FEISTEL_STEP_OPS
+    b_ms, b_by = bound_ms(24 + 4 * cohort, ops)
+    return {"name": "cohort_sample", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/cohort_sample.cu",
+            "replaces": "src/repro/core/fed.py:254",
+            "max_abs_err": 0.0, "bit_exact_cases": cases,
+            "ms": ms, "cold_ms": statistics.mean(cold),
+            "eager_ms": event_ms(launch),
+            "plain_ms": event_ms(lambda: cs.plain(keys, num, cohort, hi, lo),
+                                 iters=20, warmup=2),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "walk_steps": int(steps.sum()), "shape": [num, cohort],
+            "bytes": 24 + 4 * cohort, "operations": ops}
 
 
 def check_rmsnorm(torch, rms, build):
@@ -783,7 +921,7 @@ def run_serve(torch, m):
     per_forward = {k: v / forwards for k, v in counts.items()}
     want = {"ssca_update": 0, "stochastic_quantize": 0,
             "rmsnorm": 2 * cfg.n_layers + 1, "flash_attention": cfg.n_layers,
-            "rmsnorm_bwd": 0, "flash_attention_bwd": 0}
+            "rmsnorm_bwd": 0, "flash_attention_bwd": 0, "cohort_sample": 0}
     check(per_forward == want, f"serve launches per forward {per_forward} != {want}")
     check(tuple(seqs.shape) == (SERVE["batch"], SERVE["gen"]), seqs.shape)
     check(0 <= int(seqs.min()) and int(seqs.max()) < cfg.vocab_size,
@@ -933,7 +1071,8 @@ def run_train(torch, m, weights):
     L = cfg.n_layers
     want = {"ssca_update": 1, "stochastic_quantize": 0,
             "rmsnorm": 2 * (2 * L + 1) - 1, "rmsnorm_bwd": 2 * L + 1,
-            "flash_attention": 2 * L, "flash_attention_bwd": L}
+            "flash_attention": 2 * L, "flash_attention_bwd": L,
+            "cohort_sample": 0}
     check(per_step == want, f"train launches per step {per_step} != {want}")
     losses = [lg["loss"] for lg in logs]
     check(all(map(math.isfinite, losses)), f"train losses not finite: {losses}")
@@ -1105,7 +1244,8 @@ def paper_expected(m, inputs):
                                        codec)["up"]
 
     zero = {"ssca_update": 0, "stochastic_quantize": 0, "rmsnorm": 0,
-            "flash_attention": 0, "rmsnorm_bwd": 0, "flash_attention_bwd": 0}
+            "flash_attention": 0, "rmsnorm_bwd": 0, "flash_attention_bwd": 0,
+            "cohort_sample": 0}
     kernel = dict(zero, ssca_update=ROUNDS)
     return {"alg2": (sample_v, zero), "alg2_general": (sample + sample_v, zero),
             "alg3": (feature(), kernel),
@@ -1245,7 +1385,8 @@ def run_train_constrained(torch, m, train_peak):
     L = cfg.n_layers
     want = {"ssca_update": 0, "stochastic_quantize": 0,
             "rmsnorm": 2 * (2 * L + 1) - 1, "rmsnorm_bwd": 2 * L + 1,
-            "flash_attention": 2 * L, "flash_attention_bwd": L}
+            "flash_attention": 2 * L, "flash_attention_bwd": L,
+            "cohort_sample": 0}
     walls = [0.0] + [lg["wall_s"] for lg in logs]
     step_s = [b - a for a, b in zip(walls, walls[1:])]
     med = statistics.median(step_s[TRAIN_WARMUP:])
@@ -1402,6 +1543,313 @@ def run_train_constrained_parity(torch, m):
     return out
 
 
+class CohortDraws:
+    """Within the block, records every id tensor ``fed.cohort_sample``
+    returns (on its device, no sync) and the host time of the first draw:
+    the first round's start, after the entry point's set-up."""
+
+    def __init__(self, fed):
+        self.fed, self.orig, self.ids, self.t_first = fed, fed.cohort_sample, [], None
+
+    def __enter__(self):
+        def draw(key, num_clients, cohort):
+            if self.t_first is None:
+                self.t_first = time.perf_counter()
+            ids = self.orig(key, num_clients, cohort)
+            self.ids.append(ids)
+            return ids
+
+        self.fed.cohort_sample = draw
+        return self
+
+    def __exit__(self, *exc):
+        self.fed.cohort_sample = self.orig
+
+
+def cohort_fl(m, constrained):
+    """cohort_train_loop's FLConfig."""
+    return m.FLConfig(batch_size=16, a1=0.9, a2=0.5, alpha_rho=0.1,
+                      alpha_gamma=0.6, tau=0.2, l2_lambda=1e-5,
+                      constrained=constrained, cost_limit=1.2, penalty_c=1e4)
+
+
+def cohort_expected(m, codec, constrained):
+    """Upload bytes a round by comm/accounting.py, and each kernel's
+    launches over the run."""
+    up = m.accounting.sample_round_bytes(
+        COHORT_DIM, COHORT["clients"], m.codecs.make_codec(codec),
+        participation=COHORT["participation"], with_value=constrained)["up"]
+    counts = {k: 0 for k in m.counted}
+    counts.update(ssca_update=0 if constrained else ROUNDS,
+                  stochastic_quantize=ROUNDS if codec else 0,
+                  cohort_sample=ROUNDS)
+    return up, counts
+
+
+def run_cohort(torch, m, data, name_power):
+    """cohort_train_loop at the README's size, a line a variant, each with
+    every launch counter zeroed just before and read just after. Then, on
+    the run's final state and the same population, one round under
+    sync-debug mode "error" and a profile window of COHORT_PROFILE_ROUNDS
+    rounds (launches a round, device busy). Returns the launches summed over
+    the variants."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from profile_torch_round import profile_window
+    num, cohort = COHORT["clients"], COHORT["participation"]
+    totals = {}
+    for name, codec, constrained in COHORT_RUNS:
+        # warm-up of this path's shapes (S = 256 of 1,000); not counted
+        m.train.cohort_train_loop(clients=1000, participation=cohort, rounds=2,
+                                  log_every=2, codec=codec,
+                                  constrained=constrained)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        zero_counts(m.counted)
+        with CohortDraws(m.fed) as draws:
+            t0 = time.perf_counter()
+            res = m.train.cohort_train_loop(**COHORT, codec=codec,
+                                            constrained=constrained)
+            torch.cuda.synchronize()
+            t_end = time.perf_counter()
+        seconds, round_s = t_end - t0, t_end - draws.t_first
+        counts = read_counts(m.counted)
+        peak = torch.cuda.max_memory_allocated()
+        h = {k: v.cpu().double() for k, v in res.history.items()}
+        for k, v in h.items():
+            check(bool(torch.isfinite(v).all()), f"cohort {name}: {k} not finite")
+        for k, v in res.params.items():
+            check(bool(torch.isfinite(v).all()), f"cohort {name}: param {k} not finite")
+        ids = torch.stack(draws.ids)
+        check(tuple(ids.shape) == (ROUNDS, cohort), f"cohort {name}: {ids.shape} draws")
+        srt = torch.sort(ids.long(), dim=1).values
+        check(bool((srt[:, 1:] > srt[:, :-1]).all()) and int(srt.min()) >= 0
+              and int(srt.max()) < num,
+              f"cohort {name}: a round's ids repeat or leave [0, {num})")
+        want_bytes, want_counts = cohort_expected(m, codec, constrained)
+        line = {"run": name, "codec": codec or "none", "constrained": constrained,
+                **COHORT, "params": COHORT_DIM, "seconds": seconds,
+                "setup_s": draws.t_first - t0, "rounds_per_s": ROUNDS / round_s,
+                "peak_mem_bytes": peak, "base_mem_bytes": base,
+                "run_peak_mem_bytes": peak - base,
+                "population_total": data.total,
+                "eval_loss": h["loss"].tolist(),
+                "upload_bytes": sorted(set(h["round_upload_bytes"].tolist())),
+                "distinct_clients": int(ids.unique().numel()),
+                "launches": counts}
+        check(line["upload_bytes"] == [float(want_bytes)],
+              f"cohort {name}: upload bytes {line['upload_bytes']} != {want_bytes}")
+        check(counts == want_counts, f"cohort {name}: launches {counts} != {want_counts}")
+        if not constrained:
+            check(h["loss"][-1] < h["loss"][0],
+                  f"cohort {name}: eval loss did not fall: {h['loss'].tolist()}")
+        else:
+            nu = h["round_nu"]
+            line.update(nu_last20=nu[-20:].mean().item(),
+                        slack_last20=h["round_slack"][-20:].mean().item())
+            check(bool(((nu >= 0) & (nu <= 1e4)).all()), f"cohort {name}: ν outside [0, c]")
+        state = res.final_state
+        if codec:
+            ef = state.ef.data
+            line["ef_store_bytes"] = ef.numel() * ef.element_size()
+            check(ef.is_cuda and tuple(ef.shape) == (num, COHORT_DIM),
+                  f"cohort {name}: the EF store is not the (I, P) backing on the card")
+            line["ef_rows_written"] = int(ef.any(dim=1).sum())
+            del ef
+            check(line["ef_rows_written"] <= cohort * ROUNDS,
+                  f"cohort {name}: {line['ef_rows_written']} EF rows written")
+        # one round under sync-debug "error", then the profile window
+        fl = cohort_fl(m, constrained)
+        make = (m.algorithms.make_algorithm2_step if constrained
+                else m.algorithms.make_algorithm1_step)
+        step = make(m.mlp.per_sample_loss, data, fl, participation=cohort,
+                    codec=m.codecs.make_codec(codec), cohort=True)
+        k = COHORT_PROFILE_ROUNDS
+        inputs = m.rounds.make_inputs(fl, ROUNDS + 1, 2 + 3 * k,
+                                      m.rnd.PRNGKey(11))
+        held = {"state": step(state, inputs.round(0))[0], "r": 2}
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            held["state"], met = step(held["state"], inputs.round(1))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        check(bool(torch.isfinite(met["stat_res"])), f"cohort {name}: sync round")
+        line["sync_free_round"] = True
+
+        def rounds_k():
+            for _ in range(k):
+                held["state"], _ = step(held["state"], inputs.round(held["r"]))
+                held["r"] += 1
+
+        prof = profile_window(rounds_k, k)
+        line.update(launches_per_round=prof["kernel_launches_per_call"],
+                    device_busy=prof["device_busy_share"],
+                    profiled_ms_per_round=prof["profiled_ms_per_call"],
+                    unprofiled_ms_per_round=prof["ms_per_call"],
+                    top_kernels=prof["top_kernels"][:5])
+        del res, state, held, step
+        torch.cuda.empty_cache()
+        emit("cohort", **line, **name_power)
+        for n, v in counts.items():
+            totals[n] = totals.get(n, 0) + v
+    return totals
+
+
+def run_cohort_parity(torch, m):
+    """cohort_train_loop at I = 48, S = 12 for 5 rounds on the card and on
+    the CPU (the plain kernel versions) from the same params: the drawn ids
+    equal, params within 1e-4 (fp32 sums in another order), and with int8 +
+    EF the losses within rtol 1e-3 (a 1-ulp difference can move a rounding
+    decision by a level)."""
+    p0 = m.mlp.init(m.rnd.fold_in(m.rnd.PRNGKey(0), 1), 32, 16, 4)
+    out = {}
+    for codec in (None, "int8"):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            with CohortDraws(m.fed) as draws:
+                res = m.train.cohort_train_loop(
+                    **COHORT_PARITY, codec=codec, device=dev,
+                    params0={k: v.to(dev) for k, v in p0.items()})
+            runs[dev] = (res, torch.stack(draws.ids).cpu())
+        (card, card_ids), (cpu, cpu_ids) = runs["cuda"], runs["cpu"]
+        diff = max((card.params[k].cpu() - cpu.params[k]).abs().max().item()
+                   for k in card.params)
+        lc, lp = card.history["round_loss_est"].cpu(), cpu.history["round_loss_est"]
+        row = {"ids_equal": bool(torch.equal(card_ids, cpu_ids)),
+               "max_abs_param_diff": diff,
+               "max_rel_loss_diff": ((lc - lp).abs() / lp.abs()).max().item()}
+        out[codec or "none"] = row
+        check(row["ids_equal"], f"cohort parity {codec}: the card drew other ids")
+        check(diff <= 1e-4, f"cohort parity {codec}: params differ by {diff}")
+        if codec:
+            check(row["max_rel_loss_diff"] <= 1e-3,
+                  f"cohort parity {codec}: losses differ by {row['max_rel_loss_diff']}")
+    emit("cohort_parity", **COHORT_PARITY, runs=out,
+         host_offload=host_offload_check(torch, m))
+
+
+def host_offload_check(torch, m):
+    """Algorithm 1 with int8 + EF, 5 cohort rounds at I = 48, S = 12,
+    through make_algorithm1_step from an EFStore on the card and from one
+    offloaded to pinned host memory (ef_store_init(host_offload=True)):
+    params and residual backings bit-equal, the offloaded backing pinned on
+    the host. Then one more offloaded round under sync-debug mode "error",
+    to record that it syncs the host (ef_store_init says why)."""
+    fl, key = cohort_fl(m, False), m.rnd.PRNGKey(7)
+    num, cohort = COHORT_PARITY["clients"], COHORT_PARITY["participation"]
+    data = m.VirtualFedData(m.rnd.fold_in(key, 1), num, num_features=32,
+                            num_classes=4)
+    step = m.algorithms.make_algorithm1_step(
+        m.mlp.per_sample_loss, data, fl, participation=cohort,
+        codec=m.codecs.make_codec("int8"), cohort=True)
+    p0 = m.mlp.init(m.rnd.fold_in(key, 2), 32, 16, 4)
+    inputs = m.rounds.make_inputs(fl, 1, 6, key)
+    final = {}
+    for offload in (False, True):
+        state = m.error_feedback.CommCarry(
+            opt=m.optimizer.ssca_init({k: v.clone() for k, v in p0.items()}),
+            ef=m.error_feedback.ef_store_init(num, COHORT_DIM,
+                                              host_offload=offload))
+        for r in range(5):
+            state, _ = step(state, inputs.round(r))
+        final[offload] = state
+    card, host = final[False], final[True]
+    check(host.ef.data.is_pinned() and not host.ef.data.is_cuda,
+          "host_offload: the EF backing is not pinned host memory")
+    equal = (all(torch.equal(card.opt.params[k], host.opt.params[k])
+                 for k in card.opt.params)
+             and torch.equal(card.ef.data.cpu(), host.ef.data))
+    check(equal, "host_offload: the offloaded store gives other params or rows")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(host, inputs.round(5))
+        syncs = False
+    except RuntimeError:
+        syncs = True
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return {"bit_equal_to_card_store": equal, "round_syncs_host": syncs}
+
+
+def run_hetero(torch, m, name_power):
+    """examples/heterogeneous_fl.py's grid at its width through
+    algorithm1: Dirichlet(alpha) label skew x participation x codec, a
+    line a cell, each with the launch counters zeroed just before and read
+    just after. Returns the launches summed over the cells."""
+    rnd, cfg = m.rnd, HETERO
+    (z, y, _), (zt, _, labt) = m.classification_dataset(
+        rnd.PRNGKey(0), n=cfg["n"], num_features=784, num_classes=10,
+        test_n=2_000, noise=4.0)
+    params0 = m.mlp.init(rnd.PRNGKey(1), 784, 64, 10)
+    dim = sum(t.numel() for t in params0.values())
+    check(dim == 50_816, f"the 784-64-10 mlp has {dim} parameters")
+    fl = m.FLConfig(num_clients=cfg["clients"], batch_size=100, a1=0.3, a2=0.3,
+                    alpha_rho=0.1, alpha_gamma=0.6, tau=0.05, l2_lambda=1e-5)
+    z_eval, y_eval = z[:4000], y[:4000]
+
+    def eval_fn(params, state):
+        return {"cost": m.mlp.mean_loss(params, z_eval, y_eval),
+                "acc": m.mlp.accuracy(params, zt, labt)}
+
+    per_client = {"none": 203_264, "int8": 51_612, "topk": 20_328}
+    totals = {}
+    for alpha in (100.0, 0.1):
+        data = m.fed.partition_dirichlet(z, y, cfg["clients"],
+                                         rnd.fold_in(rnd.PRNGKey(0), 3),
+                                         alpha=alpha)
+        counts_i = data.counts.tolist()
+        check(sum(counts_i) == cfg["n"] and min(counts_i) >= 1,
+              f"hetero alpha={alpha}: N_i {counts_i}")
+        for part in (None, cfg["participation"]):
+            for cname in ("none", "int8", "topk"):
+                codec = m.codecs.make_codec(cname, topk_frac=cfg["topk_frac"])
+
+                def run(rounds, **kw):
+                    return m.algorithms.algorithm1(
+                        m.mlp.per_sample_loss, params0, data, fl, rounds,
+                        rnd.PRNGKey(2), participation=part, codec=codec, **kw)
+
+                run(2)                       # warm-up of this cell; not counted
+                torch.cuda.synchronize()
+                zero_counts(m.counted)
+                t0 = time.perf_counter()
+                res = run(cfg["rounds"], eval_fn=eval_fn, eval_every=cfg["rounds"])
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                counts = read_counts(m.counted)
+                h = {k: v.cpu().double() for k, v in res.history.items()}
+                for k, v in h.items():
+                    check(bool(torch.isfinite(v).all()),
+                          f"hetero {alpha}/{part}/{cname}: {k} not finite")
+                s = part or cfg["clients"]
+                want = m.accounting.sample_round_bytes(
+                    dim, cfg["clients"], codec, participation=part)["up"]
+                check(want == s * per_client[cname],
+                      f"hetero: accounting gives {want} B, not {s} x {per_client[cname]}")
+                ups = sorted(set(h["round_upload_bytes"].tolist()))
+                check(ups == [float(want)],
+                      f"hetero {alpha}/{part}/{cname}: upload bytes {ups} != {want}")
+                want_counts = {k: 0 for k in m.counted}
+                want_counts.update(ssca_update=cfg["rounds"],
+                                   stochastic_quantize=(cfg["rounds"] if cname == "int8"
+                                                        else 0),
+                                   cohort_sample=cfg["rounds"] if part else 0)
+                check(counts == want_counts,
+                      f"hetero {alpha}/{part}/{cname}: launches {counts} != {want_counts}")
+                emit("hetero", alpha=alpha, participation=s, clients=cfg["clients"],
+                     codec=cname, rounds=cfg["rounds"], counts_i=counts_i,
+                     cost=h["cost"][-1].item(), acc=h["acc"][-1].item(),
+                     upload_mb=h["round_upload_bytes"].sum().item() / 1e6,
+                     seconds=seconds, rounds_per_s=cfg["rounds"] / seconds,
+                     launches=counts, **name_power)
+                for n, v in counts.items():
+                    totals[n] = totals.get(n, 0) + v
+    return totals
+
+
 def run_slice(torch, m, codec_name, data, params0, test):
     """Algorithm 1 at full width for ROUNDS rounds through the entry point a
     user calls; the kernels' counters are zeroed just before and read just
@@ -1458,19 +1906,20 @@ def main() -> int:
     from repro_torch import random as rnd
     from repro_torch.comm import codecs
     from repro_torch import convert
-    from repro_torch.comm import accounting
+    from repro_torch.comm import accounting, error_feedback
     from repro_torch.configs.base import MNIST_MLP, FLConfig
     from repro_torch.core import algorithms, baselines, fed, surrogate
     from repro_torch.data.synthetic import classification_dataset
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import build
+    from repro_torch.kernels import cohort_sample as cs
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import rmsnorm as rms
     from repro_torch.kernels import ssca_update as ssca
     from repro_torch.core import optimizer, rounds
     from repro_torch.core.tree import leaves
-    from repro_torch.data.synthetic import token_dataset
+    from repro_torch.data.synthetic import VirtualFedData, token_dataset
     from repro_torch.launch import serve, train
     from repro_torch.models import mlp
     from repro_torch.models.api import get_model
@@ -1487,20 +1936,23 @@ def main() -> int:
     build.build_all(rebuild=True)   # from the checkout's sources, every run
     emit("build", seconds=time.perf_counter() - t0, log=build.BUILD_LOG)
     emit("ptxas", **{n: build.BUILD_LOG[n]["ptxas"]
-                     for n in ("ssca_update", "flash_attention", "rmsnorm")})
+                     for n in ("ssca_update", "flash_attention", "rmsnorm",
+                               "cohort_sample")})
 
     kernels = [check_ssca_update(torch, ssca, build),
                check_quantize(torch, qz, build),
                check_rmsnorm(torch, rms, build),
                check_flash(torch, fa, build),
                check_rmsnorm_bwd(torch, rms, build),
-               check_flash_bwd(torch, fa, build)]
+               check_flash_bwd(torch, fa, build),
+               check_cohort_sample(torch, cs, build)]
     emit("kernels", checks=[{k: v for k, v in kr.items()} for kr in kernels])
     counted = {"ssca_update": ssca.ssca_update_,
                "stochastic_quantize": qz.stochastic_quantize,
                "rmsnorm": rms.rmsnorm, "flash_attention": fa.flash_attention,
                "rmsnorm_bwd": rms.rmsnorm_bwd,
-               "flash_attention_bwd": fa.flash_attention_bwd}
+               "flash_attention_bwd": fa.flash_attention_bwd,
+               "cohort_sample": cs.cohort_sample}
 
     cfg = MNIST_MLP
     (z, y, _), (zt, _, labt) = classification_dataset(
@@ -1520,7 +1972,10 @@ def main() -> int:
                            train=train, rounds=rounds, optimizer=optimizer,
                            leaves=leaves, token_dataset=token_dataset,
                            baselines=baselines, accounting=accounting,
-                           surrogate=surrogate,
+                           surrogate=surrogate, fed=fed, FLConfig=FLConfig,
+                           error_feedback=error_feedback,
+                           VirtualFedData=VirtualFedData,
+                           classification_dataset=classification_dataset,
                            # train_loop's default: the reference's FLConfig
                            train_fl=FLConfig(a1=0.9, a2=0.5, alpha_rho=0.1,
                                              alpha_gamma=0.6, tau=0.2,
@@ -1533,7 +1988,7 @@ def main() -> int:
     dense, dense_counts = run_slice(torch, mods, None, data, params0, test)
     check(dense["upload_bytes"] == [4_065_280.0], dense["upload_bytes"])
     no_zoo = {"rmsnorm": 0, "flash_attention": 0, "rmsnorm_bwd": 0,
-              "flash_attention_bwd": 0}
+              "flash_attention_bwd": 0, "cohort_sample": 0}
     check(dense_counts == {"ssca_update": ROUNDS, "stochastic_quantize": 0,
                            **no_zoo}, dense_counts)
     emit("dense", **dense, device=name, power=smi)
@@ -1583,6 +2038,19 @@ def main() -> int:
     run_paper_parity(torch, mods, paper_inputs)
     del paper_inputs, fdata, fb_eval
 
+    # the cohort engine at I = 1e6 (the population the runs draw from, for
+    # its total and the sync and profile rounds), its parity, the
+    # heterogeneous grid
+    population = VirtualFedData(rnd.fold_in(rnd.PRNGKey(0), 0xDA7A),
+                                COHORT["clients"], num_features=32,
+                                num_classes=4, noise=4.0)
+    cohort_counts = run_cohort(torch, mods, population,
+                               {"device": name, "power": smi})
+    del population
+    run_cohort_parity(torch, mods)
+    hetero_counts = run_hetero(torch, mods, {"device": name, "power": smi})
+    torch.cuda.empty_cache()
+
     served, serve_counts, seqs = run_serve(torch, mods)
     emit("serve", **served, device=name, power=smi)
     weights = {"params": check_serve_consistency(torch, mods, seqs)}
@@ -1603,7 +2071,8 @@ def main() -> int:
         n = kr["name"]
         kr["launches"] = (dense_counts[n] + int8_counts[n] + serve_counts[n]
                           + train_counts[n] + paper_counts[n]
-                          + constrained_counts[n])
+                          + constrained_counts[n] + cohort_counts[n]
+                          + hetero_counts[n])
         check(kr["launches"] > 0, f"{n} never launched on a main path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -2,11 +2,16 @@
 """Where an Algorithm-1 round of the PyTorch port spends its time, on one
 NVIDIA GPU, at the paper's width (N=60000, P=784, J=128, L=10, I=10, B=100).
 
-    python3 scripts/profile_torch_round.py [--rounds 20] [--paper] [--json PATH]
+    python3 scripts/profile_torch_round.py [--rounds 20] [--paper] [--cohort]
+                                           [--json PATH]
 
 With ``--paper``, also each run of the paper's §VI suite as chip_smoke.py
 drives it (``chip_smoke.paper_run``: Algorithms 2, 2 general, 3, 4, 3 with
-int8 + EF, FedSGD, SGD-m with E=5), no evals.
+int8 + EF, FedSGD, SGD-m with E=5), no evals. With ``--cohort``, also a
+round of the cohort engine at chip_smoke.py's cohort size (a VirtualFedData
+population of 1,000,000, 256 clients a round, the 32-16-4 mlp): Algorithm 1
+dense, int8 + EF and topk8 + EF, and Algorithm 2 int8 + EF, each from a
+fresh state and a zeroed EFStore on the card.
 
 For dense and int8+EF uploads, through ``profile_window``: rounds/s over a
 timed window (host clock, ending in a synchronize), then a torch.profiler
@@ -107,6 +112,53 @@ def profile_paper(data, params0, fl, rounds: int) -> dict:
     return out
 
 
+def profile_cohort(rounds: int) -> dict:
+    """``profile_window`` over ``rounds`` rounds of each of chip_smoke.py's
+    cohort variants, through the round step the cohort entry point runs."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from types import SimpleNamespace
+    from repro_torch import random as rnd
+    from repro_torch.comm import codecs
+    from repro_torch.comm.error_feedback import CommCarry, ef_store_init
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core import algorithms, optimizer
+    from repro_torch.core import rounds as rounds_lib
+    from repro_torch.data.synthetic import VirtualFedData
+    from repro_torch.models import mlp
+    num, cohort = chip_smoke.COHORT["clients"], chip_smoke.COHORT["participation"]
+    data = VirtualFedData(rnd.fold_in(rnd.PRNGKey(0), 0xDA7A), num,
+                          num_features=32, num_classes=4, noise=4.0)
+    m = SimpleNamespace(FLConfig=FLConfig)
+    out = {}
+    for name, codec, constrained in chip_smoke.COHORT_RUNS:
+        fl = chip_smoke.cohort_fl(m, constrained)
+        make = (algorithms.make_algorithm2_step if constrained
+                else algorithms.make_algorithm1_step)
+        step = make(mlp.per_sample_loss, data, fl, participation=cohort,
+                    codec=codecs.make_codec(codec), cohort=True)
+        p0 = mlp.init(rnd.fold_in(rnd.PRNGKey(0), 1), 32, 16, 4)
+        state = (optimizer.ssca_constrained_init(p0) if constrained
+                 else optimizer.ssca_init(p0))
+        if codec:
+            state = CommCarry(opt=state, ef=ef_store_init(num, chip_smoke.COHORT_DIM))
+        inputs = rounds_lib.make_inputs(fl, 1, 3 * rounds, rnd.PRNGKey(2))
+        held = {"state": state, "r": 0}
+
+        def run():
+            for _ in range(rounds):
+                held["state"], _ = step(held["state"], inputs.round(held["r"]))
+                held["r"] += 1
+
+        res = {"run": name, **profile_window(run, rounds)}
+        res["rounds_per_s"] = 1e3 / res["ms_per_call"]
+        out[name] = res
+        print(json.dumps({k: v for k, v in res.items()
+                          if not k.startswith("top_")}), flush=True)
+        del held, state
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rounds", type=int, default=20)
@@ -114,6 +166,8 @@ def main() -> int:
                     help="write the full profile here")
     ap.add_argument("--paper", action="store_true",
                     help="also profile each run of the paper's suite")
+    ap.add_argument("--cohort", action="store_true",
+                    help="also profile a round of each cohort-engine variant")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -159,6 +213,8 @@ def main() -> int:
                           if not k.startswith("top_")}), flush=True)
     if args.paper:
         out["paper"] = profile_paper(data, params0, fl, args.rounds)
+    if args.cohort:
+        out["cohort"] = profile_cohort(args.rounds)
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(out, indent=1))

@@ -4,7 +4,7 @@ size (``codec.nbytes``); the downlink broadcast and the feature-based
 h-exchange stay dense fp32."""
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 F32_BYTES = 4
 
@@ -20,13 +20,18 @@ def compression_ratio(codec, p: int) -> float:
 
 
 def sample_round_bytes(d: int, num_clients: int, codec=None,
-                       with_value: bool = False) -> Dict[str, int]:
-    """Bytes for one Algorithm-1 round: all I clients upload their (possibly
-    compressed) q-gradient (+ an fp32 value scalar with ``with_value``), the
-    server broadcasts dense ω to all I."""
-    per_client = (vector_nbytes(d, codec)
-                  + (F32_BYTES if with_value else 0))
-    up = num_clients * per_client
+                       participation: Optional[int] = None,
+                       with_value: bool = False,
+                       num_constraints: int = 0) -> Dict[str, int]:
+    """Bytes for one Algorithm-1/2 round: S of I clients (all I without
+    ``participation``) upload their (possibly compressed) q-gradient (+ fp32
+    value scalars for the constrained variants), the server broadcasts
+    dense ω to all I."""
+    s = num_clients if participation is None else min(participation,
+                                                      num_clients)
+    per_client = ((1 + num_constraints) * vector_nbytes(d, codec)
+                  + (num_constraints + (1 if with_value else 0)) * F32_BYTES)
+    up = s * per_client
     down = num_clients * F32_BYTES * d
     return {"up": up, "down": down, "total": up + down}
 

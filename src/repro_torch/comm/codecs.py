@@ -19,12 +19,17 @@ kernel applies to its bits operand — so kernel and plain version agree bit
 for bit, and both agree with the JAX reference on the same key. That math
 (``uniform_from_bits``, ``chunk_pad``, ``stochastic_round_chunks``) lives
 in ``kernels/ref.py`` and is re-exported here under the reference's names.
-``TopK`` and ``Chain`` are not ported yet.
+
+``TopK`` keeps each row's k largest magnitudes as (fp32 value, int32 index)
+pairs, the lower index first among equal magnitudes, as ``lax.top_k`` does
+(a stable descending sort). ``Chain`` quantizes the kept (…, k) values of a
+stacked upload in one launch of the quantize kernel, one padded 256-wide
+chunk a row when k <= 256; its wire format is bit-equal to the reference's.
 """
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import NamedTuple
 
 import torch
@@ -36,6 +41,7 @@ from repro_torch.kernels.ref import (  # noqa: F401  (re-exported)
     chunk_pad, stochastic_round_chunks, uniform_from_bits)
 
 F32_BYTES = 4
+IDX_BYTES = 4      # int32 coordinate per kept entry (top-k wire format)
 
 
 # ---------------------------------------------------------------------------
@@ -50,6 +56,16 @@ class DenseEncoded(NamedTuple):
 class QuantEncoded(NamedTuple):
     values: torch.Tensor           # (..., C*chunk) int8 (int4 packs at wire level)
     scales: torch.Tensor           # (..., C) fp32 per-chunk scales
+
+
+class TopKEncoded(NamedTuple):
+    values: torch.Tensor           # (..., k) fp32 kept entries
+    indices: torch.Tensor          # (..., k) int32 coordinates
+
+
+class ChainEncoded(NamedTuple):
+    indices: torch.Tensor          # (..., k) int32 coordinates
+    inner: QuantEncoded            # the quantized kept values
 
 
 @dataclass(frozen=True)
@@ -108,19 +124,84 @@ class StochasticQuantizer:
         return num_chunks * F32_BYTES + math.ceil(p * self.bits / 8)
 
 
-def make_codec(name):
+def _scatter_rows(values, indices, p: int):
+    """zeros(..., p) with ``values`` at ``indices`` along the last axis."""
+    out = torch.zeros((*values.shape[:-1], p), dtype=torch.float32,
+                      device=values.device)
+    return out.scatter_(-1, indices.long(), values.float())
+
+
+@dataclass(frozen=True)
+class TopK:
+    """Magnitude top-k sparsification: keep k = max(1, round(frac·P))
+    entries per row as (fp32 value, int32 index) pairs. Biased — run it
+    behind error feedback; frac=1 recovers the dense vector exactly."""
+    frac: float = 0.01
+
+    def k(self, p: int) -> int:
+        return max(1, min(p, int(round(self.frac * p))))
+
+    def encode(self, x):
+        """(..., P) -> TopKEncoded of (..., k): the k largest |x| of each
+        row in descending order, the lower index first among equals."""
+        order = torch.sort(torch.abs(x), dim=-1, descending=True,
+                           stable=True).indices[..., :self.k(x.shape[-1])]
+        return TopKEncoded(values=torch.gather(x, -1, order),
+                           indices=order.to(torch.int32))
+
+    def roundtrip(self, x, key=None):
+        enc = self.encode(x)
+        return enc, self.decode(enc, x.shape[-1])
+
+    def decode(self, enc, p: int):
+        return _scatter_rows(enc.values, enc.indices, p)
+
+    def nbytes(self, p: int) -> int:
+        return self.k(p) * (F32_BYTES + IDX_BYTES)
+
+
+@dataclass(frozen=True)
+class Chain:
+    """Top-k sparsify, then quantize the kept values: the (…, k) kept
+    values are just another upload for the quantizer, keyed as the
+    reference keys it (one key a row)."""
+    sparse: TopK = field(default_factory=TopK)
+    quant: StochasticQuantizer = field(default_factory=StochasticQuantizer)
+
+    def roundtrip(self, x, key=None):
+        p = x.shape[-1]
+        s = self.sparse.encode(x)
+        inner, vals = self.quant.roundtrip(s.values, key)
+        return (ChainEncoded(indices=s.indices, inner=inner),
+                _scatter_rows(vals, s.indices, p))
+
+    def decode(self, enc, p: int):
+        vals = self.quant.decode(enc.inner, self.sparse.k(p))
+        return _scatter_rows(vals, enc.indices, p)
+
+    def nbytes(self, p: int) -> int:
+        k = self.sparse.k(p)
+        return k * IDX_BYTES + self.quant.nbytes(k)
+
+
+def make_codec(name, topk_frac: float = 0.01, chunk: int = 256):
     """CLI-name -> codec instance; "none"/None -> None (dense fp32 path)."""
     if name is None or name == "none":
         return None
     if name == "identity":
         codec = Identity()
     elif name == "int8":
-        codec = StochasticQuantizer(bits=8)
+        codec = StochasticQuantizer(bits=8, chunk=chunk)
     elif name == "int4":
-        codec = StochasticQuantizer(bits=4)
+        codec = StochasticQuantizer(bits=4, chunk=chunk)
+    elif name == "topk":
+        codec = TopK(frac=topk_frac)
+    elif name == "topk8":
+        codec = Chain(sparse=TopK(frac=topk_frac),
+                      quant=StochasticQuantizer(bits=8, chunk=chunk))
     else:
-        raise ValueError(f"unknown codec {name!r} (choose "
-                         "none|identity|int8|int4; topk/topk8 are not ported)")
+        raise ValueError(f"unknown codec {name!r} "
+                         "(choose none|identity|int8|int4|topk|topk8)")
     object.__setattr__(codec, "name", name)
     return codec
 

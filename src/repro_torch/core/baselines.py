@@ -18,8 +18,11 @@ I clients' gradients in one ``torch.func.vmap`` of ``torch.func.grad``;
 the E steps are a Python loop. With ``codec=`` each client's model delta
 Δ_i = ω_i^local − ω is the compressed upload (with error feedback), and the
 server applies ω ← ω + Σ_i (N_i/N) Δ̂_i, which is weighted model averaging
-since Σ_i w_i = 1. The feature baselines compress the same q-uploads as
-Algorithm 3 through ``fed.feature_round``.
+since Σ_i w_i = 1. ``participation=S`` averages the deltas of S drawn
+clients with the Horvitz-Thompson I/S reweighting, and ``cohort=True``
+runs that as the participant-only O(S) engine (the cohort's shards from
+``data.shards_for``, EF residuals in an ``EFStore``). The feature baselines
+compress the same q-uploads as Algorithm 3 through ``fed.feature_round``.
 """
 from __future__ import annotations
 
@@ -30,14 +33,15 @@ import torch
 
 from repro_torch.comm import accounting as comm_accounting
 from repro_torch.comm import codecs as comm_codecs
-from repro_torch.comm.error_feedback import ef_init_stacked, with_comm_carry
+from repro_torch.comm.error_feedback import (ef_init_stacked, ef_store_init,
+                                             with_comm_carry)
 from repro_torch import random as rnd
 from repro_torch.core import fed
 from repro_torch.core import rounds as rounds_lib
 from repro_torch.core import topology as topology_lib
-from repro_torch.core.algorithms import (_feature_ef0, _feature_upload_bytes,
-                                         _to, _wrap_codec_state,
-                                         refuse_unported)
+from repro_torch.core.algorithms import (_check_cohort, _feature_ef0,
+                                         _feature_upload_bytes, _to,
+                                         _wrap_codec_state, refuse_unported)
 from repro_torch.core.fed import FeatureFedData, SampleFedData
 from repro_torch.core.rounds import RunResult
 from repro_torch.core.tree import tree_axpy, tree_l2sq, tree_map, tree_zeros_like
@@ -116,17 +120,19 @@ def sample_sgd(per_sample_loss, params0, data: SampleFedData, cfg: SGDConfig,
                participation=None, cohort: bool = False,
                device=None) -> RunResult:
     """E local (momentum-)SGD steps per client per round + weighted
-    averaging of the (optionally compressed) model deltas. Metrics:
-    ``upload_bytes``."""
-    refuse_unported(participation, cohort, topology, obs=obs)
+    averaging of the (optionally compressed) model deltas,
+    ω ← ω + Σ_i w_i Δ̂_i with w_i = N_i/N, or (I/S)·N_i/N over the S drawn
+    clients under ``participation=S``. Metrics: ``upload_bytes``."""
+    refuse_unported(topology, obs=obs)
+    _check_cohort("sample_sgd", cohort, participation)
     params0, data, key, dev = _to(device, params0, data, key)
     grad_fn = _reg_grad(per_sample_loss, cfg.l2_lambda)
     num_clients = data.num_clients
     dim = comm_codecs.tree_flat_dim(params0)
     up_bytes = float(comm_accounting.sample_round_bytes(
-        dim, num_clients, codec)["up"])
-    ids = torch.arange(num_clients, device=dev)
-    w = data.counts.float() / torch.sum(data.counts)
+        dim, num_clients, codec, participation=participation)["up"])
+    partial = participation is not None and participation < num_clients
+    ids_all = None if cohort else torch.arange(num_clients, device=dev)
 
     def body(state, inp, ef):
         lr = cfg.lr_a if momentum else _lr(cfg, state.t)
@@ -135,22 +141,41 @@ def sample_sgd(per_sample_loss, params0, data: SampleFedData, cfg: SGDConfig,
             p_local = _local_steps(grad_fn, cfg, momentum, state.params,
                                    features, labels, counts, keys, lr)
             delta = {k: p_local[k] - state.params[k] for k in p_local}
-            return delta, torch.zeros((num_clients,), device=dev)
+            return delta, torch.zeros((features.shape[0],), device=dev)
 
+        active = None
+        if cohort:
+            ids = fed.cohort_sample(rnd.fold_in(inp.key, 0x5CA), num_clients,
+                                    participation)
+            feats, labs, counts = data.shards_for(ids)
+            w = (num_clients / participation) * counts.float() / data.total
+            ef_rows = ef.gather(ids) if ef is not None else None
+        else:
+            ids, ef_rows = ids_all, ef
+            feats, labs, counts = data.features, data.labels, data.counts
+            w = data.counts.float() / torch.sum(data.counts)
+            if partial:
+                active = fed.participation_mask(rnd.fold_in(inp.key, 0x5CA),
+                                                num_clients, participation)
+                n_on = torch.sum(active)
+                w = w * active * torch.div(torch.full_like(n_on, num_clients),
+                                           n_on)
         ckeys = (fed.client_keys(rnd.fold_in(inp.key, 0xC0DEC), ids)
                  if codec is not None else None)
         s = topology_lib.LOCAL.weighted_sum(
-            client_fn, (data.features, data.labels, data.counts,
-                        fed.client_keys(inp.key, ids)),
-            w, codec=codec, ef=ef, codec_keys=ckeys)
+            client_fn, (feats, labs, counts, fed.client_keys(inp.key, ids)),
+            w, codec=codec, ef=ef_rows, codec_keys=ckeys, active=active)
+        new_ef = (ef.scatter(ids, s.ef) if cohort and ef is not None
+                  else s.ef)
         params = {k: (p + s.weighted[k]).to(p.dtype)
                   for k, p in state.params.items()}
-        return SGDState(params=params, t=state.t + 1), s.ef, {
+        return SGDState(params=params, t=state.t + 1), new_ef, {
             "upload_bytes": up_bytes}
 
     state = _wrap_codec_state(
         SGDState(params=params0, t=1), codec,
-        lambda: ef_init_stacked(num_clients, dim, device=dev))
+        lambda: (ef_store_init(num_clients, dim, device=dev) if cohort
+                 else ef_init_stacked(num_clients, dim, device=dev)))
     return rounds_lib.run_rounds(with_comm_carry(codec, body), state,
                                  _NULL_SCHED, key, rounds, eval_fn=eval_fn,
                                  eval_every=eval_every)

@@ -11,20 +11,37 @@ the server picks the batch, the clients exchange h, and the head and block
 q-uploads (with ``codec=``, each stream with its own error feedback) are
 aggregated with 1/B weights.
 
-Ported: full participation on one device, with or without a codec. Partial
-participation (the keyed Feistel draw), the key-shuffled partition, the
-cohort engine, DP and the sharded topology are not ported yet.
+``sample_round(participation=S)`` aggregates S uniformly drawn clients of
+I with the Horvitz-Thompson I/S reweighting; it still computes every client
+and zero-weights the rest. ``cohort_round`` is the participant-only O(S)
+realization of the same round: it draws the S ids with ``cohort_sample`` (a
+keyed Feistel permutation over the population, walked on the card by one
+small kernel, ``kernels/cohort_sample.py``), asks the data container for the
+cohort's rows only (``counts_for``/``batch_rows``; a
+``data.synthetic.VirtualFedData`` generates them from the client id), and
+gathers and scatters the cohort's error-feedback rows of an ``EFStore``.
+Both engines derive every per-client key from the stable client id
+(``client_keys``), so on the same keys they draw the same clients, batches
+and codec bits, and their aggregates agree to float reassociation. No round
+of either engine reads a value back to the host, unless its EFStore was
+made with ``host_offload`` (see ``comm.error_feedback.ef_store_init``).
+
+DP and the sharded topology are not ported yet.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
+from repro_torch import device as device_lib
 from repro_torch import random as rnd
 from repro_torch.comm import accounting as comm_accounting
 from repro_torch.comm import codecs as comm_codecs
+from repro_torch.comm import error_feedback as comm_ef
 from repro_torch.core import topology as topology_lib
+from repro_torch.kernels.cohort_sample import cohort_sample as feistel_walk
 
 
 class SampleFedData(NamedTuple):
@@ -45,6 +62,27 @@ class SampleFedData(NamedTuple):
     def to(self, device) -> "SampleFedData":
         return SampleFedData(*(t.to(device) for t in self))
 
+    # -- the cohort engine's data view: exactly the cohort's slice; a
+    # data.synthetic.VirtualFedData implements the same three methods by
+    # generating the slice from (base key, client id)
+
+    def counts_for(self, ids):
+        """(S,) true N_i for the given client ids."""
+        return self.counts[ids.long()]
+
+    def batch_rows(self, ids, idx):
+        """(S,) ids + (S, B) in-shard row indices -> ((S, B, P) features,
+        (S, B, L) labels)."""
+        rows = ids.long()[:, None]
+        idx = idx.long()
+        return self.features[rows, idx], self.labels[rows, idx]
+
+    def shards_for(self, ids):
+        """The cohort's full padded shards: ((S, N_max, P), (S, N_max, L),
+        (S,) counts), for drivers whose clients loop over local batches."""
+        ids = ids.long()
+        return self.features[ids], self.labels[ids], self.counts[ids]
+
 
 class FeatureFedData(NamedTuple):
     """Feature-based (vertical) FL: client i holds feature block P_i (equal
@@ -64,15 +102,88 @@ class FeatureFedData(NamedTuple):
         return FeatureFedData(*(t.to(device) for t in self))
 
 
-def partition_samples(features, labels, num_clients) -> SampleFedData:
-    """Split N samples into I (near-)equal client shards, in order."""
+def partition_samples(features, labels, num_clients, key=None) -> SampleFedData:
+    """Split N samples into I (near-)equal client shards: in order, or
+    shuffled first by ``random.permutation(key, N)`` (bit-equal to
+    ``jax.random.permutation``)."""
     n = features.shape[0]
+    if key is not None:
+        perm = rnd.permutation(key.to(features.device), n)
+        features, labels = features[perm], labels[perm]
     per = n // num_clients
     features = features[: per * num_clients].reshape(num_clients, per, -1)
     labels = labels[: per * num_clients].reshape(num_clients, per, -1)
     counts = torch.full((num_clients,), per, dtype=torch.int32,
                         device=features.device)
     return SampleFedData(features, labels, counts)
+
+
+def partition_ragged(feature_shards, label_shards, device=None) -> SampleFedData:
+    """A padded SampleFedData from explicit per-client shards (sequences of
+    (N_i, P) and (N_i, L) tensors or arrays, N_i ragged). Padding rows are
+    zero and never drawn: ``sample_batches`` picks rows in [0, N_i). On
+    ``device`` (default: the shards' device, or the card for arrays)."""
+    counts = [len(f) for f in feature_shards]
+    if min(counts) <= 0:
+        raise ValueError(f"every client needs >= 1 sample, got counts={counts}")
+    first = feature_shards[0]
+    if device is None:
+        dev = (first.device if isinstance(first, torch.Tensor)
+               else device_lib.resolve(None))
+    else:
+        dev = device_lib.resolve(device)
+    as_t = lambda a: torch.as_tensor(np.asarray(a)) if not isinstance(  # noqa: E731
+        a, torch.Tensor) else a
+    n_max = max(counts)
+    f0, l0 = as_t(first), as_t(label_shards[0])
+    feats = torch.zeros((len(counts), n_max, f0.shape[-1]), dtype=f0.dtype,
+                        device=dev)
+    labs = torch.zeros((len(counts), n_max, l0.shape[-1]), dtype=l0.dtype,
+                       device=dev)
+    for i, (f, y) in enumerate(zip(feature_shards, label_shards)):
+        feats[i, :counts[i]] = as_t(f).to(dev)
+        labs[i, :counts[i]] = as_t(y).to(dev)
+    return SampleFedData(feats, labs,
+                         torch.tensor(counts, dtype=torch.int32, device=dev))
+
+
+def partition_dirichlet(features, labels, num_clients, key,
+                        alpha: float = 0.5) -> SampleFedData:
+    """Non-IID label-skew partition: for each class c, the client shares of
+    its samples are ~ Dirichlet(alpha·1_I) (``random.dirichlet`` from
+    ``fold_in(fold_in(key, c), 1)``) after a ``permutation`` of the class's
+    sample indices by ``fold_in(key, c)``, rounded by largest remainder so
+    that they sum to the class size. A client left empty takes one sample
+    from the largest client. The rounding runs in numpy float32 on the
+    host, exactly as the reference's; a share one ulp off the reference's
+    can still move one sample (the tests hold the counts equal on the seeds
+    they run)."""
+    dev = features.device
+    key = key.to(dev)
+    lab_int = torch.argmax(labels, dim=-1).cpu().numpy()
+    num_classes = labels.shape[-1]
+    ones = torch.ones((num_clients,), device=dev)
+    shards = [[] for _ in range(num_clients)]
+    for c in range(num_classes):
+        idx = np.flatnonzero(lab_int == c)
+        if idx.size == 0:
+            continue
+        kc = rnd.fold_in(key, c)
+        idx = idx[rnd.permutation(kc, idx.size).cpu().numpy()]
+        props = rnd.dirichlet(rnd.fold_in(kc, 1), alpha * ones).cpu().numpy()
+        raw = props * idx.size
+        take = np.floor(raw).astype(int)
+        rem = idx.size - take.sum()
+        take[np.argsort(raw - np.floor(raw))[::-1][:rem]] += 1
+        for i, chunk in enumerate(np.split(idx, np.cumsum(take)[:-1])):
+            shards[i].extend(chunk.tolist())
+    for i in range(num_clients):            # enforce N_i >= 1
+        if not shards[i]:
+            donor = max(range(num_clients), key=lambda j: len(shards[j]))
+            shards[i].append(shards[donor].pop())
+    sel = [torch.as_tensor(s, dtype=torch.long, device=dev) for s in shards]
+    return partition_ragged([features[s] for s in sel],
+                            [labels[s] for s in sel])
 
 
 def partition_features(features, labels, num_clients) -> FeatureFedData:
@@ -102,9 +213,29 @@ def _check_ef_shape(round_name: str, stream: str, residual, expected_shape):
             "repro_torch.comm.error_feedback ef_init helper")
 
 
+# ---------------------------------------------------------------------------
+# O(S) cohort sampling: keyed Feistel permutation over the population
+# ---------------------------------------------------------------------------
+
+FEISTEL_ROUNDS = 6
+
+
+def cohort_sample(key, num_clients: int, cohort: int):
+    """Draw S = ``cohort`` client ids uniformly without replacement from I =
+    ``num_clients`` in O(S) work, bit-equal to ``repro.core.fed.
+    cohort_sample``: the round keys are ``bits(key, (6,))`` and the walk is
+    one launch of the ``cohort_sample`` kernel on the card (its plain version
+    on the CPU). Returns (S,) int32 ids."""
+    if not 1 <= cohort <= num_clients:
+        raise ValueError(f"cohort must be in [1, {num_clients}], got {cohort}")
+    return feistel_walk(rnd.bits(key, (FEISTEL_ROUNDS,)), num_clients, cohort)
+
+
 def client_keys(key, ids):
     """Per-client PRNG keys keyed by STABLE client id (fold_in, not split):
-    ``(2,)`` key + ``(I,)`` ids -> ``(I, 2)`` keys."""
+    ``(2,)`` key + ``(I,)`` ids -> ``(I, 2)`` keys. The dense engine (ids =
+    arange(I)) and the cohort engine (the drawn ids) derive the same key for
+    the same client."""
     return rnd.fold_in(key, ids)
 
 
@@ -124,11 +255,36 @@ def batch_mask(counts, batch_size: int):
     return (ar[None, :] < b_i[:, None]).float()
 
 
-def aggregation_weights(counts, batch_size: int):
-    """Server weights w_i = N_i/(B_i·N) with B_i = min(B, N_i)."""
+def participation_mask(key, num_clients: int, participation: int):
+    """(I,) 0/1 float mask of the S = ``participation`` clients that
+    ``cohort_sample(key, I, S)`` draws: the dense and the cohort engine pick
+    the same clients from the same key."""
+    sel = cohort_sample(key, num_clients, participation).long()
+    return torch.zeros((num_clients,), device=key.device).index_fill_(0, sel,
+                                                                       1.0)
+
+
+def aggregation_weights(counts, batch_size: int, part_mask=None):
+    """Server weights w_i = N_i/(B_i·N) with B_i = min(B, N_i); under
+    partial participation (mask m of S of I clients) m_i·(I/S)·N_i/(B_i·N),
+    a Horvitz-Thompson estimator (E[m_i] = S/I cancels the I/S)."""
     counts = counts.float()
     b_i = torch.clamp(counts, max=float(batch_size))
-    return counts / (b_i * torch.sum(counts))
+    w = counts / (b_i * torch.sum(counts))
+    if part_mask is not None:
+        s = torch.sum(part_mask)
+        w = w * part_mask * torch.div(torch.full_like(s, counts.shape[0]), s)
+    return w
+
+
+def cohort_weights(counts_s, batch_size: int, num_clients: int, total):
+    """Horvitz-Thompson weights of the S-client cohort, (I/S)·N_i/(B_i·N):
+    the non-zero entries of ``aggregation_weights(counts, B, mask)``, to
+    float rounding, with no zeros materialized."""
+    counts_s = counts_s.float()
+    b_i = torch.clamp(counts_s, max=float(batch_size))
+    scale = num_clients / counts_s.shape[0]
+    return scale * counts_s / (b_i * total)
 
 
 def _client_fn(per_sample_loss: Callable, params):
@@ -150,18 +306,26 @@ def _client_fn(per_sample_loss: Callable, params):
 
 
 def sample_round(per_sample_loss: Callable, params, data: SampleFedData, key,
-                 batch_size: int, with_value: bool = False, codec=None,
-                 ef=None):
+                 batch_size: int, with_value: bool = False,
+                 participation: int | None = None, participation_key=None,
+                 codec=None, ef=None, codec_key=None):
     """Computes client uploads q_i = Σ_{n∈batch} ∇f(ω;x_n) (and Σ f) then
     the server aggregate ĝ = Σ_i N_i/(B_i·N) q_i (and F̂ likewise).
 
     ``per_sample_loss(params, z (B, P), y (B, L)) -> (B,)`` is one client's
-    loss, as in the reference. With ``codec=``, ``ef`` is the (I, P) error-
-    feedback residual matrix (zeros if None) and the updated residuals come
-    back as ``uploads["ef"]``; the codec's random bits come from
-    ``client_keys(fold_in(key, 0xC0DEC), arange(I))``, as in the reference.
+    loss, as in the reference. With ``participation`` = S < I only S clients
+    drawn by ``participation_mask(participation_key)`` (default
+    ``fold_in(key, 0x5ca)``) are aggregated, reweighted by I/S; every client
+    is still computed. S >= I is full participation. With ``codec=``, ``ef``
+    is the (I, P) error-feedback residual matrix (zeros if None), the
+    updated residuals come back as ``uploads["ef"]`` (a non-participant's
+    row unchanged), and the codec's random bits come from
+    ``client_keys(codec_key, arange(I))``, ``codec_key`` defaulting to
+    ``fold_in(key, 0xC0DEC)``, as in the reference.
 
     Returns (grad_est dict, value_est, uploads)."""
+    if participation is not None and participation < 1:
+        raise ValueError(f"participation must be >= 1, got {participation}")
     if codec is None and ef is not None:
         raise ValueError(
             "sample_round: error-feedback residuals (ef=) were passed "
@@ -171,20 +335,102 @@ def sample_round(per_sample_loss: Callable, params, data: SampleFedData, key,
         _check_ef_shape("sample_round", "q_grad", ef, (data.num_clients, dim))
     idx = sample_batches(data, key, batch_size)      # (I, B)
     bmask = batch_mask(data.counts, batch_size)      # (I, B)
+    pmask = None
+    if participation is not None and participation < data.num_clients:
+        if participation_key is None:
+            participation_key = rnd.fold_in(key, 0x5CA)
+        pmask = participation_mask(participation_key, data.num_clients,
+                                   participation)
     ckeys = nbytes = None
     if codec is not None:
-        ckeys = client_keys(rnd.fold_in(key, 0xC0DEC),
-                            torch.arange(data.num_clients, device=key.device))
+        if codec_key is None:
+            codec_key = rnd.fold_in(key, 0xC0DEC)
+        ckeys = client_keys(codec_key, torch.arange(data.num_clients,
+                                                    device=key.device))
         nbytes = comm_accounting.sample_round_bytes(
-            dim, data.num_clients, codec, with_value=with_value)["up"]
-    w = aggregation_weights(data.counts, batch_size)
+            dim, data.num_clients, codec, participation=participation,
+            with_value=with_value)["up"]
+    w = aggregation_weights(data.counts, batch_size, pmask)
     s = topology_lib.LOCAL.weighted_sum(
         _client_fn(per_sample_loss, params),
         (data.features, data.labels, idx, bmask), w,
-        codec=codec, ef=ef, codec_keys=ckeys)
+        codec=codec, ef=ef, codec_keys=ckeys, active=pmask)
     uploads = {"q_grad_sums": s.uploads,
                "q_value_sums": s.values if with_value else None,
-               "encoded": s.encoded, "ef": s.ef, "upload_nbytes": nbytes}
+               "participants": pmask, "encoded": s.encoded, "ef": s.ef,
+               "upload_nbytes": nbytes}
+    return s.weighted, s.value, uploads
+
+
+def _cohort_client_fn(per_sample_loss: Callable, params):
+    """The cohort's batch-sum gradients from its gathered (S, B, ·) rows."""
+    def batch_sum_loss(p, zb, yb, mask):
+        return torch.sum(per_sample_loss(p, zb, yb) * mask)
+
+    per_client = torch.func.vmap(torch.func.grad_and_value(batch_sum_loss),
+                                 in_dims=(None, 0, 0, 0))
+    return lambda zb, yb, mask: per_client(params, zb, yb, mask)
+
+
+def cohort_round(per_sample_loss: Callable, params, data, key,
+                 batch_size: int, cohort: int, with_value: bool = False,
+                 participation_key=None, codec=None, ef=None, codec_key=None):
+    """The participant-only O(S) realization of ``sample_round`` under
+    partial participation: draws the S-client cohort with ``cohort_sample``
+    (``participation_key`` defaults to ``fold_in(key, 0x5ca)``), asks
+    ``data`` for the cohort's rows only (``counts_for``, ``batch_rows``),
+    and runs client compute, codec encode and the Horvitz-Thompson weighted
+    sum over the (S, ...) cohort axis. Same keys as ``sample_round``: the
+    same clients, batches and codec bits, so the aggregates agree to float
+    reassociation.
+
+    ``ef`` is an ``EFStore`` (the (I, P) backing): the cohort's (S, P) rows
+    are gathered into the round and the updated rows written back in place;
+    no other client's row is read or written. The store comes back as
+    ``uploads["ef"]`` and the (S,) drawn ids as ``uploads["cohort"]``.
+
+    Returns (grad_est, value_est, uploads)."""
+    if codec is None and ef is not None:
+        raise ValueError(
+            "cohort_round: error-feedback residuals (ef=) were passed "
+            "without codec= — pass codec= or drop ef=")
+    num_clients = data.num_clients
+    if participation_key is None:
+        participation_key = rnd.fold_in(key, 0x5CA)
+    ids = cohort_sample(participation_key, num_clients, cohort)      # (S,)
+    counts_s = data.counts_for(ids)                                  # (S,)
+    idx = rnd.randint(client_keys(key, ids), (batch_size,), 0,
+                      counts_s[:, None])                             # (S, B)
+    bmask = batch_mask(counts_s, batch_size)                         # (S, B)
+    zb, yb = data.batch_rows(ids, idx)                 # (S, B, P), (S, B, L)
+    ckeys = ef_rows = nbytes = None
+    if codec is not None:
+        dim = comm_codecs.tree_flat_dim(params)
+        if ef is not None:
+            if not isinstance(ef, comm_ef.EFStore):
+                raise ValueError(
+                    "cohort_round: ef must be a keyed "
+                    "repro_torch.comm.error_feedback.EFStore (ef_store_init), "
+                    f"not a dense residual array — got {type(ef).__name__}")
+            _check_ef_shape("cohort_round", "q_grad", ef.data,
+                            (num_clients, dim))
+            ef_rows = ef.gather(ids)                                 # (S, P)
+        if codec_key is None:
+            codec_key = rnd.fold_in(key, 0xC0DEC)
+        ckeys = client_keys(codec_key, ids)
+        nbytes = comm_accounting.sample_round_bytes(
+            dim, num_clients, codec, participation=cohort,
+            with_value=with_value)["up"]
+    w = cohort_weights(counts_s, batch_size, num_clients, data.total)
+    s = topology_lib.LOCAL.weighted_sum(
+        _cohort_client_fn(per_sample_loss, params), (zb, yb, bmask), w,
+        codec=codec, ef=ef_rows, codec_keys=ckeys)
+    new_ef = (ef.scatter(ids, s.ef) if codec is not None and ef is not None
+              else s.ef)
+    uploads = {"q_grad_sums": s.uploads,
+               "q_value_sums": s.values if with_value else None,
+               "cohort": ids, "encoded": s.encoded, "ef": new_ef,
+               "upload_nbytes": nbytes}
     return s.weighted, s.value, uploads
 
 

@@ -14,6 +14,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch import device as device_lib
 from repro_torch import random as rnd
 from repro_torch.core import schedules
 
@@ -36,7 +37,9 @@ class RoundInputs(NamedTuple):
 
 def schedule_arrays(fl, t_start: int, num_rounds: int, device=None):
     """(ρ^t, γ^t) for t = t_start .. t_start+K-1, with the paper's ρ^(1) = 1
-    convention applied (§III-A, before eq. (11)) — matches optimizer._sched."""
+    convention applied (§III-A, before eq. (11)) — matches optimizer._sched.
+    On ``device`` (default: the card)."""
+    device = device_lib.given_or_card(device)
     t = torch.arange(t_start, t_start + num_rounds, device=device)
     rho = torch.where(t == 1, torch.ones((), device=device),
                       schedules.rho(t, fl.a1, fl.alpha_rho))

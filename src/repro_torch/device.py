@@ -29,3 +29,11 @@ def resolve(device=None) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def given_or_card(device=None) -> torch.device:
+    """``device`` as given, or the card when it is None. For helpers that a
+    path calls after its entry point has resolved the device: unlike
+    ``resolve`` this sets nothing on an explicit device, so a caller's own
+    matmul precision (a TF32 control run, say) stands."""
+    return resolve(None) if device is None else torch.device(device)

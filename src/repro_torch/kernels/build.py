@@ -52,6 +52,10 @@ SIGNATURES = {
         "rmsnorm": [_P, _P, _P, _LL, _I, _F, _I, _P],
         "rmsnorm_bwd": [_P, _P, _P, _P, _P, _P, _LL, _I, _F, _I, _I, _P],
     },
+    "cohort_sample": {
+        # round keys, rounds, ids, cohort, num_clients, hi_bits, lo_bits
+        "cohort_sample": [_P, _I, _P, _I, _LL, _I, _I, _P],
+    },
     "flash_attention": {
         "flash_attention": [_P, _P, _P, _P, _PLL, _P, _LL, _I, _I, _I, _I, _I,
                             _I, _I, _F, _I, _I, _P],

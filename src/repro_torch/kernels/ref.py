@@ -226,3 +226,49 @@ def stochastic_quantize_ref(x, bits, qmax: int, chunk: int = 256):
     q, scales = stochastic_round_chunks(xc, u, qmax)
     xhat = (q.float() * scales[..., None]).flatten(-2)[..., :p]
     return q.flatten(-2), scales, xhat
+
+
+_U32 = 0xFFFFFFFF
+
+
+def feistel_mix(x):
+    """The murmur3 finalizer on uint32 values held in int64 (the Feistel
+    round function's hash). A product of two uint32 may wrap past 2^63 in
+    int64; its low 32 bits, all that is kept, are still right."""
+    x = x ^ (x >> 16)
+    x = (x * 0x85EBCA6B) & _U32
+    x = x ^ (x >> 13)
+    x = (x * 0xC2B2AE35) & _U32
+    return x ^ (x >> 16)
+
+
+def feistel(x, round_keys, hi_bits: int, lo_bits: int):
+    """The alternating, unbalanced keyed Feistel network of
+    ``repro.core.fed._feistel``: a bijection on [0, 2^(hi_bits+lo_bits))
+    for uint32 values in int64 ``x``; ``round_keys`` is a sequence of uint32
+    ints (or 0-d int64 tensors), one a round."""
+    lo_mask, hi_mask = (1 << lo_bits) - 1, (1 << hi_bits) - 1
+    hi, lo = x >> lo_bits, x & lo_mask
+    for r, k in enumerate(round_keys):
+        if r % 2 == 0:
+            lo = (lo + feistel_mix(hi ^ k)) & lo_mask
+        else:
+            hi = (hi + feistel_mix(lo ^ k)) & hi_mask
+    return (hi << lo_bits) | lo
+
+
+def cohort_sample_ref(round_keys, num_clients: int, cohort: int, hi_bits: int,
+                      lo_bits: int):
+    """The cohort draw: slot i takes π(i) and cycle-walks π until the value
+    lies in [0, num_clients). ``round_keys`` is a (R,) int64 tensor of uint32
+    values; returns (cohort,) int32 ids on its device. A masked walk whose
+    loop asks the host each step whether a slot is still outside, which is
+    fine on the CPU."""
+    ks = round_keys.to(torch.int64).unbind(0)
+    x = feistel(torch.arange(cohort, dtype=torch.int64, device=round_keys.device),
+                ks, hi_bits, lo_bits)
+    while True:
+        out = x >= num_clients
+        if not bool(out.any()):
+            return x.to(torch.int32)
+        x = torch.where(out, feistel(x, ks, hi_bits, lo_bits), x)

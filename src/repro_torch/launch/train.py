@@ -18,10 +18,16 @@ forward and backward, runs on its hand-written kernel.
 features split into ``clients`` vertical blocks, with ``codec=`` on its
 head and block uploads.
 
+``cohort_train_loop`` (``--mode cohort``) runs Algorithm 1, or Algorithm 2
+with ``constrained``, through the participant-only O(S) cohort engine over
+a ``VirtualFedData`` population of ``clients`` (a million is never
+materialized), ``participation`` clients a round, with ``codec=`` and its
+error feedback in a keyed ``EFStore`` on the card.
+
 The reference's options that the port does not have yet raise
 NotImplementedError, naming the ROADMAP item that brings them: codec
 uploads on the zoo, the sharded topology, differential privacy, JSONL logs,
-profiles and checkpoints, and the cohort mode.
+profiles and checkpoints.
 
 CLI:  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
           --steps 20 --batch 8 --seq 512 [--constrained --cost-limit 3.0] \\
@@ -29,6 +35,9 @@ CLI:  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
       PYTHONPATH=src python -m repro_torch.launch.train --mode feature \\
           --clients 4 --steps 200 [--constrained --cost-limit 1.2] \\
           [--codec int8] [--device cpu]
+      PYTHONPATH=src python -m repro_torch.launch.train --mode cohort \\
+          --clients 1000000 --participation 256 [--codec int8|topk8] \\
+          [--constrained] [--device cpu]
 """
 from __future__ import annotations
 
@@ -48,8 +57,8 @@ from repro_torch.core import algorithms, fed, optimizer, rounds
 from repro_torch.core.rounds import unwrap_comm
 from repro_torch.core.surrogate import chunks
 from repro_torch.core.tree import leaves, tree_map, views
-from repro_torch.data.synthetic import (classification_dataset, sample_window,
-                                        token_dataset)
+from repro_torch.data.synthetic import (VirtualFedData, classification_dataset,
+                                        sample_window, token_dataset)
 from repro_torch.models import mlp
 from repro_torch.models.api import get_model
 
@@ -64,7 +73,6 @@ _LATER = {
     "log_jsonl": "JSONL logs come with ROADMAP queue 1, item 9",
     "profile_dir": "profiles come with ROADMAP queue 1, item 9",
     "ckpt_path": "checkpoints come with ROADMAP queue 1, item 9",
-    "cohort": "--mode cohort comes with ROADMAP queue 1, item 3",
 }
 
 
@@ -289,14 +297,76 @@ def feature_train_loop(*, clients: int = 4, rounds: int = 200,
                  rounds, rnd.fold_in(key, 2), eval_fn=eval_fn,
                  eval_every=log_every, codec=make_codec(codec),
                  device=dev)
+    _print_history(result)
+    print(f"done: {rounds} rounds, 1 client shard(s), "
+          f"{time.time() - wall0:.1f}s", flush=True)
+    return result
+
+
+def _print_history(result):
     for i, r in enumerate(result.history["round"].tolist()):
         line = {k: float(v[i]) for k, v in result.history.items()
                 if not k.startswith("round")}
         line["round"] = int(r)
         print(" ".join(f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
                        for k, v in line.items()), flush=True)
-    print(f"done: {rounds} rounds, 1 client shard(s), "
-          f"{time.time() - wall0:.1f}s", flush=True)
+
+
+def cohort_train_loop(*, clients: int = 100_000, participation: int = 256,
+                      rounds: int = 200, batch: int = 16, features: int = 32,
+                      classes: int = 4, hidden: int = 16,
+                      constrained: bool = False, cost_limit: float = 1.2,
+                      topology: str = "local", codec: Optional[str] = None,
+                      topk_frac: float = 0.01, log_every: int = 20,
+                      seed: int = 0, fl: Optional[FLConfig] = None,
+                      log_jsonl: Optional[str] = None,
+                      profile_dir: Optional[str] = None, dp=None,
+                      device=None, params0=None):
+    """``repro.launch.train.cohort_train_loop``: a ``VirtualFedData``
+    population of ``clients`` ragged Dirichlet-skewed shards (noise 4),
+    the mlp of ``features``-``hidden``-``classes``, and Algorithm 1 (or 2
+    with ``constrained``) through the cohort engine, ``participation``
+    clients a round, for ``rounds`` rounds; the eval every ``log_every``
+    rounds is the masked mean loss over the first 64 clients' shards. The
+    params are drawn as the reference draws them (``random.normal``, to a
+    few ulps); ``params0`` starts from given ones instead. Returns the
+    RunResult."""
+    for what, on in (("log_jsonl", log_jsonl), ("profile_dir", profile_dir)):
+        if on:
+            _refuse(what)
+    _check_options(None, topology, dp)
+    dev = device_lib.resolve(device)
+    key = rnd.PRNGKey(seed, device=dev)
+    data = VirtualFedData(rnd.fold_in(key, 0xDA7A), clients,
+                          num_features=features, num_classes=classes,
+                          noise=4.0)
+    if params0 is None:
+        params0 = mlp.init(rnd.fold_in(key, 1), features, hidden, classes,
+                           device=dev)
+    fl = fl or FLConfig(batch_size=batch, a1=0.9, a2=0.5, alpha_rho=0.1,
+                        alpha_gamma=0.6, tau=0.2, l2_lambda=1e-5,
+                        constrained=constrained, cost_limit=cost_limit,
+                        penalty_c=1e4)
+    codec_obj = make_codec(codec, topk_frac=topk_frac)
+    ez, ey, ec = data.shards_for(torch.arange(min(64, clients),
+                                              dtype=torch.int32, device=dev))
+    emask = (torch.arange(ez.shape[1], device=dev)[None, :]
+             < ec[:, None]).float()
+
+    def eval_fn(p, s):
+        per_row = mlp.per_sample_loss(p, ez, ey)
+        return {"loss": torch.sum(per_row * emask) / torch.sum(emask)}
+
+    alg = algorithms.algorithm2 if constrained else algorithms.algorithm1
+    wall0 = time.time()
+    result = alg(mlp.per_sample_loss, params0, data, fl, rounds,
+                 rnd.fold_in(key, 2), eval_fn=eval_fn, eval_every=log_every,
+                 participation=participation, codec=codec_obj, cohort=True,
+                 device=dev)
+    _print_history(result)
+    print(f"done: {rounds} rounds, population {clients}, cohort "
+          f"{participation} over 1 shard(s), {time.time() - wall0:.1f}s",
+          flush=True)
     return result
 
 
@@ -308,12 +378,21 @@ def main():
                     default="sample",
                     help="sample = horizontal FL on a zoo model (Alg 1/2); "
                          "feature = vertical FL, features split across "
-                         "clients (Alg 3/4)")
+                         "clients (Alg 3/4); cohort = million-client "
+                         "horizontal FL through the participant-only O(S) "
+                         "engine over a virtual population")
     ap.add_argument("--clients", type=int, default=4,
-                    help="feature-mode vertical client count")
-    ap.add_argument("--features", type=int, default=128)
-    ap.add_argument("--classes", type=int, default=10)
-    ap.add_argument("--hidden", type=int, default=32)
+                    help="feature-mode vertical client count, or cohort-mode "
+                         "population size I (e.g. 1000000, never "
+                         "materialized)")
+    ap.add_argument("--participation", type=int, default=256,
+                    help="cohort-mode clients a round S")
+    ap.add_argument("--features", type=int, default=None,
+                    help="default: 128, or 32 in cohort mode")
+    ap.add_argument("--classes", type=int, default=None,
+                    help="default: 10, or 4 in cohort mode")
+    ap.add_argument("--hidden", type=int, default=None,
+                    help="default: 32, or 16 in cohort mode")
     ap.add_argument("--n", type=int, default=8000)
     ap.add_argument("--cost-limit", type=float, default=None,
                     help="U in min ‖ω‖² s.t. loss <= U with --constrained "
@@ -321,15 +400,17 @@ def main():
                          "in sample mode)")
     ap.add_argument("--steps", type=int, default=100,
                     help="steps, or rounds in feature mode")
-    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="default: 8, or 16 in cohort mode")
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--constrained", action="store_true")
     ap.add_argument("--driver", choices=("scan", "loop"), default="scan",
                     help="both are the port's Python loop over steps")
     ap.add_argument("--codec", default="none",
-                    help="none|identity|int8|int4 (feature mode; sample "
-                         "mode refuses a codec)")
+                    help="none|identity|int8|int4|topk|topk8 (feature and "
+                         "cohort modes; sample mode refuses a codec)")
+    ap.add_argument("--topk-frac", type=float, default=0.01)
     ap.add_argument("--topology", choices=("local", "sharded"),
                     default="local")
     ap.add_argument("--dp-epsilon", type=float, default=None)
@@ -339,10 +420,27 @@ def main():
     ap.add_argument("--device", default=None,
                     help="default: the CUDA device (cpu for a smoke run)")
     args = ap.parse_args()
-    if args.mode == "cohort":
-        _refuse("cohort")
     if args.dp_epsilon is not None:
         _refuse("dp")
+    cohort = args.mode == "cohort"
+    widths = {k: (getattr(args, k) if getattr(args, k) is not None
+                  else (cohort_default if cohort else default))
+              for k, default, cohort_default in (
+                  ("features", 128, 32), ("classes", 10, 4),
+                  ("hidden", 32, 16), ("batch", 8, 16))}
+    args.__dict__.update(widths)
+    if cohort:
+        cohort_train_loop(clients=args.clients,
+                          participation=args.participation, rounds=args.steps,
+                          batch=args.batch, features=args.features,
+                          classes=args.classes, hidden=args.hidden,
+                          constrained=args.constrained,
+                          cost_limit=(1.2 if args.cost_limit is None
+                                      else args.cost_limit),
+                          topology=args.topology, codec=args.codec,
+                          topk_frac=args.topk_frac, log_jsonl=args.log_jsonl,
+                          profile_dir=args.profile, device=args.device)
+        return
     if args.mode == "feature":
         feature_train_loop(clients=args.clients, rounds=args.steps,
                            batch=args.batch, features=args.features,

@@ -19,6 +19,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import device as device_lib
 from repro_torch import random as rnd
 from repro_torch.kernels.flash_attention import FlashAttention, flash_attention
 from repro_torch.kernels.rmsnorm import RMSNorm
@@ -44,7 +45,8 @@ def embed_init(key, shape, dtype):
 
 
 def rmsnorm_init(d, dtype, device=None):
-    return {"scale": torch.zeros((d,), dtype=dtype, device=device)}   # (1 + scale)
+    return {"scale": torch.zeros((d,), dtype=dtype,
+                                 device=device_lib.given_or_card(device))}   # (1 + scale)
 
 
 def norm(params, x, cfg):

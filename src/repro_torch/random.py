@@ -1,9 +1,10 @@
 """Counter-based random numbers, bit-exact with ``jax.random``.
 
-The subset of ``jax.random`` that Algorithm 1 draws from: ``PRNGKey``,
-``split``, ``fold_in``, ``bits`` (uint32), ``randint``, ``uniform`` and
-``normal``, following jax 0.9.0's default implementation (``threefry2x32``
-with ``jax_threefry_partitionable=True``). Keys are explicit tensors of shape
+The subset of ``jax.random`` the port draws from: ``PRNGKey``, ``split``,
+``fold_in``, ``bits`` (uint32), ``randint``, ``uniform``, ``normal``,
+``permutation``, ``loggamma``, ``dirichlet``, ``gumbel`` and
+``categorical``, following jax 0.9.0's default implementation
+(``threefry2x32`` with ``jax_threefry_partitionable=True``). Keys are explicit tensors of shape
 ``(..., 2)``: they are the port's generators, so the same key gives the same
 batch indices, codec rounding bits and data as the JAX reference.
 
@@ -12,9 +13,14 @@ with ``& 0xFFFFFFFF`` (torch's uint32 supports few ops). Every function takes
 a leading batch of keys, ``(..., 2)``, where ``jax.vmap`` would map one key:
 ``bits(keys (I, 2), (C, 256))`` is ``(I, C, 256)``.
 
-``bits``, ``split``, ``fold_in``, ``randint`` and ``uniform`` on [0, 1) are
-bit-equal to jax. ``normal`` goes through ``erfinv`` and matches to within
-a few ulps.
+``bits``, ``split``, ``fold_in``, ``randint``, ``uniform`` on [0, 1) and
+``permutation`` are bit-equal to jax. ``normal`` goes through ``erfinv`` and
+matches to within a few ulps; ``loggamma``/``dirichlet`` and ``categorical``
+inherit that (and ``log``'s ulps) through their rejection test and argmax.
+
+No function here copies a Python number to the device: constants go in as
+scalar operands or ``torch.full``, so a round on the card never waits on the
+host (a host-to-device copy from pageable memory synchronizes).
 """
 from __future__ import annotations
 
@@ -69,7 +75,7 @@ def fold_in(key, data):
     """``jax.random.fold_in``. ``data`` (an int or an integer tensor) is
     taken mod 2^32; keys and data broadcast, so
     ``fold_in(key, ids)`` gives one key per id."""
-    data = torch.as_tensor(data, dtype=torch.int64, device=key.device) & MASK
+    data = _int64(data, key.device) & MASK
     b1, b2 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(data),
                           data)
     return torch.stack(torch.broadcast_tensors(b1, b2), dim=-1)
@@ -93,6 +99,14 @@ def bits(key, shape) -> torch.Tensor:
                                                          *shape)
 
 
+def _int64(v, device):
+    """An int64 tensor of ``v`` on ``device``: a tensor as it is (cast), a
+    Python int by ``torch.full``, never by a host-to-device copy."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.int64)
+    return torch.full((), int(v), dtype=torch.int64, device=device)
+
+
 def _wrap_int32(v):
     return ((v + (1 << 31)) & MASK) - (1 << 31)
 
@@ -105,10 +119,8 @@ def randint(key, shape, minval, maxval) -> torch.Tensor:
     broadcast against ``(..., *shape)``."""
     dev = key.device
     lo_i32, hi_i32 = -(1 << 31), (1 << 31) - 1
-    minval = torch.as_tensor(minval, device=dev).to(torch.int64).clamp(
-        lo_i32, hi_i32)
-    maxval = torch.as_tensor(maxval, device=dev).to(torch.int64).clamp(
-        lo_i32, hi_i32)
+    minval = _int64(minval, dev).clamp(lo_i32, hi_i32)
+    maxval = _int64(maxval, dev).clamp(lo_i32, hi_i32)
     ks = split(key)
     higher = bits(ks[..., 0, :], shape)
     lower = bits(ks[..., 1, :], shape)
@@ -122,8 +134,8 @@ def randint(key, shape, minval, maxval) -> torch.Tensor:
 
 
 def _uniform_from_bits(raw, minval: float, maxval: float):
-    lo = torch.tensor(minval, dtype=torch.float32, device=raw.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=raw.device)
+    lo = torch.full((), minval, dtype=torch.float32, device=raw.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=raw.device)
     fbits = (raw >> 9) | 0x3F800000                    # < 2^31: fits int32
     floats = fbits.to(torch.int32).view(torch.float32) - 1.0
     return torch.maximum(lo, floats * (hi - lo) + lo)
@@ -156,3 +168,121 @@ def normal(key, shape):
         u = _uniform_from_bits(_bits_range(key, start, count), _NORMAL_LO, 1.0)
         out[..., start:start + count] = _SQRT2 * torch.erfinv(u)
     return out.reshape(*key.shape[:-1], *shape)
+
+
+def permutation(key, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` (jax's ``_shuffle``): ``arange(n)``
+    sorted ``ceil(3·ln n / ln(2^32-1))`` times, each time by fresh uint32
+    keys ``bits(split(key)[1], (n,))``. XLA's ``sort_key_val`` is stable,
+    so keys that collide keep the order of the previous round; the stable
+    ``torch.sort`` does the same. Returns (n,) int64 on the key's device."""
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(float(MASK))))
+    x = torch.arange(n, device=key.device)
+    for _ in range(rounds):
+        key, sub = split(key).unbind(-2)
+        x = x[torch.sort(bits(sub, (n,)), stable=True).indices]
+    return x
+
+
+GAMMA_STEPS = 8          # Marsaglia-Tsang proposals drawn per lane
+GAMMA_NORMAL_STEPS = 3   # normal draws per proposal (until 1 + c·x > 0)
+
+
+def _first(mask):
+    """Index of the first True along dim 0 (0 where there is none)."""
+    return torch.argmax(mask.to(torch.int8), dim=0, keepdim=True)
+
+
+def _loggamma_lanes(keys, alpha):
+    """``jax._src.random._gamma_one(key, alpha, log_space=True)`` for every
+    lane: keys (..., 2), alpha (...) float32. Marsaglia-Tsang with alpha < 1
+    boosted to alpha + 1. jax runs the rejection loop (and the inner loop
+    that redraws x until v = 1 + c·x > 0) as ``while_loop``s; here each lane
+    walks the same key chain for a fixed ``GAMMA_STEPS`` proposals of
+    ``GAMMA_NORMAL_STEPS`` normals each, all drawn at once, and takes the
+    first accepted one, so nothing waits on the host. A lane raises, by a
+    device-side assert (no sync) on the card, where it accepts no proposal
+    (about 0.05^8 a lane) or where a proposal before its accepted one found
+    no v > 0 in its normal draws (jax would draw on; about 8e-8 a proposal
+    at alpha 0.1): either way the draw would depart from jax's."""
+    one_third = float(np.float32(1.0 / 3.0))
+    boost = alpha >= 1.0
+    a = torch.where(boost, alpha, alpha + 1.0)
+    d = a - one_third
+    c = torch.div(torch.full_like(d, one_third), torch.sqrt(d))
+    key, sub = split(keys).unbind(-2)
+    x_keys, u_keys = [], []
+    for _ in range(GAMMA_STEPS):
+        key, xk, uk = split(key, 3).unbind(-2)
+        x_keys.append(xk)
+        u_keys.append(uk)
+    xk = torch.stack(x_keys)                              # (M, ..., 2)
+    normal_keys = []
+    for _ in range(GAMMA_NORMAL_STEPS):
+        xk, nk = split(xk).unbind(-2)
+        normal_keys.append(nk)
+    x = normal(torch.stack(normal_keys), ())              # (Mn, M, ...)
+    v = 1.0 + x * c
+    found = v > 0.0
+    i = _first(found)
+    x, v = x.gather(0, i)[0], v.gather(0, i)[0]           # (M, ...)
+    found = found.any(dim=0)
+    xx = x * x
+    vvv = v * v * v
+    u = uniform(torch.stack(u_keys), ())                  # (M, ...)
+    squeeze = float(np.float32(0.0331))
+    reject = ((u >= 1.0 - squeeze * (xx * xx))
+              & (torch.log(u) >= xx * 0.5 + d * ((1.0 - vvv) + torch.log(vvv))))
+    accept = found & ~reject
+    vvv = vvv.gather(0, _first(accept))[0]
+    # the first proposal that is accepted or out of normal draws must be
+    # an accepted one (with none of either, _first gives a rejected 0)
+    ok = accept.gather(0, _first(accept | ~found)).all()
+    msg = (f"loggamma: a lane accepted no proposal in {GAMMA_STEPS} steps, or "
+           f"ran out of its {GAMMA_NORMAL_STEPS} normal draws before it did")
+    if keys.device.type == "cpu":
+        if not bool(ok):
+            raise RuntimeError(msg)
+    else:
+        torch._assert_async(ok, msg)
+    log_samples = torch.log1p(-uniform(sub, ()))          # -exponential(sub)
+    log_boost = torch.where(boost | (log_samples == 0.0),
+                            torch.zeros_like(log_samples),
+                            log_samples * torch.reciprocal(alpha))
+    return (torch.log(d) + torch.log(vvv)) + log_boost
+
+
+def loggamma(key, a, shape=None):
+    """``jax.random.loggamma(key, a, shape)`` in float32: log Gamma(a)
+    samples of ``shape`` (default ``a.shape``; ``a`` broadcasts to it).
+    ``(..., 2)`` keys give ``(..., *shape)``: each key is split into one
+    key per sample, as jax's ``random_gamma`` does."""
+    a = torch.as_tensor(a, dtype=torch.float32).to(key.device)
+    shape = tuple(a.shape if shape is None else shape)
+    n = math.prod(shape)
+    lane_keys = split(key, n).reshape(*key.shape[:-1], *shape, 2)
+    return _loggamma_lanes(lane_keys, a.expand(*key.shape[:-1], *shape))
+
+
+def dirichlet(key, alpha):
+    """``jax.random.dirichlet(key, alpha)``: softmax of ``loggamma`` over
+    the last axis, as jax computes it (max-shifted exp over its sum)."""
+    lg = loggamma(key, alpha)
+    e = torch.exp(lg - torch.amax(lg, dim=-1, keepdim=True))
+    return e / torch.sum(e, dim=-1, keepdim=True)
+
+
+_TINY = float(np.finfo(np.float32).tiny)
+
+
+def gumbel(key, shape):
+    """``jax.random.gumbel`` (mode "low"): -log(-log(u)), u uniform on
+    [tiny, 1)."""
+    return -torch.log(-torch.log(uniform(key, shape, _TINY, 1.0)))
+
+
+def categorical(key, logits):
+    """``jax.random.categorical(key, logits)`` over the last axis: the
+    argmax (first on ties) of logits plus Gumbel noise. ``(..., 2)`` keys
+    with logits broadcasting to ``(..., L)`` give ``(...)`` int64 labels."""
+    return torch.argmax(gumbel(key, (logits.shape[-1],)) + logits, dim=-1)

@@ -3,7 +3,9 @@ the CPU at a small width (P=32, J=16, L=10, I=4, B=20): sample-based SGD
 (FedSGD) and SGD-m with E=5 local steps, with and without int8 delta
 uploads, feature-based SGD and SGD-m, federated Frank-Wolfe and dual
 decomposition, from the same data, weights and keys (numpy), 24 rounds.
-Also every entry point's refusal of the options the port has not ported.
+Also every entry point's refusal of the options the port has not ported,
+and that the sample-based ones now run ``participation=`` and ``cohort=``
+as the reference does.
 
 Tolerances: params and every per-round series at atol 1e-5 (plus rtol
 1e-5; fp32 sums in another order). With int8 + EF over 12 rounds a 1-ulp
@@ -18,6 +20,7 @@ import pytest
 
 from repro.comm import codecs as jcodecs
 from repro.configs.base import FLConfig as JFLConfig
+from repro.core import algorithms as jalg
 from repro.core import baselines as jbl
 from repro.core import fed as jfed
 from repro.data.synthetic import classification_dataset as jdataset
@@ -175,25 +178,47 @@ SAMPLE_REFUSALS = [(entry, *r) for entry in ("algorithm1", "algorithm2",
                    if not (entry == "sample_sgd" and r[0] == "dp")]
 
 
+def _entry_call(pkg, entry, kw, extra):
+    """One call of a sample-based entry point of the port (pkg "torch") or
+    the reference ("jax") with keywords ``kw`` plus ``extra``."""
+    alg, bl, fl = ((talg, tbl, FLConfig) if pkg == "torch"
+                   else (jalg, jbl, JFLConfig))
+    if entry == "sample_sgd":
+        return lambda: bl.sample_sgd(cfg=bl.SGDConfig(), **kw, **extra)
+    if entry == "algorithm2_general":
+        kw = dict(kw)
+        loss = kw.pop("per_sample_loss")
+        return lambda: alg.algorithm2_general(loss, loss, fl=fl(**C_KW), **kw,
+                                              **extra)
+    return lambda: getattr(alg, entry)(fl=fl(**C_KW), **kw, **extra)
+
+
 @pytest.mark.parametrize("entry,option,value,item", SAMPLE_REFUSALS,
                          ids=[f"{r[0]}-{r[1]}" for r in SAMPLE_REFUSALS])
 def test_sample_entry_points_refuse_unported_options(setup, entry, option,
                                                      value, item):
     """Each option the reference's entry point takes and the port has not
-    ported (the reference's sample_sgd takes no dp=)."""
+    ported raises (the reference's sample_sgd takes no dp=). The options
+    ported since, ``participation=2`` and ``cohort=True`` (with
+    participation=2), run 2 rounds and match the reference's params at
+    1e-5."""
     kw = _sample_kw(setup)
-    if entry == "sample_sgd":
-        call = lambda: tbl.sample_sgd(cfg=tbl.SGDConfig(), **kw,  # noqa: E731
-                                      **{option: value})
-    elif entry == "algorithm2_general":
-        loss = kw.pop("per_sample_loss")
-        call = lambda: talg.algorithm2_general(  # noqa: E731
-            loss, loss, fl=FLConfig(**C_KW), **kw, **{option: value})
-    else:
-        call = lambda: getattr(talg, entry)(  # noqa: E731
-            fl=FLConfig(**C_KW), **kw, **{option: value})
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
-        call()
+    if option not in ("participation", "cohort"):
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP queue 1, {item}"):
+            _entry_call("torch", entry, kw, {option: value})()
+        return
+    extra = {"participation": 2, **({"cohort": True} if option == "cohort"
+                                    else {})}
+    kw["rounds"] = 2
+    rt = _entry_call("torch", entry, kw, extra)()
+    jkw = dict(kw, params0=jax.tree.map(jnp.asarray, setup["p0"]),
+               data=setup["jd"], key=jax.random.PRNGKey(0),
+               per_sample_loss=jmlp.per_sample_loss)
+    jkw.pop("device")
+    rj = _entry_call("jax", entry, jkw, extra)()
+    for k in rj.params:
+        _close(rt.params[k].numpy(), rj.params[k], msg=k)
 
 
 @pytest.mark.parametrize("entry", ["feature_sgd", "feature_frank_wolfe",

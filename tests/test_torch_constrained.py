@@ -510,12 +510,21 @@ def test_constrained_cli_smoke(monkeypatch, capsys):
 
 
 def test_constrained_steps_refuse_an_unported_option(setup):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 1"):
-        talg.algorithm2(tmlp.per_sample_loss,
-                        convert.params_from_numpy(setup["p0"], "cpu"),
-                        setup["td"], FLConfig(**dict(C_KW, cost_limit=2.0)), 2,
-                        rnd.PRNGKey(0, device="cpu"), participation=2,
-                        device="cpu")
+    """participation= is ported (S = 2 of 4 runs as the reference does);
+    the sharded topology is still refused."""
+    fl_kw = dict(C_KW, cost_limit=2.0)
+    rt = talg.algorithm2(tmlp.per_sample_loss,
+                         convert.params_from_numpy(setup["p0"], "cpu"),
+                         setup["td"], FLConfig(**fl_kw), 2,
+                         rnd.PRNGKey(0, device="cpu"), participation=2,
+                         device="cpu")
+    rj = jalg.algorithm2(jmlp.per_sample_loss,
+                         {k: jnp.asarray(v) for k, v in setup["p0"].items()},
+                         setup["jd"], JFLConfig(**fl_kw), 2,
+                         jax.random.PRNGKey(0), participation=2)
+    _tclose(rt.params, rj.params)
+    _close(rt.history["round_upload_bytes"].numpy(),
+           rj.history["round_upload_bytes"], atol=0, rtol=0)
     fl = dataclasses.replace(FLConfig(), cost_limit=2.0)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
         talg.algorithm2_general(tmlp.per_sample_loss, tmlp.per_sample_loss,

@@ -81,9 +81,13 @@ def test_partition_samples_matches():
     for a, b in zip(td, jd):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     assert td.num_clients == I and int(td.total) == int(jd.total)
-    with pytest.raises(TypeError):       # the key-shuffled split is not ported
-        tfed.partition_samples(torch.from_numpy(z), torch.from_numpy(y), I,
-                               key=object())
+    # the key-shuffled split is ported: the same permutation as jax's
+    jk, tk = _keys(4)
+    jd = jfed.partition_samples(jnp.asarray(z), jnp.asarray(y), I, key=jk)
+    td = tfed.partition_samples(torch.from_numpy(z), torch.from_numpy(y), I,
+                                key=tk)
+    for a, b in zip(td, jd):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
 @pytest.mark.parametrize("ragged", [False, True])
@@ -186,7 +190,8 @@ def test_codec_decode_flatten_and_ef_invariants():
     with pytest.raises(ValueError, match="PRNG key"):
         q.roundtrip(x, None)
     with pytest.raises(ValueError, match="unknown codec"):
-        tcodecs.make_codec("topk")
+        tcodecs.make_codec("topk16")
+    assert isinstance(tcodecs.make_codec("topk"), tcodecs.TopK)
     assert tcodecs.make_codec("none") is None and tcodecs.make_codec(None) is None
     tree = {"w1": torch.arange(6.).reshape(2, 3), "w0": torch.ones(2, 2)}
     jtree = {k: jnp.asarray(v.numpy()) for k, v in tree.items()}
@@ -200,7 +205,7 @@ def test_codec_decode_flatten_and_ef_invariants():
         {k: jnp.asarray(v.numpy()) for k, v in stacked.items()})[0]))
     assert all(torch.equal(sun(sf)[k], stacked[k]) for k in tree)
     assert tcodecs.tree_flat_dim(tree) == 10
-    assert tuple(tef.ef_init_stacked(3, 10).shape) == (3, 10)
+    assert tuple(tef.ef_init_stacked(3, 10, device="cpu").shape) == (3, 10)
 
 
 @pytest.mark.parametrize("name", [None, "identity", "int8", "int4"])
@@ -228,9 +233,20 @@ def test_sample_round_rejects_unported_options():
     _, td = _data()
     _, tk = _keys(1)
     p = convert.params_from_numpy(_params(), "cpu")
-    # partial participation and DP are not ported: no such keywords
-    with pytest.raises(TypeError):
-        tfed.sample_round(tmlp.per_sample_loss, p, td, tk, B, participation=2)
+    # partial participation is ported: S = 2 of 4 runs and draws the
+    # reference's clients and aggregate
+    jd, _ = _data()
+    jk, _ = _keys(1)
+    jg, jv, ju = jfed.sample_round(jmlp.per_sample_loss,
+                                   jax.tree.map(jnp.asarray, _params()), jd, jk,
+                                   B, participation=2)
+    tg, tv, tu = tfed.sample_round(tmlp.per_sample_loss, p, td, tk, B,
+                                   participation=2)
+    np.testing.assert_array_equal(tu["participants"].numpy(),
+                                  np.asarray(ju["participants"]))
+    for k in jg:
+        np.testing.assert_allclose(tg[k].numpy(), np.asarray(jg[k]), atol=1e-6)
+    # DP is not ported: no such keyword
     with pytest.raises(TypeError):
         tfed.sample_round(tmlp.per_sample_loss, p, td, tk, B, dp=object())
     with pytest.raises(ValueError, match="without codec"):

@@ -14,7 +14,9 @@ kernel tests' (the online softmax sums in another order). The backward
 kernels are held to the same tolerances; rmsnorm's dscale, a sum over 4096
 rows whose terms cancel, to them relative to the sum of its terms'
 magnitudes in fp32, since the kernel sums in another order than the plain
-version.
+version. The cohort draw is bit-exact, and the cohort engine on the card
+is held to the CPU at 1e-4 on the params (fp32 sums in another order),
+with the drawn ids equal.
 """
 import pytest
 import torch
@@ -25,7 +27,8 @@ from repro_torch.configs.base import FLConfig
 from repro_torch import convert
 from repro_torch.core import algorithms, baselines, fed, optimizer, surrogate
 from repro_torch.data.synthetic import classification_dataset
-from repro_torch.kernels import flash_attention, quantize, rmsnorm, ssca_update
+from repro_torch.kernels import (cohort_sample, flash_attention, quantize,
+                                 rmsnorm, ssca_update)
 from repro_torch.launch import serve
 from repro_torch.launch import train
 from repro_torch.models import mlp
@@ -40,9 +43,11 @@ def cuda():
     return torch.device("cuda")
 
 
-# every ragged end of the 16-byte vectors (4 fp32, 8 bf16), the main path's
-# 101,632 and a grid-strided 2^20+3
-SSCA_SIZES = [1, 3, 4, 7, 8, 9, 17, 1000, 4096, 70000, 101_632, 2**20 + 3]
+# every ragged end of the 16-byte vectors (4 fp32, 8 bf16), the main paths'
+# 576 (cohort), 50,816 (heterogeneous grid) and 101,632, and a grid-strided
+# 2^20+3
+SSCA_SIZES = [1, 3, 4, 7, 8, 9, 17, 576, 1000, 4096, 50_816, 70000, 101_632,
+              2**20 + 3]
 
 
 def _ssca_operands(cuda, n, dtype, offset, seed):
@@ -740,3 +745,161 @@ def test_constrained_train_smoke_card_matches_cpu(cuda):
     for a, b0 in zip(card, cpu):
         for k in ("loss", "nu", "l2"):
             assert abs(a[k] - b0[k]) <= 1e-5 * abs(b0[k]), (k, a[k], b0[k])
+
+
+# ---------------------------------------------------------------------------
+# the cohort engine
+# ---------------------------------------------------------------------------
+
+COHORT_GRID = [(10, 1), (10, 3), (10, 10), (48, 12), (48, 48), (1000, 256),
+               (1_000_000, 1), (1_000_000, 256), (2**32 - 5, 64)]
+
+
+@pytest.mark.parametrize("num_clients,cohort", COHORT_GRID)
+def test_cohort_sample_kernel_bit_exact(cuda, num_clients, cohort):
+    for seed in range(3):
+        keys = rnd.bits(rnd.PRNGKey(seed + num_clients, device=cuda),
+                        (fed.FEISTEL_ROUNDS,))
+        want = cohort_sample.plain(keys.cpu(), num_clients, cohort,
+                                   *cohort_sample.domain_bits(num_clients))
+        before = cohort_sample.cohort_sample.launches
+        got = cohort_sample.cohort_sample(keys, num_clients, cohort)
+        torch.cuda.synchronize()
+        assert cohort_sample.cohort_sample.launches == before + 1
+        assert got.dtype == torch.int32 and got.device.type == "cuda"
+        assert torch.equal(got.cpu(), want)
+        assert got.unique().numel() == cohort
+
+
+def test_cohort_sample_kernel_rejects_bad_operands(cuda):
+    keys = torch.zeros(6, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="cohort"):
+        cohort_sample.cohort_sample(keys, 10, 11)
+    with pytest.raises(TypeError, match="round keys"):
+        cohort_sample.cohort_sample(keys.float(), 10, 3)
+    with pytest.raises(TypeError, match="round keys"):
+        cohort_sample.cohort_sample(keys.reshape(2, 3), 10, 3)
+
+
+@pytest.mark.parametrize("k", [1, 6, 255, 256, 257, 2541])
+def test_chain_values_quantize_in_one_launch(cuda, k):
+    """Chain's (rows, k) kept values: one launch, bit-exact with the plain
+    version on the same keys."""
+    x = torch.randn(256, 576 if k <= 576 else 50_816, device=cuda)
+    codec = codecs.Chain(sparse=codecs.TopK(frac=k / x.shape[1]))
+    assert codec.sparse.k(x.shape[1]) == k
+    keys = fed.client_keys(rnd.PRNGKey(4, device=cuda),
+                           torch.arange(256, device=cuda))
+    before = quantize.stochastic_quantize.launches
+    enc, xhat = codec.roundtrip(x, keys)
+    torch.cuda.synchronize()
+    assert quantize.stochastic_quantize.launches == before + 1
+    cenc, cxhat = codec.roundtrip(x.cpu(), keys.cpu())
+    assert torch.equal(enc.indices.cpu(), cenc.indices)
+    assert torch.equal(enc.inner.values.cpu(), cenc.inner.values)
+    assert torch.equal(enc.inner.scales.cpu(), cenc.inner.scales)
+    assert torch.equal(xhat.cpu(), cxhat)
+
+
+@pytest.mark.parametrize("codec_name", [None, "int8", "topk8"])
+def test_cohort_engine_card_matches_cpu_and_does_not_sync(cuda, codec_name):
+    """Algorithm 1 on the cohort engine, 4 rounds at I = 48, S = 12: the
+    same ids and params within 1e-4 on the card and the CPU; one round on
+    the card under sync-debug mode "error"; one cohort_sample launch a
+    round."""
+    from repro_torch.comm import error_feedback
+    from repro_torch.core import rounds
+    from repro_torch.data.synthetic import VirtualFedData
+
+    fl = FLConfig(batch_size=6, a1=0.9, a2=0.5, alpha_rho=0.1, alpha_gamma=0.6,
+                  tau=0.2, l2_lambda=1e-5)
+
+    def run(device):
+        key = rnd.PRNGKey(31, device=device)
+        data = VirtualFedData(rnd.fold_in(key, 1), 48, n_min=6, n_max=14,
+                              num_features=10, num_classes=3)
+        p0 = mlp.init(rnd.fold_in(key, 2), 10, 8, 3, device=device)
+        return algorithms.algorithm1(
+            mlp.per_sample_loss, p0, data, fl, 4, rnd.fold_in(key, 3),
+            participation=12, cohort=True, device=device,
+            codec=codecs.make_codec(codec_name))
+
+    before = cohort_sample.cohort_sample.launches
+    card = run(cuda)
+    assert cohort_sample.cohort_sample.launches == before + 4
+    cpu = run("cpu")
+    for k in cpu.params:
+        torch.testing.assert_close(card.params[k].cpu(), cpu.params[k],
+                                   atol=1e-4, rtol=0)
+    key = rnd.PRNGKey(5, device=cuda)
+    data = VirtualFedData(key, 1000, num_features=10, num_classes=3)
+    codec = codecs.make_codec(codec_name)
+    step = algorithms.make_algorithm1_step(mlp.per_sample_loss, data, fl,
+                                           participation=16, codec=codec,
+                                           cohort=True)
+    state = optimizer.ssca_init(mlp.init(key, 10, 8, 3, device=cuda))
+    if codec is not None:
+        state = error_feedback.CommCarry(
+            opt=state, ef=error_feedback.ef_store_init(1000, 104, device=cuda))
+    inputs = rounds.make_inputs(fl, 1, 2, key)
+    state, _ = step(state, inputs.round(0))          # builds, warms up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, m = step(state, inputs.round(1))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(m["loss_est"]).item()
+
+
+def test_ef_store_host_offload_on_the_card(cuda):
+    """ef_store_init(host_offload=True) on the card: the backing is pinned
+    host memory, gather gives the cohort's rows on the card and scatter
+    writes them back in place. Algorithm 1 with int8 + EF over 5 cohort
+    rounds at I = 48, S = 12 ends bit-equal from the offloaded store and
+    from one on the card, and an offloaded round syncs the host, as its
+    docstring says."""
+    from repro_torch.comm import error_feedback
+    from repro_torch.core import rounds
+    from repro_torch.data.synthetic import VirtualFedData
+
+    store = error_feedback.ef_store_init(10, 3, host_offload=True, device=cuda)
+    assert store.data.is_pinned() and not store.data.is_cuda
+    ids = torch.tensor([7, 2], device=cuda)
+    rows = torch.arange(6.0, device=cuda).reshape(2, 3)
+    assert store.scatter(ids, rows) is store
+    got = store.gather(ids)
+    assert got.is_cuda and torch.equal(got, rows)
+    assert int(store.data.any(dim=1).sum()) == 2
+
+    fl = FLConfig(batch_size=6, a1=0.9, a2=0.5, alpha_rho=0.1, alpha_gamma=0.6,
+                  tau=0.2, l2_lambda=1e-5)
+    key = rnd.PRNGKey(7, device=cuda)
+    data = VirtualFedData(rnd.fold_in(key, 1), 48, num_features=10,
+                          num_classes=3)
+    step = algorithms.make_algorithm1_step(
+        mlp.per_sample_loss, data, fl, participation=12,
+        codec=codecs.make_codec("int8"), cohort=True)
+    p0 = mlp.init(rnd.fold_in(key, 2), 10, 8, 3, device=cuda)
+    dim = sum(v.numel() for v in p0.values())
+    inputs = rounds.make_inputs(fl, 1, 6, key)
+    final = {}
+    for offload in (False, True):
+        state = error_feedback.CommCarry(
+            opt=optimizer.ssca_init({k: v.clone() for k, v in p0.items()}),
+            ef=error_feedback.ef_store_init(48, dim, host_offload=offload,
+                                            device=cuda))
+        for r in range(5):
+            state, _ = step(state, inputs.round(r))
+        final[offload] = state
+    card, host = final[False], final[True]
+    for k in card.opt.params:
+        assert torch.equal(card.opt.params[k], host.opt.params[k]), k
+    assert torch.equal(card.ef.data.cpu(), host.ef.data)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):
+            step(host, inputs.round(5))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")

@@ -1,6 +1,8 @@
 """The port stands alone: nothing under src/repro_torch, nor chip_smoke.py,
 imports jax or the JAX package ``repro`` (whose ``configs/__init__`` pulls
-in jax even for its jax-free modules)."""
+in jax even for its jax-free modules), and every CUDA source keeps the
+plain C interface ``kernels/build.py`` compiles in seconds (no Python or
+PyTorch header)."""
 import ast
 import os
 import subprocess
@@ -42,7 +44,10 @@ def test_port_files_exist():
                    "repro_torch/kernels/flash_attention.py",
                    "repro_torch/models/transformer.py",
                    "repro_torch/launch/serve.py",
-                   "repro_torch/launch/train.py"):
+                   "repro_torch/launch/train.py",
+                   "repro_torch/core/local_updates.py",
+                   "repro_torch/data/synthetic.py",
+                   "repro_torch/kernels/cohort_sample.py"):
         assert needed in names
     assert (ROOT / "chip_smoke.py").exists()
 
@@ -54,6 +59,30 @@ def test_no_jax_or_repro_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+CUDA_FILES = sorted((ROOT / "src" / "repro_torch" / "kernels" / "csrc").glob(
+    "*.cu"))
+
+
+def test_every_kernel_module_has_its_cuda_source():
+    names = {p.stem for p in CUDA_FILES}
+    assert {"ssca_update", "quantize", "rmsnorm", "flash_attention",
+            "cohort_sample"} <= names
+    from repro_torch.kernels import build
+    assert names == set(build.SIGNATURES)
+
+
+@pytest.mark.parametrize("path", CUDA_FILES, ids=[p.name for p in CUDA_FILES])
+def test_cuda_sources_have_a_plain_c_interface(path):
+    text = path.read_text()
+    includes = [ln.split()[1] for ln in text.splitlines()
+                if ln.startswith("#include")]
+    bad = [i for i in includes if any(w in i for w in ("Python", "torch",
+                                                        "ATen", "c10", "jax",
+                                                        "pybind"))]
+    assert not bad, f"{path.name} includes {bad}"
+    assert 'extern "C"' in text
+
+
 def test_forbidden_rule_catches_and_spares():
     assert _forbidden("jax.numpy") and _forbidden("repro.core.fed")
     assert _forbidden("jaxlib")
@@ -62,7 +91,8 @@ def test_forbidden_rule_catches_and_spares():
 
 def test_importing_the_slice_loads_no_jax():
     code = ("import sys; import repro_torch.core.algorithms, "
-            "repro_torch.core.baselines, "
+            "repro_torch.core.baselines, repro_torch.core.local_updates, "
+            "repro_torch.kernels.cohort_sample, "
             "repro_torch.convert, repro_torch.data.synthetic, "
             "repro_torch.launch.serve, repro_torch.launch.train; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

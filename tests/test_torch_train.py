@@ -242,9 +242,11 @@ def test_refused_options_raise(kw):
 
 @pytest.mark.parametrize("mode", ["feature", "cohort"])
 def test_cli_refuses_other_modes(mode, monkeypatch):
-    """--mode cohort is refused; --mode feature runs, and refuses the
-    sharded topology."""
-    extra = ["--topology", "sharded", "--device", "cpu"] if mode == "feature" else []
+    """--mode feature and --mode cohort run, and refuse the sharded
+    topology."""
+    extra = ["--topology", "sharded", "--device", "cpu"]
+    if mode == "cohort":
+        extra += ["--clients", "100", "--participation", "4"]
     monkeypatch.setattr("sys.argv", ["train", "--mode", mode, *extra])
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         ttrain.main()
