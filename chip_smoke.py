@@ -17,7 +17,7 @@ Phases, one JSON line each:
            ("cold"), and for ssca_update the launch floor (an empty kernel
            of the same grid and arguments)
   dense    Algorithm 1 at the paper's width (N=60000, P=784, J=128, L=10,
-           I=10, B=100), 200 rounds, dense uploads
+           I=10, B=100), 100 rounds, dense uploads
   int8     the same with int8 uploads and error feedback
   parity   5 rounds on the card against 5 rounds on the CPU from the same
            params, data and keys
@@ -39,7 +39,7 @@ Phases, one JSON line each:
   train_parity  full width, 2 layers, fp32, batch 2, seq 64, 3 steps: the
            card against the CPU from the same weights, tokens and keys
   paper    the paper's §VI suite at its width (examples/paper_experiments.py's
-           settings), 200 rounds each from one dataset and params0, a line a
+           settings), 100 rounds each from one dataset and params0, a line a
            run: Algorithm 2, 2 (general), 3, 4, 3 with int8 + EF, FedSGD and
            SGD-m (E=5); rounds/s, peak memory, losses, eval cost, ν and slack,
            upload bytes, launches (asserted)
@@ -57,7 +57,7 @@ Phases, one JSON line each:
            faults in the surrogate minimum's recursion that its gates catch
   cohort   repro_torch.launch.train.cohort_train_loop at the README's size:
            a VirtualFedData population of 1,000,000 clients, 256 a round,
-           the mlp 32-16-4 (576 parameters), batch 16, 200 rounds, evals
+           the mlp 32-16-4 (576 parameters), batch 16, 100 rounds, evals
            every 50; Algorithm 1 dense, int8 + EF, topk8 + EF, and
            Algorithm 2 int8 + EF (the EFStore: 1e6 x 576 fp32 on the card);
            rounds/s, launches a round, device busy, peak memory, EF bytes,
@@ -68,11 +68,32 @@ Phases, one JSON line each:
            params within 1e-4, int8 + EF losses rtol 1e-3
   hetero   examples/heterogeneous_fl.py's grid at its width (784-64-10 mlp,
            N = 20,000, I = 10): Dirichlet alpha 100 and 0.1, S = all and 3,
-           codecs none, int8, topk at 5%; 100 rounds a cell; cost, accuracy,
+           codecs none, int8, topk at 5%; 50 rounds a cell; cost, accuracy,
            upload MB (asserted), rounds/s
+  paper_dp the drivers with differential privacy (ε = 8, δ = 1e-5, C = 1) at
+           the paper's width, 100 rounds each: Algorithm 1 dense and int8 +
+           EF, Algorithm 2 int8 + EF, Algorithm 3, and the cohort engine at
+           I = 1e6, S = 256 with int8 + EF; rounds/s, ε against the
+           accountant, launches (asserted), and launches a round and device
+           busy from a profile window with and without DP
+  train_comm  qwen2.5-3b at full width and depth in bf16 with the gradient
+           upload compressed and privatized (int8 + EF; DP at ε = 8; both),
+           2 warm-up and 3 timed steps each: step ms, tokens/s, mfu, peak
+           memory, upload bytes, ε, clip fraction, noise norm against
+           σ·C·√P, launches per step (asserted)
+  obs      Algorithm 1 at the paper's width with a JSONL metric stream and
+           without (rounds/s, rows checked), one streamed round under
+           sync-debug "error", a profile's phase names, and the full-width
+           params saved and loaded in the msgpack checkpoint format
+  train_comm_parity  full width, 2 layers, fp32: the upload path with DP,
+           and with int8 + DP, card against CPU (step 1 and step 2's loss)
 The kernels phase also holds the backward kernels (rmsnorm_bwd,
 flash_attention_bwd) against their plain versions and times them against
-the PyTorch library's backward calls. Each main path (dense, int8, serve,
+the PyTorch library's backward calls, the keyed quantize entry bit-equal
+to the bits-operand entry on random.bits of the same keys (at the main
+paths' shapes and two pieces of the train-size vector at nonzero offsets),
+and the DP-noise kernel against its plain version. No main path launches
+the bits-operand quantize entry any more (its row says so). Each main path (dense, int8, serve,
 train, each paper run, train_constrained) runs with every launch counter
 set to 0 just before it and read just after. The kernels' JSON line comes second to
 last and the verdict
@@ -97,8 +118,16 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12           # H100 SXM, fp32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12          # H100 SXM, bf16 tensor cores, dense
+# the data sheet's fp32 rate counts an FMA on 128 lanes an SM as two
+# operations: fp32 instructions (an FMA one) issue at half of it, 32-bit
+# integer instructions (add, xor, shift: 64 INT32 lanes an SM) at a quarter
+FP32_INSTR_PER_S = FP32_FLOPS_PER_S / 2
+INT32_OPS_PER_S = FP32_FLOPS_PER_S / 4
 L2_BYTES = 50 * 2**20             # H100 SXM
-ROUNDS = 200
+# rounds of each paper-width and cohort run (cut from 200 for the script's
+# time as the DP, upload and obs phases joined it)
+ROUNDS = 100
+OBS_ROUNDS = 200
 EVAL_EVERY = 50
 SERVE = dict(batch=8, prompt_len=512, gen=32, seed=0)
 PARITY_SERVE = dict(batch=2, prompt_len=61, gen=8)
@@ -124,10 +153,10 @@ COHORT = dict(clients=1_000_000, participation=256, rounds=ROUNDS,
 COHORT_RUNS = (("alg1_dense", None, False), ("alg1_int8", "int8", False),
                ("alg1_topk8", "topk8", False), ("alg2_int8", "int8", True))
 COHORT_DIM = 4 * 16 + 16 * 32                     # mlp 32-16-4: 576
-COHORT_PROFILE_ROUNDS = 10
+COHORT_PROFILE_ROUNDS = 5         # cut from 10 for the script's time
 COHORT_PARITY = dict(clients=48, participation=12, rounds=5, log_every=5)
 # examples/heterogeneous_fl.py: N, clients, S, rounds (its default is 200)
-HETERO = dict(n=20_000, clients=10, participation=3, rounds=100, topk_frac=0.05)
+HETERO = dict(n=20_000, clients=10, participation=3, rounds=50, topk_frac=0.05)
 # prefill-then-decode gates at full depth, set from H100 readings (PERF.md)
 CONSISTENCY_FP32 = 1e-4
 CONSISTENCY_BF16_RATIO = 1.25
@@ -142,13 +171,22 @@ def check(ok, message) -> None:
         raise RuntimeError(f"chip_smoke check failed: {message}")
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line: the phase, its fields, and the seconds since the
+    script started (``elapsed_s``)."""
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": time.perf_counter() - T0}), flush=True)
 
 
-def bound_ms(nbytes, flops, peak=FP32_FLOPS_PER_S):
+def bound_ms(nbytes, flops, peak=FP32_FLOPS_PER_S, int_ops=0):
+    """(ms, "bytes" or "operations"): the larger of the bytes at the HBM
+    rate and the operations at theirs; `int_ops` 32-bit integer operations
+    run on their own lanes, beside the `flops` at `peak`."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
+    t_ops = max(flops / peak, int_ops / INT32_OPS_PER_S) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -418,7 +456,7 @@ def check_quantize(torch, qz, build):
     eager = event_ms(launch)
     plain_ms = event_ms(lambda: qz.plain(x, bits, 127, 256))
     nbytes = 13 * rows * p + 4 * rows * chunks
-    b_ms, b_by = bound_ms(nbytes, 10 * rows * p)
+    b_ms, b_by = bound_ms(nbytes, 10 * rows * p, FP32_INSTR_PER_S)
 
     def at_shape(r, n):
         """Graph-timed ms and the bound at the cohort's and the grid's
@@ -439,7 +477,8 @@ def check_quantize(torch, qz, build):
             build.check(code, "stochastic_quantize")
 
         nb = 12 * r * n + r * c * 256 + 4 * r * c
-        return {"ms": graph_ms(go), "bound_ms": bound_ms(nb, 10 * r * n)[0],
+        return {"ms": graph_ms(go),
+                "bound_ms": bound_ms(nb, 10 * r * n, FP32_INSTR_PER_S)[0],
                 "bytes": nb}
 
     return {"name": "stochastic_quantize", "route": "cuda",
@@ -451,6 +490,262 @@ def check_quantize(torch, qz, build):
             "shape": [rows, p], "bytes": nbytes,
             "by_shape": {f"{r}x{n}": at_shape(r, n)
                          for r, n in ((256, 576), (256, 6), (10, 50_816))}}
+
+
+# the train-size upload: qwen2.5-3b's parameters, in comm_update_'s pieces
+# (launch.train.COMM_PIECE)
+TRAIN_PARAMS = 3_085_938_688
+COMM_PIECE = 1 << 25
+# threefry2x32 a lane: 20 rounds of add, rotate (one funnel shift) and xor,
+# 5 key injections of 3 adds, the third key word, the counter's split and
+# the initial adds, the output xor: about 82 32-bit integer operations
+THREEFRY_OPS = 20 * 3 + 5 * 3 + 7
+# fp32 instructions a lane beside them
+QUANT_LANE_OPS = 12          # absmax share, divide, add, floor, clip, store
+DP_LANE_OPS = 40             # uniform, erfinvf (~30), the scale and noise
+# comm_update_'s pieces of the train-size vector: (offset, elements)
+TRAIN_PIECES = [(a, min(COMM_PIECE, TRAIN_PARAMS - a))
+                for a in range(0, TRAIN_PARAMS, COMM_PIECE)]
+KEYED_SHAPES = ((10, 101_632, 0), (256, 576, 0), (256, 6, 0), (10, 50_816, 0),
+                (1, COMM_PIECE, TRAIN_PIECES[45][0]),
+                (1, TRAIN_PIECES[-1][1], TRAIN_PIECES[-1][0]))
+
+
+def as_int32_bits(torch, b):
+    """uint32 values held in int64 -> the int32 bit pattern the
+    bits-operand kernel reads."""
+    return (b - ((b >> 31) << 32)).to(torch.int32)
+
+
+def check_quantize_keyed(torch, qz, build, rnd):
+    """The keyed quantize entry (bits drawn in the kernel) against the
+    bits-operand entry fed random.bits of the same keys at the same
+    counters: bit-equal (values, scales, xhat) at the main paths' shapes,
+    Algorithm 1's (10, 101,632), the cohort's (256, 576), Chain's (256, 6)
+    and the grid's (10, 50,816), and at two 256-aligned pieces of the
+    train-size vector at nonzero offsets (piece 45, and the ragged last
+    piece 91), int8 and int4; at every shape also against the plain
+    version on the card, bit for bit. Timed from a CUDA graph at (10,
+    101,632) beside the bits-operand kernel, with events over a 2^25-element
+    piece beside it, and with events around a train step's 92 launches over
+    the pieces of a 3,085,938,688-element vector (train_step_ms)."""
+    import numpy as np
+    cases = 0
+    for rows, p, off in KEYED_SHAPES:
+        for qmax in (127, 7):
+            gen = torch.Generator(device="cuda").manual_seed(rows * 7 + p + qmax)
+            x = torch.randn(rows, p, generator=gen, device="cuda") * 3.0
+            x[0, :5] = 0.0
+            keys = rnd.split(rnd.PRNGKey(rows + p), rows)
+            num = -(-p // 256) * 256
+            bits = as_int32_bits(torch, rnd._bits_range(keys, off, num))
+            want = qz.stochastic_quantize(x, bits, qmax, 256)
+            del bits
+            got = qz.stochastic_quantize_keyed(x, keys, qmax, 256, off)
+            plain = qz.plain_keyed(x, keys, qmax, 256, off)
+            torch.cuda.synchronize()
+            for name, a, b, c in zip(("values", "scales", "xhat"), got, want, plain):
+                check(a.shape == b.shape == c.shape and a.dtype == b.dtype == c.dtype,
+                      (name, a.shape, b.shape, c.shape))
+                check(torch.equal(a, b) and torch.equal(a, c), (
+                    f"keyed quantize rows={rows} p={p} offset={off} qmax={qmax}: "
+                    f"{name} differs from the bits-operand kernel at "
+                    f"{int((a != b).sum())} entries, from the plain version at "
+                    f"{int((a != c).sum())}"))
+            del x, got, want, plain
+            cases += 1
+    lib = build.library("quantize")
+    inv = float(np.float32(1.0 / 127))
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def operands(rows, p):
+        c = -(-p // 256)
+        return (torch.randn(rows, p, generator=gen, device="cuda"),
+                rnd.split(rnd.PRNGKey(5), rows).contiguous(),
+                torch.empty((rows, c * 256), dtype=torch.int8, device="cuda"),
+                torch.empty((rows, c), device="cuda"),
+                torch.empty((rows, p), device="cuda"), c)
+
+    def launch_keyed(x, keys, values, scales, xhat, c):
+        rows, p = x.shape
+        code = lib.stochastic_quantize_keyed(
+            x.data_ptr(), keys.data_ptr(), 0, values.data_ptr(), scales.data_ptr(),
+            xhat.data_ptr(), rows, p, c, 256, inv, 127,
+            torch.cuda.current_stream().cuda_stream)
+        build.check(code, "stochastic_quantize_keyed")
+
+    def launch_bits(x, bits, values, scales, xhat, c):
+        rows, p = x.shape
+        code = lib.stochastic_quantize(
+            x.data_ptr(), bits.data_ptr(), values.data_ptr(), scales.data_ptr(),
+            xhat.data_ptr(), rows, p, c, 256, inv, 127,
+            torch.cuda.current_stream().cuda_stream)
+        build.check(code, "stochastic_quantize")
+
+    def bound(rows, p, launches=1):
+        """x read, int8 values (padded lanes too), scales and xhat written,
+        the keys read a launch; threefry's integer operations and the
+        rounding's fp32 instructions over every lane."""
+        c = -(-p // 256)
+        lanes = rows * c * 256
+        nbytes = 9 * rows * p + rows * (c * 256 - p) + 4 * rows * c + 16 * rows * launches
+        return (nbytes, *bound_ms(nbytes, QUANT_LANE_OPS * lanes, FP32_INSTR_PER_S,
+                                  int_ops=THREEFRY_OPS * lanes))
+
+    rows, p = 10, 101_632
+    x, keys, values, scales, xhat, c = operands(rows, p)
+    bits = as_int32_bits(torch, rnd._bits_range(keys, 0, c * 256))
+    ms = graph_ms(lambda: launch_keyed(x, keys, values, scales, xhat, c))
+    bits_ms = graph_ms(lambda: launch_bits(x, bits, values, scales, xhat, c))
+    plain_ms = event_ms(lambda: qz.plain_keyed(x, keys, 127, 256, 0), iters=20,
+                        warmup=2)
+    nbytes, b_ms, b_by = bound(rows, p)
+    del x, bits
+    px, pk, pv, ps, ph, pc = operands(1, COMM_PIECE)
+    pbits = as_int32_bits(torch, rnd._bits_range(pk, 0, pc * 256))
+    piece_ms = event_ms(lambda: launch_keyed(px, pk, pv, ps, ph, pc), iters=20,
+                        warmup=2)
+    piece_bits_ms = event_ms(lambda: launch_bits(px, pbits, pv, ps, ph, pc),
+                             iters=20, warmup=2)
+    del px, pbits
+
+    # a train step's launches: each piece of the vector at its offset, into
+    # piece-sized outputs, as comm_update_ runs them
+    full = torch.randn(TRAIN_PARAMS, generator=gen, device="cuda")
+
+    def train_step():
+        stream = torch.cuda.current_stream().cuda_stream
+        for a, n in TRAIN_PIECES:
+            code = lib.stochastic_quantize_keyed(
+                full[a:a + n].data_ptr(), pk.data_ptr(), a, pv.data_ptr(),
+                ps.data_ptr(), ph.data_ptr(), 1, n, n // 256, 256, inv, 127,
+                stream)
+            build.check(code, "stochastic_quantize_keyed")
+
+    train_ms = event_ms(train_step, iters=5, warmup=1)
+    del full, pv, ps, ph
+    _, t_ms, t_by = bound(1, TRAIN_PARAMS, len(TRAIN_PIECES))
+    return {"name": "stochastic_quantize_keyed", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/quantize.cu",
+            "replaces": "src/repro/kernels/quantize.py:62",
+            "max_abs_err": 0.0, "bit_exact_cases": cases,
+            "ms": ms, "bits_operand_ms": bits_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "shape": [rows, p], "bytes": nbytes,
+            "piece_ms": piece_ms, "piece_bits_operand_ms": piece_bits_ms,
+            "train_step_ms": train_ms, "train_launches": len(TRAIN_PIECES),
+            "train_bound_ms": t_ms, "train_bound_by": t_by}
+
+
+def check_dp_noise(torch, dpn, build, rnd):
+    """The DP-noise kernel against its plain version on the card: the
+    output within 1e-6 relative plus σ·2e-6/s (erfinvf against
+    torch.erfinv, a few ulps), each row's noise-square sum within rtol 1e-5,
+    at Algorithm 1's stacked (10, 101,632) with per-client 1/B scales, the
+    cohort's (256, 576), and a 2^25-element piece of the train-size vector
+    at a nonzero offset; the normals themselves (x = 0, s = f = σ = 1) have
+    mean and variance within 5σ of 0 and 1 over 2^24 draws. Timed from a
+    CUDA graph at (10, 101,632), with events over a 2^25 piece, and with
+    events around a train step's 92 launches, in place over the pieces of a
+    3,085,938,688-element vector (train_step_ms); the library yardstick is
+    torch.randn_like (Philox: other numbers) plus an add over the same
+    elements."""
+    sigma, err_max = 0.6, 0.0
+    for rows, p, off in ((10, 101_632, 0), (256, 576, 0),
+                         (1, COMM_PIECE, TRAIN_PIECES[45][0])):
+        gen = torch.Generator(device="cuda").manual_seed(p)
+        x = torch.randn(rows, p, generator=gen, device="cuda") * 0.01
+        keys = rnd.split(rnd.PRNGKey(p), rows)
+        f = torch.rand(rows, generator=gen, device="cuda")
+        sc = 1.0 / torch.randint(1, 101, (rows,), generator=gen, device="cuda").float()
+        got, sq = dpn.dp_noise(x, keys, f, sc, sigma, off)
+        want, wsq = dpn.plain(x, keys, f, sc, sigma, off)
+        err = (got - want).abs()
+        ok = bool((err <= 1e-6 * want.abs() + sigma * 2e-6 / sc[:, None]).all())
+        check(ok, f"dp_noise ({rows}, {p}) offset {off}: max err {err.max().item()}")
+        rel = ((sq - wsq).abs() / wsq).max().item()
+        check(rel <= 1e-5, f"dp_noise ({rows}, {p}): noise norm rel err {rel}")
+        err_max = max(err_max, err.max().item())
+        del x, got, want, err
+    n = 1 << 24
+    one = torch.ones(1, device="cuda")
+    z, zsq = dpn.dp_noise(torch.zeros(1, n, device="cuda"), rnd.PRNGKey(9)[None],
+                          one, one, 1.0)
+    mean, var = z.mean().item(), z.var().item()
+    check(abs(mean) <= 5 / n ** 0.5 and abs(var - 1) <= 5 * (2 / n) ** 0.5,
+          f"dp_noise normals: mean {mean}, variance {var} over {n}")
+    del z
+    lib = build.library("dp_noise")
+    per = dpn.BLOCK_ELEMS
+
+    def operands(rows, p):
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        return (torch.randn(rows, p, generator=gen, device="cuda"),
+                rnd.split(rnd.PRNGKey(3), rows).contiguous(),
+                torch.rand(rows, device="cuda"), torch.full((rows,), 0.01, device="cuda"),
+                torch.empty(rows, p, device="cuda"),
+                torch.empty(rows, -(-p // per), device="cuda"))
+
+    def launch(x, keys, f, sc, out, part):
+        rows, p = x.shape
+        code = lib.dp_noise(x.data_ptr(), keys.data_ptr(), f.data_ptr(),
+                            sc.data_ptr(), out.data_ptr(), part.data_ptr(), rows,
+                            p, 0, sigma, rnd.NORMAL_LO, rnd.SQRT2,
+                            torch.cuda.current_stream().cuda_stream)
+        build.check(code, "dp_noise")
+
+    def bound(rows, p, launches=1):
+        """x read, out and the block sums written, keys, factor and scale
+        read a launch; threefry's integer operations and the normal's and
+        the noise's fp32 instructions a lane."""
+        nbytes = 8 * rows * p + 4 * rows * -(-p // per) + 24 * rows * launches
+        return (nbytes, *bound_ms(nbytes, DP_LANE_OPS * rows * p, FP32_INSTR_PER_S,
+                                  int_ops=THREEFRY_OPS * rows * p))
+
+    rows, p = 10, 101_632
+    ops_ = operands(rows, p)
+    x = ops_[0]
+    ms = graph_ms(lambda: launch(*ops_))
+    library_ms = graph_ms(lambda: torch.add(x, torch.randn_like(x), alpha=sigma))
+    plain_ms = event_ms(lambda: dpn.plain(x, ops_[1], ops_[2], ops_[3], sigma),
+                        iters=20, warmup=2)
+    nbytes, b_ms, b_by = bound(rows, p)
+    del ops_, x
+    piece = operands(1, COMM_PIECE)
+    piece_ms = event_ms(lambda: launch(*piece), iters=20, warmup=2)
+    px = piece[0]
+    piece_library_ms = event_ms(lambda: torch.add(px, torch.randn_like(px),
+                                                  alpha=sigma), iters=20, warmup=2)
+    _, pk, pf, psc, pout, ppart = piece
+    del piece, px, pout
+
+    # a train step's launches: in place on each piece of the vector at its
+    # offset, as comm_update_ runs them
+    full = torch.randn(TRAIN_PARAMS, device="cuda")
+
+    def train_step():
+        stream = torch.cuda.current_stream().cuda_stream
+        for a, n in TRAIN_PIECES:
+            x = full[a:a + n]
+            code = lib.dp_noise(x.data_ptr(), pk.data_ptr(), pf.data_ptr(),
+                                psc.data_ptr(), x.data_ptr(), ppart.data_ptr(), 1,
+                                n, a, sigma, rnd.NORMAL_LO, rnd.SQRT2, stream)
+            build.check(code, "dp_noise")
+
+    train_ms = event_ms(train_step, iters=5, warmup=1)
+    del full, ppart
+    _, t_ms, t_by = bound(1, TRAIN_PARAMS, len(TRAIN_PIECES))
+    return {"name": "dp_noise", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/dp_noise.cu",
+            "replaces": "src/repro/core/privacy.py:260",
+            "max_abs_err": err_max, "normals_mean": mean, "normals_var": var,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms,
+            "library": "torch.add(x, torch.randn_like(x), alpha=sigma) (Philox: other numbers)",
+            "shape": [rows, p], "bytes": nbytes,
+            "piece_ms": piece_ms, "piece_library_ms": piece_library_ms,
+            "train_step_ms": train_ms, "train_launches": len(TRAIN_PIECES),
+            "train_bound_ms": t_ms, "train_bound_by": t_by}
 
 
 COHORT_SAMPLE_GRID = [(n, s) for n in (10, 48, 1_000_000)
@@ -468,7 +763,7 @@ def check_cohort_sample(torch, cs, build):
     between CUDA events after a 100 MB write that evicts the L2, and the
     plain walk on the card. The bound: the walk steps this run's keys need,
     FEISTEL_STEP_OPS integer operations each, at the card's 32-bit
-    non-tensor rate, against 24 B read and 4 B a slot written."""
+    integer rate, against 24 B read and 4 B a slot written."""
     cases = 0
     for num, cohort in COHORT_SAMPLE_GRID:
         for seed in range(4):
@@ -522,7 +817,7 @@ def check_cohort_sample(torch, cs, build):
         steps += out.long()
         x = torch.where(out, feistel(x, ks, hi, lo), x)
     ops = int(steps.sum()) * FEISTEL_STEP_OPS
-    b_ms, b_by = bound_ms(24 + 4 * cohort, ops)
+    b_ms, b_by = bound_ms(24 + 4 * cohort, 0, int_ops=ops)
     return {"name": "cohort_sample", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/cohort_sample.cu",
             "replaces": "src/repro/core/fed.py:254",
@@ -919,9 +1214,8 @@ def run_serve(torch, m):
     peak = torch.cuda.max_memory_allocated()
     forwards = SERVE["gen"]                 # one prefill, gen - 1 decode steps
     per_forward = {k: v / forwards for k, v in counts.items()}
-    want = {"ssca_update": 0, "stochastic_quantize": 0,
-            "rmsnorm": 2 * cfg.n_layers + 1, "flash_attention": cfg.n_layers,
-            "rmsnorm_bwd": 0, "flash_attention_bwd": 0, "cohort_sample": 0}
+    want = {**{k: 0 for k in m.counted},
+            "rmsnorm": 2 * cfg.n_layers + 1, "flash_attention": cfg.n_layers}
     check(per_forward == want, f"serve launches per forward {per_forward} != {want}")
     check(tuple(seqs.shape) == (SERVE["batch"], SERVE["gen"]), seqs.shape)
     check(0 <= int(seqs.min()) and int(seqs.max()) < cfg.vocab_size,
@@ -1069,10 +1363,9 @@ def run_train(torch, m, weights):
     peak = torch.cuda.max_memory_allocated()
     per_step = {k: v / steps for k, v in counts.items()}
     L = cfg.n_layers
-    want = {"ssca_update": 1, "stochastic_quantize": 0,
+    want = {**{k: 0 for k in m.counted}, "ssca_update": 1,
             "rmsnorm": 2 * (2 * L + 1) - 1, "rmsnorm_bwd": 2 * L + 1,
-            "flash_attention": 2 * L, "flash_attention_bwd": L,
-            "cohort_sample": 0}
+            "flash_attention": 2 * L, "flash_attention_bwd": L}
     check(per_step == want, f"train launches per step {per_step} != {want}")
     losses = [lg["loss"] for lg in logs]
     check(all(map(math.isfinite, losses)), f"train losses not finite: {losses}")
@@ -1243,15 +1536,13 @@ def paper_expected(m, inputs):
         return acc.feature_round_bytes(head, [block] * num, batch, hidden, num,
                                        codec)["up"]
 
-    zero = {"ssca_update": 0, "stochastic_quantize": 0, "rmsnorm": 0,
-            "flash_attention": 0, "rmsnorm_bwd": 0, "flash_attention_bwd": 0,
-            "cohort_sample": 0}
+    zero = {k: 0 for k in m.counted}
     kernel = dict(zero, ssca_update=ROUNDS)
     return {"alg2": (sample_v, zero), "alg2_general": (sample + sample_v, zero),
             "alg3": (feature(), kernel),
             "alg4": (feature(), zero),
             "alg3_int8": (feature(codecs.make_codec("int8")),
-                          dict(kernel, stochastic_quantize=2 * ROUNDS)),
+                          dict(kernel, stochastic_quantize_keyed=2 * ROUNDS)),
             "fedsgd": (sample, zero), "sgdm": (sample, zero)}
 
 
@@ -1383,10 +1674,9 @@ def run_train_constrained(torch, m, train_peak):
     peak = torch.cuda.max_memory_allocated()
     per_step = {k: v / steps for k, v in counts.items()}
     L = cfg.n_layers
-    want = {"ssca_update": 0, "stochastic_quantize": 0,
+    want = {**{k: 0 for k in m.counted},
             "rmsnorm": 2 * (2 * L + 1) - 1, "rmsnorm_bwd": 2 * L + 1,
-            "flash_attention": 2 * L, "flash_attention_bwd": L,
-            "cohort_sample": 0}
+            "flash_attention": 2 * L, "flash_attention_bwd": L}
     walls = [0.0] + [lg["wall_s"] for lg in logs]
     step_s = [b - a for a, b in zip(walls, walls[1:])]
     med = statistics.median(step_s[TRAIN_WARMUP:])
@@ -1581,7 +1871,7 @@ def cohort_expected(m, codec, constrained):
         participation=COHORT["participation"], with_value=constrained)["up"]
     counts = {k: 0 for k in m.counted}
     counts.update(ssca_update=0 if constrained else ROUNDS,
-                  stochastic_quantize=ROUNDS if codec else 0,
+                  stochastic_quantize_keyed=ROUNDS if codec else 0,
                   cohort_sample=ROUNDS)
     return up, counts
 
@@ -1834,8 +2124,8 @@ def run_hetero(torch, m, name_power):
                       f"hetero {alpha}/{part}/{cname}: upload bytes {ups} != {want}")
                 want_counts = {k: 0 for k in m.counted}
                 want_counts.update(ssca_update=cfg["rounds"],
-                                   stochastic_quantize=(cfg["rounds"] if cname == "int8"
-                                                        else 0),
+                                   stochastic_quantize_keyed=(
+                                       cfg["rounds"] if cname == "int8" else 0),
                                    cohort_sample=cfg["rounds"] if part else 0)
                 check(counts == want_counts,
                       f"hetero {alpha}/{part}/{cname}: launches {counts} != {want_counts}")
@@ -1891,6 +2181,432 @@ def run_slice(torch, m, codec_name, data, params0, test):
             "launches": counts}, counts
 
 
+TRAIN_COMM_TIMED = 3
+# (codec, DP ε) of the three full-width upload runs; δ = 1e-5, C = 1
+TRAIN_COMM_RUNS = (("int8", None), (None, 8.0), ("int8", 8.0))
+TRAIN_COMM_PARITY = dict(batch=2, seq=64)
+DP_EPS = 8.0
+
+
+def host_copy(torch, tree):
+    """A pinned host copy of a (nested) dict of card tensors."""
+    if isinstance(tree, dict):
+        return {k: host_copy(torch, v) for k, v in tree.items()}
+    return torch.empty(tree.shape, dtype=tree.dtype, pin_memory=True).copy_(tree)
+
+
+def card_copy(tree):
+    if isinstance(tree, dict):
+        return {k: card_copy(v) for k, v in tree.items()}
+    return tree.to("cuda")
+
+
+def run_train_comm(torch, m, host_params):
+    """qwen2.5-3b at full width and depth in bf16 through train_loop with
+    the gradient upload compressed and privatized (the reference's
+    comm_body, in 2^25-element pieces): int8 + error feedback; DP at ε = 8
+    (δ = 1e-5, C = 1); and both. Each from a card copy of the seeded
+    weights (serve's seed),
+    TRAIN_WARMUP + TRAIN_COMM_TIMED steps with every launch counter zeroed
+    just before and read just after: step ms (median of the timed steps),
+    tokens/s, mfu, peak memory, upload bytes, the DP metrics, launches per
+    step (asserted: the train step's, plus one keyed quantize and one
+    dp_noise launch a piece). The noise norm must be σ·C·√P within 5 of
+    its standard deviations."""
+    cfg, batch, seq = m.qwen, TRAIN["batch"], TRAIN["seq"]
+    steps = TRAIN_WARMUP + TRAIN_COMM_TIMED
+    check(m.train.COMM_PIECE == COMM_PIECE, "the train step's piece size moved")
+    pieces = -(-TRAIN_PARAMS // COMM_PIECE)
+    L = cfg.n_layers
+    totals = {}
+    for codec, eps in TRAIN_COMM_RUNS:
+        dp = m.privacy.DPConfig(epsilon=eps) if eps else None
+        held = {"params": card_copy(host_params)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(m.counted)
+        state, logs = m.train.train_loop("qwen2.5-3b", steps, batch, seq,
+                                         log_every=1, seed=SERVE["seed"],
+                                         codec=codec, dp=dp,
+                                         params=held.pop("params"))
+        torch.cuda.synchronize()
+        counts = read_counts(m.counted)
+        peak = torch.cuda.max_memory_allocated()
+        per_step = {k: v / steps for k, v in counts.items()}
+        want = {**{k: 0 for k in m.counted}, "ssca_update": 1,
+                "rmsnorm": 2 * (2 * L + 1) - 1, "rmsnorm_bwd": 2 * L + 1,
+                "flash_attention": 2 * L, "flash_attention_bwd": L,
+                "stochastic_quantize_keyed": pieces if codec else 0,
+                "dp_noise": pieces if dp else 0}
+        name = f"{codec or 'dense'}{'+dp' if dp else ''}"
+        check(per_step == want, f"train_comm {name}: launches per step {per_step} != {want}")
+        losses = [lg["loss"] for lg in logs]
+        opt = m.rounds.unwrap_comm(state)
+        check(all(map(math.isfinite, losses)) and opt.t == steps + 1
+              and bool(torch.isfinite(opt.w_flat).all()),
+              f"train_comm {name}: losses {losses} or params not finite")
+        walls = [0.0] + [lg["wall_s"] for lg in logs]
+        step_s = [b - a for a, b in zip(walls, walls[1:])]
+        med = statistics.median(step_s[TRAIN_WARMUP:])
+        tokens = batch * seq
+        line = {"run": name, "codec": codec or "none", "dp_epsilon_target": eps,
+                "arch": cfg.name, "dtype": cfg.dtype, "layers": L,
+                "params": TRAIN_PARAMS, **TRAIN, "piece": COMM_PIECE,
+                "pieces": pieces, "step_ms": med * 1e3,
+                "step_ms_each": [t * 1e3 for t in step_s],
+                "tokens_per_s": tokens / med,
+                "mfu": 6 * TRAIN_PARAMS * tokens / (med * BF16_FLOPS_PER_S),
+                "peak_mem_bytes": peak, "losses": losses,
+                "launches_per_step": per_step}
+        if codec:
+            # the codec's exact bytes; the step's metric series holds them
+            # in float32, as the reference's does
+            line["upload_bytes"] = m.codecs.make_codec(codec).nbytes(TRAIN_PARAMS)
+            got = logs[-1]["upload_bytes"]
+            check(got == float(torch.tensor(float(line["upload_bytes"]))),
+                  f"train_comm {name}: upload bytes {got} != {line['upload_bytes']}")
+            ef = state.ef
+            line["ef_bytes"] = ef.numel() * ef.element_size()
+            line["ef_norm"] = ef.norm().item()
+            del ef
+        if dp:
+            sigma = m.privacy.sigma_of(dp)
+            eps_t = m.privacy.epsilon_schedule(dp, 1.0, steps)
+            line.update({k: [lg[k] for lg in logs]
+                         for k in ("dp_epsilon", "dp_clip_frac", "dp_noise_norm")})
+            line["noise_norm_expected"] = sigma * TRAIN_PARAMS ** 0.5
+            line["noise_multiplier"] = m.privacy.noise_multiplier(dp)
+            # ‖σn‖/(σ√P) - 1 has standard deviation 1/√(2P): 1.3e-5 here
+            rel = max(abs(v / line["noise_norm_expected"] - 1)
+                      for v in line["dp_noise_norm"])
+            check(rel <= 5 / (2 * TRAIN_PARAMS) ** 0.5 + 1e-6,
+                  f"train_comm {name}: noise norm {line['dp_noise_norm']} "
+                  f"vs σ·C·√P {line['noise_norm_expected']}")
+            check(all(abs(a - b) <= 1e-5 * b for a, b in zip(line["dp_epsilon"], eps_t)),
+                  f"train_comm {name}: ε {line['dp_epsilon']} != accountant {list(eps_t)}")
+            check(set(line["dp_clip_frac"]) <= {0.0, 1.0}, line["dp_clip_frac"])
+        del state, opt
+        torch.cuda.empty_cache()
+        emit("train_comm", **line)
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+    return totals
+
+
+def run_train_comm_parity(torch, m):
+    """The upload path card against CPU at full width, 2 layers, fp32,
+    batch 2, seq 64, from the same weights, tokens and keys: DP alone and
+    int8 + DP (ε = 8). Step 1 on both devices (the CPU's threefry in int64
+    ops over the 466 M parameters is the slow part), then step 2's loss at
+    the updated params. Gates, train_parity's tolerances: the step-1 loss
+    (before any upload) rtol 1e-5; the step-1 DP metrics rtol 1e-5 (ε and
+    the clip fraction exactly); the step-2 loss rtol 1e-5 with DP alone and
+    1e-3 with int8 (a 1-ulp difference may move a rounding decision by a
+    level); the params after step 1 normwise within TRAIN_PARITY_NORMWISE."""
+    rnd, train, rounds, optimizer = m.rnd, m.train, m.rounds, m.optimizer
+    cfg = dataclasses.replace(m.qwen, n_layers=2, dtype="float32")
+    model = m.get_model(cfg)
+    key = rnd.PRNGKey(3)
+    params = model.init(key, cfg)
+    fl = m.train_fl
+    b, s = TRAIN_COMM_PARITY["batch"], TRAIN_COMM_PARITY["seq"]
+    toks = m.token_dataset(rnd.fold_in(key, 1), cfg.vocab_size, 200_000)
+    dp = m.privacy.DPConfig(epsilon=DP_EPS)
+    on_cpu = tree_map(lambda t: t.cpu(), params)
+    out = {}
+    for codec in (None, "int8"):
+        name = f"{codec or 'dense'}+dp"
+
+        def run(p, device):
+            dev_key = key.to(device)
+            c = m.codecs.make_codec(codec)
+            step = train.make_scanned_step(model, cfg, fl, toks.to(device), b, s,
+                                           codec=c, dp=dp)
+            inputs = rounds.make_inputs(fl, 1, 2, rnd.fold_in(dev_key, 2))
+            state = optimizer.ssca_init(p)
+            if c is not None:
+                state = m.error_feedback.CommCarry(
+                    opt=state, ef=m.error_feedback.ef_init(state.w_flat.numel(),
+                                                           device))
+            state, ms = step(state, inputs.round(0))
+            opt = rounds.unwrap_comm(state)
+            batch2 = m.sample_window(toks.to(device), inputs.round(1).key, b, s)
+            with torch.no_grad():
+                loss2 = model.loss_fn(opt.params, batch2, cfg).item()
+            return (opt.w_flat.to("cpu", copy=True),
+                    {k: v.item() if hasattr(v, "item") else v for k, v in ms.items()},
+                    loss2)
+
+        t0 = time.perf_counter()
+        card_w, card_m, card_l2 = run(params, "cuda")
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu_w, cpu_m, cpu_l2 = run(on_cpu, "cpu")
+        cpu_s = time.perf_counter() - t0
+        normwise = ((card_w - cpu_w).norm() / cpu_w.norm()).item()
+        line = {"run": name, "layers": 2, "dtype": "float32", **TRAIN_COMM_PARITY,
+                "metrics_card": card_m, "metrics_cpu": cpu_m,
+                "loss2_card": card_l2, "loss2_cpu": cpu_l2,
+                "normwise_param_diff": normwise,
+                "max_abs_param_diff": (card_w - cpu_w).abs().max().item(),
+                "card_s": card_s, "cpu_s": cpu_s}
+        emit("train_comm_parity", **line)
+        rel = {k: abs(card_m[k] - cpu_m[k]) / max(abs(cpu_m[k]), 1e-30)
+               for k in ("loss", "dp_epsilon", "dp_noise_norm")}
+        check(max(rel.values()) <= 1e-5, f"train_comm_parity {name}: {rel}")
+        check(card_m["dp_clip_frac"] == cpu_m["dp_clip_frac"], (card_m, cpu_m))
+        tol = 1e-3 if codec else 1e-5
+        check(abs(card_l2 - cpu_l2) <= tol * abs(cpu_l2),
+              f"train_comm_parity {name}: step-2 loss {card_l2} vs {cpu_l2}")
+        check(normwise <= TRAIN_PARITY_NORMWISE,
+              f"train_comm_parity {name}: params normwise {normwise}")
+        out[name] = line
+    return out
+
+
+def paper_dp_run(m, name, rounds, inputs, dp, device=None):
+    """One driver run of the DP suite at the paper's width: Algorithm 1
+    dense and int8 + EF, Algorithm 2 int8 + EF, Algorithm 3 (its keys as
+    paper_run's), each with ``dp``."""
+    alg, mlp, rnd = m.algorithms, m.mlp, m.rnd
+    data, fdata, p0, fp0, fl_u, fl_c = inputs
+    kw = dict(device=device, dp=dp)
+    int8 = m.codecs.make_codec("int8")
+    key = rnd.PRNGKey(2, device=device)
+    if name == "alg1_dense":
+        return alg.algorithm1(mlp.per_sample_loss, p0, data, m.fl, rounds, key, **kw)
+    if name == "alg1_int8":
+        return alg.algorithm1(mlp.per_sample_loss, p0, data, m.fl, rounds, key,
+                              codec=int8, **kw)
+    if name == "alg2_int8":
+        return alg.algorithm2(mlp.per_sample_loss, p0, data, fl_c, rounds,
+                              rnd.PRNGKey(3, device=device), codec=int8, **kw)
+    return alg.algorithm3(mlp.per_sample_loss_from_h, mlp.client_h, fp0, fdata,
+                          fl_u, rounds, rnd.PRNGKey(4, device=device), **kw)
+
+
+PAPER_DP_RUNS = ("alg1_dense", "alg1_int8", "alg2_int8", "alg3")
+# whole runs of this many rounds (profile_torch_round.py --paper takes 20)
+PAPER_DP_PROFILE_ROUNDS = 10
+
+
+def profile_cohort_dp(torch, m, population, dp, profile_window):
+    """Profile windows of COHORT_PROFILE_ROUNDS rounds of Algorithm 1 with
+    int8 + EF on the cohort engine (I = 1e6, S = 256), with and without
+    ``dp``, each from a fresh state on the same population: the steps only,
+    as the cohort phase profiles them."""
+    k, cohort = COHORT_PROFILE_ROUNDS, COHORT["participation"]
+    fl = cohort_fl(m, False)
+    p0 = m.mlp.init(m.rnd.fold_in(m.rnd.PRNGKey(0), 1), 32, 16, 4)
+    out = []
+    for with_dp in (True, False):
+        step = m.algorithms.make_algorithm1_step(
+            m.mlp.per_sample_loss, population, fl, participation=cohort,
+            codec=m.codecs.make_codec("int8"), cohort=True,
+            dp=dp if with_dp else None)
+        held = {"state": m.error_feedback.CommCarry(
+            opt=m.optimizer.ssca_init(p0),
+            ef=m.error_feedback.ef_store_init(COHORT["clients"], COHORT_DIM)),
+            "r": 0}
+        inputs = m.rounds.make_inputs(fl, 1, 3 * k, m.rnd.PRNGKey(13))
+
+        def rounds_k():
+            for _ in range(k):
+                held["state"], _ = step(held["state"], inputs.round(held["r"]))
+                held["r"] += 1
+
+        out.append(profile_window(rounds_k, k))
+        del held
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_paper_dp(torch, m, inputs, population, name_power):
+    """The drivers with dp= (ε = 8, δ = 1e-5, C = 1) at the paper's width,
+    ROUNDS rounds each with every launch counter zeroed just before and
+    read just after, and the cohort engine at I = 1e6, S = 256 with dp= and
+    int8 + EF: rounds/s, launches (asserted: one dp_noise launch a round a
+    stream), ε after the last round against the accountant, the clip
+    fraction and noise norm; then a profile window of COHORT_PROFILE_ROUNDS
+    rounds each with and without dp= (launches a round, device busy)."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from profile_torch_round import profile_window
+    dp = m.privacy.DPConfig(epsilon=DP_EPS)
+    k = COHORT_PROFILE_ROUNDS
+    totals = {}
+    num, cohort = COHORT["clients"], COHORT["participation"]
+    for name in PAPER_DP_RUNS + ("cohort_int8",):
+        is_cohort = name == "cohort_int8"
+        if is_cohort:
+            def drive(rounds, with_dp=True):
+                return m.train.cohort_train_loop(
+                    clients=num, participation=cohort, rounds=rounds,
+                    log_every=min(EVAL_EVERY, rounds), codec="int8",
+                    dp=dp if with_dp else None)
+            drive(2)                      # warm-up; not counted
+        else:
+            def drive(rounds, with_dp=True, name=name):
+                return paper_dp_run(m, name, rounds, inputs,
+                                    dp if with_dp else None)
+            drive(2)
+        torch.cuda.synchronize()
+        zero_counts(m.counted)
+        t0 = time.perf_counter()
+        res = drive(ROUNDS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts(m.counted)
+        h = {kk: v.cpu().double() for kk, v in res.history.items()}
+        for kk, v in h.items():
+            check(bool(torch.isfinite(v).all()), f"paper_dp {name}: {kk} not finite")
+        streams = 2 if name == "alg3" else 1
+        rate = (cohort / num) if is_cohort else 1.0
+        eps_end = m.privacy.epsilon_schedule(dp, rate, ROUNDS, streams)[-1]
+        got_eps = h["round_dp_epsilon"][-1].item()
+        check(abs(got_eps - eps_end) <= 1e-5 * eps_end,
+              f"paper_dp {name}: ε {got_eps} != accountant {eps_end}")
+        want = {kk: 0 for kk in m.counted}
+        want.update(dp_noise=streams * ROUNDS,
+                    ssca_update=0 if name == "alg2_int8" else ROUNDS,
+                    stochastic_quantize_keyed=(
+                        (ROUNDS if "int8" in name else 0)),
+                    cohort_sample=ROUNDS if is_cohort else 0)
+        check(counts == want, f"paper_dp {name}: launches {counts} != {want}")
+        prof, base = (profile_cohort_dp(torch, m, population, dp, profile_window)
+                      if is_cohort else
+                      (profile_window(lambda: drive(PAPER_DP_PROFILE_ROUNDS),
+                                      PAPER_DP_PROFILE_ROUNDS),
+                       profile_window(lambda: drive(PAPER_DP_PROFILE_ROUNDS,
+                                                    with_dp=False),
+                                      PAPER_DP_PROFILE_ROUNDS)))
+        line = {"run": name, "rounds": ROUNDS, "seconds": seconds,
+                "rounds_per_s": ROUNDS / seconds,
+                "dp_epsilon_last": got_eps, "accountant_epsilon": eps_end,
+                "dp_clip_frac_mean": h["round_dp_clip_frac"].mean().item(),
+                "dp_noise_norm_mean": h["round_dp_noise_norm"].mean().item(),
+                "launches": counts,
+                "launches_per_round": prof["kernel_launches_per_call"],
+                "device_busy": prof["device_busy_share"],
+                "profiled_ms_per_round": prof["profiled_ms_per_call"],
+                "no_dp_launches_per_round": base["kernel_launches_per_call"],
+                "no_dp_device_busy": base["device_busy_share"],
+                "no_dp_profiled_ms_per_round": base["profiled_ms_per_call"]}
+        if is_cohort:
+            line.update(clients=num, participation=cohort,
+                        eval_loss=h["loss"].tolist())
+        emit("paper_dp", **line, **name_power)
+        for kk, v in counts.items():
+            totals[kk] = totals.get(kk, 0) + v
+        del res
+        torch.cuda.empty_cache()
+    return totals
+
+
+def run_obs(torch, m, data, params0, host_params, name_power):
+    """Observability at the paper's width and the checkpoint at full width:
+    Algorithm 1 (dense) for ROUNDS rounds with a JSONL MetricStream and
+    without (rounds/s of both; ROUNDS round rows and the eval rows written,
+    in order); one round of Algorithm 1 with int8 + EF and DP with the
+    stream on under sync-debug mode "error"; a torch.profiler run of 3
+    rounds whose Chrome trace holds the phase names; then the full-width
+    params saved in the reference's msgpack format in a temp dir, loaded
+    back bit-equal, the seconds of each recorded, and the file deleted."""
+    import os
+    import shutil
+    import tempfile
+    alg, mlp, rnd = m.algorithms, m.mlp, m.rnd
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    try:
+        def run(obs=None, rounds=OBS_ROUNDS):
+            return alg.algorithm1(mlp.per_sample_loss, params0, data, m.fl,
+                                  rounds, rnd.PRNGKey(2), obs=obs,
+                                  eval_fn=lambda p, s: {"cost": mlp.mean_loss(
+                                      p, data.features[0], data.labels[0])},
+                                  eval_every=EVAL_EVERY)
+        run(rounds=2)
+        line = {}
+        for label in ("without", "with"):
+            stream = (m.obs.MetricStream([m.obs.JsonlSink(os.path.join(tmp, "r.jsonl"))])
+                      if label == "with" else None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run(stream)
+            torch.cuda.synchronize()
+            line[f"rounds_per_s_{label}_stream"] = OBS_ROUNDS / (time.perf_counter() - t0)
+            if stream is not None:
+                stream.close()
+                rows = [json.loads(r) for r in open(os.path.join(tmp, "r.jsonl"))]
+                kinds = [r["kind"] for r in rows]
+                ts = [r["t"] for r in rows if r["kind"] == "round"]
+                check(ts == list(range(1, OBS_ROUNDS + 1)),
+                      f"obs: round rows {len(ts)} not 1..{OBS_ROUNDS} in order")
+                check(kinds.count("eval") == OBS_ROUNDS // EVAL_EVERY, kinds[-5:])
+                want_loss = res.history["round_loss_est"].cpu().tolist()
+                check(all(abs(r["loss_est"] - w) <= 1e-6 * abs(w)
+                          for r, w in zip([r for r in rows if r["kind"] == "round"],
+                                          want_loss)), "obs: row values")
+                line["rows_written"] = len(rows)
+        line["stream_overhead"] = (line["rounds_per_s_without_stream"]
+                                   / line["rounds_per_s_with_stream"] - 1)
+        # one round with the stream on under sync-debug "error"
+        dp = m.privacy.DPConfig(epsilon=DP_EPS)
+        step = alg.make_algorithm1_step(mlp.per_sample_loss, data, m.fl,
+                                        codec=m.codecs.make_codec("int8"), dp=dp)
+        state = m.error_feedback.CommCarry(
+            opt=m.optimizer.ssca_init(params0),
+            ef=m.error_feedback.ef_init_stacked(data.num_clients,
+                                                sum(v.numel() for v in params0.values())))
+        inputs = m.rounds.make_inputs(m.fl, 1, 2, rnd.PRNGKey(4))
+        stream = m.obs.MetricStream([m.obs.MemorySink()])
+        first = m.rounds.RoundInputs(*(x[:1] for x in inputs))
+        second = m.rounds.RoundInputs(*(x[1:] for x in inputs))
+        state, _ = stream.run(step, state, first)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, _ = stream.run(step, state, second)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        stream.close()
+        check([r["t"] for r in stream.rows] == [1, 2], stream.rows)
+        line["sync_free_streamed_round"] = True
+        line["streamed_round_keys"] = sorted(stream.rows[-1])
+        # a profile holds the phase names
+        prof_dir = os.path.join(tmp, "prof")
+        with m.obs.profile(prof_dir):
+            alg.algorithm1(mlp.per_sample_loss, params0, data, m.fl, 3,
+                           rnd.PRNGKey(2), codec=m.codecs.make_codec("int8"), dp=dp)
+        text = open(os.path.join(prof_dir, "trace.json")).read()
+        names = ("round", "batch-select", "client-compute", "dp-privatize",
+                 "codec-encode", "aggregate")
+        missing = [n for n in names if f'"{n}"' not in text]
+        check(not missing, f"obs: the profile lacks the phases {missing}")
+        line["profile_phases"] = list(names)
+        line["profile_bytes"] = len(text)
+        # the full-width params through a checkpoint
+        params = card_copy(host_params)
+        path = os.path.join(tmp, "params.msgpack")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.checkpoint.save_checkpoint(path, params, step=5)
+        line["ckpt_save_s"] = time.perf_counter() - t0
+        line["ckpt_bytes"] = os.path.getsize(path)
+        t0 = time.perf_counter()
+        back, step_no = m.checkpoint.load_checkpoint(path, params)
+        torch.cuda.synchronize()
+        line["ckpt_load_s"] = time.perf_counter() - t0
+        same = all(torch.equal(a, b) for a, b in zip(m.leaves(back), m.leaves(params)))
+        check(same and step_no == 5, "obs: the checkpoint did not load back bit-equal")
+        line["ckpt_bit_equal"] = True
+        os.remove(path)
+        del params, back
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("obs", **line, **name_power)
+    return line
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1917,9 +2633,12 @@ def main() -> int:
     from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import rmsnorm as rms
     from repro_torch.kernels import ssca_update as ssca
-    from repro_torch.core import optimizer, rounds
+    from repro_torch.kernels import dp_noise as dpn
+    from repro_torch import checkpoint, obs
+    from repro_torch.core import optimizer, privacy, rounds
     from repro_torch.core.tree import leaves
-    from repro_torch.data.synthetic import VirtualFedData, token_dataset
+    from repro_torch.data.synthetic import (VirtualFedData, sample_window,
+                                            token_dataset)
     from repro_torch.launch import serve, train
     from repro_torch.models import mlp
     from repro_torch.models.api import get_model
@@ -1937,7 +2656,7 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0, log=build.BUILD_LOG)
     emit("ptxas", **{n: build.BUILD_LOG[n]["ptxas"]
                      for n in ("ssca_update", "flash_attention", "rmsnorm",
-                               "cohort_sample")})
+                               "cohort_sample", "quantize", "dp_noise")})
 
     kernels = [check_ssca_update(torch, ssca, build),
                check_quantize(torch, qz, build),
@@ -1945,14 +2664,21 @@ def main() -> int:
                check_flash(torch, fa, build),
                check_rmsnorm_bwd(torch, rms, build),
                check_flash_bwd(torch, fa, build),
-               check_cohort_sample(torch, cs, build)]
+               check_cohort_sample(torch, cs, build),
+               check_quantize_keyed(torch, qz, build, rnd),
+               check_dp_noise(torch, dpn, build, rnd)]
+    # since the codecs draw their bits in the kernel, no main path launches
+    # the bits-operand entry; it is held to its plain version above
+    kernels[1]["main_path"] = False
     emit("kernels", checks=[{k: v for k, v in kr.items()} for kr in kernels])
     counted = {"ssca_update": ssca.ssca_update_,
                "stochastic_quantize": qz.stochastic_quantize,
                "rmsnorm": rms.rmsnorm, "flash_attention": fa.flash_attention,
                "rmsnorm_bwd": rms.rmsnorm_bwd,
                "flash_attention_bwd": fa.flash_attention_bwd,
-               "cohort_sample": cs.cohort_sample}
+               "cohort_sample": cs.cohort_sample,
+               "stochastic_quantize_keyed": qz.stochastic_quantize_keyed,
+               "dp_noise": dpn.dp_noise}
 
     cfg = MNIST_MLP
     (z, y, _), (zt, _, labt) = classification_dataset(
@@ -1974,7 +2700,9 @@ def main() -> int:
                            baselines=baselines, accounting=accounting,
                            surrogate=surrogate, fed=fed, FLConfig=FLConfig,
                            error_feedback=error_feedback,
-                           VirtualFedData=VirtualFedData,
+                           VirtualFedData=VirtualFedData, privacy=privacy,
+                           obs=obs, checkpoint=checkpoint,
+                           sample_window=sample_window,
                            classification_dataset=classification_dataset,
                            # train_loop's default: the reference's FLConfig
                            train_fl=FLConfig(a1=0.9, a2=0.5, alpha_rho=0.1,
@@ -1987,15 +2715,13 @@ def main() -> int:
                           key=rnd.PRNGKey(9), codec=codecs.make_codec("int8"))
     dense, dense_counts = run_slice(torch, mods, None, data, params0, test)
     check(dense["upload_bytes"] == [4_065_280.0], dense["upload_bytes"])
-    no_zoo = {"rmsnorm": 0, "flash_attention": 0, "rmsnorm_bwd": 0,
-              "flash_attention_bwd": 0, "cohort_sample": 0}
-    check(dense_counts == {"ssca_update": ROUNDS, "stochastic_quantize": 0,
-                           **no_zoo}, dense_counts)
+    no_zoo = {k: 0 for k in counted}
+    check(dense_counts == {**no_zoo, "ssca_update": ROUNDS}, dense_counts)
     emit("dense", **dense, device=name, power=smi)
     int8, int8_counts = run_slice(torch, mods, "int8", data, params0, test)
     check(int8["upload_bytes"] == [1_032_200.0], int8["upload_bytes"])
-    check(int8_counts == {"ssca_update": ROUNDS, "stochastic_quantize": ROUNDS,
-                          **no_zoo}, int8_counts)
+    check(int8_counts == {**no_zoo, "ssca_update": ROUNDS,
+                          "stochastic_quantize_keyed": ROUNDS}, int8_counts)
     emit("int8", **int8, device=name, power=smi,
          bytes_ratio=dense["upload_bytes"][0] / int8["upload_bytes"][0])
 
@@ -2036,7 +2762,6 @@ def main() -> int:
                              {"sample": sample_eval, "feature": feature_eval},
                              {"device": name, "power": smi})
     run_paper_parity(torch, mods, paper_inputs)
-    del paper_inputs, fdata, fb_eval
 
     # the cohort engine at I = 1e6 (the population the runs draw from, for
     # its total and the sync and profile rounds), its parity, the
@@ -2046,7 +2771,9 @@ def main() -> int:
                                 num_classes=4, noise=4.0)
     cohort_counts = run_cohort(torch, mods, population,
                                {"device": name, "power": smi})
-    del population
+    paper_dp_counts = run_paper_dp(torch, mods, paper_inputs, population,
+                                   {"device": name, "power": smi})
+    del population, paper_inputs, fdata, fb_eval
     run_cohort_parity(torch, mods)
     hetero_counts = run_hetero(torch, mods, {"device": name, "power": smi})
     torch.cuda.empty_cache()
@@ -2061,22 +2788,36 @@ def main() -> int:
     emit("ssca_train_size", **ssca_at_train_size(torch, ssca, state, mods.train_fl),
          device=name, power=smi)
     del state
+    torch.cuda.empty_cache()
+    # the upload runs start from the seeded weights, as the train phase did
+    # (its state has taken steps and ssca_train_size's random updates)
+    host_params = host_copy(torch, mods.get_model(mods.qwen).init(
+        rnd.PRNGKey(SERVE["seed"]), mods.qwen))
+    torch.cuda.empty_cache()
+    comm_counts = run_train_comm(torch, mods, host_params)
+    run_obs(torch, mods, data, params0, host_params, {"device": name, "power": smi})
+    del host_params
     constrained, constrained_counts = run_train_constrained(
         torch, mods, trained["peak_mem_bytes"])
     emit("train_constrained", **constrained, device=name, power=smi)
     run_train_parity(torch, mods)
     run_train_constrained_parity(torch, mods)
+    run_train_comm_parity(torch, mods)
 
     for kr in kernels:
         n = kr["name"]
         kr["launches"] = (dense_counts[n] + int8_counts[n] + serve_counts[n]
                           + train_counts[n] + paper_counts[n]
                           + constrained_counts[n] + cohort_counts[n]
-                          + hetero_counts[n])
-        check(kr["launches"] > 0, f"{n} never launched on a main path")
+                          + hetero_counts[n] + paper_dp_counts[n]
+                          + comm_counts[n])
+        check(kr["launches"] > 0 or not kr.get("main_path", True),
+              f"{n} never launched on a main path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("cold_ms", "library_cold_ms", "floor_ms")  # where measured
+    extra = ("cold_ms", "library_cold_ms", "floor_ms",  # where measured
+             "main_path", "bits_operand_ms", "train_step_ms", "train_launches",
+             "train_bound_ms", "train_bound_by")
     print(smi, flush=True)
     print(json.dumps({"kernels": [{**{k: kr[k] for k in keys},
                                    **{k: kr[k] for k in extra if k in kr}}

@@ -34,6 +34,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 
+def is_annotation(e) -> bool:
+    """A profiler event that is a labelled range (record_function: the
+    port's obs.trace phases), not an operator or a kernel: its device-side
+    twin spans kernels and must not be counted as one."""
+    return bool(getattr(e, "is_user_annotation", False))
+
+
 def profile_window(fn, per: int) -> dict:
     """Run fn three times: to warm up, timed on the host clock (ending in a
     synchronize), and under torch.profiler (CPU and CUDA activities, also
@@ -58,6 +65,8 @@ def profile_window(fn, per: int) -> dict:
     kernels, host = [], []
     for e in prof.key_averages():
         dev_us = e.self_device_time_total
+        if is_annotation(e):
+            continue
         if dev_us > 0 and e.cpu_time_total == 0:
             kernels.append((dev_us, e.count, e.key))
         elif e.self_cpu_time_total > 0:

@@ -9,16 +9,20 @@ Every codec implements
 
 A stacked ``(I, P)`` upload takes ``(I, 2)`` keys, one per client, and is
 encoded in one call: the quantizer runs all I clients through ONE launch of
-the quantize kernel (``kernels/quantize.py``) on CUDA tensors, and through
-its plain version on CPU tensors. There is no switch that picks the plain
-version on the card.
+the keyed quantize kernel (``kernels/quantize.py::
+stochastic_quantize_keyed``) on CUDA tensors, which draws each lane's
+threefry bits in registers, and through its plain version on CPU tensors.
+There is no switch that picks the plain version on the card.
 
 Quantizers use stochastic rounding, which is unbiased. The uniform noise
-comes from raw threefry bits via ``uniform_from_bits`` — the formula the
-kernel applies to its bits operand — so kernel and plain version agree bit
-for bit, and both agree with the JAX reference on the same key. That math
-(``uniform_from_bits``, ``chunk_pad``, ``stochastic_round_chunks``) lives
-in ``kernels/ref.py`` and is re-exported here under the reference's names.
+comes from the raw threefry bits of ``random.bits(key, (C, chunk))`` via
+``uniform_from_bits``, so kernel and plain version agree bit for bit, and
+both agree with the JAX reference on the same key. ``roundtrip(x, key,
+offset=)`` encodes a 256-aligned piece of a longer vector with the bits of
+its own counters (the zoo's train step goes through its 3.09 B-element
+gradient that way). That math (``uniform_from_bits``, ``chunk_pad``,
+``stochastic_round_chunks``) lives in ``kernels/ref.py`` and is re-exported
+here under the reference's names.
 
 ``TopK`` keeps each row's k largest magnitudes as (fp32 value, int32 index)
 pairs, the lower index first among equal magnitudes, as ``lax.top_k`` does
@@ -34,9 +38,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch import random as rnd
 from repro_torch.core.tree import leaves, tree_map
-from repro_torch.kernels.quantize import stochastic_quantize
+from repro_torch.kernels.quantize import stochastic_quantize_keyed
 from repro_torch.kernels.ref import (  # noqa: F401  (re-exported)
     chunk_pad, stochastic_round_chunks, uniform_from_bits)
 
@@ -72,7 +75,7 @@ class ChainEncoded(NamedTuple):
 class Identity:
     """Dense fp32 passthrough — the uncompressed baseline."""
 
-    def roundtrip(self, x, key=None):
+    def roundtrip(self, x, key=None, offset: int = 0):
         return DenseEncoded(values=x), x
 
     def decode(self, enc, p: int):
@@ -96,22 +99,17 @@ class StochasticQuantizer:
     def qmax(self) -> int:
         return (1 << (self.bits - 1)) - 1
 
-    def _bits(self, key, num_chunks: int):
-        """``jax.random.bits(key, (C, chunk), uint32)`` per key, as the
-        int32 bit pattern the kernel reads."""
+    def roundtrip(self, x, key=None, offset: int = 0):
+        """x: (P,) with a (2,) key, or stacked (I, P) with (I, 2) keys; the
+        rounding bits are ``random.bits(key, (C, chunk))``'s, from counter
+        ``offset`` on (a multiple of ``chunk``: x is then the piece of a
+        longer row that starts there)."""
         if key is None:
             raise ValueError(
                 "StochasticQuantizer needs a PRNG key: rounding noise must "
                 "be fresh per encode or E[decode(encode(x))] = x fails")
-        b = rnd.bits(key, (num_chunks, self.chunk))
-        return (b - ((b >> 31) << 32)).to(torch.int32)
-
-    def roundtrip(self, x, key=None):
-        """x: (P,) with a (2,) key, or stacked (I, P) with (I, 2) keys."""
-        p = x.shape[-1]
-        num_chunks = -(-p // self.chunk)
-        bits = self._bits(key, num_chunks).reshape(*x.shape[:-1], -1)
-        v, s, xhat = stochastic_quantize(x, bits, self.qmax, self.chunk)
+        v, s, xhat = stochastic_quantize_keyed(x, key, self.qmax, self.chunk,
+                                               offset)
         return QuantEncoded(values=v, scales=s), xhat
 
     def decode(self, enc, p: int):
@@ -149,7 +147,7 @@ class TopK:
         return TopKEncoded(values=torch.gather(x, -1, order),
                            indices=order.to(torch.int32))
 
-    def roundtrip(self, x, key=None):
+    def roundtrip(self, x, key=None, offset: int = 0):
         enc = self.encode(x)
         return enc, self.decode(enc, x.shape[-1])
 
@@ -168,7 +166,7 @@ class Chain:
     sparse: TopK = field(default_factory=TopK)
     quant: StochasticQuantizer = field(default_factory=StochasticQuantizer)
 
-    def roundtrip(self, x, key=None):
+    def roundtrip(self, x, key=None, offset: int = 0):
         p = x.shape[-1]
         s = self.sparse.encode(x)
         inner, vals = self.quant.roundtrip(s.values, key)

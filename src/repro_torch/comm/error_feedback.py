@@ -135,3 +135,16 @@ def ef_roundtrip(codec, x, residual, key=None, active=None):
         new_residual = torch.where(active[..., None] > 0, new_residual,
                                    residual)
     return enc, x_hat, new_residual
+
+
+def ef_roundtrip_(codec, x, residual, key, offset: int = 0):
+    """``ef_roundtrip`` of the piece of one stream that starts at element
+    ``offset`` (a multiple of 256: the codec draws that piece's bits), with
+    the residual updated in place (``residual`` <- x + residual - x_hat):
+    the zoo's train step goes through its 3.09 B-element gradient a piece at
+    a time this way, so the only full-size state is the residual itself. x
+    may be of any float dtype (the target is fp32). Returns (enc, x_hat)."""
+    target = torch.add(residual, x)
+    enc, x_hat = codec.roundtrip(target, key, offset=offset)
+    torch.sub(target, x_hat, out=residual)
+    return enc, x_hat

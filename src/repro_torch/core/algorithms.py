@@ -23,16 +23,22 @@ residuals live in a keyed ``EFStore``, and the data may be a
 
 With ``codec=`` the q-uploads cross the client boundary in the codec's wire
 format, with per-client error-feedback residuals carried in a ``CommCarry``
-(a dict of streams where a round has several). The metrics keep the
-reference's names: ``loss_est``, ``cons_est``, ``nu``, ``slack``,
-``stat_res``, ``cons_viol``, ``upload_bytes``, ``axis_bytes`` (always 0.0:
-one device) and, with a codec, ``ef_norm``.
+(a dict of streams where a round has several). With ``dp=`` (a
+``privacy.DPConfig``) every q-upload is clipped and noised at the client
+boundary before any codec encode, and each round's metrics gain
+``dp_epsilon`` (the subsampled-RDP accountant's ε spent through round t,
+computed on the device from the round's ``t``), ``dp_clip_frac`` (the share
+of participating uploads whose clip bound) and ``dp_noise_norm`` (the ℓ2
+norm of the injected noise). The metrics keep the reference's names:
+``loss_est``, ``cons_est``, ``nu``, ``slack``, ``stat_res``, ``cons_viol``,
+``upload_bytes``, ``axis_bytes`` (always 0.0: one device) and, with a codec,
+``ef_norm``. ``obs=`` (an ``obs.MetricStream``) streams them while the
+rounds run.
 
 Every entry point runs on ``device`` (default: the CUDA card; raises
 without one); params0, data and key are moved there and params0 itself is
-not written. The reference's options that the port has not ported yet
-(``topology=`` other than the local one, ``dp=``, ``obs=``) raise
-NotImplementedError naming their ROADMAP item.
+not written. ``topology=`` other than the local one is not ported yet and
+raises NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -46,6 +52,7 @@ from repro_torch.comm.error_feedback import (CommCarry, ef_init,
                                              with_comm_carry)
 from repro_torch import random as rnd
 from repro_torch.core import fed, optimizer
+from repro_torch.core import privacy as privacy_lib
 from repro_torch.core import rounds as rounds_lib
 from repro_torch.core import topology as topology_lib
 from repro_torch.core.fed import FeatureFedData, SampleFedData
@@ -54,20 +61,16 @@ from repro_torch.core.tree import leaves, tree_map
 
 _LATER = {
     "topology": "the sharded topology comes with ROADMAP queue 1, item 8",
-    "dp": "differential privacy comes with ROADMAP queue 1, item 7",
-    "obs": "metric streams come with ROADMAP queue 1, item 9",
 }
 
 
-def refuse_unported(topology=None, dp=None, obs=None):
+def refuse_unported(topology=None):
     """Raise NotImplementedError, naming its ROADMAP item, for a reference
     option the port has not ported."""
-    given = {"dp": dp is not None, "obs": obs is not None,
-             "topology": not (topology is None
-                              or isinstance(topology, topology_lib.LocalTopology))}
-    for name, on in given.items():
-        if on:
-            raise NotImplementedError(f"{name}=: not ported yet; {_LATER[name]}")
+    if not (topology is None
+            or isinstance(topology, topology_lib.LocalTopology)):
+        raise NotImplementedError(
+            f"topology=: not ported yet; {_LATER['topology']}")
 
 
 def _to(device, params0, data, key):
@@ -153,22 +156,73 @@ def _ef_metric(cohort: bool, up, ef):
     return _cohort_ef_norm(up["cohort"], ef) if cohort else _ef_norm(ef)
 
 
+def _dp_sample_rate(participation, num_clients: int) -> float:
+    """The accountant's subsampling rate q of a sample-based driver: S/I
+    under partial participation (dense mask or cohort engine), else 1."""
+    if participation is None or participation >= num_clients:
+        return 1.0
+    return participation / num_clients
+
+
+def _data_device(data):
+    """The device a round's data (dense, feature or virtual) lives on."""
+    for name in ("counts", "labels", "key"):
+        t = getattr(data, name, None)
+        if isinstance(t, torch.Tensor):
+            return t.device
+    raise TypeError(f"no tensor to place {type(data).__name__} by")
+
+
+def _eps_fn(dp, sample_rate: float, device, releases_per_round: int = 1):
+    return (privacy_lib.make_eps_fn(dp, sample_rate, releases_per_round,
+                                    device=device)
+            if dp is not None else None)
+
+
+def _dp_metrics(eps_fn, stats, mask, inp):
+    """Per-round DP metrics from a sample-based round's uploads["dp"];
+    ``mask`` is the dense participation mask (None on the cohort path and at
+    full participation: every row of ``stats`` is a participant)."""
+    clipped, noise_sq = stats["clipped"], stats["noise_sq"]
+    if mask is None:
+        mask = torch.ones_like(clipped)
+    denom = torch.clamp(torch.sum(mask), min=1.0)
+    return {"dp_epsilon": eps_fn(inp.t),
+            "dp_clip_frac": torch.sum(clipped * mask) / denom,
+            "dp_noise_norm": torch.sqrt(torch.sum(noise_sq * mask))}
+
+
+def _dp_feature_metrics(eps_fn, stats, num_clients: int, inp):
+    """Feature-round variant: the head stream and the I block streams all
+    release every round (the clip fraction averages over the I+1)."""
+    return {"dp_epsilon": eps_fn(inp.t),
+            "dp_clip_frac": (stats["head_clipped"]
+                             + torch.sum(stats["blocks_clipped"]))
+            / (num_clients + 1.0),
+            "dp_noise_norm": torch.sqrt(stats["head_noise_sq"]
+                                        + torch.sum(stats["blocks_noise_sq"]))}
+
+
 # ---------------------------------------------------------------------------
 # Algorithm 1: unconstrained sample-based FL via mini-batch SSCA
 # ---------------------------------------------------------------------------
 
 
 def make_algorithm1_step(per_sample_loss, data: SampleFedData, fl,
-                         participation=None, codec=None, cohort: bool = False):
+                         participation=None, codec=None, cohort: bool = False,
+                         dp=None):
     """One full Algorithm-1 round as a (state, RoundInputs-slice) step. With
     a codec the state is a CommCarry(opt=SSCAState, ef=(I, P) residuals, or
-    an EFStore with ``cohort``)."""
+    an EFStore with ``cohort``). dp= privatizes every q-upload and adds the
+    dp_* metrics."""
     _check_cohort("make_algorithm1_step", cohort, participation)
+    eps_fn = _eps_fn(dp, _dp_sample_rate(participation, data.num_clients),
+                     _data_device(data))
 
     def body(state, inp, ef):
         grad_est, val_est, up = _sample_round(
             cohort, per_sample_loss, state.params, data, inp.key, fl,
-            participation, codec=codec, ef=ef)
+            participation, codec=codec, ef=ef, dp=dp)
         old = state.w_flat.clone()      # ssca_step updates in place
         new = optimizer.ssca_step(state, grad_est, fl,
                                   rho_t=inp.rho, gamma_t=inp.gamma)
@@ -179,6 +233,9 @@ def make_algorithm1_step(per_sample_loss, data: SampleFedData, fl,
                    "axis_bytes": 0.0}
         if codec is not None:
             metrics["ef_norm"] = _ef_metric(cohort, up, up["ef"])
+        if dp is not None:
+            metrics.update(_dp_metrics(eps_fn, up["dp"],
+                                       up.get("participants"), inp))
         return new, up["ef"], metrics
 
     return with_comm_carry(codec, body)
@@ -188,15 +245,16 @@ def algorithm1(per_sample_loss, params0, data: SampleFedData, fl, rounds: int,
                key, eval_fn=None, eval_every: int = 10, participation=None,
                codec=None, topology=None, obs=None, cohort: bool = False,
                dp=None, device=None) -> RunResult:
-    refuse_unported(topology, dp, obs)
+    refuse_unported(topology)
     params0, data, key, dev = _to(device, params0, data, key)
     step = make_algorithm1_step(per_sample_loss, data, fl, participation,
-                                codec, cohort)
+                                codec, cohort, dp)
     state = _wrap_codec_state(optimizer.ssca_init(params0), codec,
                               lambda: _sample_ef0(params0, data.num_clients,
                                                   dev, cohort))
     return rounds_lib.run_rounds(step, state, fl, key, rounds,
-                                 eval_fn=eval_fn, eval_every=eval_every)
+                                 eval_fn=eval_fn, eval_every=eval_every,
+                                 obs=obs)
 
 
 # ---------------------------------------------------------------------------
@@ -205,15 +263,20 @@ def algorithm1(per_sample_loss, params0, data: SampleFedData, fl, rounds: int,
 
 
 def make_algorithm2_step(per_sample_loss, data: SampleFedData, fl,
-                         participation=None, codec=None, cohort: bool = False):
+                         participation=None, codec=None, cohort: bool = False,
+                         dp=None):
     """One Algorithm-2 round: the sample round with its value sums, then
-    Lemma 1 (``ssca_constrained_step``, in place)."""
+    Lemma 1 (``ssca_constrained_step``, in place). dp= privatizes the
+    q-grad uploads; the value sums are not noised (the accountant covers
+    the gradient stream), as in the reference."""
     _check_cohort("make_algorithm2_step", cohort, participation)
+    eps_fn = _eps_fn(dp, _dp_sample_rate(participation, data.num_clients),
+                     _data_device(data))
 
     def body(state, inp, ef):
         grad_est, val_est, up = _sample_round(
             cohort, per_sample_loss, state.params, data, inp.key, fl,
-            participation, with_value=True, codec=codec, ef=ef)
+            participation, with_value=True, codec=codec, ef=ef, dp=dp)
         old = state.w_flat.clone()
         new = optimizer.ssca_constrained_step(state, grad_est, val_est, fl,
                                               rho_t=inp.rho, gamma_t=inp.gamma)
@@ -225,6 +288,9 @@ def make_algorithm2_step(per_sample_loss, data: SampleFedData, fl,
                    "axis_bytes": 0.0}
         if codec is not None:
             metrics["ef_norm"] = _ef_metric(cohort, up, up["ef"])
+        if dp is not None:
+            metrics.update(_dp_metrics(eps_fn, up["dp"],
+                                       up.get("participants"), inp))
         return new, up["ef"], metrics
 
     return with_comm_carry(codec, body)
@@ -234,15 +300,16 @@ def algorithm2(per_sample_loss, params0, data: SampleFedData, fl, rounds: int,
                key, eval_fn=None, eval_every: int = 10, participation=None,
                codec=None, topology=None, obs=None, cohort: bool = False,
                dp=None, device=None) -> RunResult:
-    refuse_unported(topology, dp, obs)
+    refuse_unported(topology)
     params0, data, key, dev = _to(device, params0, data, key)
     step = make_algorithm2_step(per_sample_loss, data, fl, participation,
-                                codec, cohort)
+                                codec, cohort, dp)
     state = _wrap_codec_state(optimizer.ssca_constrained_init(params0), codec,
                               lambda: _sample_ef0(params0, data.num_clients,
                                                   dev, cohort))
     return rounds_lib.run_rounds(step, state, fl, key, rounds,
-                                 eval_fn=eval_fn, eval_every=eval_every)
+                                 eval_fn=eval_fn, eval_every=eval_every,
+                                 obs=obs)
 
 
 def algorithm2_general(obj_loss, cons_loss, params0, data: SampleFedData, fl,
@@ -255,10 +322,14 @@ def algorithm2_general(obj_loss, cons_loss, params0, data: SampleFedData, fl,
     constraint q-uploads carry separate EF residuals (ef = {"obj": (I, P),
     "cons": (I, P)}, or two EFStores with ``cohort``). Under partial
     participation both streams come from the same S clients: the shared
-    participation key ``fold_in(round key, 0x5ca)`` draws the same ids."""
-    refuse_unported(topology, dp, obs)
+    participation key ``fold_in(round key, 0x5ca)`` draws the same ids.
+    dp= privatizes both q-grad streams (each with its own round key), so
+    the accountant composes 2 releases a round."""
+    refuse_unported(topology)
     _check_cohort("algorithm2_general", cohort, participation)
     params0, data, key, dev = _to(device, params0, data, key)
+    eps_fn = _eps_fn(dp, _dp_sample_rate(participation, data.num_clients),
+                     dev, releases_per_round=2)
 
     def body(state, inp, ef):
         ef = ef if ef is not None else {"obj": None, "cons": None}
@@ -267,11 +338,11 @@ def algorithm2_general(obj_loss, cons_loss, params0, data: SampleFedData, fl,
               else None)
         og, _, uo = _sample_round(cohort, obj_loss, state.params, data, k1,
                                   fl, participation, participation_key=pk,
-                                  codec=codec, ef=ef["obj"])
+                                  codec=codec, ef=ef["obj"], dp=dp)
         cg, cv, uc = _sample_round(cohort, cons_loss, state.params, data, k2,
                                    fl, participation, with_value=True,
                                    participation_key=pk, codec=codec,
-                                   ef=ef["cons"])
+                                   ef=ef["cons"], dp=dp)
         old = state.w_flat.clone()
         new = optimizer.ssca_general_constrained_step(
             state, og, cg, cv, fl, rho_t=inp.rho, gamma_t=inp.gamma)
@@ -286,6 +357,17 @@ def algorithm2_general(obj_loss, cons_loss, params0, data: SampleFedData, fl,
         new_ef = {"obj": uo["ef"], "cons": uc["ef"]}
         if codec is not None:
             metrics["ef_norm"] = _ef_metric(cohort, uo, new_ef)
+        if dp is not None:
+            pm = uo.get("participants")
+            mo = _dp_metrics(eps_fn, uo["dp"], pm, inp)
+            mc = _dp_metrics(eps_fn, uc["dp"], pm, inp)
+            metrics.update({
+                "dp_epsilon": mo["dp_epsilon"],
+                "dp_clip_frac": 0.5 * (mo["dp_clip_frac"]
+                                       + mc["dp_clip_frac"]),
+                "dp_noise_norm": torch.sqrt(torch.square(mo["dp_noise_norm"])
+                                            + torch.square(
+                                                mc["dp_noise_norm"]))})
         return new, new_ef, metrics
 
     state = _wrap_codec_state(
@@ -293,7 +375,8 @@ def algorithm2_general(obj_loss, cons_loss, params0, data: SampleFedData, fl,
         lambda: {"obj": _sample_ef0(params0, data.num_clients, dev, cohort),
                  "cons": _sample_ef0(params0, data.num_clients, dev, cohort)})
     return rounds_lib.run_rounds(with_comm_carry(codec, body), state, fl, key,
-                                 rounds, eval_fn=eval_fn, eval_every=eval_every)
+                                 rounds, eval_fn=eval_fn, eval_every=eval_every,
+                                 obs=obs)
 
 
 # ---------------------------------------------------------------------------
@@ -326,15 +409,18 @@ def _feature_ef0(params0, num_clients: int, device):
 
 
 def _make_feature_step(head_loss_from_h, client_h, data, fl, codec,
-                       update_fn):
+                       update_fn, dp=None):
     """Shared Algorithm-3/4 step body: feature_round + the given in-place
     optimizer update ``update_fn(state, grad_est, val_est, inp) -> (state,
-    metrics)``, with optional codec/EF threading."""
+    metrics)``, with optional codec/EF threading. dp= privatizes the head
+    and block q-uploads; all I clients release every round (q = 1) and the
+    head and block streams count as 2 releases a round."""
+    eps_fn = _eps_fn(dp, 1.0, _data_device(data), releases_per_round=2)
 
     def body(state, inp, ef):
         grad_est, val_est, up = fed.feature_round(
             state.params, data, inp.key, fl.batch_size, head_loss_from_h,
-            client_h, codec=codec, ef=ef)
+            client_h, codec=codec, ef=ef, dp=dp)
         old = state.w_flat.clone()
         new, metrics = update_fn(state, grad_est, val_est, inp)
         metrics["stat_res"] = _stat_res(new.w_flat, old, inp.gamma)
@@ -343,21 +429,26 @@ def _make_feature_step(head_loss_from_h, client_h, data, fl, codec,
         metrics["axis_bytes"] = 0.0
         if codec is not None:
             metrics["ef_norm"] = _ef_norm(up["ef"])
+        if dp is not None:
+            metrics.update(_dp_feature_metrics(eps_fn, up["dp"],
+                                               data.num_clients, inp))
         return new, up["ef"], metrics
 
     return with_comm_carry(codec, body)
 
 
 def _run_feature(head_loss_from_h, client_h, params0, data, fl, rounds, key,
-                 eval_fn, eval_every, codec, device, init_fn, update_fn):
+                 eval_fn, eval_every, codec, device, init_fn, update_fn,
+                 dp=None, obs=None):
     params0, data, key, dev = _to(device, params0, data, key)
     step = _make_feature_step(head_loss_from_h, client_h, data, fl, codec,
-                              update_fn)
+                              update_fn, dp)
     state = _wrap_codec_state(init_fn(params0), codec,
                               lambda: _feature_ef0(params0, data.num_clients,
                                                    dev))
     return rounds_lib.run_feature_rounds(step, state, fl, key, rounds,
-                                         eval_fn=eval_fn, eval_every=eval_every)
+                                         eval_fn=eval_fn, eval_every=eval_every,
+                                         obs=obs)
 
 
 def algorithm3(head_loss_from_h, client_h, params0, data: FeatureFedData, fl,
@@ -366,7 +457,7 @@ def algorithm3(head_loss_from_h, client_h, params0, data: FeatureFedData, fl,
                device=None) -> RunResult:
     """Unconstrained feature-based FL: params0 = {"w0", "blocks" (I, ...)};
     the update is ``ssca_step``, one ``ssca_update`` launch a round."""
-    refuse_unported(topology=topology, dp=dp, obs=obs)
+    refuse_unported(topology)
 
     def update(state, grad_est, val_est, inp):
         new = optimizer.ssca_step(state, grad_est, fl,
@@ -375,7 +466,7 @@ def algorithm3(head_loss_from_h, client_h, params0, data: FeatureFedData, fl,
 
     return _run_feature(head_loss_from_h, client_h, params0, data, fl, rounds,
                         key, eval_fn, eval_every, codec, device,
-                        optimizer.ssca_init, update)
+                        optimizer.ssca_init, update, dp, obs)
 
 
 def algorithm4(head_loss_from_h, client_h, params0, data: FeatureFedData, fl,
@@ -383,7 +474,7 @@ def algorithm4(head_loss_from_h, client_h, params0, data: FeatureFedData, fl,
                codec=None, topology=None, obs=None, dp=None,
                device=None) -> RunResult:
     """Constrained feature-based FL (formulation (40) via Lemma 1)."""
-    refuse_unported(topology=topology, dp=dp, obs=obs)
+    refuse_unported(topology)
 
     def update(state, grad_est, val_est, inp):
         new = optimizer.ssca_constrained_step(state, grad_est, val_est, fl,
@@ -393,4 +484,4 @@ def algorithm4(head_loss_from_h, client_h, params0, data: FeatureFedData, fl,
 
     return _run_feature(head_loss_from_h, client_h, params0, data, fl, rounds,
                         key, eval_fn, eval_every, codec, device,
-                        optimizer.ssca_constrained_init, update)
+                        optimizer.ssca_constrained_init, update, dp, obs)

@@ -123,7 +123,7 @@ def sample_sgd(per_sample_loss, params0, data: SampleFedData, cfg: SGDConfig,
     averaging of the (optionally compressed) model deltas,
     ω ← ω + Σ_i w_i Δ̂_i with w_i = N_i/N, or (I/S)·N_i/N over the S drawn
     clients under ``participation=S``. Metrics: ``upload_bytes``."""
-    refuse_unported(topology, obs=obs)
+    refuse_unported(topology)
     _check_cohort("sample_sgd", cohort, participation)
     params0, data, key, dev = _to(device, params0, data, key)
     grad_fn = _reg_grad(per_sample_loss, cfg.l2_lambda)
@@ -178,16 +178,16 @@ def sample_sgd(per_sample_loss, params0, data: SampleFedData, cfg: SGDConfig,
                  else ef_init_stacked(num_clients, dim, device=dev)))
     return rounds_lib.run_rounds(with_comm_carry(codec, body), state,
                                  _NULL_SCHED, key, rounds, eval_fn=eval_fn,
-                                 eval_every=eval_every)
+                                 eval_every=eval_every, obs=obs)
 
 
 def _run_feature(body, state, codec, params0, data, fl, key, rounds, eval_fn,
-                 eval_every, dev):
+                 eval_every, dev, obs=None):
     state = _wrap_codec_state(
         state, codec, lambda: _feature_ef0(params0, data.num_clients, dev))
     return rounds_lib.run_feature_rounds(with_comm_carry(codec, body), state,
                                          fl, key, rounds, eval_fn=eval_fn,
-                                         eval_every=eval_every)
+                                         eval_every=eval_every, obs=obs)
 
 
 def feature_sgd(head_loss_from_h, client_h, params0, data: FeatureFedData,
@@ -196,7 +196,7 @@ def feature_sgd(head_loss_from_h, client_h, params0, data: FeatureFedData,
                 topology=None, obs=None, device=None) -> RunResult:
     """One global (momentum-)SGD step per round via the Alg-3 information
     collection (the codec compresses the same q-uploads as Algorithm 3)."""
-    refuse_unported(topology=topology, obs=obs)
+    refuse_unported(topology)
     params0, data, key, dev = _to(device, params0, data, key)
 
     def body(state, inp, ef):
@@ -222,7 +222,7 @@ def feature_sgd(head_loss_from_h, client_h, params0, data: FeatureFedData,
     state = (SGDmState(params=params0, v=tree_zeros_like(params0), t=1)
              if momentum else SGDState(params=params0, t=1))
     return _run_feature(body, state, codec, params0, data, _NULL_SCHED, key,
-                        rounds, eval_fn, eval_every, dev)
+                        rounds, eval_fn, eval_every, dev, obs)
 
 
 # ---------------------------------------------------------------------------
@@ -251,7 +251,7 @@ def feature_frank_wolfe(head_loss_from_h, client_h, params0,
     """ω_{t+1} = (1−η_t)ω_t + η_t·s_t with s_t the L2-ball LMO of the
     penalized subgradient g_t = 2ω_t + c·1[F̂>U]·∇F̂(ω_t). Metrics:
     ``loss_est``, ``upload_bytes``, ``axis_bytes``."""
-    refuse_unported(topology=topology, obs=obs)
+    refuse_unported(topology)
     params0, data, key, dev = _to(device, params0, data, key)
 
     def body(state, inp, ef):
@@ -273,7 +273,7 @@ def feature_frank_wolfe(head_loss_from_h, client_h, params0,
             "axis_bytes": 0.0}
 
     return _run_feature(body, SGDState(params=params0, t=1), codec, params0,
-                        data, fl, key, rounds, eval_fn, eval_every, dev)
+                        data, fl, key, rounds, eval_fn, eval_every, dev, obs)
 
 
 class DualConfig(NamedTuple):
@@ -300,7 +300,7 @@ def feature_dual_decomposition(head_loss_from_h, client_h, params0,
                                ) -> RunResult:
     """ω ← ω − η_ω(2ω + ν∇F̂);  ν ← clip(ν + η_ν(F̂ − U), 0, ν_max). Metrics:
     ``loss_est``, ``nu``, ``upload_bytes``, ``axis_bytes``."""
-    refuse_unported(topology=topology, obs=obs)
+    refuse_unported(topology)
     params0, data, key, dev = _to(device, params0, data, key)
 
     def body(state, inp, ef):
@@ -322,4 +322,4 @@ def feature_dual_decomposition(head_loss_from_h, client_h, params0,
 
     state = DualState(params=params0, nu=torch.zeros((), device=dev), t=1)
     return _run_feature(body, state, codec, params0, data, fl, key, rounds,
-                        eval_fn, eval_every, dev)
+                        eval_fn, eval_every, dev, obs)

@@ -26,7 +26,13 @@ and codec bits, and their aggregates agree to float reassociation. No round
 of either engine reads a value back to the host, unless its EFStore was
 made with ``host_offload`` (see ``comm.error_feedback.ef_store_init``).
 
-DP and the sharded topology are not ported yet.
+With ``dp=`` (a ``privacy.DPConfig``) every round function privatizes the
+q-uploads at the client boundary before the codec: each client's upload is
+clipped at its B_i-mean scale and noised with the key
+``client_keys(dp_key, id)``, ``dp_key`` defaulting to ``fold_in(key,
+0xD9)``; the stable ids make the dense and cohort engines draw the same
+noise for the same client. Per-client clip and noise statistics come back
+as ``uploads["dp"]``. The sharded topology is not ported yet.
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ from repro_torch.comm import codecs as comm_codecs
 from repro_torch.comm import error_feedback as comm_ef
 from repro_torch.core import topology as topology_lib
 from repro_torch.kernels.cohort_sample import cohort_sample as feistel_walk
+from repro_torch.obs.trace import phase
 
 
 class SampleFedData(NamedTuple):
@@ -305,10 +312,20 @@ def _client_fn(per_sample_loss: Callable, params):
     return client
 
 
+def _dp_args(dp_key, key, ids, counts, batch_size: int):
+    """(per-client noise keys, 1/B_i clip scales) of a round's DP stage:
+    keys from the stable client ids, the scale converting each client's
+    B_i-sum to its mean."""
+    if dp_key is None:
+        dp_key = rnd.fold_in(key, 0xD9)
+    return (client_keys(dp_key, ids),
+            1.0 / torch.clamp(counts.float(), max=float(batch_size)))
+
+
 def sample_round(per_sample_loss: Callable, params, data: SampleFedData, key,
                  batch_size: int, with_value: bool = False,
                  participation: int | None = None, participation_key=None,
-                 codec=None, ef=None, codec_key=None):
+                 codec=None, ef=None, codec_key=None, dp=None, dp_key=None):
     """Computes client uploads q_i = Σ_{n∈batch} ∇f(ω;x_n) (and Σ f) then
     the server aggregate ĝ = Σ_i N_i/(B_i·N) q_i (and F̂ likewise).
 
@@ -321,7 +338,9 @@ def sample_round(per_sample_loss: Callable, params, data: SampleFedData, key,
     updated residuals come back as ``uploads["ef"]`` (a non-participant's
     row unchanged), and the codec's random bits come from
     ``client_keys(codec_key, arange(I))``, ``codec_key`` defaulting to
-    ``fold_in(key, 0xC0DEC)``, as in the reference.
+    ``fold_in(key, 0xC0DEC)``, as in the reference. With ``dp=`` each
+    client's upload is clipped and noised before the codec (module
+    docstring); the stats come back as ``uploads["dp"]``.
 
     Returns (grad_est dict, value_est, uploads)."""
     if participation is not None and participation < 1:
@@ -333,8 +352,9 @@ def sample_round(per_sample_loss: Callable, params, data: SampleFedData, key,
     dim = comm_codecs.tree_flat_dim(params)
     if codec is not None:
         _check_ef_shape("sample_round", "q_grad", ef, (data.num_clients, dim))
-    idx = sample_batches(data, key, batch_size)      # (I, B)
-    bmask = batch_mask(data.counts, batch_size)      # (I, B)
+    with phase("batch-select"):
+        idx = sample_batches(data, key, batch_size)      # (I, B)
+        bmask = batch_mask(data.counts, batch_size)      # (I, B)
     pmask = None
     if participation is not None and participation < data.num_clients:
         if participation_key is None:
@@ -350,15 +370,21 @@ def sample_round(per_sample_loss: Callable, params, data: SampleFedData, key,
         nbytes = comm_accounting.sample_round_bytes(
             dim, data.num_clients, codec, participation=participation,
             with_value=with_value)["up"]
+    dkeys = dscale = None
+    if dp is not None:
+        dkeys, dscale = _dp_args(
+            dp_key, key, torch.arange(data.num_clients, device=key.device),
+            data.counts, batch_size)
     w = aggregation_weights(data.counts, batch_size, pmask)
     s = topology_lib.LOCAL.weighted_sum(
         _client_fn(per_sample_loss, params),
         (data.features, data.labels, idx, bmask), w,
-        codec=codec, ef=ef, codec_keys=ckeys, active=pmask)
+        codec=codec, ef=ef, codec_keys=ckeys, active=pmask, dp=dp,
+        dp_keys=dkeys, dp_scale=dscale)
     uploads = {"q_grad_sums": s.uploads,
                "q_value_sums": s.values if with_value else None,
                "participants": pmask, "encoded": s.encoded, "ef": s.ef,
-               "upload_nbytes": nbytes}
+               "dp": s.dp, "upload_nbytes": nbytes}
     return s.weighted, s.value, uploads
 
 
@@ -374,7 +400,8 @@ def _cohort_client_fn(per_sample_loss: Callable, params):
 
 def cohort_round(per_sample_loss: Callable, params, data, key,
                  batch_size: int, cohort: int, with_value: bool = False,
-                 participation_key=None, codec=None, ef=None, codec_key=None):
+                 participation_key=None, codec=None, ef=None, codec_key=None,
+                 dp=None, dp_key=None):
     """The participant-only O(S) realization of ``sample_round`` under
     partial participation: draws the S-client cohort with ``cohort_sample``
     (``participation_key`` defaults to ``fold_in(key, 0x5ca)``), asks
@@ -388,6 +415,8 @@ def cohort_round(per_sample_loss: Callable, params, data, key,
     are gathered into the round and the updated rows written back in place;
     no other client's row is read or written. The store comes back as
     ``uploads["ef"]`` and the (S,) drawn ids as ``uploads["cohort"]``.
+    ``dp=`` privatizes the cohort's uploads with the noise keys of their
+    stable ids, as ``sample_round`` does (``uploads["dp"]`` is (S,)).
 
     Returns (grad_est, value_est, uploads)."""
     if codec is None and ef is not None:
@@ -397,12 +426,14 @@ def cohort_round(per_sample_loss: Callable, params, data, key,
     num_clients = data.num_clients
     if participation_key is None:
         participation_key = rnd.fold_in(key, 0x5CA)
-    ids = cohort_sample(participation_key, num_clients, cohort)      # (S,)
-    counts_s = data.counts_for(ids)                                  # (S,)
-    idx = rnd.randint(client_keys(key, ids), (batch_size,), 0,
-                      counts_s[:, None])                             # (S, B)
-    bmask = batch_mask(counts_s, batch_size)                         # (S, B)
-    zb, yb = data.batch_rows(ids, idx)                 # (S, B, P), (S, B, L)
+    with phase("cohort-select"):
+        ids = cohort_sample(participation_key, num_clients, cohort)  # (S,)
+        counts_s = data.counts_for(ids)                              # (S,)
+    with phase("batch-select"):
+        idx = rnd.randint(client_keys(key, ids), (batch_size,), 0,
+                          counts_s[:, None])                         # (S, B)
+        bmask = batch_mask(counts_s, batch_size)                     # (S, B)
+        zb, yb = data.batch_rows(ids, idx)             # (S, B, P), (S, B, L)
     ckeys = ef_rows = nbytes = None
     if codec is not None:
         dim = comm_codecs.tree_flat_dim(params)
@@ -421,16 +452,20 @@ def cohort_round(per_sample_loss: Callable, params, data, key,
         nbytes = comm_accounting.sample_round_bytes(
             dim, num_clients, codec, participation=cohort,
             with_value=with_value)["up"]
+    dkeys = dscale = None
+    if dp is not None:
+        dkeys, dscale = _dp_args(dp_key, key, ids, counts_s, batch_size)
     w = cohort_weights(counts_s, batch_size, num_clients, data.total)
     s = topology_lib.LOCAL.weighted_sum(
         _cohort_client_fn(per_sample_loss, params), (zb, yb, bmask), w,
-        codec=codec, ef=ef_rows, codec_keys=ckeys)
+        codec=codec, ef=ef_rows, codec_keys=ckeys, dp=dp, dp_keys=dkeys,
+        dp_scale=dscale)
     new_ef = (ef.scatter(ids, s.ef) if codec is not None and ef is not None
               else s.ef)
     uploads = {"q_grad_sums": s.uploads,
                "q_value_sums": s.values if with_value else None,
                "cohort": ids, "encoded": s.encoded, "ef": new_ef,
-               "upload_nbytes": nbytes}
+               "dp": s.dp, "upload_nbytes": nbytes}
     return s.weighted, s.value, uploads
 
 
@@ -466,7 +501,7 @@ def _block_grad_fn(client_h):
 
 def feature_round(params, data: FeatureFedData, key, batch_size: int,
                   head_loss_from_h: Callable, client_h: Callable,
-                  codec=None, ef=None, codec_key=None):
+                  codec=None, ef=None, codec_key=None, dp=None, dp_key=None):
     """The Alg-3 information flow for f(ω;x) = g0(ω0, Σ_i h_i(ω_i, x_i)):
 
       server picks N^(t)  →  client i computes h_i and broadcasts it  →
@@ -481,7 +516,11 @@ def feature_round(params, data: FeatureFedData, key, batch_size: int,
     "blocks": (I, Pb)}`` (zeros if None); the h-exchange stays dense. The
     head stream's key is ``fold_in(codec_key, 0)`` and the blocks'
     ``client_keys(fold_in(codec_key, 1), arange(I))``, codec_key defaulting
-    to ``fold_in(key, 0xC0DEC)``, as in the reference.
+    to ``fold_in(key, 0xC0DEC)``, as in the reference. With ``dp=`` the head
+    and block uploads are clipped at B-mean scale and noised before the
+    codec, with keys ``fold_in(dp_key, 0)`` and ``client_keys(fold_in(dp_key,
+    1), arange(I))``, ``dp_key`` defaulting to ``fold_in(key, 0xD9)``; the
+    h-exchange is not privatized.
 
     Returns (grad_est dict like params, value_est, uploads)."""
     if codec is None and ef is not None:
@@ -489,9 +528,10 @@ def feature_round(params, data: FeatureFedData, key, batch_size: int,
             "feature_round: error-feedback residuals (ef=) were passed "
             "without codec= — pass codec= or drop ef=")
     n = data.total
-    idx = rnd.randint(key, (batch_size,), 0, n).long()         # server-chosen
-    yb = data.labels[idx]
-    zb = data.feature_blocks[:, idx]                           # (I, B, P_i)
+    with phase("batch-select"):
+        idx = rnd.randint(key, (batch_size,), 0, n).long()     # server-chosen
+        yb = data.labels[idx]
+        zb = data.feature_blocks[:, idx]                       # (I, B, P_i)
 
     head_key = block_keys = nbytes = None
     if codec is not None:
@@ -513,10 +553,20 @@ def feature_round(params, data: FeatureFedData, key, batch_size: int,
                                  torch.arange(data.num_clients,
                                               device=key.device))
 
+    dp_head_key = dp_block_keys = None
+    if dp is not None:
+        if dp_key is None:
+            dp_key = rnd.fold_in(key, 0xD9)
+        dp_head_key = rnd.fold_in(dp_key, 0)
+        dp_block_keys = client_keys(rnd.fold_in(dp_key, 1),
+                                    torch.arange(data.num_clients,
+                                                 device=key.device))
     s = topology_lib.LOCAL.feature_sum(
         client_h, _head_fn(head_loss_from_h, params["w0"], yb),
         _block_grad_fn(client_h), params["blocks"], zb, codec=codec, ef=ef,
-        head_key=head_key, block_keys=block_keys)
+        head_key=head_key, block_keys=block_keys, dp=dp,
+        dp_head_key=dp_head_key, dp_block_keys=dp_block_keys,
+        dp_scale=1.0 / batch_size)
     if codec is not None:
         nbytes = comm_accounting.feature_round_bytes(
             d_head, [d_block] * data.num_clients, batch_size,
@@ -524,5 +574,6 @@ def feature_round(params, data: FeatureFedData, key, batch_size: int,
 
     grad_est = {"w0": s.q_head / batch_size, "blocks": s.q_blocks / batch_size}
     uploads = {"h_exchange": s.h, "q_head": s.q_head, "q_blocks": s.q_blocks,
-               "encoded": s.encoded, "ef": s.ef, "upload_nbytes": nbytes}
+               "encoded": s.encoded, "ef": s.ef, "dp": s.dp,
+               "upload_nbytes": nbytes}
     return grad_est, s.value / batch_size, uploads

@@ -72,7 +72,7 @@ def algorithm1_local(per_sample_loss, params0, data: SampleFedData, fl,
     refinements per round; the uploads are each client's model and buffer,
     averaged with cohort-normalized N_i weights in every participation
     mode."""
-    refuse_unported(topology, obs=obs)
+    refuse_unported(topology)
     _check_cohort("algorithm1_local", cohort, participation)
     params0, data, key, dev = _to(device, params0, data, key)
     num_clients = data.num_clients
@@ -110,4 +110,5 @@ def algorithm1_local(per_sample_loss, params0, data: SampleFedData, fl,
 
     state = LocalSSCAState(params=params0, v=tree_zeros_like(params0), t=1)
     return rounds_lib.run_rounds(step, state, fl, key, rounds,
-                                 eval_fn=eval_fn, eval_every=eval_every)
+                                 eval_fn=eval_fn, eval_every=eval_every,
+                                 obs=obs)

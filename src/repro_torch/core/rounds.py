@@ -6,7 +6,9 @@ on the device and threaded into each step with the per-round PRNG keys, so
 a round never waits on the host: every step returns a dict of 0-d device
 tensors (or static Python floats), and run_rounds stacks them at chunk ends
 into (K,) series — there is no ``.item()`` inside a round. Capturing a round
-as a CUDA graph is later work.
+as a CUDA graph is later work. ``run_rounds(obs=)`` streams every round's
+metrics through an ``obs.MetricStream`` (rows built off the dispatch
+thread) and interleaves the eval results into the same log.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch import random as rnd
 from repro_torch.core import schedules
+from repro_torch.obs.trace import phase
 
 
 class RoundInputs(NamedTuple):
@@ -63,7 +66,8 @@ def loop_rounds(step_fn: Callable, state, inputs: RoundInputs):
     and the steps' metrics stay on the device until the chunk's end."""
     ms = []
     for r in range(inputs.num_rounds):
-        state, m = step_fn(state, inputs.round(r))
+        with phase("round"):
+            state, m = step_fn(state, inputs.round(r))
         ms.append(m)
     dev = inputs.rho.device
     return state, ({k: _series([m[k] for m in ms], dev) for k in ms[0]}
@@ -111,20 +115,44 @@ def _check_eval_keys(metrics, step_metric_names):
 
 
 def _series(values, device):
-    """Stack a list of 0-d tensors or Python numbers into one tensor."""
+    """Stack a list of 0-d tensors or Python numbers into one tensor. A
+    series of one repeated number (a round's static bytes) is a fill, not a
+    copy from the host, so a chunk's end waits on nothing."""
     if values and isinstance(values[0], torch.Tensor):
         return torch.stack([v.to(device) for v in values])
+    if values and all(v == values[0] and type(v) is type(values[0])
+                      for v in values):
+        return torch.full((len(values),), values[0], device=device)
     return torch.tensor(values, device=device)
+
+
+def _emit_eval(obs, metrics, t_global: int):
+    """Stream an eval-hook result through the obs tap: scalar values only
+    (a 0-d or one-element tensor is staged, not read, here; other arrays
+    stay history-only)."""
+    row = {"kind": "eval", "t": int(t_global)}
+    for k, v in metrics.items():
+        if isinstance(v, torch.Tensor):
+            if v.numel() == 1:
+                row[k] = v.reshape(())
+            continue
+        try:
+            row[k] = float(v)
+        except (TypeError, ValueError):
+            continue
+    obs.emit_event(row)
 
 
 def run_rounds(step_fn: Callable, state, fl, key, rounds: int,
                eval_fn: Optional[Callable] = None,
-               eval_every: int = 0) -> RunResult:
+               eval_every: int = 0, obs=None) -> RunResult:
     """Run ``rounds`` rounds of ``step_fn(state, RoundInputs-slice) ->
     (state, metrics)`` from round t=1, with ``eval_fn(params, state)`` every
     ``eval_every`` rounds (chunk ends). history carries the eval series under
     their own names keyed by "round", plus every step metric as a (K,)
-    per-round series under "round_<name>" (with "round_t" = 1..K)."""
+    per-round series under "round_<name>" (with "round_t" = 1..K). ``obs``
+    (an ``obs.MetricStream``) streams every round's metrics and each eval
+    result; the trajectory and the history are unchanged."""
     dev = key.device
     if rounds <= 0:
         return RunResult(unwrap_comm(state).params,
@@ -135,7 +163,9 @@ def run_rounds(step_fn: Callable, state, fl, key, rounds: int,
     t0 = 1
     for size in chunk_sizes(rounds, chunk):
         key, sub = rnd.split(key).unbind(0)
-        state, ms = loop_rounds(step_fn, state, make_inputs(fl, t0, size, sub))
+        inputs = make_inputs(fl, t0, size, sub)
+        state, ms = (obs.run(step_fn, state, inputs) if obs is not None
+                     else loop_rounds(step_fn, state, inputs))
         for k, v in ms.items():
             per_round.setdefault(k, []).append(v)
         t0 += size
@@ -145,6 +175,8 @@ def run_rounds(step_fn: Callable, state, fl, key, rounds: int,
             for k, v in metrics.items():
                 hist.setdefault(k, []).append(v)
             hist["round"].append(t0 - 1)
+            if obs is not None:
+                _emit_eval(obs, metrics, t0 - 1)
     history = {k: _series(v, dev) for k, v in hist.items()}
     for k, parts in per_round.items():
         history["round_" + k] = torch.cat(parts)
@@ -154,9 +186,9 @@ def run_rounds(step_fn: Callable, state, fl, key, rounds: int,
 
 def run_feature_rounds(step_fn: Callable, state, fl, key, rounds: int,
                        eval_fn: Optional[Callable] = None,
-                       eval_every: int = 0) -> RunResult:
+                       eval_every: int = 0, obs=None) -> RunResult:
     """Feature-based (vertical FL, Algorithms 3/4) counterpart of
     :func:`run_rounds`. The reference's differs only in where a sharded
     topology places the feature EF carry; on one device it is run_rounds."""
     return run_rounds(step_fn, state, fl, key, rounds, eval_fn=eval_fn,
-                      eval_every=eval_every)
+                      eval_every=eval_every, obs=obs)

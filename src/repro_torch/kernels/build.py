@@ -8,7 +8,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
 into ``build/repro_torch/`` at the repository root (listed in .gitignore),
 then loads with ``ctypes``: a few seconds per file, where a source that
 includes PyTorch's headers takes minutes. The library's name carries a hash
-of its source, so an edited kernel is never served from a stale build.
+of its source and of the shared headers (``csrc/*.cuh``: threefry), so an
+edited kernel is never served from a stale build.
 ``--use_fast_math`` is never passed: the quantize kernel's bit-exactness
 rests on IEEE division.
 
@@ -47,6 +48,15 @@ SIGNATURES = {
     "quantize": {
         "stochastic_quantize": [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _F, _I,
                                 _P],
+        # x, keys, offset, values, scales, xhat, rows, p, chunks, chunk,
+        # 1/qmax, qmax, stream
+        "stochastic_quantize_keyed": [_P, _P, _LL, _P, _P, _P, _LL, _LL, _I,
+                                      _I, _F, _I, _P],
+    },
+    "dp_noise": {
+        # x, keys, factor, scale, out, partial, rows, n, offset, sigma, lo,
+        # sqrt(2), stream
+        "dp_noise": [_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _F, _F, _F, _P],
     },
     "rmsnorm": {
         "rmsnorm": [_P, _P, _P, _LL, _I, _F, _I, _P],
@@ -82,7 +92,8 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes() + headers
                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

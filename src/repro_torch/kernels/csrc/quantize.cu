@@ -8,12 +8,22 @@
 //     values (int8) = q,  xhat = q · scale
 //
 // Replaces: src/repro/kernels/quantize.py:stochastic_quantize_pallas
-// (_qdq_kernel), on its portable path where the random bits are an operand.
+// (_qdq_kernel): `stochastic_quantize` on its portable path, where the random
+// bits are an operand, and `stochastic_quantize_keyed` as the counterpart of
+// its device_prng branch (quantize.py:40-44), where no bits operand sits in
+// HBM: each lane computes its bits in registers with threefry
+// (threefry.cuh) from its row's key at counter offset + column, the
+// counters random.bits(key, (C, chunk)) uses. So the keyed entry gives,
+// bit for bit, what the bits-operand entry gives on random.bits of the same
+// keys, and a long vector can be quantized in 256-aligned pieces, each at
+// its own offset.
 //
 // Bound: memory. Per element it reads x (4 B) and bits (4 B) and writes the
 // int8 value (1 B) and xhat (4 B), plus one fp32 scale per chunk, and does a
 // handful of operations. At the main path's shape (10 clients × 101,632 =
-// 397 chunks of 256 each) that is 13,228,040 B: 3.95 us at 3.35 TB/s.
+// 397 chunks of 256 each) that is 13,228,040 B: 3.95 us at 3.35 TB/s. The
+// keyed entry reads no bits (9 B an element) and adds threefry's ~85
+// integer operations an element.
 //
 // Design: one block per (chunk, row), one thread per element, so x and bits
 // are read once, coalesced, and the chunk's absmax is a warp-shuffle
@@ -35,6 +45,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "threefry.cuh"
+
 namespace {
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -43,8 +55,13 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// KEYED: bits from threefry of keys[row] (two uint32 words held in int64)
+// at counter offset + column; otherwise read from the bits operand.
+template <bool KEYED>
 __global__ void stochastic_quantize_kernel(const float* __restrict__ x,
                                            const uint32_t* __restrict__ bits,
+                                           const int64_t* __restrict__ keys,
+                                           int64_t offset,
                                            int8_t* __restrict__ values,
                                            float* __restrict__ scales,
                                            float* __restrict__ xhat, int64_t p,
@@ -70,7 +87,13 @@ __global__ void stochastic_quantize_kernel(const float* __restrict__ x,
 
   const float scale = __fmul_rn(absmax, inv_qmax);
   const float safe = scale > 0.0f ? scale : 1.0f;
-  const uint32_t b = bits[row * padded + col];
+  uint32_t b;
+  if (KEYED) {
+    b = threefry::bits((uint32_t)keys[2 * row], (uint32_t)keys[2 * row + 1],
+                       (uint64_t)(offset + col));
+  } else {
+    b = bits[row * padded + col];
+  }
   const float u = __fmul_rn((float)(b >> 8), 5.9604644775390625e-08f);  // 2^-24
   float q = floorf(__fadd_rn(__fdiv_rn(xv, safe), u));
   q = fminf(fmaxf(q, -qmax), qmax);
@@ -91,8 +114,26 @@ extern "C" int stochastic_quantize(const void* x, const void* bits, void* values
                                    float inv_qmax, int qmax, void* stream) {
   if (rows <= 0 || chunks <= 0) return 0;
   dim3 grid((unsigned)chunks, (unsigned)rows);
-  stochastic_quantize_kernel<<<grid, chunk, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const uint32_t*)bits, (int8_t*)values, (float*)scales,
-      (float*)xhat, (int64_t)p, chunks, inv_qmax, (float)qmax);
+  stochastic_quantize_kernel<false><<<grid, chunk, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (const uint32_t*)bits, nullptr, 0, (int8_t*)values,
+      (float*)scales, (float*)xhat, (int64_t)p, chunks, inv_qmax, (float)qmax);
+  return (int)cudaGetLastError();
+}
+
+// As stochastic_quantize, with keys: (rows, 2) int64 holding uint32 words
+// (one threefry key a row) in place of the bits; element `col` of a row
+// (padded lanes included) takes the bits at counter offset + col.
+extern "C" int stochastic_quantize_keyed(const void* x, const void* keys,
+                                         long long offset, void* values,
+                                         void* scales, void* xhat,
+                                         long long rows, long long p,
+                                         int chunks, int chunk, float inv_qmax,
+                                         int qmax, void* stream) {
+  if (rows <= 0 || chunks <= 0) return 0;
+  dim3 grid((unsigned)chunks, (unsigned)rows);
+  stochastic_quantize_kernel<true><<<grid, chunk, 0, (cudaStream_t)stream>>>(
+      (const float*)x, nullptr, (const int64_t*)keys, (int64_t)offset,
+      (int8_t*)values, (float*)scales, (float*)xhat, (int64_t)p, chunks,
+      inv_qmax, (float)qmax);
   return (int)cudaGetLastError();
 }

@@ -11,6 +11,8 @@ import math
 import numpy as np
 import torch
 
+from repro_torch import random as rnd
+
 
 def rmsnorm_ref(x, scale, eps: float = 1e-6):
     """x: (..., D); scale: (D,). Gemma-style ``x·rsqrt(mean(x²)+eps)·(1+scale)``
@@ -226,6 +228,31 @@ def stochastic_quantize_ref(x, bits, qmax: int, chunk: int = 256):
     q, scales = stochastic_round_chunks(xc, u, qmax)
     xhat = (q.float() * scales[..., None]).flatten(-2)[..., :p]
     return q.flatten(-2), scales, xhat
+
+
+def stochastic_quantize_keyed_ref(x, keys, qmax: int, chunk: int = 256,
+                                  offset: int = 0):
+    """``stochastic_quantize_ref`` on the bits of ``keys`` (one (2,) key a
+    row of x, ``(..., 2)``) at counters offset .. offset + C·chunk: the
+    columns of ``random.bits(key, (C', chunk))`` that a piece starting at
+    element ``offset`` of a longer row covers."""
+    num = -(-x.shape[-1] // chunk) * chunk
+    return stochastic_quantize_ref(x, rnd._bits_range(keys, offset, num), qmax,
+                                   chunk)
+
+
+def dp_noise_ref(x, keys, factor, scale, sigma: float, offset: int = 0):
+    """The clip-and-noise body of ``privacy.clip_and_noise`` after the norm:
+    x (..., n) fp32 with keys (..., 2) and per-row factor and scale (...):
+
+        out = ((x·s)·f + sigma·n) / s,  n = normal at counters offset + col
+
+    Returns (out fp32 (..., n), Σ (sigma·n)² per row (...))."""
+    n = x.shape[-1]
+    noise = rnd.normal_from_bits(rnd._bits_range(keys, offset, n)) * sigma
+    s = scale[..., None]
+    out = (x.float() * s * factor[..., None] + noise) / s
+    return out, torch.sum(noise * noise, dim=-1)
 
 
 _U32 = 0xFFFFFFFF

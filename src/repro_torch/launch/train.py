@@ -24,14 +24,31 @@ a ``VirtualFedData`` population of ``clients`` (a million is never
 materialized), ``participation`` clients a round, with ``codec=`` and its
 error feedback in a keyed ``EFStore`` on the card.
 
-The reference's options that the port does not have yet raise
-NotImplementedError, naming the ROADMAP item that brings them: codec
-uploads on the zoo, the sharded topology, differential privacy, JSONL logs,
-profiles and checkpoints.
+Uploads on the zoo (``codec=``, ``dp=``; the reference's ``comm_body``):
+the step's gradient, the clients-as-data-shards picture's one upload, is
+privatized (``dp``: clipped to C and noised with ``fold_in(key, 0xD9)``)
+and then compressed through an error-feedback roundtrip (``codec``, key
+``fold_in(key, 0xC0DEC)``), before the SSCA or Lemma-1 update.
+``comm_update_`` does both in place on the flat gradient buffer, a
+256-aligned piece at a time (``COMM_PIECE`` elements), each piece drawing
+its threefry bits at its own counter offset on the ``dp_noise`` and keyed
+quantize kernels; the EF residual (fp32, one per parameter) is updated in
+place and is the only full-size state the codec adds. TopK and Chain select
+over the whole vector, so they take the vector as one piece.
+
+Every mode takes the reference's observability: ``log_jsonl`` streams the
+round rows through an ``obs.MetricStream`` (rows built off the dispatch
+thread) and writes a run manifest beside them (with the DP calibration and
+the accountant's ε under ``dp``), ``profile_dir`` wraps the run in
+``torch.profiler`` (a Chrome trace with the phase labels), and
+``ckpt_path`` saves the final params in the reference's msgpack format.
+``topology="sharded"`` raises NotImplementedError (ROADMAP item 8).
 
 CLI:  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
           --steps 20 --batch 8 --seq 512 [--constrained --cost-limit 3.0] \\
-          [--smoke --device cpu]
+          [--codec int8] [--dp-epsilon 8 --dp-delta 1e-5 --dp-clip 1.0] \\
+          [--log-jsonl run.jsonl --log-every 1] [--profile prof/] \\
+          [--ckpt params.msgpack] [--smoke --device cpu]
       PYTHONPATH=src python -m repro_torch.launch.train --mode feature \\
           --clients 4 --steps 200 [--constrained --cost-limit 1.2] \\
           [--codec int8] [--device cpu]
@@ -42,6 +59,7 @@ CLI:  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import time
 from typing import Optional
@@ -50,43 +68,59 @@ import torch
 
 from repro_torch import device as device_lib
 from repro_torch import random as rnd
-from repro_torch.comm.codecs import make_codec
+from repro_torch.checkpoint.msgpack_ckpt import save_checkpoint
+from repro_torch.comm.codecs import (Identity, StochasticQuantizer,
+                                     make_codec)
+from repro_torch.comm.error_feedback import (CommCarry, ef_init,
+                                             ef_roundtrip_, with_comm_carry)
 from repro_torch.configs.base import FLConfig
 from repro_torch.configs.registry import get_config
 from repro_torch.core import algorithms, fed, optimizer, rounds
+from repro_torch.core import privacy as privacy_lib
+from repro_torch.core import topology as topology_lib
 from repro_torch.core.rounds import unwrap_comm
-from repro_torch.core.surrogate import chunks
+from repro_torch.core.surrogate import CHUNK, chunks
 from repro_torch.core.tree import leaves, tree_map, views
 from repro_torch.data.synthetic import (VirtualFedData, classification_dataset,
                                         sample_window, token_dataset)
+from repro_torch.kernels.dp_noise import dp_noise
 from repro_torch.models import mlp
 from repro_torch.models.api import get_model
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import sinks as obs_sinks
+from repro_torch.obs import trace as obs_trace
 
 # train_loop's default: the reference's FLConfig
 TRAIN_FL = FLConfig(a1=0.9, a2=0.5, alpha_rho=0.1, alpha_gamma=0.6, tau=0.2,
                     l2_lambda=1e-5, cost_limit=3.0)
 
+# elements of the flat gradient the comm step takes at a time: a multiple
+# of 256, so no codec chunk straddles two pieces
+COMM_PIECE = CHUNK
+
 _LATER = {
-    "codec": "codec uploads on the zoo come with ROADMAP queue 1, item 13",
     "topology": "the sharded topology comes with ROADMAP queue 1, item 8",
-    "dp": "differential privacy comes with ROADMAP queue 1, item 7",
-    "log_jsonl": "JSONL logs come with ROADMAP queue 1, item 9",
-    "profile_dir": "profiles come with ROADMAP queue 1, item 9",
-    "ckpt_path": "checkpoints come with ROADMAP queue 1, item 9",
 }
 
 
-def _refuse(what: str):
-    raise NotImplementedError(f"{what}: not ported yet; {_LATER[what]}")
-
-
-def _check_options(codec=None, topology=None, dp=None):
-    if codec not in (None, "none"):
-        _refuse("codec")
+def _check_options(topology=None):
     if topology not in (None, "local"):
-        _refuse("topology")
-    if dp is not None:
-        _refuse("dp")
+        raise NotImplementedError(
+            f"topology: not ported yet; {_LATER['topology']}")
+
+
+def _make_stream(log_jsonl, log_stream_every, profile_dir, name):
+    """The observability trio of a training loop: a MetricStream (a JSONL
+    sink with ``log_jsonl``; with none it keeps rows in memory), HostSpans
+    bound to it, and the profiler context (a no-op without
+    ``profile_dir``)."""
+    sinks = [obs_sinks.JsonlSink(log_jsonl)] if log_jsonl else []
+    stream = obs_metrics.MetricStream(sinks, log_every=log_stream_every,
+                                      name=name)
+    spans = obs_trace.HostSpans(stream)
+    prof = (obs_trace.profile(profile_dir) if profile_dir
+            else contextlib.nullcontext())
+    return stream, spans, prof
 
 
 def grad_leaves(state, grad_flat):
@@ -137,13 +171,13 @@ def _ssca_update(state, loss, grad, fl: FLConfig, rho_t, gamma_t,
     return new, {"loss": loss, "t": state.t}
 
 
-def _make_step(model, cfg, fl: FLConfig, constrained: bool):
-    """train_step(state, batch[, rho_t, gamma_t]) -> (state, metrics). The
-    gradient buffer (w_flat's dtype and layout) and the leaves that point
-    into it are made once per state and zeroed each step."""
+def _make_grad(model, cfg):
+    """grad_of(state, batch) -> (loss, flat gradient): the gradient buffer
+    (w_flat's dtype and layout) and the leaves that point into it are made
+    once per state and zeroed each step."""
     held = {}
 
-    def train_step(state, batch, rho_t=None, gamma_t=None):
+    def grad_of(state, batch):
         if held.get("w") is not state.w_flat:
             held.clear()
             grad = torch.empty_like(state.w_flat)
@@ -152,9 +186,20 @@ def _make_step(model, cfg, fl: FLConfig, constrained: bool):
         held["grad"].zero_()
         loss = model.loss_fn(held["leaves"], batch, cfg)
         loss.backward()
+        return loss.detach(), held["grad"]
+
+    return grad_of
+
+
+def _make_step(model, cfg, fl: FLConfig, constrained: bool):
+    """train_step(state, batch[, rho_t, gamma_t]) -> (state, metrics)."""
+    grad_of = _make_grad(model, cfg)
+
+    def train_step(state, batch, rho_t=None, gamma_t=None):
+        loss, grad = grad_of(state, batch)
         with torch.no_grad():
-            return _ssca_update(state, loss.detach(), held["grad"], fl, rho_t,
-                                gamma_t, constrained)
+            return _ssca_update(state, loss, grad, fl, rho_t, gamma_t,
+                                constrained)
 
     return train_step
 
@@ -174,21 +219,96 @@ def make_constrained_train_step(model, cfg, fl: FLConfig):
     return _make_step(model, cfg, fl, constrained=True)
 
 
+def comm_update_(grad, ef, key, codec=None, dp=None, piece: int = None):
+    """The train step's upload, in place on the flat gradient ``grad`` (the
+    params' dtype): privatize it (``dp``: clip to C at the whole vector's
+    norm, add N(0, σ²C²) drawn with ``fold_in(key, 0xD9)``), then run it
+    through an error-feedback roundtrip (``codec``, bits from
+    ``fold_in(key, 0xC0DEC)``, the residual ``ef`` updated in place), and
+    write the decoded upload back into ``grad``. It goes through the vector
+    ``piece`` elements at a time (default ``COMM_PIECE``, read at the call;
+    a multiple of 256; TopK and Chain select over the whole vector and take
+    it as one piece): each piece is made
+    fp32, privatized on the ``dp_noise`` kernel and quantized on the keyed
+    quantize kernel at its own counter offset, which draws exactly the
+    normals and bits of the reference's whole-vector draws. The norm is a
+    first pass in fp32 chunks. Returns the DP stats {"clipped", "noise_sq"}
+    as 0-d device tensors, or None without ``dp``."""
+    n = grad.numel()
+    piece = COMM_PIECE if piece is None else piece
+    if piece % 256:
+        raise ValueError(f"comm_update_: piece must be a multiple of 256, "
+                         f"got {piece}")
+    if codec is not None and not isinstance(codec, (Identity,
+                                                    StochasticQuantizer)):
+        piece = n
+    stats = None
+    if dp is not None:
+        dkey = rnd.fold_in(key, 0xD9)
+        norm = torch.sqrt(_sq_norm(grad))
+        factor = privacy_lib.clip_factor(norm, dp)
+        one = torch.ones((), device=grad.device)
+        sigma = privacy_lib.sigma_of(dp)
+        noise_sq = torch.zeros((), device=grad.device)
+        stats = {"clipped": (norm > dp.clip_norm).float()}
+    ckey = rnd.fold_in(key, 0xC0DEC) if codec is not None else None
+    for a in range(0, n, piece):
+        g = grad[a:a + piece]
+        x = g.float()
+        if dp is not None:
+            x, sq = dp_noise(x, dkey, factor, one, sigma, offset=a, out=x)
+            noise_sq = noise_sq + sq
+        if codec is not None:
+            _, x = ef_roundtrip_(codec, x, ef[a:a + piece], ckey, offset=a)
+        if x is not g:
+            g.copy_(x)
+    if dp is not None:
+        stats["noise_sq"] = noise_sq
+    return stats
+
+
 def make_scanned_step(model, cfg, fl: FLConfig, tokens, batch: int, seq: int,
                       constrained: bool = False, codec=None, topology=None,
                       dp=None):
     """Fuses the round's data selection into the train step: step(state,
     RoundInputs of one round) -> (state, metrics), the batch drawn from
-    ``tokens`` with the round's key. Local topology and dense uploads only."""
-    _check_options(codec, topology, dp)
-    train_step = (make_constrained_train_step if constrained
-                  else make_train_step)(model, cfg, fl)
+    ``tokens`` with the round's key. With a codec (an instance) or ``dp``
+    (a ``privacy.DPConfig``) the gradient goes through ``comm_update_``
+    before the update, and the metrics gain ``upload_bytes`` (the codec's
+    bytes for the vector) and ``dp_epsilon``, ``dp_clip_frac``,
+    ``dp_noise_norm`` (one release a step, q = 1); with a codec the state is
+    a CommCarry(opt=state, ef=(P,) fp32 residual)."""
+    _check_options(topology)
+    if codec is None and dp is None:
+        train_step = (make_constrained_train_step if constrained
+                      else make_train_step)(model, cfg, fl)
 
-    def step(state, inp):
+        def step(state, inp):
+            data = sample_window(tokens, inp.key, batch, seq)
+            return train_step(state, data, rho_t=inp.rho, gamma_t=inp.gamma)
+
+        return step
+
+    grad_of = _make_grad(model, cfg)
+    eps_fn = (privacy_lib.make_eps_fn(dp, 1.0, device=tokens.device)
+              if dp is not None else None)
+
+    def comm_body(state, inp, ef):
         data = sample_window(tokens, inp.key, batch, seq)
-        return train_step(state, data, rho_t=inp.rho, gamma_t=inp.gamma)
+        loss, grad = grad_of(state, data)
+        with torch.no_grad():
+            dstats = comm_update_(grad, ef, inp.key, codec, dp)
+            new, metrics = _ssca_update(state, loss, grad, fl, inp.rho,
+                                        inp.gamma, constrained)
+        if codec is not None:
+            metrics["upload_bytes"] = float(codec.nbytes(grad.numel()))
+        if dp is not None:
+            metrics.update({"dp_epsilon": eps_fn(inp.t),
+                            "dp_clip_frac": dstats["clipped"],
+                            "dp_noise_norm": torch.sqrt(dstats["noise_sq"])})
+        return new, ef, metrics
 
-    return step
+    return with_comm_carry(codec, comm_body)
 
 
 def train_loop(arch: str, steps: int, batch: int, seq: int, *,
@@ -196,21 +316,22 @@ def train_loop(arch: str, steps: int, batch: int, seq: int, *,
                fl: Optional[FLConfig] = None, log_every: int = 10,
                ckpt_path: Optional[str] = None, seed: int = 0,
                driver: str = "scan", codec: Optional[str] = None,
-               topology: str = "local", log_jsonl: Optional[str] = None,
-               profile_dir: Optional[str] = None, dp=None, device=None,
+               topk_frac: float = 0.01, topology: str = "local",
+               log_jsonl: Optional[str] = None, log_stream_every: int = 1,
+               profile_dir: Optional[str] = None,
+               dp: Optional[privacy_lib.DPConfig] = None, device=None,
                params=None):
     """``repro.launch.train.train_loop``: ``steps`` SSCA steps of ``arch``
     (its smoke variant with ``smoke``) on a Markov token stream, with a line
     of metrics printed every ``log_every`` steps. Weights are drawn from
     ``seed``, the same keys as the reference's; ``params`` (the model's
     nested dict, on the device) starts from those instead, and is copied
-    into the optimizer's flat buffer. Returns (state, logs), logs one dict
-    per printed line."""
-    for what, on in (("ckpt_path", ckpt_path), ("log_jsonl", log_jsonl),
-                     ("profile_dir", profile_dir)):
-        if on:
-            _refuse(what)
-    _check_options(codec, topology, dp)
+    into the optimizer's flat buffer. ``codec`` (a codec name) and ``dp``
+    put the gradient upload through ``comm_update_``; ``log_jsonl``,
+    ``log_stream_every``, ``profile_dir`` and ``ckpt_path`` are the
+    reference's observability and checkpoint options. Returns (state, logs),
+    logs one dict per printed line."""
+    _check_options(topology)
     cfg = get_config(arch)
     if smoke:
         cfg = cfg.smoke()
@@ -222,27 +343,48 @@ def train_loop(arch: str, steps: int, batch: int, seq: int, *,
             else optimizer.ssca_init)
     state = init(model.init(key, cfg, device=dev) if params is None else params)
     del params
+    codec_obj = make_codec(codec, topk_frac=topk_frac)
+    if codec_obj is not None:
+        state = CommCarry(opt=state, ef=ef_init(state.w_flat.numel(), dev))
     toks = token_dataset(rnd.fold_in(key, 1), cfg.vocab_size,
                          n_tokens=max(200_000, batch * (seq + 1) * 4))
-    step_fn = make_scanned_step(model, cfg, fl, toks, batch, seq, constrained)
+    step_fn = make_scanned_step(model, cfg, fl, toks, batch, seq, constrained,
+                                codec=codec_obj, dp=dp)
     engine = rounds.ENGINES[driver]
+    stream, spans, prof = _make_stream(log_jsonl, log_stream_every,
+                                       profile_dir, name=arch)
+    if log_jsonl:
+        obs_sinks.write_manifest(
+            log_jsonl + ".manifest.json",
+            config={"arch": arch, "steps": steps, "batch": batch, "seq": seq,
+                    "constrained": constrained, "driver": driver,
+                    "smoke": smoke, "seed": seed},
+            codec=codec_obj, topology=topology_lib.LOCAL, device=dev,
+            extra=({"dp": privacy_lib.manifest_info(dp, 1.0, rounds=steps)}
+                   if dp is not None else None))
 
     logs = []
     t0, done = 1, 0
     key_run = rnd.fold_in(key, 2)
     wall0 = time.time()
-    for size in rounds.chunk_sizes(steps, log_every):
-        key_run, sub = rnd.split(key_run).unbind(0)
-        inputs = rounds.make_inputs(fl, t0, size, sub)
-        state, ms = engine(step_fn, state, inputs)
-        t0 += size
-        done += size
-        m = {k: float(v[-1]) for k, v in ms.items()}
-        m["step"] = done
-        m["wall_s"] = time.time() - wall0
-        logs.append(m)
-        print(" ".join(f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
-                       for k, v in m.items()), flush=True)
+    with prof:
+        for size in rounds.chunk_sizes(steps, log_every):
+            key_run, sub = rnd.split(key_run).unbind(0)
+            inputs = rounds.make_inputs(fl, t0, size, sub)
+            with spans.span("dispatch", rounds=size, t0=t0):
+                state, ms = (stream.run(step_fn, state, inputs, driver=driver)
+                             if log_jsonl else engine(step_fn, state, inputs))
+            t0 += size
+            done += size
+            m = {k: float(v[-1]) for k, v in ms.items()}
+            m["step"] = done
+            m["wall_s"] = time.time() - wall0
+            logs.append(m)
+            print(" ".join(f"{k}={v:.4g}" if isinstance(v, float)
+                           else f"{k}={v}" for k, v in m.items()), flush=True)
+    if ckpt_path:
+        save_checkpoint(ckpt_path, unwrap_comm(state).params, step=steps)
+    stream.close()
     return state, logs
 
 
@@ -251,10 +393,12 @@ def feature_train_loop(*, clients: int = 4, rounds: int = 200,
                        classes: int = 10, hidden: int = 32, n: int = 8000,
                        constrained: bool = False, cost_limit: float = 1.2,
                        topology: str = "local", codec: Optional[str] = None,
-                       log_every: int = 20,
+                       topk_frac: float = 0.01, log_every: int = 20,
                        seed: int = 0, fl: Optional[FLConfig] = None,
                        log_jsonl: Optional[str] = None,
-                       profile_dir: Optional[str] = None, dp=None,
+                       log_stream_every: int = 1,
+                       profile_dir: Optional[str] = None,
+                       dp: Optional[privacy_lib.DPConfig] = None,
                        device=None, params0=None):
     """``repro.launch.train.feature_train_loop``: synthetic classification
     (``classification_dataset``, noise 4), features split into ``clients``
@@ -262,11 +406,10 @@ def feature_train_loop(*, clients: int = 4, rounds: int = 200,
     (constrained) Algorithm 4 for ``rounds`` rounds, a line of eval metrics
     every ``log_every`` rounds. The params are drawn as the reference draws
     them (``random.normal``, to a few ulps); ``params0`` ({"w0", "blocks"})
-    starts from given ones instead. Returns the RunResult."""
-    for what, on in (("log_jsonl", log_jsonl), ("profile_dir", profile_dir)):
-        if on:
-            _refuse(what)
-    _check_options(None, topology, dp)
+    starts from given ones instead. ``dp``, ``log_jsonl``,
+    ``log_stream_every`` and ``profile_dir`` as in ``train_loop``. Returns
+    the RunResult."""
+    _check_options(topology)
     dev = device_lib.resolve(device)
     key = rnd.PRNGKey(seed, device=dev)
     (z, y, _), _ = classification_dataset(key, n=n, num_features=features,
@@ -292,11 +435,27 @@ def feature_train_loop(*, clients: int = 4, rounds: int = 200,
         return m
 
     alg = algorithms.algorithm4 if constrained else algorithms.algorithm3
+    codec_obj = make_codec(codec, topk_frac=topk_frac)
+    stream, spans, prof = _make_stream(log_jsonl, log_stream_every,
+                                       profile_dir, name="feature")
+    if log_jsonl:
+        obs_sinks.write_manifest(
+            log_jsonl + ".manifest.json",
+            config={"mode": "feature", "clients": clients, "rounds": rounds,
+                    "batch": batch, "features": features, "classes": classes,
+                    "hidden": hidden, "n": n, "constrained": constrained,
+                    "cost_limit": cost_limit, "driver": "scan", "seed": seed},
+            codec=codec_obj, topology=None, device=dev,
+            extra=({"dp": privacy_lib.manifest_info(
+                dp, 1.0, rounds=rounds, releases_per_round=2)}
+                if dp is not None else None))
     wall0 = time.time()
-    result = alg(mlp.per_sample_loss_from_h, mlp.client_h, params0, data, fl,
-                 rounds, rnd.fold_in(key, 2), eval_fn=eval_fn,
-                 eval_every=log_every, codec=make_codec(codec),
-                 device=dev)
+    with prof, spans.span("run", rounds=rounds):
+        result = alg(mlp.per_sample_loss_from_h, mlp.client_h, params0, data,
+                     fl, rounds, rnd.fold_in(key, 2), eval_fn=eval_fn,
+                     eval_every=log_every, codec=codec_obj,
+                     obs=stream if log_jsonl else None, dp=dp, device=dev)
+    stream.close()
     _print_history(result)
     print(f"done: {rounds} rounds, 1 client shard(s), "
           f"{time.time() - wall0:.1f}s", flush=True)
@@ -320,7 +479,9 @@ def cohort_train_loop(*, clients: int = 100_000, participation: int = 256,
                       topk_frac: float = 0.01, log_every: int = 20,
                       seed: int = 0, fl: Optional[FLConfig] = None,
                       log_jsonl: Optional[str] = None,
-                      profile_dir: Optional[str] = None, dp=None,
+                      log_stream_every: int = 1,
+                      profile_dir: Optional[str] = None,
+                      dp: Optional[privacy_lib.DPConfig] = None,
                       device=None, params0=None):
     """``repro.launch.train.cohort_train_loop``: a ``VirtualFedData``
     population of ``clients`` ragged Dirichlet-skewed shards (noise 4),
@@ -329,12 +490,11 @@ def cohort_train_loop(*, clients: int = 100_000, participation: int = 256,
     clients a round, for ``rounds`` rounds; the eval every ``log_every``
     rounds is the masked mean loss over the first 64 clients' shards. The
     params are drawn as the reference draws them (``random.normal``, to a
-    few ulps); ``params0`` starts from given ones instead. Returns the
-    RunResult."""
-    for what, on in (("log_jsonl", log_jsonl), ("profile_dir", profile_dir)):
-        if on:
-            _refuse(what)
-    _check_options(None, topology, dp)
+    few ulps); ``params0`` starts from given ones instead. ``dp`` (the
+    S-of-I draw earns the accountant's subsampling at q = S/I),
+    ``log_jsonl``, ``log_stream_every`` and ``profile_dir`` as in
+    ``train_loop``. Returns the RunResult."""
+    _check_options(topology)
     dev = device_lib.resolve(device)
     key = rnd.PRNGKey(seed, device=dev)
     data = VirtualFedData(rnd.fold_in(key, 0xDA7A), clients,
@@ -358,11 +518,28 @@ def cohort_train_loop(*, clients: int = 100_000, participation: int = 256,
         return {"loss": torch.sum(per_row * emask) / torch.sum(emask)}
 
     alg = algorithms.algorithm2 if constrained else algorithms.algorithm1
+    stream, spans, prof = _make_stream(log_jsonl, log_stream_every,
+                                       profile_dir, name="cohort")
+    if log_jsonl:
+        obs_sinks.write_manifest(
+            log_jsonl + ".manifest.json",
+            config={"mode": "cohort", "clients": clients,
+                    "participation": participation, "rounds": rounds,
+                    "batch": batch, "features": features, "classes": classes,
+                    "hidden": hidden, "constrained": constrained,
+                    "cost_limit": cost_limit, "driver": "scan", "seed": seed},
+            codec=codec_obj, topology=None, device=dev,
+            extra=({"dp": privacy_lib.manifest_info(
+                dp, min(1.0, participation / clients), rounds=rounds)}
+                if dp is not None else None))
     wall0 = time.time()
-    result = alg(mlp.per_sample_loss, params0, data, fl, rounds,
-                 rnd.fold_in(key, 2), eval_fn=eval_fn, eval_every=log_every,
-                 participation=participation, codec=codec_obj, cohort=True,
-                 device=dev)
+    with prof, spans.span("run", rounds=rounds):
+        result = alg(mlp.per_sample_loss, params0, data, fl, rounds,
+                     rnd.fold_in(key, 2), eval_fn=eval_fn,
+                     eval_every=log_every, participation=participation,
+                     codec=codec_obj, cohort=True,
+                     obs=stream if log_jsonl else None, dp=dp, device=dev)
+    stream.close()
     _print_history(result)
     print(f"done: {rounds} rounds, population {clients}, cohort "
           f"{participation} over 1 shard(s), {time.time() - wall0:.1f}s",
@@ -408,20 +585,38 @@ def main():
     ap.add_argument("--driver", choices=("scan", "loop"), default="scan",
                     help="both are the port's Python loop over steps")
     ap.add_argument("--codec", default="none",
-                    help="none|identity|int8|int4|topk|topk8 (feature and "
-                         "cohort modes; sample mode refuses a codec)")
+                    help="none|identity|int8|int4|topk|topk8")
     ap.add_argument("--topk-frac", type=float, default=0.01)
     ap.add_argument("--topology", choices=("local", "sharded"),
                     default="local")
-    ap.add_argument("--dp-epsilon", type=float, default=None)
-    ap.add_argument("--ckpt", default=None)
-    ap.add_argument("--log-jsonl", default=None)
-    ap.add_argument("--profile", default=None)
+    ap.add_argument("--dp-epsilon", type=float, default=None, metavar="EPS",
+                    help="DP on the q-uploads: per-release (ε, δ) target of "
+                         "the analytic Gaussian calibration; the streamed "
+                         "dp_epsilon and the manifest report the composed ε")
+    ap.add_argument("--dp-delta", type=float, default=1e-5, metavar="DELTA",
+                    help="DP δ (with --dp-epsilon; default 1e-5)")
+    ap.add_argument("--dp-clip", type=float, default=1.0, metavar="C",
+                    help="DP ℓ2 clip norm of each client's mean upload "
+                         "(with --dp-epsilon; default 1.0)")
+    ap.add_argument("--ckpt", default=None, metavar="PATH",
+                    help="save the final params to PATH (sample mode; the "
+                         "reference's msgpack format)")
+    ap.add_argument("--log-jsonl", default=None, metavar="PATH",
+                    help="stream round/eval/span rows to PATH as JSONL; the "
+                         "run manifest goes to PATH.manifest.json")
+    ap.add_argument("--log-every", type=int, default=1, metavar="N",
+                    help="emit every N-th streamed round row (default 1)")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="torch.profiler trace of the whole run, written to "
+                         "DIR/trace.json (Chrome trace format)")
     ap.add_argument("--device", default=None,
                     help="default: the CUDA device (cpu for a smoke run)")
     args = ap.parse_args()
-    if args.dp_epsilon is not None:
-        _refuse("dp")
+    dp = (privacy_lib.DPConfig(clip_norm=args.dp_clip,
+                               epsilon=args.dp_epsilon, delta=args.dp_delta)
+          if args.dp_epsilon is not None else None)
+    obs_kw = dict(log_jsonl=args.log_jsonl, log_stream_every=args.log_every,
+                  profile_dir=args.profile, dp=dp, device=args.device)
     cohort = args.mode == "cohort"
     widths = {k: (getattr(args, k) if getattr(args, k) is not None
                   else (cohort_default if cohort else default))
@@ -438,8 +633,7 @@ def main():
                           cost_limit=(1.2 if args.cost_limit is None
                                       else args.cost_limit),
                           topology=args.topology, codec=args.codec,
-                          topk_frac=args.topk_frac, log_jsonl=args.log_jsonl,
-                          profile_dir=args.profile, device=args.device)
+                          topk_frac=args.topk_frac, **obs_kw)
         return
     if args.mode == "feature":
         feature_train_loop(clients=args.clients, rounds=args.steps,
@@ -449,8 +643,7 @@ def main():
                            cost_limit=(1.2 if args.cost_limit is None
                                        else args.cost_limit),
                            topology=args.topology, codec=args.codec,
-                           log_jsonl=args.log_jsonl,
-                           profile_dir=args.profile, device=args.device)
+                           topk_frac=args.topk_frac, **obs_kw)
         return
     if args.arch is None:
         ap.error("--arch is required for --mode sample")
@@ -458,9 +651,8 @@ def main():
           else dataclasses.replace(TRAIN_FL, cost_limit=args.cost_limit))
     train_loop(args.arch, args.steps, args.batch, args.seq, smoke=args.smoke,
                constrained=args.constrained, fl=fl, ckpt_path=args.ckpt,
-               driver=args.driver, codec=args.codec, topology=args.topology,
-               log_jsonl=args.log_jsonl, profile_dir=args.profile,
-               device=args.device)
+               driver=args.driver, codec=args.codec, topk_frac=args.topk_frac,
+               topology=args.topology, **obs_kw)
 
 
 if __name__ == "__main__":

@@ -8,8 +8,10 @@ The subset of ``jax.random`` the port draws from: ``PRNGKey``, ``split``,
 ``(..., 2)``: they are the port's generators, so the same key gives the same
 batch indices, codec rounding bits and data as the JAX reference.
 
-uint32 values are held in int64 tensors and every sum or shift is masked
-with ``& 0xFFFFFFFF`` (torch's uint32 supports few ops). Every function takes
+uint32 values are held in int64 tensors (torch's uint32 supports few ops);
+threefry itself runs on their int32 bit patterns, whose two's-complement
+sums and shifts are arithmetic mod 2^32, half the bytes of int64 and no
+mask after each sum. Every function takes
 a leading batch of keys, ``(..., 2)``, where ``jax.vmap`` would map one key:
 ``bits(keys (I, 2), (C, 256))`` is ``(I, C, 256)``.
 
@@ -45,22 +47,41 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
 
 
 def _rotl(x, r: int):
-    return ((x << r) | (x >> (32 - r))) & MASK
+    """Rotate int32 bit patterns left by r: the right shift is arithmetic,
+    so its sign-filled high bits are masked off."""
+    return (x << r) | ((x >> (32 - r)) & ((1 << r) - 1))
+
+
+def _threefry_i32(k1, k2, x1, x2):
+    """Threefry-2x32 (20 rounds) on broadcastable int32 tensors holding the
+    uint32 bit patterns; returns the two output words as int32 patterns."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    a = x1 + ks[0]
+    b = x2 + ks[1]
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            a = a + b
+            b = _rotl(b, r) ^ a
+        a = a + ks[(i + 1) % 3]
+        b = b + ks[(i + 2) % 3] + (i + 1)
+    return a, b
+
+
+def _i32(x):
+    """uint32 values in int64 -> their int32 bit patterns."""
+    return x.to(torch.int32)
+
+
+def _u32(x):
+    """int32 bit patterns -> the uint32 values in int64."""
+    return x.to(torch.int64) & MASK
 
 
 def threefry2x32(k1, k2, x1, x2):
     """The Threefry-2x32 block cipher (20 rounds) on broadcastable int64
     tensors holding uint32 values; returns the two output words."""
-    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
-    a = (x1 + ks[0]) & MASK
-    b = (x2 + ks[1]) & MASK
-    for i in range(5):
-        for r in _ROT[i % 2]:
-            a = (a + b) & MASK
-            b = _rotl(b, r) ^ a
-        a = (a + ks[(i + 1) % 3]) & MASK
-        b = (b + ks[(i + 2) % 3] + (i + 1)) & MASK
-    return a, b
+    a, b = _threefry_i32(_i32(k1), _i32(k2), _i32(x1), _i32(x2))
+    return _u32(a), _u32(b)
 
 
 def split(key, num: int = 2):
@@ -84,11 +105,16 @@ def fold_in(key, data):
 def _bits_range(key, start: int, count: int) -> torch.Tensor:
     """Elements ``start .. start+count`` of the flat ``bits`` draw:
     ``(..., 2)`` keys -> ``(..., count)``."""
-    idx = torch.arange(start, start + count, dtype=torch.int64,
-                       device=key.device)
-    b1, b2 = threefry2x32(key[..., 0, None], key[..., 1, None],
-                          idx >> 32, idx & MASK)
-    return b1 ^ b2
+    dev = key.device
+    if start + count <= 1 << 31:            # the counters' high word is 0
+        lo = torch.arange(start, start + count, dtype=torch.int32, device=dev)
+        hi = torch.zeros((), dtype=torch.int32, device=dev)
+    else:
+        idx = torch.arange(start, start + count, dtype=torch.int64, device=dev)
+        lo, hi = _i32(idx), _i32(idx >> 32)
+    b1, b2 = _threefry_i32(_i32(key[..., 0, None]), _i32(key[..., 1, None]),
+                           hi, lo)
+    return _u32(b1 ^ b2)
 
 
 def bits(key, shape) -> torch.Tensor:
@@ -147,8 +173,8 @@ def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0):
     return _uniform_from_bits(bits(key, shape), minval, maxval)
 
 
-_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-_SQRT2 = float(np.float32(np.sqrt(2.0)))
+NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+SQRT2 = float(np.float32(np.sqrt(2.0)))
 NORMAL_CHUNK = 1 << 24
 
 
@@ -165,9 +191,15 @@ def normal(key, shape):
                       device=key.device)
     for start in range(0, n, NORMAL_CHUNK):
         count = min(NORMAL_CHUNK, n - start)
-        u = _uniform_from_bits(_bits_range(key, start, count), _NORMAL_LO, 1.0)
-        out[..., start:start + count] = _SQRT2 * torch.erfinv(u)
+        out[..., start:start + count] = normal_from_bits(
+            _bits_range(key, start, count))
     return out.reshape(*key.shape[:-1], *shape)
+
+
+def normal_from_bits(raw):
+    """``jax.random.normal``'s transform of raw uint32 bits (in int64):
+    u uniform on (nextafter(-1, 0), 1), then ``sqrt(2)·erfinv(u)``."""
+    return SQRT2 * torch.erfinv(_uniform_from_bits(raw, NORMAL_LO, 1.0))
 
 
 def permutation(key, n: int) -> torch.Tensor:

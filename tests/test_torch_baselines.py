@@ -25,6 +25,7 @@ from repro.core import baselines as jbl
 from repro.core import fed as jfed
 from repro.data.synthetic import classification_dataset as jdataset
 from repro.models import mlp as jmlp
+from repro.core import privacy as jpriv
 from repro_torch import convert
 from repro_torch import random as rnd
 from repro_torch.comm import codecs as tcodecs
@@ -32,6 +33,9 @@ from repro_torch.configs.base import FLConfig
 from repro_torch.core import algorithms as talg
 from repro_torch.core import baselines as tbl
 from repro_torch.models import mlp as tmlp
+from repro_torch.core import privacy as tpriv
+from repro_torch.obs import metrics as tmetrics
+from repro_torch.obs import sinks as tsinks
 
 P, J, L, I, B, N = 32, 16, 10, 4, 20, 400
 C_KW = dict(num_clients=I, batch_size=B, a1=0.9, a2=0.5, alpha_rho=0.1,
@@ -170,8 +174,8 @@ def _sample_kw(s):
 
 
 REFUSALS = [("participation", 2, "item 1"), ("cohort", True, "item 3"),
-            ("topology", object(), "item 8"), ("dp", object(), "item 7"),
-            ("obs", object(), "item 9")]
+            ("topology", object(), "item 8"), ("dp", "DPConfig", "item 7"),
+            ("obs", "MetricStream", "item 9")]
 SAMPLE_REFUSALS = [(entry, *r) for entry in ("algorithm1", "algorithm2",
                                              "algorithm2_general", "sample_sgd")
                    for r in REFUSALS
@@ -198,27 +202,39 @@ def _entry_call(pkg, entry, kw, extra):
 def test_sample_entry_points_refuse_unported_options(setup, entry, option,
                                                      value, item):
     """Each option the reference's entry point takes and the port has not
-    ported raises (the reference's sample_sgd takes no dp=). The options
-    ported since, ``participation=2`` and ``cohort=True`` (with
-    participation=2), run 2 rounds and match the reference's params at
-    1e-5."""
+    ported (``topology=``) raises (the reference's sample_sgd takes no dp=).
+    The options ported since run 2 rounds and match the reference's params
+    at 1e-5: ``participation=2``, ``cohort=True`` (with participation=2),
+    ``dp=`` (a 0.01 noise multiplier) and ``obs=`` (a MetricStream, which
+    leaves the run unchanged)."""
     kw = _sample_kw(setup)
-    if option not in ("participation", "cohort"):
+    if option == "topology":
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP queue 1, {item}"):
             _entry_call("torch", entry, kw, {option: value})()
         return
-    extra = {"participation": 2, **({"cohort": True} if option == "cohort"
-                                    else {})}
+    extra_t = extra_j = {"participation": 2, **(
+        {"cohort": True} if option == "cohort" else {})}
+    if option == "dp":
+        dp = dict(clip_norm=0.5, noise_multiplier=0.01)
+        extra_t, extra_j = ({"dp": tpriv.DPConfig(**dp)},
+                            {"dp": jpriv.DPConfig(**dp)})
+    if option == "obs":
+        extra_t = {"obs": tmetrics.MetricStream([tsinks.MemorySink()])}
+        extra_j = {}
     kw["rounds"] = 2
-    rt = _entry_call("torch", entry, kw, extra)()
+    rt = _entry_call("torch", entry, kw, extra_t)()
     jkw = dict(kw, params0=jax.tree.map(jnp.asarray, setup["p0"]),
                data=setup["jd"], key=jax.random.PRNGKey(0),
                per_sample_loss=jmlp.per_sample_loss)
     jkw.pop("device")
-    rj = _entry_call("jax", entry, jkw, extra)()
+    rj = _entry_call("jax", entry, jkw, extra_j)()
     for k in rj.params:
         _close(rt.params[k].numpy(), rj.params[k], msg=k)
+    if option == "obs":
+        extra_t["obs"].close()
+        rows = extra_t["obs"].sinks[0].rows
+        assert [r["t"] for r in rows if r["kind"] == "round"] == [1, 2]
 
 
 @pytest.mark.parametrize("entry", ["feature_sgd", "feature_frank_wolfe",
@@ -226,11 +242,22 @@ def test_sample_entry_points_refuse_unported_options(setup, entry, option,
 @pytest.mark.parametrize("option,item", [("topology", "item 8"),
                                          ("obs", "item 9")])
 def test_feature_baselines_refuse_unported_options(setup, entry, option, item):
+    """``topology=`` raises; ``obs=`` (ported since) streams the rounds."""
     extra = ({"cfg": tbl.SGDConfig()} if entry == "feature_sgd" else
              {"fl": FLConfig(**C_KW), "cfg": (tbl.FWConfig() if "wolfe" in entry
                                               else tbl.DualConfig())})
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
-        getattr(tbl, entry)(tmlp.per_sample_loss_from_h, tmlp.client_h,
-                            setup["tfp"], setup["tfd"], rounds=1,
-                            key=rnd.PRNGKey(0, device="cpu"), device="cpu",
-                            **extra, **{option: object()})
+
+    def call(value):
+        return getattr(tbl, entry)(tmlp.per_sample_loss_from_h, tmlp.client_h,
+                                   setup["tfp"], setup["tfd"], rounds=1,
+                                   key=rnd.PRNGKey(0, device="cpu"),
+                                   device="cpu", **extra, **{option: value})
+    if option == "topology":
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP queue 1, {item}"):
+            call(object())
+        return
+    stream = tmetrics.MetricStream([tsinks.MemorySink()])
+    call(stream)
+    stream.close()
+    assert [r["t"] for r in stream.rows] == [1]

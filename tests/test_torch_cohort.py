@@ -41,6 +41,7 @@ from repro_torch.core import algorithms as talg
 from repro_torch.core import baselines as tbl
 from repro_torch.core import fed as tfed
 from repro_torch.core import local_updates as tlocal
+from repro_torch.core import privacy as tpriv
 from repro_torch.data.synthetic import VirtualFedData
 from repro_torch.kernels import cohort_sample as kcohort
 from repro_torch.launch import train as ttrain
@@ -367,10 +368,24 @@ def test_cohort_cli_runs_on_the_cpu(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("kw,item", [(dict(topology="sharded"), "item 8"),
-                                     (dict(dp=object()), "item 7"),
+                                     (dict(dp="DPConfig"), "item 7"),
                                      (dict(log_jsonl="x.jsonl"), "item 9"),
                                      (dict(profile_dir="prof"), "item 9")])
-def test_cohort_train_loop_refusals(kw, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
-        ttrain.cohort_train_loop(clients=100, participation=4, rounds=1,
-                                 device="cpu", **kw)
+def test_cohort_train_loop_refusals(kw, item, tmp_path):
+    """The sharded topology raises, naming its ROADMAP item; dp=, JSONL
+    logs and profiles (items 7 and 9, ported since) run."""
+    if "topology" in kw:
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP queue 1, {item}"):
+            ttrain.cohort_train_loop(clients=100, participation=4, rounds=1,
+                                     device="cpu", **kw)
+        return
+    if "dp" in kw:
+        kw = {"dp": tpriv.DPConfig(epsilon=4.0)}
+    else:
+        kw = {k: str(tmp_path / v) for k, v in kw.items()}
+    res = ttrain.cohort_train_loop(clients=100, participation=4, rounds=1,
+                                   log_every=1, device="cpu", **kw)
+    assert np.isfinite(res.history["loss"].numpy()).all()
+    if "dp" in kw:
+        assert "round_dp_epsilon" in res.history

@@ -35,6 +35,9 @@ from repro_torch.core import fed as tfed
 from repro_torch.core import topology as ttopo
 from repro_torch.launch import train as ttrain
 from repro_torch.models import mlp as tmlp
+from repro_torch.core import privacy as tpriv
+from repro_torch.obs import metrics as tmetrics
+from repro_torch.obs import sinks as tsinks
 
 P, J, L, I, B, N = 32, 16, 10, 4, 20, 400
 U_KW = dict(num_clients=I, batch_size=B, a1=0.3, a2=0.3, alpha_rho=0.1,
@@ -303,12 +306,29 @@ def test_feature_cli_smoke(monkeypatch, capsys, extra):
                                          ("obs", "item 9")])
 @pytest.mark.parametrize("alg", ["algorithm3", "algorithm4"])
 def test_feature_algorithms_refuse_unported_options(setup, alg, option, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
-        getattr(talg, alg)(tmlp.per_sample_loss_from_h, tmlp.client_h,
-                           setup["tp"], setup["td"],
-                           FLConfig(**dict(C_KW, cost_limit=2.0)), 2,
-                           rnd.PRNGKey(0, device="cpu"), device="cpu",
-                           **{option: object()})
+    """``topology=`` raises; ``dp=`` and ``obs=`` (ported since) run."""
+    value = {"topology": object(), "dp": tpriv.DPConfig(epsilon=4.0),
+             "obs": tmetrics.MetricStream([tsinks.MemorySink()])}[option]
+
+    def call():
+        return getattr(talg, alg)(tmlp.per_sample_loss_from_h, tmlp.client_h,
+                                  setup["tp"], setup["td"],
+                                  FLConfig(**dict(C_KW, cost_limit=2.0)), 2,
+                                  rnd.PRNGKey(0, device="cpu"), device="cpu",
+                                  **{option: value})
+    if option == "topology":
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP queue 1, {item}"):
+            call()
+        return
+    res = call()
+    assert np.isfinite(res.history["round_loss_est"].numpy()).all()
+    if option == "obs":
+        value.close()
+        assert [r["t"] for r in value.rows] == [1, 2]
+
+
+def test_feature_train_loop_refuses_the_sharded_topology():
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
         ttrain.feature_train_loop(rounds=1, n=100, topology="sharded",
                                   device="cpu")

@@ -246,9 +246,20 @@ def test_sample_round_rejects_unported_options():
                                   np.asarray(ju["participants"]))
     for k in jg:
         np.testing.assert_allclose(tg[k].numpy(), np.asarray(jg[k]), atol=1e-6)
-    # DP is not ported: no such keyword
-    with pytest.raises(TypeError):
-        tfed.sample_round(tmlp.per_sample_loss, p, td, tk, B, dp=object())
+    # DP is ported since: dp= clips and noises each client's upload with the
+    # reference's keys (a 0.01 noise multiplier keeps erfinv's ulps small)
+    from repro.core import privacy as jpriv
+    from repro_torch.core import privacy as tpriv
+    dp = dict(clip_norm=0.5, noise_multiplier=0.01)
+    jg, _, ju = jfed.sample_round(jmlp.per_sample_loss,
+                                  jax.tree.map(jnp.asarray, _params()), jd, jk,
+                                  B, dp=jpriv.DPConfig(**dp))
+    tg, _, tu = tfed.sample_round(tmlp.per_sample_loss, p, td, tk, B,
+                                  dp=tpriv.DPConfig(**dp))
+    for k in jg:
+        np.testing.assert_allclose(tg[k].numpy(), np.asarray(jg[k]), atol=1e-5)
+    np.testing.assert_array_equal(tu["dp"]["clipped"].numpy(),
+                                  np.asarray(ju["dp"]["clipped"]))
     with pytest.raises(ValueError, match="without codec"):
         tfed.sample_round(tmlp.per_sample_loss, p, td, tk, B,
                           ef=torch.zeros(I, 10))

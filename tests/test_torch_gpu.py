@@ -16,7 +16,11 @@ rows whose terms cancel, to them relative to the sum of its terms'
 magnitudes in fp32, since the kernel sums in another order than the plain
 version. The cohort draw is bit-exact, and the cohort engine on the card
 is held to the CPU at 1e-4 on the params (fp32 sums in another order),
-with the drawn ids equal.
+with the drawn ids equal. The keyed quantize entry is bit-equal to the
+bits-operand entry fed ``random.bits`` of the same keys, at every offset;
+the DP-noise kernel is held to its plain version on the card at 1e-6
+relative plus σ·2e-6 absolute (erfinvf against torch.erfinv: a few ulps),
+its noise norm at rtol 1e-5.
 """
 import pytest
 import torch
@@ -27,8 +31,9 @@ from repro_torch.configs.base import FLConfig
 from repro_torch import convert
 from repro_torch.core import algorithms, baselines, fed, optimizer, surrogate
 from repro_torch.data.synthetic import classification_dataset
-from repro_torch.kernels import (cohort_sample, flash_attention, quantize,
-                                 rmsnorm, ssca_update)
+from repro_torch.core import privacy
+from repro_torch.kernels import (cohort_sample, dp_noise, flash_attention,
+                                 quantize, rmsnorm, ssca_update)
 from repro_torch.launch import serve
 from repro_torch.launch import train
 from repro_torch.models import mlp
@@ -131,14 +136,141 @@ def test_quantize_kernel_rejects_bad_operands(cuda):
 
 
 def test_codec_roundtrip_is_one_launch_for_all_clients(cuda):
+    """One launch of the keyed quantize kernel for all clients (the codecs
+    draw their bits in the kernel); the bits-operand entry is not used."""
     keys = fed.client_keys(rnd.PRNGKey(3, device=cuda), torch.arange(10, device=cuda))
     x = torch.randn(10, 5000, device=cuda)
-    before = quantize.stochastic_quantize.launches
+    before = (quantize.stochastic_quantize_keyed.launches,
+              quantize.stochastic_quantize.launches)
     enc, xhat = codecs.make_codec("int8").roundtrip(x, keys)
-    assert quantize.stochastic_quantize.launches == before + 1
+    assert (quantize.stochastic_quantize_keyed.launches,
+            quantize.stochastic_quantize.launches) == (before[0] + 1, before[1])
     enc_cpu, xhat_cpu = codecs.make_codec("int8").roundtrip(x.cpu(), keys.cpu())
     assert torch.equal(enc.values.cpu(), enc_cpu.values)
     assert torch.equal(xhat.cpu(), xhat_cpu)
+
+
+@pytest.mark.parametrize("rows,p,offset", [(1, 17, 0), (3, 1000, 0),
+                                           (10, 101_632, 0), (256, 576, 0),
+                                           (256, 6, 0), (1, 70_000, 512),
+                                           (2, 4096, 2**32 - 1024)])
+@pytest.mark.parametrize("qmax", [127, 7])
+def test_keyed_quantize_is_the_bits_operand_kernel(cuda, rows, p, offset, qmax):
+    """Keyed on the card == the bits-operand kernel on random.bits of the
+    same keys at the same counters == the CPU's plain version, bit for bit
+    (an offset past 2^32 exercises the counter's high word)."""
+    gen = torch.Generator(device=cuda).manual_seed(p + qmax)
+    x = torch.randn(rows, p, generator=gen, device=cuda) * 3.0
+    x[0, :min(p, 5)] = 0.0
+    keys = rnd.split(rnd.PRNGKey(p, device=cuda), rows)
+    num = -(-p // 256) * 256
+    b = rnd._bits_range(keys, offset, num)
+    bits = (b - ((b >> 31) << 32)).to(torch.int32)
+    want = quantize.stochastic_quantize(x, bits, qmax)
+    got = quantize.stochastic_quantize_keyed(x, keys, qmax, 256, offset)
+    cpu = quantize.stochastic_quantize_keyed(x.cpu(), keys.cpu(), qmax, 256,
+                                             offset)
+    torch.cuda.synchronize()
+    for a, w, c in zip(got, want, cpu):
+        assert a.dtype == w.dtype and torch.equal(a, w) and torch.equal(a.cpu(), c)
+
+
+def test_keyed_quantize_rejects_bad_operands(cuda):
+    x = torch.zeros(2, 300, device=cuda)
+    keys = rnd.split(rnd.PRNGKey(0, device=cuda), 2)
+    with pytest.raises(TypeError, match="key"):
+        quantize.stochastic_quantize_keyed(x, keys[:1], 127)
+    with pytest.raises(ValueError, match="offset"):
+        quantize.stochastic_quantize_keyed(x, keys, 127, 256, 100)
+    with pytest.raises(ValueError, match="keys on"):
+        quantize.stochastic_quantize_keyed(x, keys.cpu(), 127)
+
+
+@pytest.mark.parametrize("rows,n,offset", [(1, 1, 0), (1, 2049, 0),
+                                           (10, 101_632, 0), (256, 576, 0),
+                                           (1, 1 << 20, 1 << 25),
+                                           (3, 5000, 2**32 - 256)])
+def test_dp_noise_kernel_matches_plain(cuda, rows, n, offset):
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn(rows, n, generator=gen, device=cuda)
+    keys = rnd.split(rnd.PRNGKey(n, device=cuda), rows)
+    f = torch.rand(rows, generator=gen, device=cuda)
+    s = 1.0 / torch.randint(1, 40, (rows,), generator=gen, device=cuda).float()
+    sigma = 0.7
+    got, sq = dp_noise.dp_noise(x, keys, f, s, sigma, offset)
+    want, wsq = dp_noise.plain(x, keys, f, s, sigma, offset)
+    err = (got - want).abs()
+    tol = 1e-6 * want.abs() + sigma * 2e-6 / s[:, None]
+    assert bool((err <= tol).all()), err.max().item()
+    torch.testing.assert_close(sq, wsq, rtol=1e-5, atol=0)
+    again, _ = dp_noise.dp_noise(x, keys, f, s, sigma, offset)
+    assert torch.equal(again, got)
+    inplace = x.clone()
+    res, sq2 = dp_noise.dp_noise(inplace, keys, f, s, sigma, offset, out=inplace)
+    assert res.data_ptr() == inplace.data_ptr() and torch.equal(inplace, got)
+    assert torch.equal(sq2, sq)
+
+
+def test_dp_noise_kernel_normals_are_standard(cuda):
+    """x = 0, s = f = σ = 1: the output is the normals themselves; mean and
+    variance within 5σ of 0 and 1 over 2^24 draws."""
+    n = 1 << 24
+    x = torch.zeros(1, n, device=cuda)
+    one = torch.ones(1, device=cuda)
+    z, sq = dp_noise.dp_noise(x, rnd.PRNGKey(5, device=cuda)[None], one, one, 1.0)
+    assert abs(z.mean().item()) <= 5 / n ** 0.5
+    assert abs(z.var().item() - 1.0) <= 5 * (2 / n) ** 0.5
+    assert abs(sq.item() / n - 1.0) <= 5 * (2 / n) ** 0.5
+
+
+def test_dp_noise_rejects_bad_operands(cuda):
+    x = torch.zeros(2, 300, device=cuda)
+    keys = rnd.split(rnd.PRNGKey(0, device=cuda), 2)
+    f = torch.ones(2, device=cuda)
+    with pytest.raises(TypeError, match="factor"):
+        dp_noise.dp_noise(x, keys, f.double(), f, 1.0)
+    with pytest.raises(TypeError, match="keys"):
+        dp_noise.dp_noise(x, keys[:1], f, f, 1.0)
+    with pytest.raises(TypeError, match="float32"):
+        dp_noise.dp_noise(x.double(), keys, f, f, 1.0)
+
+
+def test_clip_and_noise_card_matches_cpu(cuda):
+    x = torch.randn(6, 3000, device=cuda) * 0.1
+    keys = rnd.split(rnd.PRNGKey(2, device=cuda), 6)
+    dp = privacy.DPConfig(epsilon=8.0, clip_norm=1.0)
+    s = torch.full((6,), 0.25, device=cuda)
+    got, st = privacy.clip_and_noise(x, keys, dp, s)
+    want, wst = privacy.clip_and_noise(x.cpu(), keys.cpu(), dp, s.cpu())
+    sigma = privacy.sigma_of(dp)
+    assert (got.cpu() - want).abs().max().item() <= 1e-5 + sigma * 2e-6 * 4
+    assert torch.equal(st["clipped"].cpu(), wst["clipped"])
+    torch.testing.assert_close(st["noise_sq"].cpu(), wst["noise_sq"], rtol=1e-5,
+                               atol=0)
+
+
+def test_train_comm_smoke_card_matches_cpu_and_counts_launches(cuda, monkeypatch):
+    """Three steps of the smoke model with int8 uploads and DP (ε = 8) in
+    pieces of 2^18 elements, on the card and on the CPU: losses rtol 1e-3
+    (a rounding decision may move by one level), the DP metrics rtol 1e-5;
+    per step one dp_noise and one keyed quantize launch a piece."""
+    steps, piece = 3, 1 << 18
+    monkeypatch.setattr(train, "COMM_PIECE", piece)
+    dp = privacy.DPConfig(epsilon=8.0)
+    before = (dp_noise.dp_noise.launches,
+              quantize.stochastic_quantize_keyed.launches)
+    state, card = train.train_loop("qwen2.5-3b", steps, 2, 64, smoke=True,
+                                   log_every=1, device=cuda, codec="int8", dp=dp)
+    pieces = -(-state.ef.numel() // piece)
+    assert (dp_noise.dp_noise.launches - before[0],
+            quantize.stochastic_quantize_keyed.launches - before[1]) == (
+                steps * pieces, steps * pieces)
+    _, cpu = train.train_loop("qwen2.5-3b", steps, 2, 64, smoke=True, log_every=1,
+                              device="cpu", codec="int8", dp=dp)
+    for a, b0 in zip(card, cpu):
+        assert abs(a["loss"] - b0["loss"]) <= 1e-3 * abs(b0["loss"])
+        for k in ("dp_epsilon", "dp_clip_frac", "dp_noise_norm"):
+            assert abs(a[k] - b0[k]) <= 1e-5 * abs(b0[k]), k
 
 
 def test_algorithm1_card_matches_cpu(cuda):
@@ -682,15 +814,15 @@ def test_paper_suite_card_matches_cpu(cuda, name):
     and on the CPU from the same params, data and keys: the params and every
     per-round series within 1e-5 (ν rtol 2e-4 in Lemma 1's interior, as the
     CPU parity tests hold it); one ssca_update launch a round for Algorithm
-    3, two quantize launches (head and block streams) with int8."""
+    3, two keyed quantize launches (head and block streams) with int8."""
     rounds = 6
     inputs = _paper_small(cuda)
     before = (ssca_update.ssca_update_.launches,
-              quantize.stochastic_quantize.launches)
+              quantize.stochastic_quantize_keyed.launches)
     card = _paper_run(name, inputs, rounds, None)
     torch.cuda.synchronize()
     launched = (ssca_update.ssca_update_.launches - before[0],
-                quantize.stochastic_quantize.launches - before[1])
+                quantize.stochastic_quantize_keyed.launches - before[1])
     assert launched == ((rounds if name.startswith("alg3") else 0),
                         (2 * rounds if name == "alg3_int8" else 0))
     data, fdata, p0, fp0, fl_u, fl_c = inputs
@@ -790,10 +922,10 @@ def test_chain_values_quantize_in_one_launch(cuda, k):
     assert codec.sparse.k(x.shape[1]) == k
     keys = fed.client_keys(rnd.PRNGKey(4, device=cuda),
                            torch.arange(256, device=cuda))
-    before = quantize.stochastic_quantize.launches
+    before = quantize.stochastic_quantize_keyed.launches
     enc, xhat = codec.roundtrip(x, keys)
     torch.cuda.synchronize()
-    assert quantize.stochastic_quantize.launches == before + 1
+    assert quantize.stochastic_quantize_keyed.launches == before + 1
     cenc, cxhat = codec.roundtrip(x.cpu(), keys.cpu())
     assert torch.equal(enc.indices.cpu(), cenc.indices)
     assert torch.equal(enc.inner.values.cpu(), cenc.inner.values)

@@ -1,6 +1,8 @@
 """The port stands alone: nothing under src/repro_torch, nor chip_smoke.py,
 imports jax or the JAX package ``repro`` (whose ``configs/__init__`` pulls
-in jax even for its jax-free modules), and every CUDA source keeps the
+in jax even for its jax-free modules), nor msgpack or ml_dtypes (which the
+card's machine lacks: the checkpoint module carries its own msgpack and
+handles bf16 through torch), and every CUDA source keeps the
 plain C interface ``kernels/build.py`` compiles in seconds (no Python or
 PyTorch header)."""
 import ast
@@ -18,7 +20,7 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "msgpack", "ml_dtypes")
 
 
 def _imports(path: Path):
@@ -47,7 +49,15 @@ def test_port_files_exist():
                    "repro_torch/launch/train.py",
                    "repro_torch/core/local_updates.py",
                    "repro_torch/data/synthetic.py",
-                   "repro_torch/kernels/cohort_sample.py"):
+                   "repro_torch/kernels/cohort_sample.py",
+                   "repro_torch/kernels/dp_noise.py",
+                   "repro_torch/core/privacy.py",
+                   "repro_torch/obs/__init__.py",
+                   "repro_torch/obs/metrics.py",
+                   "repro_torch/obs/sinks.py",
+                   "repro_torch/obs/trace.py",
+                   "repro_torch/checkpoint/__init__.py",
+                   "repro_torch/checkpoint/msgpack_ckpt.py"):
         assert needed in names
     assert (ROOT / "chip_smoke.py").exists()
 
@@ -66,7 +76,7 @@ CUDA_FILES = sorted((ROOT / "src" / "repro_torch" / "kernels" / "csrc").glob(
 def test_every_kernel_module_has_its_cuda_source():
     names = {p.stem for p in CUDA_FILES}
     assert {"ssca_update", "quantize", "rmsnorm", "flash_attention",
-            "cohort_sample"} <= names
+            "cohort_sample", "dp_noise"} <= names
     from repro_torch.kernels import build
     assert names == set(build.SIGNATURES)
 
@@ -85,18 +95,22 @@ def test_cuda_sources_have_a_plain_c_interface(path):
 
 def test_forbidden_rule_catches_and_spares():
     assert _forbidden("jax.numpy") and _forbidden("repro.core.fed")
-    assert _forbidden("jaxlib")
+    assert _forbidden("jaxlib") and _forbidden("msgpack")
+    assert _forbidden("ml_dtypes")
     assert not _forbidden("repro_torch.core.fed") and not _forbidden("torch")
 
 
 def test_importing_the_slice_loads_no_jax():
     code = ("import sys; import repro_torch.core.algorithms, "
             "repro_torch.core.baselines, repro_torch.core.local_updates, "
-            "repro_torch.kernels.cohort_sample, "
+            "repro_torch.kernels.cohort_sample, repro_torch.kernels.dp_noise, "
+            "repro_torch.core.privacy, repro_torch.obs, "
+            "repro_torch.checkpoint.msgpack_ckpt, "
             "repro_torch.convert, repro_torch.data.synthetic, "
             "repro_torch.launch.serve, repro_torch.launch.train; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro')); print(bad); assert not bad, bad")
+            "('jax', 'jaxlib', 'repro', 'msgpack', 'ml_dtypes')); print(bad); "
+            "assert not bad, bad")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
                          capture_output=True, text=True, timeout=120)

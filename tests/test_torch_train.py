@@ -10,6 +10,7 @@ reference's ``dot_attention``); 4 SSCA steps: each loss rtol 1e-5 and the
 params atol 1e-5 after step 4, the roadmap's whole-trajectory standard.
 """
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +33,7 @@ from repro_torch.comm import codecs as tcodecs
 from repro_torch.configs.base import FLConfig
 from repro_torch.configs.registry import get_config
 from repro_torch.core import optimizer as topt
+from repro_torch.core import privacy as tpriv
 from repro_torch.core import rounds as trounds
 from repro_torch.core.tree import leaves
 from repro_torch.data import synthetic as tsyn
@@ -45,6 +47,15 @@ FL_KW = dict(a1=0.9, a2=0.5, alpha_rho=0.1, alpha_gamma=0.6, tau=0.2,
              l2_lambda=1e-5, cost_limit=3.0)
 B, S = 2, 16
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """The suite runs in several processes at once: two PyTorch threads a
+    process keep them from oversubscribing the cores."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
 
 def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
@@ -230,14 +241,29 @@ def test_train_loop_runs_the_smoke_model_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("kw", [dict(codec="int8"), dict(topology="sharded"),
-                                dict(dp=object()),
+                                dict(dp=tpriv.DPConfig()),
                                 dict(constrained=True, codec="int8"),
                                 dict(log_jsonl="x.jsonl"),
                                 dict(profile_dir="prof"),
                                 dict(ckpt_path="ck")])
-def test_refused_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        ttrain.train_loop("qwen2.5-3b", 1, 2, 8, smoke=True, device="cpu", **kw)
+def test_refused_options_raise(kw, tmp_path):
+    """The sharded topology still raises, naming its ROADMAP item; the
+    options ported since (codec uploads, dp, JSONL logs, profiles,
+    checkpoints) run a step of the smoke model."""
+    kw = {k: (str(tmp_path / v) if k in ("log_jsonl", "profile_dir",
+                                          "ckpt_path") else v)
+          for k, v in kw.items()}
+    if "topology" in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
+            ttrain.train_loop("qwen2.5-3b", 1, 2, 8, smoke=True, device="cpu",
+                              **kw)
+        return
+    state, logs = ttrain.train_loop("qwen2.5-3b", 1, 2, 8, smoke=True,
+                                    device="cpu", **kw)
+    assert np.isfinite(logs[-1]["loss"]) and trounds.unwrap_comm(state).t == 2
+    for k in ("log_jsonl", "ckpt_path"):
+        if k in kw:
+            assert os.path.exists(kw[k])
 
 
 @pytest.mark.parametrize("mode", ["feature", "cohort"])
