@@ -85,8 +85,26 @@ Phases, one JSON line each:
            without (rounds/s, rows checked), one streamed round under
            sync-debug "error", a profile's phase names, and the full-width
            params saved and loaded in the msgpack checkpoint format
+  sharded  the sharded client topology (torch.distributed) on one NCCL
+           rank, in-process, against the same call's local runs: Algorithm 1
+           at paper width, dense and int8 + EF (100 rounds; params and
+           history within 1e-5, axis_bytes 0; rounds/s from 6 alternating
+           pairs of 20-round runs; launches a round; NCCL's all-reduce in
+           a profiled round), Algorithm 3 with int8 + EF (20
+           rounds, bit-equal), cohort_train_loop at I = 1e6, S = 256 with
+           int8 + EF (30 rounds; the store equal, one round under sync-debug
+           "error"), and qwen2.5-3b at full width and depth with int8 + EF
+           and DP (ε = 8) beside train_comm's local int8 + DP run
+  sharded_2rank  two gloo ranks on the card (this script with --gloo-rank,
+           two processes) run Algorithm 1 with int8 + EF, S = 3 of 10, for
+           10 rounds: both ranks equal, every series and the params
+           within 1e-5 of the one-rank run (ef_norm 1e-5 + 1e-4 of it),
+           axis_bytes 813,056; and which collectives gloo takes on CUDA
+           tensors
   train_comm_parity  full width, 2 layers, fp32: the upload path with DP,
-           and with int8 + DP, card against CPU (step 1 and step 2's loss)
+           with int8 + DP, and with int8 + DP through the sharded step
+           (one rank; a gloo group on the CPU), card against CPU (step 1
+           and step 2's loss)
 The kernels phase also holds the backward kernels (rmsnorm_bwd,
 flash_attention_bwd) against their plain versions and times them against
 the PyTorch library's backward calls, the keyed quantize entry bit-equal
@@ -1489,7 +1507,8 @@ def run_train_parity(torch, m):
     return out
 
 
-def paper_run(m, name, rounds, inputs, device=None, eval_fn=None):
+def paper_run(m, name, rounds, inputs, device=None, eval_fn=None,
+              topology=None):
     """One run of the paper's §VI suite through the port's entry points, as
     examples/paper_experiments.py drives it (its keys: 2 for the SGD
     baselines, 3 for Algorithm 2, 4 for 3, 5 for 4; 6 for the general form,
@@ -1498,7 +1517,8 @@ def paper_run(m, name, rounds, inputs, device=None, eval_fn=None):
     alg, bl, mlp, rnd = m.algorithms, m.baselines, m.mlp, m.rnd
     data, fdata, p0, fp0, fl_u, fl_c = inputs
     psl, head, ch = mlp.per_sample_loss, mlp.per_sample_loss_from_h, mlp.client_h
-    kw = dict(eval_fn=eval_fn, eval_every=EVAL_EVERY, device=device)
+    kw = dict(eval_fn=eval_fn, eval_every=EVAL_EVERY, device=device,
+              topology=topology)
 
     def key(seed):
         return rnd.PRNGKey(seed, device=device)
@@ -2140,10 +2160,12 @@ def run_hetero(torch, m, name_power):
     return totals
 
 
-def run_slice(torch, m, codec_name, data, params0, test):
+def run_slice(torch, m, codec_name, data, params0, test, topology=None,
+              participation=None):
     """Algorithm 1 at full width for ROUNDS rounds through the entry point a
-    user calls; the kernels' counters are zeroed just before and read just
-    after. Returns the summary and the counts."""
+    user calls (on ``topology``, the local one by default); the kernels'
+    counters are zeroed just before and read just after. Returns the
+    summary, the counts and the RunResult."""
     algorithms, mlp, codecs, rnd, fl = m.algorithms, m.mlp, m.codecs, m.rnd, m.fl
     z_eval, y_eval, zt, labt = test
 
@@ -2159,7 +2181,8 @@ def run_slice(torch, m, codec_name, data, params0, test):
     res = algorithms.algorithm1(mlp.per_sample_loss, params0, data, fl,
                                 rounds=ROUNDS, key=rnd.PRNGKey(2),
                                 eval_fn=eval_fn, eval_every=EVAL_EVERY,
-                                codec=codec)
+                                codec=codec, topology=topology,
+                                participation=participation)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = read_counts(m.counted)
@@ -2178,13 +2201,15 @@ def run_slice(torch, m, codec_name, data, params0, test):
             "loss_first20": first, "loss_last20": last,
             "eval_cost": h["cost"].tolist(), "eval_acc": h["acc"].tolist(),
             "upload_bytes": sorted(set(h["round_upload_bytes"].tolist())),
-            "launches": counts}, counts
+            "launches": counts}, counts, res
 
 
 TRAIN_COMM_TIMED = 3
 # (codec, DP ε) of the three full-width upload runs; δ = 1e-5, C = 1
 TRAIN_COMM_RUNS = (("int8", None), (None, 8.0), ("int8", 8.0))
 TRAIN_COMM_PARITY = dict(batch=2, seq=64)
+# comm_update_'s piece on the CPU half of train_comm_parity
+CPU_COMM_PIECE = 1 << 20
 DP_EPS = 8.0
 
 
@@ -2205,100 +2230,118 @@ def run_train_comm(torch, m, host_params):
     """qwen2.5-3b at full width and depth in bf16 through train_loop with
     the gradient upload compressed and privatized (the reference's
     comm_body, in 2^25-element pieces): int8 + error feedback; DP at ε = 8
-    (δ = 1e-5, C = 1); and both. Each from a card copy of the seeded
-    weights (serve's seed),
-    TRAIN_WARMUP + TRAIN_COMM_TIMED steps with every launch counter zeroed
-    just before and read just after: step ms (median of the timed steps),
-    tokens/s, mfu, peak memory, upload bytes, the DP metrics, launches per
-    step (asserted: the train step's, plus one keyed quantize and one
-    dp_noise launch a piece). The noise norm must be σ·C·√P within 5 of
-    its standard deviations."""
+    (δ = 1e-5, C = 1); and both, a line each (``train_comm_run``). Returns
+    the launches summed over the runs and the lines by run name."""
+    totals, lines = {}, {}
+    for codec, eps in TRAIN_COMM_RUNS:
+        line, counts = train_comm_run(torch, m, host_params, codec, eps)
+        emit("train_comm", **line)
+        lines[line["run"]] = line
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+    return totals, lines
+
+
+def train_comm_run(torch, m, host_params, codec, eps, topology="local"):
+    """One upload run from a card copy of the seeded weights (serve's
+    seed), on ``topology``: TRAIN_WARMUP + TRAIN_COMM_TIMED steps with
+    every launch counter zeroed just before and read just after: step ms
+    (median of the timed steps), tokens/s, mfu, peak memory, upload bytes,
+    the DP metrics, launches per step (asserted: the train step's, plus one
+    keyed quantize and one dp_noise launch a piece). The noise norm must be
+    σ·C·√P within 5 of its standard deviations. Returns the line and the
+    counts."""
     cfg, batch, seq = m.qwen, TRAIN["batch"], TRAIN["seq"]
     steps = TRAIN_WARMUP + TRAIN_COMM_TIMED
     check(m.train.COMM_PIECE == COMM_PIECE, "the train step's piece size moved")
     pieces = -(-TRAIN_PARAMS // COMM_PIECE)
     L = cfg.n_layers
-    totals = {}
-    for codec, eps in TRAIN_COMM_RUNS:
-        dp = m.privacy.DPConfig(epsilon=eps) if eps else None
-        held = {"params": card_copy(host_params)}
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        zero_counts(m.counted)
-        state, logs = m.train.train_loop("qwen2.5-3b", steps, batch, seq,
-                                         log_every=1, seed=SERVE["seed"],
-                                         codec=codec, dp=dp,
-                                         params=held.pop("params"))
-        torch.cuda.synchronize()
-        counts = read_counts(m.counted)
-        peak = torch.cuda.max_memory_allocated()
-        per_step = {k: v / steps for k, v in counts.items()}
-        want = {**{k: 0 for k in m.counted}, "ssca_update": 1,
-                "rmsnorm": 2 * (2 * L + 1) - 1, "rmsnorm_bwd": 2 * L + 1,
-                "flash_attention": 2 * L, "flash_attention_bwd": L,
-                "stochastic_quantize_keyed": pieces if codec else 0,
-                "dp_noise": pieces if dp else 0}
-        name = f"{codec or 'dense'}{'+dp' if dp else ''}"
-        check(per_step == want, f"train_comm {name}: launches per step {per_step} != {want}")
-        losses = [lg["loss"] for lg in logs]
-        opt = m.rounds.unwrap_comm(state)
-        check(all(map(math.isfinite, losses)) and opt.t == steps + 1
-              and bool(torch.isfinite(opt.w_flat).all()),
-              f"train_comm {name}: losses {losses} or params not finite")
-        walls = [0.0] + [lg["wall_s"] for lg in logs]
-        step_s = [b - a for a, b in zip(walls, walls[1:])]
-        med = statistics.median(step_s[TRAIN_WARMUP:])
-        tokens = batch * seq
-        line = {"run": name, "codec": codec or "none", "dp_epsilon_target": eps,
-                "arch": cfg.name, "dtype": cfg.dtype, "layers": L,
-                "params": TRAIN_PARAMS, **TRAIN, "piece": COMM_PIECE,
-                "pieces": pieces, "step_ms": med * 1e3,
-                "step_ms_each": [t * 1e3 for t in step_s],
-                "tokens_per_s": tokens / med,
-                "mfu": 6 * TRAIN_PARAMS * tokens / (med * BF16_FLOPS_PER_S),
-                "peak_mem_bytes": peak, "losses": losses,
-                "launches_per_step": per_step}
-        if codec:
-            # the codec's exact bytes; the step's metric series holds them
-            # in float32, as the reference's does
-            line["upload_bytes"] = m.codecs.make_codec(codec).nbytes(TRAIN_PARAMS)
-            got = logs[-1]["upload_bytes"]
-            check(got == float(torch.tensor(float(line["upload_bytes"]))),
-                  f"train_comm {name}: upload bytes {got} != {line['upload_bytes']}")
-            ef = state.ef
-            line["ef_bytes"] = ef.numel() * ef.element_size()
-            line["ef_norm"] = ef.norm().item()
-            del ef
-        if dp:
-            sigma = m.privacy.sigma_of(dp)
-            eps_t = m.privacy.epsilon_schedule(dp, 1.0, steps)
-            line.update({k: [lg[k] for lg in logs]
-                         for k in ("dp_epsilon", "dp_clip_frac", "dp_noise_norm")})
-            line["noise_norm_expected"] = sigma * TRAIN_PARAMS ** 0.5
-            line["noise_multiplier"] = m.privacy.noise_multiplier(dp)
-            # ‖σn‖/(σ√P) - 1 has standard deviation 1/√(2P): 1.3e-5 here
-            rel = max(abs(v / line["noise_norm_expected"] - 1)
-                      for v in line["dp_noise_norm"])
-            check(rel <= 5 / (2 * TRAIN_PARAMS) ** 0.5 + 1e-6,
-                  f"train_comm {name}: noise norm {line['dp_noise_norm']} "
-                  f"vs σ·C·√P {line['noise_norm_expected']}")
-            check(all(abs(a - b) <= 1e-5 * b for a, b in zip(line["dp_epsilon"], eps_t)),
-                  f"train_comm {name}: ε {line['dp_epsilon']} != accountant {list(eps_t)}")
-            check(set(line["dp_clip_frac"]) <= {0.0, 1.0}, line["dp_clip_frac"])
-        del state, opt
-        torch.cuda.empty_cache()
-        emit("train_comm", **line)
-        for k, v in counts.items():
-            totals[k] = totals.get(k, 0) + v
-    return totals
+    dp = m.privacy.DPConfig(epsilon=eps) if eps else None
+    held = {"params": card_copy(host_params)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(m.counted)
+    state, logs = m.train.train_loop("qwen2.5-3b", steps, batch, seq,
+                                     log_every=1, seed=SERVE["seed"],
+                                     codec=codec, dp=dp,
+                                     topology=topology,
+                                     params=held.pop("params"))
+    torch.cuda.synchronize()
+    counts = read_counts(m.counted)
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: v / steps for k, v in counts.items()}
+    want = {**{k: 0 for k in m.counted}, "ssca_update": 1,
+            "rmsnorm": 2 * (2 * L + 1) - 1, "rmsnorm_bwd": 2 * L + 1,
+            "flash_attention": 2 * L, "flash_attention_bwd": L,
+            "stochastic_quantize_keyed": pieces if codec else 0,
+            "dp_noise": pieces if dp else 0}
+    name = (f"{codec or 'dense'}{'+dp' if dp else ''}"
+            f"{' sharded' if topology == 'sharded' else ''}")
+    check(per_step == want, f"train_comm {name}: launches per step {per_step} != {want}")
+    losses = [lg["loss"] for lg in logs]
+    opt = m.rounds.unwrap_comm(state)
+    check(all(map(math.isfinite, losses)) and opt.t == steps + 1
+          and bool(torch.isfinite(opt.w_flat).all()),
+          f"train_comm {name}: losses {losses} or params not finite")
+    walls = [0.0] + [lg["wall_s"] for lg in logs]
+    step_s = [b - a for a, b in zip(walls, walls[1:])]
+    med = statistics.median(step_s[TRAIN_WARMUP:])
+    tokens = batch * seq
+    line = {"run": name, "codec": codec or "none", "dp_epsilon_target": eps,
+            "topology": topology,
+            "arch": cfg.name, "dtype": cfg.dtype, "layers": L,
+            "params": TRAIN_PARAMS, **TRAIN, "piece": COMM_PIECE,
+            "pieces": pieces, "step_ms": med * 1e3,
+            "step_ms_each": [t * 1e3 for t in step_s],
+            "tokens_per_s": tokens / med,
+            "mfu": 6 * TRAIN_PARAMS * tokens / (med * BF16_FLOPS_PER_S),
+            "peak_mem_bytes": peak, "losses": losses,
+            "launches_per_step": per_step}
+    if codec:
+        # the codec's exact bytes (D = 1 shard); the step's metric
+        # series holds them in float32, as the reference's does
+        line["upload_bytes"] = m.codecs.make_codec(codec).nbytes(TRAIN_PARAMS)
+        got = logs[-1]["upload_bytes"]
+        check(got == float(torch.tensor(float(line["upload_bytes"]))),
+              f"train_comm {name}: upload bytes {got} != {line['upload_bytes']}")
+        ef = state.ef
+        line["ef_bytes"] = ef.numel() * ef.element_size()
+        line["ef_shape"] = list(ef.shape)
+        line["ef_norm"] = ef.norm().item()
+        del ef
+    if dp:
+        sigma = m.privacy.sigma_of(dp)
+        eps_t = m.privacy.epsilon_schedule(dp, 1.0, steps)
+        line.update({k: [lg[k] for lg in logs]
+                     for k in ("dp_epsilon", "dp_clip_frac", "dp_noise_norm")})
+        line["noise_norm_expected"] = sigma * TRAIN_PARAMS ** 0.5
+        line["noise_multiplier"] = m.privacy.noise_multiplier(dp)
+        # ‖σn‖/(σ√P) - 1 has standard deviation 1/√(2P): 1.3e-5 here
+        rel = max(abs(v / line["noise_norm_expected"] - 1)
+                  for v in line["dp_noise_norm"])
+        check(rel <= 5 / (2 * TRAIN_PARAMS) ** 0.5 + 1e-6,
+              f"train_comm {name}: noise norm {line['dp_noise_norm']} "
+              f"vs σ·C·√P {line['noise_norm_expected']}")
+        check(all(abs(a - b) <= 1e-5 * b for a, b in zip(line["dp_epsilon"], eps_t)),
+              f"train_comm {name}: ε {line['dp_epsilon']} != accountant {list(eps_t)}")
+        check(set(line["dp_clip_frac"]) <= {0.0, 1.0}, line["dp_clip_frac"])
+    del state, opt
+    torch.cuda.empty_cache()
+    return line, counts
 
 
 def run_train_comm_parity(torch, m):
     """The upload path card against CPU at full width, 2 layers, fp32,
     batch 2, seq 64, from the same weights, tokens and keys: DP alone and
-    int8 + DP (ε = 8). Step 1 on both devices (the CPU's threefry in int64
-    ops over the 466 M parameters is the slow part), then step 2's loss at
-    the updated params. Gates, train_parity's tolerances: the step-1 loss
+    int8 + DP (ε = 8) on the local step, and int8 + DP through the sharded
+    step on one rank (NCCL on the card, a gloo group on the CPU: the same
+    comm_update_ with the shard's keys, then the all-reduce). Step 1 on
+    both devices, then step 2's loss at the updated params. The card runs
+    comm_update_ in its COMM_PIECE pieces, the CPU in CPU_COMM_PIECE ones:
+    the draws are the same in any 256-aligned pieces, and the plain
+    versions' chains of elementwise ops over the 466 M parameters run
+    about 8x faster on the CPU on a piece that stays in cache. Gates,
+    train_parity's tolerances: the step-1 loss
     (before any upload) rtol 1e-5; the step-1 DP metrics rtol 1e-5 (ε and
     the clip fraction exactly); the step-2 loss rtol 1e-5 with DP alone and
     1e-3 with int8 (a 1-ulp difference may move a rounding decision by a
@@ -2314,20 +2357,25 @@ def run_train_comm_parity(torch, m):
     dp = m.privacy.DPConfig(epsilon=DP_EPS)
     on_cpu = tree_map(lambda t: t.cpu(), params)
     out = {}
-    for codec in (None, "int8"):
-        name = f"{codec or 'dense'}+dp"
+    topologies = {"cuda": m.topology.make_topology("sharded"),
+                  "cpu": cpu_sharded_topology(m)}
+    for codec, sharded in ((None, False), ("int8", False), ("int8", True)):
+        name = f"{codec or 'dense'}+dp{' sharded' if sharded else ''}"
 
         def run(p, device):
             dev_key = key.to(device)
             c = m.codecs.make_codec(codec)
+            topo = topologies[device] if sharded else None
             step = train.make_scanned_step(model, cfg, fl, toks.to(device), b, s,
-                                           codec=c, dp=dp)
+                                           codec=c, dp=dp, topology=topo)
             inputs = rounds.make_inputs(fl, 1, 2, rnd.fold_in(dev_key, 2))
             state = optimizer.ssca_init(p)
             if c is not None:
+                n = state.w_flat.numel()
                 state = m.error_feedback.CommCarry(
-                    opt=state, ef=m.error_feedback.ef_init(state.w_flat.numel(),
-                                                           device))
+                    opt=state, ef=(m.error_feedback.ef_init_stacked(1, n, device)
+                                   if sharded else
+                                   m.error_feedback.ef_init(n, device)))
             state, ms = step(state, inputs.round(0))
             opt = rounds.unwrap_comm(state)
             batch2 = m.sample_window(toks.to(device), inputs.round(1).key, b, s)
@@ -2341,7 +2389,11 @@ def run_train_comm_parity(torch, m):
         card_w, card_m, card_l2 = run(params, "cuda")
         card_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        cpu_w, cpu_m, cpu_l2 = run(on_cpu, "cpu")
+        train.COMM_PIECE = CPU_COMM_PIECE
+        try:
+            cpu_w, cpu_m, cpu_l2 = run(on_cpu, "cpu")
+        finally:
+            train.COMM_PIECE = COMM_PIECE
         cpu_s = time.perf_counter() - t0
         normwise = ((card_w - cpu_w).norm() / cpu_w.norm()).item()
         line = {"run": name, "layers": 2, "dtype": "float32", **TRAIN_COMM_PARITY,
@@ -2349,7 +2401,7 @@ def run_train_comm_parity(torch, m):
                 "loss2_card": card_l2, "loss2_cpu": cpu_l2,
                 "normwise_param_diff": normwise,
                 "max_abs_param_diff": (card_w - cpu_w).abs().max().item(),
-                "card_s": card_s, "cpu_s": cpu_s}
+                "card_s": card_s, "cpu_s": cpu_s, "cpu_piece": CPU_COMM_PIECE}
         emit("train_comm_parity", **line)
         rel = {k: abs(card_m[k] - cpu_m[k]) / max(abs(cpu_m[k]), 1e-30)
                for k in ("loss", "dp_epsilon", "dp_noise_norm")}
@@ -2607,6 +2659,401 @@ def run_obs(torch, m, data, params0, host_params, name_power):
     return line
 
 
+# the sharded phases: rounds of each comparison run (sharded and local in
+# turns, so each pair shares the call's machine)
+SHARDED_FEATURE_ROUNDS = 20
+SHARDED_COHORT_ROUNDS = 30
+SHARDED_PROFILE_ROUNDS = 10
+# rounds/s sharded against local: this many pairs of SHARDED_PAIR_ROUNDS-
+# round runs, the order alternating (the host clock of a round varies more
+# between windows than the topology moves it)
+SHARDED_PAIRS, SHARDED_PAIR_ROUNDS = 6, 20
+# two gloo ranks on the one card: Algorithm 1, int8 + EF, S = 3 of I = 10
+SHARDED_2RANK = dict(world=2, rounds=10, participation=3, timeout_s=240)
+# the collectives probed on CUDA tensors under gloo
+GLOO_PROBES = ("all_reduce", "broadcast", "all_gather",
+               "all_gather_into_tensor", "reduce_scatter_tensor")
+
+
+def cpu_sharded_topology(m):
+    """A one-rank sharded topology over a gloo group made beside the card's
+    NCCL default group: the CPU half of a card-against-CPU comparison (the
+    device picks the backend: NCCL takes no CPU tensor)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    group = dist.new_group(backend="gloo")
+    return m.topology.ShardedTopology(
+        DeviceMesh.from_group(group, "cpu", mesh_dim_names=("data",)))
+
+
+def tree_diff(a, b) -> float:
+    """The largest absolute difference over two dicts of tensors."""
+    return max((a[k].double().cpu() - b[k].double().cpu()).abs().max().item()
+               for k in b)
+
+
+def history_diff(a, b) -> float:
+    """The largest absolute difference over two runs' histories, the
+    topology's own axis_bytes aside."""
+    return max([0.0] + [(a[k].double().cpu() - b[k].double().cpu()).abs().max().item()
+                        for k in b if k != "round_axis_bytes" and b[k].numel()])
+
+
+def collective_names(torch, fn):
+    """Run fn once under torch.profiler; the event names that name NCCL or
+    an all-reduce, host ops and device kernels apart."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    host, device = set(), set()
+    for e in prof.key_averages():
+        k = e.key.lower()
+        if "nccl" in k or "allreduce" in k or "all_reduce" in k:
+            (device if e.self_device_time_total > 0 and e.cpu_time_total == 0
+             else host).add(e.key[:90])
+    return sorted(host), sorted(device)
+
+
+def paired_rounds_per_s(torch, m, data, params0, codec, topo):
+    """Algorithm 1's rounds/s on the local and the sharded topology from
+    SHARDED_PAIRS pairs of SHARDED_PAIR_ROUNDS-round runs through the entry
+    point (no evals), the order alternating: each side's runs and medians,
+    and the ratio of the medians."""
+    times = {"local": [], "sharded": []}
+    for i in range(SHARDED_PAIRS):
+        order = (("local", None), ("sharded", topo))
+        for tname, t in (order if i % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m.algorithms.algorithm1(m.mlp.per_sample_loss, params0, data, m.fl,
+                                    rounds=SHARDED_PAIR_ROUNDS,
+                                    key=m.rnd.PRNGKey(2), eval_every=0,
+                                    codec=m.codecs.make_codec(codec), topology=t)
+            torch.cuda.synchronize()
+            times[tname].append(SHARDED_PAIR_ROUNDS / (time.perf_counter() - t0))
+    med = {k: statistics.median(v) for k, v in times.items()}
+    return {"paired_rounds_per_s": times["sharded"],
+            "paired_local_rounds_per_s": times["local"],
+            "paired_median_rounds_per_s": med["sharded"],
+            "paired_local_median_rounds_per_s": med["local"],
+            "paired_ratio": med["sharded"] / med["local"]}
+
+
+def run_sharded(torch, m, data, params0, test, paper_inputs, population, local,
+                name_power):
+    """The sharded topology on one NCCL rank, in-process, against the local
+    runs of the same call: Algorithm 1 at paper width, dense and int8 + EF
+    (``local`` holds the dense and int8 phases' runs), with rounds/s from
+    alternating pairs of runs (``paired_rounds_per_s``), launches a round
+    from SHARDED_PROFILE_ROUNDS-round windows of each and one profiled round
+    that must show NCCL's all-reduce; Algorithm 3 with int8 + EF; and
+    cohort_train_loop at I = 1e6, S = 256 with int8 + EF, with one round under
+    sync-debug mode "error". Every sharded run is held to its local twin
+    within 1e-5 (on one rank the sums are the same), with axis_bytes 0 and
+    the same kernel launches. Returns the launches summed over the sharded
+    runs."""
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from profile_torch_round import profile_window
+    topo = m.topology.make_topology("sharded")
+    backend = dist.get_backend()
+    check(backend == "nccl" and topo.num_shards == 1 and topo.rank == 0,
+          f"sharded: a one-rank NCCL group expected, got {backend}, "
+          f"{topo.num_shards} shard(s)")
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    k = SHARDED_PROFILE_ROUNDS
+    for codec in (None, "int8"):
+        name = f"alg1_{codec or 'dense'}"
+        # warm-up of this path (NCCL's communicator starts at the first
+        # collective); not counted
+        m.algorithms.algorithm1(m.mlp.per_sample_loss, params0, data, m.fl,
+                                rounds=3, key=m.rnd.PRNGKey(9), topology=topo,
+                                codec=m.codecs.make_codec(codec))
+        line, counts, res = run_slice(torch, m, codec, data, params0, test,
+                                      topology=topo)
+        add(counts)
+        ref_line, ref_counts, ref_res = local[codec]
+        pdiff = tree_diff(res.params, ref_res.params)
+        hdiff = history_diff(res.history, ref_res.history)
+        axis = sorted(set(res.history["round_axis_bytes"].tolist()))
+        check(pdiff <= 1e-5 and hdiff <= 1e-5,
+              f"sharded {name}: params {pdiff}, history {hdiff} off the local run")
+        check(axis == [0.0], f"sharded {name}: axis_bytes {axis} on one rank")
+        check(counts == ref_counts, f"sharded {name}: launches {counts} != local {ref_counts}")
+        paired = paired_rounds_per_s(torch, m, data, params0, codec, topo)
+        # launches a round, sharded and local, then one profiled round
+        codec_obj = m.codecs.make_codec(codec)
+        inputs = m.rounds.make_inputs(m.fl, ROUNDS + 1, 6 * k + 1, m.rnd.PRNGKey(11))
+        held = {"state": res.final_state, "r": 0}
+        windows = {}
+        for tname, t in (("local", None), ("sharded", topo)):
+            step = m.algorithms.make_algorithm1_step(
+                m.mlp.per_sample_loss, data, m.fl, codec=codec_obj, topology=t)
+
+            def rounds_k():
+                for _ in range(k):
+                    held["state"], _ = step(held["state"], inputs.round(held["r"]))
+                    held["r"] += 1
+
+            windows[tname] = profile_window(rounds_k, k)
+            held["r"] = 0
+        host, device = collective_names(
+            torch, lambda: step(held["state"], inputs.round(6 * k)))
+        check(any("nccl" in h.lower() and "reduce" in h.lower() for h in host + device),
+              f"sharded {name}: no NCCL all-reduce in the profiled round: {host} {device}")
+        line.update(run=name, topology="sharded", backend=backend, world=1,
+                    local_rounds_per_s=ref_line["rounds_per_s"], **paired,
+                    max_abs_param_diff=pdiff, max_abs_history_diff=hdiff,
+                    axis_bytes=axis[0],
+                    launches_per_round=windows["sharded"]["kernel_launches_per_call"],
+                    local_launches_per_round=windows["local"]["kernel_launches_per_call"],
+                    ms_per_round=windows["sharded"]["ms_per_call"],
+                    local_ms_per_round=windows["local"]["ms_per_call"],
+                    device_busy=windows["sharded"]["device_busy_share"],
+                    nccl_host_ops=host, nccl_device_kernels=device)
+        del res, held
+        emit("sharded", **line, **name_power)
+
+    # Algorithm 3 with int8 + EF (a "model" mesh), local and sharded in turns
+    ftopo = m.topology.make_topology("sharded", mesh=m.mesh.make_feature_mesh())
+    runs = {}
+    for tname, t in (("local", None), ("sharded", ftopo)):
+        torch.cuda.synchronize()
+        zero_counts(m.counted)
+        t0 = time.perf_counter()
+        r = paper_run(m, "alg3_int8", SHARDED_FEATURE_ROUNDS, paper_inputs, topology=t)
+        torch.cuda.synchronize()
+        runs[tname] = (r, time.perf_counter() - t0, read_counts(m.counted))
+    (rl, sl, cl), (rs, ss, cs_) = runs["local"], runs["sharded"]
+    add(cs_)
+    pdiff, hdiff = tree_diff(rs.params, rl.params), history_diff(rs.history, rl.history)
+    check(pdiff == 0.0 and hdiff == 0.0 and cs_ == cl,
+          f"sharded alg3_int8: params {pdiff}, history {hdiff}, launches {cs_} vs {cl}")
+    emit("sharded", run="alg3_int8", topology="sharded", backend=backend, world=1,
+         rounds=SHARDED_FEATURE_ROUNDS, rounds_per_s=SHARDED_FEATURE_ROUNDS / ss,
+         local_rounds_per_s=SHARDED_FEATURE_ROUNDS / sl, max_abs_param_diff=pdiff,
+         max_abs_history_diff=hdiff, launches=cs_,
+         axis_bytes=sorted(set(rs.history["round_axis_bytes"].tolist())),
+         **name_power)
+    del runs, rl, rs
+
+    # the cohort engine at I = 1e6, S = 256, int8 + EF: warm-up, then local
+    # and sharded in turns, then one sharded round under sync-debug "error"
+    cohort = COHORT["participation"]
+    m.train.cohort_train_loop(clients=1000, participation=cohort, rounds=2,
+                              log_every=2, codec="int8", topology="sharded")
+    kw = dict(COHORT, rounds=SHARDED_COHORT_ROUNDS, log_every=SHARDED_COHORT_ROUNDS,
+              codec="int8")
+    runs = {}
+    for tname in ("local", "sharded"):
+        torch.cuda.synchronize()
+        zero_counts(m.counted)
+        with CohortDraws(m.fed) as draws:
+            r = m.train.cohort_train_loop(**kw, topology=tname)
+            torch.cuda.synchronize()
+            t_end = time.perf_counter()
+        runs[tname] = (r, SHARDED_COHORT_ROUNDS / (t_end - draws.t_first),
+                       read_counts(m.counted))
+    (rl, rate_l, cl), (rs, rate_s, cs_) = runs["local"], runs["sharded"]
+    add(cs_)
+    pdiff, hdiff = tree_diff(rs.params, rl.params), history_diff(rs.history, rl.history)
+    same_store = bool(torch.equal(rs.final_state.ef.data, rl.final_state.ef.data))
+    check(pdiff <= 1e-5 and hdiff <= 1e-5 and same_store and cs_ == cl,
+          f"sharded cohort: params {pdiff}, history {hdiff}, store equal "
+          f"{same_store}, launches {cs_} vs {cl}")
+    del rl, runs
+    step = m.algorithms.make_algorithm1_step(
+        m.mlp.per_sample_loss, population, cohort_fl(m, False),
+        participation=cohort, codec=m.codecs.make_codec("int8"), cohort=True,
+        topology=topo)
+    inputs = m.rounds.make_inputs(cohort_fl(m, False), SHARDED_COHORT_ROUNDS + 1,
+                                  2, m.rnd.PRNGKey(11))
+    state = step(rs.final_state, inputs.round(0))[0]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, met = step(state, inputs.round(1))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(bool(torch.isfinite(met["stat_res"])), "sharded cohort: sync round")
+    emit("sharded", run="cohort_int8", topology="sharded", backend=backend, world=1,
+         **kw, rounds_per_s=rate_s, local_rounds_per_s=rate_l,
+         rounds_per_s_ratio=rate_s / rate_l, max_abs_param_diff=pdiff,
+         max_abs_history_diff=hdiff, ef_store_equal=same_store,
+         sync_free_round=True, launches=cs_, **name_power)
+    del rs, state, step
+    torch.cuda.empty_cache()
+    return totals
+
+
+def run_sharded_train(torch, m, host_params, local_line, name_power):
+    """qwen2.5-3b at full width and depth through train_loop(topology=
+    "sharded") on one NCCL rank with int8 + EF and DP (ε = 8), as the
+    train_comm runs are driven (``train_comm_run``: launches, noise norm, ε
+    and upload bytes gated), beside the local int8 + DP run of the same
+    call. The EF is the rank's (1, P) row. Returns the counts."""
+    line, counts = train_comm_run(torch, m, host_params, "int8", DP_EPS,
+                                  topology="sharded")
+    check(line["ef_shape"] == [1, TRAIN_PARAMS], f"sharded train: EF {line['ef_shape']}")
+    line.update(local_step_ms=local_line["step_ms"],
+                step_ms_ratio=line["step_ms"] / local_line["step_ms"],
+                local_tokens_per_s=local_line["tokens_per_s"],
+                local_mfu=local_line["mfu"],
+                local_peak_mem_bytes=local_line["peak_mem_bytes"])
+    emit("sharded", **line, **name_power)
+    return counts
+
+
+def gloo_rank(rank: int, store: str, out: str) -> int:
+    """One of SHARDED_2RANK's gloo ranks on the card (``python3
+    chip_smoke.py --gloo-rank R STORE OUT``, started by run_sharded_2rank):
+    which collectives gloo takes on CUDA tensors, then Algorithm 1 at paper
+    width with int8 + EF and S of I clients on a two-rank sharded topology;
+    its history, params and times go to OUT/rank<R>.pt."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import random as rnd
+    from repro_torch.comm import codecs
+    from repro_torch.configs.base import MNIST_MLP, FLConfig
+    from repro_torch.core import algorithms, fed
+    from repro_torch.core import topology as topology_lib
+    from repro_torch.data.synthetic import classification_dataset
+    from repro_torch.models import mlp
+    world = SHARDED_2RANK["world"]
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=120))
+    x = torch.full((4,), float(rank + 1), device="cuda")
+    probe = {}
+    calls = {"all_reduce": lambda: dist.all_reduce(x.clone()),
+             "broadcast": lambda: dist.broadcast(x.clone(), 0),
+             "all_gather": lambda: dist.all_gather(
+                 [torch.empty_like(x) for _ in range(world)], x),
+             "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+                 torch.empty(4 * world, device="cuda"), x),
+             "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+                 torch.empty(4 // world, device="cuda"), x)}
+    for op in GLOO_PROBES:
+        try:
+            calls[op]()
+            torch.cuda.synchronize()
+            probe[op] = "ok"
+        except Exception as e:          # noqa: BLE001 — the probe's answer
+            probe[op] = f"{type(e).__name__}: {str(e)[:200]}"
+        dist.barrier()
+    cfg = MNIST_MLP
+    (z, y, _), _ = classification_dataset(
+        rnd.PRNGKey(0), n=cfg.num_samples, num_features=cfg.num_features,
+        num_classes=cfg.num_classes, noise=4.0)
+    data = fed.partition_samples(z, y, cfg.num_clients)
+    params0 = mlp.init(rnd.PRNGKey(1), cfg.num_features, cfg.hidden, cfg.num_classes)
+    fl = FLConfig(num_clients=cfg.num_clients, batch_size=cfg.batch_size,
+                  a1=0.3, a2=0.3, alpha_rho=0.1, alpha_gamma=0.6, tau=0.05,
+                  l2_lambda=1e-5)
+    topo = topology_lib.sharded_for(cfg.num_clients, device="cuda")
+    kw = dict(participation=SHARDED_2RANK["participation"],
+              codec=codecs.make_codec("int8"), topology=topo, eval_every=0)
+    algorithms.algorithm1(mlp.per_sample_loss, params0, data, fl, rounds=2,
+                          key=rnd.PRNGKey(9), **kw)          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = algorithms.algorithm1(mlp.per_sample_loss, params0, data, fl,
+                                rounds=SHARDED_2RANK["rounds"], key=rnd.PRNGKey(2), **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    torch.save({"probe": probe, "backend": dist.get_backend(),
+                "num_shards": topo.num_shards, "seconds": seconds,
+                "history": {k: v.cpu() for k, v in res.history.items()},
+                "params": {k: v.cpu() for k, v in res.params.items()},
+                "ef_rows": tuple(res.final_state.ef.shape)},
+               f"{out}/rank{rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def run_sharded_2rank(torch, m, data, params0, name_power):
+    """Two gloo ranks on the one card (NCCL refuses two ranks on one GPU),
+    each a process of this script, run Algorithm 1 at paper width with int8
+    + EF and S = 3 of 10 for SHARDED_2RANK["rounds"] rounds, held to the
+    one-rank NCCL run of the same inputs in this process: every rank's
+    history equal, every series and the params within 1e-5 of the one-rank
+    run (ef_norm, a norm of residuals whose sums of squares the two ranks
+    reassociate, within 1e-5 + 1e-4 of it, tests/test_torch_topology.py's
+    tolerance), upload bytes equal, axis_bytes 2·(2−1)·4·101,632. Also what
+    gloo took for CUDA tensors."""
+    import tempfile
+    world, rounds = SHARDED_2RANK["world"], SHARDED_2RANK["rounds"]
+    topo = m.topology.make_topology("sharded")
+    kw = dict(participation=SHARDED_2RANK["participation"],
+              codec=m.codecs.make_codec("int8"), topology=topo, eval_every=0)
+    m.algorithms.algorithm1(m.mlp.per_sample_loss, params0, data, m.fl, rounds=2,
+                            key=m.rnd.PRNGKey(9), **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = m.algorithms.algorithm1(m.mlp.per_sample_loss, params0, data, m.fl,
+                                  rounds=rounds, key=m.rnd.PRNGKey(2), **kw)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--gloo-rank",
+             str(r), f"{tmp}/store", tmp],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=SHARDED_2RANK["timeout_s"])[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        check(all(p.returncode == 0 for p in procs),
+              "sharded_2rank: a rank failed:\n" + "\n".join(g[-3000:] for g in logs))
+        ranks = [torch.load(f"{tmp}/rank{r}.pt") for r in range(world)]
+    h0 = ranks[0]["history"]
+    for r in ranks[1:]:
+        check(all(torch.equal(r["history"][k], h0[k]) for k in h0)
+              and all(torch.equal(r["params"][k], ranks[0]["params"][k])
+                      for k in r["params"]),
+              "sharded_2rank: the ranks' histories or params differ")
+    pdiff = tree_diff(ranks[0]["params"], one.params)
+    series, over = {}, {}
+    for k in one.history:
+        if not k.startswith("round_") or k in ("round_t", "round_axis_bytes"):
+            continue
+        want = one.history[k].double().cpu()
+        err = (h0[k].double() - want).abs()
+        series[k] = err.max().item()
+        rtol = 1e-4 if k == "round_ef_norm" else 0.0
+        tol = 0.0 if k == "round_upload_bytes" else 1e-5
+        if not bool((err <= tol + rtol * want.abs()).all()):
+            over[k] = series[k]
+    axis = sorted(set(h0["round_axis_bytes"].tolist()))
+    want_axis = float(2 * (world - 1) * 4 * 101_632)
+    check(axis == [want_axis], f"sharded_2rank: axis_bytes {axis} != {want_axis}")
+    check(not over and pdiff <= 1e-5,
+          f"sharded_2rank: series {over} of {series}, params {pdiff} off the "
+          "one-rank run")
+    check(ranks[0]["ef_rows"] == (10 // world, 101_632), ranks[0]["ef_rows"])
+    emit("sharded_2rank", world=world, backend=ranks[0]["backend"],
+         num_shards=ranks[0]["num_shards"], rounds=rounds,
+         participation=SHARDED_2RANK["participation"], codec="int8",
+         rounds_per_s=[rounds / r["seconds"] for r in ranks],
+         one_rank_rounds_per_s=rounds / one_s, axis_bytes=axis[0],
+         max_abs_param_diff=pdiff, max_abs_series_diff=series,
+         ef_rows=list(ranks[0]["ef_rows"]),
+         gloo_on_cuda=ranks[0]["probe"], **name_power)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2636,6 +3083,8 @@ def main() -> int:
     from repro_torch.kernels import dp_noise as dpn
     from repro_torch import checkpoint, obs
     from repro_torch.core import optimizer, privacy, rounds
+    from repro_torch.core import topology as topology_lib
+    from repro_torch.launch import mesh as mesh_lib
     from repro_torch.core.tree import leaves
     from repro_torch.data.synthetic import (VirtualFedData, sample_window,
                                             token_dataset)
@@ -2702,6 +3151,7 @@ def main() -> int:
                            error_feedback=error_feedback,
                            VirtualFedData=VirtualFedData, privacy=privacy,
                            obs=obs, checkpoint=checkpoint,
+                           topology=topology_lib, mesh=mesh_lib,
                            sample_window=sample_window,
                            classification_dataset=classification_dataset,
                            # train_loop's default: the reference's FLConfig
@@ -2713,12 +3163,14 @@ def main() -> int:
     # warm-up (cuBLAS handles, first launches); not counted
     algorithms.algorithm1(mlp.per_sample_loss, params0, data, fl, rounds=3,
                           key=rnd.PRNGKey(9), codec=codecs.make_codec("int8"))
-    dense, dense_counts = run_slice(torch, mods, None, data, params0, test)
+    dense, dense_counts, dense_res = run_slice(torch, mods, None, data,
+                                               params0, test)
     check(dense["upload_bytes"] == [4_065_280.0], dense["upload_bytes"])
     no_zoo = {k: 0 for k in counted}
     check(dense_counts == {**no_zoo, "ssca_update": ROUNDS}, dense_counts)
     emit("dense", **dense, device=name, power=smi)
-    int8, int8_counts = run_slice(torch, mods, "int8", data, params0, test)
+    int8, int8_counts, int8_res = run_slice(torch, mods, "int8", data,
+                                            params0, test)
     check(int8["upload_bytes"] == [1_032_200.0], int8["upload_bytes"])
     check(int8_counts == {**no_zoo, "ssca_update": ROUNDS,
                           "stochastic_quantize_keyed": ROUNDS}, int8_counts)
@@ -2773,6 +3225,15 @@ def main() -> int:
                                {"device": name, "power": smi})
     paper_dp_counts = run_paper_dp(torch, mods, paper_inputs, population,
                                    {"device": name, "power": smi})
+    # the sharded topology on one NCCL rank against the local runs above,
+    # then two gloo ranks on the card
+    sharded_counts = run_sharded(
+        torch, mods, data, params0, test, paper_inputs, population,
+        {None: (dense, dense_counts, dense_res),
+         "int8": (int8, int8_counts, int8_res)},
+        {"device": name, "power": smi})
+    del dense_res, int8_res
+    run_sharded_2rank(torch, mods, data, params0, {"device": name, "power": smi})
     del population, paper_inputs, fdata, fb_eval
     run_cohort_parity(torch, mods)
     hetero_counts = run_hetero(torch, mods, {"device": name, "power": smi})
@@ -2794,7 +3255,10 @@ def main() -> int:
     host_params = host_copy(torch, mods.get_model(mods.qwen).init(
         rnd.PRNGKey(SERVE["seed"]), mods.qwen))
     torch.cuda.empty_cache()
-    comm_counts = run_train_comm(torch, mods, host_params)
+    comm_counts, comm_lines = run_train_comm(torch, mods, host_params)
+    sharded_train_counts = run_sharded_train(torch, mods, host_params,
+                                             comm_lines["int8+dp"],
+                                             {"device": name, "power": smi})
     run_obs(torch, mods, data, params0, host_params, {"device": name, "power": smi})
     del host_params
     constrained, constrained_counts = run_train_constrained(
@@ -2810,7 +3274,8 @@ def main() -> int:
                           + train_counts[n] + paper_counts[n]
                           + constrained_counts[n] + cohort_counts[n]
                           + hetero_counts[n] + paper_dp_counts[n]
-                          + comm_counts[n])
+                          + comm_counts[n] + sharded_counts[n]
+                          + sharded_train_counts[n])
         check(kr["launches"] > 0 or not kr.get("main_path", True),
               f"{n} never launched on a main path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -2818,6 +3283,9 @@ def main() -> int:
     extra = ("cold_ms", "library_cold_ms", "floor_ms",  # where measured
              "main_path", "bits_operand_ms", "train_step_ms", "train_launches",
              "train_bound_ms", "train_bound_by")
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
     print(smi, flush=True)
     print(json.dumps({"kernels": [{**{k: kr[k] for k in keys},
                                    **{k: kr[k] for k in extra if k in kr}}
@@ -2829,4 +3297,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--gloo-rank"]:       # a rank of sharded_2rank
+        sys.exit(gloo_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

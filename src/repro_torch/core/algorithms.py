@@ -31,14 +31,26 @@ computed on the device from the round's ``t``), ``dp_clip_frac`` (the share
 of participating uploads whose clip bound) and ``dp_noise_norm`` (the ℓ2
 norm of the injected noise). The metrics keep the reference's names:
 ``loss_est``, ``cons_est``, ``nu``, ``slack``, ``stat_res``, ``cons_viol``,
-``upload_bytes``, ``axis_bytes`` (always 0.0: one device) and, with a codec,
-``ef_norm``. ``obs=`` (an ``obs.MetricStream``) streams them while the
-rounds run.
+``upload_bytes``, ``axis_bytes`` and, with a codec, ``ef_norm``. ``obs=``
+(an ``obs.MetricStream``) streams them while the rounds run.
+
+Every driver takes ``topology=`` (``core/topology.py``): the local one by
+default, or a ``ShardedTopology`` over a ``torch.distributed`` mesh, with
+one process a rank running the same driver on the same inputs. The
+per-client EF carry then holds the rank's rows (``run_rounds`` cuts it),
+the metrics that reduce over clients (``ef_norm``, ``dp_clip_frac``,
+``dp_noise_norm``) take one small collective a round,
+and every rank's history and params equal the local run's to float
+reassociation (the feature drivers': bit for bit, their per-client metric
+columns all-gathered and summed in client order). ``axis_bytes`` is the
+bytes the sharded aggregation moves over the client mesh axis a round in
+the reference's closed forms (``comm.accounting.psum_axis_bytes``, and
+``all_gather_axis_bytes`` of the h-exchange on the feature drivers), 0 on
+the local topology and at D = 1.
 
 Every entry point runs on ``device`` (default: the CUDA card; raises
 without one); params0, data and key are moved there and params0 itself is
-not written. ``topology=`` other than the local one is not ported yet and
-raises NotImplementedError naming its ROADMAP item.
+not written.
 """
 from __future__ import annotations
 
@@ -59,18 +71,25 @@ from repro_torch.core.fed import FeatureFedData, SampleFedData
 from repro_torch.core.rounds import RunResult  # noqa: F401  (re-exported)
 from repro_torch.core.tree import leaves, tree_map
 
-_LATER = {
-    "topology": "the sharded topology comes with ROADMAP queue 1, item 8",
-}
+
+def _topo(topology):
+    return topology if topology is not None else topology_lib.LOCAL
 
 
-def refuse_unported(topology=None):
-    """Raise NotImplementedError, naming its ROADMAP item, for a reference
-    option the port has not ported."""
-    if not (topology is None
-            or isinstance(topology, topology_lib.LocalTopology)):
-        raise NotImplementedError(
-            f"topology=: not ported yet; {_LATER['topology']}")
+def _axis_bytes_metric(topology, grad_est, with_value: bool = False,
+                       num_streams: int = 1):
+    """Per-round bytes over the client mesh axis (0.0 for local): the
+    all-reduce of eq. (9)'s pre-weighted partial sums."""
+    return float(comm_accounting.psum_axis_bytes(
+        comm_codecs.tree_flat_dim(grad_est), _topo(topology).num_shards,
+        with_value=with_value, num_streams=num_streams))
+
+
+def _feature_axis_bytes(topology, uploads):
+    """Per-round bytes over the client mesh axis of a feature round (0.0
+    for local): the all-gather of the full (I, B, J) h-exchange."""
+    return float(comm_accounting.all_gather_axis_bytes(
+        uploads["h_exchange"].numel(), _topo(topology).num_shards))
 
 
 def _to(device, params0, data, key):
@@ -97,12 +116,17 @@ def _stat_res(new_flat, old_flat, gamma_t):
     return torch.sqrt(sq) / torch.clamp(gamma_t, min=1e-30)
 
 
+def _ef_sq(ef):
+    """Σ r² over every EF stream (rows of this rank under a sharded
+    topology)."""
+    streams = ef if isinstance(ef, list) else leaves(ef)
+    return sum(torch.sum(torch.square(x.float())) for x in streams)
+
+
 def _ef_norm(ef):
     """‖EF residuals‖₂ across every stream — the signal the codec is still
     holding back."""
-    streams = ef if isinstance(ef, list) else leaves(ef)
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in streams))
+    return torch.sqrt(_ef_sq(ef))
 
 
 def _cons_viol(value, fl):
@@ -152,10 +176,6 @@ def _sample_round(cohort: bool, per_sample_loss, params, data, key, fl,
                             participation=participation, **kw)
 
 
-def _ef_metric(cohort: bool, up, ef):
-    return _cohort_ef_norm(up["cohort"], ef) if cohort else _ef_norm(ef)
-
-
 def _dp_sample_rate(participation, num_clients: int) -> float:
     """The accountant's subsampling rate q of a sample-based driver: S/I
     under partial participation (dense mask or cohort engine), else 1."""
@@ -179,28 +199,78 @@ def _eps_fn(dp, sample_rate: float, device, releases_per_round: int = 1):
             if dp is not None else None)
 
 
-def _dp_metrics(eps_fn, stats, mask, inp):
-    """Per-round DP metrics from a sample-based round's uploads["dp"];
-    ``mask`` is the dense participation mask (None on the cohort path and at
-    full participation: every row of ``stats`` is a participant)."""
+def _dp_parts(stats, mask, tag: str):
+    """The per-rank partial sums behind a sample round's DP metrics, from
+    its uploads["dp"] rows; ``mask`` is the (rank's rows of the) dense
+    participation mask (None on the cohort path and at full participation:
+    every row of ``stats`` is a participant)."""
     clipped, noise_sq = stats["clipped"], stats["noise_sq"]
     if mask is None:
         mask = torch.ones_like(clipped)
-    denom = torch.clamp(torch.sum(mask), min=1.0)
-    return {"dp_epsilon": eps_fn(inp.t),
-            "dp_clip_frac": torch.sum(clipped * mask) / denom,
-            "dp_noise_norm": torch.sqrt(torch.sum(noise_sq * mask))}
+    return {tag + "clip": torch.sum(clipped * mask),
+            tag + "count": torch.sum(mask),
+            tag + "noise_sq": torch.sum(noise_sq * mask)}
 
 
-def _dp_feature_metrics(eps_fn, stats, num_clients: int, inp):
-    """Feature-round variant: the head stream and the I block streams all
-    release every round (the clip fraction averages over the I+1)."""
+def _dp_metrics(eps_fn, sums, inp, tag: str):
+    """Per-round DP metrics from the summed ``_dp_parts``."""
     return {"dp_epsilon": eps_fn(inp.t),
-            "dp_clip_frac": (stats["head_clipped"]
-                             + torch.sum(stats["blocks_clipped"]))
-            / (num_clients + 1.0),
-            "dp_noise_norm": torch.sqrt(stats["head_noise_sq"]
-                                        + torch.sum(stats["blocks_noise_sq"]))}
+            "dp_clip_frac": sums[tag + "clip"]
+            / torch.clamp(sums[tag + "count"], min=1.0),
+            "dp_noise_norm": torch.sqrt(sums[tag + "noise_sq"])}
+
+
+def _client_metrics(topo, cohort: bool, up, ef, dp_stats=()):
+    """The metrics of a sample round that reduce over clients: ``ef_norm``
+    (when ``ef``, the round's updated residuals, is given) and the summed
+    DP partials of each stream of ``dp_stats`` (tags "0", "1", ...). Their
+    per-rank partial sums cross the ranks in ONE ``all_sum``. The cohort
+    engine's ef_norm reads the cohort's rows of the store, which is whole
+    on every rank. Returns (metrics, sums)."""
+    out, parts = {}, {}
+    if ef is not None:
+        if cohort:
+            out["ef_norm"] = _cohort_ef_norm(up["cohort"], ef)
+        else:
+            parts["ef_sq"] = _ef_sq(ef)
+    mask = topo.shard(up.get("participants"))
+    for i, st in enumerate(dp_stats):
+        parts.update(_dp_parts(st, mask, str(i)))
+    sums = topo.all_sum(parts)
+    if "ef_sq" in sums:
+        out["ef_norm"] = torch.sqrt(sums["ef_sq"])
+    return out, sums
+
+
+def _feature_client_metrics(topo, eps_fn, up, codec, dp, num_clients: int,
+                            inp):
+    """A feature round's ``ef_norm`` and dp_* metrics. The head stream is
+    whole on every rank and counted once; the block streams' per-client
+    columns (Σ r², clipped, noise²) are all-gathered as one (I, k) matrix
+    and summed in client order, so the metrics equal the local run's bit
+    for bit. The head stream and the I block streams all release every
+    round (the clip fraction averages over the I+1)."""
+    cols = []
+    if codec is not None:
+        cols.append(torch.sum(torch.square(up["ef"]["blocks"].float()),
+                              dim=-1))
+    if dp is not None:
+        cols += [up["dp"]["blocks_clipped"], up["dp"]["blocks_noise_sq"]]
+    if not cols:
+        return {}
+    sums = torch.sum(topo.gather_rows(torch.stack(cols, dim=1)),
+                     dim=0).unbind(0)
+    out = {}
+    if codec is not None:
+        out["ef_norm"] = torch.sqrt(sums[0] + _ef_sq(up["ef"]["w0"]))
+    if dp is not None:
+        st = up["dp"]
+        clip, noise_sq = sums[-2:]
+        out.update({
+            "dp_epsilon": eps_fn(inp.t),
+            "dp_clip_frac": (st["head_clipped"] + clip) / (num_clients + 1.0),
+            "dp_noise_norm": torch.sqrt(st["head_noise_sq"] + noise_sq)})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -210,19 +280,20 @@ def _dp_feature_metrics(eps_fn, stats, num_clients: int, inp):
 
 def make_algorithm1_step(per_sample_loss, data: SampleFedData, fl,
                          participation=None, codec=None, cohort: bool = False,
-                         dp=None):
+                         dp=None, topology=None):
     """One full Algorithm-1 round as a (state, RoundInputs-slice) step. With
-    a codec the state is a CommCarry(opt=SSCAState, ef=(I, P) residuals, or
-    an EFStore with ``cohort``). dp= privatizes every q-upload and adds the
-    dp_* metrics."""
+    a codec the state is a CommCarry(opt=SSCAState, ef=(I, P) residuals —
+    the rank's (I/D, P) rows under a sharded topology — or an EFStore with
+    ``cohort``). dp= privatizes every q-upload and adds the dp_* metrics."""
     _check_cohort("make_algorithm1_step", cohort, participation)
+    topo = _topo(topology)
     eps_fn = _eps_fn(dp, _dp_sample_rate(participation, data.num_clients),
                      _data_device(data))
 
     def body(state, inp, ef):
         grad_est, val_est, up = _sample_round(
             cohort, per_sample_loss, state.params, data, inp.key, fl,
-            participation, codec=codec, ef=ef, dp=dp)
+            participation, codec=codec, ef=ef, topology=topology, dp=dp)
         old = state.w_flat.clone()      # ssca_step updates in place
         new = optimizer.ssca_step(state, grad_est, fl,
                                   rho_t=inp.rho, gamma_t=inp.gamma)
@@ -230,12 +301,13 @@ def make_algorithm1_step(per_sample_loss, data: SampleFedData, fl,
                    "stat_res": _stat_res(new.w_flat, old, inp.gamma),
                    "upload_bytes": _sample_upload_bytes(up, grad_est, data,
                                                         participation),
-                   "axis_bytes": 0.0}
-        if codec is not None:
-            metrics["ef_norm"] = _ef_metric(cohort, up, up["ef"])
+                   "axis_bytes": _axis_bytes_metric(topology, grad_est)}
+        extra, sums = _client_metrics(
+            topo, cohort, up, up["ef"] if codec is not None else None,
+            (up["dp"],) if dp is not None else ())
+        metrics.update(extra)
         if dp is not None:
-            metrics.update(_dp_metrics(eps_fn, up["dp"],
-                                       up.get("participants"), inp))
+            metrics.update(_dp_metrics(eps_fn, sums, inp, "0"))
         return new, up["ef"], metrics
 
     return with_comm_carry(codec, body)
@@ -245,16 +317,15 @@ def algorithm1(per_sample_loss, params0, data: SampleFedData, fl, rounds: int,
                key, eval_fn=None, eval_every: int = 10, participation=None,
                codec=None, topology=None, obs=None, cohort: bool = False,
                dp=None, device=None) -> RunResult:
-    refuse_unported(topology)
     params0, data, key, dev = _to(device, params0, data, key)
     step = make_algorithm1_step(per_sample_loss, data, fl, participation,
-                                codec, cohort, dp)
+                                codec, cohort, dp, topology)
     state = _wrap_codec_state(optimizer.ssca_init(params0), codec,
                               lambda: _sample_ef0(params0, data.num_clients,
                                                   dev, cohort))
     return rounds_lib.run_rounds(step, state, fl, key, rounds,
                                  eval_fn=eval_fn, eval_every=eval_every,
-                                 obs=obs)
+                                 topology=topology, obs=obs)
 
 
 # ---------------------------------------------------------------------------
@@ -264,19 +335,21 @@ def algorithm1(per_sample_loss, params0, data: SampleFedData, fl, rounds: int,
 
 def make_algorithm2_step(per_sample_loss, data: SampleFedData, fl,
                          participation=None, codec=None, cohort: bool = False,
-                         dp=None):
+                         dp=None, topology=None):
     """One Algorithm-2 round: the sample round with its value sums, then
     Lemma 1 (``ssca_constrained_step``, in place). dp= privatizes the
     q-grad uploads; the value sums are not noised (the accountant covers
     the gradient stream), as in the reference."""
     _check_cohort("make_algorithm2_step", cohort, participation)
+    topo = _topo(topology)
     eps_fn = _eps_fn(dp, _dp_sample_rate(participation, data.num_clients),
                      _data_device(data))
 
     def body(state, inp, ef):
         grad_est, val_est, up = _sample_round(
             cohort, per_sample_loss, state.params, data, inp.key, fl,
-            participation, with_value=True, codec=codec, ef=ef, dp=dp)
+            participation, with_value=True, codec=codec, ef=ef,
+            topology=topology, dp=dp)
         old = state.w_flat.clone()
         new = optimizer.ssca_constrained_step(state, grad_est, val_est, fl,
                                               rho_t=inp.rho, gamma_t=inp.gamma)
@@ -285,12 +358,14 @@ def make_algorithm2_step(per_sample_loss, data: SampleFedData, fl,
                    "cons_viol": _cons_viol(val_est, fl),
                    "upload_bytes": _sample_upload_bytes(
                        up, grad_est, data, participation, with_value=True),
-                   "axis_bytes": 0.0}
-        if codec is not None:
-            metrics["ef_norm"] = _ef_metric(cohort, up, up["ef"])
+                   "axis_bytes": _axis_bytes_metric(topology, grad_est,
+                                                    with_value=True)}
+        extra, sums = _client_metrics(
+            topo, cohort, up, up["ef"] if codec is not None else None,
+            (up["dp"],) if dp is not None else ())
+        metrics.update(extra)
         if dp is not None:
-            metrics.update(_dp_metrics(eps_fn, up["dp"],
-                                       up.get("participants"), inp))
+            metrics.update(_dp_metrics(eps_fn, sums, inp, "0"))
         return new, up["ef"], metrics
 
     return with_comm_carry(codec, body)
@@ -300,16 +375,15 @@ def algorithm2(per_sample_loss, params0, data: SampleFedData, fl, rounds: int,
                key, eval_fn=None, eval_every: int = 10, participation=None,
                codec=None, topology=None, obs=None, cohort: bool = False,
                dp=None, device=None) -> RunResult:
-    refuse_unported(topology)
     params0, data, key, dev = _to(device, params0, data, key)
     step = make_algorithm2_step(per_sample_loss, data, fl, participation,
-                                codec, cohort, dp)
+                                codec, cohort, dp, topology)
     state = _wrap_codec_state(optimizer.ssca_constrained_init(params0), codec,
                               lambda: _sample_ef0(params0, data.num_clients,
                                                   dev, cohort))
     return rounds_lib.run_rounds(step, state, fl, key, rounds,
                                  eval_fn=eval_fn, eval_every=eval_every,
-                                 obs=obs)
+                                 topology=topology, obs=obs)
 
 
 def algorithm2_general(obj_loss, cons_loss, params0, data: SampleFedData, fl,
@@ -324,9 +398,10 @@ def algorithm2_general(obj_loss, cons_loss, params0, data: SampleFedData, fl,
     participation both streams come from the same S clients: the shared
     participation key ``fold_in(round key, 0x5ca)`` draws the same ids.
     dp= privatizes both q-grad streams (each with its own round key), so
-    the accountant composes 2 releases a round."""
-    refuse_unported(topology)
+    the accountant composes 2 releases a round. Under a sharded topology
+    both aggregations are all-reduces (two streams of ``axis_bytes``)."""
     _check_cohort("algorithm2_general", cohort, participation)
+    topo = _topo(topology)
     params0, data, key, dev = _to(device, params0, data, key)
     eps_fn = _eps_fn(dp, _dp_sample_rate(participation, data.num_clients),
                      dev, releases_per_round=2)
@@ -338,11 +413,12 @@ def algorithm2_general(obj_loss, cons_loss, params0, data: SampleFedData, fl,
               else None)
         og, _, uo = _sample_round(cohort, obj_loss, state.params, data, k1,
                                   fl, participation, participation_key=pk,
-                                  codec=codec, ef=ef["obj"], dp=dp)
+                                  codec=codec, ef=ef["obj"],
+                                  topology=topology, dp=dp)
         cg, cv, uc = _sample_round(cohort, cons_loss, state.params, data, k2,
                                    fl, participation, with_value=True,
                                    participation_key=pk, codec=codec,
-                                   ef=ef["cons"], dp=dp)
+                                   ef=ef["cons"], topology=topology, dp=dp)
         old = state.w_flat.clone()
         new = optimizer.ssca_general_constrained_step(
             state, og, cg, cv, fl, rho_t=inp.rho, gamma_t=inp.gamma)
@@ -353,14 +429,17 @@ def algorithm2_general(obj_loss, cons_loss, params0, data: SampleFedData, fl,
                        _sample_upload_bytes(uo, og, data, participation)
                        + _sample_upload_bytes(uc, cg, data, participation,
                                               with_value=True)),
-                   "axis_bytes": 0.0}
+                   "axis_bytes": (_axis_bytes_metric(topology, og)
+                                  + _axis_bytes_metric(topology, cg,
+                                                       with_value=True))}
         new_ef = {"obj": uo["ef"], "cons": uc["ef"]}
-        if codec is not None:
-            metrics["ef_norm"] = _ef_metric(cohort, uo, new_ef)
+        extra, sums = _client_metrics(
+            topo, cohort, uo, new_ef if codec is not None else None,
+            (uo["dp"], uc["dp"]) if dp is not None else ())
+        metrics.update(extra)
         if dp is not None:
-            pm = uo.get("participants")
-            mo = _dp_metrics(eps_fn, uo["dp"], pm, inp)
-            mc = _dp_metrics(eps_fn, uc["dp"], pm, inp)
+            mo = _dp_metrics(eps_fn, sums, inp, "0")
+            mc = _dp_metrics(eps_fn, sums, inp, "1")
             metrics.update({
                 "dp_epsilon": mo["dp_epsilon"],
                 "dp_clip_frac": 0.5 * (mo["dp_clip_frac"]
@@ -376,7 +455,7 @@ def algorithm2_general(obj_loss, cons_loss, params0, data: SampleFedData, fl,
                  "cons": _sample_ef0(params0, data.num_clients, dev, cohort)})
     return rounds_lib.run_rounds(with_comm_carry(codec, body), state, fl, key,
                                  rounds, eval_fn=eval_fn, eval_every=eval_every,
-                                 obs=obs)
+                                 topology=topology, obs=obs)
 
 
 # ---------------------------------------------------------------------------
@@ -409,28 +488,26 @@ def _feature_ef0(params0, num_clients: int, device):
 
 
 def _make_feature_step(head_loss_from_h, client_h, data, fl, codec,
-                       update_fn, dp=None):
+                       update_fn, dp=None, topology=None):
     """Shared Algorithm-3/4 step body: feature_round + the given in-place
     optimizer update ``update_fn(state, grad_est, val_est, inp) -> (state,
     metrics)``, with optional codec/EF threading. dp= privatizes the head
     and block q-uploads; all I clients release every round (q = 1) and the
     head and block streams count as 2 releases a round."""
+    topo = _topo(topology)
     eps_fn = _eps_fn(dp, 1.0, _data_device(data), releases_per_round=2)
 
     def body(state, inp, ef):
         grad_est, val_est, up = fed.feature_round(
             state.params, data, inp.key, fl.batch_size, head_loss_from_h,
-            client_h, codec=codec, ef=ef, dp=dp)
+            client_h, codec=codec, ef=ef, topology=topology, dp=dp)
         old = state.w_flat.clone()
         new, metrics = update_fn(state, grad_est, val_est, inp)
         metrics["stat_res"] = _stat_res(new.w_flat, old, inp.gamma)
         metrics["upload_bytes"] = _feature_upload_bytes(up, grad_est, data,
                                                        fl.batch_size)
-        metrics["axis_bytes"] = 0.0
-        if codec is not None:
-            metrics["ef_norm"] = _ef_norm(up["ef"])
-        if dp is not None:
-            metrics.update(_dp_feature_metrics(eps_fn, up["dp"],
+        metrics["axis_bytes"] = _feature_axis_bytes(topology, up)
+        metrics.update(_feature_client_metrics(topo, eps_fn, up, codec, dp,
                                                data.num_clients, inp))
         return new, up["ef"], metrics
 
@@ -439,16 +516,16 @@ def _make_feature_step(head_loss_from_h, client_h, data, fl, codec,
 
 def _run_feature(head_loss_from_h, client_h, params0, data, fl, rounds, key,
                  eval_fn, eval_every, codec, device, init_fn, update_fn,
-                 dp=None, obs=None):
+                 dp=None, obs=None, topology=None):
     params0, data, key, dev = _to(device, params0, data, key)
     step = _make_feature_step(head_loss_from_h, client_h, data, fl, codec,
-                              update_fn, dp)
+                              update_fn, dp, topology)
     state = _wrap_codec_state(init_fn(params0), codec,
                               lambda: _feature_ef0(params0, data.num_clients,
                                                    dev))
     return rounds_lib.run_feature_rounds(step, state, fl, key, rounds,
                                          eval_fn=eval_fn, eval_every=eval_every,
-                                         obs=obs)
+                                         topology=topology, obs=obs)
 
 
 def algorithm3(head_loss_from_h, client_h, params0, data: FeatureFedData, fl,
@@ -457,7 +534,6 @@ def algorithm3(head_loss_from_h, client_h, params0, data: FeatureFedData, fl,
                device=None) -> RunResult:
     """Unconstrained feature-based FL: params0 = {"w0", "blocks" (I, ...)};
     the update is ``ssca_step``, one ``ssca_update`` launch a round."""
-    refuse_unported(topology)
 
     def update(state, grad_est, val_est, inp):
         new = optimizer.ssca_step(state, grad_est, fl,
@@ -466,7 +542,7 @@ def algorithm3(head_loss_from_h, client_h, params0, data: FeatureFedData, fl,
 
     return _run_feature(head_loss_from_h, client_h, params0, data, fl, rounds,
                         key, eval_fn, eval_every, codec, device,
-                        optimizer.ssca_init, update, dp, obs)
+                        optimizer.ssca_init, update, dp, obs, topology)
 
 
 def algorithm4(head_loss_from_h, client_h, params0, data: FeatureFedData, fl,
@@ -474,7 +550,6 @@ def algorithm4(head_loss_from_h, client_h, params0, data: FeatureFedData, fl,
                codec=None, topology=None, obs=None, dp=None,
                device=None) -> RunResult:
     """Constrained feature-based FL (formulation (40) via Lemma 1)."""
-    refuse_unported(topology)
 
     def update(state, grad_est, val_est, inp):
         new = optimizer.ssca_constrained_step(state, grad_est, val_est, fl,
@@ -484,4 +559,5 @@ def algorithm4(head_loss_from_h, client_h, params0, data: FeatureFedData, fl,
 
     return _run_feature(head_loss_from_h, client_h, params0, data, fl, rounds,
                         key, eval_fn, eval_every, codec, device,
-                        optimizer.ssca_constrained_init, update, dp, obs)
+                        optimizer.ssca_constrained_init, update, dp, obs,
+                        topology)

@@ -23,6 +23,9 @@ clients with the Horvitz-Thompson I/S reweighting, and ``cohort=True``
 runs that as the participant-only O(S) engine (the cohort's shards from
 ``data.shards_for``, EF residuals in an ``EFStore``). The feature baselines
 compress the same q-uploads as Algorithm 3 through ``fed.feature_round``.
+Every baseline takes ``topology=`` as the SSCA drivers do: a
+``ShardedTopology`` runs each rank's clients (their E local steps, or their
+feature blocks) and all-reduces the weighted deltas (all-gathers the h).
 """
 from __future__ import annotations
 
@@ -38,10 +41,9 @@ from repro_torch.comm.error_feedback import (ef_init_stacked, ef_store_init,
 from repro_torch import random as rnd
 from repro_torch.core import fed
 from repro_torch.core import rounds as rounds_lib
-from repro_torch.core import topology as topology_lib
-from repro_torch.core.algorithms import (_check_cohort, _feature_ef0,
-                                         _feature_upload_bytes, _to,
-                                         _wrap_codec_state, refuse_unported)
+from repro_torch.core.algorithms import (_check_cohort, _feature_axis_bytes,
+                                         _feature_ef0, _feature_upload_bytes,
+                                         _to, _topo, _wrap_codec_state)
 from repro_torch.core.fed import FeatureFedData, SampleFedData
 from repro_torch.core.rounds import RunResult
 from repro_torch.core.tree import tree_axpy, tree_l2sq, tree_map, tree_zeros_like
@@ -122,9 +124,12 @@ def sample_sgd(per_sample_loss, params0, data: SampleFedData, cfg: SGDConfig,
     """E local (momentum-)SGD steps per client per round + weighted
     averaging of the (optionally compressed) model deltas,
     ω ← ω + Σ_i w_i Δ̂_i with w_i = N_i/N, or (I/S)·N_i/N over the S drawn
-    clients under ``participation=S``. Metrics: ``upload_bytes``."""
-    refuse_unported(topology)
+    clients under ``participation=S``. Metrics: ``upload_bytes``. Under a
+    sharded ``topology`` the dense EF carry holds the rank's rows, and the
+    cohort engine gathers the rank's S/D rows of its store and writes the
+    whole cohort's back on every rank."""
     _check_cohort("sample_sgd", cohort, participation)
+    topo = _topo(topology)
     params0, data, key, dev = _to(device, params0, data, key)
     grad_fn = _reg_grad(per_sample_loss, cfg.l2_lambda)
     num_clients = data.num_clients
@@ -149,7 +154,7 @@ def sample_sgd(per_sample_loss, params0, data: SampleFedData, cfg: SGDConfig,
                                     participation)
             feats, labs, counts = data.shards_for(ids)
             w = (num_clients / participation) * counts.float() / data.total
-            ef_rows = ef.gather(ids) if ef is not None else None
+            ef_rows = ef.gather(topo.shard(ids)) if ef is not None else None
         else:
             ids, ef_rows = ids_all, ef
             feats, labs, counts = data.features, data.labels, data.counts
@@ -162,11 +167,11 @@ def sample_sgd(per_sample_loss, params0, data: SampleFedData, cfg: SGDConfig,
                                            n_on)
         ckeys = (fed.client_keys(rnd.fold_in(inp.key, 0xC0DEC), ids)
                  if codec is not None else None)
-        s = topology_lib.LOCAL.weighted_sum(
+        s = topo.weighted_sum(
             client_fn, (feats, labs, counts, fed.client_keys(inp.key, ids)),
             w, codec=codec, ef=ef_rows, codec_keys=ckeys, active=active)
-        new_ef = (ef.scatter(ids, s.ef) if cohort and ef is not None
-                  else s.ef)
+        new_ef = (ef.scatter(ids, topo.gather_rows(s.ef))
+                  if cohort and ef is not None else s.ef)
         params = {k: (p + s.weighted[k]).to(p.dtype)
                   for k, p in state.params.items()}
         return SGDState(params=params, t=state.t + 1), new_ef, {
@@ -178,16 +183,18 @@ def sample_sgd(per_sample_loss, params0, data: SampleFedData, cfg: SGDConfig,
                  else ef_init_stacked(num_clients, dim, device=dev)))
     return rounds_lib.run_rounds(with_comm_carry(codec, body), state,
                                  _NULL_SCHED, key, rounds, eval_fn=eval_fn,
-                                 eval_every=eval_every, obs=obs)
+                                 eval_every=eval_every, topology=topology,
+                                 obs=obs)
 
 
 def _run_feature(body, state, codec, params0, data, fl, key, rounds, eval_fn,
-                 eval_every, dev, obs=None):
+                 eval_every, dev, obs=None, topology=None):
     state = _wrap_codec_state(
         state, codec, lambda: _feature_ef0(params0, data.num_clients, dev))
     return rounds_lib.run_feature_rounds(with_comm_carry(codec, body), state,
                                          fl, key, rounds, eval_fn=eval_fn,
-                                         eval_every=eval_every, obs=obs)
+                                         eval_every=eval_every,
+                                         topology=topology, obs=obs)
 
 
 def feature_sgd(head_loss_from_h, client_h, params0, data: FeatureFedData,
@@ -196,13 +203,12 @@ def feature_sgd(head_loss_from_h, client_h, params0, data: FeatureFedData,
                 topology=None, obs=None, device=None) -> RunResult:
     """One global (momentum-)SGD step per round via the Alg-3 information
     collection (the codec compresses the same q-uploads as Algorithm 3)."""
-    refuse_unported(topology)
     params0, data, key, dev = _to(device, params0, data, key)
 
     def body(state, inp, ef):
         grad_est, _, up = fed.feature_round(
             state.params, data, inp.key, cfg.local_batch, head_loss_from_h,
-            client_h, codec=codec, ef=ef)
+            client_h, codec=codec, ef=ef, topology=topology)
         grad_est = tree_map(lambda g, p: g + 2 * cfg.l2_lambda * p, grad_est,
                             state.params)
         lr = cfg.lr_a if momentum else _lr(cfg, state.t)
@@ -222,7 +228,7 @@ def feature_sgd(head_loss_from_h, client_h, params0, data: FeatureFedData,
     state = (SGDmState(params=params0, v=tree_zeros_like(params0), t=1)
              if momentum else SGDState(params=params0, t=1))
     return _run_feature(body, state, codec, params0, data, _NULL_SCHED, key,
-                        rounds, eval_fn, eval_every, dev, obs)
+                        rounds, eval_fn, eval_every, dev, obs, topology)
 
 
 # ---------------------------------------------------------------------------
@@ -251,13 +257,12 @@ def feature_frank_wolfe(head_loss_from_h, client_h, params0,
     """ω_{t+1} = (1−η_t)ω_t + η_t·s_t with s_t the L2-ball LMO of the
     penalized subgradient g_t = 2ω_t + c·1[F̂>U]·∇F̂(ω_t). Metrics:
     ``loss_est``, ``upload_bytes``, ``axis_bytes``."""
-    refuse_unported(topology)
     params0, data, key, dev = _to(device, params0, data, key)
 
     def body(state, inp, ef):
         grad_est, val_est, up = fed.feature_round(
             state.params, data, inp.key, fl.batch_size, head_loss_from_h,
-            client_h, codec=codec, ef=ef)
+            client_h, codec=codec, ef=ef, topology=topology)
         act = (val_est > fl.cost_limit).float()
         g = tree_map(lambda p, gf: 2.0 * p + cfg.penalty * act * gf,
                      state.params, grad_est)
@@ -270,10 +275,11 @@ def feature_frank_wolfe(head_loss_from_h, client_h, params0,
             "loss_est": val_est,
             "upload_bytes": _feature_upload_bytes(up, grad_est, data,
                                                   fl.batch_size),
-            "axis_bytes": 0.0}
+            "axis_bytes": _feature_axis_bytes(topology, up)}
 
     return _run_feature(body, SGDState(params=params0, t=1), codec, params0,
-                        data, fl, key, rounds, eval_fn, eval_every, dev, obs)
+                        data, fl, key, rounds, eval_fn, eval_every, dev, obs,
+                        topology)
 
 
 class DualConfig(NamedTuple):
@@ -300,13 +306,12 @@ def feature_dual_decomposition(head_loss_from_h, client_h, params0,
                                ) -> RunResult:
     """ω ← ω − η_ω(2ω + ν∇F̂);  ν ← clip(ν + η_ν(F̂ − U), 0, ν_max). Metrics:
     ``loss_est``, ``nu``, ``upload_bytes``, ``axis_bytes``."""
-    refuse_unported(topology)
     params0, data, key, dev = _to(device, params0, data, key)
 
     def body(state, inp, ef):
         grad_est, val_est, up = fed.feature_round(
             state.params, data, inp.key, fl.batch_size, head_loss_from_h,
-            client_h, codec=codec, ef=ef)
+            client_h, codec=codec, ef=ef, topology=topology)
         sqrt_t = float(np.sqrt(np.float32(state.t)))
         lag = tree_map(lambda p, gf: 2.0 * p + state.nu * gf, state.params,
                        grad_est)
@@ -318,8 +323,8 @@ def feature_dual_decomposition(head_loss_from_h, client_h, params0,
             "loss_est": val_est, "nu": nu,
             "upload_bytes": _feature_upload_bytes(up, grad_est, data,
                                                   fl.batch_size),
-            "axis_bytes": 0.0}
+            "axis_bytes": _feature_axis_bytes(topology, up)}
 
     state = DualState(params=params0, nu=torch.zeros((), device=dev), t=1)
     return _run_feature(body, state, codec, params0, data, fl, key, rounds,
-                        eval_fn, eval_every, dev, obs)
+                        eval_fn, eval_every, dev, obs, topology)

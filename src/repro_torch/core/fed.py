@@ -32,7 +32,16 @@ clipped at its B_i-mean scale and noised with the key
 ``client_keys(dp_key, id)``, ``dp_key`` defaulting to ``fold_in(key,
 0xD9)``; the stable ids make the dense and cohort engines draw the same
 noise for the same client. Per-client clip and noise statistics come back
-as ``uploads["dp"]``. The sharded topology is not ported yet.
+as ``uploads["dp"]``.
+
+Every round function takes ``topology=`` (``core/topology.py``): the local
+one by default, or a ``ShardedTopology`` that spreads the clients (the
+cohort, in ``cohort_round``; the feature clients, in ``feature_round``)
+over the ranks of a ``torch.distributed`` mesh. Batches, participation and
+keys are drawn identically for every topology. Under a sharded topology
+the per-client outputs in ``uploads`` (``q_grad_sums``, ``q_value_sums``,
+``encoded``, ``dp``, a dense ``ef``) hold this rank's rows, and a dense
+``ef`` passed in is the rank's rows too (``ShardedTopology.place_state``).
 """
 from __future__ import annotations
 
@@ -325,7 +334,8 @@ def _dp_args(dp_key, key, ids, counts, batch_size: int):
 def sample_round(per_sample_loss: Callable, params, data: SampleFedData, key,
                  batch_size: int, with_value: bool = False,
                  participation: int | None = None, participation_key=None,
-                 codec=None, ef=None, codec_key=None, dp=None, dp_key=None):
+                 codec=None, ef=None, codec_key=None, topology=None, dp=None,
+                 dp_key=None):
     """Computes client uploads q_i = Σ_{n∈batch} ∇f(ω;x_n) (and Σ f) then
     the server aggregate ĝ = Σ_i N_i/(B_i·N) q_i (and F̂ likewise).
 
@@ -340,7 +350,9 @@ def sample_round(per_sample_loss: Callable, params, data: SampleFedData, key,
     ``client_keys(codec_key, arange(I))``, ``codec_key`` defaulting to
     ``fold_in(key, 0xC0DEC)``, as in the reference. With ``dp=`` each
     client's upload is clipped and noised before the codec (module
-    docstring); the stats come back as ``uploads["dp"]``.
+    docstring); the stats come back as ``uploads["dp"]``. ``topology=``
+    selects where the clients run (module docstring); under a sharded one
+    ``ef`` is the rank's (I/D, P) rows.
 
     Returns (grad_est dict, value_est, uploads)."""
     if participation is not None and participation < 1:
@@ -349,9 +361,11 @@ def sample_round(per_sample_loss: Callable, params, data: SampleFedData, key,
         raise ValueError(
             "sample_round: error-feedback residuals (ef=) were passed "
             "without codec= — pass codec= or drop ef=")
+    topo = topology if topology is not None else topology_lib.LOCAL
     dim = comm_codecs.tree_flat_dim(params)
     if codec is not None:
-        _check_ef_shape("sample_round", "q_grad", ef, (data.num_clients, dim))
+        _check_ef_shape("sample_round", "q_grad", ef,
+                        (topo.num_local(data.num_clients), dim))
     with phase("batch-select"):
         idx = sample_batches(data, key, batch_size)      # (I, B)
         bmask = batch_mask(data.counts, batch_size)      # (I, B)
@@ -376,7 +390,7 @@ def sample_round(per_sample_loss: Callable, params, data: SampleFedData, key,
             dp_key, key, torch.arange(data.num_clients, device=key.device),
             data.counts, batch_size)
     w = aggregation_weights(data.counts, batch_size, pmask)
-    s = topology_lib.LOCAL.weighted_sum(
+    s = topo.weighted_sum(
         _client_fn(per_sample_loss, params),
         (data.features, data.labels, idx, bmask), w,
         codec=codec, ef=ef, codec_keys=ckeys, active=pmask, dp=dp,
@@ -401,7 +415,7 @@ def _cohort_client_fn(per_sample_loss: Callable, params):
 def cohort_round(per_sample_loss: Callable, params, data, key,
                  batch_size: int, cohort: int, with_value: bool = False,
                  participation_key=None, codec=None, ef=None, codec_key=None,
-                 dp=None, dp_key=None):
+                 topology=None, dp=None, dp_key=None):
     """The participant-only O(S) realization of ``sample_round`` under
     partial participation: draws the S-client cohort with ``cohort_sample``
     (``participation_key`` defaults to ``fold_in(key, 0x5ca)``), asks
@@ -418,11 +432,19 @@ def cohort_round(per_sample_loss: Callable, params, data, key,
     ``dp=`` privatizes the cohort's uploads with the noise keys of their
     stable ids, as ``sample_round`` does (``uploads["dp"]`` is (S,)).
 
+    ``topology=`` a ``ShardedTopology`` splits the COHORT over the ranks
+    (S % D == 0; the population never constrains the mesh): each rank
+    gathers its S/D clients' EF rows, and every rank writes the whole
+    cohort's updated rows into its copy of the store (an all-gather of the
+    (S/D, P) rows), so the replicated stores stay equal although a client's
+    slot, hence its rank, changes every round.
+
     Returns (grad_est, value_est, uploads)."""
     if codec is None and ef is not None:
         raise ValueError(
             "cohort_round: error-feedback residuals (ef=) were passed "
             "without codec= — pass codec= or drop ef=")
+    topo = topology if topology is not None else topology_lib.LOCAL
     num_clients = data.num_clients
     if participation_key is None:
         participation_key = rnd.fold_in(key, 0x5CA)
@@ -445,7 +467,7 @@ def cohort_round(per_sample_loss: Callable, params, data, key,
                     f"not a dense residual array — got {type(ef).__name__}")
             _check_ef_shape("cohort_round", "q_grad", ef.data,
                             (num_clients, dim))
-            ef_rows = ef.gather(ids)                                 # (S, P)
+            ef_rows = ef.gather(topo.shard(ids))                   # (S/D, P)
         if codec_key is None:
             codec_key = rnd.fold_in(key, 0xC0DEC)
         ckeys = client_keys(codec_key, ids)
@@ -456,12 +478,12 @@ def cohort_round(per_sample_loss: Callable, params, data, key,
     if dp is not None:
         dkeys, dscale = _dp_args(dp_key, key, ids, counts_s, batch_size)
     w = cohort_weights(counts_s, batch_size, num_clients, data.total)
-    s = topology_lib.LOCAL.weighted_sum(
+    s = topo.weighted_sum(
         _cohort_client_fn(per_sample_loss, params), (zb, yb, bmask), w,
         codec=codec, ef=ef_rows, codec_keys=ckeys, dp=dp, dp_keys=dkeys,
         dp_scale=dscale)
-    new_ef = (ef.scatter(ids, s.ef) if codec is not None and ef is not None
-              else s.ef)
+    new_ef = (ef.scatter(ids, topo.gather_rows(s.ef))
+              if codec is not None and ef is not None else s.ef)
     uploads = {"q_grad_sums": s.uploads,
                "q_value_sums": s.values if with_value else None,
                "cohort": ids, "encoded": s.encoded, "ef": new_ef,
@@ -501,7 +523,8 @@ def _block_grad_fn(client_h):
 
 def feature_round(params, data: FeatureFedData, key, batch_size: int,
                   head_loss_from_h: Callable, client_h: Callable,
-                  codec=None, ef=None, codec_key=None, dp=None, dp_key=None):
+                  codec=None, ef=None, codec_key=None, topology=None, dp=None,
+                  dp_key=None):
     """The Alg-3 information flow for f(ω;x) = g0(ω0, Σ_i h_i(ω_i, x_i)):
 
       server picks N^(t)  →  client i computes h_i and broadcasts it  →
@@ -522,11 +545,18 @@ def feature_round(params, data: FeatureFedData, key, batch_size: int,
     1), arange(I))``, ``dp_key`` defaulting to ``fold_in(key, 0xD9)``; the
     h-exchange is not privatized.
 
+    ``topology=`` a ``ShardedTopology`` (over a "model"-axis mesh) places
+    I/D feature clients on each rank, the h-exchange an all-gather: the
+    gradients and wire formats equal the local run's bit for bit. Then
+    ``ef["blocks"]``, ``encoded["q_blocks"]`` and the block DP stats hold
+    the rank's rows; ``h_exchange`` and ``q_blocks`` are whole.
+
     Returns (grad_est dict like params, value_est, uploads)."""
     if codec is None and ef is not None:
         raise ValueError(
             "feature_round: error-feedback residuals (ef=) were passed "
             "without codec= — pass codec= or drop ef=")
+    topo = topology if topology is not None else topology_lib.LOCAL
     n = data.total
     with phase("batch-select"):
         idx = rnd.randint(key, (batch_size,), 0, n).long()     # server-chosen
@@ -545,7 +575,7 @@ def feature_round(params, data: FeatureFedData, key, batch_size: int,
                     f"{sorted(ef) if isinstance(ef, dict) else type(ef).__name__}")
             _check_ef_shape("feature_round", "w0", ef["w0"], (d_head,))
             _check_ef_shape("feature_round", "blocks", ef["blocks"],
-                            (data.num_clients, d_block))
+                            (topo.num_local(data.num_clients), d_block))
         if codec_key is None:
             codec_key = rnd.fold_in(key, 0xC0DEC)
         head_key = rnd.fold_in(codec_key, 0)
@@ -561,7 +591,7 @@ def feature_round(params, data: FeatureFedData, key, batch_size: int,
         dp_block_keys = client_keys(rnd.fold_in(dp_key, 1),
                                     torch.arange(data.num_clients,
                                                  device=key.device))
-    s = topology_lib.LOCAL.feature_sum(
+    s = topo.feature_sum(
         client_h, _head_fn(head_loss_from_h, params["w0"], yb),
         _block_grad_fn(client_h), params["blocks"], zb, codec=codec, ef=ef,
         head_key=head_key, block_keys=block_keys, dp=dp,

@@ -14,6 +14,8 @@ draws client i's batch with ``randint(fold_in(k_i, e), (B,), 0, N_i)``
 over an S-client cohort with cohort-normalized weights N_i/Σ_{j∈cohort} N_j
 (the uploads are full models, so the weights stay a convex combination),
 and ``cohort=True`` runs that as the participant-only O(S) engine.
+``topology=`` a ``ShardedTopology`` runs each rank's clients' E-step loops
+and all-reduces the weighted {model, buffer} sums.
 """
 from __future__ import annotations
 
@@ -24,8 +26,7 @@ import torch
 from repro_torch import random as rnd
 from repro_torch.core import fed
 from repro_torch.core import rounds as rounds_lib
-from repro_torch.core import topology as topology_lib
-from repro_torch.core.algorithms import _check_cohort, _to, refuse_unported
+from repro_torch.core.algorithms import _check_cohort, _to, _topo
 from repro_torch.core.fed import SampleFedData
 from repro_torch.core.rounds import RunResult
 from repro_torch.core.tree import tree_map, tree_zeros_like
@@ -72,8 +73,8 @@ def algorithm1_local(per_sample_loss, params0, data: SampleFedData, fl,
     refinements per round; the uploads are each client's model and buffer,
     averaged with cohort-normalized N_i weights in every participation
     mode."""
-    refuse_unported(topology)
     _check_cohort("algorithm1_local", cohort, participation)
+    topo = _topo(topology)
     params0, data, key, dev = _to(device, params0, data, key)
     num_clients = data.num_clients
     partial = participation is not None and participation < num_clients
@@ -100,7 +101,7 @@ def algorithm1_local(per_sample_loss, params0, data: SampleFedData, fl,
             if partial:
                 cf = cf * fed.participation_mask(rnd.fold_in(inp.key, 0x5CA),
                                                  num_clients, participation)
-        s = topology_lib.LOCAL.weighted_sum(
+        s = topo.weighted_sum(
             client_fn, (feats, labs, counts, fed.client_keys(inp.key, ids)),
             cf / torch.sum(cf))
         new = LocalSSCAState(
@@ -111,4 +112,4 @@ def algorithm1_local(per_sample_loss, params0, data: SampleFedData, fl,
     state = LocalSSCAState(params=params0, v=tree_zeros_like(params0), t=1)
     return rounds_lib.run_rounds(step, state, fl, key, rounds,
                                  eval_fn=eval_fn, eval_every=eval_every,
-                                 obs=obs)
+                                 topology=topology, obs=obs)

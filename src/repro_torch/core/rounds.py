@@ -145,14 +145,18 @@ def _emit_eval(obs, metrics, t_global: int):
 
 def run_rounds(step_fn: Callable, state, fl, key, rounds: int,
                eval_fn: Optional[Callable] = None,
-               eval_every: int = 0, obs=None) -> RunResult:
+               eval_every: int = 0, topology=None, obs=None) -> RunResult:
     """Run ``rounds`` rounds of ``step_fn(state, RoundInputs-slice) ->
     (state, metrics)`` from round t=1, with ``eval_fn(params, state)`` every
     ``eval_every`` rounds (chunk ends). history carries the eval series under
     their own names keyed by "round", plus every step metric as a (K,)
     per-round series under "round_<name>" (with "round_t" = 1..K). ``obs``
     (an ``obs.MetricStream``) streams every round's metrics and each eval
-    result; the trajectory and the history are unchanged."""
+    result; the trajectory and the history are unchanged. ``topology`` (the
+    client engine the step runs on) cuts a full per-client EF carry down to
+    this rank's rows first (``place_state``)."""
+    if topology is not None:
+        state = topology.place_state(state)
     dev = key.device
     if rounds <= 0:
         return RunResult(unwrap_comm(state).params,
@@ -186,9 +190,13 @@ def run_rounds(step_fn: Callable, state, fl, key, rounds: int,
 
 def run_feature_rounds(step_fn: Callable, state, fl, key, rounds: int,
                        eval_fn: Optional[Callable] = None,
-                       eval_every: int = 0, obs=None) -> RunResult:
+                       eval_every: int = 0, topology=None,
+                       obs=None) -> RunResult:
     """Feature-based (vertical FL, Algorithms 3/4) counterpart of
-    :func:`run_rounds`. The reference's differs only in where a sharded
-    topology places the feature EF carry; on one device it is run_rounds."""
+    :func:`run_rounds`: a sharded ``topology`` cuts the feature EF carry's
+    block residuals to this rank's rows (``place_feature_state``) and keeps
+    the head stream whole."""
+    if topology is not None:
+        state = topology.place_feature_state(state)
     return run_rounds(step_fn, state, fl, key, rounds, eval_fn=eval_fn,
                       eval_every=eval_every, obs=obs)

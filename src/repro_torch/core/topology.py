@@ -21,17 +21,36 @@ launch a stream). With ``dp=`` the uploads are clipped and noised
 (``core/privacy.py``, the ``dp_noise`` kernel) BEFORE the codec encode, so
 the wire format, the bytes and the EF residual see the privatized upload;
 the h-exchange stays in the clear. Each stage runs under its
-``obs.trace.phase`` label. ``ShardedTopology`` is not ported yet.
+``obs.trace.phase`` label.
+
+:class:`ShardedTopology` spreads the clients over the ranks of a
+``torch.distributed`` client mesh (``launch/mesh.py``), one process a rank.
+Every rank runs the same driver on the same full inputs (data and keys from
+the same seed); rank r takes the clients ``[r·I/D, (r+1)·I/D)``, runs their
+client compute, DP stage and codec + EF roundtrip exactly as
+``LocalTopology`` does, forms its weighted partial Σ w_i û_i and value
+partial, and ``all_reduce``s them (one collective: eq. (9)'s aggregation,
+the reference's ``lax.psum``). The per-client outputs (uploads, wire
+format, EF residual rows, DP stats) stay on their rank: only weighted sums
+cross it. ``feature_sum`` all-gathers the (I/D, B, J) h into the full
+(I, B, J) in client order and sums it, so the head, dl/dh, the block
+gradients and the wire formats equal the local run's bit for bit; the
+server then collects every client's decoded block upload (an all-gather)
+for the replicated update. Metrics that reduce over clients pass their
+per-rank partial sums through :meth:`ShardedTopology.all_sum`, one small
+all-reduce. No collective is skipped at D = 1.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.comm import codecs as comm_codecs
 from repro_torch.comm import error_feedback as comm_ef
 from repro_torch.core import privacy as privacy_lib
+from repro_torch.core.tree import leaves, tree_map
 from repro_torch.obs.trace import phase
 
 
@@ -129,6 +148,31 @@ class LocalTopology:
     name = "local"
     num_shards = 1
 
+    def num_local(self, num_clients: int) -> int:
+        """How many of ``num_clients`` clients this rank holds: all."""
+        return num_clients
+
+    def shard(self, x):
+        """This rank's rows of a client-leading tensor: all of them."""
+        return x
+
+    def gather_rows(self, x):
+        """Every rank's rows of a client-leading tensor, in client order."""
+        return x
+
+    def all_sum(self, parts: dict) -> dict:
+        """Per-rank partial sums of the round's metrics, summed over ranks:
+        with one device, as they are."""
+        return parts
+
+    def place_state(self, state):
+        """No placement to do on a single device."""
+        return state
+
+    def place_feature_state(self, state):
+        """No placement to do on a single device."""
+        return state
+
     def weighted_sum(self, client_fn: Callable, args, weights, *,
                      codec=None, ef=None, codec_keys=None, active=None,
                      dp=None, dp_keys=None, dp_scale=None) -> ClientSums:
@@ -192,4 +236,247 @@ class LocalTopology:
                            dp=dp_stats)
 
 
+# all_gather_into_tensor under the name newer PyTorch gives it
+_all_gather_single = getattr(dist, "all_gather_single", None) or getattr(
+    dist, "all_gather_into_tensor")
+
+
+class ShardedTopology:
+    """Clients spread over the ranks of a 1-D ``torch.distributed`` client
+    mesh; eq. (9)'s server aggregation is an ``all_reduce(SUM)``.
+
+    mesh: a ``DeviceMesh`` (``launch.mesh.make_client_mesh`` or
+    ``make_feature_mesh``) whose one axis carries the clients. The client count I must
+    be divisible by the axis size D; rank r executes the clients
+    ``[r·I/D, (r+1)·I/D)``.
+
+    Inputs are full-size on every rank (every rank runs the same driver on
+    the same data and keys) and are sliced to the rank's rows here; the EF
+    residuals are the exception: a round takes and returns only the rank's
+    rows (``place_state`` cuts a full carry down to them). Outputs: the
+    weighted sums are replicated, the per-client outputs rank-local."""
+
+    name = "sharded"
+
+    def __init__(self, mesh, axes: Optional[Sequence[str]] = None):
+        self.mesh = mesh
+        names = tuple(mesh.mesh_dim_names or ())
+        self.axes = names if axes is None else tuple(axes)
+        if len(self.axes) != 1 or self.axes[0] not in names:
+            raise ValueError(
+                f"ShardedTopology takes one client axis of the mesh's "
+                f"{names}, got {self.axes}: the port's client meshes are 1-D")
+        self.group = mesh.get_group(self.axes[0])
+        self.num_shards = dist.get_world_size(self.group)
+        self.rank = dist.get_rank(self.group)
+
+    def _check_divisible(self, num_clients: int):
+        if num_clients % self.num_shards:
+            raise ValueError(
+                f"num_clients={num_clients} must be divisible by the "
+                f"{self.num_shards} client shards of mesh axes {self.axes} "
+                "(pad the client set or pick a smaller mesh)")
+
+    def num_local(self, num_clients: int) -> int:
+        """How many of ``num_clients`` clients this rank holds: I/D."""
+        self._check_divisible(num_clients)
+        return num_clients // self.num_shards
+
+    def shard(self, x):
+        """This rank's contiguous block of rows of a client-leading tensor
+        (a view; None stays None)."""
+        if x is None:
+            return None
+        k = self.num_local(x.shape[0])
+        return x[self.rank * k:(self.rank + 1) * k]
+
+    def gather_rows(self, x):
+        """Every rank's rows of a client-leading tensor, in client order
+        (an all-gather)."""
+        x = x.contiguous()
+        out = x.new_empty((x.shape[0] * self.num_shards, *x.shape[1:]))
+        _all_gather_single(out, x, group=self.group)
+        return out
+
+    def all_sum(self, parts: dict) -> dict:
+        """Per-rank partial sums of the round's metrics (0-d tensors),
+        summed over the ranks in one all-reduce."""
+        if not parts:
+            return parts
+        names = list(parts)
+        buf = torch.stack([parts[k].float().reshape(()) for k in names])
+        dist.all_reduce(buf, group=self.group)
+        return dict(zip(names, buf.unbind(0)))
+
+    def _all_reduce_sums(self, partial: dict, val_partial):
+        """The weighted partial dict and the value partial summed over the
+        ranks in one all-reduce of their concatenation."""
+        keys = list(partial)
+        buf = torch.cat([partial[k].reshape(-1) for k in keys]
+                        + [val_partial.reshape(1).to(partial[keys[0]].dtype)])
+        dist.all_reduce(buf, group=self.group)
+        out, o = {}, 0
+        for k in keys:
+            n = partial[k].numel()
+            out[k] = buf[o:o + n].view(partial[k].shape)
+            o += n
+        return out, buf[o].to(val_partial.dtype)
+
+    def _rows_of(self, x):
+        """The rank's rows of a full per-client residual carry; other leaves
+        (a keyed EFStore, indexed by population id; a single stream) stay."""
+        if (isinstance(x, torch.Tensor) and x.ndim >= 1
+                and x.shape[0] % self.num_shards == 0):
+            rows = self.shard(x)
+            return rows.clone() if self.num_shards > 1 else rows
+        return x
+
+    def place_state(self, state):
+        """Cut a ``CommCarry``'s full (I, P) EF residuals (or dict of them)
+        down to this rank's rows; a keyed ``EFStore`` stays whole on every
+        rank (the cohort engine writes the whole cohort's rows into each)."""
+        if not isinstance(state, comm_ef.CommCarry) or state.ef is None:
+            return state
+        return state._replace(ef=tree_map(self._rows_of, state.ef))
+
+    def place_feature_state(self, state):
+        """A feature-based ``CommCarry``'s EF dict: the per-client block
+        residuals (I, Pb) cut to this rank's rows, the one head stream
+        (P0,) kept whole on every rank."""
+        if (not isinstance(state, comm_ef.CommCarry)
+                or not isinstance(state.ef, dict)):
+            return state
+        return state._replace(ef={
+            k: self._rows_of(v) if k == "blocks" else v
+            for k, v in state.ef.items()})
+
+    def weighted_sum(self, client_fn: Callable, args, weights, *,
+                     codec=None, ef=None, codec_keys=None, active=None,
+                     dp=None, dp_keys=None, dp_scale=None) -> ClientSums:
+        """Same contract as :meth:`LocalTopology.weighted_sum`, run on this
+        rank's clients: ``args``, ``weights``, ``codec_keys``, ``active``,
+        ``dp_keys`` and ``dp_scale`` are full (I, ...) and sliced here;
+        ``ef`` is the rank's (I/D, P) rows. The DP stage, codec encode and
+        EF update run before the collective, so what crosses the rank
+        boundary is the already-weighted, privatized, decoded partial sum.
+        ``weighted`` and ``value`` come back replicated; ``uploads``,
+        ``values``, ``encoded``, ``ef`` and ``dp`` hold the rank's rows."""
+        self._check_divisible(weights.shape[0])
+        sh = self.shard
+        with phase("client-compute"):
+            uploads, values = client_fn(*(sh(a) for a in args))
+        enc = new_ef = dp_stats = None
+        if dp is not None:
+            with phase("dp-privatize"):
+                uploads, dp_stats = _privatize_stacked(
+                    dp, uploads, sh(dp_keys), sh(dp_scale))
+        if codec is not None:
+            with phase("codec-encode"):
+                enc, uploads, new_ef = _compress_stacked(
+                    codec, uploads, ef, sh(codec_keys), sh(active))
+        with phase("aggregate"):
+            partial, val_partial = _weighted(sh(weights), uploads, values)
+        with phase("collective"):
+            weighted, value = self._all_reduce_sums(partial, val_partial)
+        return ClientSums(weighted=weighted, value=value, uploads=uploads,
+                          values=values, encoded=enc, ef=new_ef, dp=dp_stats)
+
+    def feature_sum(self, h_fn: Callable, head_fn: Callable,
+                    block_grad_fn: Callable, blocks, zb, *, codec=None,
+                    ef=None, head_key=None, block_keys=None, dp=None,
+                    dp_head_key=None, dp_block_keys=None,
+                    dp_scale=1.0) -> FeatureSums:
+        """Same contract as :meth:`LocalTopology.feature_sum`, each rank
+        running its I/D feature clients. The step-4 h-broadcast is an
+        all-gather: every rank reassembles the full (I, B, J) h in client
+        order, so Σ_i h_i and everything downstream equal the local run's
+        bit for bit. The head, its DP stage and its codec roundtrip run
+        replicated (same inputs, same keys, same bits); the block
+        gradients, their noise and their EF residual rows stay on their
+        rank, and the server collects the decoded block uploads (an
+        all-gather) for the replicated update. ``ef["blocks"]``,
+        ``encoded["q_blocks"]`` and the block DP stats hold the rank's
+        rows."""
+        self._check_divisible(leaves(blocks)[0].shape[0])
+        sh = self.shard
+        blocks_l, zb_l = tree_map(sh, blocks), sh(zb)
+        with phase("client-compute"):
+            h_l = h_fn(blocks_l, zb_l)                       # (I/D, B, J)
+        with phase("collective"):
+            h = self.gather_rows(h_l)                        # (I, B, J)
+        with phase("aggregate"):
+            h_sum = torch.sum(h, dim=0)
+        with phase("head-compute"):
+            value, q_head, dl_dh = head_fn(h_sum)
+        with phase("client-compute"):
+            q_blocks = block_grad_fn(blocks_l, zb_l, dl_dh)
+        enc = new_ef = dp_stats = None
+        if dp is not None:
+            with phase("dp-privatize"):
+                q_head, q_blocks, dp_stats = _privatize_feature(
+                    dp, q_head, q_blocks, dp_head_key, sh(dp_block_keys),
+                    dp_scale)
+        if codec is not None:
+            with phase("codec-encode"):
+                enc, q_head, q_blocks, new_ef = _compress_feature(
+                    codec, q_head, q_blocks, ef, head_key, sh(block_keys))
+        with phase("collective"):
+            q_blocks = tree_map(self.gather_rows, q_blocks)
+        return FeatureSums(h=h, h_sum=h_sum, value=value, q_head=q_head,
+                           q_blocks=q_blocks, encoded=enc, ef=new_ef,
+                           dp=dp_stats)
+
+
 LOCAL = LocalTopology()
+
+
+def make_topology(name: str, mesh=None, axes=None, device=None):
+    """CLI name -> topology. "local" ignores the mesh; "sharded" uses the
+    given mesh or builds a 1-D client mesh over every rank
+    (``launch.mesh.make_client_mesh``, on ``device``)."""
+    if name == "local":
+        return LOCAL
+    if name == "sharded":
+        if mesh is None:
+            from repro_torch.launch.mesh import make_client_mesh
+            mesh = make_client_mesh(device=device)
+        return ShardedTopology(mesh, axes=axes)
+    raise ValueError(f"unknown topology {name!r} (choose local|sharded)")
+
+
+def _best_fit(num_clients: int, device, what: str) -> int:
+    """The rank count D of the group (started if none runs), which must
+    divide ``num_clients``. The reference takes the largest device count d
+    that divides it and leaves the other devices idle; one process a rank
+    would have to make those ranks replicas, so the port raises instead."""
+    from repro_torch.launch.mesh import init_group
+    init_group(device)
+    world = dist.get_world_size()
+    d = world
+    while num_clients % d:
+        d -= 1
+    if d < world:
+        raise ValueError(
+            f"{what}: {num_clients} clients do not divide over the {world} "
+            f"ranks (the largest rank count that divides them is {d}); a "
+            "rank without clients is not supported: run with a rank count "
+            f"that divides {num_clients}")
+    return d
+
+
+def sharded_for(num_clients: int, device=None) -> ShardedTopology:
+    """ShardedTopology over every rank of the group, which must divide the
+    client count (``_best_fit``); a one-rank group still runs the
+    all-reduce."""
+    from repro_torch.launch.mesh import make_client_mesh
+    d = _best_fit(num_clients, device, "sharded_for")
+    return ShardedTopology(make_client_mesh(d, device=device))
+
+
+def feature_sharded_for(num_clients: int, device=None) -> ShardedTopology:
+    """Feature-based analog of :func:`sharded_for`, over a "model"-axis
+    mesh (feature clients are model shards); a one-rank group still runs
+    the all-gathers."""
+    from repro_torch.launch.mesh import make_feature_mesh
+    d = _best_fit(num_clients, device, "feature_sharded_for")
+    return ShardedTopology(make_feature_mesh(d, device=device))

@@ -1,6 +1,6 @@
-"""Training: the SSCA federated optimizer wrapped around a zoo model, on one
-device (counterpart of ``repro.launch.train``'s sample and feature modes
-with the local topology).
+"""Training: the SSCA federated optimizer wrapped around a zoo model
+(counterpart of ``repro.launch.train``'s sample, feature and cohort modes,
+on the local or the sharded client topology).
 
 A step draws a batch of token windows (``sample_window``), takes the mean
 next-token cross-entropy and its gradient by autograd, and applies
@@ -42,7 +42,18 @@ thread) and writes a run manifest beside them (with the DP calibration and
 the accountant's ε under ``dp``), ``profile_dir`` wraps the run in
 ``torch.profiler`` (a Chrome trace with the phase labels), and
 ``ckpt_path`` saves the final params in the reference's msgpack format.
-``topology="sharded"`` raises NotImplementedError (ROADMAP item 8).
+
+``topology="sharded"`` (``--topology sharded``) spreads the clients over
+the ranks of a ``torch.distributed`` client mesh (``launch/mesh.py``), one
+process a rank: run alone it is a one-rank group (the collectives still
+run), under ``torchrun --nproc-per-node D`` D ranks. On the zoo the batch
+is the D clients' data shards: rank r takes shard r's rows, privatizes and
+compresses its gradient with the shard's keys (``split(fold_in(key, 0xD9),
+D)[r]``, ``split(fold_in(key, 0xC0DEC), D)[r]``, as the reference draws
+them), scales it by 1/D and all-reduces the flat gradient in place; its EF
+residual is its (1, P) row. Feature mode puts I/D feature clients on each
+rank, cohort mode S/D of the cohort. Output, logs, manifests, profiles and
+checkpoints come from rank 0 only.
 
 CLI:  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
           --steps 20 --batch 8 --seq 512 [--constrained --cost-limit 3.0] \\
@@ -55,6 +66,8 @@ CLI:  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
       PYTHONPATH=src python -m repro_torch.launch.train --mode cohort \\
           --clients 1000000 --participation 256 [--codec int8|topk8] \\
           [--constrained] [--device cpu]
+      any mode: [--topology sharded [--shards D]], alone (one rank) or under
+          torchrun --nproc-per-node D -m repro_torch.launch.train ...
 """
 from __future__ import annotations
 
@@ -65,6 +78,7 @@ import time
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import device as device_lib
 from repro_torch import random as rnd
@@ -72,7 +86,8 @@ from repro_torch.checkpoint.msgpack_ckpt import save_checkpoint
 from repro_torch.comm.codecs import (Identity, StochasticQuantizer,
                                      make_codec)
 from repro_torch.comm.error_feedback import (CommCarry, ef_init,
-                                             ef_roundtrip_, with_comm_carry)
+                                             ef_init_stacked, ef_roundtrip_,
+                                             with_comm_carry)
 from repro_torch.configs.base import FLConfig
 from repro_torch.configs.registry import get_config
 from repro_torch.core import algorithms, fed, optimizer, rounds
@@ -81,6 +96,7 @@ from repro_torch.core import topology as topology_lib
 from repro_torch.core.rounds import unwrap_comm
 from repro_torch.core.surrogate import CHUNK, chunks
 from repro_torch.core.tree import leaves, tree_map, views
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.data.synthetic import (VirtualFedData, classification_dataset,
                                         sample_window, token_dataset)
 from repro_torch.kernels.dp_noise import dp_noise
@@ -89,6 +105,7 @@ from repro_torch.models.api import get_model
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import sinks as obs_sinks
 from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.trace import phase
 
 # train_loop's default: the reference's FLConfig
 TRAIN_FL = FLConfig(a1=0.9, a2=0.5, alpha_rho=0.1, alpha_gamma=0.6, tau=0.2,
@@ -98,22 +115,17 @@ TRAIN_FL = FLConfig(a1=0.9, a2=0.5, alpha_rho=0.1, alpha_gamma=0.6, tau=0.2,
 # of 256, so no codec chunk straddles two pieces
 COMM_PIECE = CHUNK
 
-_LATER = {
-    "topology": "the sharded topology comes with ROADMAP queue 1, item 8",
-}
-
-
-def _check_options(topology=None):
-    if topology not in (None, "local"):
-        raise NotImplementedError(
-            f"topology: not ported yet; {_LATER['topology']}")
+def _lead(topo) -> bool:
+    """Whether this rank writes the run's output (rank 0, or the only
+    process on the local topology)."""
+    return getattr(topo, "rank", 0) == 0
 
 
 def _make_stream(log_jsonl, log_stream_every, profile_dir, name):
     """The observability trio of a training loop: a MetricStream (a JSONL
     sink with ``log_jsonl``; with none it keeps rows in memory), HostSpans
     bound to it, and the profiler context (a no-op without
-    ``profile_dir``)."""
+    ``profile_dir``). Other ranks than rank 0 pass None for both paths."""
     sinks = [obs_sinks.JsonlSink(log_jsonl)] if log_jsonl else []
     stream = obs_metrics.MetricStream(sinks, log_every=log_stream_every,
                                       name=name)
@@ -219,12 +231,14 @@ def make_constrained_train_step(model, cfg, fl: FLConfig):
     return _make_step(model, cfg, fl, constrained=True)
 
 
-def comm_update_(grad, ef, key, codec=None, dp=None, piece: int = None):
+def comm_update_(grad, ef, key, codec=None, dp=None, piece: int = None, *,
+                 dp_key=None, codec_key=None):
     """The train step's upload, in place on the flat gradient ``grad`` (the
     params' dtype): privatize it (``dp``: clip to C at the whole vector's
-    norm, add N(0, σ²C²) drawn with ``fold_in(key, 0xD9)``), then run it
-    through an error-feedback roundtrip (``codec``, bits from
-    ``fold_in(key, 0xC0DEC)``, the residual ``ef`` updated in place), and
+    norm, add N(0, σ²C²) drawn with ``dp_key``, default ``fold_in(key,
+    0xD9)``), then run it through an error-feedback roundtrip (``codec``,
+    bits from ``codec_key``, default ``fold_in(key, 0xC0DEC)``, the residual
+    ``ef`` updated in place), and
     write the decoded upload back into ``grad``. It goes through the vector
     ``piece`` elements at a time (default ``COMM_PIECE``, read at the call;
     a multiple of 256; TopK and Chain select over the whole vector and take
@@ -244,14 +258,16 @@ def comm_update_(grad, ef, key, codec=None, dp=None, piece: int = None):
         piece = n
     stats = None
     if dp is not None:
-        dkey = rnd.fold_in(key, 0xD9)
+        dkey = rnd.fold_in(key, 0xD9) if dp_key is None else dp_key
         norm = torch.sqrt(_sq_norm(grad))
         factor = privacy_lib.clip_factor(norm, dp)
         one = torch.ones((), device=grad.device)
         sigma = privacy_lib.sigma_of(dp)
         noise_sq = torch.zeros((), device=grad.device)
         stats = {"clipped": (norm > dp.clip_norm).float()}
-    ckey = rnd.fold_in(key, 0xC0DEC) if codec is not None else None
+    ckey = None
+    if codec is not None:
+        ckey = rnd.fold_in(key, 0xC0DEC) if codec_key is None else codec_key
     for a in range(0, n, piece):
         g = grad[a:a + piece]
         x = g.float()
@@ -277,8 +293,17 @@ def make_scanned_step(model, cfg, fl: FLConfig, tokens, batch: int, seq: int,
     before the update, and the metrics gain ``upload_bytes`` (the codec's
     bytes for the vector) and ``dp_epsilon``, ``dp_clip_frac``,
     ``dp_noise_norm`` (one release a step, q = 1); with a codec the state is
-    a CommCarry(opt=state, ef=(P,) fp32 residual)."""
-    _check_options(topology)
+    a CommCarry(opt=state, ef=(P,) fp32 residual).
+
+    With a sharded ``topology`` (D ranks) the batch is D equal client
+    shards and this rank computes shard r's loss and gradient, runs its
+    upload through ``comm_update_`` with the shard's keys, scales it by 1/D
+    and all-reduces it in place (eq. (9) with weights 1/D); the loss and
+    the DP stats are summed in one small all-reduce. The EF residual is the
+    rank's (1, P) row; ``upload_bytes`` is D times the codec's bytes."""
+    if topology is not None and topology.name == "sharded":
+        return _sharded_step(model, cfg, fl, tokens, batch, seq, constrained,
+                             codec, topology, dp)
     if codec is None and dp is None:
         train_step = (make_constrained_train_step if constrained
                       else make_train_step)(model, cfg, fl)
@@ -311,12 +336,63 @@ def make_scanned_step(model, cfg, fl: FLConfig, tokens, batch: int, seq: int,
     return with_comm_carry(codec, comm_body)
 
 
+def _sharded_step(model, cfg, fl, tokens, batch, seq, constrained, codec,
+                  topo, dp):
+    """``make_scanned_step`` on a sharded topology (the reference's
+    ``sharded_body``), one rank's part of it."""
+    shards = topo.num_shards
+    if batch % shards:
+        raise ValueError(f"--batch {batch} must be divisible by the "
+                         f"{shards} client shards of --topology sharded")
+    grad_of = _make_grad(model, cfg)
+    eps_fn = (privacy_lib.make_eps_fn(dp, 1.0, device=tokens.device)
+              if dp is not None else None)
+
+    def body(state, inp, ef):
+        data = sample_window(tokens, inp.key, batch, seq)
+        loss, grad = grad_of(state, {k: topo.shard(v) for k, v in data.items()})
+        with torch.no_grad():
+            dstats = None
+            if codec is not None or dp is not None:
+                ckey = (rnd.split(rnd.fold_in(inp.key, 0xC0DEC), shards)[
+                    topo.rank] if codec is not None else None)
+                dkey = (rnd.split(rnd.fold_in(inp.key, 0xD9), shards)[
+                    topo.rank] if dp is not None else None)
+                with phase("codec-encode"):
+                    dstats = comm_update_(
+                        grad, ef[0] if codec is not None else None, inp.key,
+                        codec, dp, codec_key=ckey, dp_key=dkey)
+            if shards > 1:              # a scale by 1 changes no bit
+                with phase("aggregate"):
+                    grad.mul_(1.0 / shards)
+            with phase("collective"):
+                dist.all_reduce(grad, group=topo.group)
+                parts = {"loss": loss.float() * (1.0 / shards)}
+                if dp is not None:
+                    parts.update(clip=dstats["clipped"],
+                                 noise_sq=dstats["noise_sq"])
+                sums = topo.all_sum(parts)
+            new, metrics = _ssca_update(state, sums["loss"], grad, fl,
+                                        inp.rho, inp.gamma, constrained)
+        if codec is not None:
+            metrics["upload_bytes"] = float(shards * codec.nbytes(
+                grad.numel()))
+        if dp is not None:
+            metrics.update({"dp_epsilon": eps_fn(inp.t),
+                            "dp_clip_frac": sums["clip"] / shards,
+                            "dp_noise_norm": torch.sqrt(sums["noise_sq"])})
+        return new, ef, metrics
+
+    return with_comm_carry(codec, body)
+
+
 def train_loop(arch: str, steps: int, batch: int, seq: int, *,
                smoke: bool = False, constrained: bool = False,
                fl: Optional[FLConfig] = None, log_every: int = 10,
                ckpt_path: Optional[str] = None, seed: int = 0,
                driver: str = "scan", codec: Optional[str] = None,
                topk_frac: float = 0.01, topology: str = "local",
+               shards: Optional[int] = None,
                log_jsonl: Optional[str] = None, log_stream_every: int = 1,
                profile_dir: Optional[str] = None,
                dp: Optional[privacy_lib.DPConfig] = None, device=None,
@@ -329,15 +405,22 @@ def train_loop(arch: str, steps: int, batch: int, seq: int, *,
     into the optimizer's flat buffer. ``codec`` (a codec name) and ``dp``
     put the gradient upload through ``comm_update_``; ``log_jsonl``,
     ``log_stream_every``, ``profile_dir`` and ``ckpt_path`` are the
-    reference's observability and checkpoint options. Returns (state, logs),
-    logs one dict per printed line."""
-    _check_options(topology)
+    reference's observability and checkpoint options. ``topology`` is
+    "local" or "sharded" (over every rank of the group; ``shards``, the
+    reference's spelling, must equal the rank count; the module docstring
+    says how the step splits). Returns
+    (state, logs), logs one dict per printed line."""
     cfg = get_config(arch)
     if smoke:
         cfg = cfg.smoke()
     fl = fl or TRAIN_FL
     model = get_model(cfg)
     dev = device_lib.resolve(device)
+    topo = topology_lib.make_topology(
+        topology, mesh=(mesh_lib.make_client_mesh(shards, device=dev)
+                        if topology == "sharded" else None))
+    if not _lead(topo):
+        log_jsonl = profile_dir = ckpt_path = None
     key = rnd.PRNGKey(seed, device=dev)
     init = (optimizer.ssca_constrained_init if constrained
             else optimizer.ssca_init)
@@ -345,11 +428,17 @@ def train_loop(arch: str, steps: int, batch: int, seq: int, *,
     del params
     codec_obj = make_codec(codec, topk_frac=topk_frac)
     if codec_obj is not None:
-        state = CommCarry(opt=state, ef=ef_init(state.w_flat.numel(), dev))
+        # sharded: the rank's (1, P) row of the reference's (D, P) carry,
+        # made as that row (D full-size residuals would not fit beside the
+        # step at full width)
+        dim = state.w_flat.numel()
+        state = CommCarry(opt=state, ef=(
+            ef_init_stacked(1, dim, dev) if topo.name == "sharded"
+            else ef_init(dim, dev)))
     toks = token_dataset(rnd.fold_in(key, 1), cfg.vocab_size,
                          n_tokens=max(200_000, batch * (seq + 1) * 4))
     step_fn = make_scanned_step(model, cfg, fl, toks, batch, seq, constrained,
-                                codec=codec_obj, dp=dp)
+                                codec=codec_obj, topology=topo, dp=dp)
     engine = rounds.ENGINES[driver]
     stream, spans, prof = _make_stream(log_jsonl, log_stream_every,
                                        profile_dir, name=arch)
@@ -359,7 +448,7 @@ def train_loop(arch: str, steps: int, batch: int, seq: int, *,
             config={"arch": arch, "steps": steps, "batch": batch, "seq": seq,
                     "constrained": constrained, "driver": driver,
                     "smoke": smoke, "seed": seed},
-            codec=codec_obj, topology=topology_lib.LOCAL, device=dev,
+            codec=codec_obj, topology=topo, device=dev,
             extra=({"dp": privacy_lib.manifest_info(dp, 1.0, rounds=steps)}
                    if dp is not None else None))
 
@@ -380,8 +469,10 @@ def train_loop(arch: str, steps: int, batch: int, seq: int, *,
             m["step"] = done
             m["wall_s"] = time.time() - wall0
             logs.append(m)
-            print(" ".join(f"{k}={v:.4g}" if isinstance(v, float)
-                           else f"{k}={v}" for k, v in m.items()), flush=True)
+            if _lead(topo):
+                print(" ".join(f"{k}={v:.4g}" if isinstance(v, float)
+                               else f"{k}={v}" for k, v in m.items()),
+                      flush=True)
     if ckpt_path:
         save_checkpoint(ckpt_path, unwrap_comm(state).params, step=steps)
     stream.close()
@@ -407,10 +498,14 @@ def feature_train_loop(*, clients: int = 4, rounds: int = 200,
     every ``log_every`` rounds. The params are drawn as the reference draws
     them (``random.normal``, to a few ulps); ``params0`` ({"w0", "blocks"})
     starts from given ones instead. ``dp``, ``log_jsonl``,
-    ``log_stream_every`` and ``profile_dir`` as in ``train_loop``. Returns
-    the RunResult."""
-    _check_options(topology)
+    ``log_stream_every`` and ``profile_dir`` as in ``train_loop``;
+    ``topology="sharded"`` puts I/D of the ``clients`` on each rank
+    (``feature_sharded_for``). Returns the RunResult."""
     dev = device_lib.resolve(device)
+    topo = (topology_lib.feature_sharded_for(clients, device=dev)
+            if topology == "sharded" else None)
+    if not _lead(topo):
+        log_jsonl = profile_dir = None
     key = rnd.PRNGKey(seed, device=dev)
     (z, y, _), _ = classification_dataset(key, n=n, num_features=features,
                                           num_classes=classes, test_n=10,
@@ -445,7 +540,7 @@ def feature_train_loop(*, clients: int = 4, rounds: int = 200,
                     "batch": batch, "features": features, "classes": classes,
                     "hidden": hidden, "n": n, "constrained": constrained,
                     "cost_limit": cost_limit, "driver": "scan", "seed": seed},
-            codec=codec_obj, topology=None, device=dev,
+            codec=codec_obj, topology=topo, device=dev,
             extra=({"dp": privacy_lib.manifest_info(
                 dp, 1.0, rounds=rounds, releases_per_round=2)}
                 if dp is not None else None))
@@ -453,13 +548,18 @@ def feature_train_loop(*, clients: int = 4, rounds: int = 200,
     with prof, spans.span("run", rounds=rounds):
         result = alg(mlp.per_sample_loss_from_h, mlp.client_h, params0, data,
                      fl, rounds, rnd.fold_in(key, 2), eval_fn=eval_fn,
-                     eval_every=log_every, codec=codec_obj,
+                     eval_every=log_every, codec=codec_obj, topology=topo,
                      obs=stream if log_jsonl else None, dp=dp, device=dev)
     stream.close()
-    _print_history(result)
-    print(f"done: {rounds} rounds, 1 client shard(s), "
-          f"{time.time() - wall0:.1f}s", flush=True)
+    if _lead(topo):
+        _print_history(result)
+        print(f"done: {rounds} rounds, {_shards(topo)} client shard(s), "
+              f"{time.time() - wall0:.1f}s", flush=True)
     return result
+
+
+def _shards(topo) -> int:
+    return topo.num_shards if topo is not None else 1
 
 
 def _print_history(result):
@@ -493,9 +593,13 @@ def cohort_train_loop(*, clients: int = 100_000, participation: int = 256,
     few ulps); ``params0`` starts from given ones instead. ``dp`` (the
     S-of-I draw earns the accountant's subsampling at q = S/I),
     ``log_jsonl``, ``log_stream_every`` and ``profile_dir`` as in
-    ``train_loop``. Returns the RunResult."""
-    _check_options(topology)
+    ``train_loop``; ``topology="sharded"`` splits the cohort, S/D clients a
+    rank (``sharded_for(participation)``). Returns the RunResult."""
     dev = device_lib.resolve(device)
+    topo = (topology_lib.sharded_for(participation, device=dev)
+            if topology == "sharded" else None)
+    if not _lead(topo):
+        log_jsonl = profile_dir = None
     key = rnd.PRNGKey(seed, device=dev)
     data = VirtualFedData(rnd.fold_in(key, 0xDA7A), clients,
                           num_features=features, num_classes=classes,
@@ -528,7 +632,7 @@ def cohort_train_loop(*, clients: int = 100_000, participation: int = 256,
                     "batch": batch, "features": features, "classes": classes,
                     "hidden": hidden, "constrained": constrained,
                     "cost_limit": cost_limit, "driver": "scan", "seed": seed},
-            codec=codec_obj, topology=None, device=dev,
+            codec=codec_obj, topology=topo, device=dev,
             extra=({"dp": privacy_lib.manifest_info(
                 dp, min(1.0, participation / clients), rounds=rounds)}
                 if dp is not None else None))
@@ -537,13 +641,14 @@ def cohort_train_loop(*, clients: int = 100_000, participation: int = 256,
         result = alg(mlp.per_sample_loss, params0, data, fl, rounds,
                      rnd.fold_in(key, 2), eval_fn=eval_fn,
                      eval_every=log_every, participation=participation,
-                     codec=codec_obj, cohort=True,
+                     codec=codec_obj, cohort=True, topology=topo,
                      obs=stream if log_jsonl else None, dp=dp, device=dev)
     stream.close()
-    _print_history(result)
-    print(f"done: {rounds} rounds, population {clients}, cohort "
-          f"{participation} over 1 shard(s), {time.time() - wall0:.1f}s",
-          flush=True)
+    if _lead(topo):
+        _print_history(result)
+        print(f"done: {rounds} rounds, population {clients}, cohort "
+              f"{participation} over {_shards(topo)} shard(s), "
+              f"{time.time() - wall0:.1f}s", flush=True)
     return result
 
 
@@ -588,7 +693,15 @@ def main():
                     help="none|identity|int8|int4|topk|topk8")
     ap.add_argument("--topk-frac", type=float, default=0.01)
     ap.add_argument("--topology", choices=("local", "sharded"),
-                    default="local")
+                    default="local",
+                    help="local = every client in this process; sharded = "
+                         "the clients spread over the ranks of a "
+                         "torch.distributed group (one rank alone, D under "
+                         "torchrun --nproc-per-node D)")
+    ap.add_argument("--shards", type=int, default=None,
+                    help="sample mode's client-shard count with --topology "
+                         "sharded: the reference's spelling, which must "
+                         "equal the rank count (default: every rank)")
     ap.add_argument("--dp-epsilon", type=float, default=None, metavar="EPS",
                     help="DP on the q-uploads: per-release (ε, δ) target of "
                          "the analytic Gaussian calibration; the streamed "
@@ -652,7 +765,7 @@ def main():
     train_loop(args.arch, args.steps, args.batch, args.seq, smoke=args.smoke,
                constrained=args.constrained, fl=fl, ckpt_path=args.ckpt,
                driver=args.driver, codec=args.codec, topk_frac=args.topk_frac,
-               topology=args.topology, **obs_kw)
+               topology=args.topology, shards=args.shards, **obs_kw)
 
 
 if __name__ == "__main__":

@@ -23,6 +23,7 @@ from repro.configs.base import FLConfig as JFLConfig
 from repro.core import algorithms as jalg
 from repro.core import baselines as jbl
 from repro.core import fed as jfed
+from repro.core import topology as jtopo
 from repro.data.synthetic import classification_dataset as jdataset
 from repro.models import mlp as jmlp
 from repro.core import privacy as jpriv
@@ -32,6 +33,7 @@ from repro_torch.comm import codecs as tcodecs
 from repro_torch.configs.base import FLConfig
 from repro_torch.core import algorithms as talg
 from repro_torch.core import baselines as tbl
+from repro_torch.core import topology as ttopo
 from repro_torch.models import mlp as tmlp
 from repro_torch.core import privacy as tpriv
 from repro_torch.obs import metrics as tmetrics
@@ -174,7 +176,7 @@ def _sample_kw(s):
 
 
 REFUSALS = [("participation", 2, "item 1"), ("cohort", True, "item 3"),
-            ("topology", object(), "item 8"), ("dp", "DPConfig", "item 7"),
+            ("topology", "sharded", "item 8"), ("dp", "DPConfig", "item 7"),
             ("obs", "MetricStream", "item 9")]
 SAMPLE_REFUSALS = [(entry, *r) for entry in ("algorithm1", "algorithm2",
                                              "algorithm2_general", "sample_sgd")
@@ -201,20 +203,21 @@ def _entry_call(pkg, entry, kw, extra):
                          ids=[f"{r[0]}-{r[1]}" for r in SAMPLE_REFUSALS])
 def test_sample_entry_points_refuse_unported_options(setup, entry, option,
                                                      value, item):
-    """Each option the reference's entry point takes and the port has not
-    ported (``topology=``) raises (the reference's sample_sgd takes no dp=).
-    The options ported since run 2 rounds and match the reference's params
-    at 1e-5: ``participation=2``, ``cohort=True`` (with participation=2),
+    """Every option the reference's entry point takes is ported (the
+    reference's sample_sgd takes no dp=): each runs 2 rounds and matches
+    the reference's params at 1e-5: ``participation=2``, ``cohort=True``
+    (with participation=2), ``topology=`` (a one-rank sharded topology, with
+    participation=2, against the reference's one-device sharded one),
     ``dp=`` (a 0.01 noise multiplier) and ``obs=`` (a MetricStream, which
     leaves the run unchanged)."""
     kw = _sample_kw(setup)
-    if option == "topology":
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP queue 1, {item}"):
-            _entry_call("torch", entry, kw, {option: value})()
-        return
     extra_t = extra_j = {"participation": 2, **(
         {"cohort": True} if option == "cohort" else {})}
+    if option == "topology":
+        extra_t = {"participation": 2,
+                   "topology": ttopo.make_topology("sharded", device="cpu")}
+        extra_j = {"participation": 2,
+                   "topology": jtopo.make_topology("sharded")}
     if option == "dp":
         dp = dict(clip_norm=0.5, noise_multiplier=0.01)
         extra_t, extra_j = ({"dp": tpriv.DPConfig(**dp)},
@@ -242,7 +245,9 @@ def test_sample_entry_points_refuse_unported_options(setup, entry, option,
 @pytest.mark.parametrize("option,item", [("topology", "item 8"),
                                          ("obs", "item 9")])
 def test_feature_baselines_refuse_unported_options(setup, entry, option, item):
-    """``topology=`` raises; ``obs=`` (ported since) streams the rounds."""
+    """``topology=`` (ported since: a one-rank "model" mesh) runs the
+    local run's rounds bit for bit; ``obs=`` (ported since) streams the
+    rounds."""
     extra = ({"cfg": tbl.SGDConfig()} if entry == "feature_sgd" else
              {"fl": FLConfig(**C_KW), "cfg": (tbl.FWConfig() if "wolfe" in entry
                                               else tbl.DualConfig())})
@@ -253,9 +258,11 @@ def test_feature_baselines_refuse_unported_options(setup, entry, option, item):
                                    key=rnd.PRNGKey(0, device="cpu"),
                                    device="cpu", **extra, **{option: value})
     if option == "topology":
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP queue 1, {item}"):
-            call(object())
+        got = call(ttopo.feature_sharded_for(I, device="cpu"))
+        want = call(None)
+        for k in want.params:
+            np.testing.assert_array_equal(got.params[k].numpy(),
+                                          want.params[k].numpy(), err_msg=k)
         return
     stream = tmetrics.MetricStream([tsinks.MemorySink()])
     call(stream)

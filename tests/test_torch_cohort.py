@@ -372,13 +372,19 @@ def test_cohort_cli_runs_on_the_cpu(monkeypatch, capsys):
                                      (dict(log_jsonl="x.jsonl"), "item 9"),
                                      (dict(profile_dir="prof"), "item 9")])
 def test_cohort_train_loop_refusals(kw, item, tmp_path):
-    """The sharded topology raises, naming its ROADMAP item; dp=, JSONL
-    logs and profiles (items 7 and 9, ported since) run."""
+    """The options ported since run: the sharded topology (item 8: one
+    rank, the local run's history within 1e-6), dp=, JSONL logs and
+    profiles (items 7 and 9)."""
     if "topology" in kw:
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP queue 1, {item}"):
-            ttrain.cohort_train_loop(clients=100, participation=4, rounds=1,
-                                     device="cpu", **kw)
+        got = ttrain.cohort_train_loop(clients=100, participation=4,
+                                       rounds=2, log_every=1, device="cpu",
+                                       codec="int8", **kw)
+        want = ttrain.cohort_train_loop(clients=100, participation=4,
+                                        rounds=2, log_every=1, device="cpu",
+                                        codec="int8")
+        for k, v in want.history.items():
+            np.testing.assert_allclose(got.history[k].numpy(), v.numpy(),
+                                       atol=1e-6, err_msg=k)
         return
     if "dp" in kw:
         kw = {"dp": tpriv.DPConfig(epsilon=4.0)}

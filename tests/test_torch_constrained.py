@@ -55,6 +55,7 @@ from repro_torch.core import optimizer as topt
 from repro_torch.core import rounds as trounds
 from repro_torch.core import solvers as tsol
 from repro_torch.core import surrogate as tsur
+from repro_torch.core import topology as ttopo
 from repro_torch.data import synthetic as tsyn
 from repro_torch.launch import train as ttrain
 from repro_torch.models import api as tapi
@@ -510,8 +511,8 @@ def test_constrained_cli_smoke(monkeypatch, capsys):
 
 
 def test_constrained_steps_refuse_an_unported_option(setup):
-    """participation= is ported (S = 2 of 4 runs as the reference does);
-    the sharded topology is still refused."""
+    """participation= is ported (S = 2 of 4 runs as the reference does),
+    and so is the sharded topology (one rank: the local run's params)."""
     fl_kw = dict(C_KW, cost_limit=2.0)
     rt = talg.algorithm2(tmlp.per_sample_loss,
                          convert.params_from_numpy(setup["p0"], "cpu"),
@@ -526,8 +527,9 @@ def test_constrained_steps_refuse_an_unported_option(setup):
     _close(rt.history["round_upload_bytes"].numpy(),
            rj.history["round_upload_bytes"], atol=0, rtol=0)
     fl = dataclasses.replace(FLConfig(), cost_limit=2.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
-        talg.algorithm2_general(tmlp.per_sample_loss, tmlp.per_sample_loss,
-                                convert.params_from_numpy(setup["p0"], "cpu"),
-                                setup["td"], fl, 2, rnd.PRNGKey(0, device="cpu"),
-                                topology=object(), device="cpu")
+    runs = [talg.algorithm2_general(
+        tmlp.per_sample_loss, tmlp.per_sample_loss,
+        convert.params_from_numpy(setup["p0"], "cpu"), setup["td"], fl, 2,
+        rnd.PRNGKey(0, device="cpu"), topology=topo, device="cpu")
+        for topo in (ttopo.make_topology("sharded", device="cpu"), None)]
+    _tclose(runs[0].params, convert.params_to_numpy(runs[1].params))

@@ -306,8 +306,10 @@ def test_feature_cli_smoke(monkeypatch, capsys, extra):
                                          ("obs", "item 9")])
 @pytest.mark.parametrize("alg", ["algorithm3", "algorithm4"])
 def test_feature_algorithms_refuse_unported_options(setup, alg, option, item):
-    """``topology=`` raises; ``dp=`` and ``obs=`` (ported since) run."""
-    value = {"topology": object(), "dp": tpriv.DPConfig(epsilon=4.0),
+    """``topology=`` (a one-rank "model" mesh), ``dp=`` and ``obs=``
+    (ported since) run."""
+    value = {"topology": ttopo.feature_sharded_for(I, device="cpu"),
+             "dp": tpriv.DPConfig(epsilon=4.0),
              "obs": tmetrics.MetricStream([tsinks.MemorySink()])}[option]
 
     def call():
@@ -316,11 +318,6 @@ def test_feature_algorithms_refuse_unported_options(setup, alg, option, item):
                                   FLConfig(**dict(C_KW, cost_limit=2.0)), 2,
                                   rnd.PRNGKey(0, device="cpu"), device="cpu",
                                   **{option: value})
-    if option == "topology":
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP queue 1, {item}"):
-            call()
-        return
     res = call()
     assert np.isfinite(res.history["round_loss_est"].numpy()).all()
     if option == "obs":
@@ -328,7 +325,14 @@ def test_feature_algorithms_refuse_unported_options(setup, alg, option, item):
         assert [r["t"] for r in value.rows] == [1, 2]
 
 
-def test_feature_train_loop_refuses_the_sharded_topology():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
-        ttrain.feature_train_loop(rounds=1, n=100, topology="sharded",
-                                  device="cpu")
+def test_feature_train_loop_refuses_the_sharded_topology(capsys):
+    """The sharded topology is ported: one rank runs the local run's
+    rounds bit for bit."""
+    got = ttrain.feature_train_loop(rounds=2, n=100, log_every=1,
+                                    topology="sharded", device="cpu")
+    assert "1 client shard(s)" in capsys.readouterr().out
+    want = ttrain.feature_train_loop(rounds=2, n=100, log_every=1,
+                                     device="cpu")
+    for k, v in want.history.items():
+        if k != "round_axis_bytes":
+            np.testing.assert_array_equal(got.history[k].numpy(), v.numpy())

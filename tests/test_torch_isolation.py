@@ -57,7 +57,10 @@ def test_port_files_exist():
                    "repro_torch/obs/sinks.py",
                    "repro_torch/obs/trace.py",
                    "repro_torch/checkpoint/__init__.py",
-                   "repro_torch/checkpoint/msgpack_ckpt.py"):
+                   "repro_torch/checkpoint/msgpack_ckpt.py",
+                   "repro_torch/core/topology.py",
+                   "repro_torch/launch/mesh.py",
+                   "repro_torch/launch/feature_dist.py"):
         assert needed in names
     assert (ROOT / "chip_smoke.py").exists()
 
@@ -107,7 +110,10 @@ def test_importing_the_slice_loads_no_jax():
             "repro_torch.core.privacy, repro_torch.obs, "
             "repro_torch.checkpoint.msgpack_ckpt, "
             "repro_torch.convert, repro_torch.data.synthetic, "
-            "repro_torch.launch.serve, repro_torch.launch.train; "
+            "repro_torch.launch.serve, repro_torch.launch.train, "
+            "repro_torch.launch.mesh, repro_torch.launch.feature_dist; "
+            "import torch.distributed as dist; "
+            "assert not dist.is_initialized(), 'a group at import'; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'msgpack', 'ml_dtypes')); print(bad); "
             "assert not bad, bad")
@@ -115,3 +121,12 @@ def test_importing_the_slice_loads_no_jax():
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_rank_side_of_the_topology_tests_imports_no_jax():
+    """The gloo ranks of the sharded-topology tests run the port alone:
+    tests/torch_topology_ranks.py imports neither jax nor the JAX
+    package."""
+    path = ROOT / "tests" / "torch_topology_ranks.py"
+    bad = [(line, mod) for line, mod in _imports(path) if _forbidden(mod)]
+    assert not bad, bad

@@ -247,17 +247,12 @@ def test_train_loop_runs_the_smoke_model_on_the_cpu(capsys):
                                 dict(profile_dir="prof"),
                                 dict(ckpt_path="ck")])
 def test_refused_options_raise(kw, tmp_path):
-    """The sharded topology still raises, naming its ROADMAP item; the
-    options ported since (codec uploads, dp, JSONL logs, profiles,
-    checkpoints) run a step of the smoke model."""
+    """The options ported since (codec uploads, the sharded topology on one
+    rank, dp, JSONL logs, profiles, checkpoints) run a step of the smoke
+    model."""
     kw = {k: (str(tmp_path / v) if k in ("log_jsonl", "profile_dir",
                                           "ckpt_path") else v)
           for k, v in kw.items()}
-    if "topology" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
-            ttrain.train_loop("qwen2.5-3b", 1, 2, 8, smoke=True, device="cpu",
-                              **kw)
-        return
     state, logs = ttrain.train_loop("qwen2.5-3b", 1, 2, 8, smoke=True,
                                     device="cpu", **kw)
     assert np.isfinite(logs[-1]["loss"]) and trounds.unwrap_comm(state).t == 2
@@ -267,15 +262,17 @@ def test_refused_options_raise(kw, tmp_path):
 
 
 @pytest.mark.parametrize("mode", ["feature", "cohort"])
-def test_cli_refuses_other_modes(mode, monkeypatch):
-    """--mode feature and --mode cohort run, and refuse the sharded
-    topology."""
-    extra = ["--topology", "sharded", "--device", "cpu"]
+def test_cli_refuses_other_modes(mode, monkeypatch, capsys):
+    """--mode feature and --mode cohort run, with the sharded topology too
+    (one rank)."""
+    extra = ["--topology", "sharded", "--device", "cpu", "--steps", "2"]
     if mode == "cohort":
         extra += ["--clients", "100", "--participation", "4"]
+    else:
+        extra += ["--n", "200"]
     monkeypatch.setattr("sys.argv", ["train", "--mode", mode, *extra])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        ttrain.main()
+    ttrain.main()
+    assert "done: 2 rounds" in capsys.readouterr().out
 
 
 def test_vlm_prefix_is_refused(weights):
