@@ -105,6 +105,23 @@ Phases, one JSON line each:
            with int8 + DP, and with int8 + DP through the sharded step
            (one rank; a gloo group on the CPU), card against CPU (step 1
            and step 2's loss)
+  serve_moe  qwen3-moe-30b-a3b at full width and depth in bf16 (48 layers,
+           128 experts, top-8; 60.44 GB) through generate, batch 8, prompt
+           512, 32 tokens, from one seeded draw: prefill ms, decode
+           tokens/s beside the decode's HBM bound (every expert read a
+           step), peak memory, launches per forward (asserted)
+  serve_moe_parity  full width, 2 layers, fp32, prefill of 61 tokens and
+           4 decode steps, card against CPU: routing compared first (a flip
+           passes only below a 1e-5 top-k margin, counted), logits within
+           1e-4 on the rows whose routing agreed throughout
+  serve_glm4  glm4-9b at full width and depth in bf16, as serve_moe
+  swa_consistency  glm4-9b-swa at full width and depth in fp32, prompt
+           4,608 past its 4,096 window: decode against the full forward
+           within 1e-4, and the unwindowed controls outside it
+  train_moe  qwen3-moe at full width and 4 of its 48 layers in bf16,
+           remat, batch 8, sequence 512, through make_scanned_step: 2
+           warm-up and 3 timed steps; step ms, tokens/s, peak memory, the
+           loss with its aux, launches per step (asserted)
 The kernels phase also holds the backward kernels (rmsnorm_bwd,
 flash_attention_bwd) against their plain versions and times them against
 the PyTorch library's backward calls, the keyed quantize entry bit-equal
@@ -112,7 +129,8 @@ to the bits-operand entry on random.bits of the same keys (at the main
 paths' shapes and two pieces of the train-size vector at nonzero offsets),
 and the DP-noise kernel against its plain version. No main path launches
 the bits-operand quantize entry any more (its row says so). Each main path (dense, int8, serve,
-train, each paper run, train_constrained) runs with every launch counter
+train, each paper run, train_constrained, serve_moe, serve_glm4,
+train_moe) runs with every launch counter
 set to 0 just before it and read just after. The kernels' JSON line comes second to
 last and the verdict
 {"ok": true, "device": {...}} last. Any failed check raises, so the script
@@ -850,14 +868,17 @@ def check_cohort_sample(torch, cs, build):
 
 
 def check_rmsnorm(torch, rms, build):
-    """Kernel vs plain version at the serve path's shapes (4096 prefill rows
-    and 8 decode rows of 2048, bf16) and at ragged widths, fp32 and bf16.
+    """Kernel vs plain version at the serve paths' shapes (4096 prefill rows
+    and 8 decode rows of 2048: qwen2.5-3b and qwen3-moe; of 4096: glm4-9b;
+    4609 rows of 4096: glm4-9b-swa's full forward in fp32) and at ragged
+    widths, fp32 and bf16.
     Tolerance, absolute plus relative: 1e-5 in fp32 (another summation
     order, CUDA's 2-ulp rsqrtf), 2e-2 in bf16 (the JAX kernel test's)."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(2)
     worst = {}
-    for rows, d in ((4096, 2048), (8, 2048), (37, 512), (5, 100), (3, 3000)):
+    for rows, d in ((4096, 2048), (8, 2048), (4096, 4096), (8, 4096),
+                    (4609, 4096), (37, 512), (5, 100), (3, 3000)):
         for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
             x = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
             sc = (torch.randn(d, generator=gen, device="cuda") * 0.1).to(dtype)
@@ -983,16 +1004,17 @@ def check_rmsnorm_bwd(torch, rms, build):
     return out
 
 
-def attn_operands(torch, gen, b, h, kv, sq, sk, d, dtype, cache_rows=None):
+def attn_operands(torch, gen, b, h, kv, sq, sk, d, dtype, cache_rows=None, lo=0):
     """q, k, v as the model hands them to the kernel: q a transposed
     (B, Sq, H, D) projection; k, v transposed (B, Sk, KV, D) projections or,
-    with ``cache_rows``, the first Sk rows of a (B, cache_rows, KV, D) cache."""
+    with ``cache_rows``, rows lo..lo+Sk-1 of a (B, cache_rows, KV, D) cache
+    (a windowed decode reads its window's rows from lo > 0)."""
     q = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dtype)
     rows = cache_rows or sk
     k = torch.randn(b, rows, kv, d, generator=gen, device="cuda").to(dtype)
     v = torch.randn(b, rows, kv, d, generator=gen, device="cuda").to(dtype)
-    return (q.transpose(1, 2), k.transpose(1, 2)[:, :, :sk],
-            v.transpose(1, 2)[:, :, :sk])
+    return (q.transpose(1, 2), k.transpose(1, 2)[:, :, lo:lo + sk],
+            v.transpose(1, 2)[:, :, lo:lo + sk])
 
 
 def attn_work(b, h, kv, sq, sk, d, esize, window=0):
@@ -1007,18 +1029,33 @@ def attn_work(b, h, kv, sq, sk, d, esize, window=0):
 
 
 def check_flash(torch, fa, build):
-    """Kernel vs plain version at the serve path's shapes (prefill: 8×16
+    """Kernel vs plain version at the serve paths' shapes (prefill: 8×16
     heads over 2 KV heads, 512 tokens, head dim 128; decode: one token
-    against 543 rows of a 544-row cache), bf16, and at ragged lengths,
-    strided cache views and fully masked rows, fp32 and bf16. Tolerance,
+    against 543 rows of a 544-row cache), bf16, the same at the zoo's
+    (qwen3-moe's 32 over 4, glm4-9b's 32 over 2: 16 a group), qwen3-moe's
+    fp32 parity run (32 over 4, prompt 61, decode against 65 rows),
+    glm4-9b-swa's fp32 consistency run (32 over 2, 4609 tokens, window
+    4096: the windowed prefill, the windowed decode over its window's 4096
+    rows from row 513 of a 4609-row cache, the unwindowed decode), and at
+    ragged lengths, strided cache views and fully masked rows, fp32 and
+    bf16. Tolerance,
     absolute plus relative: 2e-5 in fp32, 3e-2 in bf16 (the JAX kernel
     test's; the online softmax sums in another order)."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(3)
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [  # b, h, kv, sq, sk, d, dtype, cache_rows, window
+    cases = [  # b, h, kv, sq, sk, d, dtype, cache_rows, window[, first row]
         (8, 16, 2, 512, 512, 128, bf16, None, 0),
         (8, 16, 2, 1, 543, 128, bf16, 544, 0),
+        (8, 32, 4, 512, 512, 128, bf16, None, 0),      # serve_moe
+        (8, 32, 4, 1, 543, 128, bf16, 544, 0),
+        (2, 32, 4, 61, 61, 128, f32, None, 0),         # serve_moe_parity
+        (2, 32, 4, 1, 65, 128, f32, 65, 0),
+        (8, 32, 2, 512, 512, 128, bf16, None, 0),      # serve_glm4
+        (8, 32, 2, 1, 543, 128, bf16, 544, 0),
+        (1, 32, 2, 4609, 4609, 128, f32, None, 4096),  # swa_consistency
+        (1, 32, 2, 1, 4096, 128, f32, 4609, 4096, 513),
+        (1, 32, 2, 1, 4609, 128, f32, 4609, 0),
         (2, 16, 2, 61, 61, 128, f32, None, 0),
         (2, 16, 2, 61, 61, 128, bf16, None, 0),
         (2, 16, 2, 1, 37, 128, f32, 69, 0),
@@ -1035,8 +1072,8 @@ def check_flash(torch, fa, build):
         (1, 4, 2, 128, 64, 64, bf16, None, 0),
     ]
     worst = {}
-    for b, h, kv, sq, sk, d, dtype, rows, window in cases:
-        q, k, v = attn_operands(torch, gen, b, h, kv, sq, sk, d, dtype, rows)
+    for b, h, kv, sq, sk, d, dtype, rows, window, *lo in cases:
+        q, k, v = attn_operands(torch, gen, b, h, kv, sq, sk, d, dtype, rows, *lo)
         got = fa.flash_attention(q, k, v, causal=True, window=window)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got).all()), f"flash {q.shape}: not finite")
@@ -1047,6 +1084,7 @@ def check_flash(torch, fa, build):
         check(ok, f"flash b={b} h={h} kv={kv} sq={sq} sk={sk} d={d} {dtype} "
                   f"window={window}: max |diff| {err}")
         worst[f"{b}x{h}/{kv}x{sq}x{sk}x{d}/w{window}/{str(dtype)[6:]}"] = err
+        del q, k, v, got
 
     lib = build.library("flash_attention")
     timings = {}
@@ -1095,7 +1133,8 @@ TRAIN_ATTN = (8, 16, 2, 512, 512, 128)      # b, h, kv, sq, sk, d at batch 8, se
 
 def check_flash_bwd(torch, fa, build):
     """The backward kernels vs their plain version: the train path's shape
-    in bf16 and fp32, ragged lengths (61, 200), GQA rep 1 and 8, causal and
+    in bf16 and fp32 and train_moe's (32 heads over 4) in bf16, ragged
+    lengths (61, 200), GQA rep 1 and 8, causal and
     not, a window, head dims 64 and 128. Also the forward's logsumexp
     (2e-5; -inf exactly where a row sees no key). Tolerance, absolute plus
     relative: 2e-5 in fp32, 3e-2 in bf16, as the forward; in bf16 also
@@ -1111,6 +1150,7 @@ def check_flash_bwd(torch, fa, build):
     cases = [  # b, h, kv, sq, sk, d, dtype, causal, window
         (*TRAIN_ATTN, bf16, True, 0),
         (2, *TRAIN_ATTN[1:], f32, True, 0),
+        (8, 32, 4, 512, 512, 128, bf16, True, 0),      # train_moe
         (2, 16, 2, 61, 61, 128, bf16, True, 0),
         (2, 16, 2, 200, 200, 128, f32, True, 0),
         (2, 4, 4, 61, 61, 64, f32, True, 0),
@@ -1213,38 +1253,6 @@ def zero_counts(counted) -> None:
 
 def read_counts(counted) -> dict:
     return {name: fn.launches for name, fn in counted.items()}
-
-
-def run_serve(torch, m):
-    """qwen2.5-3b at full width and depth through the serving entry point,
-    with the launch counters zeroed just before and read just after."""
-    serve, cfg = m.serve, m.qwen
-    # warm-up of cuBLAS and the allocator at these shapes; not counted
-    serve.generate("qwen2.5-3b", **dict(SERVE, gen=2))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    zero_counts(m.counted)
-    t0 = time.perf_counter()
-    seqs, stats = serve.generate("qwen2.5-3b", **SERVE)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    counts = read_counts(m.counted)
-    peak = torch.cuda.max_memory_allocated()
-    forwards = SERVE["gen"]                 # one prefill, gen - 1 decode steps
-    per_forward = {k: v / forwards for k, v in counts.items()}
-    want = {**{k: 0 for k in m.counted},
-            "rmsnorm": 2 * cfg.n_layers + 1, "flash_attention": cfg.n_layers}
-    check(per_forward == want, f"serve launches per forward {per_forward} != {want}")
-    check(tuple(seqs.shape) == (SERVE["batch"], SERVE["gen"]), seqs.shape)
-    check(0 <= int(seqs.min()) and int(seqs.max()) < cfg.vocab_size,
-          "generated tokens outside the vocabulary")
-
-    return {"arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.n_layers, **SERVE,
-            "seconds": seconds, "prefill_ms": stats["prefill_ms"],
-            "decode_tokens_per_s": stats["tokens_per_s"],
-            "decode_ms_per_step": SERVE["batch"] * 1e3 / stats["tokens_per_s"],
-            "peak_mem_bytes": peak, "launches": counts,
-            "launches_per_forward": per_forward}, counts, seqs
 
 
 def tree_map(fn, tree):
@@ -3054,6 +3062,377 @@ def run_sharded_2rank(torch, m, data, params0, name_power):
          gloo_on_cuda=ranks[0]["probe"], **name_power)
 
 
+
+# ---------------------------------------------------------------------------
+# the MoE decoder and the sliding window
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_PARITY = dict(batch=2, prompt_len=61, steps=4)
+MOE_FLIP_MARGIN = 1e-5      # a routing flip card vs CPU passes below this margin
+MOE_PARITY_LOGITS = 1e-4
+SWA_ARCH = "glm4-9b-swa"
+SWA_PROMPT = 4608            # past the 4,096-token window
+TRAIN_MOE = dict(batch=8, seq=512)
+TRAIN_MOE_LAYERS = 4
+TRAIN_MOE_WARMUP, TRAIN_MOE_TIMED = 2, 3
+
+
+def moe_decode_bounds(cfg, param_bytes):
+    """Device ms a decode step must take at the HBM rate: the capacity
+    layout's expert products read every expert's three matrices in every
+    layer, and a step reads every weight once (the tied embedding in the
+    logits product)."""
+    esize = 2 if cfg.dtype == "bfloat16" else 4
+    experts = (3 * cfg.n_experts * cfg.d_model * cfg.moe_d_ff * esize
+               * cfg.n_layers)
+    return {"decode_expert_bytes": experts,
+            "decode_bound_ms_experts": experts / HBM_BYTES_PER_S * 1e3,
+            "decode_bound_ms_weights": param_bytes / HBM_BYTES_PER_S * 1e3}
+
+
+def decoder_params(cfg) -> int:
+    """Parameters of ``transformer.init(cfg)``, leaf by leaf: the embedding
+    (and the untied unembedding), the final norm, and per layer two norms,
+    the attention's four matrices (and the QKV bias), and the SwiGLU MLP or
+    the MoE's router, its experts' three matrices and arctic's dense
+    residual MLP."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    q, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    attn = 2 * d * q + 2 * d * kv + (q + 2 * kv) * cfg.qkv_bias
+    mlp = 3 * d * cfg.d_ff
+    ffn = (d * cfg.n_experts + 3 * cfg.n_experts * d * cfg.moe_d_ff
+           + mlp * cfg.dense_residual) if cfg.n_experts else mlp
+    embeds = 1 if cfg.tie_embeddings else 2
+    return embeds * cfg.vocab_size * d + d + cfg.n_layers * (2 * d + attn + ffn)
+
+
+def run_serve_zoo(torch, m, arch, phase, name_power):
+    """``arch`` at full width and depth in bf16 through the serving entry
+    point: a 2-token call (the seeded draw, and a warm-up of cuBLAS and
+    the allocator), then the counted call, which draws the same weights
+    again; its launch counters zeroed just before and read just after,
+    checked exactly a forward (2·L+1 rmsnorm, L flash, every other kernel
+    0: the MoE runs none of its own). Emits the phase's line and returns
+    (counts, the generated tokens)."""
+    cfg = m.get_config(arch)
+    t0 = time.perf_counter()
+    m.serve.generate(arch, **dict(SERVE, gen=2))
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(m.counted)
+    t0 = time.perf_counter()
+    seqs, stats = m.serve.generate(arch, **SERVE)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts(m.counted)
+    peak = torch.cuda.max_memory_allocated()
+    n_params = decoder_params(cfg)
+    param_bytes = n_params * (2 if cfg.dtype == "bfloat16" else 4)
+    per_forward = {k: v / SERVE["gen"] for k, v in counts.items()}
+    want = {**{k: 0 for k in m.counted},
+            "rmsnorm": 2 * cfg.n_layers + 1, "flash_attention": cfg.n_layers}
+    check(per_forward == want,
+          f"{arch} serve launches per forward {per_forward} != {want}")
+    check(tuple(seqs.shape) == (SERVE["batch"], SERVE["gen"]), seqs.shape)
+    check(0 <= int(seqs.min()) and int(seqs.max()) < cfg.vocab_size,
+          f"{arch}: generated tokens outside the vocabulary")
+    b, s = SERVE["batch"], SERVE["prompt_len"]
+    splits = m.fa.decode_splits(torch.bfloat16, b, cfg.n_heads, cfg.n_kv_heads,
+                                1, s + SERVE["gen"] - 1)
+    check(splits > 0, f"{arch}: decode leaves the split kernel")
+    step_ms = b * 1e3 / stats["tokens_per_s"]
+    line = {"arch": arch, "dtype": cfg.dtype, "layers": cfg.n_layers, **SERVE,
+            "params": n_params, "param_bytes": param_bytes,
+            "warmup_s": warmup_s, "seconds": seconds,
+            "prefill_ms": stats["prefill_ms"],
+            "decode_tokens_per_s": stats["tokens_per_s"],
+            "decode_ms_per_step": step_ms, "decode_splits_last": splits,
+            "peak_mem_bytes": peak, "launches": counts,
+            "launches_per_forward": per_forward}
+    if cfg.n_experts:
+        line.update(moe_decode_bounds(cfg, param_bytes),
+                    decode_capacity=m.layers.moe_capacity(cfg, b),
+                    prefill_capacity=m.layers.moe_capacity(cfg, b * s))
+        line["decode_ms_over_bound"] = step_ms / line["decode_bound_ms_weights"]
+    emit(phase, **line, **name_power)
+    torch.cuda.empty_cache()
+    return counts, seqs
+
+
+def routing_recorder(m):
+    """Wraps ``layers.moe_route`` so that each call appends (probs, top_e,
+    keep) on the CPU to the returned list; the second value undoes it."""
+    calls, orig = [], m.layers.moe_route
+
+    def recording(router, xt, cfg):
+        out = orig(router, xt, cfg)
+        calls.append((out[0].cpu(), out[2].cpu(), out[4].cpu()))
+        return out
+
+    m.layers.moe_route = recording
+
+    def undo():
+        m.layers.moe_route = orig
+
+    return calls, undo
+
+
+def topk_margin(torch, probs, k):
+    """Each row's smallest gap among its k+1 largest probabilities: a
+    routing that flips across a gap this small is a near-tie."""
+    top = torch.sort(probs, dim=-1, descending=True).values[:, :k + 1]
+    return (top[:, :-1] - top[:, 1:]).min(dim=-1).values
+
+
+def routing_gate(torch, cpu_calls, card_calls, b, rows_per_call, n_layers, k):
+    """Compares the routing recorded on the card with the CPU's, call by
+    call (each ``n_layers`` MoE calls over b·rows tokens). A token whose
+    top-k differs passes only where its top-k margin (the CPU's) is below
+    MOE_FLIP_MARGIN; such flips are counted. A batch row is held after a
+    call while every one of its tokens has had the same experts and the
+    same keeps as on the CPU in every layer of every call so far. Returns
+    (flips, their margins, the (b,) held mask after each call)."""
+    held = torch.ones(b, dtype=torch.bool)
+    flips, margins, held_after = 0, [], []
+    for c, per_row in enumerate(rows_per_call):
+        for layer in range(n_layers):
+            cp, ce, ck = cpu_calls[c * n_layers + layer]
+            _, ge, gk = card_calls[c * n_layers + layer]
+            flipped = (ce != ge).any(dim=-1)
+            if flipped.any():
+                mg = topk_margin(torch, cp[flipped], k)
+                flips += int(flipped.sum())
+                margins += mg.tolist()
+                check(bool((mg < MOE_FLIP_MARGIN).all()),
+                      f"moe parity: call {c} layer {layer}: routing differs at "
+                      f"top-k margins {mg.tolist()}")
+            same = ~flipped & (ck == gk).view(-1, k).all(dim=-1)
+            held &= same.view(b, per_row).all(dim=-1)
+        held_after.append(held.clone())
+    return flips, margins, held_after
+
+
+def rehearse_routing_gate(torch):
+    """routing_gate on planted CPU routings (8 experts, top-2, 2 rows of one
+    token, one layer): a flip of the second expert across a 4e-6 margin
+    passes, is counted and takes its row out of the logits gate; the same
+    flip across a 0.2 margin fails the gate. Returns the counted flips."""
+    keep = torch.ones(2, dtype=torch.bool)
+    probs = torch.tensor([[0.4, 0.3, 0.3 - 4e-6, 0, 0, 0, 0, 0],
+                          [0.5, 0.3, 0.1, 0, 0, 0, 0, 0]]).add(1e-3)
+    cpu_e = torch.tensor([[0, 1], [0, 1]])
+    near = torch.tensor([[0, 2], [0, 1]])
+    flips, margins, held = routing_gate(torch, [(probs, cpu_e, keep)],
+                                        [(probs, near, keep)], 2, [1], 1, 2)
+    check(flips == 1 and margins[0] < MOE_FLIP_MARGIN
+          and held[-1].tolist() == [False, True],
+          f"routing gate rehearsal: a near-tie flip gave {flips}, {margins}, "
+          f"{held[-1].tolist()}")
+    wide = torch.tensor([[0, 1], [0, 2]])
+    try:
+        routing_gate(torch, [(probs, cpu_e, keep)], [(probs, wide, keep)],
+                     2, [1], 1, 2)
+    except RuntimeError:
+        return flips
+    check(False, "routing gate rehearsal: a flip across a 0.2 margin passed")
+
+
+def run_serve_moe_parity(torch, m):
+    """qwen3-moe at full width, 2 layers, fp32: the weights drawn on the
+    card and copied to the CPU; a prefill of 61 tokens and 4 decode steps
+    on both, the card fed the CPU's greedy tokens. Every MoE call's
+    routing is recorded on both devices and held by ``routing_gate``
+    (rehearsed first on planted routings); a batch row's logits are held
+    within MOE_PARITY_LOGITS at a call while the gate holds the row (a
+    row's output depends on no other row's routing but through the
+    keeps)."""
+    rnd = m.rnd
+    cfg = dataclasses.replace(m.get_config(MOE_ARCH), n_layers=2, dtype="float32")
+    model = m.get_model(cfg)
+    key = rnd.PRNGKey(1)
+    params = model.init(key, cfg)
+    on_cpu = tree_map(lambda t: t.cpu(), params)
+    b, s, steps = MOE_PARITY["batch"], MOE_PARITY["prompt_len"], MOE_PARITY["steps"]
+    prompt = rnd.randint(rnd.fold_in(key, 1), (b, s), 0, cfg.vocab_size)
+
+    def run(p, device, tokens=None):
+        calls, undo = routing_recorder(m)
+        try:
+            cache = model.init_cache(cfg, b, s + steps, device=device)
+            logits, cache = model.prefill(p, {"tokens": prompt.to(device)}, cfg,
+                                          cache=cache)
+            out, fed = [logits[:, -1].cpu()], []
+            for i in range(steps):
+                tok = (torch.argmax(out[-1], -1).to(torch.int32)[:, None]
+                       if tokens is None else tokens[i])
+                fed.append(tok)
+                logits, cache = model.decode_step(p, cache, tok.to(device), s + i, cfg)
+                out.append(logits[:, -1].cpu())
+        finally:
+            undo()
+        return torch.stack(out), fed, calls
+
+    cpu_logits, cpu_tokens, cpu_calls = run(on_cpu, "cpu")
+    card_logits, _, card_calls = run(params, "cuda", cpu_tokens)
+    del params, on_cpu
+    check(len(card_calls) == len(cpu_calls) == (steps + 1) * cfg.n_layers,
+          "moe parity: MoE calls recorded")
+    rehearsed = rehearse_routing_gate(torch)
+    flips, margins, held_after = routing_gate(
+        torch, cpu_calls, card_calls, b, [s] + [1] * steps, cfg.n_layers,
+        cfg.experts_per_token)
+    held_rows, max_diff = [int(h.sum()) for h in held_after], 0.0
+    for c, held in enumerate(held_after):
+        if held.any():
+            d = (card_logits[c][held] - cpu_logits[c][held]).abs().max().item()
+            max_diff = max(max_diff, d)
+    out = {"layers": cfg.n_layers, "dtype": cfg.dtype, **MOE_PARITY,
+           "rehearsal_flips": rehearsed,
+           "routings_compared": sum(e.shape[0] for _, e, _ in cpu_calls),
+           "flips": flips, "flip_margins": margins,
+           "flip_margin_limit": MOE_FLIP_MARGIN, "rows_held_per_call": held_rows,
+           "max_abs_logit_diff": max_diff, "logit_limit": MOE_PARITY_LOGITS,
+           "card_argmax_equal": bool(torch.equal(
+               torch.argmax(card_logits, -1), torch.argmax(cpu_logits, -1))),
+           "drops_cpu": sum(int((~kp).sum()) for _, _, kp in cpu_calls)}
+    emit("serve_moe_parity", **out)
+    check(held_rows[-1] > 0, "moe parity: no row kept its routing to the end")
+    check(max_diff <= MOE_PARITY_LOGITS,
+          f"moe parity: card vs CPU logits differ by {max_diff}")
+
+
+def run_swa_consistency(torch, m):
+    """glm4-9b-swa at full width and depth in fp32 (35.1 GB), batch 1:
+    decode_step at position 4,608 after a 4,608-token prefill against a
+    prefill over the 4,609 tokens, last position's logits, within
+    CONSISTENCY_FP32 (qwen2.5-3b's fp32 gate). Controls with the same
+    weights and sliding_window=0: the unwindowed decode on the same cache,
+    and the unwindowed full forward, must both read further off the
+    windowed full forward than that tolerance."""
+    rnd = m.rnd
+    cfg = dataclasses.replace(m.get_config(SWA_ARCH), dtype="float32")
+    cfg0 = dataclasses.replace(cfg, sliding_window=0)
+    check(SWA_PROMPT > cfg.sliding_window, "swa prompt within the window")
+    model = m.get_model(cfg)
+    key = rnd.PRNGKey(SERVE["seed"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(key, cfg)
+    tokens = rnd.randint(rnd.fold_in(key, 1), (1, SWA_PROMPT + 1), 0,
+                         cfg.vocab_size)
+    s = SWA_PROMPT
+    cache = model.init_cache(cfg, 1, s + 1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, cache = model.prefill(params, {"tokens": tokens[:, :s]}, cfg, cache=cache)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    decoded, _ = model.decode_step(params, cache, tokens[:, s:], s, cfg)
+    unwindowed, _ = model.decode_step(params, cache, tokens[:, s:], s, cfg0)
+    del cache
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    full, _ = model.prefill(params, {"tokens": tokens}, cfg)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    full0, _ = model.prefill(params, {"tokens": tokens}, cfg0)
+    peak = torch.cuda.max_memory_allocated()
+    del params
+    torch.cuda.empty_cache()
+
+    def dist(a, b):
+        return (a[:, -1].float() - b[:, -1].float()).abs().max().item()
+
+    out = {"arch": SWA_ARCH, "dtype": "float32", "layers": cfg.n_layers,
+           "window": cfg.sliding_window, "prompt_len": s,
+           "decode_vs_full": dist(decoded, full), "limit": CONSISTENCY_FP32,
+           "control_decode_unwindowed_vs_full": dist(unwindowed, full),
+           "control_full_unwindowed_vs_full": dist(full0, full),
+           "logits_abs_max": full[:, -1].abs().max().item(),
+           "init_s": t1 - t0, "prefill_s": t2 - t1, "full_forward_s": t4 - t3,
+           "peak_mem_bytes": peak}
+    emit("swa_consistency", **out)
+    for name, lg in (("decode", decoded), ("full", full)):
+        check(bool(torch.isfinite(lg).all()), f"swa: {name} logits not finite")
+    check(out["decode_vs_full"] <= CONSISTENCY_FP32,
+          f"swa: decode past the window differs from the full forward by "
+          f"{out['decode_vs_full']}")
+    check(out["control_decode_unwindowed_vs_full"] > CONSISTENCY_FP32,
+          "swa: the unwindowed decode reads within the tolerance: the "
+          "window does not show")
+    check(out["control_full_unwindowed_vs_full"] > CONSISTENCY_FP32,
+          "swa: the unwindowed full forward reads within the tolerance")
+
+
+def run_train_moe(torch, m, name_power):
+    """qwen3-moe at full width and TRAIN_MOE_LAYERS of its 48 layers (the
+    SSCA state of all 48 would take 242 GB) in bf16 with remat, batch 8,
+    sequence 512, through make_scanned_step: TRAIN_MOE_WARMUP +
+    TRAIN_MOE_TIMED steps, each timed on the host clock between
+    synchronizes (the median of the timed ones), with every launch counter
+    zeroed just before the steps and read just after, checked exactly a
+    step. The loss metric carries the aux (0.01 · Σ aux / L); a forward
+    after the steps reports the aux itself."""
+    rnd = m.rnd
+    cfg = dataclasses.replace(m.get_config(MOE_ARCH), n_layers=TRAIN_MOE_LAYERS)
+    model = m.get_model(cfg)
+    key = rnd.PRNGKey(SERVE["seed"])
+    torch.cuda.reset_peak_memory_stats()
+    state = m.optimizer.ssca_init(model.init(key, cfg))
+    n_params = state.w_flat.numel()
+    batch, seq = TRAIN_MOE["batch"], TRAIN_MOE["seq"]
+    toks = m.token_dataset(rnd.fold_in(key, 1), cfg.vocab_size,
+                           n_tokens=max(200_000, batch * (seq + 1) * 4))
+    step_fn = m.train.make_scanned_step(model, cfg, m.train_fl, toks, batch, seq)
+    steps = TRAIN_MOE_WARMUP + TRAIN_MOE_TIMED
+    inputs = m.rounds.make_inputs(m.train_fl, 1, steps, rnd.fold_in(key, 2))
+    torch.cuda.synchronize()
+    zero_counts(m.counted)
+    losses, step_s = [], []
+    for r in range(steps):
+        t0 = time.perf_counter()
+        state, ms = step_fn(state, inputs.round(r))
+        losses.append(float(ms["loss"]))
+        step_s.append(time.perf_counter() - t0)
+    counts = read_counts(m.counted)
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: v / steps for k, v in counts.items()}
+    L = cfg.n_layers
+    want = {**{k: 0 for k in m.counted}, "ssca_update": 1,
+            "rmsnorm": 2 * (2 * L + 1) - 1, "rmsnorm_bwd": 2 * L + 1,
+            "flash_attention": 2 * L, "flash_attention_bwd": L}
+    check(per_step == want, f"train_moe launches per step {per_step} != {want}")
+    check(all(map(math.isfinite, losses)), f"train_moe losses: {losses}")
+    check(state.t == steps + 1 and bool(torch.isfinite(state.w_flat).all()),
+          "train_moe: the state did not take every step, or is not finite")
+    with torch.no_grad():
+        data = m.sample_window(toks, inputs.key[-1], batch, seq)
+        fwd = dataclasses.replace(cfg, remat=False)
+        loss = model.loss_fn(state.params, data, fwd).item()
+        x, rope_cs, _ = m.transformer._inputs_to_states(state.params, data, fwd)
+        _, aux = m.transformer.backbone(state.params, x, rope_cs, fwd)
+        aux = aux.item()
+    del state, x, rope_cs
+    torch.cuda.empty_cache()
+    med = statistics.median(step_s[TRAIN_MOE_WARMUP:])
+    tokens = batch * seq
+    d, f, e, k = cfg.d_model, cfg.moe_d_ff, cfg.n_experts, cfg.experts_per_token
+    active = n_params - L * 3 * d * f * (e - k)
+    emit("train_moe", arch=MOE_ARCH, dtype=cfg.dtype, layers=L, remat=cfg.remat,
+         params=n_params, active_params=active, **TRAIN_MOE,
+         warmup_steps=TRAIN_MOE_WARMUP, timed_steps=TRAIN_MOE_TIMED,
+         step_ms=med * 1e3, step_ms_each=[t * 1e3 for t in step_s],
+         tokens_per_s=tokens / med,
+         mfu_active=6 * active * tokens / (med * BF16_FLOPS_PER_S),
+         capacity=m.layers.moe_capacity(cfg, tokens), peak_mem_bytes=peak,
+         losses=losses, loss_after=loss, aux_after=aux,
+         nll_after=loss - 0.01 * aux / L, launches=counts,
+         launches_per_step=per_step, **name_power)
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3089,7 +3468,7 @@ def main() -> int:
     from repro_torch.data.synthetic import (VirtualFedData, sample_window,
                                             token_dataset)
     from repro_torch.launch import serve, train
-    from repro_torch.models import mlp
+    from repro_torch.models import layers, mlp, transformer
     from repro_torch.models.api import get_model
 
     device_lib.resolve(None)            # pins fp32 matmuls: no TF32
@@ -3144,6 +3523,8 @@ def main() -> int:
     mods = SimpleNamespace(algorithms=algorithms, mlp=mlp, codecs=codecs,
                            rnd=rnd, fl=fl, counted=counted, serve=serve,
                            get_model=get_model, qwen=get_config("qwen2.5-3b"),
+                           get_config=get_config, layers=layers,
+                           transformer=transformer, fa=fa,
                            train=train, rounds=rounds, optimizer=optimizer,
                            leaves=leaves, token_dataset=token_dataset,
                            baselines=baselines, accounting=accounting,
@@ -3239,8 +3620,8 @@ def main() -> int:
     hetero_counts = run_hetero(torch, mods, {"device": name, "power": smi})
     torch.cuda.empty_cache()
 
-    served, serve_counts, seqs = run_serve(torch, mods)
-    emit("serve", **served, device=name, power=smi)
+    serve_counts, seqs = run_serve_zoo(torch, mods, "qwen2.5-3b", "serve",
+                                       {"device": name, "power": smi})
     weights = {"params": check_serve_consistency(torch, mods, seqs)}
     emit("serve_parity", **run_serve_parity(torch, mods))
 
@@ -3268,6 +3649,19 @@ def main() -> int:
     run_train_constrained_parity(torch, mods)
     run_train_comm_parity(torch, mods)
 
+    # the MoE decoder and the sliding window, after every
+    # qwen2.5-3b phase has freed its tensors: qwen3-moe takes 60.44 GB
+    torch.cuda.empty_cache()
+    emit("zoo_memory", allocated_bytes=torch.cuda.memory_allocated(),
+         reserved_bytes=torch.cuda.memory_reserved())
+    moe_serve_counts, _ = run_serve_zoo(torch, mods, MOE_ARCH, "serve_moe",
+                                        {"device": name, "power": smi})
+    run_serve_moe_parity(torch, mods)
+    glm_serve_counts, _ = run_serve_zoo(torch, mods, "glm4-9b", "serve_glm4",
+                                        {"device": name, "power": smi})
+    run_swa_consistency(torch, mods)
+    train_moe_counts = run_train_moe(torch, mods, {"device": name, "power": smi})
+
     for kr in kernels:
         n = kr["name"]
         kr["launches"] = (dense_counts[n] + int8_counts[n] + serve_counts[n]
@@ -3275,7 +3669,8 @@ def main() -> int:
                           + constrained_counts[n] + cohort_counts[n]
                           + hetero_counts[n] + paper_dp_counts[n]
                           + comm_counts[n] + sharded_counts[n]
-                          + sharded_train_counts[n])
+                          + sharded_train_counts[n] + moe_serve_counts[n]
+                          + glm_serve_counts[n] + train_moe_counts[n])
         check(kr["launches"] > 0 or not kr.get("main_path", True),
               f"{n} never launched on a main path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

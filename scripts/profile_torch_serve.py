@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
-"""Where serving qwen2.5-3b spends its time in the PyTorch port, on one
-NVIDIA GPU, at full width and depth in bf16 (the weights from seed 0).
+"""Where serving a zoo model (qwen2.5-3b unless ``--arch`` names another
+of ``configs/registry.py`` that fits the card, such as qwen3-moe-30b-a3b or
+glm4-9b) spends its time in the PyTorch port, on one NVIDIA GPU, at full
+width and depth in bf16 (the weights from seed 0).
 
-    python3 scripts/profile_torch_serve.py [--batch 8] [--prompt-len 512]
-                                           [--steps 16] [--json PATH]
+    python3 scripts/profile_torch_serve.py [--arch qwen2.5-3b] [--batch 8]
+                                           [--prompt-len 512] [--steps 16]
+                                           [--json PATH]
 
 Prefill of the prompt, then decode steps from position prompt_len on,
 each through profile_torch_round.profile_window (one prefill, ``--steps``
@@ -28,6 +31,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2.5-3b")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=512)
     ap.add_argument("--steps", type=int, default=16)
@@ -48,7 +52,7 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    cfg = get_config("qwen2.5-3b")
+    cfg = get_config(args.arch)
     model = get_model(cfg)
     key = rnd.PRNGKey(0)
     params = model.init(key, cfg)

@@ -8,13 +8,14 @@ from dataclasses import dataclass
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """``repro.configs.base.ModelConfig`` cut to the dense decoder with tied
-    embeddings and full causal attention: the fields its forward and
-    backward read (``remat``: each layer recomputed in the backward), plus
-    ``n_experts``/``num_prefix_tokens`` so that a MoE or VLM config is
-    recognised and refused."""
+    """``repro.configs.base.ModelConfig`` cut to the decoder-only
+    transformer (dense and MoE, tied or untied embeddings, causal attention
+    with an optional sliding window): the fields its forward and backward
+    read (``remat``: each layer recomputed in the backward), plus
+    ``num_prefix_tokens`` so that a VLM config is recognised and
+    refused."""
     name: str
-    family: str                       # dense (the only family ported)
+    family: str                       # dense | moe (the families ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -22,14 +23,22 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0                 # 0 -> d_model // n_heads
+    # --- MoE ---
     n_experts: int = 0
+    experts_per_token: int = 0
+    moe_d_ff: int = 0                 # per-expert hidden dim (d_ff: the dense part)
+    dense_residual: bool = False      # arctic-style dense MLP beside the MoE
+    capacity_factor: float = 1.25
     activation: str = "swiglu"
     qkv_bias: bool = False
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-6
+    tie_embeddings: bool = True
+    sliding_window: int = 0           # 0 = full causal attention
     num_prefix_tokens: int = 0
     dtype: str = "bfloat16"
     remat: bool = True                # recompute each layer in the backward
+    moe_sharding: str = "fsdp"        # fsdp | expert2d (one computation here)
     source: str = ""
 
     @property
@@ -38,7 +47,8 @@ class ModelConfig:
 
     def smoke(self) -> "ModelConfig":
         """The reference's reduced variant: 2 layers, d_model <= 256, <= 4
-        heads, vocab <= 512, fp32, no remat."""
+        heads, vocab <= 512, <= 4 experts with <= 2 a token and
+        ``moe_d_ff`` <= 128, a window <= 16, fp32, no remat."""
         d = min(self.d_model, 256)
         n_heads = min(self.n_heads, 4)
         small = dict(
@@ -51,6 +61,9 @@ class ModelConfig:
             head_dim=min(self.resolved_head_dim, d // n_heads),
             vocab_size=min(self.vocab_size, 512),
             n_experts=min(self.n_experts, 4),
+            experts_per_token=min(self.experts_per_token, 2),
+            moe_d_ff=min(self.moe_d_ff, 128) if self.moe_d_ff else 0,
+            sliding_window=min(self.sliding_window, 16) if self.sliding_window else 0,
             num_prefix_tokens=min(self.num_prefix_tokens, 8),
             dtype="float32",
             remat=False,

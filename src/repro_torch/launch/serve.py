@@ -7,6 +7,8 @@ prompt-sized cache and pads it (``grow_cache``).
 
 CLI:  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
           --smoke --device cpu --batch 2 --prompt-len 16 --gen 8
+      (``--arch`` takes any name of ``configs/registry.py``: qwen2.5-3b,
+      qwen3-moe-30b-a3b, arctic-480b, glm4-9b, glm4-9b-swa, deepseek-67b)
 """
 from __future__ import annotations
 

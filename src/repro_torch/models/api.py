@@ -1,5 +1,5 @@
 """Model registry: the reference's uniform interface over the zoo, for the
-families the port serves so far (``dense``).
+families the port serves so far (``dense`` and ``moe``).
 
   init(key, cfg, device=None) -> params
   prefill(params, batch, cfg, cache=None) -> (logits, cache)
@@ -26,10 +26,11 @@ class Model:
 
 
 def get_model(cfg) -> Model:
-    if cfg.family != "dense":
+    if cfg.family not in transformer.FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r}: the port has the dense decoder only; MoE, "
-            "VLM, SSM/hybrid and encoder-decoder families come in later slices")
+            f"family {cfg.family!r}: the port has the dense and MoE decoders; "
+            "VLM, SSM/hybrid and encoder-decoder families come in later "
+            "slices (ROADMAP queue 1, item 12)")
     m = transformer
     return Model(name=cfg.name, init=m.init, prefill=m.prefill,
                  decode_step=m.decode_step, init_cache=m.init_cache,

@@ -1,5 +1,6 @@
-"""Layers of the dense decoder (counterpart of ``repro.models.layers``),
-as functions on tensors and nested dicts of parameters.
+"""Layers of the decoder-only transformer (counterpart of
+``repro.models.layers``), as functions on tensors and nested dicts of
+parameters.
 
 Conventions, kept from the reference so that parameters and caches carry
 across one to one: activations (B, S, D); attention heads (B, S, H, Hd);
@@ -7,10 +8,13 @@ stacked layer parameters with a leading L axis; the KV cache
 (L, B, S_max, KV, Hd). ``norm`` runs the rmsnorm kernel (through its
 autograd Function, so its backward runs the rmsnorm backward kernel) and
 every attention path runs the flash kernel on a CUDA device (their plain
-versions on the CPU); ``self_attention``, the training path, runs it through
-its autograd Function, whose backward is the flash backward kernel. The
-reference's own forward calls neither Pallas kernel but jnp versions with
-the same math.
+versions on the CPU), with ``cfg.sliding_window`` as its window;
+``self_attention``, the training path, runs it through its autograd
+Function, whose backward is the flash backward kernel. The reference's own
+forward calls neither Pallas kernel but jnp versions with the same math.
+``moe`` is the reference's top-k MoE with fixed per-expert capacity: its
+dispatch, expert products and combine are PyTorch ops, as the reference's
+are jnp ops outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -115,12 +119,13 @@ def _qkv(params, x, cfg):
     return q.view(b, s, h, hd), k.view(b, s, kv, hd), v.view(b, s, kv, hd)
 
 
-def _flash(q, k, v):
-    """(B, Sq, H, Hd) against (B, Sk, KV, Hd) -> (B, Sq, H·Hd): one flash
-    launch on transposed views, whose output comes back in q's (B, Sq, H,
-    Hd) layout, so the reshape is a view."""
+def _flash(q, k, v, window: int = 0):
+    """(B, Sq, H, Hd) against (B, Sk, KV, Hd) -> (B, Sq, H·Hd), causal and
+    right-aligned, each query seeing the keys less than ``window`` positions
+    back (0: all): one flash launch on transposed views, whose output comes
+    back in q's (B, Sq, H, Hd) layout, so the reshape is a view."""
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                        causal=True)
+                        causal=True, window=window)
     b, sq, h, hd = q.shape
     return o.transpose(1, 2).reshape(b, sq, h * hd)
 
@@ -135,20 +140,20 @@ def attention(params, x, rope_cs, cfg, cache_k, cache_v):
     s = x.shape[1]
     cache_k[:, :s] = k
     cache_v[:, :s] = v
-    return _flash(q, k, v) @ params["wo"]
+    return _flash(q, k, v, cfg.sliding_window) @ params["wo"]
 
 
 def self_attention(params, x, rope_cs, cfg):
     """Training self-attention, with no cache: q/k/v (with bias), RoPE from
     ``rope_cs`` (``rope_tables`` of positions 0..S-1), causal flash attention
     through its autograd Function, then ``wo``. The reference's
-    ``attention(params, x, positions, cfg)`` with its causal mask (the
-    ``dot_attention`` path qwen2.5-3b takes)."""
+    ``attention(params, x, positions, cfg)`` with its causal mask and
+    ``cfg.sliding_window`` (the ``dot_attention`` path the configs take)."""
     q, k, v = _qkv(params, x, cfg)
     q = apply_rope(q, *rope_cs)
     k = apply_rope(k, *rope_cs)
     o = FlashAttention.apply(q.transpose(1, 2), k.transpose(1, 2),
-                             v.transpose(1, 2), True, 0)
+                             v.transpose(1, 2), True, cfg.sliding_window)
     b, s, h, hd = q.shape
     return o.transpose(1, 2).reshape(b, s, h * hd) @ params["wo"]
 
@@ -158,15 +163,18 @@ def attention_decode(params, x, cache_k, cache_v, pos: int, rope_cs, cfg):
 
     x: (B, 1, D); cache_k/v: (B, S_max, KV, Hd) views, written in place at
     row ``pos``; ``rope_cs`` is ``rope_tables`` of position ``pos``. The
-    flash kernel reads rows 0..pos through a permuted view: right-aligned
-    causal with Sq = 1 sees exactly those rows (the reference's mask
-    ``k_pos <= pos``). Returns (out, cache_k, cache_v)."""
+    flash kernel reads rows lo..pos through a permuted view, lo = 0 or,
+    with a window W, max(0, pos - W + 1): right-aligned causal with Sq = 1
+    sees exactly those rows (the reference's mask ``k_pos <= pos`` and
+    ``pos - k_pos < W``). Returns (out, cache_k, cache_v)."""
     q, k, v = _qkv(params, x, cfg)
     q = apply_rope(q, *rope_cs)
     k = apply_rope(k, *rope_cs)
     cache_k[:, pos] = k[:, 0]
     cache_v[:, pos] = v[:, 0]
-    out = _flash(q, cache_k[:, :pos + 1], cache_v[:, :pos + 1])
+    window = cfg.sliding_window
+    lo = max(0, pos - window + 1) if window else 0
+    out = _flash(q, cache_k[:, lo:pos + 1], cache_v[:, lo:pos + 1], window)
     return out @ params["wo"], cache_k, cache_v
 
 
@@ -179,7 +187,8 @@ def _check_activation(activation: str) -> None:
     if activation != "swiglu":
         raise NotImplementedError(
             f"activation {activation!r}: the port has SwiGLU only; GeGLU and "
-            "GELU come with the slice that ports the rest of the model zoo")
+            "GELU come with head dim 256 and the VLM prefix (gemma-7b, "
+            "paligemma-3b; ROADMAP queue 1, item 12)")
 
 
 def mlp_init(key, d, d_ff, activation, dtype):
@@ -195,3 +204,111 @@ def mlp_init(key, d, d_ff, activation, dtype):
 def mlp(params, x, activation: str):
     _check_activation(activation)
     return (F.silu(x @ params["wg"]) * (x @ params["wi"])) @ params["wo"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (top-k router, fixed capacity, scatter dispatch)
+# ---------------------------------------------------------------------------
+
+
+def check_moe_sharding(cfg) -> None:
+    """"fsdp" and "expert2d" compute the same ``moe`` (the reference's two
+    differ only in their sharding specs); the expert-parallel form needs a
+    model axis, which the port does not have yet."""
+    if cfg.moe_sharding == "expert_parallel":
+        raise NotImplementedError(
+            f"{cfg.name}: moe_sharding 'expert_parallel' needs the mesh's "
+            "model axis (ROADMAP queue 1, item 13)")
+    if cfg.moe_sharding not in ("fsdp", "expert2d"):
+        raise ValueError(f"{cfg.name}: unknown moe_sharding {cfg.moe_sharding!r}")
+
+
+def moe_init(key, cfg, dtype):
+    """``repro.models.layers.moe_init``: the router and the (E, D, F),
+    (E, D, F), (E, F, D) expert weights from ``split(key, 4)``, and the
+    dense residual MLP (arctic) from ``fold_in(key, 7)``."""
+    d, e, ff = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    ks = rnd.split(key, 4)
+    p = {
+        "router": dense_init(ks[0], (d, e), dtype, fan_in=d),
+        "wi": dense_init(ks[1], (e, d, ff), dtype, fan_in=d),
+        "wg": dense_init(ks[2], (e, d, ff), dtype, fan_in=d),
+        "wo": dense_init(ks[3], (e, ff, d), dtype, fan_in=ff),
+    }
+    if cfg.dense_residual:
+        p["dense"] = mlp_init(rnd.fold_in(key, 7), d, cfg.d_ff, "swiglu", dtype)
+    return p
+
+
+def moe_capacity(cfg, tokens: int) -> int:
+    """Slots an expert has in a call over ``tokens`` tokens (B·S)."""
+    return max(1, int(cfg.capacity_factor * tokens * cfg.experts_per_token
+                      / cfg.n_experts))
+
+
+def _count(idx, n: int):
+    """Occurrences of 0..n-1 in idx (int64), with no host sync: CUDA's
+    ``bincount`` reads the maximum back to size its output."""
+    return torch.zeros(n, dtype=torch.int64, device=idx.device).index_add_(
+        0, idx, torch.ones_like(idx))
+
+
+def moe_route(router, xt, cfg):
+    """The router of ``moe`` over xt (T, D): logits in the model dtype cast
+    to fp32, their softmax, the top k of a stable descending sort (on ties
+    the lower expert first, as ``jax.lax.top_k``) with their probabilities
+    renormalized, and each of the T·k assignments' slot in its expert,
+    counted token-major, k minor (the reference's cumsum over the (T·k, E)
+    one-hot; here a stable sort by expert, O(T·k) memory); an assignment at
+    slot >= cap is dropped.
+
+    Returns (probs (T, E) fp32, top_p (T, k) fp32, top_e (T, k) int64,
+    slot (T·k,) int64 with the dropped ones at cap-1, keep (T·k,) bool,
+    cap)."""
+    e, k = cfg.n_experts, cfg.experts_per_token
+    probs = torch.softmax((xt @ router).float(), dim=-1)
+    top_e = torch.sort(probs, dim=-1, descending=True, stable=True).indices[:, :k]
+    top_p = torch.gather(probs, 1, top_e)
+    top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+    cap = moe_capacity(cfg, xt.shape[0])
+    flat_e = top_e.reshape(-1)
+    order = torch.sort(flat_e, stable=True).indices
+    counts = _count(flat_e, e)
+    first = torch.cumsum(counts, 0) - counts        # each expert's first rank
+    rank = torch.arange(flat_e.numel(), device=xt.device)
+    slot = torch.empty_like(flat_e)
+    slot[order] = rank - first[flat_e[order]]
+    keep = slot < cap
+    slot = torch.where(keep, slot, torch.full_like(slot, cap - 1))
+    return probs, top_p, top_e, slot, keep, cap
+
+
+def moe(params, x, cfg):
+    """``repro.models.layers.moe``: x (B, S, D) -> (out (B, S, D), aux 0-d
+    fp32). Each assignment's token row, times keep, is added into its
+    expert's slot of an (E, cap, D) buffer (``index_put`` with accumulate:
+    a dropped row adds exact zeros to slot cap-1), the SwiGLU experts run
+    as batched products over all E experts, and each token sums its k rows
+    gathered back, weighted by keep·top_p. aux is the Switch load-balance
+    loss from each token's first expert. With ``cfg.dense_residual`` the
+    dense SwiGLU MLP ``params["dense"]`` is added."""
+    check_moe_sharding(cfg)
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.experts_per_token
+    t = b * s
+    xt = x.reshape(t, d)
+    probs, top_p, top_e, slot, keep, cap = moe_route(params["router"], xt, cfg)
+    flat_e = top_e.reshape(-1)
+    src = xt.repeat_interleave(k, dim=0) * keep[:, None].to(xt.dtype)
+    buf = xt.new_zeros((e, cap, d)).index_put((flat_e, slot), src,
+                                              accumulate=True)
+    h = F.silu(torch.bmm(buf, params["wg"])) * torch.bmm(buf, params["wi"])
+    out_buf = torch.bmm(h, params["wo"])                       # (E, cap, D)
+    weight = (keep.float() * top_p.reshape(-1)).to(xt.dtype)
+    out = (out_buf[flat_e, slot] * weight[:, None]).view(t, k, d).sum(dim=1)
+    me = probs.mean(dim=0)
+    ce = _count(top_e[:, 0], e).float() / t
+    aux = e * torch.sum(me * ce)
+    if cfg.dense_residual:
+        out = out + mlp(params["dense"], xt, "swiglu")
+    return out.view(b, s, d), aux

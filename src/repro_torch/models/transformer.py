@@ -1,6 +1,6 @@
-"""Decoder-only transformer LM, dense (llama/qwen style): the counterpart of
-``repro.models.transformer`` for serving (init, prefill, decode_step) and
-training (backbone, loss_fn).
+"""Decoder-only transformer LM, dense (llama/qwen/glm style) and MoE: the
+counterpart of ``repro.models.transformer`` for serving (init, prefill,
+decode_step) and training (backbone, loss_fn).
 
 Parameters are the reference's nested dicts with the layers stacked on a
 leading L axis; its ``lax.scan`` over layers is a Python loop over that
@@ -8,12 +8,15 @@ axis. The training path also takes ``params["layers"]`` as a list of L
 per-layer dicts (the optimizer's autograd leaves: views of one flat buffer
 whose gradients land in another, with no full-size zero tensor from a
 select's backward). Each layer runs two RMSNorms (``ln1``, ``ln2``) and one
-attention, and the final norm ``ln_f`` one more: 2·L + 1 rmsnorm launches
-and L flash launches per forward on a card; with ``cfg.remat`` the layers'
+attention (with ``cfg.sliding_window``), then an MLP or, with
+``cfg.n_experts``, the MoE layer, whose load-balance aux the training loss
+adds; the final norm ``ln_f`` is one more: 2·L + 1 rmsnorm launches and L
+flash launches per forward on a card; with ``cfg.remat`` the layers'
 forwards run again in the backward (``torch.utils.checkpoint``, the
-counterpart of the reference's ``jax.checkpoint``). The KV cache
-(L, B, S_max, KV, Hd) is written in place. MoE layers and VLM prefixes are
-refused: they come with later slices.
+counterpart of the reference's ``jax.checkpoint``). The logits take the
+tied embedding or, with ``tie_embeddings`` off, ``params["unembed"]``. The
+KV cache (L, B, S_max, KV, Hd) is written in place. VLM prefixes are
+refused: they come with a later slice.
 """
 from __future__ import annotations
 
@@ -33,14 +36,22 @@ def _dt(cfg):
     return DTYPES[cfg.dtype]
 
 
-def _check_dense(cfg):
-    if cfg.family != "dense" or cfg.n_experts:
+FAMILIES = ("dense", "moe")
+
+
+def _check_decoder(cfg):
+    """The configs this module serves: the dense and MoE decoders with no
+    VLM prefix, a MoE layer in every layer exactly when ``n_experts``."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} with {cfg.n_experts} experts; "
-            "the port serves dense decoders only (MoE comes in a later slice)")
+            f"{cfg.name}: family {cfg.family!r}; the port's transformer serves "
+            f"{FAMILIES} (the others: ROADMAP queue 1, item 12)")
     if cfg.num_prefix_tokens:
         raise NotImplementedError(
-            f"{cfg.name}: VLM prefix tokens come in a later slice")
+            f"{cfg.name}: VLM prefix tokens come with head dim 256 and GELU "
+            "(paligemma-3b; ROADMAP queue 1, item 12)")
+    if cfg.n_experts:
+        L.check_moe_sharding(cfg)
 
 
 def _map(fn, tree):
@@ -76,7 +87,9 @@ def init_layer(key, cfg):
         "ln1": L.rmsnorm_init(cfg.d_model, dt, key.device),
         "attn": L.attn_init(ks[0], cfg, dt),
         "ln2": L.rmsnorm_init(cfg.d_model, dt, key.device),
-        "mlp": L.mlp_init(ks[1], cfg.d_model, cfg.d_ff, cfg.activation, dt),
+        **({"moe": L.moe_init(ks[1], cfg, dt)} if cfg.n_experts else
+           {"mlp": L.mlp_init(ks[1], cfg.d_model, cfg.d_ff, cfg.activation,
+                              dt)}),
     }
 
 
@@ -86,11 +99,10 @@ def init(key, cfg, device=None):
     drawn one key at a time (as ``jax.vmap(init_layer)`` draws per key) into
     preallocated stacked tensors, so the draw's temporaries never exceed one
     layer's."""
-    _check_dense(cfg)
+    _check_decoder(cfg)
     key = key.to(device_lib.resolve(device))
     dt = _dt(cfg)
-    # the reference draws an untied unembedding from the third key
-    k_embed, k_layers, _ = rnd.split(key, 3).unbind(0)
+    k_embed, k_layers, k_out = rnd.split(key, 3).unbind(0)
     layer_keys = rnd.split(k_layers, cfg.n_layers)
     params = {"embed": L.embed_init(k_embed, (cfg.vocab_size, cfg.d_model), dt)}
     stacked = None
@@ -101,6 +113,9 @@ def init(key, cfg, device=None):
         _copy_into(_layer(stacked, i), lp)
     params["layers"] = stacked
     params["ln_f"] = L.rmsnorm_init(cfg.d_model, dt, key.device)
+    if not cfg.tie_embeddings:
+        params["unembed"] = L.embed_init(k_out, (cfg.d_model, cfg.vocab_size),
+                                         dt)
     return params
 
 
@@ -118,13 +133,18 @@ def embed(params, tokens, cfg):
 
 
 def logits_fn(params, h, cfg):
-    """Tied embeddings: logits = h · embedᵀ."""
-    return h @ params["embed"].T.to(h.dtype)
+    """logits = h · embedᵀ (tied), or h · unembed."""
+    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    return h @ w.to(h.dtype)
 
 
 def _block_tail(lp, h, cfg):
+    """h plus the MLP (or MoE) of its norm: (h, the MoE aux or None)."""
     y = L.norm(lp["ln2"], h, cfg)
-    return h + L.mlp(lp["mlp"], y, cfg.activation)
+    if cfg.n_experts:
+        m, aux = L.moe(lp["moe"], y, cfg)
+        return h + m, aux
+    return h + L.mlp(lp["mlp"], y, cfg.activation), None
 
 
 # ---------------------------------------------------------------------------
@@ -138,16 +158,20 @@ def _block(lp, x, rope_cs, cfg):
 
 
 def backbone(params, x, rope_cs, cfg):
-    """x: (B, S, D) embedded inputs -> (B, S, D) final-normed states. With
+    """x: (B, S, D) embedded inputs -> ((B, S, D) final-normed states, the
+    layers' MoE aux summed in fp32, 0 for a dense model). With
     ``cfg.remat`` each layer runs under ``checkpoint`` (non-reentrant): only
     its input is kept, and its forward runs again in the backward."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         if cfg.remat:
-            x = checkpoint(_block, lp, x, rope_cs, cfg, use_reentrant=False)
+            x, a = checkpoint(_block, lp, x, rope_cs, cfg, use_reentrant=False)
         else:
-            x = _block(lp, x, rope_cs, cfg)
-    return L.norm(params["ln_f"], x, cfg)
+            x, a = _block(lp, x, rope_cs, cfg)
+        if a is not None:
+            aux = aux + a
+    return L.norm(params["ln_f"], x, cfg), aux
 
 
 def _inputs_to_states(params, batch, cfg):
@@ -165,15 +189,19 @@ def _inputs_to_states(params, batch, cfg):
 
 
 def loss_fn(params, batch, cfg):
-    """Mean next-token cross-entropy. batch: tokens (B, S), targets (B, S).
-    The logits (tied embeddings) are cast to fp32 before the logsumexp, as
-    the reference does."""
-    _check_dense(cfg)
+    """Mean next-token cross-entropy plus 0.01 · aux / L (the MoE's
+    load-balance loss; 0 for a dense model). batch: tokens (B, S), targets
+    (B, S). The logits are cast to fp32 before the logsumexp, as the
+    reference does."""
+    _check_decoder(cfg)
     x, rope_cs, text_start = _inputs_to_states(params, batch, cfg)
-    h = backbone(params, x, rope_cs, cfg)[:, text_start:, :]
-    logits = logits_fn(params, h, cfg).float()
-    return F.cross_entropy(logits.flatten(0, 1),
-                           batch["targets"].flatten().long())
+    h, aux = backbone(params, x, rope_cs, cfg)
+    logits = logits_fn(params, h[:, text_start:, :], cfg).float()
+    nll = F.cross_entropy(logits.flatten(0, 1),
+                          batch["targets"].flatten().long())
+    if not cfg.n_experts:
+        return nll
+    return nll + 0.01 * aux / max(1, cfg.n_layers)
 
 
 # ---------------------------------------------------------------------------
@@ -194,7 +222,7 @@ def prefill(params, batch, cfg, cache=None):
     filled at rows 0..S-1. ``cache`` (from ``init_cache``, S_max >= S) is
     written in place; without one, a cache of exactly S rows is made, the
     shape the reference returns."""
-    _check_dense(cfg)
+    _check_decoder(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     if cache is None:
@@ -207,7 +235,7 @@ def prefill(params, batch, cfg, cache=None):
         hn = L.norm(lp["ln1"], h, cfg)
         h = h + L.attention(lp["attn"], hn, rope_cs, cfg,
                             cache["k"][i], cache["v"][i])
-        h = _block_tail(lp, h, cfg)
+        h, _ = _block_tail(lp, h, cfg)
     h = L.norm(params["ln_f"], h, cfg)
     return logits_fn(params, h[:, -1:, :], cfg), cache
 
@@ -216,7 +244,7 @@ def decode_step(params, cache, token, pos: int, cfg):
     """One-token decode. token: (B, 1) integers; ``pos`` (a Python int) is
     the row the token's k and v take in the cache, which is written in
     place and returned. Returns (logits (B, 1, V), cache)."""
-    _check_dense(cfg)
+    _check_decoder(cfg)
     pos = int(pos)
     h = embed(params, token, cfg)
     positions = torch.full((1, 1), pos, dtype=torch.int64, device=token.device)
@@ -226,6 +254,6 @@ def decode_step(params, cache, token, pos: int, cfg):
         hn = L.norm(lp["ln1"], h, cfg)
         o, _, _ = L.attention_decode(lp["attn"], hn, cache["k"][i],
                                      cache["v"][i], pos, rope_cs, cfg)
-        h = _block_tail(lp, h + o, cfg)
+        h, _ = _block_tail(lp, h + o, cfg)
     h = L.norm(params["ln_f"], h, cfg)
     return logits_fn(params, h, cfg), cache

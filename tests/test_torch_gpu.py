@@ -365,6 +365,11 @@ def _attn_inputs(cuda, b, h, kv, sq, sk, d, dtype, seed):
     (2, 16, 2, 45, 45, 128),       # GQA rep 8 at prefill
     (1, 16, 2, 7, 50, 128),        # short query right-aligned in its keys
     (2, 16, 2, 512, 512, 128),     # the serve path's prefill, batch cut to 2
+    (1, 32, 2, 1, 543, 128),       # glm4-9b: GQA rep 16 at decode
+    (2, 32, 2, 61, 61, 128),       # GQA rep 16 at prefill
+    (2, 32, 2, 512, 512, 128),     # glm4-9b's serve prefill, batch cut to 2
+    (2, 32, 4, 1, 65, 128),        # qwen3-moe: 32 heads over 4 at decode
+    (2, 32, 4, 61, 61, 128),       # and at prefill
 ])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 20), (False, 0)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -681,6 +686,18 @@ BWD_CASES = [  # b, h, kv, sq, sk, d
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 20), (False, 0)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_bwd_kernel_matches_plain(cuda, b, h, kv, sq, sk, d, causal, window, dtype):
+    _check_flash_bwd(cuda, b, h, kv, sq, sk, d, causal, window, dtype)
+
+
+@pytest.mark.parametrize("sq,window", [(512, 20), (1100, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_windowed_at_glm4_ratio_matches_plain(cuda, sq, window, dtype):
+    """glm4-9b-swa's training attention: 32 query heads over 2 KV heads (16
+    a group), head dim 128, a sliding window shorter than the sequence."""
+    _check_flash_bwd(cuda, 1, 32, 2, sq, sq, 128, True, window, dtype)
+
+
+def _check_flash_bwd(cuda, b, h, kv, sq, sk, d, causal, window, dtype):
     q, k, v, o, lse, do = _attn_bwd(cuda, b, h, kv, sq, sk, d, dtype, causal, window,
                                     sq * 7 + sk + d)
     tol = 2e-5 if dtype == torch.float32 else 3e-2
@@ -1035,3 +1052,47 @@ def test_ef_store_host_offload_on_the_card(cuda):
             step(host, inputs.round(5))
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+# ---------------------------------------------------------------------------
+# the MoE decoder, the sliding window and untied embeddings (smoke size)
+# ---------------------------------------------------------------------------
+
+ZOO_SMOKE = ["qwen3-moe-30b-a3b", "arctic-480b", "glm4-9b-swa", "deepseek-67b"]
+
+
+@pytest.mark.parametrize("arch", ZOO_SMOKE)
+def test_zoo_serve_smoke_card_matches_cpu_and_counts_launches(cuda, arch):
+    """The smoke variants served on the card and on the CPU from the same
+    seed: the same tokens; 2·L+1 rmsnorm and L flash launches per forward
+    (the MoE runs no kernel of its own). The prompt, 40 tokens, is longer
+    than glm4-9b-swa's smoke window of 16."""
+    gen, n_layers = 6, 2
+    r0, f0 = rmsnorm.rmsnorm.launches, flash_attention.flash_attention.launches
+    card, _ = serve.generate(arch, smoke=True, batch=2, prompt_len=40, gen=gen,
+                             device=cuda)
+    assert rmsnorm.rmsnorm.launches - r0 == (2 * n_layers + 1) * gen
+    assert flash_attention.flash_attention.launches - f0 == n_layers * gen
+    cpu, _ = serve.generate(arch, smoke=True, batch=2, prompt_len=40, gen=gen,
+                            device="cpu")
+    assert torch.equal(card.cpu(), cpu)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "arctic-480b", "glm4-9b-swa"])
+def test_zoo_train_smoke_card_matches_cpu_and_counts_launches(cuda, arch):
+    """Three SSCA steps of the smoke variants (fp32, no remat) on the card
+    and on the CPU, sequence 64 (past glm4-9b-swa's smoke window): the same
+    losses (the MoE's with its aux) within rtol 1e-5; per step the dense
+    model's launches."""
+    steps, n_layers = 3, 2
+    counted = (rmsnorm.rmsnorm, rmsnorm.rmsnorm_bwd, flash_attention.flash_attention,
+               flash_attention.flash_attention_bwd, ssca_update.ssca_update_)
+    before = [f.launches for f in counted]
+    _, card = train.train_loop(arch, steps, 2, 64, smoke=True, log_every=1,
+                               device=cuda)
+    per_step = [(f.launches - b0) / steps for f, b0 in zip(counted, before)]
+    assert per_step == [2 * n_layers + 1, 2 * n_layers + 1, n_layers, n_layers, 1]
+    _, cpu = train.train_loop(arch, steps, 2, 64, smoke=True, log_every=1,
+                              device="cpu")
+    for a, b0 in zip(card, cpu):
+        assert abs(a["loss"] - b0["loss"]) <= 1e-5 * abs(b0["loss"])

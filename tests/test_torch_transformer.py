@@ -231,22 +231,37 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(n_experts=4), "experts"),
-    (dict(family="moe"), "experts"),
+    (dict(n_experts=4, experts_per_token=2, moe_d_ff=128), None),
+    (dict(family="moe"), None),
     (dict(num_prefix_tokens=8), "VLM"),
     (dict(activation="gelu"), "SwiGLU"),
+    (dict(activation="geglu"), "item 12"),
 ])
 def test_other_families_are_refused(change, match):
+    """VLM prefixes, GELU and GeGLU are refused, naming ROADMAP item 12;
+    the MoE layer (every config with experts) and the family name "moe"
+    are ported: those configs run and give the reference's prefill
+    logits."""
     cfg = dataclasses.replace(TCFG, **change)
-    with pytest.raises(NotImplementedError, match=match):
-        ttr.init(rnd.PRNGKey(0, device="cpu"), cfg, device="cpu")
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            ttr.init(rnd.PRNGKey(0, device="cpu"), cfg, device="cpu")
+        return
+    jcfg = dataclasses.replace(JCFG, **change)
+    jp = jtr.init(jax.random.PRNGKey(0), jcfg)
+    tp = convert.params_from_numpy(_np_tree(jp), device="cpu")
+    assert ("moe" in tp["layers"]) == bool(cfg.n_experts)
+    toks = _tokens(6, 12)
+    jl, _ = jtr.prefill(jp, {"tokens": jnp.asarray(toks)}, jcfg)
+    tl, _ = tapi.get_model(cfg).prefill(tp, {"tokens": torch.from_numpy(toks)}, cfg)
+    _close(tl, jl, what="logits")
 
 
 def test_get_model_refuses_other_families():
     assert tapi.get_model(TCFG).decode_step is ttr.decode_step
-    with pytest.raises(NotImplementedError, match="dense decoder only"):
+    with pytest.raises(NotImplementedError, match="item 12"):
         tapi.get_model(dataclasses.replace(TCFG, family="ssm"))
-    with pytest.raises(KeyError, match="later slices"):
+    with pytest.raises(KeyError, match="item 12"):
         get_config("gemma-7b")
 
 
