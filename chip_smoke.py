@@ -122,6 +122,24 @@ Phases, one JSON line each:
            remat, batch 8, sequence 512, through make_scanned_step: 2
            warm-up and 3 timed steps; step ms, tokens/s, peak memory, the
            loss with its aux, launches per step (asserted)
+  serve_gemma  gemma-7b (head dim 256, GeGLU; 8.54 B parameters) at full
+           width and depth in bf16, as serve_moe; launches a forward 57
+           rmsnorm, 28 flash
+  serve_paligemma  paligemma-3b (head dim 256, 8 query heads over 1, GeGLU)
+           the same, 256 drawn prefix embeddings before each 512-token
+           prompt; launches a forward 37 rmsnorm, 18 flash
+  vlm_consistency  paligemma-3b at full width and depth in fp32: decode at
+           the row after the prefix and prompt against the full forward
+           within 1e-4, and a control decoding at the reference's
+           position (prompt_len) outside it
+  zoo256_parity  gemma-7b and paligemma-3b at full width, 2 layers, fp32,
+           card against CPU: prefill and 4 decode steps (logits 1e-4), and
+           paligemma's loss and gradient with its 256-token prefix (loss
+           rtol 1e-5, gradient 1e-4)
+  train_paligemma  paligemma-3b at full width and depth in bf16 through
+           train_loop (remat, batch 8, sequence 512): 2 warm-up and 3 timed
+           steps; step ms, tokens/s, mfu, peak memory, losses, launches
+           per step (asserted)
 The kernels phase also holds the backward kernels (rmsnorm_bwd,
 flash_attention_bwd) against their plain versions and times them against
 the PyTorch library's backward calls, the keyed quantize entry bit-equal
@@ -130,7 +148,8 @@ paths' shapes and two pieces of the train-size vector at nonzero offsets),
 and the DP-noise kernel against its plain version. No main path launches
 the bits-operand quantize entry any more (its row says so). Each main path (dense, int8, serve,
 train, each paper run, train_constrained, serve_moe, serve_glm4,
-train_moe) runs with every launch counter
+train_moe, serve_gemma, serve_paligemma, train_paligemma) runs with every
+launch counter
 set to 0 just before it and read just after. The kernels' JSON line comes second to
 last and the verdict
 {"ok": true, "device": {...}} last. Any failed check raises, so the script
@@ -1017,15 +1036,95 @@ def attn_operands(torch, gen, b, h, kv, sq, sk, d, dtype, cache_rows=None, lo=0)
             v.transpose(1, 2)[:, :, lo:lo + sk])
 
 
-def attn_work(b, h, kv, sq, sk, d, esize, window=0):
-    """Bytes (q, k, v read once, o written once) and causal FLOPs (4·d per
-    visible query-key pair) of one attention call."""
+def visible_pairs(sq, sk, window=0, prefix=0):
+    """The query-key pairs a right-aligned causal call sees: each row's
+    causal keys (within ``window`` when given) and the first ``prefix``
+    keys, counted once."""
     pairs = 0
     for i in range(sq):
-        seen = max(0, min(sk, i + sk - sq + 1))
-        pairs += min(seen, window) if window else seen
+        hi = min(sk, i + sk - sq + 1)           # keys 0 .. hi-1 are causal
+        lo = max(0, hi - window) if window else 0
+        seen = max(0, hi - lo)
+        pre = min(prefix, sk)
+        pairs += max(hi, pre) if pre >= lo else seen + pre
+    return pairs
+
+
+def attn_work(b, h, kv, sq, sk, d, esize, window=0, prefix=0):
+    """Bytes (q, k, v read once, o written once) and FLOPs (4·d per visible
+    query-key pair: causal, windowed, and the prefix block) of one
+    attention call."""
+    pairs = visible_pairs(sq, sk, window, prefix)
     nbytes = esize * d * (2 * b * h * sq + 2 * b * kv * sk)
     return nbytes, 4 * d * pairs * b * h
+
+
+def sdpa_backends(torch, call):
+    """The SDPA backends that accept ``call`` (run under each one alone),
+    in the dispatcher's priority order where torch exposes it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    order = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+             SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH]
+    prio = getattr(torch._C, "_get_sdp_priority_order", None)
+    if prio is not None:
+        names = {int(b): b for b in order}
+        order = [names[i] for i in prio() if i in names] or order
+    took = []
+    for backend in order:
+        try:
+            with sdpa_kernel([backend]):
+                call()
+            torch.cuda.synchronize()
+            took.append(backend.name)
+        except RuntimeError:
+            pass
+    return took
+
+
+def flash_timing(torch, fa, build, gen, b, h, kv, sq, sk, d, rows=None,
+                 prefix=0, cold=False):
+    """The bf16 forward kernel at one shape, timed from a CUDA graph beside
+    the library call (SDPA: causal, or for a prefix an explicit boolean
+    mask, which its flash backend refuses; the backends that take it are
+    listed), the plain version, and the bound."""
+    import torch.nn.functional as F
+    nbytes, flops = attn_work(b, h, kv, sq, sk, d, 2, prefix=prefix)
+    lib = build.library("flash_attention")
+    qpos = torch.arange(sq, device="cuda")[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device="cuda")[None, :]
+    mask = (kpos <= qpos) | (kpos < prefix) if prefix else None
+
+    def make():
+        q, k, v = attn_operands(torch, gen, b, h, kv, sq, sk, d, torch.bfloat16, rows)
+        out = torch.empty_like(q)       # held here: args hold its pointer
+        return q, k, v, out, fa.kernel_args(q, k, v, out, causal=True, prefix_len=prefix)
+
+    def launch(q, k, v, out, args):
+        code = lib.flash_attention(*args, torch.cuda.current_stream().cuda_stream)
+        build.check(code, "flash_attention")
+
+    # the library's causal mask is top-left aligned: right-aligned is
+    # causal=True at Sq = Sk and no mask at Sq = 1
+    def library(q, k, v, out, args):
+        if mask is not None:
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+        return F.scaled_dot_product_attention(q, k, v, is_causal=sq > 1, enable_gqa=True)
+
+    sets = cold_sets(make, nbytes) if cold else [make()]
+    b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+    q, k, v, _, args = sets[0]
+    out = {"shape": {"q": list(q.shape), "kv": list(k.shape)}, "prefix": prefix,
+           "bytes": nbytes, "flops": flops, **timed_pair(launch, library, sets, cold),
+           "eager_ms": event_ms(rotating(launch, sets[:1])),
+           "library_eager_ms": event_ms(rotating(library, sets[:1])),
+           "plain_ms": event_ms(lambda: fa.plain(q, k, v, prefix_len=prefix), iters=20),
+           "bound_ms": b_ms, "bound_by": b_by, "decode_splits": args[-1]}
+    if mask is not None:
+        out["library_backends"] = sdpa_backends(torch, lambda: library(*sets[0]))
+    err, ok = close_err(library(*sets[0]), fa.plain(q, k, v, prefix_len=prefix), 3e-2)
+    check(ok, f"flash {q.shape} prefix {prefix}: the library yardstick disagrees by {err}")
+    del sets
+    return out
 
 
 def check_flash(torch, fa, build):
@@ -1038,10 +1137,14 @@ def check_flash(torch, fa, build):
     4096: the windowed prefill, the windowed decode over its window's 4096
     rows from row 513 of a 4609-row cache, the unwindowed decode), and at
     ragged lengths, strided cache views and fully masked rows, fp32 and
-    bf16. Tolerance,
-    absolute plus relative: 2e-5 in fp32, 3e-2 in bf16 (the JAX kernel
-    test's; the online softmax sums in another order)."""
-    import torch.nn.functional as F
+    bf16; and head dim 256 with the prefix-LM block at gemma-7b's
+    and paligemma-3b's serve shapes (paligemma's prefill: 256 prefix
+    embeddings before 512 tokens), their fp32 parity and consistency
+    shapes, a ragged prefix (100 of 261) and a prefix inside and past a
+    window. Tolerance, absolute plus relative: 2e-5 in fp32, 3e-2 in bf16
+    (the JAX kernel test's; the online softmax sums in another order). A
+    planted control, the kernel with the prefix against the plain version
+    without it, must read outside the bf16 tolerance."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [  # b, h, kv, sq, sk, d, dtype, cache_rows, window[, first row]
@@ -1071,71 +1174,78 @@ def check_flash(torch, fa, build):
         (2, 16, 2, 512, 512, 128, bf16, None, 64),
         (1, 4, 2, 128, 64, 64, bf16, None, 0),
     ]
+    cases = [(*c[:9], c[9] if len(c) > 9 else 0, 0) for c in cases] + [
+        # b, h, kv, sq, sk, d, dtype, cache_rows, window, first row, prefix
+        (8, 16, 16, 512, 512, 256, bf16, None, 0, 0, 0),      # serve_gemma
+        (8, 16, 16, 1, 543, 256, bf16, 544, 0, 0, 0),
+        (8, 8, 1, 768, 768, 256, bf16, None, 0, 0, 256),      # serve_paligemma
+        (8, 8, 1, 1, 799, 256, bf16, 800, 0, 0, 0),
+        (2, 16, 16, 61, 61, 256, f32, None, 0, 0, 0),         # zoo256_parity
+        (2, 16, 16, 1, 65, 256, f32, 65, 0, 0, 0),
+        (2, 8, 1, 317, 317, 256, f32, None, 0, 0, 256),
+        (2, 8, 1, 1, 321, 256, f32, 321, 0, 0, 0),
+        (VLM_CONSISTENCY["batch"], 8, 1, 769, 769, 256, f32, None, 0, 0, 256),
+        (VLM_CONSISTENCY["batch"], 8, 1, 1, 769, 256, f32, 770, 0, 0, 0),
+        (1, 8, 1, 261, 261, 256, bf16, None, 0, 0, 100),      # a ragged prefix
+        (1, 8, 1, 261, 261, 256, f32, None, 0, 0, 100),
+        (2, 4, 2, 200, 200, 64, bf16, None, 20, 0, 70),       # prefix and window
+        (2, 4, 2, 200, 200, 64, f32, None, 20, 0, 70),
+    ]
     worst = {}
-    for b, h, kv, sq, sk, d, dtype, rows, window, *lo in cases:
-        q, k, v = attn_operands(torch, gen, b, h, kv, sq, sk, d, dtype, rows, *lo)
-        got = fa.flash_attention(q, k, v, causal=True, window=window)
+    for b, h, kv, sq, sk, d, dtype, rows, window, lo, prefix in cases:
+        q, k, v = attn_operands(torch, gen, b, h, kv, sq, sk, d, dtype, rows, lo)
+        got = fa.flash_attention(q, k, v, causal=True, window=window, prefix_len=prefix)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got).all()), f"flash {q.shape}: not finite")
         if sq > sk:
             check(not got[:, :, :sq - sk].any(), "flash: masked rows not 0")
         tol = 2e-5 if dtype == f32 else 3e-2
-        err, ok = close_err(got, fa.plain(q, k, v, causal=True, window=window), tol)
+        err, ok = close_err(got, fa.plain(q, k, v, causal=True, window=window,
+                                          prefix_len=prefix), tol)
         check(ok, f"flash b={b} h={h} kv={kv} sq={sq} sk={sk} d={d} {dtype} "
-                  f"window={window}: max |diff| {err}")
-        worst[f"{b}x{h}/{kv}x{sq}x{sk}x{d}/w{window}/{str(dtype)[6:]}"] = err
+                  f"window={window} prefix={prefix}: max |diff| {err}")
+        worst[f"{b}x{h}/{kv}x{sq}x{sk}x{d}/w{window}p{prefix}/{str(dtype)[6:]}"] = err
+        if prefix and dtype == bf16 and d == 256 and sq == 768:
+            control, ok = close_err(got, fa.plain(q, k, v), 3e-2)
+            check(not ok, f"flash: the prefix does not show ({control} without it)")
+            worst["control_without_prefix"] = control
         del q, k, v, got
 
-    lib = build.library("flash_attention")
-    timings = {}
-    b, h, kv, d = 8, 16, 2, 128
-    for tag, sq, sk, rows in (("prefill", 512, 512, None), ("decode", 1, 543, 544)):
-        nbytes, flops = attn_work(b, h, kv, sq, sk, d, 2)
-
-        def make():
-            q, k, v = attn_operands(torch, gen, b, h, kv, sq, sk, d, bf16, rows)
-            out = torch.empty_like(q)       # held here: args hold its pointer
-            return q, k, v, out, fa.kernel_args(q, k, v, out, causal=True)
-
-        def launch(q, k, v, out, args):
-            code = lib.flash_attention(*args, torch.cuda.current_stream().cuda_stream)
-            build.check(code, "flash_attention")
-
-        # the library's causal mask is top-left aligned: right-aligned is
-        # causal=True at Sq = Sk and no mask at Sq = 1
-        def library(q, k, v, out, args):
-            return F.scaled_dot_product_attention(q, k, v, is_causal=sq > 1,
-                                                  enable_gqa=True)
-
-        cold = tag == "prefill"
-        sets = cold_sets(make, nbytes) if cold else [make()]
-        b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
-        q, k, v, _, args = sets[0]
-        timings[tag] = {
-            "shape": {"q": list(q.shape), "kv": list(k.shape)}, "bytes": nbytes,
-            "flops": flops, **timed_pair(launch, library, sets, cold),
-            "eager_ms": event_ms(rotating(launch, sets[:1])),
-            "library_eager_ms": event_ms(rotating(library, sets[:1])),
-            "plain_ms": event_ms(lambda: fa.plain(q, k, v), iters=20),
-            "bound_ms": b_ms, "bound_by": b_by, "decode_splits": args[-1]}
-        err, ok = close_err(library(*sets[0]), fa.plain(q, k, v), 3e-2)
-        check(ok, f"flash {tag}: the library yardstick disagrees by {err}")
-        del sets
+    timings = {"prefill": flash_timing(torch, fa, build, gen, 8, 16, 2, 512, 512, 128,
+                                       cold=True),
+               "decode": flash_timing(torch, fa, build, gen, 8, 16, 2, 1, 543, 128, 544)}
+    d256 = {"gemma7b_prefill": flash_timing(torch, fa, build, gen, 8, 16, 16, 512, 512, 256),
+            "gemma7b_decode": flash_timing(torch, fa, build, gen, 8, 16, 16, 1, 543, 256,
+                                           544),
+            "paligemma3b_prefill": flash_timing(torch, fa, build, gen, 8, 8, 1, 768, 768,
+                                                256, prefix=256),
+            "paligemma3b_decode": flash_timing(torch, fa, build, gen, 8, 8, 1, 1, 799, 256,
+                                               800)}
+    control = worst.pop("control_without_prefix")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:84",
             "max_abs_err": max(worst.values()), "max_abs_err_by_case": worst,
-            **timings["prefill"], "decode": timings["decode"]}
+            "control_without_prefix": control,
+            **timings["prefill"], "decode": timings["decode"], "d256": d256}
 
 
 TRAIN_ATTN = (8, 16, 2, 512, 512, 128)      # b, h, kv, sq, sk, d at batch 8, seq 512
+
+
+PALI_TRAIN_ATTN = (8, 8, 1, 512, 512, 256)  # train_paligemma's attention
 
 
 def check_flash_bwd(torch, fa, build):
     """The backward kernels vs their plain version: the train path's shape
     in bf16 and fp32 and train_moe's (32 heads over 4) in bf16, ragged
     lengths (61, 200), GQA rep 1 and 8, causal and
-    not, a window, head dims 64 and 128. Also the forward's logsumexp
+    not, a window, head dims 64 and 128; head dim 256 at
+    train_paligemma's shape, with paligemma's 256-token prefix, at
+    zoo256_parity's fp32 prefix loss, a ragged prefix, gemma-7b's 16 heads,
+    and a prefix inside and past a window, with a planted control (the
+    kernel with the prefix against the plain version without it) that must
+    read outside the gate. Also the forward's logsumexp
     (2e-5; -inf exactly where a row sees no key). Tolerance, absolute plus
     relative: 2e-5 in fp32, 3e-2 in bf16, as the forward; in bf16 also
     normwise, |got - want| / |want| within BF16_BWD_REL_NORM for dq, dk and
@@ -1143,11 +1253,11 @@ def check_flash_bwd(torch, fa, build):
     shape). Two runs give equal bits. Timed warm and cold at the train
     shape in bf16 from a CUDA
     graph, against aten._scaled_dot_product_flash_attention_backward on K/V
-    expanded to the 16 query heads (its dK, dV then need a sum over each
-    group, not timed)."""
+    expanded to the query heads (its dK, dV then need a sum over each
+    group, not timed); the same at train_paligemma's head dim 256."""
     gen = torch.Generator(device="cuda").manual_seed(13)
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [  # b, h, kv, sq, sk, d, dtype, causal, window
+    cases = [  # b, h, kv, sq, sk, d, dtype, causal, window[, prefix]
         (*TRAIN_ATTN, bf16, True, 0),
         (2, *TRAIN_ATTN[1:], f32, True, 0),
         (8, 32, 4, 512, 512, 128, bf16, True, 0),      # train_moe
@@ -1157,22 +1267,34 @@ def check_flash_bwd(torch, fa, build):
         (2, 4, 4, 200, 200, 64, bf16, False, 0),
         (1, 16, 2, 200, 200, 128, bf16, True, 37),
         (1, 8, 1, 128, 64, 64, f32, True, 0),       # rows 0..63 see no key
+        (*PALI_TRAIN_ATTN, bf16, True, 0),           # train_paligemma
+        (2, 8, 1, 768, 768, 256, bf16, True, 0, 256),   # its 256-token prefix
+        (2, 8, 1, 320, 320, 256, f32, True, 0, 256),    # zoo256_parity's loss
+        (1, 8, 1, 261, 261, 256, bf16, True, 0, 100),   # a ragged prefix
+        (2, 16, 16, 200, 200, 256, bf16, True, 0),      # gemma-7b's heads
+        (1, 4, 2, 200, 200, 64, f32, True, 20, 70),     # prefix and window
     ]
     worst, rel_norms = {}, {}
-    for b, h, kv, sq, sk, d, dtype, causal, window in cases:
+    for b, h, kv, sq, sk, d, dtype, causal, window, *pre in cases:
+        prefix = pre[0] if pre else 0
         q, k, v = attn_operands(torch, gen, b, h, kv, sq, sk, d, dtype)
         do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
-        o, lse = fa.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
-        _, want_lse = fa.plain(q, k, v, causal=causal, window=window, return_lse=True)
+        o, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                    prefix_len=prefix, return_lse=True)
+        _, want_lse = fa.plain(q, k, v, causal=causal, window=window, prefix_len=prefix,
+                               return_lse=True)
         seen = torch.isfinite(want_lse)
         check(bool(torch.isneginf(lse[~seen]).all()), "flash lse: masked rows not -inf")
         err_l, ok = close_err(lse[seen], want_lse[seen], 2e-5)
         check(ok, f"flash lse {q.shape} {dtype}: max |diff| {err_l}")
-        grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+        grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window,
+                                       prefix_len=prefix)
         torch.cuda.synchronize()
-        want = fa.plain_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+        want = fa.plain_bwd(q, k, v, o, lse, do, causal=causal, window=window,
+                            prefix_len=prefix)
         tol = 2e-5 if dtype == f32 else 3e-2
-        tag = f"{b}x{h}/{kv}x{sq}x{sk}x{d}/c{int(causal)}w{window}/{str(dtype)[6:]}"
+        tag = (f"{b}x{h}/{kv}x{sq}x{sk}x{d}/c{int(causal)}w{window}p{prefix}/"
+               f"{str(dtype)[6:]}")
         errs, rel = [], []
         for name, got, w in zip(("dq", "dk", "dv"), grads, want):
             check(bool(torch.isfinite(got).all()), f"flash_bwd {name} {tag}: not finite")
@@ -1183,13 +1305,35 @@ def check_flash_bwd(torch, fa, build):
             check(dtype == f32 or rel[-1] <= BF16_BWD_REL_NORM,
                   f"flash_bwd {name} {tag}: |diff| / |want| {rel[-1]}")
         rel_norms[tag] = rel
-        again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+        again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window,
+                                       prefix_len=prefix)
         check(all(torch.equal(a, c) for a, c in zip(again, grads)),
               f"flash_bwd {tag}: two runs differ")
         worst[tag] = max(errs + [err_l])
+        if prefix and sq == 768:
+            plain = fa.plain_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+            control = max(rel_norm(g, w) for g, w in zip(grads, plain))
+            check(control > BF16_BWD_REL_NORM,
+                  f"flash_bwd: the prefix does not show ({control} without it)")
+            rel_norms["control_without_prefix"] = control
 
+    out = {"name": "flash_attention_bwd", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "replaces": "src/repro/models/layers.py:329",
+           "max_abs_err": max(worst.values()), "max_abs_err_by_case": worst,
+           "rel_norm_err_by_case": rel_norms,
+           **flash_bwd_timing(torch, fa, build, gen, *TRAIN_ATTN),
+           "d256": {"paligemma3b_train": flash_bwd_timing(torch, fa, build, gen,
+                                                          *PALI_TRAIN_ATTN)}}
+    return out
+
+
+def flash_bwd_timing(torch, fa, build, gen, b, h, kv, sq, sk, d):
+    """The bf16 backward at one causal shape, timed warm and cold from a
+    CUDA graph beside aten's flash backward (K and V expanded to the query
+    heads), the plain version, and the bound."""
     lib = build.library("flash_attention")
-    b, h, kv, sq, sk, d = TRAIN_ATTN
+    bf16 = torch.bfloat16
     rep = h // kv
     fwd_bytes, fwd_flops = attn_work(b, h, kv, sq, sk, d, 2)
     nbytes = 2 * d * (4 * b * h * sq + 4 * b * kv * sk) + 2 * 4 * b * h * sq
@@ -1232,12 +1376,7 @@ def check_flash_bwd(torch, fa, build):
     for name, got, w in (("dq", gq, want[0]), ("dk", gk, want[1]), ("dv", gv, want[2])):
         err, ok = close_err(got, w, 3e-2)
         check(ok, f"flash_bwd {name}: the library yardstick disagrees by {err}")
-    out = {"name": "flash_attention_bwd", "route": "cuda",
-           "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-           "replaces": "src/repro/models/layers.py:329",
-           "max_abs_err": max(worst.values()), "max_abs_err_by_case": worst,
-           "rel_norm_err_by_case": rel_norms,
-           "shape": {"q": list(q.shape), "kv": list(k.shape)}, "bytes": nbytes,
+    out = {"shape": {"q": list(q.shape), "kv": list(k.shape)}, "bytes": nbytes,
            "flops": flops, **timed_pair(launch, library, sets, True),
            "eager_ms": event_ms(rotating(launch, sets[:1]), iters=20),
            "plain_ms": event_ms(lambda: fa.plain_bwd(q, k, v, o, lse, do), iters=5),
@@ -3076,6 +3215,12 @@ SWA_PROMPT = 4608            # past the 4,096-token window
 TRAIN_MOE = dict(batch=8, seq=512)
 TRAIN_MOE_LAYERS = 4
 TRAIN_MOE_WARMUP, TRAIN_MOE_TIMED = 2, 3
+# head dim 256 and the VLM prefix
+VLM_ARCH = "paligemma-3b"
+VLM_CONSISTENCY = dict(batch=8, prompt_len=512)
+ZOO256_PARITY = dict(batch=2, prompt_len=61, steps=4, seq=64)
+TRAIN_VLM = dict(batch=8, seq=512)
+TRAIN_VLM_WARMUP, TRAIN_VLM_TIMED = 2, 3
 
 
 def moe_decode_bounds(cfg, param_bytes):
@@ -3094,13 +3239,14 @@ def moe_decode_bounds(cfg, param_bytes):
 def decoder_params(cfg) -> int:
     """Parameters of ``transformer.init(cfg)``, leaf by leaf: the embedding
     (and the untied unembedding), the final norm, and per layer two norms,
-    the attention's four matrices (and the QKV bias), and the SwiGLU MLP or
+    the attention's four matrices (and the QKV bias), and the gated MLP
+    (SwiGLU, GeGLU; two matrices for GELU) or
     the MoE's router, its experts' three matrices and arctic's dense
     residual MLP."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     q, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
     attn = 2 * d * q + 2 * d * kv + (q + 2 * kv) * cfg.qkv_bias
-    mlp = 3 * d * cfg.d_ff
+    mlp = (2 if cfg.activation == "gelu" else 3) * d * cfg.d_ff
     ffn = (d * cfg.n_experts + 3 * cfg.n_experts * d * cfg.moe_d_ff
            + mlp * cfg.dense_residual) if cfg.n_experts else mlp
     embeds = 1 if cfg.tie_embeddings else 2
@@ -3139,13 +3285,14 @@ def run_serve_zoo(torch, m, arch, phase, name_power):
     check(0 <= int(seqs.min()) and int(seqs.max()) < cfg.vocab_size,
           f"{arch}: generated tokens outside the vocabulary")
     b, s = SERVE["batch"], SERVE["prompt_len"]
+    pfx = cfg.num_prefix_tokens if cfg.family == "vlm" else 0
     splits = m.fa.decode_splits(torch.bfloat16, b, cfg.n_heads, cfg.n_kv_heads,
-                                1, s + SERVE["gen"] - 1)
+                                1, pfx + s + SERVE["gen"] - 1, d=cfg.resolved_head_dim)
     check(splits > 0, f"{arch}: decode leaves the split kernel")
     step_ms = b * 1e3 / stats["tokens_per_s"]
     line = {"arch": arch, "dtype": cfg.dtype, "layers": cfg.n_layers, **SERVE,
-            "params": n_params, "param_bytes": param_bytes,
-            "warmup_s": warmup_s, "seconds": seconds,
+            "prefix_tokens": pfx, "params": n_params, "param_bytes": param_bytes,
+            "warmup_s": warmup_s, "seconds": seconds, "init_s": stats["init_s"],
             "prefill_ms": stats["prefill_ms"],
             "decode_tokens_per_s": stats["tokens_per_s"],
             "decode_ms_per_step": step_ms, "decode_splits_last": splits,
@@ -3433,6 +3580,205 @@ def run_train_moe(torch, m, name_power):
     return counts
 
 
+def vlm_prompt(m, cfg, key, b, s):
+    """A VLM batch as ``generate`` draws it: prompt tokens from fold_in(key,
+    1) and the prefix embeddings from fold_in(key, 2), in the model dtype."""
+    rnd = m.rnd
+    tokens = rnd.randint(rnd.fold_in(key, 1), (b, s), 0, cfg.vocab_size)
+    pref = rnd.normal(rnd.fold_in(key, 2), (b, cfg.num_prefix_tokens, cfg.d_model))
+    return tokens, pref.to(m.transformer.DTYPES[cfg.dtype])
+
+
+def run_vlm_consistency(torch, m):
+    """paligemma-3b at full width and depth in fp32 (10 GB), batch 8: 256
+    prefix embeddings and a 512-token prompt, then decode_step at the row
+    after the prefill's last, Pfx + S = 768, against a prefill over the S +
+    1 tokens with the same prefix, last position's logits, within
+    CONSISTENCY_FP32. The control decodes at the reference's position S
+    (``repro.launch.serve.generate`` decodes from prompt_len: its cache has
+    no "pos"), after the sound decode on the same cache: it overwrites the
+    prompt row at S and reads rows 0..S, and must read further off the
+    full forward than that tolerance."""
+    rnd = m.rnd
+    cfg = dataclasses.replace(m.get_config(VLM_ARCH), dtype="float32")
+    model = m.get_model(cfg)
+    key = rnd.PRNGKey(SERVE["seed"])
+    b, s = VLM_CONSISTENCY["batch"], VLM_CONSISTENCY["prompt_len"]
+    pfx = cfg.num_prefix_tokens
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(key, cfg)
+    tokens, pref = vlm_prompt(m, cfg, key, b, s + 1)
+    cache = model.init_cache(cfg, b, pfx + s + 1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, cache = model.prefill(params, {"tokens": tokens[:, :s], "prefix_embeddings": pref},
+                             cfg, cache=cache)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    decoded, _ = model.decode_step(params, cache, tokens[:, s:], pfx + s, cfg)
+    at_s, _ = model.decode_step(params, cache, tokens[:, s:], s, cfg)
+    del cache
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    full, _ = model.prefill(params, {"tokens": tokens, "prefix_embeddings": pref}, cfg)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated()
+    del params
+    torch.cuda.empty_cache()
+
+    def dist(a, c):
+        return (a[:, -1].float() - c[:, -1].float()).abs().max().item()
+
+    out = {"arch": VLM_ARCH, "dtype": "float32", "layers": cfg.n_layers,
+           "prefix_tokens": pfx, **VLM_CONSISTENCY, "decode_pos": pfx + s,
+           "decode_vs_full": dist(decoded, full), "limit": CONSISTENCY_FP32,
+           "control_decode_at_prompt_len_vs_full": dist(at_s, full),
+           "logits_abs_max": full[:, -1].abs().max().item(),
+           "init_s": t1 - t0, "prefill_s": t2 - t1, "full_forward_s": t4 - t3,
+           "peak_mem_bytes": peak}
+    emit("vlm_consistency", **out)
+    for name, lg in (("decode", decoded), ("full", full)):
+        check(bool(torch.isfinite(lg).all()), f"vlm: {name} logits not finite")
+    check(out["decode_vs_full"] <= CONSISTENCY_FP32,
+          f"vlm: decode after the prefix differs from the full forward by "
+          f"{out['decode_vs_full']}")
+    check(out["control_decode_at_prompt_len_vs_full"] > CONSISTENCY_FP32,
+          "vlm: decoding at the reference's position reads within the tolerance")
+
+
+def run_zoo256_parity(torch, m):
+    """gemma-7b and paligemma-3b at full width, 2 layers, fp32: the weights
+    drawn on the card and copied to the CPU; a prefill of 61 tokens (after
+    256 drawn prefix embeddings for paligemma) and 4 greedy decode steps on
+    both, the card fed the CPU's tokens, logits within 1e-4 (serve_parity's
+    gate); and paligemma's ``loss_fn`` and gradient with its 256-token
+    prefix before 64 tokens, gated as train_parity gates its first steps:
+    the loss within rtol 1e-5, the gradient within atol 1e-4 (normwise
+    reported)."""
+    rnd = m.rnd
+    out = {}
+    b, s, steps = (ZOO256_PARITY[k] for k in ("batch", "prompt_len", "steps"))
+    for arch in ("gemma-7b", VLM_ARCH):
+        cfg = dataclasses.replace(m.get_config(arch), n_layers=2, dtype="float32")
+        model = m.get_model(cfg)
+        key = rnd.PRNGKey(1)
+        params = model.init(key, cfg)
+        on_cpu = tree_map(lambda t: t.cpu(), params)
+        vlm = cfg.family == "vlm"
+        pfx = cfg.num_prefix_tokens if vlm else 0
+        tokens, pref = vlm_prompt(m, cfg, key, b, s)
+        batch = {"tokens": tokens, **({"prefix_embeddings": pref} if vlm else {})}
+
+        def run(p, device, fed=None):
+            cache = model.init_cache(cfg, b, pfx + s + steps, device=device)
+            logits, cache = model.prefill(p, {k: v.to(device) for k, v in batch.items()},
+                                          cfg, cache=cache)
+            lg, toks = [logits[:, -1].cpu()], []
+            for i in range(steps):
+                tok = (torch.argmax(lg[-1], -1).to(torch.int32)[:, None]
+                       if fed is None else fed[i])
+                toks.append(tok)
+                logits, cache = model.decode_step(p, cache, tok.to(device), pfx + s + i, cfg)
+                lg.append(logits[:, -1].cpu())
+            return torch.stack(lg), toks
+
+        t0 = time.perf_counter()
+        cpu_logits, cpu_toks = run(on_cpu, "cpu")
+        cpu_s = time.perf_counter() - t0
+        card_logits, _ = run(params, "cuda", cpu_toks)
+        line = {"max_abs_logit_diff": (card_logits - cpu_logits).abs().max().item(),
+                "argmax_equal": bool(torch.equal(card_logits.argmax(-1),
+                                                 cpu_logits.argmax(-1))),
+                "serve_cpu_s": cpu_s}
+        check(line["max_abs_logit_diff"] <= 1e-4,
+              f"{arch} parity: card vs CPU logits differ by {line['max_abs_logit_diff']}")
+        if vlm:
+            seq = ZOO256_PARITY["seq"]
+            toks = rnd.randint(rnd.fold_in(key, 3), (b, seq + 1), 0, cfg.vocab_size)
+            data = {"tokens": toks[:, :-1], "targets": toks[:, 1:],
+                    "prefix_embeddings": pref}
+            grads = {}
+            for dev, p in (("cuda", params), ("cpu", on_cpu)):
+                leaves = m.leaves(p)
+                for t in leaves:
+                    t.grad = None
+                    t.requires_grad_()
+                zero_counts(m.counted)
+                loss = model.loss_fn(p, {k: v.to(dev) for k, v in data.items()}, cfg)
+                loss.backward()
+                grads[dev] = (loss.item(), torch.cat([t.grad.reshape(-1).cpu()
+                                                      for t in leaves]),
+                              read_counts(m.counted))
+                del leaves, loss
+            (card_loss, card_g, counts), (cpu_loss, cpu_g, _) = grads["cuda"], grads["cpu"]
+            line.update(loss_card=card_loss, loss_cpu=cpu_loss,
+                        rel_loss_diff=abs(card_loss - cpu_loss) / abs(cpu_loss),
+                        max_abs_grad_diff=(card_g - cpu_g).abs().max().item(),
+                        normwise_grad_diff=rel_norm(card_g, cpu_g),
+                        max_abs_grad=cpu_g.abs().max().item(), loss_launches=counts)
+            fwd = 2 if cfg.remat else 1        # remat runs each layer again
+            check(counts["flash_attention"] == fwd * cfg.n_layers
+                  and counts["flash_attention_bwd"] == cfg.n_layers,
+                  f"vlm loss launches {counts}")
+            check(line["rel_loss_diff"] <= 1e-5,
+                  f"vlm parity: card vs CPU loss differ by {line['rel_loss_diff']}")
+            check(line["max_abs_grad_diff"] <= 1e-4,
+                  f"vlm parity: card vs CPU gradients differ by {line['max_abs_grad_diff']}")
+            del grads, card_g, cpu_g
+        out[arch] = line
+        del params, on_cpu
+        torch.cuda.empty_cache()
+    emit("zoo256_parity", layers=2, dtype="float32", **ZOO256_PARITY,
+         prefix_tokens=m.get_config(VLM_ARCH).num_prefix_tokens, **out)
+
+
+def run_train_paligemma(torch, m, name_power):
+    """paligemma-3b at full width and depth in bf16 with remat, batch 8,
+    sequence 512, through train_loop (token windows, no prefix, as the
+    reference's loop feeds them): TRAIN_VLM_WARMUP + TRAIN_VLM_TIMED steps,
+    a line each, every launch counter zeroed just before and read just
+    after, checked exactly a step."""
+    cfg, batch, seq = m.get_config(VLM_ARCH), TRAIN_VLM["batch"], TRAIN_VLM["seq"]
+    steps = TRAIN_VLM_WARMUP + TRAIN_VLM_TIMED
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(m.counted)
+    t0 = time.perf_counter()
+    state, logs = m.train.train_loop(VLM_ARCH, steps, batch, seq, log_every=1,
+                                     seed=SERVE["seed"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts(m.counted)
+    peak = torch.cuda.max_memory_allocated()
+    n_params = state.w_flat.numel()
+    per_step = {k: v / steps for k, v in counts.items()}
+    L = cfg.n_layers
+    want = {**{k: 0 for k in m.counted}, "ssca_update": 1,
+            "rmsnorm": 2 * (2 * L + 1) - 1, "rmsnorm_bwd": 2 * L + 1,
+            "flash_attention": 2 * L, "flash_attention_bwd": L}
+    check(per_step == want, f"train_paligemma launches per step {per_step} != {want}")
+    losses = [lg["loss"] for lg in logs]
+    check(all(map(math.isfinite, losses)), f"train_paligemma losses: {losses}")
+    check(state.t == steps + 1 and bool(torch.isfinite(state.w_flat).all()),
+          "train_paligemma: the state did not take every step, or is not finite")
+    check(n_params == decoder_params(cfg), f"paligemma-3b has {n_params} parameters")
+    del state
+    torch.cuda.empty_cache()
+    walls = [0.0] + [lg["wall_s"] for lg in logs]
+    step_s = [c - a for a, c in zip(walls, walls[1:])]
+    med = statistics.median(step_s[TRAIN_VLM_WARMUP:])
+    tokens = batch * seq
+    emit("train_paligemma", arch=VLM_ARCH, dtype=cfg.dtype, layers=L, remat=cfg.remat,
+         params=n_params, **TRAIN_VLM, warmup_steps=TRAIN_VLM_WARMUP,
+         timed_steps=TRAIN_VLM_TIMED, seconds=seconds, step_ms=med * 1e3,
+         step_ms_each=[t * 1e3 for t in step_s], tokens_per_s=tokens / med,
+         mfu=6 * n_params * tokens / (med * BF16_FLOPS_PER_S), peak_mem_bytes=peak,
+         losses=losses, launches=counts, launches_per_step=per_step, **name_power)
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3662,6 +4008,20 @@ def main() -> int:
     run_swa_consistency(torch, mods)
     train_moe_counts = run_train_moe(torch, mods, {"device": name, "power": smi})
 
+    # head dim 256 and the VLM prefix: gemma-7b and paligemma-3b
+    torch.cuda.empty_cache()
+    gemma_serve_counts, _ = run_serve_zoo(torch, mods, "gemma-7b", "serve_gemma",
+                                          {"device": name, "power": smi})
+    torch.cuda.empty_cache()
+    pali_serve_counts, _ = run_serve_zoo(torch, mods, VLM_ARCH, "serve_paligemma",
+                                         {"device": name, "power": smi})
+    torch.cuda.empty_cache()
+    run_vlm_consistency(torch, mods)
+    torch.cuda.empty_cache()
+    run_zoo256_parity(torch, mods)
+    torch.cuda.empty_cache()
+    train_pali_counts = run_train_paligemma(torch, mods, {"device": name, "power": smi})
+
     for kr in kernels:
         n = kr["name"]
         kr["launches"] = (dense_counts[n] + int8_counts[n] + serve_counts[n]
@@ -3670,14 +4030,16 @@ def main() -> int:
                           + hetero_counts[n] + paper_dp_counts[n]
                           + comm_counts[n] + sharded_counts[n]
                           + sharded_train_counts[n] + moe_serve_counts[n]
-                          + glm_serve_counts[n] + train_moe_counts[n])
+                          + glm_serve_counts[n] + train_moe_counts[n]
+                          + gemma_serve_counts[n] + pali_serve_counts[n]
+                          + train_pali_counts[n])
         check(kr["launches"] > 0 or not kr.get("main_path", True),
               f"{n} never launched on a main path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("cold_ms", "library_cold_ms", "floor_ms",  # where measured
              "main_path", "bits_operand_ms", "train_step_ms", "train_launches",
-             "train_bound_ms", "train_bound_by")
+             "train_bound_ms", "train_bound_by", "d256")
     import torch.distributed as dist
     if dist.is_initialized():
         dist.destroy_process_group()

@@ -8,14 +8,16 @@ from dataclasses import dataclass
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """``repro.configs.base.ModelConfig`` cut to the decoder-only
-    transformer (dense and MoE, tied or untied embeddings, causal attention
-    with an optional sliding window): the fields its forward and backward
-    read (``remat``: each layer recomputed in the backward), plus
-    ``num_prefix_tokens`` so that a VLM config is recognised and
-    refused."""
+    """``repro.configs.base.ModelConfig`` cut to the families the port
+    runs: the decoder-only transformer (dense, MoE and the VLM's
+    prefix-LM decoder; tied or untied embeddings, causal attention with an
+    optional sliding window, SwiGLU, GeGLU or GELU) and the paper's MLP
+    (``mlp``): the fields their forward and backward read (``remat``: each
+    layer recomputed in the backward; ``frontend`` and
+    ``num_prefix_tokens``: the stubbed modality frontend whose embeddings a
+    VLM batch carries)."""
     name: str
-    family: str                       # dense | moe (the families ported)
+    family: str                       # dense | moe | vlm | mlp (the families ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -29,13 +31,14 @@ class ModelConfig:
     moe_d_ff: int = 0                 # per-expert hidden dim (d_ff: the dense part)
     dense_residual: bool = False      # arctic-style dense MLP beside the MoE
     capacity_factor: float = 1.25
-    activation: str = "swiglu"
+    activation: str = "swiglu"        # swiglu | geglu | gelu
     qkv_bias: bool = False
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-6
     tie_embeddings: bool = True
     sliding_window: int = 0           # 0 = full causal attention
-    num_prefix_tokens: int = 0
+    frontend: str = "none"            # none | vision (precomputed embeddings)
+    num_prefix_tokens: int = 0        # prefix embeddings a VLM batch carries
     dtype: str = "bfloat16"
     remat: bool = True                # recompute each layer in the backward
     moe_sharding: str = "fsdp"        # fsdp | expert2d (one computation here)

@@ -67,11 +67,13 @@ SIGNATURES = {
         "cohort_sample": [_P, _I, _P, _I, _LL, _I, _I, _P],
     },
     "flash_attention": {
+        # q, k, v, o, strides, lse, b, h, kvh, sq, sk, d, causal, window,
+        # prefix, scale, is_bf16, splits, stream
         "flash_attention": [_P, _P, _P, _P, _PLL, _P, _LL, _I, _I, _I, _I, _I,
-                            _I, _I, _F, _I, _I, _P],
+                            _I, _I, _I, _F, _I, _I, _P],
         # q, k, v, o, do, lse, dq, dk, dv, delta, strides, b, h, kvh, sq,
-        # sk, d, causal, window, scale, is_bf16, stream
-        "flash_attention_bwd": [_P] * 10 + [_PLL, _LL] + [_I] * 7
+        # sk, d, causal, window, prefix, scale, is_bf16, stream
+        "flash_attention_bwd": [_P] * 10 + [_PLL, _LL] + [_I] * 8
         + [_F, _I, _P],
     },
 }

@@ -1,7 +1,10 @@
 // Flash attention forward for Hopper (sm_90a): online-softmax attention
 // with GQA, a causal mask that is right-aligned when Sq < Sk (query row i
-// sits at position i + Sk - Sq), an optional sliding window, and fully
-// masked rows giving 0 (never NaN). q: (B, H, Sq, D); k, v: (B, KV, Sk, D);
+// sits at position i + Sk - Sq), an optional sliding window, an optional
+// prefix-LM block (every row sees the keys at positions below prefix_len,
+// inside or outside its window: the reference's (causal ∧ window) ∨ k_pos <
+// prefix_len), and fully masked rows giving 0 (never NaN). Head dims 32, 64,
+// 128 and 256. q: (B, H, Sq, D); k, v: (B, KV, Sk, D);
 // o: (B, H, Sq, D); query head h reads KV head h / (H / KV). Every operand is
 // addressed through its own (b, h, s) element strides with a contiguous last
 // dimension, so decode reads the first pos+1 rows of a (B, S, KV, D) cache
@@ -35,7 +38,10 @@
 // element. The output goes out through the q tile in shared memory as
 // 16-byte stores. What still bounds it: a block's tiles run one after the
 // other (2 blocks an SM, at 208 registers a thread at D = 128), with the
-// copies, the softmax and both products each a part of the time.
+// copies, the softmax and both products each a part of the time. At D = 256
+// the O accumulator is 128 registers a thread, P·V two m64n128k16 products
+// on the two halves of V (their fragments are O's two halves), and the
+// 164,864 bytes of tiles leave one block an SM.
 //
 // bf16 decode (rep·Sq <= 16 query rows per KV head), flash_split_kernel.
 // Bound: the cache bytes (at the serve path's decode, 543 rows of 2 KV heads
@@ -53,7 +59,9 @@
 // that merges them, so no block receives more than its share; one cluster
 // barrier later every block merges its chunks from its own shared memory
 // with weights exp2(m_s - M), an empty split (m = -inf) weighing 0. No
-// scratch in global memory, no second launch.
+// scratch in global memory, no second launch. Its tiles and the merge buffer
+// are dynamic shared memory, and the splits are capped (split_cap) so that
+// both fit a block's 227 KB: 16 up to D = 128, 9 at D = 256.
 //
 // fp32, flash_f32_kernel: exact fp32 on the CUDA cores (TF32 would break the
 // fp32 tolerances the serve parity gates hold). One block per (64-row q
@@ -94,13 +102,20 @@
 //     conflict-free) by ldmatrix, transposed where the product needs it,
 //     and dS (or Pᵀ, dSᵀ) rounded to bf16 straight from the accumulator
 //     fragments as the A operand of the next product, as in the decode
-//     kernel's P·V. The dq kernel: 4 warps, 16 of the block's 64 q rows
-//     each, against 64-key tiles in a two-stage cp.async ring; delta from
-//     16-byte loads of O and dO, all in flight at once. The dk/dv kernel:
+//     kernel's P·V. A tile (dq) or step (dk/dv) whose rows all see all of
+//     its keys takes no element mask. The dq kernel: 4 warps, 16 of the
+//     block's 64 q rows each, against 64-key tiles in a two-stage cp.async
+//     ring; delta from 16-byte loads of O and dO, all in flight at once.
+//     The dk/dv kernel:
 //     64 keys a block, 16 a warp, in two groups of 4 warps that take the
 //     (head, 32-row q tile) steps in turn, each group with its own
 //     two-stage ring and named barrier; the groups' dK and dV are added in
-//     order through shared memory at the end. What bounds them: the dk/dv
+//     order through shared memory at the end. At D = 256 a warp's dK and dV
+//     for its 16 keys across all of D would take 256 fp32 registers a
+//     thread, so there the two groups split D instead: both walk every step
+//     (each recomputing S and dP over the full D), and group w holds and
+//     writes dK and dV of columns 128·w .. 128·w + 127 only, 128 registers
+//     a thread, with nothing to add at the end. What bounds them: the dk/dv
 //     kernel has one block per (key tile, KV head, batch), 128 at the train
 //     shape, fewer than the SMs, and its first key tile walks every q tile
 //     of every head of the group (causal): that block sets its time.
@@ -128,6 +143,21 @@ constexpr unsigned FULL = 0xffffffffu;
 struct Strides {
   long long b, h, s;                 // in elements; the D axis has stride 1
 };
+
+// whether the query at position qp sees the key at position kp (< Sk): the
+// causal and window rule, or (PFX) kp inside the prefix. The bf16 kernels
+// are built twice, with PFX for calls with a prefix and without it, so
+// that a call with none runs no prefix test; the flags are tested in
+// branches on kernel arguments and the prefix joins by a bitwise or (a
+// short-circuit form made the D = 128 backward 20% slower, PERF.md).
+template <bool PFX = true>
+__device__ __forceinline__ bool sees(int qp, int kp, int causal, int window, int prefix) {
+  bool ok = true;
+  if (causal) ok = kp <= qp;
+  if (window) ok = ok && qp - kp < window;
+  if constexpr (PFX) ok = ok | (kp < prefix);
+  return ok;
+}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -322,15 +352,23 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x D fp32) += A·B for D <= 128, B from the descriptor db; at D = 256
+// two m64n128k16 products, the second on B's columns 128.. (db_hi): the
+// accumulator fragment of columns 128 + c is entry 64 + i where that of
+// column c is entry i, so the halves of d are the two products' fragments.
 template <int D>
 __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (D == 128)
+                                         uint64_t db, uint64_t db_hi) {
+  if constexpr (D == 256) {
+    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&d[0]), a, db);
+    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&d[64]), a, db_hi);
+  } else if constexpr (D == 128) {
     wgmma_rs_n128(d, a, db);
-  else if constexpr (D == 64)
+  } else if constexpr (D == 64) {
     wgmma_rs_n64(d, a, db);
-  else
+  } else {
     wgmma_rs_n32(d, a, db);
+  }
 }
 
 // ROWS rows of a D-wide bf16 operand (row i at src + i·stride) into a Tile
@@ -363,12 +401,12 @@ constexpr int tc_smem_bytes() {      // q tile, 2 K and 2 V tiles, 1 KB to align
   return (TC_BQ + 4 * TC_BK) * D * (int)sizeof(bf16) + 1024;
 }
 
-template <int D>
+template <int D, bool PFX>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, bf16* __restrict__ o, Strides qs, Strides ks,
                 Strides vs, Strides os, int rep, int sq, int sk, int causal, int window,
-                float scale_log2, float* __restrict__ lse) {
+                int prefix, float scale_log2, float* __restrict__ lse) {
   using T = Tile<D>;
   constexpr int W = T::W, CPR = D / 8;
   extern __shared__ unsigned char smem_raw[];
@@ -388,11 +426,16 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vb = v + b * vs.b + (h / rep) * vs.h;
   bf16* ob = o + b * os.b + h * os.h;
 
-  // the key tiles any row of this block can see
+  // the key tiles any row of this block can see (with a prefix, from the
+  // first: the tiles between the prefix and a window are masked in full)
   const int off = sk - sq;
   const int last = min(q0 + TC_BQ, sq) - 1;
-  const int k_end = causal ? min(sk, last + off + 1) : sk;
-  const int k_beg = window ? max(0, q0 + off - window + 1) : 0;
+  int k_end = causal ? min(sk, last + off + 1) : sk;
+  int k_beg = window ? max(0, q0 + off - window + 1) : 0;
+  if constexpr (PFX) {
+    k_end = max(k_end, min(prefix, sk));
+    k_beg = 0;
+  }
   const int t_beg = k_beg / TC_BK;
   const int t_end = k_end > 0 ? (k_end + TC_BK - 1) / TC_BK : 0;
 
@@ -446,24 +489,24 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* vt = v_s + (t & 1) * TC_BK * D;
 #pragma unroll
     for (int kk = 0; kk < TC_BK / 16; ++kk)
-      wgmma_rs<D>(acc, pa[kk], smem_desc(vt + 16 * kk * W, TC_BK * W * 2, T::SBO, T::SWIZZLE));
+      wgmma_rs<D>(acc, pa[kk], smem_desc(vt + 16 * kk * W, TC_BK * W * 2, T::SBO, T::SWIZZLE),
+                  smem_desc(vt + 16 * kk * W + 2 * TC_BK * W, TC_BK * W * 2, T::SBO, T::SWIZZLE));
     wgmma_commit();
   };
   // S of tile t -> p = exp2(s·scale - m) in s, the new m and l, and alpha,
   // the factor the accumulator must take before this tile's P·V is added
   auto softmax = [&](int t) {
     const int t0 = t * TC_BK;
-    const bool edge = t0 + TC_BK > sk || (causal && t0 + TC_BK - 1 > q0 + off) ||
-                      (window && q0 + TC_BQ - 1 + off - t0 >= window);
+    const bool edge = t0 + TC_BK > sk ||
+                      (!(PFX && t0 + TC_BK <= prefix) &&
+                       ((causal && t0 + TC_BK - 1 > q0 + off) ||
+                        (window && q0 + TC_BQ - 1 + off - t0 >= window)));
     if (edge) {
 #pragma unroll
       for (int i = 0; i < TC_BK / 2; ++i) {
         const int kp = t0 + (i >> 2) * 8 + 2 * tig + (i & 1);
         const int qp = qp0 + ((i >> 1) & 1) * 8;
-        bool ok = kp < sk;
-        if (causal) ok = ok && kp <= qp;
-        if (window) ok = ok && qp - kp < window;
-        if (!ok) s[i] = -INFINITY;
+        if (!(kp < sk && sees<PFX>(qp, kp, causal, window, prefix))) s[i] = -INFINITY;
       }
     }
     // rows g (r = 0) and g+8 (r = 1); a row's 64 scores lie in its quad
@@ -620,22 +663,46 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// Bytes of each block's merge buffer (dynamic shared memory): every split's
-// unnormalised O for the group's rows (of which the block receives only the
-// 4-column chunks it merges), then every split's (m, l) per row.
+// A split block's dynamic shared memory, in bytes: the q rows, the K and V
+// tiles (row pitch D + 8), the scaled scores, P in bf16, then the merge
+// buffer: every split's unnormalised O for the group's rows (of which the
+// block receives only the 4-column chunks it merges), then every split's
+// (m, l) per row. Every part starts on a 16-byte boundary.
 template <int D>
-constexpr int split_merge_bytes(int splits, int rows) {
-  return splits * rows * (D + 2) * (int)sizeof(float);
+struct SplitSmem {
+  static constexpr int P = D + 8, PP = SPLIT_BK + 8;
+  static constexpr int K = SPLIT_ROWS * P * (int)sizeof(bf16);
+  static constexpr int V = K + SPLIT_BK * P * (int)sizeof(bf16);
+  static constexpr int S = V + SPLIT_BK * P * (int)sizeof(bf16);
+  static constexpr int PS = S + SPLIT_ROWS * (SPLIT_BK + 1) * (int)sizeof(float);
+  static constexpr int MERGE = PS + SPLIT_ROWS * PP * (int)sizeof(bf16);
+  static_assert(S % 16 == 0 && PS % 16 == 0 && MERGE % 16 == 0, "16-byte parts");
+  static constexpr int bytes(int splits, int rows) {
+    return MERGE + splits * rows * (D + 2) * (int)sizeof(float);
+  }
+};
+constexpr int SMEM_OPT_IN_MAX = 232448;   // a block's shared memory on an H100: 227 KB
+
+// The most key splits whose tiles and merge buffer (for SPLIT_ROWS rows) fit
+// a block's shared memory beside the kernel's static arrays and 1 KB to
+// spare: 16 up to D = 128, 9 at D = 256.
+template <int D>
+constexpr int split_cap() {
+  int n = SPLIT_MAX;
+  while (n > 1 && SplitSmem<D>::bytes(n, SPLIT_ROWS) > SMEM_OPT_IN_MAX - 1024) --n;
+  return n;
 }
+static_assert(split_cap<128>() == SPLIT_MAX && split_cap<256>() == 9,
+              "the caps flash_attention.py's decode_splits assumes");
 
 // One block per (key split, KV head, batch); the splits of a (batch, KV head)
 // form one cluster of `splits` blocks along x.
-template <int D>
+template <int D, bool PFX>
 __global__ void __launch_bounds__(SPLIT_THREADS)
 flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, bf16* __restrict__ o, Strides qs, Strides ks,
                    Strides vs, Strides os, int rep, int sq, int sk, int causal, int window,
-                   float scale_log2, int chunk) {
+                   int prefix, float scale_log2, int chunk) {
   constexpr int THREADS = SPLIT_THREADS, R = SPLIT_ROWS, BK = SPLIT_BK;
   constexpr int CPR = D / 8, P = D + 8;        // 16-byte chunks a row; q, K, V row pitch
   constexpr int PP = BK + 8;                   // P's row pitch
@@ -644,13 +711,15 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   static_assert(BK == 8 * (THREADS / 32), "a warp scores 8 keys of a tile");
   static_assert(BK * CPR % THREADS == 0, "whole K/V tiles a thread");
   static_assert(R * D * sizeof(float) <= BK * P * sizeof(bf16), "the partial fits in k_s");
-  __shared__ __align__(16) bf16 q_s[R * P];
-  __shared__ __align__(16) bf16 k_s[BK * P];   // after the walk: this split's partial
-  __shared__ __align__(16) bf16 v_s[BK * P];
-  __shared__ float s_s[R][BK + 1];             // scaled scores
-  __shared__ __align__(16) bf16 p_s[R * PP];   // P in bf16, the A operand of P·V
+  using SM = SplitSmem<D>;
+  extern __shared__ __align__(16) unsigned char split_smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(split_smem);
+  bf16* k_s = reinterpret_cast<bf16*>(split_smem + SM::K);   // after the walk: the partial
+  bf16* v_s = reinterpret_cast<bf16*>(split_smem + SM::V);
+  auto s_s = reinterpret_cast<float(*)[BK + 1]>(split_smem + SM::S);   // scaled scores
+  bf16* p_s = reinterpret_cast<bf16*>(split_smem + SM::PS);  // P in bf16, the A operand of P·V
+  float* merge_s = reinterpret_cast<float*>(split_smem + SM::MERGE);
   __shared__ float m_s[R], l_s[R], a_s[R];
-  extern __shared__ __align__(16) float merge_s[];   // split_merge_bytes
 
   // every block of the cluster is running before any writes to another
   // block's shared memory: arrive here, wait just before those writes
@@ -667,7 +736,7 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto o_row = [&](int r) { return o + b * os.b + (grp * rep + r / sq) * os.h + (r % sq) * os.s; };
 
   // this split's keys, cut to those some row can see (possibly none)
-  const int k_lo = window ? max(0, off - window + 1) : 0;
+  const int k_lo = window && !PFX ? max(0, off - window + 1) : 0;
   const int k_first = max(split * chunk, k_lo), k_stop = min((split + 1) * chunk, sk);
   // keys t0.. of the split by cp.async, zeros past it: K, then V, one group each
   auto load = [&](bf16* dst, const bf16* src, long long stride, int t0) {
@@ -735,9 +804,7 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 4; ++e) {
         const int r = g + 8 * (e >> 1), j = warp * 8 + 2 * t + (e & 1);
         const int kp = t0 + j, qp = e < 2 ? qp0 : qp1;
-        bool ok = j < n && qp >= 0;
-        if (causal) ok = ok && kp <= qp;
-        if (window) ok = ok && qp - kp < window;
+        const bool ok = j < n && qp >= 0 && sees<PFX>(qp, kp, causal, window, prefix);
         s_s[r][j] = ok ? s[e] * scale_log2 : -INFINITY;
       }
     }
@@ -915,7 +982,7 @@ __global__ void __launch_bounds__(W * 32)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, Strides qs,
                  Strides ks, Strides vs, Strides os, int rep, int sq, int sk,
-                 int causal, int window, float scale, float* __restrict__ lse) {
+                 int causal, int window, int prefix, float scale, float* __restrict__ lse) {
   extern __shared__ __align__(16) float smem[];
   constexpr int bq = W * R;
   float* q_s = smem;                     // (bq, D)
@@ -937,8 +1004,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // the keys any row of this block can see
   const int off = sk - sq;
   const int last = min(q0 + bq, sq) - 1;
-  const int k_end = causal ? min(sk, last + off + 1) : sk;
-  const int k_beg = window ? max(0, q0 + off - window + 1) : 0;
+  const int k_end = max(causal ? min(sk, last + off + 1) : sk, min(prefix, sk));
+  const int k_beg = window && prefix <= 0 ? max(0, q0 + off - window + 1) : 0;
 
   float m[R], l[R], acc[R][D / 32];
 #pragma unroll
@@ -981,9 +1048,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int qp = q0 + warp * R + r + off;
-      bool ok = kp < sk;
-      if (causal) ok = ok && kp <= qp;
-      if (window) ok = ok && qp - kp < window;
+      const bool ok = kp < sk && sees(qp, kp, causal, window, prefix);
       const float sc = ok ? s[r] * scale : F32_NEG_INF;
       const float m_new = fmaxf(m[r], warp_max(sc));
       const float p = ok ? expf(sc - m_new) : 0.0f;
@@ -1061,19 +1126,17 @@ struct BwdArgs {
   float* delta;
   Strides q_st, k_st, v_st, o_st, do_st, dq_st, dk_st, dv_st;
   long long b;
-  int h, kvh, rep, sq, sk, causal, window;
+  int h, kvh, rep, sq, sk, causal, window, prefix;
   float scale;
   cudaStream_t stream;
 };
 
 // whether query row i (position i + off) sees key kp
+template <bool PFX = true>
 __device__ __forceinline__ bool visible(int i, int kp, int sq, int sk, int off, int causal,
-                                        int window) {
-  const int qp = i + off;
-  bool ok = i < sq && kp < sk;
-  if (causal) ok = ok && kp <= qp;
-  if (window) ok = ok && qp - kp < window;
-  return ok;
+                                        int window, int prefix) {
+  const bool in = i < sq && kp < sk;
+  return in & sees<PFX>(i + off, kp, causal, window, prefix);
 }
 
 // The S and dP of rows a_s (q or its rows) against b_s (k), thread t's 2×2
@@ -1085,7 +1148,7 @@ __device__ __forceinline__ void bwd_scores(const float* q_s, const float* do_s, 
                                            const float* v_s, const float* lse_s,
                                            const float* delta_s, float* p_s, float* ds_s,
                                            int i0, int k0, int sq, int sk, int off, int causal,
-                                           int window, float scale) {
+                                           int window, int prefix, float scale) {
   const int ti = threadIdx.x / 16, tj = threadIdx.x % 16;
   float s[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}}, dp[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
   const float* q0 = q_s + (2 * ti) * (D + 1);
@@ -1112,7 +1175,8 @@ __device__ __forceinline__ void bwd_scores(const float* q_s, const float* do_s, 
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
       const int j = 2 * tj + c;
-      const bool ok = l != -INFINITY && visible(i0 + r, k0 + j, sq, sk, off, causal, window);
+      const bool ok =
+          l != -INFINITY && visible(i0 + r, k0 + j, sq, sk, off, causal, window, prefix);
       const float p = ok ? expf(s[a][c] * scale - l) : 0.0f;
       if (p_s != nullptr) p_s[r * (BWD_BK + 1) + j] = p;
       ds_s[r * (BWD_BK + 1) + j] = p * (dp[a][c] - delta_s[r]) * scale;
@@ -1163,8 +1227,8 @@ flash_bwd_dq_kernel(BwdArgs a) {
 
   // the key tiles any row of this block can see
   const int last = min(q0 + BWD_BQ, a.sq) - 1;
-  const int k_end = a.causal ? min(a.sk, last + off + 1) : a.sk;
-  const int k_beg = a.window ? max(0, q0 + off - a.window + 1) : 0;
+  const int k_end = max(a.causal ? min(a.sk, last + off + 1) : a.sk, min(a.prefix, a.sk));
+  const int k_beg = a.window && a.prefix <= 0 ? max(0, q0 + off - a.window + 1) : 0;
 
   const int rg = threadIdx.x / 16, cl = threadIdx.x % 16;   // rows rg, rg + 16
   float acc[2][NC];
@@ -1179,7 +1243,7 @@ flash_bwd_dq_kernel(BwdArgs a) {
     stage_bwd<D, BWD_BK>(v_s, vb + (int64_t)k0 * a.v_st.s, a.v_st.s, a.sk - k0);
     __syncthreads();
     bwd_scores<D>(q_s, do_s, k_s, v_s, lse_s, delta_s, nullptr, ds_s, q0, k0, a.sq, a.sk, off,
-                  a.causal, a.window, a.scale);
+                  a.causal, a.window, a.prefix, a.scale);
     __syncthreads();
     // dQ += dS·K
 #pragma unroll 4
@@ -1226,10 +1290,12 @@ flash_bwd_dkdv_kernel(BwdArgs a) {
   stage_bwd<D, BWD_BK>(k_s, kb + (int64_t)k0 * a.k_st.s, a.k_st.s, a.sk - k0);
   stage_bwd<D, BWD_BK>(v_s, vb + (int64_t)k0 * a.v_st.s, a.v_st.s, a.sk - k0);
 
-  // the query rows that see some key of this tile
+  // the query rows that see some key of this tile (all, when it holds a
+  // prefix key)
   const int k_last = min(k0 + BWD_BK, a.sk) - 1;
-  const int i_beg = a.causal ? max(0, k0 - off) : 0;
-  const int i_end = a.window ? min(a.sq, k_last + a.window - off) : a.sq;
+  const bool pre = k0 < a.prefix;
+  const int i_beg = a.causal && !pre ? max(0, k0 - off) : 0;
+  const int i_end = a.window && !pre ? min(a.sq, k_last + a.window - off) : a.sq;
 
   const int rg = threadIdx.x / 16, cl = threadIdx.x % 16;   // keys rg, rg + 16
   float dk[2][NC], dv[2][NC];
@@ -1253,7 +1319,7 @@ flash_bwd_dkdv_kernel(BwdArgs a) {
       }
       __syncthreads();
       bwd_scores<D>(q_s, do_s, k_s, v_s, lse_s, delta_s, p_s, ds_s, q0, k0, a.sq, a.sk, off,
-                    a.causal, a.window, a.scale);
+                    a.causal, a.window, a.prefix, a.scale);
       __syncthreads();
       // dV += Pᵀ·dO, dK += dSᵀ·Q
 #pragma unroll 4
@@ -1301,9 +1367,6 @@ template <int D>
 constexpr int tb_dkdv_smem() {       // K, V (64 rows); per group 2 stages of q and dO (32 rows)
   return (2 * TB_BK + TB_GROUPS * 4 * TB_KQ) * (D + 8) * (int)sizeof(bf16);
 }
-static_assert(TB_BK * 128 * 2 * sizeof(float) <= TB_GROUPS * 4 * TB_KQ * (128 + 8) * sizeof(bf16),
-              "a group's dk, dv fit in the q and dO stages");
-
 // 4 bytes global -> shared; zeros when !valid (src is then not read)
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
@@ -1385,7 +1448,7 @@ __device__ __forceinline__ void mma_rows(float (&acc)[D / 8][4], const uint32_t 
   }
 }
 
-template <int D>
+template <int D, bool PFX>
 __global__ void __launch_bounds__(TB_THREADS)
 flash_bwd_dq_tc_kernel(BwdArgs a) {
   constexpr int P = D + 8, NT = D / 8, KT = TB_BK / 8;
@@ -1409,8 +1472,10 @@ flash_bwd_dq_tc_kernel(BwdArgs a) {
 
   // the key tiles any row of this block can see
   const int last = min(q0 + TB_BQ, a.sq) - 1;
-  const int k_end = a.causal ? min(a.sk, last + off + 1) : a.sk;
-  const int k_first = a.window ? (max(0, q0 + off - a.window + 1) / TB_BK) * TB_BK : 0;
+  const int k_end =
+      PFX ? max(a.causal ? min(a.sk, last + off + 1) : a.sk, min(a.prefix, a.sk))
+          : (a.causal ? min(a.sk, last + off + 1) : a.sk);
+  const int k_first = a.window && !PFX ? (max(0, q0 + off - a.window + 1) / TB_BK) * TB_BK : 0;
   const int tiles = k_end > k_first ? (k_end - k_first + TB_BK - 1) / TB_BK : 0;
   auto load_kv = [&](int i) {        // key tile i into stage i % 2
     const int k0 = k_first + i * TB_BK;
@@ -1490,14 +1555,21 @@ flash_bwd_dq_tc_kernel(BwdArgs a) {
         mma_nt2<P>(dp[n], dp[n + 1], ado, vs, n * 8, kk, lane);
       }
     }
-    // dS = P∘(dP - delta)·scale, P = exp(S·scale - lse), into s
+    // dS = P∘(dP - delta)·scale, P = exp(S·scale - lse), into s; a tile
+    // that every row of the block sees whole takes no element mask
+    const bool whole = k0 + TB_BK <= a.sk && q0 + TB_BQ <= a.sq &&
+                       ((PFX && k0 + TB_BK <= a.prefix) ||
+                        ((!a.causal || k0 + TB_BK - 1 <= q0 + off) &&
+                         (!a.window || q0 + TB_BQ - 1 + off - k0 < a.window)));
 #pragma unroll
     for (int n = 0; n < KT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int row = e < 2 ? r0 : r1, key = k0 + n * 8 + 2 * t + (e & 1);
         const float l = e < 2 ? l0 : l1;
-        const bool ok = l != -INFINITY && visible(row, key, a.sq, a.sk, off, a.causal, a.window);
+        const bool ok = l != -INFINITY &&
+                        (whole || visible<PFX>(row, key, a.sq, a.sk, off, a.causal,
+                                               a.window, a.prefix));
         const float p = ok ? exp2f(s[n][e] * scale_log2 - l) : 0.0f;
         s[n][e] = p * (dp[n][e] - (e < 2 ? dl0 : dl1)) * a.scale;
       }
@@ -1524,14 +1596,21 @@ flash_bwd_dq_tc_kernel(BwdArgs a) {
 }
 
 // The dk/dv kernel: TB_GROUPS warp groups of 4 warps, all on the block's
-// 64 keys (a warp 16 of them); the (head, q tile) steps of the group's
-// heads are dealt out to the groups in turn, each group with its own
-// two-stage ring and named barrier, and at the end the groups' dK and dV
-// are added in order through shared memory.
-template <int D>
+// 64 keys (a warp 16 of them). Up to D = 128 the (head, q tile) steps of
+// the group's heads are dealt out to the groups in turn, each group with its
+// own two-stage ring and named barrier, and at the end the groups' dK and dV
+// are added in order through shared memory. At D = 256 (SPLIT_D) every
+// group walks every step in its own ring, and group w accumulates dK and dV
+// of the DC = 128 columns from 128·w only.
+template <int D, bool PFX>
 __global__ void __launch_bounds__(TB_GROUPS * TB_THREADS)
 flash_bwd_dkdv_tc_kernel(BwdArgs a) {
-  constexpr int P = D + 8, NT = D / 8, QT = TB_KQ / 8;
+  constexpr bool SPLIT_D = D > 128;
+  constexpr int P = D + 8, DC = SPLIT_D ? D / TB_GROUPS : D, NT = DC / 8, QT = TB_KQ / 8;
+  constexpr int STEP = SPLIT_D ? 1 : TB_GROUPS;   // steps between a group's own
+  static_assert(SPLIT_D || TB_BK * D * 2 * sizeof(float) <=
+                               TB_GROUPS * 4 * TB_KQ * (D + 8) * sizeof(bf16),
+                "a group's dk, dv fit in the q and dO stages");
   extern __shared__ __align__(16) unsigned char tb_smem[];
   bf16* k_s = reinterpret_cast<bf16*>(tb_smem);
   bf16* v_s = k_s + TB_BK * P;
@@ -1540,6 +1619,8 @@ flash_bwd_dkdv_tc_kernel(BwdArgs a) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int grp_w = threadIdx.x / TB_THREADS;              // this thread's warp group
   const int gtid = threadIdx.x % TB_THREADS, warp = gtid >> 5;
+  const int col0 = SPLIT_D ? grp_w * DC : 0;                // its first dK, dV column
+  const int first = SPLIT_D ? 0 : grp_w;                    // its first step
   bf16* q_s = v_s + TB_BK * P + grp_w * 4 * TB_KQ * P;    // 2 stages of (TB_KQ, P)
   bf16* do_s = q_s + 2 * TB_KQ * P;                        // 2 stages
   const int grp = blockIdx.y;
@@ -1563,10 +1644,11 @@ flash_bwd_dkdv_tc_kernel(BwdArgs a) {
 
   // the query rows that see some key of this tile, in tiles of TB_KQ, for
   // each of the group's heads: step `it` is head grp·rep + it / n_qt, and
-  // warp group w takes the steps w, w + TB_GROUPS, ...
+  // warp group w takes the steps first, first + STEP, ...
   const int k_last = min(k0 + TB_BK, a.sk) - 1;
-  const int i_beg = a.causal ? max(0, k0 - off) : 0;
-  const int i_end = a.window ? min(a.sq, k_last + a.window - off) : a.sq;
+  const bool pre = PFX && k0 < a.prefix;    // every row sees the tile's first key
+  const int i_beg = a.causal && !pre ? max(0, k0 - off) : 0;
+  const int i_end = a.window && !pre ? min(a.sq, k_last + a.window - off) : a.sq;
   const int qt_beg = (i_beg / TB_KQ) * TB_KQ;
   const int n_qt = i_end > qt_beg ? (i_end - qt_beg + TB_KQ - 1) / TB_KQ : 0;
   const int total = a.rep * n_qt;
@@ -1590,7 +1672,7 @@ flash_bwd_dkdv_tc_kernel(BwdArgs a) {
         cp_async4(&delta_s[grp_w][j][r], a.delta + row, i < a.sq);
     }
   };
-  if (grp_w < total) load_q(grp_w, 0);
+  if (first < total) load_q(first, 0);
   cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();                   // K and V are in for every thread
@@ -1602,8 +1684,8 @@ flash_bwd_dkdv_tc_kernel(BwdArgs a) {
     for (int e = 0; e < 4; ++e) dk[nt][e] = dv[nt][e] = 0.0f;
   const int kr0 = k0 + warp * 16 + g, kr1 = kr0 + 8;      // this thread's keys
 
-  for (int it = grp_w, j = 0; it < total; it += TB_GROUPS, j ^= 1) {
-    if (it + TB_GROUPS < total) load_q(it + TB_GROUPS, j ^ 1);   // in flight under this one
+  for (int it = first, j = 0; it < total; it += STEP, j ^= 1) {
+    if (it + STEP < total) load_q(it + STEP, j ^ 1);   // in flight under this one
     cp_async_commit();
     cp_async_wait<1>();
     group_sync();                    // step it is in for every thread of the group
@@ -1627,13 +1709,20 @@ flash_bwd_dkdv_tc_kernel(BwdArgs a) {
         mma_nt2<P>(dpt[n], dpt[n + 1], av, dos, n * 8, kk, lane);
       }
     }
-    // Pᵀ into st, dSᵀ into dpt
+    // Pᵀ into st, dSᵀ into dpt; at D = 256 a step whose rows all see every
+    // key of the block takes no element mask (at D <= 128 the test cost
+    // more than it saved)
+    const bool whole = SPLIT_D && k0 + TB_BK <= a.sk && q0 + TB_KQ <= a.sq &&
+                       ((PFX && k0 + TB_BK <= a.prefix) ||
+                        ((!a.causal || k0 + TB_BK - 1 <= q0 + off) &&
+                         (!a.window || q0 + TB_KQ - 1 + off - k0 < a.window)));
 #pragma unroll
     for (int n = 0; n < QT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int ql = n * 8 + 2 * t + (e & 1), key = e < 2 ? kr0 : kr1;
-        const bool ok = visible(q0 + ql, key, a.sq, a.sk, off, a.causal, a.window);
+        const bool ok =
+            whole || visible<PFX>(q0 + ql, key, a.sq, a.sk, off, a.causal, a.window, a.prefix);
         const float l = lse_s[grp_w][j][ql] * LOG2E;
         const float p = ok && l != -INFINITY ? exp2f(st[n][e] * scale_log2 - l) : 0.0f;
         st[n][e] = p;
@@ -1645,8 +1734,8 @@ flash_bwd_dkdv_tc_kernel(BwdArgs a) {
       uint32_t ap[4], ads[4];
       a_from_c(ap, st[2 * kk], st[2 * kk + 1]);
       a_from_c(ads, dpt[2 * kk], dpt[2 * kk + 1]);
-      mma_rows<D, P>(dv, ap, dos, kk * 16, lane);
-      mma_rows<D, P>(dk, ads, qs, kk * 16, lane);
+      mma_rows<DC, P>(dv, ap, dos + col0, kk * 16, lane);
+      mma_rows<DC, P>(dk, ads, qs + col0, kk * 16, lane);
     }
     group_sync();                    // this stage is consumed before it is refilled
   }
@@ -1655,9 +1744,10 @@ flash_bwd_dkdv_tc_kernel(BwdArgs a) {
 
   // the groups' sums added in order: group w > 0 leaves its dK, dV in the
   // q/dO stages (entry e of thread gtid at e·TB_THREADS + gtid), group 0
-  // adds them and writes the result
+  // adds them and writes the result; with SPLIT_D each group writes its own
+  // columns
   float* red = reinterpret_cast<float*>(v_s + TB_BK * P);
-  for (int w = 1; w < TB_GROUPS; ++w) {
+  for (int w = 1; w < (SPLIT_D ? 1 : TB_GROUPS); ++w) {
     if (grp_w == w) {
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
@@ -1679,10 +1769,10 @@ flash_bwd_dkdv_tc_kernel(BwdArgs a) {
     }
     __syncthreads();
   }
-  if (grp_w != 0) return;
+  if (!SPLIT_D && grp_w != 0) return;
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
-    const int col = nt * 8 + 2 * t;
+    const int col = col0 + nt * 8 + 2 * t;
     if (kr0 < a.sk) {
       *reinterpret_cast<__nv_bfloat162*>(dkb + (int64_t)kr0 * a.dk_st.s + col) =
           __floats2bfloat162_rn(dk[nt][0], dk[nt][1]);
@@ -1708,7 +1798,7 @@ struct Args {
   float* lse;                        // (B, H, Sq) fp32, or null
   Strides st[4];
   long long b;
-  int h, kvh, rep, sq, sk, causal, window;
+  int h, kvh, rep, sq, sk, causal, window, prefix;
   float scale;
   cudaStream_t stream;
 };
@@ -1733,42 +1823,44 @@ int launch_f32(const Args& a) {
   const dim3 grid((unsigned)((a.sq + bq - 1) / bq), (unsigned)a.h, (unsigned)a.b);
   flash_f32_kernel<D, R, W><<<grid, W * 32, bytes, a.stream>>>(
       (const float*)a.q, (const float*)a.k, (const float*)a.v, (float*)a.o, a.st[0], a.st[1],
-      a.st[2], a.st[3], a.rep, a.sq, a.sk, a.causal, a.window, a.scale, a.lse);
+      a.st[2], a.st[3], a.rep, a.sq, a.sk, a.causal, a.window, a.prefix, a.scale, a.lse);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool PFX>
 int launch_tc(const Args& a) {
   constexpr int bytes = tc_smem_bytes<D>();
   static bool opted = false;
-  if (int e = opt_in(flash_tc_kernel<D>, bytes, opted)) return e;
+  if (int e = opt_in(flash_tc_kernel<D, PFX>, bytes, opted)) return e;
   const dim3 grid((unsigned)((a.sq + TC_BQ - 1) / TC_BQ), (unsigned)a.h, (unsigned)a.b);
-  flash_tc_kernel<D><<<grid, TC_THREADS, bytes, a.stream>>>(
+  flash_tc_kernel<D, PFX><<<grid, TC_THREADS, bytes, a.stream>>>(
       (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v, (bf16*)a.o, a.st[0], a.st[1],
-      a.st[2], a.st[3], a.rep, a.sq, a.sk, a.causal, a.window, a.scale * LOG2E, a.lse);
+      a.st[2], a.st[3], a.rep, a.sq, a.sk, a.causal, a.window, a.prefix, a.scale * LOG2E,
+      a.lse);
   return (int)cudaGetLastError();
 }
 
 // a cluster of `splits` blocks along x; above 8 (the portable most) a
 // cluster must be allowed, and above 48 KB of shared memory a block's must be
 // opted into, once per kernel
-template <int D>
+template <int D, bool PFX>
 int launch_split(const Args& a, int chunk, int splits) {
+  if (splits > split_cap<D>()) return (int)cudaErrorInvalidValue;
   static bool allowed = false;
   if (!allowed) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_split_kernel<D>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        flash_split_kernel<D, PFX>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(flash_split_kernel<D>,
+      e = cudaFuncSetAttribute(flash_split_kernel<D, PFX>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               split_merge_bytes<D>(SPLIT_MAX, SPLIT_ROWS));
+                               SplitSmem<D>::bytes(split_cap<D>(), SPLIT_ROWS));
     if (e != cudaSuccess) return (int)e;
     allowed = true;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)splits, (unsigned)a.kvh, (unsigned)a.b);
   cfg.blockDim = dim3(SPLIT_THREADS);
-  cfg.dynamicSmemBytes = (size_t)split_merge_bytes<D>(splits, a.rep * a.sq);
+  cfg.dynamicSmemBytes = (size_t)SplitSmem<D>::bytes(splits, a.rep * a.sq);
   cfg.stream = a.stream;
   cudaLaunchAttribute cluster[1];
   cluster[0].id = cudaLaunchAttributeClusterDimension;
@@ -1778,9 +1870,9 @@ int launch_split(const Args& a, int chunk, int splits) {
   cfg.attrs = cluster;
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, flash_split_kernel<D>, (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
+      &cfg, flash_split_kernel<D, PFX>, (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
       (bf16*)a.o, a.st[0], a.st[1], a.st[2], a.st[3], a.rep, a.sq, a.sk, a.causal, a.window,
-      a.scale * LOG2E, chunk);
+      a.prefix, a.scale * LOG2E, chunk);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
@@ -1794,9 +1886,10 @@ int launch_d(const Args& a, int is_bf16, int splits) {
   }
   if (splits > 0) {
     const int chunk = (a.sk + splits - 1) / splits;
-    return launch_split<D>(a, chunk, splits);
+    return a.prefix > 0 ? launch_split<D, true>(a, chunk, splits)
+                        : launch_split<D, false>(a, chunk, splits);
   }
-  return launch_tc<D>(a);
+  return a.prefix > 0 ? launch_tc<D, true>(a) : launch_tc<D, false>(a);
 }
 
 
@@ -1814,37 +1907,41 @@ int launch_bwd_f32(const BwdArgs& a) {
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool PFX>
 int launch_bwd_tc(const BwdArgs& a) {
   static bool opted_dq = false, opted_dkdv = false;
-  if (int e = opt_in(flash_bwd_dq_tc_kernel<D>, tb_dq_smem<D>(), opted_dq)) return e;
-  if (int e = opt_in(flash_bwd_dkdv_tc_kernel<D>, tb_dkdv_smem<D>(), opted_dkdv)) return e;
+  if (int e = opt_in(flash_bwd_dq_tc_kernel<D, PFX>, tb_dq_smem<D>(), opted_dq)) return e;
+  if (int e = opt_in(flash_bwd_dkdv_tc_kernel<D, PFX>, tb_dkdv_smem<D>(), opted_dkdv)) return e;
   const dim3 grid_q((unsigned)((a.sq + TB_BQ - 1) / TB_BQ), (unsigned)a.h, (unsigned)a.b);
-  flash_bwd_dq_tc_kernel<D><<<grid_q, TB_THREADS, tb_dq_smem<D>(), a.stream>>>(a);
+  flash_bwd_dq_tc_kernel<D, PFX><<<grid_q, TB_THREADS, tb_dq_smem<D>(), a.stream>>>(a);
   if (cudaError_t e = cudaGetLastError()) return (int)e;
   const dim3 grid_k((unsigned)((a.sk + TB_BK - 1) / TB_BK), (unsigned)a.kvh, (unsigned)a.b);
-  flash_bwd_dkdv_tc_kernel<D><<<grid_k, TB_GROUPS * TB_THREADS, tb_dkdv_smem<D>(), a.stream>>>(a);
+  flash_bwd_dkdv_tc_kernel<D, PFX>
+      <<<grid_k, TB_GROUPS * TB_THREADS, tb_dkdv_smem<D>(), a.stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_bwd_d(const BwdArgs& a, int is_bf16) {
-  return is_bf16 ? launch_bwd_tc<D>(a) : launch_bwd_f32<D>(a);
+  if (!is_bf16) return launch_bwd_f32<D>(a);
+  return a.prefix > 0 ? launch_bwd_tc<D, true>(a) : launch_bwd_tc<D, false>(a);
 }
 
 }  // namespace
 
 // strides: 12 element strides, (b, h, s) for q, k, v and o in that order;
 // q, k, v 16-byte aligned with their (b, h, s) strides multiples of 16
-// bytes. d in {32, 64, 128}; h a multiple of kvh; b, h at most 65535.
+// bytes. d in {32, 64, 128, 256}; h a multiple of kvh; b, h at most 65535.
+// prefix: keys at positions below it are seen by every row (0: none).
 // splits: 0 for the bf16 prefill kernel; for the bf16 decode kernel the
-// number of key splits (at most 16, each ceil(sk / splits) keys; h / kvh ·
+// number of key splits (at most split_cap: 16, 9 at d = 256; each
+// ceil(sk / splits) keys; h / kvh ·
 // sq <= 16 query rows per group). fp32 ignores splits. lse: null, or (b, h,
 // sq) fp32 for each row's logsumexp (the bf16 prefill and fp32 kernels; a
 // call with splits > 0 and an lse is refused).
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o,
                                const long long* strides, void* lse, long long b, int h, int kvh,
-                               int sq, int sk, int d, int causal, int window,
+                               int sq, int sk, int d, int causal, int window, int prefix,
                                float scale, int is_bf16, int splits, void* stream) {
   if (b <= 0 || sq <= 0) return 0;
   if (kvh <= 0 || h % kvh != 0 || b > 65535 || h > 65535 || sk <= 0 || splits < 0)
@@ -1865,6 +1962,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
   a.sk = sk;
   a.causal = causal;
   a.window = window;
+  a.prefix = prefix;
   a.scale = scale;
   a.stream = (cudaStream_t)stream;
   if (is_bf16 && splits > 0) {
@@ -1875,6 +1973,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
     case 32: return launch_d<32>(a, is_bf16, splits);
     case 64: return launch_d<64>(a, is_bf16, splits);
     case 128: return launch_d<128>(a, is_bf16, splits);
+    case 256: return launch_d<256>(a, is_bf16, splits);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1884,13 +1983,13 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
 // forward, delta written here (scratch of the second kernel). strides: 24
 // element strides, (b, h, s) for q, k, v, o, do, dq, dk and dv in that order,
 // the last dim contiguous, the inputs 16-byte aligned with (b, h, s)
-// strides multiples of 16 bytes. d in {32, 64, 128}. Two launches: dq (and
-// delta), then dk and dv.
+// strides multiples of 16 bytes. d in {32, 64, 128, 256}; prefix as the
+// forward's. Two launches: dq (and delta), then dk and dv.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const void* lse, void* dq, void* dk,
                                    void* dv, void* delta, const long long* strides, long long b,
                                    int h, int kvh, int sq, int sk, int d, int causal, int window,
-                                   float scale, int is_bf16, void* stream) {
+                                   int prefix, float scale, int is_bf16, void* stream) {
   if (b <= 0 || sq <= 0 || sk <= 0) return 0;
   if (kvh <= 0 || h % kvh != 0 || b > 65535 || h > 65535) return (int)cudaErrorInvalidValue;
   BwdArgs a;
@@ -1915,12 +2014,14 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   a.sk = sk;
   a.causal = causal;
   a.window = window;
+  a.prefix = prefix;
   a.scale = scale;
   a.stream = (cudaStream_t)stream;
   switch (d) {
     case 32: return launch_bwd_d<32>(a, is_bf16);
     case 64: return launch_bwd_d<64>(a, is_bf16);
     case 128: return launch_bwd_d<128>(a, is_bf16);
+    case 256: return launch_bwd_d<256>(a, is_bf16);
     default: return (int)cudaErrorInvalidValue;
   }
 }

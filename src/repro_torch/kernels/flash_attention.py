@@ -3,8 +3,11 @@ its launch counter.
 
 Replaces ``src/repro/kernels/flash_attention.py:flash_attention_pallas``
 (``_flash_kernel``): online-softmax attention over q (B, H, Sq, D) and
-k, v (B, KV, Sk, D), GQA through ``h // (H/KV)``, a causal mask that is
-right-aligned when Sq < Sk, an optional sliding window, fully masked rows
+k, v (B, KV, Sk, D), D in {32, 64, 128, 256}, GQA through ``h // (H/KV)``,
+a causal mask that is right-aligned when Sq < Sk, an optional sliding
+window, an optional prefix-LM block (``prefix_len``: every row sees the keys
+at positions below it, inside or outside its window, the rule of the
+reference's ``make_attention_mask`` and ``_cattn_mask``), fully masked rows
 giving 0.
 
 Kernel: ``csrc/flash_attention.cu``, one launch a call, on one of three
@@ -24,7 +27,8 @@ paths chosen here by type and shape:
   rows, padded to 16, are one tensor-core tile (``mma.sync``) for both
   products. The splits of a group form one thread-block cluster and merge
   their partials through distributed shared memory in the same launch: no
-  scratch in global memory, no second pass.
+  scratch in global memory, no second pass. A prefix call never takes it
+  (``decode_splits`` gives 0): the serve path's decode passes no prefix.
 - fp32: exact fp32 on the CUDA cores (the serve parity gates run in fp32).
 
 Lengths need not divide any tile, and every operand is read through its own
@@ -66,11 +70,34 @@ plain = flash_attention_fwd_ref
 plain_bwd = flash_attention_bwd_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 SPLIT_ROWS = 16          # the decode kernel's query rows per KV head, at most
 SPLIT_KEYS = 64          # keys per tile of a decode split
 SPLIT_BLOCKS = 264       # decode blocks wanted: two per SM of an H100
 SPLIT_MAX = 16           # key splits at most: the largest cluster
+SMEM_OPT_IN_MAX = 232_448   # a block's shared memory on an H100 (227 KB)
+
+
+def split_smem_bytes(d: int, splits: int) -> int:
+    """A decode block's dynamic shared memory at SPLIT_ROWS rows (the
+    kernel's ``SplitSmem``): its q rows, K and V tiles (row pitch d + 8,
+    bf16), scores (fp32) and P (bf16), then the merge buffer of every
+    split's O and (m, l) per row."""
+    pitch = d + 8
+    staging = (SPLIT_ROWS * pitch + 2 * SPLIT_KEYS * pitch) * 2 \
+        + SPLIT_ROWS * (SPLIT_KEYS + 1) * 4 + SPLIT_ROWS * (SPLIT_KEYS + 8) * 2
+    return staging + splits * SPLIT_ROWS * (d + 2) * 4
+
+
+def split_cap(d: int) -> int:
+    """The most key splits of the decode kernel at head dim d (its
+    ``split_cap``): those whose tiles and merge buffer for SPLIT_ROWS rows
+    fit a block's shared memory with 1 KB to spare: 16 up to d = 128, 9 at
+    d = 256."""
+    n = SPLIT_MAX
+    while n > 1 and split_smem_bytes(d, n) > SMEM_OPT_IN_MAX - 1024:
+        n -= 1
+    return n
 
 
 def _check(q, k, v):
@@ -115,16 +142,18 @@ def _check_layout(fn, name, t):
                          "elements")
 
 
-def decode_splits(dtype, b: int, h: int, kvh: int, sq: int, sk: int) -> int:
+def decode_splits(dtype, b: int, h: int, kvh: int, sq: int, sk: int, *,
+                  d: int = 128, prefix_len: int = 0) -> int:
     """Key splits of the bf16 decode kernel, or 0 where the call takes
-    another kernel (fp32, or more than SPLIT_ROWS query rows per KV head).
-    Enough splits for SPLIT_BLOCKS blocks, each at least one 64-key tile,
-    at most SPLIT_MAX: 9 splits of 61 keys at the serve path's decode (8 × 2
-    groups, Sk 543)."""
-    if dtype != torch.bfloat16 or (h // kvh) * sq > SPLIT_ROWS:
+    another kernel (fp32, more than SPLIT_ROWS query rows per KV head, or a
+    prefix). Enough splits for SPLIT_BLOCKS blocks, each at least one 64-key
+    tile, at most ``split_cap(d)``: 9 splits of 61 keys at the serve path's
+    decode (8 × 2 groups, Sk 543); at d = 256 paligemma-3b's 8 groups hit
+    the cap of 9."""
+    if dtype != torch.bfloat16 or (h // kvh) * sq > SPLIT_ROWS or prefix_len > 0:
         return 0
     tiles = -(-sk // SPLIT_KEYS)
-    return min(tiles, SPLIT_MAX, max(1, -(-SPLIT_BLOCKS // (b * kvh))))
+    return min(tiles, split_cap(d), max(1, -(-SPLIT_BLOCKS // (b * kvh))))
 
 
 def _strides(*tensors):
@@ -133,18 +162,21 @@ def _strides(*tensors):
 
 
 def kernel_args(q, k, v, out, *, causal: bool = True, window: int = 0,
-                lse=None) -> tuple:
+                prefix_len: int = 0, lse=None) -> tuple:
     """The C entry's arguments for attention of checked CUDA operands into
     ``out`` (and each row's logsumexp into ``lse``, when given), all but the
-    stream: the kernel path and the decode splits are chosen here (no
-    splits with ``lse``: the decode kernel does not write it)."""
+    stream, the decode splits last: the kernel path and the splits are
+    chosen here (no splits with ``lse``: the decode kernel does not write
+    it)."""
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
-    splits = 0 if lse is not None else decode_splits(q.dtype, b, h, kvh, sq, sk)
+    splits = 0 if lse is not None else decode_splits(
+        q.dtype, b, h, kvh, sq, sk, d=d, prefix_len=prefix_len)
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _strides(q, k, v, out), 0 if lse is None else lse.data_ptr(),
             b, h, kvh, sq, sk, d, int(bool(causal)), int(window),
-            1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16), splits)
+            int(prefix_len), 1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16),
+            splits)
 
 
 def _like(t):
@@ -157,15 +189,17 @@ def _like(t):
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    return_lse: bool = False):
+                    prefix_len: int = 0, return_lse: bool = False):
     """Attention of q (B, H, Sq, D) over k, v (B, KV, Sk, D), scaled by
-    1/sqrt(D); any strides with a contiguous last dim. Returns (B, H, Sq, D)
+    1/sqrt(D), every row also seeing the keys at positions below
+    ``prefix_len``; any strides with a contiguous last dim. Returns (B, H, Sq, D)
     in q's dtype, laid out in memory as q is (so a transposed q gives a
     transposed output), and with ``return_lse`` also the (B, H, Sq) fp32
     logsumexp of each row. On a CUDA device this is one launch of the
     kernel, counted in ``flash_attention.launches``."""
     if q.device.type == "cpu":
-        return plain(q, k, v, causal=causal, window=window, return_lse=return_lse)
+        return plain(q, k, v, causal=causal, window=window,
+                     prefix_len=prefix_len, return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check(q, k, v)
@@ -173,7 +207,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     lse = (torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
            if return_lse else None)
     with torch.cuda.device(q.device):
-        args = kernel_args(q, k, v, out, causal=causal, window=window, lse=lse)
+        args = kernel_args(q, k, v, out, causal=causal, window=window,
+                           prefix_len=prefix_len, lse=lse)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = build.library("flash_attention").flash_attention(*args, stream)
     build.check(code, "flash_attention")
@@ -185,7 +220,8 @@ flash_attention.launches = 0
 
 
 def bwd_kernel_args(q, k, v, o, lse, do, dq, dk, dv, delta, *,
-                    causal: bool = True, window: int = 0) -> tuple:
+                    causal: bool = True, window: int = 0,
+                    prefix_len: int = 0) -> tuple:
     """The backward C entry's arguments, all but the stream."""
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
@@ -193,11 +229,11 @@ def bwd_kernel_args(q, k, v, o, lse, do, dq, dk, dv, delta, *,
             do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), delta.data_ptr(), _strides(q, k, v, o, do, dq, dk, dv),
             b, h, kvh, sq, sk, d, int(bool(causal)), int(window),
-            1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16))
+            int(prefix_len), 1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16))
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
-                        window: int = 0):
+                        window: int = 0, prefix_len: int = 0):
     """The gradient of ``flash_attention(q, k, v)`` for its output o, the
     forward's logsumexp lse (B, H, Sq) fp32 and the output gradient do (q's
     shape and dtype, any strides with a contiguous last dim). Returns (dq,
@@ -205,7 +241,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     the backward (two launches, dq first), counted in
     ``flash_attention_bwd.launches``."""
     if q.device.type == "cpu":
-        return plain_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+        return plain_bwd(q, k, v, o, lse, do, causal=causal, window=window,
+                         prefix_len=prefix_len)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
     _check(q, k, v)
@@ -225,7 +262,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         args = bwd_kernel_args(q, k, v, o, lse, do, dq, dk, dv, delta,
-                               causal=causal, window=window)
+                               causal=causal, window=window, prefix_len=prefix_len)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = build.library("flash_attention").flash_attention_bwd(*args, stream)
     build.check(code, "flash_attention_bwd")
@@ -242,11 +279,11 @@ class FlashAttention(torch.autograd.Function):
     the logsumexp."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, prefix_len=0):
         out, lse = flash_attention(q, k, v, causal=causal, window=window,
-                                   return_lse=True)
+                                   prefix_len=prefix_len, return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.prefix_len = causal, window, prefix_len
         return out
 
     @staticmethod
@@ -255,5 +292,6 @@ class FlashAttention(torch.autograd.Function):
         if do.device.type == "cuda" and not _aligned(do):
             do = do.contiguous()
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do,
-                                         causal=ctx.causal, window=ctx.window)
-        return dq, dk, dv, None, None
+                                         causal=ctx.causal, window=ctx.window,
+                                         prefix_len=ctx.prefix_len)
+        return dq, dk, dv, None, None, None

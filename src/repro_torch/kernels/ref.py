@@ -23,26 +23,22 @@ def rmsnorm_ref(x, scale, eps: float = 1e-6):
     return (y * (1.0 + scale.float())).to(x.dtype)
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        prefix_len: int = 0):
     """q: (B, H, Sq, D); k, v: (B, KV, Sk, D), H % KV == 0 (query head h
     reads KV head h // (H/KV)). Scores scaled by 1/sqrt(D), fp32 softmax.
     The causal mask is right-aligned when Sq < Sk (query row i sits at
     position i + Sk - Sq); ``window`` > 0 keeps keys less than ``window``
-    positions back. A row with no visible key gives 0, as the flash kernels
-    do, not NaN."""
+    positions back; every row also sees the keys at positions below
+    ``prefix_len`` (``_visible``). A row with no visible key gives 0, as the
+    flash kernels do, not NaN."""
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     scale = 1.0 / math.sqrt(d)
     rep = h // kvh
     qg = q.reshape(b, kvh, rep, sq, d).float()
     logits = torch.einsum("bkrqd,bksd->bkrqs", qg, k.float()) * scale
-    qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
-    kpos = torch.arange(sk, device=q.device)[None, :]
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos
-    if window:
-        mask &= qpos - kpos < window
+    mask = _visible(sq, sk, causal, window, q.device, prefix_len)
     w = torch.softmax(logits.masked_fill(~mask, float("-inf")), dim=-1)
     w = torch.where(mask.any(dim=-1, keepdim=True), w, 0.0)
     out = torch.einsum("bkrqs,bksd->bkrqd", w, v.float())
@@ -68,9 +64,12 @@ def rmsnorm_bwd_ref(x, scale, dy, eps: float = 1e-6):
     return dx.to(x.dtype), dscale.to(scale.dtype)
 
 
-def _visible(sq: int, sk: int, causal: bool, window: int, device):
-    """(Sq, Sk) bool: which keys each query row sees (right-aligned causal
-    mask, optional window)."""
+def _visible(sq: int, sk: int, causal: bool, window: int, device,
+             prefix_len: int = 0):
+    """(Sq, Sk) bool: which keys each query row sees, the reference's
+    ``make_attention_mask`` in its order, ``(causal ∧ window) ∨ k_pos <
+    prefix_len``: a right-aligned causal mask, an optional window, and the
+    prefix keys, seen by every row even outside its window."""
     qpos = torch.arange(sq, device=device)[:, None] + (sk - sq)
     kpos = torch.arange(sk, device=device)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
@@ -78,28 +77,31 @@ def _visible(sq: int, sk: int, causal: bool, window: int, device):
         mask &= kpos <= qpos
     if window:
         mask &= qpos - kpos < window
+    if prefix_len:
+        mask |= kpos < prefix_len
     return mask
 
 
 def flash_attention_fwd_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                            return_lse: bool = False):
+                            prefix_len: int = 0, return_lse: bool = False):
     """``flash_attention_ref`` and, with ``return_lse``, the (B, H, Sq) fp32
     logsumexp of each row's scaled scores, in natural-log units: -inf for a
     row that sees no key. Returns ``out`` or ``(out, lse)``."""
-    out = flash_attention_ref(q, k, v, causal=causal, window=window)
+    out = flash_attention_ref(q, k, v, causal=causal, window=window,
+                              prefix_len=prefix_len)
     if not return_lse:
         return out
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     qg = q.reshape(b, kvh, h // kvh, sq, d).float()
     logits = torch.einsum("bkrqd,bksd->bkrqs", qg, k.float()) * (1.0 / math.sqrt(d))
-    mask = _visible(sq, sk, causal, window, q.device)
+    mask = _visible(sq, sk, causal, window, q.device, prefix_len)
     lse = torch.logsumexp(logits.masked_fill(~mask, float("-inf")), dim=-1)
     return out, lse.reshape(b, h, sq)
 
 
 def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
-                            window: int = 0):
+                            window: int = 0, prefix_len: int = 0):
     """The recompute flash backward (the math of the reference's
     ``_cattn_bwd``) for q (B, H, Sq, D), k, v (B, KV, Sk, D), the forward's
     output o and logsumexp lse (B, H, Sq), and the output's gradient do:
@@ -108,8 +110,9 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
         dv = pᵀ·do,  dp = do·vᵀ,  ds = p∘(dp - delta)·scale,
         dq = ds·k,  dk = dsᵀ·q
 
-    with dk and dv summed over the H/KV query heads of each KV head. fp32
-    throughout; returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    with dk and dv summed over the H/KV query heads of each KV head, the
+    mask ``_visible``'s. fp32 throughout; returns (dq, dk, dv) in q's, k's
+    and v's dtypes."""
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     rep = h // kvh
@@ -120,7 +123,7 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
     lse = lse.reshape(b, kvh, rep, sq, 1).float()
     k32, v32 = k.float(), v.float()
     s = torch.einsum("bkrqd,bksd->bkrqs", qg, k32) * scale
-    mask = _visible(sq, sk, causal, window, q.device) & torch.isfinite(lse)
+    mask = _visible(sq, sk, causal, window, q.device, prefix_len) & torch.isfinite(lse)
     p = torch.where(mask, torch.exp(s - torch.where(torch.isfinite(lse), lse, 0.0)),
                     0.0)
     delta = torch.sum(dog * og, dim=-1, keepdim=True)
@@ -133,7 +136,7 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
 
 
 def flash_attention_split_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                              splits: int = 1):
+                              prefix_len: int = 0, splits: int = 1):
     """``flash_attention_ref`` computed as the bf16 decode kernel computes
     it: the keys cut into ``splits`` chunks of ceil(Sk/splits), each giving
     a partial (m, l, acc) in fp32 (its max score, and its exp(s - m)-weighted
@@ -145,13 +148,7 @@ def flash_attention_split_ref(q, k, v, *, causal: bool = True, window: int = 0,
     kvh, sk = k.shape[1], k.shape[2]
     qg = q.reshape(b, kvh, h // kvh, sq, d).float()
     logits = torch.einsum("bkrqd,bksd->bkrqs", qg, k.float()) * (1.0 / math.sqrt(d))
-    qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
-    kpos = torch.arange(sk, device=q.device)[None, :]
-    visible = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    if causal:
-        visible &= kpos <= qpos
-    if window:
-        visible &= qpos - kpos < window
+    visible = _visible(sq, sk, causal, window, q.device, prefix_len)
     chunk = -(-sk // splits)
     pad = chunk * splits - sk                      # trailing chunks may be empty
     inf = float("-inf")

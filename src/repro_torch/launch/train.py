@@ -415,6 +415,12 @@ def train_loop(arch: str, steps: int, batch: int, seq: int, *,
         cfg = cfg.smoke()
     fl = fl or TRAIN_FL
     model = get_model(cfg)
+    if not model.has_decode:
+        raise ValueError(
+            f"{arch}: its loss takes a features batch (features, "
+            "labels_onehot) and the train loop feeds token windows; the "
+            "paper's MLP trains through the federated drivers (--mode "
+            "feature, --mode cohort, core.algorithms)")
     dev = device_lib.resolve(device)
     topo = topology_lib.make_topology(
         topology, mesh=(mesh_lib.make_client_mesh(shards, device=dev)

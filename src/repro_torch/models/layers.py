@@ -119,41 +119,46 @@ def _qkv(params, x, cfg):
     return q.view(b, s, h, hd), k.view(b, s, kv, hd), v.view(b, s, kv, hd)
 
 
-def _flash(q, k, v, window: int = 0):
+def _flash(q, k, v, window: int = 0, prefix_len: int = 0):
     """(B, Sq, H, Hd) against (B, Sk, KV, Hd) -> (B, Sq, H·Hd), causal and
     right-aligned, each query seeing the keys less than ``window`` positions
-    back (0: all): one flash launch on transposed views, whose output comes
-    back in q's (B, Sq, H, Hd) layout, so the reshape is a view."""
+    back (0: all) and the first ``prefix_len`` keys: one flash launch on
+    transposed views, whose output comes back in q's (B, Sq, H, Hd) layout,
+    so the reshape is a view."""
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                        causal=True, window=window)
+                        causal=True, window=window, prefix_len=prefix_len)
     b, sq, h, hd = q.shape
     return o.transpose(1, 2).reshape(b, sq, h * hd)
 
 
-def attention(params, x, rope_cs, cfg, cache_k, cache_v):
+def attention(params, x, rope_cs, cfg, cache_k, cache_v, prefix_len: int = 0):
     """Prefill self-attention (Sq = Sk = S) of x (B, S, D) -> (B, S, D).
     ``rope_cs`` is ``rope_tables`` of the positions 0..S-1; the first S rows
-    of the layer's cache views (B, S_max, KV, Hd) take k and v, in place."""
+    of the layer's cache views (B, S_max, KV, Hd) take k and v, in place.
+    Every position sees the first ``prefix_len`` keys (a VLM's prefix, which
+    attends bidirectionally)."""
     q, k, v = _qkv(params, x, cfg)
     q = apply_rope(q, *rope_cs)
     k = apply_rope(k, *rope_cs)
     s = x.shape[1]
     cache_k[:, :s] = k
     cache_v[:, :s] = v
-    return _flash(q, k, v, cfg.sliding_window) @ params["wo"]
+    return _flash(q, k, v, cfg.sliding_window, prefix_len) @ params["wo"]
 
 
-def self_attention(params, x, rope_cs, cfg):
+def self_attention(params, x, rope_cs, cfg, prefix_len: int = 0):
     """Training self-attention, with no cache: q/k/v (with bias), RoPE from
     ``rope_cs`` (``rope_tables`` of positions 0..S-1), causal flash attention
     through its autograd Function, then ``wo``. The reference's
-    ``attention(params, x, positions, cfg)`` with its causal mask and
-    ``cfg.sliding_window`` (the ``dot_attention`` path the configs take)."""
+    ``attention(params, x, positions, cfg, mask=...)`` with its causal mask,
+    ``cfg.sliding_window`` and the prefix-LM block of ``prefix_len`` (the
+    ``dot_attention`` path the configs take)."""
     q, k, v = _qkv(params, x, cfg)
     q = apply_rope(q, *rope_cs)
     k = apply_rope(k, *rope_cs)
     o = FlashAttention.apply(q.transpose(1, 2), k.transpose(1, 2),
-                             v.transpose(1, 2), True, cfg.sliding_window)
+                             v.transpose(1, 2), True, cfg.sliding_window,
+                             prefix_len)
     b, s, h, hd = q.shape
     return o.transpose(1, 2).reshape(b, s, h * hd) @ params["wo"]
 
@@ -183,27 +188,39 @@ def attention_decode(params, x, cache_k, cache_v, pos: int, rope_cs, cfg):
 # ---------------------------------------------------------------------------
 
 
+ACTIVATIONS = ("swiglu", "geglu", "gelu")
+
+
 def _check_activation(activation: str) -> None:
-    if activation != "swiglu":
-        raise NotImplementedError(
-            f"activation {activation!r}: the port has SwiGLU only; GeGLU and "
-            "GELU come with head dim 256 and the VLM prefix (gemma-7b, "
-            "paligemma-3b; ROADMAP queue 1, item 12)")
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {activation!r}; the reference "
+                         f"has {ACTIVATIONS}")
 
 
 def mlp_init(key, d, d_ff, activation, dtype):
+    """``repro.models.layers.mlp_init``: ``wi``, ``wg``, ``wo`` from
+    ``split(key, 3)`` for the gated MLPs; ``wi`` and ``wo`` from ks[0] and
+    ks[2] for GELU (ks[1] unused, as in the reference)."""
     _check_activation(activation)
     ks = rnd.split(key, 3)
-    return {
-        "wi": dense_init(ks[0], (d, d_ff), dtype, fan_in=d),
-        "wg": dense_init(ks[1], (d, d_ff), dtype, fan_in=d),
-        "wo": dense_init(ks[2], (d_ff, d), dtype, fan_in=d_ff),
-    }
+    p = {"wi": dense_init(ks[0], (d, d_ff), dtype, fan_in=d)}
+    if activation != "gelu":
+        p["wg"] = dense_init(ks[1], (d, d_ff), dtype, fan_in=d)
+    p["wo"] = dense_init(ks[2], (d_ff, d), dtype, fan_in=d_ff)
+    return p
 
 
 def mlp(params, x, activation: str):
+    """SwiGLU ``silu(x·wg)·(x·wi)·wo``, GeGLU ``gelu(x·wg)·(x·wi)·wo`` or
+    GELU ``gelu(x·wi)·wo``, the GELU's tanh form (``jax.nn.gelu``'s
+    default, ``approximate=True``)."""
     _check_activation(activation)
-    return (F.silu(x @ params["wg"]) * (x @ params["wi"])) @ params["wo"]
+    if activation == "swiglu":
+        return (F.silu(x @ params["wg"]) * (x @ params["wi"])) @ params["wo"]
+    if activation == "geglu":
+        return (F.gelu(x @ params["wg"], approximate="tanh")
+                * (x @ params["wi"])) @ params["wo"]
+    return F.gelu(x @ params["wi"], approximate="tanh") @ params["wo"]
 
 
 # ---------------------------------------------------------------------------

@@ -103,3 +103,22 @@ def logits_from_h(w0, h_sum):
 def per_sample_loss_from_h(w0, h_sum, y):
     lg = logits_from_h(w0, h_sum).float()
     return -torch.sum(y * torch.log_softmax(lg, dim=-1), dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# zoo integration (the paper's own model behind the zoo's interface)
+# ---------------------------------------------------------------------------
+
+
+def zoo_init(key, cfg, device=None):
+    """``repro.models.mlp.zoo_init``: the ModelConfig's fields as the
+    network's widths (d_model = P features, d_ff = J hidden cells,
+    vocab_size = L classes), in its dtype."""
+    return init(key, cfg.d_model, cfg.d_ff, cfg.vocab_size,
+                getattr(torch, cfg.dtype), device=device)
+
+
+def zoo_loss_fn(params, batch, cfg):
+    """``repro.models.mlp.zoo_loss_fn``: the mean cross-entropy of a batch of
+    ``features`` (B, P) and ``labels_onehot`` (B, L)."""
+    return mean_loss(params, batch["features"], batch["labels_onehot"])

@@ -1,6 +1,7 @@
-"""Decoder-only transformer LM, dense (llama/qwen/glm style) and MoE: the
-counterpart of ``repro.models.transformer`` for serving (init, prefill,
-decode_step) and training (backbone, loss_fn).
+"""Decoder-only transformer LM, dense (llama/qwen/glm/gemma style), MoE and
+the VLM's prefix-LM decoder (paligemma): the counterpart of
+``repro.models.transformer`` for serving (init, prefill, decode_step) and
+training (backbone, loss_fn).
 
 Parameters are the reference's nested dicts with the layers stacked on a
 leading L axis; its ``lax.scan`` over layers is a Python loop over that
@@ -15,8 +16,13 @@ flash launches per forward on a card; with ``cfg.remat`` the layers'
 forwards run again in the backward (``torch.utils.checkpoint``, the
 counterpart of the reference's ``jax.checkpoint``). The logits take the
 tied embedding or, with ``tie_embeddings`` off, ``params["unembed"]``. The
-KV cache (L, B, S_max, KV, Hd) is written in place. VLM prefixes are
-refused: they come with a later slice.
+KV cache (L, B, S_max, KV, Hd) is written in place. A VLM batch carries
+``prefix_embeddings`` (B, Pfx, D), the stubbed vision frontend's output:
+they go before the token embeddings, unscaled, every position sees them
+(``prefix_len`` = Pfx on every layer's flash call), and the loss starts at
+the first token; prefill then fills Pfx + S rows of the cache, and a decode
+step at position Pfx + S + i needs no prefix rule, since every prefix key
+lies behind it.
 """
 from __future__ import annotations
 
@@ -36,20 +42,17 @@ def _dt(cfg):
     return DTYPES[cfg.dtype]
 
 
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "vlm")
 
 
 def _check_decoder(cfg):
-    """The configs this module serves: the dense and MoE decoders with no
-    VLM prefix, a MoE layer in every layer exactly when ``n_experts``."""
+    """The configs this module serves: the dense, MoE and VLM decoders, a
+    MoE layer in every layer exactly when ``n_experts``."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r}; the port's transformer serves "
-            f"{FAMILIES} (the others: ROADMAP queue 1, item 12)")
-    if cfg.num_prefix_tokens:
-        raise NotImplementedError(
-            f"{cfg.name}: VLM prefix tokens come with head dim 256 and GELU "
-            "(paligemma-3b; ROADMAP queue 1, item 12)")
+            f"{FAMILIES} (the SSM/hybrid and encoder-decoder families: "
+            "ROADMAP queue 1, item 12)")
     if cfg.n_experts:
         L.check_moe_sharding(cfg)
 
@@ -152,50 +155,60 @@ def _block_tail(lp, h, cfg):
 # ---------------------------------------------------------------------------
 
 
-def _block(lp, x, rope_cs, cfg):
-    h = x + L.self_attention(lp["attn"], L.norm(lp["ln1"], x, cfg), rope_cs, cfg)
+def _block(lp, x, rope_cs, cfg, prefix_len=0):
+    h = x + L.self_attention(lp["attn"], L.norm(lp["ln1"], x, cfg), rope_cs, cfg,
+                             prefix_len)
     return _block_tail(lp, h, cfg)
 
 
-def backbone(params, x, rope_cs, cfg):
+def backbone(params, x, rope_cs, cfg, prefix_len: int = 0):
     """x: (B, S, D) embedded inputs -> ((B, S, D) final-normed states, the
-    layers' MoE aux summed in fp32, 0 for a dense model). With
-    ``cfg.remat`` each layer runs under ``checkpoint`` (non-reentrant): only
-    its input is kept, and its forward runs again in the backward."""
+    layers' MoE aux summed in fp32, 0 for a dense model); every position
+    sees the first ``prefix_len`` positions. With ``cfg.remat`` each layer runs under
+    ``checkpoint`` (non-reentrant): only its input is kept, and its forward
+    runs again in the backward."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         if cfg.remat:
-            x, a = checkpoint(_block, lp, x, rope_cs, cfg, use_reentrant=False)
+            x, a = checkpoint(_block, lp, x, rope_cs, cfg, prefix_len,
+                              use_reentrant=False)
         else:
-            x, a = _block(lp, x, rope_cs, cfg)
+            x, a = _block(lp, x, rope_cs, cfg, prefix_len)
         if a is not None:
             aux = aux + a
     return L.norm(params["ln_f"], x, cfg), aux
 
 
 def _inputs_to_states(params, batch, cfg):
-    """Plain LM inputs -> (h, rope tables of positions 0..S-1, text_start);
-    the loss applies from text_start on. VLM prefix embeddings are
-    refused: they come with the VLM slice."""
-    if cfg.num_prefix_tokens and "prefix_embeddings" in batch:
-        raise NotImplementedError(
-            f"{cfg.name}: VLM prefix embeddings come with the VLM slice "
-            "(ROADMAP queue 1, item 12)")
+    """Plain LM and VLM prefix-LM inputs -> (h, rope tables of positions
+    0..T-1, text_start): the loss applies from text_start on, and
+    text_start is also the prefix every position sees. With
+    ``cfg.num_prefix_tokens`` and ``batch["prefix_embeddings"]`` (B, Pfx,
+    D), the prefix, cast to the model dtype and not scaled by sqrt(d), goes
+    before the token embeddings (T = Pfx + S, text_start = Pfx), as the
+    reference's."""
     tokens = batch["tokens"]
     x = embed(params, tokens, cfg)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
-    return x, L.rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta), 0
+    pfx = 0
+    if cfg.num_prefix_tokens and "prefix_embeddings" in batch:
+        pref = batch["prefix_embeddings"].to(x.dtype)
+        x = torch.cat([pref, x], dim=1)
+        pfx = pref.shape[1]
+    positions = torch.arange(x.shape[1], device=tokens.device)[None, :]
+    return (x, L.rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta),
+            pfx)
 
 
 def loss_fn(params, batch, cfg):
     """Mean next-token cross-entropy plus 0.01 · aux / L (the MoE's
     load-balance loss; 0 for a dense model). batch: tokens (B, S), targets
-    (B, S). The logits are cast to fp32 before the logsumexp, as the
-    reference does."""
+    (B, S), and for a VLM optionally prefix_embeddings (B, Pfx, D), whose
+    positions take no loss. The logits are cast to fp32 before the
+    logsumexp, as the reference does."""
     _check_decoder(cfg)
     x, rope_cs, text_start = _inputs_to_states(params, batch, cfg)
-    h, aux = backbone(params, x, rope_cs, cfg)
+    h, aux = backbone(params, x, rope_cs, cfg, text_start)
     logits = logits_fn(params, h[:, text_start:, :], cfg).float()
     nll = F.cross_entropy(logits.flatten(0, 1),
                           batch["targets"].flatten().long())
@@ -219,22 +232,20 @@ def init_cache(cfg, batch, max_seq, device=None):
 
 def prefill(params, batch, cfg, cache=None):
     """Full-sequence forward: last-position logits (B, 1, V) and the cache
-    filled at rows 0..S-1. ``cache`` (from ``init_cache``, S_max >= S) is
-    written in place; without one, a cache of exactly S rows is made, the
+    filled at rows 0..T-1, T = S tokens plus a VLM's Pfx prefix embeddings
+    (``_inputs_to_states``). ``cache`` (from ``init_cache``, S_max >= T) is
+    written in place; without one, a cache of exactly T rows is made, the
     shape the reference returns."""
     _check_decoder(cfg)
-    tokens = batch["tokens"]
-    b, s = tokens.shape
+    h, rope_cs, pfx = _inputs_to_states(params, batch, cfg)
+    b, t = h.shape[:2]
     if cache is None:
-        cache = init_cache(cfg, b, s, device=tokens.device)
-    h = embed(params, tokens, cfg)
-    positions = torch.arange(s, device=tokens.device)[None, :]
-    rope_cs = L.rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+        cache = init_cache(cfg, b, t, device=h.device)
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         hn = L.norm(lp["ln1"], h, cfg)
         h = h + L.attention(lp["attn"], hn, rope_cs, cfg,
-                            cache["k"][i], cache["v"][i])
+                            cache["k"][i], cache["v"][i], pfx)
         h, _ = _block_tail(lp, h, cfg)
     h = L.norm(params["ln_f"], h, cfg)
     return logits_fn(params, h[:, -1:, :], cfg), cache
@@ -243,7 +254,9 @@ def prefill(params, batch, cfg, cache=None):
 def decode_step(params, cache, token, pos: int, cfg):
     """One-token decode. token: (B, 1) integers; ``pos`` (a Python int) is
     the row the token's k and v take in the cache, which is written in
-    place and returned. Returns (logits (B, 1, V), cache)."""
+    place and returned (after a VLM prefill, Pfx + S + i: rows 0..Pfx-1 hold
+    the prefix, all behind ``pos``, so no prefix rule applies). Returns
+    (logits (B, 1, V), cache)."""
     _check_decoder(cfg)
     pos = int(pos)
     h = embed(params, token, cfg)

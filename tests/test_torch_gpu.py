@@ -34,6 +34,7 @@ from repro_torch.data.synthetic import classification_dataset
 from repro_torch.core import privacy
 from repro_torch.kernels import (cohort_sample, dp_noise, flash_attention,
                                  quantize, rmsnorm, ssca_update)
+from repro_torch.kernels.ref import _visible
 from repro_torch.launch import serve
 from repro_torch.launch import train
 from repro_torch.models import mlp
@@ -505,6 +506,60 @@ def test_flash_decode_clusters_merge_and_repeat(cuda, b, sk, splits):
     torch.testing.assert_close(outs[0].float(), want.float(), atol=3e-2, rtol=3e-2)
 
 
+FWD_256_PREFIX_CASES = [  # b, h, kv, sq, sk, d, prefix, window
+    (2, 16, 16, 512, 512, 256, 0, 0),     # gemma-7b's prefill, batch cut to 2
+    (2, 16, 16, 1, 543, 256, 0, 0),       # its decode
+    (2, 8, 1, 768, 768, 256, 256, 0),     # paligemma-3b's prefill with its prefix
+    (2, 8, 1, 1, 799, 256, 0, 0),         # its decode (no prefix: all behind)
+    (1, 8, 1, 261, 261, 256, 100, 0),     # a ragged prefix
+    (2, 8, 1, 45, 45, 256, 0, 0),         # ragged, past the split kernel's 16 rows
+    (2, 4, 2, 200, 200, 64, 70, 20),      # a prefix inside and past a window
+    (1, 4, 4, 1, 300, 32, 40, 30),        # a decode row sees the prefix past its window
+    (1, 4, 2, 90, 130, 128, 100, 0),      # right-aligned rows beside a prefix
+]
+
+
+@pytest.mark.parametrize("b,h,kv,sq,sk,d,prefix,window", FWD_256_PREFIX_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_head_dim_256_and_prefix_match_plain(cuda, b, h, kv, sq, sk, d, prefix,
+                                                   window, dtype):
+    """Head dim 256 on every forward path (bf16 prefill, bf16 split decode,
+    fp32) and the prefix-LM block (a prefix call never takes the split
+    kernel). One launch a call; the output against the plain version, and
+    against the plain version without the prefix for a control."""
+    q, k, v = _attn_inputs(cuda, b, h, kv, sq, sk, d, dtype, sq * 17 + sk + prefix)
+    before = flash_attention.flash_attention.launches
+    got = flash_attention.flash_attention(q, k, v, causal=True, window=window,
+                                          prefix_len=prefix)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.launches == before + 1
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    want = flash_attention.plain(q, k, v, causal=True, window=window, prefix_len=prefix)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if not torch.equal(_visible(sq, sk, True, window, "cpu", prefix),
+                       _visible(sq, sk, True, window, "cpu")):   # the prefix shows
+        without = flash_attention.plain(q, k, v, causal=True, window=window)
+        assert not torch.allclose(got.float(), without.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("b,kv,sk,splits", [(8, 16, 543, 3), (8, 1, 799, 9),
+                                            (1, 1, 4096, 9), (2, 1, 100, 2)])
+def test_flash_decode_at_head_dim_256_within_the_smem_cap(cuda, b, kv, sk, splits):
+    """The split decode kernel at head dim 256: its splits capped at 9,
+    whose tiles and merge buffer fit a block's 227 KB; repeatable and the
+    plain version's."""
+    assert flash_attention.split_cap(256) == 9
+    assert flash_attention.split_smem_bytes(256, 9) <= flash_attention.SMEM_OPT_IN_MAX
+    h = 16 if kv == 16 else 8
+    q, k, v = _attn_inputs(cuda, b, h, kv, 1, sk, 256, torch.bfloat16, sk + b)
+    assert flash_attention.decode_splits(q.dtype, b, h, kv, 1, sk, d=256) == splits
+    outs = [flash_attention.flash_attention(q, k, v) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    want = flash_attention.plain(q, k, v)
+    torch.testing.assert_close(outs[0].float(), want.float(), atol=3e-2, rtol=3e-2)
+
+
 def test_flash_kernel_rejects_bad_operands(cuda):
     q = torch.zeros(1, 4, 8, 48, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
@@ -661,12 +716,12 @@ def test_rmsnorm_bwd_rejects_bad_operands(cuda):
         rmsnorm.rmsnorm_bwd(x, sc, dy.to(torch.bfloat16))
 
 
-def _attn_bwd(cuda, b, h, kv, sq, sk, d, dtype, causal, window, seed):
+def _attn_bwd(cuda, b, h, kv, sq, sk, d, dtype, causal, window, seed, prefix_len=0):
     q, k, v = _attn_inputs(cuda, b, h, kv, sq, sk, d, dtype, seed)
     gen = torch.Generator(device=cuda).manual_seed(seed + 1)
     do = torch.randn(q.shape, generator=gen, device=cuda).to(dtype)
     o, lse = flash_attention.flash_attention(q, k, v, causal=causal, window=window,
-                                             return_lse=True)
+                                             prefix_len=prefix_len, return_lse=True)
     return q, k, v, o, lse, do
 
 
@@ -697,21 +752,22 @@ def test_flash_bwd_windowed_at_glm4_ratio_matches_plain(cuda, sq, window, dtype)
     _check_flash_bwd(cuda, 1, 32, 2, sq, sq, 128, True, window, dtype)
 
 
-def _check_flash_bwd(cuda, b, h, kv, sq, sk, d, causal, window, dtype):
+def _check_flash_bwd(cuda, b, h, kv, sq, sk, d, causal, window, dtype, prefix_len=0):
     q, k, v, o, lse, do = _attn_bwd(cuda, b, h, kv, sq, sk, d, dtype, causal, window,
-                                    sq * 7 + sk + d)
+                                    sq * 7 + sk + d, prefix_len)
     tol = 2e-5 if dtype == torch.float32 else 3e-2
     want_o, want_lse = flash_attention.plain(q, k, v, causal=causal, window=window,
-                                             return_lse=True)
+                                             prefix_len=prefix_len, return_lse=True)
     seen = torch.isfinite(want_lse)
     assert torch.isneginf(lse[~seen]).all()
     torch.testing.assert_close(lse[seen], want_lse[seen], atol=2e-5, rtol=2e-5)
     before = flash_attention.flash_attention_bwd.launches
     dq, dk, dv = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
-                                                     window=window)
+                                                     window=window, prefix_len=prefix_len)
     torch.cuda.synchronize()
     assert flash_attention.flash_attention_bwd.launches == before + 1
-    want = flash_attention.plain_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+    want = flash_attention.plain_bwd(q, k, v, o, lse, do, causal=causal, window=window,
+                                     prefix_len=prefix_len)
     for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
         assert got.dtype == dtype and got.shape == w.shape, name
         assert torch.isfinite(got).all(), name
@@ -720,6 +776,25 @@ def _check_flash_bwd(cuda, b, h, kv, sq, sk, d, causal, window, dtype):
             # elementwise 3e-2 is over half a typical |dq| at the train shape
             rel = ((got.float() - w.float()).norm() / w.float().norm()).item()
             assert rel <= BF16_BWD_REL_NORM, f"{name}: |diff| / |want| {rel}"
+
+
+# head dim 256 (gemma-7b, paligemma-3b) and the prefix-LM block: b, h, kv,
+# sq, sk, d, prefix, window
+BWD_256_PREFIX_CASES = [
+    (2, 8, 1, 512, 512, 256, 0, 0),       # paligemma-3b's train shape, batch cut to 2
+    (2, 16, 16, 200, 200, 256, 0, 0),     # gemma-7b's heads, ragged
+    (2, 8, 1, 768, 768, 256, 256, 0),     # paligemma-3b with its 256-token prefix
+    (1, 8, 1, 261, 261, 256, 100, 0),     # a prefix that is not a multiple of a tile
+    (1, 4, 2, 200, 200, 64, 70, 20),      # a prefix inside and past a window
+    (1, 4, 2, 130, 130, 128, 130, 0),     # every key in the prefix
+]
+
+
+@pytest.mark.parametrize("b,h,kv,sq,sk,d,prefix,window", BWD_256_PREFIX_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_head_dim_256_and_prefix_match_plain(cuda, b, h, kv, sq, sk, d, prefix,
+                                                       window, dtype):
+    _check_flash_bwd(cuda, b, h, kv, sq, sk, d, True, window, dtype, prefix)
 
 
 def test_flash_bwd_is_two_kernels_dq_first_and_deterministic(cuda, bwd_kernel_names):
@@ -1058,7 +1133,8 @@ def test_ef_store_host_offload_on_the_card(cuda):
 # the MoE decoder, the sliding window and untied embeddings (smoke size)
 # ---------------------------------------------------------------------------
 
-ZOO_SMOKE = ["qwen3-moe-30b-a3b", "arctic-480b", "glm4-9b-swa", "deepseek-67b"]
+ZOO_SMOKE = ["qwen3-moe-30b-a3b", "arctic-480b", "glm4-9b-swa", "deepseek-67b",
+             "gemma-7b", "paligemma-3b"]
 
 
 @pytest.mark.parametrize("arch", ZOO_SMOKE)
@@ -1078,7 +1154,8 @@ def test_zoo_serve_smoke_card_matches_cpu_and_counts_launches(cuda, arch):
     assert torch.equal(card.cpu(), cpu)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "arctic-480b", "glm4-9b-swa"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "arctic-480b", "glm4-9b-swa",
+                                  "paligemma-3b"])
 def test_zoo_train_smoke_card_matches_cpu_and_counts_launches(cuda, arch):
     """Three SSCA steps of the smoke variants (fp32, no remat) on the card
     and on the CPU, sequence 64 (past glm4-9b-swa's smoke window): the same
@@ -1096,3 +1173,43 @@ def test_zoo_train_smoke_card_matches_cpu_and_counts_launches(cuda, arch):
                               device="cpu")
     for a, b0 in zip(card, cpu):
         assert abs(a["loss"] - b0["loss"]) <= 1e-5 * abs(b0["loss"])
+
+
+@pytest.mark.parametrize("arch,head_dim", [("paligemma-3b", 64), ("paligemma-3b", 256)])
+def test_vlm_prefix_loss_card_matches_cpu_and_counts_launches(cuda, arch, head_dim):
+    """paligemma-3b's smoke variant (and a cut of it at head dim 256: d_model
+    512, 2 heads over 1 KV head) with 8 prefix embeddings before 24 tokens,
+    fp32: the loss and its gradient on the card against the CPU (rtol 1e-5,
+    atol 1e-5 on the gradient), with L flash and L flash_bwd launches (the
+    prefix on every one)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.tree import leaves
+    from repro_torch.models import transformer
+    cfg = get_config(arch).smoke()
+    if head_dim == 256:
+        cfg = dataclasses.replace(cfg, d_model=512, n_heads=2, head_dim=256)
+    gen = torch.Generator().manual_seed(head_dim)
+    toks = torch.randint(0, cfg.vocab_size, (2, 25), generator=gen, dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:],
+             "prefix_embeddings": torch.randn(2, cfg.num_prefix_tokens, cfg.d_model,
+                                              generator=gen)}
+    params = transformer.init(rnd.PRNGKey(0, device="cpu"), cfg, device="cpu")
+    out = {}
+    for dev in ("cpu", cuda):
+        p = convert.params_from_numpy(convert.params_to_numpy(params), dev)
+        for t in leaves(p):
+            t.requires_grad_()
+        f0 = flash_attention.flash_attention.launches
+        b0 = flash_attention.flash_attention_bwd.launches
+        loss = transformer.loss_fn(p, {k: v.to(dev) for k, v in batch.items()}, cfg)
+        loss.backward()
+        out[str(dev)] = (loss.item(), [t.grad.cpu() for t in leaves(p)],
+                         flash_attention.flash_attention.launches - f0,
+                         flash_attention.flash_attention_bwd.launches - b0)
+    (cpu_loss, cpu_g, _, _), (card_loss, card_g, nf, nb) = out["cpu"], out[str(cuda)]
+    assert (nf, nb) == (cfg.n_layers, cfg.n_layers)
+    assert abs(card_loss - cpu_loss) <= 1e-5 * abs(cpu_loss)
+    for a, b in zip(card_g, cpu_g):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)

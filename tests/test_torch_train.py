@@ -275,13 +275,32 @@ def test_cli_refuses_other_modes(mode, monkeypatch, capsys):
     assert "done: 2 rounds" in capsys.readouterr().out
 
 
-def test_vlm_prefix_is_refused(weights):
-    _, npp = weights
+def test_vlm_prefix_loss_matches_reference(weights):
+    """The smoke model with a 4-embedding VLM prefix before its tokens:
+    ``loss_fn`` and its gradient against the reference's (rtol 1e-5, atol
+    1e-5, as test_loss_and_grad_match_jax); the prefix changes the loss."""
+    jp, npp = weights
+    jcfg = dataclasses.replace(JCFG, num_prefix_tokens=4)
     cfg = dataclasses.replace(TCFG, num_prefix_tokens=4)
-    batch = {k: torch.from_numpy(v) for k, v in _batch().items()}
-    batch["prefix_embeddings"] = torch.zeros(B, 4, TCFG.d_model)
-    with pytest.raises(NotImplementedError, match="VLM"):
-        ttr.loss_fn(convert.params_from_numpy(npp, "cpu"), batch, cfg)
+    batch = _batch(4)
+    batch["prefix_embeddings"] = np.random.default_rng(5).standard_normal(
+        (B, 4, TCFG.d_model)).astype(np.float32)
+    jloss, jgrads = jax.value_and_grad(jtr.loss_fn)(
+        jp, jax.tree.map(jnp.asarray, batch), jcfg)
+    tp = convert.params_from_numpy(npp, "cpu")
+    for t in leaves(tp):
+        t.requires_grad_()
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    loss = ttr.loss_fn(tp, tb, cfg)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
+    got, want = dict(_named(_leaf_grads(tp))), dict(_named(_np_tree(jgrads)))
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-5, err_msg=k)
+    plain = ttr.loss_fn(convert.params_from_numpy(npp, "cpu"),
+                        {k: tb[k] for k in ("tokens", "targets")}, cfg)
+    assert abs(plain.item() - loss.item()) > 1e-3
 
 
 def test_train_loop_defaults_to_the_card(monkeypatch):

@@ -230,31 +230,37 @@ def test_entry_points_default_to_the_card():
         tserve.generate("qwen2.5-3b", smoke=True, batch=1, prompt_len=4, gen=2)
 
 
-@pytest.mark.parametrize("change,match", [
-    (dict(n_experts=4, experts_per_token=2, moe_d_ff=128), None),
-    (dict(family="moe"), None),
-    (dict(num_prefix_tokens=8), "VLM"),
-    (dict(activation="gelu"), "SwiGLU"),
-    (dict(activation="geglu"), "item 12"),
+@pytest.mark.parametrize("change", [
+    dict(n_experts=4, experts_per_token=2, moe_d_ff=128),
+    dict(family="moe"),
+    dict(family="vlm", num_prefix_tokens=8),
+    dict(activation="gelu"),
+    dict(activation="geglu"),
 ])
-def test_other_families_are_refused(change, match):
-    """VLM prefixes, GELU and GeGLU are refused, naming ROADMAP item 12;
-    the MoE layer (every config with experts) and the family name "moe"
-    are ported: those configs run and give the reference's prefill
-    logits."""
+def test_other_families_are_refused(change):
+    """The families and MLPs once refused here run and give the
+    reference's prefill logits: the MoE layer (every config with experts)
+    and the family name "moe", the VLM (with 8 prefix embeddings before the
+    tokens), GELU (two matrices) and GeGLU. Only an unknown activation is
+    refused."""
     cfg = dataclasses.replace(TCFG, **change)
-    if match is not None:
-        with pytest.raises(NotImplementedError, match=match):
-            ttr.init(rnd.PRNGKey(0, device="cpu"), cfg, device="cpu")
-        return
     jcfg = dataclasses.replace(JCFG, **change)
     jp = jtr.init(jax.random.PRNGKey(0), jcfg)
     tp = convert.params_from_numpy(_np_tree(jp), device="cpu")
     assert ("moe" in tp["layers"]) == bool(cfg.n_experts)
+    assert ("wg" in tp["layers"].get("mlp", {"wg": 0})) == (cfg.activation != "gelu")
     toks = _tokens(6, 12)
-    jl, _ = jtr.prefill(jp, {"tokens": jnp.asarray(toks)}, jcfg)
-    tl, _ = tapi.get_model(cfg).prefill(tp, {"tokens": torch.from_numpy(toks)}, cfg)
+    batch = {"tokens": toks}
+    if cfg.num_prefix_tokens:
+        batch["prefix_embeddings"] = np.random.default_rng(7).standard_normal(
+            (B, cfg.num_prefix_tokens, cfg.d_model)).astype(np.float32)
+    jl, jc = jtr.prefill(jp, jax.tree.map(jnp.asarray, batch), jcfg)
+    tl, tc = tapi.get_model(cfg).prefill(
+        tp, {k: torch.from_numpy(v) for k, v in batch.items()}, cfg)
     _close(tl, jl, what="logits")
+    _close(tc["k"], jc["k"], what="cache k")
+    with pytest.raises(ValueError, match="activation"):
+        tlayers.mlp_init(rnd.PRNGKey(0, device="cpu"), 8, 16, "relu", torch.float32)
 
 
 def test_get_model_refuses_other_families():
@@ -262,7 +268,7 @@ def test_get_model_refuses_other_families():
     with pytest.raises(NotImplementedError, match="item 12"):
         tapi.get_model(dataclasses.replace(TCFG, family="ssm"))
     with pytest.raises(KeyError, match="item 12"):
-        get_config("gemma-7b")
+        get_config("xlstm-1.3b")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

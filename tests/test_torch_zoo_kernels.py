@@ -69,6 +69,8 @@ def _qkv(b, h, kv, sq, sk, d, seed):
     (2, 8, 2, 128, 128, 64),       # GQA
     (1, 8, 1, 64, 256, 128),       # MQA, right-aligned decode-ish window
     (1, 4, 4, 256, 256, 32),
+    (1, 4, 2, 128, 128, 256),      # head dim 256 (gemma-7b, paligemma-3b)
+    (1, 8, 1, 64, 192, 256),       # ... MQA, right-aligned
 ])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 96), (False, 0)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
