@@ -987,23 +987,22 @@ def check_rmsnorm_bwd(torch, rms, build):
     lib = build.library("rmsnorm")
     rows, d = 4096, 2048
     nbytes = 2 * (3 * rows * d + 2 * d)
-    blocks = rms.bwd_blocks(rows)
+    plan = rms.bwd_plan(rows, d, 2, True, build.query(lib.rmsnorm_bwd_capacity, d, 1))
 
     def make():
         x = torch.randn(rows, d, generator=gen, device="cuda").to(torch.bfloat16)
         sc = (torch.randn(d, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
         dy = torch.randn(rows, d, generator=gen, device="cuda").to(torch.bfloat16)
         r = torch.rsqrt(x.float().pow(2).mean(-1, keepdim=True) + 1e-6)
-        return (x, sc, dy, torch.empty_like(x), torch.empty_like(sc),
-                torch.empty(blocks, d, device="cuda"), 1.0 + sc, r)
+        dx, ds, part = torch.empty_like(x), torch.empty_like(sc), rms.bwd_partials(x, sc, dy)
+        return (x, sc, dy, dx, ds, part, 1.0 + sc, r,
+                rms.bwd_kernel_args(x, sc, dy, dx, ds, part, 1e-6))
 
-    def launch(x, sc, dy, dx, ds, part, weight, r):
-        code = lib.rmsnorm_bwd(x.data_ptr(), sc.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-                               ds.data_ptr(), part.data_ptr(), rows, d, 1e-6, 1, blocks,
-                               torch.cuda.current_stream().cuda_stream)
+    def launch(x, sc, dy, dx, ds, part, weight, r, args):
+        code = lib.rmsnorm_bwd(*args, torch.cuda.current_stream().cuda_stream)
         build.check(code, "rmsnorm_bwd")
 
-    def library(x, sc, dy, dx, ds, part, weight, r):
+    def library(x, sc, dy, dx, ds, part, weight, r, args):
         return torch.ops.aten._fused_rms_norm_backward(dy, x, [d], r, weight, [True, True])
 
     sets = cold_sets(make, nbytes)
@@ -1018,7 +1017,7 @@ def check_rmsnorm_bwd(torch, rms, build):
            "shape": [rows, d], "bytes": nbytes, **timed_pair(launch, library, sets, True),
            "eager_ms": event_ms(rotating(launch, sets[:1])),
            "plain_ms": event_ms(lambda: rms.plain_bwd(x, sc, dy, 1e-6)),
-           "bound_ms": b_ms, "bound_by": b_by, "blocks": blocks}
+           "bound_ms": b_ms, "bound_by": b_by, "plan": list(plan)}
     del sets
     return out
 
@@ -1239,7 +1238,8 @@ PALI_TRAIN_ATTN = (8, 8, 1, 512, 512, 256)  # train_paligemma's attention
 def check_flash_bwd(torch, fa, build):
     """The backward kernels vs their plain version: the train path's shape
     in bf16 and fp32 and train_moe's (32 heads over 4) in bf16, ragged
-    lengths (61, 200), GQA rep 1 and 8, causal and
+    lengths (61, 200; 77 rows over 133 keys), GQA rep 1 and 8 (and 8 in 3
+    head chunks of the dk/dv kernel), a long sequence (1,000), causal and
     not, a window, head dims 64 and 128; head dim 256 at
     train_paligemma's shape, with paligemma's 256-token prefix, at
     zoo256_parity's fp32 prefix loss, a ragged prefix, gemma-7b's 16 heads,
@@ -1273,6 +1273,10 @@ def check_flash_bwd(torch, fa, build):
         (1, 8, 1, 261, 261, 256, bf16, True, 0, 100),   # a ragged prefix
         (2, 16, 16, 200, 200, 256, bf16, True, 0),      # gemma-7b's heads
         (1, 4, 2, 200, 200, 64, f32, True, 20, 70),     # prefix and window
+        (2, 8, 2, 77, 133, 64, bf16, True, 0),          # lengths off the tiles
+        (9, 16, 2, 200, 200, 128, bf16, True, 0),       # rep 8 in 3 head chunks
+        (1, 16, 2, 1000, 1000, 128, bf16, True, 0),     # a long sequence
+        (2, 8, 1, 333, 333, 256, bf16, True, 0, 77),    # rep 8, D 256, a prefix
     ]
     worst, rel_norms = {}, {}
     for b, h, kv, sq, sk, d, dtype, causal, window, *pre in cases:
@@ -1377,7 +1381,7 @@ def flash_bwd_timing(torch, fa, build, gen, b, h, kv, sq, sk, d):
         err, ok = close_err(got, w, 3e-2)
         check(ok, f"flash_bwd {name}: the library yardstick disagrees by {err}")
     out = {"shape": {"q": list(q.shape), "kv": list(k.shape)}, "bytes": nbytes,
-           "flops": flops, **timed_pair(launch, library, sets, True),
+           "flops": flops, "chunks": sets[0][10][-1], **timed_pair(launch, library, sets, True),
            "eager_ms": event_ms(rotating(launch, sets[:1]), iters=20),
            "plain_ms": event_ms(lambda: fa.plain_bwd(q, k, v, o, lse, do), iters=5),
            "bound_ms": b_ms, "bound_by": b_by}

@@ -1,19 +1,27 @@
-"""Time the bf16 flash forward and backward kernels of one checkout of the
-repository at one causal shape, on one card, to compare two trees in one
+"""Time the bf16 flash forward and backward kernels and the rmsnorm backward
+of one checkout of the repository, on one card, to compare two trees in one
 call (old against new in turns: unpack the other tree with ``git archive``
 into a git-ignored directory, then run this once per tree, alternating).
 
     python3 scripts/profile_torch_flash.py TREE [B H KV S D]
 
 TREE is the root of the checkout whose ``src/repro_torch`` is timed (its
-kernels build into ``TREE/build/repro_torch``); the shape defaults to the
-train path's (8, 16, 2, 512, 128). Prints one line, ``AB {json}``: the
-backward's and the forward's device ms a call (the least of three replays
-of a CUDA graph of 200 launches) and, under torch.profiler, the device µs
-of each of the backward's two kernels.
+kernels build into ``TREE/build/repro_torch``); the flash shape defaults to
+the train path's (8, 16, 2, 512, 128), causal. Prints one line, ``AB
+{json}``: the flash backward's and forward's device ms a call (the least of
+three replays of a CUDA graph of 200 launches), aten's flash backward on
+the same inputs (K and V expanded to the query heads), and, under
+torch.profiler, the device µs of each of the backward's kernels; then the
+rmsnorm backward at the train path's (4096, 2048) bf16 through its wrapper,
+warm (one operand set) and cold (six sets, 201 MB, rotated past the 50 MB
+L2), beside ``aten._fused_rms_norm_backward`` alike, with the device µs of
+each of its launches. Every time is the card's, with its name and power
+limit beside it.
 """
+import itertools
 import json
 import os
+import subprocess
 import sys
 
 
@@ -23,9 +31,9 @@ def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels import build, flash_attention as fa
+    from repro_torch.kernels import build, flash_attention as fa, rmsnorm as rms
 
-    build.build_all(["flash_attention"])
+    build.build_all(["flash_attention", "rmsnorm"])
     b, h, kv, s, d = ((int(x) for x in sys.argv[2:7]) if len(sys.argv) > 6
                       else (8, 16, 2, 512, 128))
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -40,6 +48,11 @@ def main() -> int:
     bargs = fa.bwd_kernel_args(q, k, v, o, lse, do, dq, dk, dv, delta)
     out = torch.empty_like(q)
     fargs = fa.kernel_args(q, k, v, out)
+    rep = h // kv
+    qc, doc = q.contiguous(), do.contiguous()
+    ke = k.repeat_interleave(rep, dim=1).contiguous()
+    ve = v.repeat_interleave(rep, dim=1).contiguous()
+    res = torch.ops.aten._scaled_dot_product_flash_attention(qc, ke, ve, 0.0, True, False)
 
     def timed(fn, iters=200):
         side = torch.cuda.Stream()
@@ -65,21 +78,60 @@ def main() -> int:
             ms.append(e0.elapsed_time(e1) / iters)
         return min(ms)
 
+    def kernels_us(fn, calls=20):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        return {e.key[:48]: e.device_time_total / e.count
+                for e in prof.key_averages() if e.count and e.device_time_total > 0}
+
     def bwd():
         lib.flash_attention_bwd(*bargs, torch.cuda.current_stream().cuda_stream)
 
     def fwd():
         lib.flash_attention(*fargs, torch.cuda.current_stream().cuda_stream)
 
-    res = {"tree": tree, "shape": [b, h, kv, s, d], "bwd_ms": timed(bwd),
+    def aten_bwd():
+        torch.ops.aten._scaled_dot_product_flash_attention_backward(
+            doc, qc, ke, ve, *res[:6], 0.0, True, res[6], res[7])
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip().splitlines()
+    out = {"tree": tree, "card": card[0] if card else torch.cuda.get_device_name(0),
+           "shape": [b, h, kv, s, d], "bwd_ms": timed(bwd), "aten_bwd_ms": timed(aten_bwd),
            "fwd_ms": timed(fwd)}
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(20):
-            bwd()
-        torch.cuda.synchronize()
-    res["kernels_us"] = {e.key[:40]: e.device_time_total / e.count
-                         for e in prof.key_averages() if e.count}
-    print("AB", json.dumps(res), flush=True)
+    out["kernels_us"] = kernels_us(bwd)
+
+    rows, dm = 4096, 2048
+
+    def rms_set():
+        x = torch.randn(rows, dm, generator=g, device="cuda").bfloat16()
+        dy = torch.randn(rows, dm, generator=g, device="cuda").bfloat16()
+        sc = (torch.randn(dm, generator=g, device="cuda") * 0.1).bfloat16()
+        r = torch.rsqrt(x.float().pow(2).mean(-1, keepdim=True) + 1e-6)
+        return x, sc, dy, r, 1.0 + sc
+
+    sets = [rms_set() for _ in range(6)]
+
+    def rotating(fn, group):
+        nxt = itertools.cycle(group).__next__
+        return lambda: fn(*nxt())
+
+    def rms_bwd(x, sc, dy, r, w):
+        rms.rmsnorm_bwd(x, sc, dy, 1e-6)
+
+    def rms_aten(x, sc, dy, r, w):
+        torch.ops.aten._fused_rms_norm_backward(dy, x, [dm], r, w, [True, True])
+
+    out["rmsnorm_bwd"] = {
+        "shape": [rows, dm], "ms": timed(rotating(rms_bwd, sets[:1])),
+        "cold_ms": timed(rotating(rms_bwd, sets)),
+        "aten_ms": timed(rotating(rms_aten, sets[:1])),
+        "aten_cold_ms": timed(rotating(rms_aten, sets)),
+        "kernels_us": kernels_us(rotating(rms_bwd, sets[:1]))}
+    print("AB", json.dumps(out), flush=True)
     return 0
 
 

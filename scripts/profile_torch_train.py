@@ -36,9 +36,10 @@ GROUPS = {
     "dp_noise": ("dp_noise",),
     "quantize (keyed)": ("stochastic_quantize",),
     "norm (dot)": ("dot_kernel", "reduce_1Block", "dot"),
-    "flash backward": ("flash_bwd",),
+    "flash backward": ("flash_bwd_dq_wg", "flash_bwd_dkdv_wg", "flash_bwd_dq_kernel",
+                       "flash_bwd_dkdv_kernel"),
     "flash forward": ("flash_tc_kernel", "flash_f32_kernel", "flash_split_kernel"),
-    "rmsnorm backward": ("rmsnorm_bwd", "rmsnorm_dscale"),
+    "rmsnorm backward": ("rmsnorm_bwd_rows", "rmsnorm_bwd_any", "rmsnorm_dscale"),
     "rmsnorm forward": ("rmsnorm_vec", "rmsnorm_any"),
     "ssca_update": ("ssca_update",),
     "cuBLAS": ("gemm", "cutlass", "nvjet", "xmma", "cublas", "splitK"),

@@ -60,7 +60,11 @@ SIGNATURES = {
     },
     "rmsnorm": {
         "rmsnorm": [_P, _P, _P, _LL, _I, _F, _I, _P],
+        # x, scale, dy, dx, dscale, partials, rows, d, eps, is_bf16,
+        # blocks, stream
         "rmsnorm_bwd": [_P, _P, _P, _P, _P, _P, _LL, _I, _F, _I, _I, _P],
+        # d, is_bf16, &count, stream
+        "rmsnorm_bwd_capacity": [_I, _I, _P, _P],
     },
     "cohort_sample": {
         # round keys, rounds, ids, cohort, num_clients, hi_bits, lo_bits
@@ -72,9 +76,11 @@ SIGNATURES = {
         "flash_attention": [_P, _P, _P, _P, _PLL, _P, _LL, _I, _I, _I, _I, _I,
                             _I, _I, _I, _F, _I, _I, _P],
         # q, k, v, o, do, lse, dq, dk, dv, delta, strides, b, h, kvh, sq,
-        # sk, d, causal, window, prefix, scale, is_bf16, stream
+        # sk, d, causal, window, prefix, scale, is_bf16, chunks, stream
         "flash_attention_bwd": [_P] * 10 + [_PLL, _LL] + [_I] * 8
-        + [_F, _I, _P],
+        + [_F, _I, _I, _P],
+        # d, chunks, &count, stream
+        "flash_bwd_capacity": [_I, _I, _P, _P],
     },
 }
 
@@ -170,6 +176,14 @@ def library(name: str) -> ctypes.CDLL:
     if name not in _LIBS:
         build_all([name])
     return _LIBS[name]
+
+
+def query(fn, *args) -> int:
+    """The int that a counting entry (``*_capacity``) writes into its
+    next-to-last argument, host memory, its error code checked."""
+    out = ctypes.c_int(0)
+    check(fn(*args, ctypes.addressof(out), None), fn.__name__)
+    return out.value
 
 
 def check(code: int, entry: str) -> None:

@@ -87,42 +87,51 @@
 // the train path's shape (B 8, H 16, KV 2, S 512, D 128, bf16, causal): q, o,
 // dO and dq (16.8 MB each), k, v, dk, dv (2.1 MB each), lse and delta: 76.0
 // MB, 22.7 us at 3.35 TB/s, against 2.5 × 8.59 GFLOP of products, 21.7 us
-// at the bf16 tensor rate. Two kernels a call, in this order: a dq kernel,
-// one block per (q tile, head, batch), whose prologue computes delta for its
-// rows and writes it, then walks the visible key tiles, recomputing S and
-// dP and adding dS·K into dQ; then a dk/dv kernel, one block per (key tile,
-// KV head, batch), which walks the group's query heads and their visible q
-// tiles, adding Pᵀ·dO into dV and dSᵀ·Q into dK within the block: no
-// atomics, so two runs give the same bits. Both skip tiles a mask hides
+// at the bf16 tensor rate. So the products must run at Hopper's warpgroup
+// rate and the work must cover all 132 SMs. Two kernels a call, in this
+// order: a dq kernel, then a dk/dv kernel. Both skip tiles a mask hides
 // entirely; a row that sees no key (lse = -inf) has p = 0 and so zero
-// gradients.
-//   bf16, flash_bwd_dq_tc_kernel / flash_bwd_dkdv_tc_kernel: every product
-//     is mma.sync.m16n8k16 on the tensor cores (bf16 in, fp32
-//     accumulators), its operands loaded from shared memory (pitch D + 8,
-//     conflict-free) by ldmatrix, transposed where the product needs it,
-//     and dS (or Pᵀ, dSᵀ) rounded to bf16 straight from the accumulator
-//     fragments as the A operand of the next product, as in the decode
-//     kernel's P·V. A tile (dq) or step (dk/dv) whose rows all see all of
-//     its keys takes no element mask. The dq kernel: 4 warps, 16 of the
-//     block's 64 q rows each, against 64-key tiles in a two-stage cp.async
-//     ring; delta from 16-byte loads of O and dO, all in flight at once.
-//     The dk/dv kernel:
-//     64 keys a block, 16 a warp, in two groups of 4 warps that take the
-//     (head, 32-row q tile) steps in turn, each group with its own
-//     two-stage ring and named barrier; the groups' dK and dV are added in
-//     order through shared memory at the end. At D = 256 a warp's dK and dV
-//     for its 16 keys across all of D would take 256 fp32 registers a
-//     thread, so there the two groups split D instead: both walk every step
-//     (each recomputing S and dP over the full D), and group w holds and
-//     writes dK and dV of columns 128·w .. 128·w + 127 only, 128 registers
-//     a thread, with nothing to add at the end. What bounds them: the dk/dv
-//     kernel has one block per (key tile, KV head, batch), 128 at the train
-//     shape, fewer than the SMs, and its first key tile walks every q tile
-//     of every head of the group (causal): that block sets its time.
+// gradients. No float atomics: two runs give the same bits.
+//   bf16, flash_bwd_dq_wg_kernel / flash_bwd_dkdv_wg_kernel (replacing an
+//     mma.sync design whose dk/dv kernel had one block per 64-key tile, 128
+//     blocks at the train shape with the first key tile's block walking
+//     every q tile of the group, and recomputed S and dP on both of its warp
+//     groups at D = 256). Every product is wgmma (bf16 in, fp32
+//     accumulators) on the swizzled Tiles of the forward: S = Q·Kᵀ, dP =
+//     dO·Vᵀ, Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ with both operands from shared memory
+//     (as the forward's S); dQ += dS·K, dV += Pᵀ·dO and dK += dSᵀ·Q with the
+//     bf16-rounded dS, Pᵀ or dSᵀ in registers, straight from the previous
+//     product's fragment, and the other operand read transposed from shared
+//     memory (as the forward's P·V). Tiles move by cp.async, 16 bytes a
+//     thread, into two-stage rings, one tile in flight under the current
+//     one (cp.async and not TMA: the copies write the swizzled layout
+//     themselves, with no tensor map to build on the host for each call).
+//     The elementwise work between the products is the part that bounds a
+//     step (PERF.md): a tile or step whose rows all see all of its keys
+//     takes the bare exp2; at an edge, each row (dq) or key (dk/dv) tests
+//     its visible range, found once per block.
+//     The dq kernel: one warpgroup per (64-row q tile, head, batch), the
+//     longest rows first, two blocks an SM (one at D = 256); K/V tiles of
+//     64 keys (32 at D = 256, where dQ alone is 128 registers a thread);
+//     delta = Σ dO∘O in its prologue, written for the dk/dv kernel.
+//     The dk/dv kernel: a block of two warpgroups per (pair of 64-key tiles,
+//     KV head, batch, chunk of the group's query heads). Tile kt is paired
+//     with tile n-1-kt, so that under a causal mask every block carries the
+//     same work. Group 0 forms Sᵀ, Pᵀ and dV, group 1 dPᵀ, dSᵀ and dK, Pᵀ
+//     handed over in fp32 through shared memory: no product is computed
+//     twice, and a thread holds one 64 × D accumulator (one warpgroup with
+//     both took 255 registers and spilled at D = 128). The chunks of a pair
+//     form one cluster, as many as the card holds at once
+//     (flash_attention.py's bwd_chunks, from flash_bwd_capacity); each
+//     block pushes its fp32 partial dK and dV rows into the shared memory of
+//     the block that owns them, which adds the copies in rank order.
+//     Each is built with and without the prefix rule.
 //   fp32, flash_bwd_dq_kernel / flash_bwd_dkdv_kernel: exact fp32 on the
 //     CUDA cores (32-row and 32-key tiles staged in shared memory, each
 //     thread a 2×2 block of S and dP and two rows of its accumulators), for
-//     the card-against-CPU gates.
+//     the card-against-CPU gates. The dq kernel computes and writes delta;
+//     the dk/dv kernel has one block per (32-key tile, KV head, batch),
+//     looping over the group's query heads.
 //
 // No --use_fast_math anywhere.
 #include <cooperative_groups.h>
@@ -171,7 +180,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// 8 bf16 <-> 8 floats
+// 8 bf16 -> 8 floats
 __device__ __forceinline__ void widen8(const uint4& raw, float* f) {
   const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
@@ -180,13 +189,6 @@ __device__ __forceinline__ void widen8(const uint4& raw, float* f) {
     f[2 * i] = t.x;
     f[2 * i + 1] = t.y;
   }
-}
-__device__ __forceinline__ uint4 narrow8(const float* f) {
-  uint4 raw;
-  __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) e[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-  return raw;
 }
 
 // ---------------------------------------------------------------------------
@@ -1127,6 +1129,7 @@ struct BwdArgs {
   Strides q_st, k_st, v_st, o_st, do_st, dq_st, dk_st, dv_st;
   long long b;
   int h, kvh, rep, sq, sk, causal, window, prefix;
+  int chunks;                        // bf16: the dk/dv kernel's head chunks (its cluster)
   float scale;
   cudaStream_t stream;
 };
@@ -1350,23 +1353,92 @@ flash_bwd_dkdv_kernel(BwdArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// backward, bf16: products on the tensor cores (mma.sync.m16n8k16)
+// backward, bf16: warpgroup products on the tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int TB_THREADS = 128;      // a warp group: 4 warps, 16 rows (q or keys) each
-constexpr int TB_BQ = 64;            // dq kernel: query rows a block
-constexpr int TB_BK = 64;            // dq kernel: keys a tile; dk/dv kernel: keys a block
-constexpr int TB_KQ = 32;            // dk/dv kernel: query rows a tile
-constexpr int TB_GROUPS = 2;         // dk/dv kernel: warp groups, each its own q tiles
+constexpr int WB_ROWS = 64;          // a warpgroup's rows: q rows (dq), keys (dk/dv)
+constexpr int WB_THREADS = 128;      // one warpgroup
+constexpr int WB_CHUNKS_MAX = 8;     // head chunks of a key tile at most: the portable cluster
 
+// keys a K/V tile of the dq kernel: 32 at D = 256, where dQ alone is 128
+// fp32 registers a thread
 template <int D>
-constexpr int tb_dq_smem() {         // q, dO (64 rows), 2 stages of K and V (64 rows)
-  return 6 * 64 * (D + 8) * (int)sizeof(bf16);
-}
+__host__ __device__ constexpr int wb_dq_keys() { return D > 128 ? 32 : 64; }
+// q, dO, 2 stages of K and V, 1 KB to align
 template <int D>
-constexpr int tb_dkdv_smem() {       // K, V (64 rows); per group 2 stages of q and dO (32 rows)
-  return (2 * TB_BK + TB_GROUPS * 4 * TB_KQ) * (D + 8) * (int)sizeof(bf16);
+__host__ __device__ constexpr int wb_dq_smem() {
+  return (2 * WB_ROWS + 4 * wb_dq_keys<D>()) * D * (int)sizeof(bf16) + 1024;
 }
+// K, V, 2 stages of q and dO, Pᵀ in fp32, 1 KB to align
+template <int D>
+__host__ __device__ constexpr int wb_dkdv_smem() {
+  return 6 * WB_ROWS * D * (int)sizeof(bf16) + WB_ROWS * WB_ROWS * (int)sizeof(float) + 1024;
+}
+static_assert(wb_dkdv_smem<256>() + 2 * 2 * WB_ROWS * 4 <= SMEM_OPT_IN_MAX,
+              "the dk/dv kernel's tiles and lse/delta stages fit a block at D = 256");
+// the receive buffers of the dk/dv kernel's partials, chunks copies of
+// ceil(2·64 / chunks) rows, fit its ring and Pᵀ buffer at every chunk count
+static_assert((2 * WB_ROWS + WB_CHUNKS_MAX) * 32 * 4 <= 4 * WB_ROWS * 32 * 2 + WB_ROWS * WB_ROWS * 4,
+              "the receive buffers fit at D = 32");
+static_assert((2 * WB_ROWS + WB_CHUNKS_MAX) * 256 * 4 <= 4 * WB_ROWS * 256 * 2 + WB_ROWS * WB_ROWS * 4,
+              "the receive buffers fit at D = 256");
+
+// d (64 x 32 fp32) (+)= A·B, both from shared-memory descriptors (K-major)
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// c (64 x N fp32) = A·Bᵀ over the depth D: A a Tile of 64 rows, B a Tile of
+// N rows, both in shared memory (S = Q·Kᵀ, dP = dO·Vᵀ, Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ)
+template <int D, int N>
+__device__ __forceinline__ void wg_scores(float (&c)[N / 2], const bf16* a, const bf16* b) {
+  using T = Tile<D>;
+  constexpr int W = T::W;
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd) {
+    const int col = (16 * kd / W) * W, within = (16 * kd) % W;
+    const uint64_t da = smem_desc(a + col * WB_ROWS + within, 16, T::SBO, T::SWIZZLE);
+    const uint64_t db = smem_desc(b + col * N + within, 16, T::SBO, T::SWIZZLE);
+    if constexpr (N == 64)
+      wgmma_ss_n64(c, da, db, kd > 0);
+    else
+      wgmma_ss_n32(c, da, db, kd > 0);
+  }
+}
+
+// acc (64 x D fp32) += A·B: A (64 x K bf16) in registers, K / 16 fragments;
+// B a Tile of K rows by D columns in shared memory, the product's depth
+// along its rows, read transposed (dQ += dS·K, dV += Pᵀ·dO, dK += dSᵀ·Q)
+template <int D, int K>
+__device__ __forceinline__ void wg_rows(float (&acc)[D / 2], const uint32_t (&a)[K / 16][4],
+                                        const bf16* b) {
+  using T = Tile<D>;
+  constexpr int W = T::W;
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+    wgmma_rs<D>(acc, a[kk], smem_desc(b + 16 * kk * W, K * W * 2, T::SBO, T::SWIZZLE),
+                smem_desc(b + 16 * kk * W + 2 * K * W, K * W * 2, T::SBO, T::SWIZZLE));
+}
+
+// a 64 x N accumulator fragment, rounded to bf16, as the A operand of a
+// product over its N columns (the fragment is the operand's register layout)
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[N / 16][4], const float (&c)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[kk][e] = pack_bf16(c[8 * kk + 2 * e], c[8 * kk + 2 * e + 1]);
+}
+
 // 4 bytes global -> shared; zeros when !valid (src is then not read)
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
@@ -1375,93 +1447,38 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid
                : "memory");
 }
 
-// ROWS rows of D bf16 (row i at src + i·stride) into shared memory of row
-// pitch D + 8 by cp.async, by the TB_THREADS threads of a warp group (tid:
-// the thread's index in it); rows at or past `valid` become zeros
-template <int D, int ROWS>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, long long stride,
-                                          int valid, int tid) {
-  constexpr int CPR = D / 8, P = D + 8;
-  for (int i = tid; i < ROWS * CPR; i += TB_THREADS) {
-    const int r = i / CPR, c = i % CPR;
-    const bool ok = r < valid;
-    cp_async16(dst + r * P + c * 8, src + (ok ? (int64_t)r * stride + c * 8 : 0), ok);
-  }
+// the named barrier 1 of `threads` threads: arrive without waiting, or wait
+__device__ __forceinline__ void named_arrive(int threads) {
+  asm volatile("bar.arrive 1, %0;\n" ::"r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_sync(int threads) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
 }
 
-// four 8 x 8 bf16 matrices from shared memory, lane l giving the address of
-// row l % 8 of matrix l / 8; .trans hands each lane the transposed pairs
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"((unsigned)__cvta_generic_to_shared(p)));
-}
-__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"((unsigned)__cvta_generic_to_shared(p)));
-}
-
-// the A fragment of rows r0 .. r0 + 15, columns 16·kk .. 16·kk + 15 of a
-// row-major pitch-P tile
-template <int P>
-__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const bf16* tile, int r0, int kk,
-                                       int lane) {
-  ldsm4(a, tile + (r0 + lane % 16) * P + kk * 16 + (lane / 16) * 8);
-}
-
-// acc[n0 / 8 + {0, 1}] += A · Bᵀ-tiles: B's 16 rows n0 .. n0 + 15 of a
-// row-major pitch-P tile are the product's columns, its columns 16·kk ..
-// 16·kk + 15 the depth (S = Q·Kᵀ: the K rows of two 8-key column tiles)
-template <int P>
-__device__ __forceinline__ void mma_nt2(float (&c0)[4], float (&c1)[4], const uint32_t (&a)[4],
-                                        const bf16* tile, int n0, int kk, int lane) {
-  uint32_t b[4];
-  ldsm4(b, tile + (n0 + (lane / 16) * 8 + lane % 8) * P + kk * 16 + ((lane / 8) % 2) * 8);
-  mma_16816(c0, a, b[0], b[1]);
-  mma_16816(c1, a, b[2], b[3]);
-}
-
-// the A fragment of a 16 x 16 block from two 16 x 8 accumulator fragments
-// (columns 0-7 in c0, 8-15 in c1), rounded to bf16
-__device__ __forceinline__ void a_from_c(uint32_t (&a)[4], const float (&c0)[4],
-                                         const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
-
-// acc (16 x D) += A (16 x 16) · B, B's 16 rows starting at row k0 of a
-// row-major pitch-P tile (the rows are the product's depth, D columns),
-// loaded transposed, two 8-column tiles an ldmatrix
-template <int D, int P>
-__device__ __forceinline__ void mma_rows(float (&acc)[D / 8][4], const uint32_t (&a)[4],
-                                         const bf16* tile, int k0, int lane) {
-  const bf16* r = tile + (k0 + lane % 8 + ((lane / 8) % 2) * 8) * P + (lane / 16) * 8;
-#pragma unroll
-  for (int np = 0; np < D / 16; ++np) {
-    uint32_t b[4];
-    ldsm4_t(b, r + np * 16);
-    mma_16816(acc[2 * np], a, b[0], b[1]);
-    mma_16816(acc[2 * np + 1], a, b[2], b[3]);
-  }
-}
-
+// The dq kernel: one warpgroup per (64-row q tile, head, batch), the longest
+// rows first. q and dO sit in shared memory for the block's life; K and V
+// tiles of BK keys pass through a two-stage cp.async ring, tile i + 1 in
+// flight while tile i is used. Per tile: S = Q·Kᵀ and dP = dO·Vᵀ (wgmma,
+// both operands from shared memory), dS = P∘(dP - delta)·scale in the
+// accumulator fragments, rounded to bf16 as the A operand of dQ += dS·K
+// (wgmma, K read transposed). The prologue computes delta = Σ_d dO∘O of its
+// rows and writes it for the dk/dv kernel. dQ goes out through the q tile.
 template <int D, bool PFX>
-__global__ void __launch_bounds__(TB_THREADS)
-flash_bwd_dq_tc_kernel(BwdArgs a) {
-  constexpr int P = D + 8, NT = D / 8, KT = TB_BK / 8;
-  extern __shared__ __align__(16) unsigned char tb_smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(tb_smem);
-  bf16* do_s = q_s + TB_BQ * P;
-  bf16* k_s = do_s + TB_BQ * P;      // 2 stages of (TB_BK, P)
-  bf16* v_s = k_s + 2 * TB_BK * P;   // 2 stages
+__global__ void __launch_bounds__(WB_THREADS, D > 128 ? 1 : 2)
+flash_bwd_dq_wg_kernel(BwdArgs a) {
+  using T = Tile<D>;
+  constexpr int CPR = D / 8, BK = wb_dq_keys<D>();
+  extern __shared__ unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(
+      smem_raw + ((1024 - ((unsigned)__cvta_generic_to_shared(smem_raw) & 1023)) & 1023));
+  bf16* do_s = q_s + WB_ROWS * D;
+  bf16* k_s = do_s + WB_ROWS * D;    // 2 stages of (BK, D)
+  bf16* v_s = k_s + 2 * BK * D;      // 2 stages
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, tig = lane & 3;
   const int h = blockIdx.y;
   const int64_t b = blockIdx.z;
-  const int q0 = blockIdx.x * TB_BQ, off = a.sk - a.sq;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * WB_ROWS, off = a.sk - a.sq;
   const bf16* qb = (const bf16*)a.q + b * a.q_st.b + h * a.q_st.h;
   const bf16* ob = (const bf16*)a.o + b * a.o_st.b + h * a.o_st.h;
   const bf16* dob = (const bf16*)a.dout + b * a.do_st.b + h * a.do_st.h;
@@ -1471,51 +1488,66 @@ flash_bwd_dq_tc_kernel(BwdArgs a) {
   const int64_t row_base = (b * a.h + h) * a.sq;
 
   // the key tiles any row of this block can see
-  const int last = min(q0 + TB_BQ, a.sq) - 1;
-  const int k_end =
-      PFX ? max(a.causal ? min(a.sk, last + off + 1) : a.sk, min(a.prefix, a.sk))
-          : (a.causal ? min(a.sk, last + off + 1) : a.sk);
-  const int k_first = a.window && !PFX ? (max(0, q0 + off - a.window + 1) / TB_BK) * TB_BK : 0;
-  const int tiles = k_end > k_first ? (k_end - k_first + TB_BK - 1) / TB_BK : 0;
+  const int last = min(q0 + WB_ROWS, a.sq) - 1;
+  int k_end = a.causal ? min(a.sk, last + off + 1) : a.sk;
+  if constexpr (PFX) k_end = max(k_end, min(a.prefix, a.sk));
+  const int k_first = a.window && !PFX ? (max(0, q0 + off - a.window + 1) / BK) * BK : 0;
+  const int tiles = k_end > k_first ? (k_end - k_first + BK - 1) / BK : 0;
   auto load_kv = [&](int i) {        // key tile i into stage i % 2
-    const int k0 = k_first + i * TB_BK;
-    load_rows<D, TB_BK>(k_s + (i & 1) * TB_BK * P, kb + (int64_t)k0 * a.k_st.s, a.k_st.s,
-                        a.sk - k0, threadIdx.x);
-    load_rows<D, TB_BK>(v_s + (i & 1) * TB_BK * P, vb + (int64_t)k0 * a.v_st.s, a.v_st.s,
-                        a.sk - k0, threadIdx.x);
+    const int k0 = k_first + i * BK;
+    load_tile<D, BK, WB_THREADS>(k_s + (i & 1) * BK * D, kb + (int64_t)k0 * a.k_st.s,
+                                 a.k_st.s, a.sk - k0);
+    load_tile<D, BK, WB_THREADS>(v_s + (i & 1) * BK * D, vb + (int64_t)k0 * a.v_st.s,
+                                 a.v_st.s, a.sk - k0);
   };
 
-  load_rows<D, TB_BQ>(q_s, qb + (int64_t)q0 * a.q_st.s, a.q_st.s, a.sq - q0, threadIdx.x);
-  load_rows<D, TB_BQ>(do_s, dob + (int64_t)q0 * a.do_st.s, a.do_st.s, a.sq - q0, threadIdx.x);
+  load_tile<D, WB_ROWS, WB_THREADS>(q_s, qb + (int64_t)q0 * a.q_st.s, a.q_st.s, a.sq - q0);
+  load_tile<D, WB_ROWS, WB_THREADS>(do_s, dob + (int64_t)q0 * a.do_st.s, a.do_st.s, a.sq - q0);
   if (tiles > 0) load_kv(0);
   cp_async_commit();
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;          // this thread's rows
   const float l0 = r0 < a.sq ? a.lse[row_base + r0] * LOG2E : -INFINITY;
   const float l1 = r1 < a.sq ? a.lse[row_base + r1] * LOG2E : -INFINITY;
+  // the keys each of this thread's rows sees: [lo, hi) and those below pf
+  // (the prefix); none for a row past Sq
+  int lo[2], hi[2], pf[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r, qp = row + off;
+    const bool in = row < a.sq;
+    lo[r] = a.window ? qp - a.window + 1 : 0;
+    hi[r] = !in ? 0 : a.causal ? min(a.sk, qp + 1) : a.sk;
+    pf[r] = PFX && in ? min(a.prefix, a.sk) : 0;
+  }
 
   // delta = Σ_d dO∘O of the warp's 16 rows, written for the dk/dv kernel:
-  // lanes 2r and 2r + 1 take half of row r each, all their 16-byte loads in
-  // flight at once (dO from global memory: its tile may still be in flight)
+  // lanes 2r and 2r + 1 take half of row r each, up to 8 16-byte loads of
+  // each in flight at once
   float dl0, dl1;
   {
-    constexpr int NV = D / 16;       // 16-byte vectors a lane
+    constexpr int NV = D / 16, CH = NV < 8 ? NV : 8;
     const int i = q0 + warp * 16 + lane / 2, c0 = (lane & 1) * (D / 2);
-    uint4 ov[NV], dv[NV];
-#pragma unroll
-    for (int n = 0; n < NV; ++n) {
-      ov[n] = i < a.sq ? *reinterpret_cast<const uint4*>(ob + (int64_t)i * a.o_st.s + c0 + 8 * n)
-                       : make_uint4(0, 0, 0, 0);
-      dv[n] = i < a.sq ? *reinterpret_cast<const uint4*>(dob + (int64_t)i * a.do_st.s + c0 + 8 * n)
-                       : make_uint4(0, 0, 0, 0);
-    }
     float acc = 0.0f;
+    if (i < a.sq) {
+      const bf16* orow = ob + (int64_t)i * a.o_st.s + c0;
+      const bf16* drow = dob + (int64_t)i * a.do_st.s + c0;
 #pragma unroll
-    for (int n = 0; n < NV; ++n) {
-      float of[8], df[8];
-      widen8(ov[n], of);
-      widen8(dv[n], df);
+      for (int n0 = 0; n0 < NV; n0 += CH) {
+        uint4 ov[CH], dv[CH];
 #pragma unroll
-      for (int e = 0; e < 8; ++e) acc += of[e] * df[e];
+        for (int n = 0; n < CH; ++n) {
+          ov[n] = *reinterpret_cast<const uint4*>(orow + 8 * (n0 + n));
+          dv[n] = *reinterpret_cast<const uint4*>(drow + 8 * (n0 + n));
+        }
+#pragma unroll
+        for (int n = 0; n < CH; ++n) {
+          float of[8], df[8];
+          widen8(ov[n], of);
+          widen8(dv[n], df);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc += of[e] * df[e];
+        }
+      }
     }
     acc += __shfl_xor_sync(FULL, acc, 1);
     if ((lane & 1) == 0 && i < a.sq) a.delta[row_base + i] = acc;
@@ -1524,267 +1556,311 @@ flash_bwd_dq_tc_kernel(BwdArgs a) {
   }
   const float scale_log2 = a.scale * LOG2E;
 
-  float dq[NT][4];
+  float dq[D / 2];                   // dQ: the 64 x D accumulator fragment
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[nt][e] = 0.0f;
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.0f;
+  float s[BK / 2], dp[BK / 2];       // S, dP: s[4n + e] holds key 8n + 2·tig + (e & 1)
+                                     // of row g + 8·(e >> 1) of the warp's 16
+  uint32_t pa[BK / 16][4];           // dS in bf16, the A operand of dS·K
 
   for (int i = 0; i < tiles; ++i) {
     if (i + 1 < tiles) load_kv(i + 1);        // in flight under this tile
     cp_async_commit();
     cp_async_wait<1>();
+    fence_async_shared();
     __syncthreads();                 // tile i (and q, dO) are in for every thread
-    const int k0 = k_first + i * TB_BK;
-    const bf16* ks = k_s + (i & 1) * TB_BK * P;
-    const bf16* vs = v_s + (i & 1) * TB_BK * P;
-
-    float s[KT][4], dp[KT][4];       // S and dP: rows g, g + 8; keys 8n + 2t, +1
-#pragma unroll
-    for (int n = 0; n < KT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t aq[4], ado[4];
-      a_frag<P>(aq, q_s, warp * 16, kk, lane);
-      a_frag<P>(ado, do_s, warp * 16, kk, lane);
-#pragma unroll
-      for (int n = 0; n < KT; n += 2) {
-        mma_nt2<P>(s[n], s[n + 1], aq, ks, n * 8, kk, lane);
-        mma_nt2<P>(dp[n], dp[n + 1], ado, vs, n * 8, kk, lane);
-      }
-    }
+    const int k0 = k_first + i * BK;
+    const bf16* kt = k_s + (i & 1) * BK * D;
+    const bf16* vt = v_s + (i & 1) * BK * D;
+    wgmma_fence();
+    wg_scores<D, BK>(s, q_s, kt);
+    wg_scores<D, BK>(dp, do_s, vt);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(s);
+    reg_fence(dp);
     // dS = P∘(dP - delta)·scale, P = exp(S·scale - lse), into s; a tile
     // that every row of the block sees whole takes no element mask
-    const bool whole = k0 + TB_BK <= a.sk && q0 + TB_BQ <= a.sq &&
-                       ((PFX && k0 + TB_BK <= a.prefix) ||
-                        ((!a.causal || k0 + TB_BK - 1 <= q0 + off) &&
-                         (!a.window || q0 + TB_BQ - 1 + off - k0 < a.window)));
+    const bool whole = k0 + BK <= a.sk && q0 + WB_ROWS <= a.sq &&
+                       ((PFX && k0 + BK <= a.prefix) ||
+                        ((!a.causal || k0 + BK - 1 <= q0 + off) &&
+                         (!a.window || q0 + WB_ROWS - 1 + off - k0 < a.window)));
+    if (whole) {                     // every row sees every key: lse is finite
 #pragma unroll
-    for (int n = 0; n < KT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e < 2 ? r0 : r1, key = k0 + n * 8 + 2 * t + (e & 1);
-        const float l = e < 2 ? l0 : l1;
-        const bool ok = l != -INFINITY &&
-                        (whole || visible<PFX>(row, key, a.sq, a.sk, off, a.causal,
-                                               a.window, a.prefix));
-        const float p = ok ? exp2f(s[n][e] * scale_log2 - l) : 0.0f;
-        s[n][e] = p * (dp[n][e] - (e < 2 ? dl0 : dl1)) * a.scale;
+      for (int e = 0; e < BK / 2; ++e) {
+        const int r = (e >> 1) & 1;
+        const float p = exp2f(s[e] * scale_log2 - (r ? l1 : l0));
+        s[e] = p * (dp[e] - (r ? dl1 : dl0)) * a.scale;
       }
-    // dQ += dS·K
+    } else {
 #pragma unroll
-    for (int kk = 0; kk < KT / 2; ++kk) {
-      uint32_t ads[4];
-      a_from_c(ads, s[2 * kk], s[2 * kk + 1]);
-      mma_rows<D, P>(dq, ads, ks, kk * 16, lane);
+      for (int e = 0; e < BK / 2; ++e) {
+        const int r = (e >> 1) & 1, key = k0 + (e >> 2) * 8 + 2 * tig + (e & 1);
+        const bool ok = (key >= lo[r] && key < hi[r]) || key < pf[r];
+        const float p = ok ? exp2f(s[e] * scale_log2 - (r ? l1 : l0)) : 0.0f;
+        s[e] = p * (dp[e] - (r ? dl1 : dl0)) * a.scale;
+      }
     }
+    pack_a<BK>(pa, s);
+    wgmma_fence();
+    wg_rows<D, BK>(dq, pa, kt);      // dQ += dS·K
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(dq);
+    reg_fence(pa);
     __syncthreads();                 // this stage is consumed before it is refilled
   }
-  cp_async_wait<0>();
+  cp_async_wait<0>();                // the q tile's copies, when no key tile ran
+  __syncthreads();
+
+  // dQ through the q tile in shared memory, then out as 16-byte stores
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int col = nt * 8 + 2 * t;
-    if (r0 < a.sq)
-      *reinterpret_cast<__nv_bfloat162*>(dqb + (int64_t)r0 * a.dq_st.s + col) =
-          __floats2bfloat162_rn(dq[nt][0], dq[nt][1]);
-    if (r1 < a.sq)
-      *reinterpret_cast<__nv_bfloat162*>(dqb + (int64_t)r1 * a.dq_st.s + col) =
-          __floats2bfloat162_rn(dq[nt][2], dq[nt][3]);
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<__nv_bfloat162*>(
+          q_s + T::template off<WB_ROWS>(warp * 16 + g + 8 * r, n) + 2 * tig) =
+          __floats2bfloat162_rn(dq[4 * n + 2 * r], dq[4 * n + 2 * r + 1]);
+  __syncwarp();
+#pragma unroll
+  for (int n = 0; n < CPR / 2; ++n) {    // the warp's 16 rows of CPR chunks
+    const int i = lane + 32 * n, r = warp * 16 + i / CPR, c = i % CPR;
+    if (q0 + r < a.sq)
+      *reinterpret_cast<uint4*>(dqb + (int64_t)(q0 + r) * a.dq_st.s + c * 8) =
+          *reinterpret_cast<const uint4*>(q_s + T::template off<WB_ROWS>(r, c));
   }
 }
 
-// The dk/dv kernel: TB_GROUPS warp groups of 4 warps, all on the block's
-// 64 keys (a warp 16 of them). Up to D = 128 the (head, q tile) steps of
-// the group's heads are dealt out to the groups in turn, each group with its
-// own two-stage ring and named barrier, and at the end the groups' dK and dV
-// are added in order through shared memory. At D = 256 (SPLIT_D) every
-// group walks every step in its own ring, and group w accumulates dK and dV
-// of the DC = 128 columns from 128·w only.
+// The dk/dv kernel. A block takes a pair of 64-key tiles, kt and n - 1 - kt
+// (under a causal mask the first sees the most q tiles and the last the
+// fewest: a pair carries the same work wherever it lies), for one KV head,
+// one batch, and one chunk of the KV head's query heads: heads
+// rep·chunk/chunks .. rep·(chunk+1)/chunks - 1 of the group. The chunks of a
+// pair form one thread-block cluster. For each key tile, K and V sit in
+// shared memory and the chunk's (head, 64-row q tile) steps pass through a
+// two-stage cp.async ring of q, dO and their rows' lse and delta. Two
+// warpgroups share each step: group 0 forms Sᵀ = K·Qᵀ, Pᵀ = exp(Sᵀ·scale -
+// lse) and dV += Pᵀ·dO; group 1 forms dPᵀ = V·dOᵀ, dSᵀ = Pᵀ∘(dPᵀ -
+// delta)·scale, with Pᵀ handed over in fp32 through shared memory, and dK
+// += dSᵀ·Q. The scores are wgmma from shared memory; Pᵀ and dSᵀ, rounded to
+// bf16, are the A operands of the accumulating products (wgmma, dO and q
+// read transposed). So no product is computed twice, and a thread holds one
+// 64 x D accumulator: dK and dV of 64 keys in one warpgroup took 255
+// registers and spilled at D = 128, and would need 256 fp32 registers at
+// D = 256. With one chunk dK and dV go out from the fragments; with more,
+// each block leaves its fp32 partial in its shared memory and, one cluster
+// barrier later, adds a slice of the rows over the cluster's blocks in rank
+// order and writes it: no atomics, no scratch in global memory.
 template <int D, bool PFX>
-__global__ void __launch_bounds__(TB_GROUPS * TB_THREADS)
-flash_bwd_dkdv_tc_kernel(BwdArgs a) {
-  constexpr bool SPLIT_D = D > 128;
-  constexpr int P = D + 8, DC = SPLIT_D ? D / TB_GROUPS : D, NT = DC / 8, QT = TB_KQ / 8;
-  constexpr int STEP = SPLIT_D ? 1 : TB_GROUPS;   // steps between a group's own
-  static_assert(SPLIT_D || TB_BK * D * 2 * sizeof(float) <=
-                               TB_GROUPS * 4 * TB_KQ * (D + 8) * sizeof(bf16),
-                "a group's dk, dv fit in the q and dO stages");
-  extern __shared__ __align__(16) unsigned char tb_smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(tb_smem);
-  bf16* v_s = k_s + TB_BK * P;
-  __shared__ __align__(16) float lse_s[TB_GROUPS][2][TB_KQ], delta_s[TB_GROUPS][2][TB_KQ];
+__global__ void __launch_bounds__(2 * WB_THREADS, 1)
+flash_bwd_dkdv_wg_kernel(BwdArgs a) {
+  constexpr int R = WB_ROWS, THREADS = 2 * WB_THREADS;
+  extern __shared__ unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(
+      smem_raw + ((1024 - ((unsigned)__cvta_generic_to_shared(smem_raw) & 1023)) & 1023));
+  bf16* v_s = k_s + R * D;
+  bf16* q_s = v_s + R * D;           // 2 stages of (R, D)
+  bf16* do_s = q_s + 2 * R * D;      // 2 stages
+  float* p_x = reinterpret_cast<float*>(do_s + 2 * R * D);   // Pᵀ, group 0 to group 1
+  float* red = reinterpret_cast<float*>(q_s);   // a key tile's dK then dV rows, fp32
+  __shared__ __align__(16) float lse_s[2][R], delta_s[2][R];
 
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int grp_w = threadIdx.x / TB_THREADS;              // this thread's warp group
-  const int gtid = threadIdx.x % TB_THREADS, warp = gtid >> 5;
-  const int col0 = SPLIT_D ? grp_w * DC : 0;                // its first dK, dV column
-  const int first = SPLIT_D ? 0 : grp_w;                    // its first step
-  bf16* q_s = v_s + TB_BK * P + grp_w * 4 * TB_KQ * P;    // 2 stages of (TB_KQ, P)
-  bf16* do_s = q_s + 2 * TB_KQ * P;                        // 2 stages
+  const int grp_w = threadIdx.x / WB_THREADS, gtid = threadIdx.x % WB_THREADS;
+  const int lane = gtid & 31, warp = gtid >> 5, g = lane >> 2, tig = lane & 3;
+  const int chunks = a.chunks, chunk = blockIdx.x % chunks, pair = blockIdx.x / chunks;
   const int grp = blockIdx.y;
   const int64_t b = blockIdx.z;
-  const int k0 = blockIdx.x * TB_BK, off = a.sk - a.sq;
+  const int off = a.sk - a.sq, n_kt = (a.sk + R - 1) / R;
+  const int h_beg = grp * a.rep + chunk * a.rep / chunks;
+  const int nh = grp * a.rep + (chunk + 1) * a.rep / chunks - h_beg;
   const bf16* kb = (const bf16*)a.k + b * a.k_st.b + grp * a.k_st.h;
   const bf16* vb = (const bf16*)a.v + b * a.v_st.b + grp * a.v_st.h;
   bf16* dkb = (bf16*)a.dk + b * a.dk_st.b + grp * a.dk_st.h;
   bf16* dvb = (bf16*)a.dv + b * a.dv_st.b + grp * a.dv_st.h;
   const float scale_log2 = a.scale * LOG2E;
-  auto group_sync = [&]() {          // the warp group's own barrier (0 is __syncthreads)
-    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + grp_w), "r"(TB_THREADS) : "memory");
-  };
 
-  // K and V by the first warp group, then one barrier for all
-  if (grp_w == 0) {
-    load_rows<D, TB_BK>(k_s, kb + (int64_t)k0 * a.k_st.s, a.k_st.s, a.sk - k0, gtid);
-    load_rows<D, TB_BK>(v_s, vb + (int64_t)k0 * a.v_st.s, a.v_st.s, a.sk - k0, gtid);
-  }
-  cp_async_commit();
+  for (int pass = 0; pass < 2; ++pass) {      // the same for every block of a cluster
+    const int kt = pass == 0 ? pair : n_kt - 1 - pair;
+    if (pass == 1 && kt <= pair) break;
+    const int k0 = kt * R;
+    // the query rows that see some key of this tile (all, when it holds a
+    // prefix key), in tiles of R, for each of the chunk's heads: step `it`
+    // is head h_beg + it / n_qt
+    const int k_last = min(k0 + R, a.sk) - 1;
+    const bool pre = PFX && k0 < a.prefix;
+    const int i_beg = a.causal && !pre ? max(0, k0 - off) : 0;
+    const int i_end = a.window && !pre ? min(a.sq, k_last + a.window - off) : a.sq;
+    const int qt_beg = (i_beg / R) * R;
+    const int n_qt = i_end > qt_beg ? (i_end - qt_beg + R - 1) / R : 0;
+    const int total = nh * n_qt;
 
-  // the query rows that see some key of this tile, in tiles of TB_KQ, for
-  // each of the group's heads: step `it` is head grp·rep + it / n_qt, and
-  // warp group w takes the steps first, first + STEP, ...
-  const int k_last = min(k0 + TB_BK, a.sk) - 1;
-  const bool pre = PFX && k0 < a.prefix;    // every row sees the tile's first key
-  const int i_beg = a.causal && !pre ? max(0, k0 - off) : 0;
-  const int i_end = a.window && !pre ? min(a.sq, k_last + a.window - off) : a.sq;
-  const int qt_beg = (i_beg / TB_KQ) * TB_KQ;
-  const int n_qt = i_end > qt_beg ? (i_end - qt_beg + TB_KQ - 1) / TB_KQ : 0;
-  const int total = a.rep * n_qt;
-
-  // step `it` into stage j, with its rows' lse and delta; rows past Sq read
-  // as zeros, and no key is visible to them
-  auto load_q = [&](int it, int j) {
-    const int hh = grp * a.rep + it / n_qt, q0 = qt_beg + (it % n_qt) * TB_KQ;
-    const bf16* qb = (const bf16*)a.q + b * a.q_st.b + hh * a.q_st.h;
-    const bf16* dob = (const bf16*)a.dout + b * a.do_st.b + hh * a.do_st.h;
-    load_rows<D, TB_KQ>(q_s + j * TB_KQ * P, qb + (int64_t)q0 * a.q_st.s, a.q_st.s, a.sq - q0,
-                        gtid);
-    load_rows<D, TB_KQ>(do_s + j * TB_KQ * P, dob + (int64_t)q0 * a.do_st.s, a.do_st.s,
-                        a.sq - q0, gtid);
-    if (gtid < 2 * TB_KQ) {
-      const int r = gtid % TB_KQ, i = q0 + r;
-      const int64_t row = (b * a.h + hh) * a.sq + (i < a.sq ? i : 0);
-      if (gtid < TB_KQ)
-        cp_async4(&lse_s[grp_w][j][r], a.lse + row, i < a.sq);
-      else
-        cp_async4(&delta_s[grp_w][j][r], a.delta + row, i < a.sq);
-    }
-  };
-  if (first < total) load_q(first, 0);
-  cp_async_commit();
-  cp_async_wait<1>();
-  __syncthreads();                   // K and V are in for every thread
-
-  float dk[NT][4], dv[NT][4];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[nt][e] = dv[nt][e] = 0.0f;
-  const int kr0 = k0 + warp * 16 + g, kr1 = kr0 + 8;      // this thread's keys
-
-  for (int it = first, j = 0; it < total; it += STEP, j ^= 1) {
-    if (it + STEP < total) load_q(it + STEP, j ^ 1);   // in flight under this one
+    // step `it` into stage j, with its rows' lse and delta; rows past Sq
+    // read as zeros, and no key is visible to them
+    auto load_q = [&](int it, int j) {
+      const int hh = h_beg + it / n_qt, q0 = qt_beg + (it % n_qt) * R;
+      const bf16* qb = (const bf16*)a.q + b * a.q_st.b + hh * a.q_st.h;
+      const bf16* dob = (const bf16*)a.dout + b * a.do_st.b + hh * a.do_st.h;
+      load_tile<D, R, THREADS>(q_s + j * R * D, qb + (int64_t)q0 * a.q_st.s, a.q_st.s,
+                               a.sq - q0);
+      load_tile<D, R, THREADS>(do_s + j * R * D, dob + (int64_t)q0 * a.do_st.s, a.do_st.s,
+                               a.sq - q0);
+      if (threadIdx.x < 2 * R) {
+        const int r = threadIdx.x % R, i = q0 + r;
+        const int64_t row = (b * a.h + hh) * a.sq + (i < a.sq ? i : 0);
+        if (threadIdx.x < R)
+          cp_async4(&lse_s[j][r], a.lse + row, i < a.sq);
+        else
+          cp_async4(&delta_s[j][r], a.delta + row, i < a.sq);
+      }
+    };
+    load_tile<D, R, THREADS>(k_s, kb + (int64_t)k0 * a.k_st.s, a.k_st.s, a.sk - k0);
+    load_tile<D, R, THREADS>(v_s, vb + (int64_t)k0 * a.v_st.s, a.v_st.s, a.sk - k0);
+    if (total > 0) load_q(0, 0);
     cp_async_commit();
-    cp_async_wait<1>();
-    group_sync();                    // step it is in for every thread of the group
-    const int q0 = qt_beg + (it % n_qt) * TB_KQ;
-    const bf16* qs = q_s + j * TB_KQ * P;
-    const bf16* dos = do_s + j * TB_KQ * P;
 
-    float st[QT][4], dpt[QT][4];     // Sᵀ, dPᵀ: keys g, g + 8; q rows 8n + 2t, +1
+    float acc[D / 2];                // dV (group 0) or dK (group 1) of the tile's 64 keys
 #pragma unroll
-    for (int n = 0; n < QT; ++n)
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+    const int kr0 = k0 + warp * 16 + g;        // this thread's keys kr0, kr0 + 8
+    // the q rows each of them is seen by: [lo, hi)
+    int lo[2], hi[2];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.0f;
+    for (int r = 0; r < 2; ++r) {
+      const int kp = kr0 + 8 * r;
+      const bool all = PFX && kp < a.prefix;
+      lo[r] = a.causal && !all ? kp - off : 0;
+      hi[r] = kp >= a.sk ? 0 : a.window && !all ? min(a.sq, kp - off + a.window) : a.sq;
+    }
+
+    for (int it = 0, j = 0; it < total; ++it, j ^= 1) {
+      if (it + 1 < total) load_q(it + 1, j ^ 1);   // in flight under this one
+      cp_async_commit();
+      cp_async_wait<1>();
+      fence_async_shared();
+      __syncthreads();               // step it (and K, V) are in for every thread
+      const int q0 = qt_beg + (it % n_qt) * R;
+      const bf16* qs = q_s + j * R * D;
+      const bf16* dos = do_s + j * R * D;
+      // fragment entry e: key kr0 + 8·((e >> 1) & 1), q row q0 + 8·(e >> 2)
+      // + 2·tig + (e & 1); a thread's 16 q rows come in pairs
+      float sc[R / 2];               // group 0: Sᵀ, then Pᵀ; group 1: dPᵀ, then dSᵀ
+      wgmma_fence();
+      wg_scores<D, R>(sc, grp_w == 0 ? k_s : v_s, grp_w == 0 ? qs : dos);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(sc);
+      if (grp_w == 0) {
+        float2 l2[R / 8];            // the rows' lse in log2 units
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ak[4], av[4];
-      a_frag<P>(ak, k_s, warp * 16, kk, lane);
-      a_frag<P>(av, v_s, warp * 16, kk, lane);
+        for (int n = 0; n < R / 8; ++n) {
+          const float2 l = *reinterpret_cast<const float2*>(&lse_s[j][8 * n + 2 * tig]);
+          l2[n] = make_float2(l.x * LOG2E, l.y * LOG2E);
+        }
+        const bool whole = k0 + R <= a.sk && q0 + R <= a.sq &&
+                           ((PFX && k0 + R <= a.prefix) ||
+                            ((!a.causal || k0 + R - 1 <= q0 + off) &&
+                             (!a.window || q0 + R - 1 + off - k0 < a.window)));
+        if (whole) {                 // every row sees every key: lse is finite
 #pragma unroll
-      for (int n = 0; n < QT; n += 2) {
-        mma_nt2<P>(st[n], st[n + 1], ak, qs, n * 8, kk, lane);
-        mma_nt2<P>(dpt[n], dpt[n + 1], av, dos, n * 8, kk, lane);
+          for (int e = 0; e < R / 2; ++e)
+            sc[e] = exp2f(sc[e] * scale_log2 - (e & 1 ? l2[e >> 2].y : l2[e >> 2].x));
+        } else {
+#pragma unroll
+          for (int e = 0; e < R / 2; ++e) {
+            const int r = (e >> 1) & 1, q = q0 + 8 * (e >> 2) + 2 * tig + (e & 1);
+            sc[e] = q >= lo[r] && q < hi[r]
+                        ? exp2f(sc[e] * scale_log2 - (e & 1 ? l2[e >> 2].y : l2[e >> 2].x))
+                        : 0.0f;
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < R / 2; ++e) p_x[e * WB_THREADS + gtid] = sc[e];
+        named_arrive(THREADS);       // Pᵀ is in for group 1
+      } else {
+        float2 dl[R / 8];            // the rows' delta
+#pragma unroll
+        for (int n = 0; n < R / 8; ++n)
+          dl[n] = *reinterpret_cast<const float2*>(&delta_s[j][8 * n + 2 * tig]);
+        named_sync(THREADS);
+#pragma unroll
+        for (int e = 0; e < R / 2; ++e)
+          sc[e] = p_x[e * WB_THREADS + gtid] * (sc[e] - (e & 1 ? dl[e >> 2].y : dl[e >> 2].x)) *
+                  a.scale;
+      }
+      uint32_t pa[R / 16][4];
+      pack_a<R>(pa, sc);
+      wgmma_fence();
+      wg_rows<D, R>(acc, pa, grp_w == 0 ? dos : qs);   // dV += Pᵀ·dO; dK += dSᵀ·Q
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(acc);
+      reg_fence(pa);
+      __syncthreads();               // this stage (and p_x) is consumed before it is refilled
+    }
+    cp_async_wait<0>();
+    __syncthreads();                 // every copy has landed: the ring is free
+
+    if (chunks == 1) {               // this thread's rows kr0, kr0 + 8, as bf16
+      bf16* base = grp_w == 0 ? dvb : dkb;
+      const long long stride = grp_w == 0 ? a.dv_st.s : a.dk_st.s;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          if (kr0 + 8 * r < a.sk)
+            *reinterpret_cast<__nv_bfloat162*>(base + (int64_t)(kr0 + 8 * r) * stride + 8 * n +
+                                               2 * tig) =
+                __floats2bfloat162_rn(acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1]);
+      continue;
+    }
+    // the fp32 partials meet in the blocks that own their rows: row ρ of
+    // the 2R (dK's, then dV's) belongs to block first(r) <= ρ < first(r+1),
+    // which receives each block's copy at recv[src][ρ - first(r)] (in its
+    // ring and the Pᵀ buffer after it), 8-float chunks XORed with the row
+    // against bank conflicts; it adds them in rank order and writes them
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rows_max = (2 * R + chunks - 1) / chunks;
+    auto first = [&](int r) { return r * 2 * R / chunks; };
+    cluster.sync();                  // every block is past its steps: the buffers are free
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int rho = (grp_w == 0 ? R : 0) + warp * 16 + g + 8 * r;
+      const int owner = ((rho + 1) * chunks - 1) / (2 * R), local = rho - first(owner);
+      float* dst = cluster.map_shared_rank(red, owner) + (chunk * rows_max + local) * D;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<float2*>(dst + ((8 * n + 2 * tig) ^ (8 * (local & 3)))) =
+            make_float2(acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1]);
+    }
+    cluster.sync();                  // every copy of this block's rows is in
+    constexpr int C4 = D / 4;
+    const int row_lo = first(chunk), nrows = first(chunk + 1) - row_lo;
+    for (int i = threadIdx.x; i < nrows * C4; i += THREADS) {
+      const int local = i / C4, c = ((i % C4) * 4) ^ (8 * (local & 3));
+      const int row = row_lo + local, key = k0 + row % R;
+      float4 v[WB_CHUNKS_MAX];       // the blocks' copies, in rank order
+#pragma unroll
+      for (int src = 0; src < WB_CHUNKS_MAX; ++src)
+        if (src < chunks)
+          v[src] = *reinterpret_cast<const float4*>(red + (src * rows_max + local) * D + c);
+      float f[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int src = 0; src < WB_CHUNKS_MAX; ++src)
+        if (src < chunks) {
+          f[0] += v[src].x;
+          f[1] += v[src].y;
+          f[2] += v[src].z;
+          f[3] += v[src].w;
+        }
+      if (key < a.sk) {
+        uint2 out;
+        *reinterpret_cast<__nv_bfloat162*>(&out.x) = __floats2bfloat162_rn(f[0], f[1]);
+        *reinterpret_cast<__nv_bfloat162*>(&out.y) = __floats2bfloat162_rn(f[2], f[3]);
+        bf16* dst = row < R ? dkb + (int64_t)key * a.dk_st.s : dvb + (int64_t)key * a.dv_st.s;
+        *reinterpret_cast<uint2*>(dst + ((i % C4) * 4)) = out;
       }
     }
-    // Pᵀ into st, dSᵀ into dpt; at D = 256 a step whose rows all see every
-    // key of the block takes no element mask (at D <= 128 the test cost
-    // more than it saved)
-    const bool whole = SPLIT_D && k0 + TB_BK <= a.sk && q0 + TB_KQ <= a.sq &&
-                       ((PFX && k0 + TB_BK <= a.prefix) ||
-                        ((!a.causal || k0 + TB_BK - 1 <= q0 + off) &&
-                         (!a.window || q0 + TB_KQ - 1 + off - k0 < a.window)));
-#pragma unroll
-    for (int n = 0; n < QT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ql = n * 8 + 2 * t + (e & 1), key = e < 2 ? kr0 : kr1;
-        const bool ok =
-            whole || visible<PFX>(q0 + ql, key, a.sq, a.sk, off, a.causal, a.window, a.prefix);
-        const float l = lse_s[grp_w][j][ql] * LOG2E;
-        const float p = ok && l != -INFINITY ? exp2f(st[n][e] * scale_log2 - l) : 0.0f;
-        st[n][e] = p;
-        dpt[n][e] = p * (dpt[n][e] - delta_s[grp_w][j][ql]) * a.scale;
-      }
-    // dV += Pᵀ·dO, dK += dSᵀ·q
-#pragma unroll
-    for (int kk = 0; kk < QT / 2; ++kk) {
-      uint32_t ap[4], ads[4];
-      a_from_c(ap, st[2 * kk], st[2 * kk + 1]);
-      a_from_c(ads, dpt[2 * kk], dpt[2 * kk + 1]);
-      mma_rows<DC, P>(dv, ap, dos + col0, kk * 16, lane);
-      mma_rows<DC, P>(dk, ads, qs + col0, kk * 16, lane);
-    }
-    group_sync();                    // this stage is consumed before it is refilled
-  }
-  cp_async_wait<0>();
-  __syncthreads();                   // every group is done with its stages
-
-  // the groups' sums added in order: group w > 0 leaves its dK, dV in the
-  // q/dO stages (entry e of thread gtid at e·TB_THREADS + gtid), group 0
-  // adds them and writes the result; with SPLIT_D each group writes its own
-  // columns
-  float* red = reinterpret_cast<float*>(v_s + TB_BK * P);
-  for (int w = 1; w < (SPLIT_D ? 1 : TB_GROUPS); ++w) {
-    if (grp_w == w) {
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          red[((nt * 4 + e) * 2) * TB_THREADS + gtid] = dk[nt][e];
-          red[((nt * 4 + e) * 2 + 1) * TB_THREADS + gtid] = dv[nt][e];
-        }
-    }
-    __syncthreads();
-    if (grp_w == 0) {
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          dk[nt][e] += red[((nt * 4 + e) * 2) * TB_THREADS + gtid];
-          dv[nt][e] += red[((nt * 4 + e) * 2 + 1) * TB_THREADS + gtid];
-        }
-    }
-    __syncthreads();
-  }
-  if (!SPLIT_D && grp_w != 0) return;
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int col = col0 + nt * 8 + 2 * t;
-    if (kr0 < a.sk) {
-      *reinterpret_cast<__nv_bfloat162*>(dkb + (int64_t)kr0 * a.dk_st.s + col) =
-          __floats2bfloat162_rn(dk[nt][0], dk[nt][1]);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + (int64_t)kr0 * a.dv_st.s + col) =
-          __floats2bfloat162_rn(dv[nt][0], dv[nt][1]);
-    }
-    if (kr1 < a.sk) {
-      *reinterpret_cast<__nv_bfloat162*>(dkb + (int64_t)kr1 * a.dk_st.s + col) =
-          __floats2bfloat162_rn(dk[nt][2], dk[nt][3]);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + (int64_t)kr1 * a.dv_st.s + col) =
-          __floats2bfloat162_rn(dv[nt][2], dv[nt][3]);
-    }
+    __syncthreads();                 // the buffers are read before the next tile's copies
   }
 }
 
@@ -1907,27 +1983,78 @@ int launch_bwd_f32(const BwdArgs& a) {
   return (int)cudaGetLastError();
 }
 
+// the dq kernel, then the dk/dv kernel: a.chunks blocks (one cluster) per
+// pair of key tiles, KV head and batch
 template <int D, bool PFX>
-int launch_bwd_tc(const BwdArgs& a) {
+int launch_bwd_wg(const BwdArgs& a) {
   static bool opted_dq = false, opted_dkdv = false;
-  if (int e = opt_in(flash_bwd_dq_tc_kernel<D, PFX>, tb_dq_smem<D>(), opted_dq)) return e;
-  if (int e = opt_in(flash_bwd_dkdv_tc_kernel<D, PFX>, tb_dkdv_smem<D>(), opted_dkdv)) return e;
-  const dim3 grid_q((unsigned)((a.sq + TB_BQ - 1) / TB_BQ), (unsigned)a.h, (unsigned)a.b);
-  flash_bwd_dq_tc_kernel<D, PFX><<<grid_q, TB_THREADS, tb_dq_smem<D>(), a.stream>>>(a);
+  if (int e = opt_in(flash_bwd_dq_wg_kernel<D, PFX>, wb_dq_smem<D>(), opted_dq)) return e;
+  if (int e = opt_in(flash_bwd_dkdv_wg_kernel<D, PFX>, wb_dkdv_smem<D>(), opted_dkdv)) return e;
+  const dim3 grid_q((unsigned)((a.sq + WB_ROWS - 1) / WB_ROWS), (unsigned)a.h, (unsigned)a.b);
+  flash_bwd_dq_wg_kernel<D, PFX><<<grid_q, WB_THREADS, wb_dq_smem<D>(), a.stream>>>(a);
   if (cudaError_t e = cudaGetLastError()) return (int)e;
-  const dim3 grid_k((unsigned)((a.sk + TB_BK - 1) / TB_BK), (unsigned)a.kvh, (unsigned)a.b);
-  flash_bwd_dkdv_tc_kernel<D, PFX>
-      <<<grid_k, TB_GROUPS * TB_THREADS, tb_dkdv_smem<D>(), a.stream>>>(a);
-  return (int)cudaGetLastError();
+  const int pairs = ((a.sk + WB_ROWS - 1) / WB_ROWS + 1) / 2;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(pairs * a.chunks), (unsigned)a.kvh, (unsigned)a.b);
+  cfg.blockDim = dim3(2 * WB_THREADS);
+  cfg.dynamicSmemBytes = (size_t)wb_dkdv_smem<D>();
+  cfg.stream = a.stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = (unsigned)a.chunks;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, flash_bwd_dkdv_wg_kernel<D, PFX>, a);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+template <int D>
+int dkdv_capacity(int chunks) {
+  static bool opted = false;
+  if (opt_in(flash_bwd_dkdv_wg_kernel<D, false>, wb_dkdv_smem<D>(), opted)) return 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)chunks, 1, 1);
+  cfg.blockDim = dim3(2 * WB_THREADS);
+  cfg.dynamicSmemBytes = (size_t)wb_dkdv_smem<D>();
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = (unsigned)chunks;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, flash_bwd_dkdv_wg_kernel<D, false>, &cfg) != cudaSuccess)
+    return 0;
+  return n;
 }
 
 template <int D>
 int launch_bwd_d(const BwdArgs& a, int is_bf16) {
   if (!is_bf16) return launch_bwd_f32<D>(a);
-  return a.prefix > 0 ? launch_bwd_tc<D, true>(a) : launch_bwd_tc<D, false>(a);
+  return a.prefix > 0 ? launch_bwd_wg<D, true>(a) : launch_bwd_wg<D, false>(a);
 }
 
 }  // namespace
+
+// The clusters of `chunks` dk/dv blocks (bf16, head dim d) the card holds at
+// once, from the occupancy calculator, into *count (host memory; 0 for a d
+// the kernels do not take). The stream is taken as every entry here takes
+// it; the count is the current device's.
+extern "C" int flash_bwd_capacity(int d, int chunks, void* count, void* stream) {
+  (void)stream;
+  int* n = (int*)count;
+  switch (d) {
+    case 32: *n = dkdv_capacity<32>(chunks); break;
+    case 64: *n = dkdv_capacity<64>(chunks); break;
+    case 128: *n = dkdv_capacity<128>(chunks); break;
+    case 256: *n = dkdv_capacity<256>(chunks); break;
+    default: *n = 0;
+  }
+  return (int)cudaGetLastError();
+}
 
 // strides: 12 element strides, (b, h, s) for q, k, v and o in that order;
 // q, k, v 16-byte aligned with their (b, h, s) strides multiples of 16
@@ -1982,16 +2109,21 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
 // (b, kvh, sk, d); lse and delta (b, h, sq) fp32 contiguous, lse from the
 // forward, delta written here (scratch of the second kernel). strides: 24
 // element strides, (b, h, s) for q, k, v, o, do, dq, dk and dv in that order,
-// the last dim contiguous, the inputs 16-byte aligned with (b, h, s)
+// the last dim contiguous, every operand 16-byte aligned with (b, h, s)
 // strides multiples of 16 bytes. d in {32, 64, 128, 256}; prefix as the
-// forward's. Two launches: dq (and delta), then dk and dv.
+// forward's. chunks (bf16): the chunks the dk/dv kernel splits each KV
+// head's query heads into, 1 .. min(8, h / kvh); fp32 ignores it. Two
+// launches: dq (and delta), then dk and dv.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const void* lse, void* dq, void* dk,
                                    void* dv, void* delta, const long long* strides, long long b,
                                    int h, int kvh, int sq, int sk, int d, int causal, int window,
-                                   int prefix, float scale, int is_bf16, void* stream) {
+                                   int prefix, float scale, int is_bf16, int chunks,
+                                   void* stream) {
   if (b <= 0 || sq <= 0 || sk <= 0) return 0;
   if (kvh <= 0 || h % kvh != 0 || b > 65535 || h > 65535) return (int)cudaErrorInvalidValue;
+  if (is_bf16 && (chunks < 1 || chunks > WB_CHUNKS_MAX || chunks > h / kvh))
+    return (int)cudaErrorInvalidValue;
   BwdArgs a;
   a.q = q;
   a.k = k;
@@ -2015,6 +2147,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   a.causal = causal;
   a.window = window;
   a.prefix = prefix;
+  a.chunks = chunks;
   a.scale = scale;
   a.stream = (cudaStream_t)stream;
   switch (d) {

@@ -43,14 +43,19 @@ takes the prefill kernel whatever its length.
 Backward: ``flash_attention_bwd`` (replaces the reference's XLA-level
 recompute backward ``src/repro/models/layers.py:_cattn_bwd``; the Pallas
 kernel has none) gives dq, dk, dv from q, k, v, o, lse and dO: two launches
-a call, a dq kernel (one block per q tile and head, delta = Σ dO∘O in its
-prologue) then a dk/dv kernel (one block per key tile and KV head, looping
-over the group's query heads), both recomputing p from lse and skipping
-masked tiles, with no atomics: bf16 on the tensor cores (``mma.sync``,
-fp32 accumulators), fp32 exact on the CUDA cores. At the train path's
-shape (B 8, H 16, KV 2, S 512, D 128, bf16, causal) it must move 76.0 MB,
-22.7 µs at 3.35 TB/s, and do 21.5 GFLOP, 21.7 µs at the bf16 tensor rate.
-``FlashAttention`` is the autograd Function of the two.
+a call, both recomputing p from lse and skipping masked tiles, with no
+float atomics. bf16: every product on Hopper's warpgroup products (wgmma,
+fp32 accumulators). A dq kernel, one warpgroup per 64-row q tile and head,
+delta = Σ dO∘O in its prologue; then a dk/dv kernel, one block of two
+warpgroups (one forming Pᵀ and dV, the other dSᵀ and dK) per pair of
+64-key tiles (tile kt with tile n-1-kt: equal causal work), KV head, batch
+and chunk of the group's query heads (``bwd_chunks``: as many as the card
+holds at once), the chunks of a pair one thread-block cluster whose fp32
+partials meet in distributed shared memory, added in rank order. fp32:
+exact on the CUDA cores. At the train path's shape (B 8, H 16, KV 2, S 512,
+D 128, bf16, causal) it must move 76.0 MB, 22.7 µs at 3.35 TB/s, and do
+21.5 GFLOP, 21.7 µs at the bf16 tensor rate. ``FlashAttention`` is the
+autograd Function of the two.
 
 ``flash_attention`` and ``flash_attention_bwd`` take the plain versions only
 for tensors on the CPU; for CUDA tensors they launch the kernels or raise.
@@ -76,6 +81,8 @@ SPLIT_KEYS = 64          # keys per tile of a decode split
 SPLIT_BLOCKS = 264       # decode blocks wanted: two per SM of an H100
 SPLIT_MAX = 16           # key splits at most: the largest cluster
 SMEM_OPT_IN_MAX = 232_448   # a block's shared memory on an H100 (227 KB)
+BWD_ROWS = 64            # the bf16 backward's tiles: q rows (dq), keys (dk/dv)
+BWD_CHUNKS_MAX = 8       # the dk/dv kernel's head chunks at most: a portable cluster
 
 
 def split_smem_bytes(d: int, splits: int) -> int:
@@ -219,17 +226,54 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 flash_attention.launches = 0
 
 
+def bwd_chunks(b: int, h: int, kvh: int, sk: int, capacity) -> int:
+    """Chunks the bf16 dk/dv kernel splits each KV head's h/kvh query heads
+    into. Its blocks (a pair of 64-key tiles, a KV head, a batch, a chunk:
+    two warpgroups on up to 209 KB of tiles) form one cluster per chunk
+    set, and ``capacity(c)`` is how many clusters of c blocks the card holds
+    at once (``flash_bwd_capacity``, the occupancy calculator's count). The
+    most chunks, within h/kvh and a cluster of 8, whose clusters all run at
+    once; 1 when not even 2 fit. The chunks' fp32 partial dK and dV are
+    added in rank order inside their cluster, so a chunk costs no global
+    memory."""
+    pairs = (-(-sk // BWD_ROWS) + 1) // 2
+    for c in range(min(h // kvh, BWD_CHUNKS_MAX), 1, -1):
+        if pairs * kvh * b <= capacity(c):
+            return c
+    return 1
+
+
+_CAPACITY: dict = {}
+
+
+def _capacity(device, d: int):
+    """``capacity`` for ``bwd_chunks`` on this card at head dim d: the C
+    entry's count of clusters of c dk/dv blocks held at once, cached."""
+    key = (torch.device(device), d)
+    if key not in _CAPACITY:
+        with torch.cuda.device(device):
+            lib = build.library("flash_attention")
+            _CAPACITY[key] = {c: build.query(lib.flash_bwd_capacity, d, c)
+                              for c in range(2, BWD_CHUNKS_MAX + 1)}
+    return _CAPACITY[key].__getitem__
+
+
 def bwd_kernel_args(q, k, v, o, lse, do, dq, dk, dv, delta, *,
                     causal: bool = True, window: int = 0,
                     prefix_len: int = 0) -> tuple:
-    """The backward C entry's arguments, all but the stream."""
+    """The backward C entry's arguments, all but the stream; the dk/dv
+    kernel's head chunks last (``bwd_chunks`` on q's card in bf16; fp32
+    takes 1)."""
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
+    chunks = (bwd_chunks(b, h, kvh, sk, _capacity(q.device, d))
+              if q.dtype == torch.bfloat16 else 1)
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), delta.data_ptr(), _strides(q, k, v, o, do, dq, dk, dv),
             b, h, kvh, sq, sk, d, int(bool(causal)), int(window),
-            int(prefix_len), 1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16))
+            int(prefix_len), 1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16),
+            int(chunks))
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,

@@ -17,10 +17,18 @@ Backward: ``rmsnorm_bwd`` (replaces the reference's XLA-level custom VJP
 ``src/repro/models/layers.py:_rms_fused_bwd``; the Pallas kernel has none)
 gives dx and dscale from x, scale and dy, recomputing r from x. At the
 train path's 4096 rows of 2048 bf16 it must move 50.3 MB (x and dy read,
-dx written), 15.0 µs at 3.35 TB/s. One call is two launches: dx, with each
-block's fp32 column sums of x·dy·r, then dscale summed from those in a
-fixed order (no atomics: equal inputs give equal bits). ``RMSNorm`` is the
-autograd Function of the two: its forward is ``rmsnorm``.
+dx written), 15.0 µs at 3.35 TB/s. One call is two launches. The row
+kernel: a block of 256 threads per row at a time, 16 bytes of the row a
+thread, the next 3 rows' x and dy in flight (a cp.async ring in shared
+memory) under this row's two sums, each thread's column sums of x·dy·r in
+registers, as many blocks as the card holds at once; the blocks of a
+cluster of 8 add their sums through distributed shared memory into one row
+of partials. Then a wide dscale kernel, launched as the row kernel's
+programmatic dependent, adds those rows in a fixed order (no atomics:
+equal inputs give equal bits). Unaligned operands and widths that are not
+whole 16-byte vectors, or more than 1,024 of them, take a general path
+(``bwd_plan``). ``RMSNorm`` is the autograd Function: its forward is
+``rmsnorm``.
 
 ``rmsnorm`` and ``rmsnorm_bwd`` take the plain versions only for tensors on
 the CPU; for CUDA tensors they launch the kernels or raise.
@@ -34,8 +42,10 @@ from repro_torch.kernels.ref import rmsnorm_bwd_ref, rmsnorm_ref
 
 plain = rmsnorm_ref
 plain_bwd = rmsnorm_bwd_ref
-BWD_WARPS = 4             # rows a block of the backward takes at a time
-BWD_BLOCKS = 264          # blocks of the backward at most: two per SM
+BWD_CLUSTER = 8           # the row kernel's blocks that add their sums on chip
+BWD_MAX_VECS = 1024       # 16-byte vectors a row on the row kernel: 4 a thread
+BWD_WARPS = 4             # the general path: rows a block takes at a time
+BWD_BLOCKS = 264          # the general path's blocks at most: two per SM
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -79,10 +89,52 @@ def rmsnorm(x, scale, eps: float = 1e-6):
 rmsnorm.launches = 0
 
 
-def bwd_blocks(rows: int) -> int:
-    """Blocks of the backward's first kernel: one per BWD_WARPS rows, at
-    most BWD_BLOCKS (they then walk the rows with a grid stride)."""
-    return max(1, min(-(-rows // BWD_WARPS), BWD_BLOCKS))
+def bwd_plan(rows: int, d: int, itemsize: int, aligned: bool,
+             capacity: int) -> tuple:
+    """(kernel, blocks, partial rows) of the backward, as the C entry
+    chooses. "rows": operands 16-byte aligned, d whole 16-byte vectors, at
+    most BWD_MAX_VECS of them; clusters of BWD_CLUSTER blocks, as many as
+    the card holds at once (``capacity``: ``rmsnorm_bwd_capacity``, the
+    occupancy calculator's count, 45 at d = 2048 bf16 on an H100) and at
+    most one block a row; a partial row per cluster. "general": one block
+    per BWD_WARPS rows, at most BWD_BLOCKS, a partial row each."""
+    vec = 16 // itemsize
+    if aligned and d % vec == 0 and d // vec <= BWD_MAX_VECS:
+        clusters = max(1, min(-(-rows // BWD_CLUSTER), capacity))
+        return "rows", clusters * BWD_CLUSTER, clusters
+    blocks = max(1, min(-(-rows // BWD_WARPS), BWD_BLOCKS))
+    return "general", blocks, blocks
+
+
+_CAPACITY: dict = {}
+
+
+def _plan(x, scale, dy):
+    d = x.shape[-1]
+    bf16 = int(x.dtype == torch.bfloat16)
+    key = (x.device, d, bf16)
+    if key not in _CAPACITY:
+        with torch.cuda.device(x.device):
+            _CAPACITY[key] = build.query(build.library("rmsnorm").rmsnorm_bwd_capacity, d, bf16)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, scale, dy))
+    return bwd_plan(x.numel() // d if d else 0, d, x.element_size(), aligned,
+                    _CAPACITY[key])
+
+
+def bwd_partials(x, scale, dy):
+    """The fp32 scratch of one backward call on these operands: (partial
+    rows, d), as ``bwd_plan`` gives them."""
+    return torch.empty((_plan(x, scale, dy)[2], x.shape[-1]),
+                       dtype=torch.float32, device=x.device)
+
+
+def bwd_kernel_args(x, scale, dy, dx, dscale, partials, eps: float = 1e-6) -> tuple:
+    """The backward C entry's arguments, all but the stream, for checked
+    CUDA operands, dx and dscale, and ``bwd_partials``' scratch."""
+    d = x.shape[-1]
+    return (x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            dscale.data_ptr(), partials.data_ptr(), x.numel() // d if d else 0, d, float(eps),
+            int(x.dtype == torch.bfloat16), _plan(x, scale, dy)[1])
 
 
 def rmsnorm_bwd(x, scale, dy, eps: float = 1e-6):
@@ -100,18 +152,13 @@ def rmsnorm_bwd(x, scale, dy, eps: float = 1e-6):
                          f"{x.dtype}, got {tuple(dy.shape)} {dy.dtype} on {dy.device}")
     if not dy.is_contiguous():
         raise ValueError("rmsnorm_bwd: dy must be contiguous")
-    d = x.shape[-1]
-    rows = x.numel() // d if d else 0
-    blocks = bwd_blocks(rows)
     dx = torch.empty_like(x)
     dscale = torch.empty_like(scale)
-    partials = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
+        partials = bwd_partials(x, scale, dy)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = build.library("rmsnorm").rmsnorm_bwd(
-            x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-            dscale.data_ptr(), partials.data_ptr(), rows, d, float(eps),
-            int(x.dtype == torch.bfloat16), blocks, stream)
+            *bwd_kernel_args(x, scale, dy, dx, dscale, partials, eps), stream)
     build.check(code, "rmsnorm_bwd")
     rmsnorm_bwd.launches += 1
     return dx, dscale

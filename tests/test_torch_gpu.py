@@ -697,10 +697,11 @@ def bwd_kernel_names():
 
 
 def test_rmsnorm_bwd_is_two_kernels_and_deterministic(cuda, bwd_kernel_names):
-    """A call is the dx kernel then the dscale kernel, nothing else (under
+    """A call at the train path's shape is the row kernel (dx and each
+    cluster's column sums) then the dscale kernel, nothing else (under
     torch.profiler), and two calls give the same bits (no atomics)."""
     names = bwd_kernel_names[:2]
-    assert "rmsnorm_bwd_kernel" in names[0] and "rmsnorm_dscale_kernel" in names[1], \
+    assert "rmsnorm_bwd_rows_kernel" in names[0] and "rmsnorm_bwd_cols_kernel" in names[1], \
         bwd_kernel_names
     x, sc, dy = _rms_bwd_inputs(cuda, (4096, 2048), torch.bfloat16, 5)
     first = rmsnorm.rmsnorm_bwd(x, sc, dy)
@@ -734,6 +735,9 @@ BWD_CASES = [  # b, h, kv, sq, sk, d
     (1, 4, 2, 128, 64, 64),         # rows that see no key
     (1, 4, 4, 96, 96, 32),
     (2, 16, 2, 512, 512, 128),      # the train path's shape, batch cut to 2
+    (2, 8, 2, 77, 133, 64),         # lengths off the 64-row tiles; an odd key tile unpaired
+    (9, 16, 2, 200, 200, 128),      # rep 8 in 3 head chunks on an H100 (bwd_chunks), 3 not dividing 8
+    (1, 16, 2, 1000, 1000, 128),    # a long sequence: 8 pairs of key tiles
 ]
 
 
@@ -787,6 +791,7 @@ BWD_256_PREFIX_CASES = [
     (1, 8, 1, 261, 261, 256, 100, 0),     # a prefix that is not a multiple of a tile
     (1, 4, 2, 200, 200, 64, 70, 20),      # a prefix inside and past a window
     (1, 4, 2, 130, 130, 128, 130, 0),     # every key in the prefix
+    (2, 8, 1, 333, 333, 256, 77, 0),      # rep 8 at head dim 256, a ragged prefix
 ]
 
 
@@ -802,8 +807,8 @@ def test_flash_bwd_is_two_kernels_dq_first_and_deterministic(cuda, bwd_kernel_na
     torch.profiler, after the rmsnorm_bwd call's two), and two calls give
     the same bits."""
     names = bwd_kernel_names[2:]
-    assert len(names) == 2 and "flash_bwd_dq_tc_kernel" in names[0] \
-        and "flash_bwd_dkdv_tc_kernel" in names[1], bwd_kernel_names
+    assert len(names) == 2 and "flash_bwd_dq_wg_kernel" in names[0] \
+        and "flash_bwd_dkdv_wg_kernel" in names[1], bwd_kernel_names
     args = _attn_bwd(cuda, 2, 16, 2, 512, 512, 128, torch.bfloat16, True, 0, 11)
     first = flash_attention.flash_attention_bwd(*args)
     again = flash_attention.flash_attention_bwd(*args)

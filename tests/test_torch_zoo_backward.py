@@ -197,3 +197,69 @@ def test_flash_lse_kernel_args_take_the_prefill_kernel():
     args = tflash.kernel_args(q, k, k, torch.empty_like(q), lse=lse)
     assert args[-1] == 0 and args[5] == lse.data_ptr()
     assert tflash.kernel_args(q, k, k, torch.empty_like(q))[-1] == 9
+
+
+# The H100's counts of clusters of c dk/dv blocks held at once
+# (flash_attention.flash_bwd_capacity, the same at every head dim; PERF.md).
+H100_CAPACITY = {2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
+
+
+@pytest.mark.parametrize("b,h,kv,sk,want", [
+    (8, 16, 2, 512, 2),      # qwen2.5-3b's train shape: 64 pairs of key tiles
+    (8, 8, 1, 512, 3),       # paligemma-3b's: rep 8 in 3 chunks
+    (8, 32, 4, 512, 1),      # train_moe's: 128 pairs, more than 66 clusters of 2
+    (1, 32, 2, 1100, 5),     # glm4-9b-swa's: 18 pairs
+    (2, 4, 4, 61, 1),        # rep 1
+    (1, 6, 1, 64, 6),        # one key tile, rep 6
+])
+def test_bwd_chunks_take_the_most_clusters_the_card_holds(b, h, kv, sk, want):
+    chunks = tflash.bwd_chunks(b, h, kv, sk, H100_CAPACITY.__getitem__)
+    assert chunks == want
+    pairs = (-(-sk // 64) + 1) // 2
+    rep = h // kv
+    assert 1 <= chunks <= min(rep, 8)
+    if chunks > 1:
+        assert pairs * kv * b <= H100_CAPACITY[chunks]
+    for c in range(chunks + 1, min(rep, 8) + 1):
+        assert pairs * kv * b > H100_CAPACITY[c]
+
+
+@pytest.mark.parametrize("sk", [1, 64, 65, 133, 512, 1000])
+@pytest.mark.parametrize("rep,chunks", [(1, 1), (8, 2), (8, 3), (6, 4), (7, 7), (8, 8)])
+def test_dkdv_work_split_covers_every_key_head_and_row_once(sk, rep, chunks):
+    """The dk/dv kernel's index arithmetic: block (pair p, chunk c) walks key
+    tiles p and n-1-p (the middle one once) for heads rep·c/C .. rep·(c+1)/C
+    - 1; after its tiles, row ρ of the 2·64 partial rows (dK's, then dV's)
+    belongs to block ((ρ+1)·C - 1) // 128, whose rows start at r·128 // C.
+    Every (key tile, head) pair is walked once, and every row has one owner
+    whose receive buffer (C copies of ceil(128 / C) rows) holds it."""
+    n_kt = -(-sk // 64)
+    pairs = (n_kt + 1) // 2
+    seen = []
+    for p in range(pairs):
+        tiles = [p] if n_kt - 1 - p <= p else [p, n_kt - 1 - p]
+        for c in range(chunks):
+            for hh in range(rep * c // chunks, rep * (c + 1) // chunks):
+                seen += [(t, hh) for t in tiles]
+    assert sorted(seen) == [(t, hh) for t in range(n_kt) for hh in range(rep)]
+    first = [r * 128 // chunks for r in range(chunks + 1)]
+    rows_max = -(-128 // chunks)
+    for rho in range(128):
+        owner = ((rho + 1) * chunks - 1) // 128
+        assert first[owner] <= rho < first[owner + 1]
+        assert rho - first[owner] < rows_max
+
+
+@pytest.mark.parametrize("rows,d,itemsize,aligned,capacity,want", [
+    (4096, 2048, 2, True, 45, ("rows", 360, 45)),     # the train shape on an H100
+    (4096, 2048, 4, True, 30, ("rows", 240, 30)),     # fp32: 2 vectors a thread
+    (37, 512, 2, True, 45, ("rows", 40, 5)),          # at most one block a row
+    (0, 2048, 2, True, 45, ("rows", 8, 1)),
+    (37, 512, 2, False, 45, ("general", 10, 10)),     # unaligned operands
+    (5, 100, 2, True, 45, ("general", 2, 2)),         # not whole 16-byte vectors
+    (3, 3000, 4, True, 20, ("rows", 8, 1)),           # 750 vectors: 3 a thread
+    (8, 8200, 2, True, 20, ("general", 2, 2)),        # more than 1,024 vectors
+    (4096, 2048, 2, True, 0, ("rows", 8, 1)),         # a card without the count: one cluster
+])
+def test_rmsnorm_bwd_plan(rows, d, itemsize, aligned, capacity, want):
+    assert trms.bwd_plan(rows, d, itemsize, aligned, capacity) == want
