@@ -818,7 +818,9 @@ def check_cohort_sample(torch, cs, build):
     between CUDA events after a 100 MB write that evicts the L2, and the
     plain walk on the card. The bound: the walk steps this run's keys need,
     FEISTEL_STEP_OPS integer operations each, at the card's 32-bit
-    integer rate, against 24 B read and 4 B a slot written."""
+    integer rate, against 24 B read and 4 B a slot written. ``floor_ms``:
+    an empty kernel of the same grid and arguments from a CUDA graph, the
+    launch's own least time."""
     cases = 0
     for num, cohort in COHORT_SAMPLE_GRID:
         for seed in range(4):
@@ -849,7 +851,14 @@ def check_cohort_sample(torch, cs, build):
                                  torch.cuda.current_stream().cuda_stream)
         build.check(code, "cohort_sample")
 
+    def empty():
+        code = lib.cohort_sample_empty(keys32.data_ptr(), 6, ids.data_ptr(), cohort,
+                                       num, hi, lo,
+                                       torch.cuda.current_stream().cuda_stream)
+        build.check(code, "cohort_sample_empty")
+
     ms = graph_ms(launch)
+    floor = graph_ms(empty)
     flush = torch.empty(100 * 2**20 // 4, device="cuda")
     cold = []
     for _ in range(20):
@@ -877,7 +886,7 @@ def check_cohort_sample(torch, cs, build):
             "source": "src/repro_torch/kernels/csrc/cohort_sample.cu",
             "replaces": "src/repro/core/fed.py:254",
             "max_abs_err": 0.0, "bit_exact_cases": cases,
-            "ms": ms, "cold_ms": statistics.mean(cold),
+            "ms": ms, "cold_ms": statistics.mean(cold), "floor_ms": floor,
             "eager_ms": event_ms(launch),
             "plain_ms": event_ms(lambda: cs.plain(keys, num, cohort, hi, lo),
                                  iters=20, warmup=2),
@@ -889,11 +898,12 @@ def check_cohort_sample(torch, cs, build):
 def check_rmsnorm(torch, rms, build):
     """Kernel vs plain version at the serve paths' shapes (4096 prefill rows
     and 8 decode rows of 2048: qwen2.5-3b and qwen3-moe; of 4096: glm4-9b;
-    4609 rows of 4096: glm4-9b-swa's full forward in fp32) and at ragged
-    widths, fp32 and bf16.
-    Tolerance, absolute plus relative: 1e-5 in fp32 (another summation
-    order, CUDA's 2-ulp rsqrtf), 2e-2 in bf16 (the JAX kernel test's)."""
-    import torch.nn.functional as F
+    4609 rows of 4096: glm4-9b-swa's full forward in fp32; 4096 and 8 rows
+    of 4096: zamba2's Mamba2 inner norm) and at ragged widths, fp32 and
+    bf16. Tolerance, absolute plus relative: 1e-5 in fp32 (another
+    summation order, CUDA's 2-ulp rsqrtf), 2e-2 in bf16 (the JAX kernel
+    test's). Timed at d = 2048 (``rms_timing``) and, as ``d4096``, at the
+    Mamba2 norm's shapes."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     worst = {}
     for rows, d in ((4096, 2048), (8, 2048), (4096, 4096), (8, 4096),
@@ -906,43 +916,52 @@ def check_rmsnorm(torch, rms, build):
             err, ok = close_err(got, rms.plain(x, sc, 1e-6), tol)
             check(ok, f"rmsnorm ({rows}, {d}) {dtype}: max |diff| {err}")
             worst[f"{rows}x{d}/{str(dtype)[6:]}"] = err
-    lib = build.library("rmsnorm")
-    timings = {}
-    d = 2048
-    for tag, rows in (("prefill", 4096), ("decode", 8)):
-        nbytes = 2 * (2 * rows * d + d)
-
-        def make():
-            x = torch.randn(rows, d, generator=gen, device="cuda").to(torch.bfloat16)
-            sc = (torch.randn(d, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
-            return x, sc, 1.0 + sc, torch.empty_like(x)
-
-        def launch(x, sc, weight, out):
-            code = lib.rmsnorm(x.data_ptr(), sc.data_ptr(), out.data_ptr(),
-                               x.shape[0], d, 1e-6, 1,
-                               torch.cuda.current_stream().cuda_stream)
-            build.check(code, "rmsnorm")
-
-        def library(x, sc, weight, out):
-            F.rms_norm(x, (d,), weight=weight, eps=1e-6)
-
-        cold = tag == "prefill"
-        sets = cold_sets(make, nbytes) if cold else [make()]
-        b_ms, b_by = bound_ms(nbytes, 4 * rows * d)
-        x, sc = sets[0][:2]
-        timings[tag] = {
-            "shape": [rows, d], "bytes": nbytes,
-            **timed_pair(launch, library, sets, cold),
-            "eager_ms": event_ms(rotating(launch, sets[:1])),
-            "library_eager_ms": event_ms(rotating(library, sets[:1])),
-            "plain_ms": event_ms(lambda: rms.plain(x, sc, 1e-6)),
-            "bound_ms": b_ms, "bound_by": b_by}
-        del sets
+    timings = {tag: rms_timing(torch, rms, build, gen, rows, d, cold=tag == "prefill")
+               for tag, rows, d in (("prefill", 4096, 2048), ("decode", 8, 2048))}
+    # Mamba2's inner norm (zamba2-1.2b): d = 4096 at the serve prefill's
+    # 4096 rows and decode's 8
+    d4096 = {tag: rms_timing(torch, rms, build, gen, rows, 4096, cold=tag == "prefill")
+             for tag, rows in (("prefill", 4096), ("decode", 8))}
     return {"name": "rmsnorm", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
             "replaces": "src/repro/kernels/rmsnorm.py:30",
             "max_abs_err": max(worst.values()), "max_abs_err_by_case": worst,
-            **timings["prefill"], "decode": timings["decode"]}
+            **timings["prefill"], "decode": timings["decode"], "d4096": d4096}
+
+
+def rms_timing(torch, rms, build, gen, rows, d, cold):
+    """The bf16 forward at (rows, d): warm (or, with ``cold``, also cold)
+    from a CUDA graph beside ``F.rms_norm``, eager, the plain version and
+    the bound (one read and one write an element)."""
+    import torch.nn.functional as F
+    lib = build.library("rmsnorm")
+    nbytes = 2 * (2 * rows * d + d)
+
+    def make():
+        x = torch.randn(rows, d, generator=gen, device="cuda").to(torch.bfloat16)
+        sc = (torch.randn(d, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+        return x, sc, 1.0 + sc, torch.empty_like(x)
+
+    def launch(x, sc, weight, out):
+        code = lib.rmsnorm(x.data_ptr(), sc.data_ptr(), out.data_ptr(),
+                           x.shape[0], d, 1e-6, 1,
+                           torch.cuda.current_stream().cuda_stream)
+        build.check(code, "rmsnorm")
+
+    def library(x, sc, weight, out):
+        F.rms_norm(x, (d,), weight=weight, eps=1e-6)
+
+    sets = cold_sets(make, nbytes) if cold else [make()]
+    b_ms, b_by = bound_ms(nbytes, 4 * rows * d)
+    x, sc = sets[0][:2]
+    out = {"shape": [rows, d], "bytes": nbytes,
+           **timed_pair(launch, library, sets, cold),
+           "eager_ms": event_ms(rotating(launch, sets[:1])),
+           "library_eager_ms": event_ms(rotating(library, sets[:1])),
+           "plain_ms": event_ms(lambda: rms.plain(x, sc, 1e-6)),
+           "bound_ms": b_ms, "bound_by": b_by}
+    del sets
+    return out
 
 
 def rms_terms(torch, x, dy, eps=1e-6):
@@ -957,15 +976,17 @@ def rms_terms(torch, x, dy, eps=1e-6):
 
 def check_rmsnorm_bwd(torch, rms, build):
     """The backward kernel vs its plain version at the train path's shape
-    (4096 rows of 2048: batch 8 × sequence 512) and at ragged widths, fp32
-    and bf16. Tolerance, absolute plus relative: dx 1e-5 in fp32 and 2e-2
+    (4096 rows of 2048: batch 8 × sequence 512; of 4096: zamba2's Mamba2
+    inner norm) and at ragged widths, fp32 and bf16. Tolerance, absolute plus relative: dx 1e-5 in fp32 and 2e-2
     in bf16, as the forward; dscale, a sum over the rows, within the same
     tolerance of the sum of its terms' magnitudes in fp32. Timed warm and
     cold at the train shape in bf16 from a CUDA graph, against
-    torch.ops.aten._fused_rms_norm_backward (weight 1 + scale, rstd given)."""
+    torch.ops.aten._fused_rms_norm_backward (weight 1 + scale, rstd given),
+    and so, as ``d4096``, at d = 4096 (``rms_bwd_timing``)."""
     gen = torch.Generator(device="cuda").manual_seed(12)
     worst = {}
-    for rows, d in ((4096, 2048), (37, 512), (5, 100), (3, 3000), (1, 2048)):
+    for rows, d in ((4096, 2048), (4096, 4096), (37, 512), (5, 100), (3, 3000),
+                    (1, 2048)):
         for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
             x = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
             sc = (torch.randn(d, generator=gen, device="cuda") * 0.1).to(dtype)
@@ -984,8 +1005,21 @@ def check_rmsnorm_bwd(torch, rms, build):
                   "rmsnorm_bwd: two runs differ")
             worst[f"{rows}x{d}/{str(dtype)[6:]}"] = max(err, err_s.max().item())
 
+    out = {"name": "rmsnorm_bwd", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+           "replaces": "src/repro/models/layers.py:146",
+           "max_abs_err": max(worst.values()), "max_abs_err_by_case": worst,
+           **rms_bwd_timing(torch, rms, build, gen, 4096, 2048),
+           # Mamba2's inner norm at zamba2's train shape
+           "d4096": rms_bwd_timing(torch, rms, build, gen, 4096, 4096)}
+    return out
+
+
+def rms_bwd_timing(torch, rms, build, gen, rows, d):
+    """The bf16 backward at (rows, d), warm and cold from a CUDA graph beside
+    aten._fused_rms_norm_backward, eager, the plain version, the bound (x
+    and dy read, dx written, scale read and dscale written) and the plan."""
     lib = build.library("rmsnorm")
-    rows, d = 4096, 2048
     nbytes = 2 * (3 * rows * d + 2 * d)
     plan = rms.bwd_plan(rows, d, 2, True, build.query(lib.rmsnorm_bwd_capacity, d, 1))
 
@@ -1010,11 +1044,7 @@ def check_rmsnorm_bwd(torch, rms, build):
     x, sc, dy = sets[0][:3]
     err, ok = close_err(library(*sets[0])[0], rms.plain_bwd(x, sc, dy, 1e-6)[0], 2e-2)
     check(ok, f"rmsnorm_bwd: the library yardstick disagrees by {err}")
-    out = {"name": "rmsnorm_bwd", "route": "cuda",
-           "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
-           "replaces": "src/repro/models/layers.py:146",
-           "max_abs_err": max(worst.values()), "max_abs_err_by_case": worst,
-           "shape": [rows, d], "bytes": nbytes, **timed_pair(launch, library, sets, True),
+    out = {"shape": [rows, d], "bytes": nbytes, **timed_pair(launch, library, sets, True),
            "eager_ms": event_ms(rotating(launch, sets[:1])),
            "plain_ms": event_ms(lambda: rms.plain_bwd(x, sc, dy, 1e-6)),
            "bound_ms": b_ms, "bound_by": b_by, "plan": list(plan)}
@@ -1140,10 +1170,13 @@ def check_flash(torch, fa, build):
     and paligemma-3b's serve shapes (paligemma's prefill: 256 prefix
     embeddings before 512 tokens), their fp32 parity and consistency
     shapes, a ragged prefix (100 of 261) and a prefix inside and past a
-    window. Tolerance, absolute plus relative: 2e-5 in fp32, 3e-2 in bf16
-    (the JAX kernel test's; the online softmax sums in another order). A
-    planted control, the kernel with the prefix against the plain version
-    without it, must read outside the bf16 tolerance."""
+    window; and head dim 64 at zamba2-1.2b's shapes (32 heads over 32: the
+    serve prefill and decode in bf16, ssm_parity's and ssm_consistency's
+    fp32 prefills and decodes), timed as ``d64``. Tolerance, absolute plus
+    relative: 2e-5 in fp32, 3e-2 in bf16 (the JAX kernel test's; the online
+    softmax sums in another order). A planted control, the kernel with the
+    prefix against the plain version without it, must read outside the
+    bf16 tolerance."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [  # b, h, kv, sq, sk, d, dtype, cache_rows, window[, first row]
@@ -1189,6 +1222,14 @@ def check_flash(torch, fa, build):
         (1, 8, 1, 261, 261, 256, f32, None, 0, 0, 100),
         (2, 4, 2, 200, 200, 64, bf16, None, 20, 0, 70),       # prefix and window
         (2, 4, 2, 200, 200, 64, f32, None, 20, 0, 70),
+        # zamba2-1.2b's shared attention: head dim 64, 32 heads over 32
+        (8, 32, 32, 512, 512, 64, bf16, None, 0, 0, 0),       # serve_zamba
+        (8, 32, 32, 1, 543, 64, bf16, 544, 0, 0, 0),
+        (2, 32, 32, 61, 61, 64, f32, None, 0, 0, 0),          # ssm_parity
+        (2, 32, 32, 1, 65, 64, f32, 65, 0, 0, 0),
+        (2, 32, 32, 300, 300, 64, f32, None, 0, 0, 0),        # ssm_consistency
+        (2, 32, 32, 1, 304, 64, f32, 304, 0, 0, 0),
+        (2, 32, 32, 304, 304, 64, f32, None, 0, 0, 0),
     ]
     worst = {}
     for b, h, kv, sq, sk, d, dtype, rows, window, lo, prefix in cases:
@@ -1220,19 +1261,23 @@ def check_flash(torch, fa, build):
                                                 256, prefix=256),
             "paligemma3b_decode": flash_timing(torch, fa, build, gen, 8, 8, 1, 1, 799, 256,
                                                800)}
+    d64 = {"zamba2_prefill": flash_timing(torch, fa, build, gen, 8, 32, 32, 512, 512, 64,
+                                          cold=True),
+           "zamba2_decode": flash_timing(torch, fa, build, gen, 8, 32, 32, 1, 543, 64, 544)}
     control = worst.pop("control_without_prefix")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:84",
             "max_abs_err": max(worst.values()), "max_abs_err_by_case": worst,
             "control_without_prefix": control,
-            **timings["prefill"], "decode": timings["decode"], "d256": d256}
+            **timings["prefill"], "decode": timings["decode"], "d256": d256, "d64": d64}
 
 
 TRAIN_ATTN = (8, 16, 2, 512, 512, 128)      # b, h, kv, sq, sk, d at batch 8, seq 512
 
 
 PALI_TRAIN_ATTN = (8, 8, 1, 512, 512, 256)  # train_paligemma's attention
+ZAMBA_TRAIN_ATTN = (8, 32, 32, 512, 512, 64)  # train_zamba's shared attention
 
 
 def check_flash_bwd(torch, fa, build):
@@ -1254,7 +1299,9 @@ def check_flash_bwd(torch, fa, build):
     shape in bf16 from a CUDA
     graph, against aten._scaled_dot_product_flash_attention_backward on K/V
     expanded to the query heads (its dK, dV then need a sum over each
-    group, not timed); the same at train_paligemma's head dim 256."""
+    group, not timed); the same at train_paligemma's head dim 256 and at
+    train_zamba's head dim 64 (32 heads over 32), which the cases also
+    hold, with ssm_train_parity's fp32 shape."""
     gen = torch.Generator(device="cuda").manual_seed(13)
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [  # b, h, kv, sq, sk, d, dtype, causal, window[, prefix]
@@ -1277,6 +1324,8 @@ def check_flash_bwd(torch, fa, build):
         (9, 16, 2, 200, 200, 128, bf16, True, 0),       # rep 8 in 3 head chunks
         (1, 16, 2, 1000, 1000, 128, bf16, True, 0),     # a long sequence
         (2, 8, 1, 333, 333, 256, bf16, True, 0, 77),    # rep 8, D 256, a prefix
+        (*ZAMBA_TRAIN_ATTN, bf16, True, 0),              # train_zamba
+        (2, 32, 32, 64, 64, 64, f32, True, 0),          # ssm_train_parity
     ]
     worst, rel_norms = {}, {}
     for b, h, kv, sq, sk, d, dtype, causal, window, *pre in cases:
@@ -1328,7 +1377,9 @@ def check_flash_bwd(torch, fa, build):
            "rel_norm_err_by_case": rel_norms,
            **flash_bwd_timing(torch, fa, build, gen, *TRAIN_ATTN),
            "d256": {"paligemma3b_train": flash_bwd_timing(torch, fa, build, gen,
-                                                          *PALI_TRAIN_ATTN)}}
+                                                          *PALI_TRAIN_ATTN)},
+           "d64": {"zamba2_train": flash_bwd_timing(torch, fa, build, gen,
+                                                    *ZAMBA_TRAIN_ATTN)}}
     return out
 
 
@@ -3240,14 +3291,96 @@ def moe_decode_bounds(cfg, param_bytes):
             "decode_bound_ms_weights": param_bytes / HBM_BYTES_PER_S * 1e3}
 
 
+def ssm_groups(cfg):
+    """xLSTM's (groups, mLSTM blocks a group, sLSTM blocks a group), as
+    ``models/xlstm.py`` lays them out: 6, 7, 1 at xlstm-1.3b."""
+    unit = len(cfg.block_pattern) or 8
+    n_m = (cfg.block_pattern or ("m",) * 7 + ("s",)).count("m")
+    return max(1, cfg.n_layers // unit), n_m, unit - n_m
+
+
+def hybrid_groups(cfg):
+    """zamba2's (Mamba2 blocks a group, groups): 6 and 6 at zamba2-1.2b,
+    whose 38 blocks end in a 2-block tail."""
+    k = cfg.shared_attn_every or 6
+    return k, cfg.n_layers // k
+
+
+def forward_launches(cfg) -> dict:
+    """rmsnorm and flash launches a forward of ``cfg``'s model makes, and
+    those that remat recomputes in the backward, worked out from the
+    models' code: the decoders run two norms and one attention a layer and
+    recompute every layer; xLSTM two norms a block, no attention, and
+    recomputes its mLSTM blocks; zamba2 two norms a Mamba2 block, two and
+    one attention a shared-block application, and recomputes the Mamba2
+    blocks of its groups (not the tail's, nor the shared block). Each adds
+    the final norm."""
+    L = cfg.n_layers
+    if cfg.family == "ssm":
+        g, n_m, n_s = ssm_groups(cfg)
+        return {"rmsnorm": 2 * g * (n_m + n_s) + 1, "flash_attention": 0,
+                "remat_rmsnorm": 2 * g * n_m, "remat_flash_attention": 0}
+    if cfg.family == "hybrid":
+        k, groups = hybrid_groups(cfg)
+        return {"rmsnorm": 2 * L + 2 * groups + 1, "flash_attention": groups,
+                "remat_rmsnorm": 2 * groups * k, "remat_flash_attention": 0}
+    return {"rmsnorm": 2 * L + 1, "flash_attention": L, "remat_rmsnorm": 2 * L,
+            "remat_flash_attention": L}
+
+
+def ssca_buffers(cfg) -> int:
+    """The flat param buffers of ``cfg``'s SSCA state, one ssca_update each
+    a step: one, and a second, fp32, where a bf16 model keeps fp32 leaves
+    (zamba2's Mamba2 decay and dt bias; ``optimizer.ssca_init``)."""
+    return 2 if cfg.family == "hybrid" and cfg.dtype != "float32" else 1
+
+
+def flat_params(state) -> list:
+    """The state's flat param buffers (w_flat, and w_side where there is
+    one)."""
+    side = getattr(state, "w_side", None)
+    return [state.w_flat] + ([] if side is None else [side])
+
+
+def train_launches(cfg, counted) -> dict:
+    """Every counted kernel's launches a train step of ``cfg``'s model: the
+    forward, remat's recompute, one backward launch a forward norm and
+    attention, one ssca_update a flat buffer (``ssca_buffers``)."""
+    f, r = forward_launches(cfg), int(cfg.remat)
+    return {**{k: 0 for k in counted}, "ssca_update": ssca_buffers(cfg),
+            "rmsnorm": f["rmsnorm"] + r * f["remat_rmsnorm"], "rmsnorm_bwd": f["rmsnorm"],
+            "flash_attention": f["flash_attention"] + r * f["remat_flash_attention"],
+            "flash_attention_bwd": f["flash_attention"]}
+
+
 def decoder_params(cfg) -> int:
-    """Parameters of ``transformer.init(cfg)``, leaf by leaf: the embedding
+    """Parameters of the model's ``init(cfg)``, leaf by leaf: the embedding
     (and the untied unembedding), the final norm, and per layer two norms,
     the attention's four matrices (and the QKV bias), and the gated MLP
     (SwiGLU, GeGLU; two matrices for GELU) or
     the MoE's router, its experts' three matrices and arctic's dense
-    residual MLP."""
-    d, hd = cfg.d_model, cfg.resolved_head_dim
+    residual MLP; for xLSTM (``ssm``) the mLSTM blocks' two norms, five
+    (d, d) matrices, gate matrix and conv, and the sLSTM blocks' two norms,
+    (d, 4d) and (d, d) matrices and block-diagonal recurrence; for zamba2
+    (``hybrid``) each Mamba2 block's two norms, in- and out-projections,
+    conv, decay and dt bias, and the shared block's concat projection, two
+    norms, attention and GeGLU MLP."""
+    d = cfg.d_model
+    if cfg.family == "ssm":
+        g, n_m, n_s = ssm_groups(cfg)
+        w = cfg.conv_width
+        mlstm = 2 * d + 5 * d * d + 2 * cfg.n_heads * d + (w + 1) * d
+        slstm = 2 * d + 5 * d * d + 4 * d * (d // cfg.n_heads)
+        return cfg.vocab_size * d + d + g * (n_m * mlstm + n_s * slstm)
+    if cfg.family == "hybrid":
+        di, n, h = cfg.ssm_expand * d, cfg.ssm_state, cfg.ssm_heads
+        mamba = (d + d * (2 * di + 2 * n + h) + (cfg.conv_width + 1) * (di + 2 * n)
+                 + 2 * h + di + di * d)
+        hd = cfg.resolved_head_dim
+        shared = (2 * d * d + 2 * d + 2 * d * (cfg.n_heads + cfg.n_kv_heads) * hd
+                  + 3 * d * cfg.d_ff)
+        return cfg.vocab_size * d + d + cfg.n_layers * mamba + shared
+    hd = cfg.resolved_head_dim
     q, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
     attn = 2 * d * q + 2 * d * kv + (q + 2 * kv) * cfg.qkv_bias
     mlp = (2 if cfg.activation == "gelu" else 3) * d * cfg.d_ff
@@ -3262,9 +3395,11 @@ def run_serve_zoo(torch, m, arch, phase, name_power):
     point: a 2-token call (the seeded draw, and a warm-up of cuBLAS and
     the allocator), then the counted call, which draws the same weights
     again; its launch counters zeroed just before and read just after,
-    checked exactly a forward (2·L+1 rmsnorm, L flash, every other kernel
-    0: the MoE runs none of its own). Emits the phase's line and returns
-    (counts, the generated tokens)."""
+    checked exactly a forward (``forward_launches``: 2·L+1 rmsnorm and L
+    flash for a decoder, 97 and 0 for xlstm-1.3b, 89 and 6 for
+    zamba2-1.2b; every other kernel 0: the MoE and the SSM scans run none
+    of their own); the decode's split check where there is attention.
+    Emits the phase's line and returns (counts, the generated tokens)."""
     cfg = m.get_config(arch)
     t0 = time.perf_counter()
     m.serve.generate(arch, **dict(SERVE, gen=2))
@@ -3281,8 +3416,9 @@ def run_serve_zoo(torch, m, arch, phase, name_power):
     n_params = decoder_params(cfg)
     param_bytes = n_params * (2 if cfg.dtype == "bfloat16" else 4)
     per_forward = {k: v / SERVE["gen"] for k, v in counts.items()}
-    want = {**{k: 0 for k in m.counted},
-            "rmsnorm": 2 * cfg.n_layers + 1, "flash_attention": cfg.n_layers}
+    fwd = forward_launches(cfg)
+    want = {**{k: 0 for k in m.counted}, "rmsnorm": fwd["rmsnorm"],
+            "flash_attention": fwd["flash_attention"]}
     check(per_forward == want,
           f"{arch} serve launches per forward {per_forward} != {want}")
     check(tuple(seqs.shape) == (SERVE["batch"], SERVE["gen"]), seqs.shape)
@@ -3290,9 +3426,11 @@ def run_serve_zoo(torch, m, arch, phase, name_power):
           f"{arch}: generated tokens outside the vocabulary")
     b, s = SERVE["batch"], SERVE["prompt_len"]
     pfx = cfg.num_prefix_tokens if cfg.family == "vlm" else 0
-    splits = m.fa.decode_splits(torch.bfloat16, b, cfg.n_heads, cfg.n_kv_heads,
-                                1, pfx + s + SERVE["gen"] - 1, d=cfg.resolved_head_dim)
-    check(splits > 0, f"{arch}: decode leaves the split kernel")
+    splits = None
+    if fwd["flash_attention"]:
+        splits = m.fa.decode_splits(torch.bfloat16, b, cfg.n_heads, cfg.n_kv_heads,
+                                    1, pfx + s + SERVE["gen"] - 1, d=cfg.resolved_head_dim)
+        check(splits > 0, f"{arch}: decode leaves the split kernel")
     step_ms = b * 1e3 / stats["tokens_per_s"]
     line = {"arch": arch, "dtype": cfg.dtype, "layers": cfg.n_layers, **SERVE,
             "prefix_tokens": pfx, "params": n_params, "param_bytes": param_bytes,
@@ -3738,49 +3876,295 @@ def run_zoo256_parity(torch, m):
          prefix_tokens=m.get_config(VLM_ARCH).num_prefix_tokens, **out)
 
 
-def run_train_paligemma(torch, m, name_power):
-    """paligemma-3b at full width and depth in bf16 with remat, batch 8,
-    sequence 512, through train_loop (token windows, no prefix, as the
-    reference's loop feeds them): TRAIN_VLM_WARMUP + TRAIN_VLM_TIMED steps,
-    a line each, every launch counter zeroed just before and read just
-    after, checked exactly a step."""
-    cfg, batch, seq = m.get_config(VLM_ARCH), TRAIN_VLM["batch"], TRAIN_VLM["seq"]
-    steps = TRAIN_VLM_WARMUP + TRAIN_VLM_TIMED
+def run_train_zoo(torch, m, arch, phase, name_power, shape, warmup, timed):
+    """``arch`` at full width and depth in bf16 with remat through
+    train_loop (token windows of ``shape``, batch and seq; no VLM prefix,
+    as the reference's loop feeds them): ``warmup`` + ``timed`` steps, a
+    line each, every launch counter zeroed just before and read just
+    after, checked exactly a step (``train_launches``). Step ms is the
+    median of the timed steps (host clock between the per-step lines, each
+    ending in a read of the loss)."""
+    cfg, batch, seq = m.get_config(arch), shape["batch"], shape["seq"]
+    steps = warmup + timed
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts(m.counted)
     t0 = time.perf_counter()
-    state, logs = m.train.train_loop(VLM_ARCH, steps, batch, seq, log_every=1,
+    state, logs = m.train.train_loop(arch, steps, batch, seq, log_every=1,
                                      seed=SERVE["seed"])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = read_counts(m.counted)
     peak = torch.cuda.max_memory_allocated()
-    n_params = state.w_flat.numel()
+    n_params = sum(w.numel() for w in flat_params(state))
     per_step = {k: v / steps for k, v in counts.items()}
-    L = cfg.n_layers
-    want = {**{k: 0 for k in m.counted}, "ssca_update": 1,
-            "rmsnorm": 2 * (2 * L + 1) - 1, "rmsnorm_bwd": 2 * L + 1,
-            "flash_attention": 2 * L, "flash_attention_bwd": L}
-    check(per_step == want, f"train_paligemma launches per step {per_step} != {want}")
+    want = train_launches(cfg, m.counted)
+    check(per_step == want, f"{phase} launches per step {per_step} != {want}")
     losses = [lg["loss"] for lg in logs]
-    check(all(map(math.isfinite, losses)), f"train_paligemma losses: {losses}")
-    check(state.t == steps + 1 and bool(torch.isfinite(state.w_flat).all()),
-          "train_paligemma: the state did not take every step, or is not finite")
-    check(n_params == decoder_params(cfg), f"paligemma-3b has {n_params} parameters")
+    check(all(map(math.isfinite, losses)), f"{phase} losses: {losses}")
+    check(state.t == steps + 1
+          and all(bool(torch.isfinite(w).all()) for w in flat_params(state)),
+          f"{phase}: the state did not take every step, or is not finite")
+    check(n_params == decoder_params(cfg), f"{arch} has {n_params} parameters")
+    fp32 = sorted(k for k, t in named_leaves(state.params) if t.dtype == torch.float32)
+    check(fp32 == (["mamba/a_log", "mamba/dt_bias"] if cfg.family == "hybrid" else []),
+          f"{phase}: fp32 leaves of the bf16 state {fp32}")
     del state
     torch.cuda.empty_cache()
     walls = [0.0] + [lg["wall_s"] for lg in logs]
     step_s = [c - a for a, c in zip(walls, walls[1:])]
-    med = statistics.median(step_s[TRAIN_VLM_WARMUP:])
+    med = statistics.median(step_s[warmup:])
     tokens = batch * seq
-    emit("train_paligemma", arch=VLM_ARCH, dtype=cfg.dtype, layers=L, remat=cfg.remat,
-         params=n_params, **TRAIN_VLM, warmup_steps=TRAIN_VLM_WARMUP,
-         timed_steps=TRAIN_VLM_TIMED, seconds=seconds, step_ms=med * 1e3,
-         step_ms_each=[t * 1e3 for t in step_s], tokens_per_s=tokens / med,
-         mfu=6 * n_params * tokens / (med * BF16_FLOPS_PER_S), peak_mem_bytes=peak,
-         losses=losses, launches=counts, launches_per_step=per_step, **name_power)
+    emit(phase, arch=arch, dtype=cfg.dtype, layers=cfg.n_layers, remat=cfg.remat,
+         params=n_params, **shape, warmup_steps=warmup, timed_steps=timed,
+         seconds=seconds, step_ms=med * 1e3, step_ms_each=[t * 1e3 for t in step_s],
+         tokens_per_s=tokens / med, mfu=6 * n_params * tokens / (med * BF16_FLOPS_PER_S),
+         peak_mem_bytes=peak, losses=losses, launches=counts,
+         launches_per_step=per_step, **name_power)
     return counts
+
+
+# ---------------------------------------------------------------------------
+# the SSM and hybrid families: xlstm-1.3b and zamba2-1.2b
+# ---------------------------------------------------------------------------
+
+SSM_ARCHS = ("xlstm-1.3b", "zamba2-1.2b")
+# prompt 300 at chunk 256: chunked_gla's padded tail; then 4 decode steps
+SSM_CONSISTENCY = dict(batch=2, prompt_len=300, steps=4)
+SSM_CONSISTENCY_REL = 1e-4     # of max(1, max |full forward|), each compared entry
+# full width, reduced depth: an sLSTM block, and one group with a tail block
+SSM_PARITY_CUTS = {"xlstm-1.3b": dict(n_layers=2, block_pattern=("m", "s")),
+                   "zamba2-1.2b": dict(n_layers=7)}
+SSM_PARITY = dict(batch=2, prompt_len=61, steps=4)
+SSM_TRAIN_PARITY = dict(batch=2, seq=64, steps=2)
+# ssm_train_parity's τ: train_fl's 0.2 makes the first step w <- w - 1.25·ĝ,
+# which carries zamba2's card-vs-CPU gradient difference (8e-5 at most: the
+# surrogate buffer after step 1) into the params whole (9.97e-5 after step
+# 1, 2.35e-4 after step 2, normwise 1.5e-5, its largest weight grown from
+# 2.36 to 9.54); at τ = 5 the step is ĝ/20 at most
+SSM_TRAIN_PARITY_TAU = 5.0
+TRAIN_SSM = dict(batch=8, seq=512)
+TRAIN_SSM_WARMUP, TRAIN_SSM_TIMED = 2, 3
+CARD = "cuda"                  # the parity phases' card side
+
+
+def named_leaves(tree, prefix=""):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from named_leaves(tree[k], f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", tree[k]
+
+
+def rel_gate(got, want) -> dict:
+    """{name: (max |got - want|, its limit 1e-4·max(1, max |want|))} over
+    the named leaves of two trees (logits or caches), on the CPU."""
+    out = {}
+    want = dict(named_leaves(want))
+    for k, g in named_leaves(got):
+        w = want[k].float().cpu()
+        out[k] = ((g.float().cpu() - w).abs().max().item(),
+                  SSM_CONSISTENCY_REL * max(1.0, w.abs().max().item()))
+    return out
+
+
+def run_ssm_consistency(torch, m):
+    """xlstm-1.3b and zamba2-1.2b at full width and depth in fp32, batch 2:
+    a prefill of 300 tokens (chunk 256: chunked_gla's padded tail), then 4
+    decode steps, against one prefill over the 304 tokens: the last
+    logits and every cache entry (the O(1) states, conv tails, zamba2's
+    K/V rows and pos) within SSM_CONSISTENCY_REL of max(1, max |entry|).
+    The control decodes the same 4 tokens from the prefill's cache with its
+    SSM states and conv tails zeroed (zamba2's K/V kept): its logits must
+    read outside that gate."""
+    rnd = m.rnd
+    b, s, steps = (SSM_CONSISTENCY[k] for k in ("batch", "prompt_len", "steps"))
+    out = {}
+    for arch in SSM_ARCHS:
+        cfg = dataclasses.replace(m.get_config(arch), dtype="float32")
+        model = m.get_model(cfg)
+        key = rnd.PRNGKey(SERVE["seed"])
+        torch.cuda.reset_peak_memory_stats()
+        params = model.init(key, cfg)
+        tokens = rnd.randint(rnd.fold_in(key, 1), (b, s + steps), 0, cfg.vocab_size)
+        _, cache = model.prefill(params, {"tokens": tokens[:, :s]}, cfg,
+                                 cache=model.init_cache(cfg, b, s + steps))
+        zeroed = tree_map(lambda t: t.clone(), cache)
+        for k, t in named_leaves(zeroed):
+            if k not in ("attn_k", "attn_v", "pos"):
+                t.zero_()
+
+        def decode(c):
+            for i in range(steps):
+                logits, c = model.decode_step(params, c, tokens[:, s + i:s + i + 1],
+                                              s + i, cfg)
+            return logits, c
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = decode(cache)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        control, _ = decode(zeroed)
+        del zeroed
+        t0 = time.perf_counter()
+        full, full_cache = model.prefill(params, {"tokens": tokens}, cfg,
+                                         cache=model.init_cache(cfg, b, s + steps))
+        torch.cuda.synchronize()
+        full_s = time.perf_counter() - t0
+        gates = rel_gate({"logits": logits[:, -1], "cache": cache},
+                         {"logits": full[:, -1], "cache": full_cache})
+        ctrl = rel_gate({"logits": control[:, -1]}, {"logits": full[:, -1]})["logits"]
+        out[arch] = {"worst": max(gates.items(), key=lambda kv: kv[1][0] / kv[1][1]),
+                     "by_entry": gates, "control_logits": ctrl,
+                     "logits_abs_max": full[:, -1].abs().max().item(),
+                     "decode_s": decode_s, "full_forward_s": full_s,
+                     "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+        for name, (err, lim) in gates.items():
+            check(err <= lim, f"{arch} consistency: {name} differs by {err} > {lim}")
+        check(ctrl[0] > ctrl[1], f"{arch} consistency: the control reads {ctrl}, "
+              "within the gate")
+        del params, cache, full_cache
+        torch.cuda.empty_cache()
+    emit("ssm_consistency", dtype="float32", **SSM_CONSISTENCY, **out)
+
+
+def run_ssm_parity(torch, m):
+    """xlstm-1.3b and zamba2-1.2b at full width and reduced depth
+    (SSM_PARITY_CUTS) in fp32: the weights drawn on the card and copied to
+    the CPU; a 61-token prefill and 4 greedy decode steps on both, the card
+    fed the CPU's tokens: the prefill's and every step's logits within
+    1e-4 (serve_parity's gate), the final caches within 1e-4 of max(1,
+    max |entry|)."""
+    rnd = m.rnd
+    b, s, steps = (SSM_PARITY[k] for k in ("batch", "prompt_len", "steps"))
+    out = {}
+    for arch in SSM_ARCHS:
+        cfg = dataclasses.replace(m.get_config(arch), dtype="float32",
+                                  **SSM_PARITY_CUTS[arch])
+        model = m.get_model(cfg)
+        key = rnd.PRNGKey(1)
+        params = model.init(key, cfg)
+        on_cpu = tree_map(lambda t: t.cpu(), params)
+        prompt = rnd.randint(rnd.fold_in(key, 1), (b, s), 0, cfg.vocab_size)
+
+        def run(p, device, fed=None):
+            cache = model.init_cache(cfg, b, s + steps, device=device)
+            logits, cache = model.prefill(p, {"tokens": prompt.to(device)}, cfg,
+                                          cache=cache)
+            lg, toks = [logits[:, -1].cpu()], []
+            for i in range(steps):
+                tok = (torch.argmax(lg[-1], -1).to(torch.int32)[:, None]
+                       if fed is None else fed[i])
+                toks.append(tok)
+                logits, cache = model.decode_step(p, cache, tok.to(device), s + i, cfg)
+                lg.append(logits[:, -1].cpu())
+            return torch.stack(lg), toks, tree_map(lambda t: t.cpu(), cache)
+
+        t0 = time.perf_counter()
+        cpu_logits, cpu_toks, cpu_cache = run(on_cpu, "cpu")
+        cpu_s = time.perf_counter() - t0
+        card_logits, _, card_cache = run(params, CARD, cpu_toks)
+        gates = rel_gate(card_cache, cpu_cache)
+        line = {"cut": {k: list(v) if isinstance(v, tuple) else v
+                        for k, v in SSM_PARITY_CUTS[arch].items()},
+                "max_abs_logit_diff": (card_logits - cpu_logits).abs().max().item(),
+                "argmax_equal": bool(torch.equal(card_logits.argmax(-1),
+                                                 cpu_logits.argmax(-1))),
+                "cache_by_entry": gates, "cpu_s": cpu_s}
+        check(line["max_abs_logit_diff"] <= 1e-4,
+              f"{arch} parity: card vs CPU logits differ by {line['max_abs_logit_diff']}")
+        for name, (err, lim) in gates.items():
+            check(err <= lim, f"{arch} parity: cache {name} differs by {err} > {lim}")
+        out[arch] = line
+        del params, on_cpu
+        torch.cuda.empty_cache()
+    emit("ssm_parity", dtype="float32", **SSM_PARITY, **out)
+
+
+def run_ssm_train_parity(torch, m):
+    """xlstm-1.3b and zamba2-1.2b at ssm_parity's cuts in fp32 (remat on, as
+    the configs train): SSM_TRAIN_PARITY's steps of make_scanned_step from
+    the same weights (drawn on the card, copied to the CPU), tokens and
+    round keys, under train_fl with τ = SSM_TRAIN_PARITY_TAU, on the CPU
+    and on the card twice: free-running, and with
+    each step started from the CPU's state before it (its params and
+    surrogate buffer copied to the card). Gates, as train_parity's: the
+    free-running losses within rtol 1e-5; the params after every started
+    step within atol 1e-4 of the CPU's (a free-running comparison would
+    also carry the earlier steps' differences, which these models' steep
+    gradients amplify). The card's launches a step (free-running) are held
+    to ``train_launches``."""
+    rnd, train, rounds, optimizer = m.rnd, m.train, m.rounds, m.optimizer
+    b, seq, steps = (SSM_TRAIN_PARITY[k] for k in ("batch", "seq", "steps"))
+    fl = dataclasses.replace(m.train_fl, tau=SSM_TRAIN_PARITY_TAU)
+    out, gates = {}, []
+    for arch in SSM_ARCHS:
+        cfg = dataclasses.replace(m.get_config(arch), dtype="float32",
+                                  **SSM_PARITY_CUTS[arch])
+        model = m.get_model(cfg)
+        key = rnd.PRNGKey(3)
+        params = model.init(key, cfg)
+        toks = m.token_dataset(rnd.fold_in(key, 1), cfg.vocab_size, 200_000)
+
+        def buffers(state):
+            return [t for t in (state.w_flat, state.g_flat, getattr(state, "w_side", None),
+                                getattr(state, "g_side", None)) if t is not None]
+
+        def run(p, device, before=None):
+            """The state's buffers (CPU copies) after each step, and each
+            step's loss; with ``before``, each step r starts from
+            ``before[r - 1]``'s buffers."""
+            step = train.make_scanned_step(model, cfg, fl, toks.to(device), b, seq)
+            inputs = rounds.make_inputs(fl, 1, steps, rnd.fold_in(key.to(device), 2))
+            state, after, losses = optimizer.ssca_init(p), [], []
+            for r in range(steps):
+                if before is not None and r:
+                    for dst, src in zip(buffers(state), before[r - 1]):
+                        dst.copy_(src)
+                state, ms = step(state, inputs.round(r))
+                after.append([t.to("cpu", copy=True) for t in buffers(state)])
+                losses.append(ms["loss"].item())
+            return after, losses
+
+        zero_counts(m.counted)
+        _, card_loss = run(params, CARD)
+        counts = read_counts(m.counted)
+        on_cpu = tree_map(lambda t: t.cpu(), params)
+        t0 = time.perf_counter()
+        cpu_after, cpu_loss = run(on_cpu, "cpu")
+        cpu_s = time.perf_counter() - t0
+        started, _ = run(params, CARD, before=cpu_after)
+        del params
+        # buffers(): the params at the even places, their surrogates after
+        diff, g_diff = ([max((a[i] - c[i]).abs().max().item()
+                             for i in range(first, len(c), 2))
+                         for a, c in zip(started, cpu_after)] for first in (0, 1))
+        loss_rel = [abs(a - c) / abs(c) for a, c in zip(card_loss, cpu_loss)]
+        per_step = {k: v / steps for k, v in counts.items()}
+        out[arch] = {"losses_card": card_loss, "losses_cpu": cpu_loss,
+                     "max_rel_loss_diff_by_step": loss_rel,
+                     "max_abs_param_diff_by_step": diff,
+                     "max_abs_surrogate_diff_by_step": g_diff,
+                     "normwise_param_diff_by_step": [rel_norm(a[0], c[0]) for a, c
+                                                     in zip(started, cpu_after)],
+                     "max_abs_param_by_step": [c[0].abs().max().item() for c in cpu_after],
+                     "launches_per_step": per_step, "cpu_s": cpu_s}
+        gates.append((arch, per_step == train_launches(cfg, m.counted), out[arch]))
+        del on_cpu, started, cpu_after
+        torch.cuda.empty_cache()
+    emit("ssm_train_parity", dtype="float32", tau=SSM_TRAIN_PARITY_TAU,
+         **SSM_TRAIN_PARITY, **out)
+    for arch, launches_ok, line in gates:
+        check(all(map(math.isfinite, line["losses_card"])),
+              f"{arch} train parity: losses not finite")
+        check(launches_ok, f"{arch} train parity launches per step {line['launches_per_step']}")
+        check(max(line["max_rel_loss_diff_by_step"]) <= 1e-5,
+              f"{arch} train parity: card vs CPU losses differ by "
+              f"{line['max_rel_loss_diff_by_step']}")
+        check(max(line["max_abs_param_diff_by_step"]) <= 1e-4,
+              f"{arch} train parity: card vs CPU params differ by "
+              f"{line['max_abs_param_diff_by_step']}")
 
 
 def main() -> int:
@@ -4024,7 +4408,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_zoo256_parity(torch, mods)
     torch.cuda.empty_cache()
-    train_pali_counts = run_train_paligemma(torch, mods, {"device": name, "power": smi})
+    train_pali_counts = run_train_zoo(torch, mods, VLM_ARCH, "train_paligemma",
+                                      {"device": name, "power": smi}, TRAIN_VLM,
+                                      TRAIN_VLM_WARMUP, TRAIN_VLM_TIMED)
+
+    # the SSM and hybrid families: xlstm-1.3b and zamba2-1.2b
+    ssm_counts = {}
+    for arch, phase in zip(SSM_ARCHS, ("serve_xlstm", "serve_zamba")):
+        torch.cuda.empty_cache()
+        ssm_counts[phase], _ = run_serve_zoo(torch, mods, arch, phase,
+                                             {"device": name, "power": smi})
+    torch.cuda.empty_cache()
+    run_ssm_consistency(torch, mods)
+    run_ssm_parity(torch, mods)
+    for arch, phase in zip(SSM_ARCHS, ("train_xlstm", "train_zamba")):
+        torch.cuda.empty_cache()
+        ssm_counts[phase] = run_train_zoo(torch, mods, arch, phase,
+                                          {"device": name, "power": smi}, TRAIN_SSM,
+                                          TRAIN_SSM_WARMUP, TRAIN_SSM_TIMED)
+    torch.cuda.empty_cache()
+    run_ssm_train_parity(torch, mods)
 
     for kr in kernels:
         n = kr["name"]
@@ -4036,14 +4439,15 @@ def main() -> int:
                           + sharded_train_counts[n] + moe_serve_counts[n]
                           + glm_serve_counts[n] + train_moe_counts[n]
                           + gemma_serve_counts[n] + pali_serve_counts[n]
-                          + train_pali_counts[n])
+                          + train_pali_counts[n]
+                          + sum(c[n] for c in ssm_counts.values()))
         check(kr["launches"] > 0 or not kr.get("main_path", True),
               f"{n} never launched on a main path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("cold_ms", "library_cold_ms", "floor_ms",  # where measured
              "main_path", "bits_operand_ms", "train_step_ms", "train_launches",
-             "train_bound_ms", "train_bound_by", "d256")
+             "train_bound_ms", "train_bound_by", "d256", "d64", "d4096")
     import torch.distributed as dist
     if dist.is_initialized():
         dist.destroy_process_group()

@@ -47,7 +47,10 @@ def profile_window(fn, per: int) -> dict:
     ending in a synchronize). Every number is divided by ``per``, the
     rounds or decode steps one call of fn makes. The busy share divides the profiled
     device kernel time by the profiled window's own host time: both come
-    from one window. ``ms_per_call`` is the unprofiled window's."""
+    from one window. ``ms_per_call`` is the unprofiled window's.
+    ``host_ms_by_range``: the host time inside each labelled range (the
+    port's ``obs.trace.phase`` labels, such as the SSM scans'), nested ones
+    counted in each."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -62,10 +65,12 @@ def profile_window(fn, per: int) -> dict:
         fn()
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3 / per
-    kernels, host = [], []
+    kernels, host, ranges = [], [], {}
     for e in prof.key_averages():
         dev_us = e.self_device_time_total
         if is_annotation(e):
+            if e.cpu_time_total > 0:
+                ranges[e.key] = e.cpu_time_total / 1e3 / per
             continue
         if dev_us > 0 and e.cpu_time_total == 0:
             kernels.append((dev_us, e.count, e.key))
@@ -80,6 +85,7 @@ def profile_window(fn, per: int) -> dict:
         "device_kernel_ms_per_call": dev_ms,
         "device_busy_share": dev_ms / prof_ms,
         "kernel_launches_per_call": sum(k[1] for k in kernels) / per,
+        "host_ms_by_range": ranges,
         "top_kernels": [{"us_per_call": t / per, "launches_per_call": c / per,
                          "name": k[:90]} for t, c, k in kernels[:12]],
         "top_host_ops": [{"self_cpu_us_per_call": t / per,

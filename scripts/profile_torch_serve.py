@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Where serving a zoo model (qwen2.5-3b unless ``--arch`` names another
-of ``configs/registry.py`` that fits the card, such as qwen3-moe-30b-a3b or
-glm4-9b) spends its time in the PyTorch port, on one NVIDIA GPU, at full
-width and depth in bf16 (the weights from seed 0).
+of ``configs/registry.py`` that fits the card, such as qwen3-moe-30b-a3b,
+glm4-9b, xlstm-1.3b or zamba2-1.2b) spends its time in the PyTorch port,
+on one NVIDIA GPU, at full width and depth in bf16 (the weights from seed
+0).
 
     python3 scripts/profile_torch_serve.py [--arch qwen2.5-3b] [--batch 8]
                                            [--prompt-len 512] [--steps 16]
@@ -12,9 +13,11 @@ Prefill of the prompt, then decode steps from position prompt_len on,
 each through profile_torch_round.profile_window (one prefill, ``--steps``
 decode steps): host-clock time per call, unprofiled and profiled, device
 kernel time and its share of the profiled window's host time (the rest is
-the device idling while the host launches), kernel launches, the top
-kernels by device time and the top host operators by self CPU time. Prints
-one JSON line per phase; --json PATH writes all of it to PATH.
+the device idling while the host launches), kernel launches, the device
+time by kernel group (profile_torch_train's groups), the host time inside
+the labelled ranges (the SSM scans'), the top kernels by device time and
+the top host operators by self CPU time. Prints one JSON line per phase;
+--json PATH writes all of it to PATH.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-from profile_torch_round import profile_window
+from profile_torch_train import profile_with_groups
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -75,7 +78,7 @@ def main() -> int:
     out = {"device": smi, "arch": cfg.name, "batch": b, "prompt_len": s,
            "steps": n, "phases": {}}
     for name, fn, per in (("prefill", prefill, 1), ("decode", decode, n)):
-        res = {"phase": name, **profile_window(fn, per)}
+        res = {"phase": name, **profile_with_groups(fn, per)}
         if name == "decode":
             res["tokens_per_s"] = b * 1e3 / res["ms_per_call"]
         out["phases"][name] = res

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""Where a training step of qwen2.5-3b spends its time in the PyTorch port,
-on one NVIDIA GPU, at full width and depth in bf16 (weights from seed 0,
-batch 8, sequence 512, remat, the reference's FLConfig).
+"""Where a training step of a zoo model (qwen2.5-3b unless ``--arch`` names
+another that fits the card, such as xlstm-1.3b or zamba2-1.2b) spends its
+time in the PyTorch port, on one NVIDIA GPU, at full width and depth in
+bf16 (weights from seed 0, batch 8, sequence 512, remat, the reference's
+FLConfig).
 
-    python3 scripts/profile_torch_train.py [--batch 8] [--seq 512]
-                                           [--steps 1] [--json PATH]
-                                           [--codec int8] [--dp-epsilon 8]
+    python3 scripts/profile_torch_train.py [--arch qwen2.5-3b] [--batch 8]
+                                           [--seq 512] [--steps 1]
+                                           [--json PATH] [--codec int8]
+                                           [--dp-epsilon 8]
 
 ``--steps`` SSCA steps through ``launch.train.make_scanned_step``, each
 call through profile_torch_round.profile_window: host-clock ms per step,
@@ -89,6 +92,7 @@ def profile_with_groups(fn, per: int) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2.5-3b")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=512)
     ap.add_argument("--steps", type=int, default=1)
@@ -109,6 +113,7 @@ def main() -> int:
     from repro_torch.comm.error_feedback import CommCarry, ef_init
     from repro_torch.configs.registry import get_config
     from repro_torch.core import optimizer, privacy, rounds
+    from repro_torch.core.tree import leaves
     from repro_torch.data.synthetic import token_dataset
     from repro_torch.launch import train
     from repro_torch.models.api import get_model
@@ -117,7 +122,7 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    cfg = get_config("qwen2.5-3b")
+    cfg = get_config(args.arch)
     model = get_model(cfg)
     fl = FLConfig(a1=0.9, a2=0.5, alpha_rho=0.1, alpha_gamma=0.6, tau=0.2,
                   l2_lambda=1e-5)
@@ -142,7 +147,7 @@ def main() -> int:
 
     res = profile_with_groups(run, args.steps)
     tokens = args.batch * args.seq
-    n_params = rounds.unwrap_comm(held["state"]).w_flat.numel()
+    n_params = sum(t.numel() for t in leaves(rounds.unwrap_comm(held["state"]).params))
     res["tokens_per_s"] = tokens * 1e3 / res["ms_per_call"]
     res["mfu"] = 6 * n_params * tokens / (res["ms_per_call"] / 1e3 * 989e12)
     out = {"device": smi, "arch": cfg.name, "batch": args.batch,

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Tuple
 
 
 @dataclass(frozen=True)
@@ -11,13 +12,14 @@ class ModelConfig:
     """``repro.configs.base.ModelConfig`` cut to the families the port
     runs: the decoder-only transformer (dense, MoE and the VLM's
     prefix-LM decoder; tied or untied embeddings, causal attention with an
-    optional sliding window, SwiGLU, GeGLU or GELU) and the paper's MLP
-    (``mlp``): the fields their forward and backward read (``remat``: each
-    layer recomputed in the backward; ``frontend`` and
+    optional sliding window, SwiGLU, GeGLU or GELU), the SSM (xLSTM) and
+    hybrid (Mamba2 with a shared attention block) families, and the
+    paper's MLP (``mlp``): the fields their forward and backward read
+    (``remat``: each layer recomputed in the backward; ``frontend`` and
     ``num_prefix_tokens``: the stubbed modality frontend whose embeddings a
     VLM batch carries)."""
     name: str
-    family: str                       # dense | moe | vlm | mlp (the families ported)
+    family: str                       # dense | moe | ssm | hybrid | vlm | mlp (the families ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -37,6 +39,14 @@ class ModelConfig:
     norm_eps: float = 1e-6
     tie_embeddings: bool = True
     sliding_window: int = 0           # 0 = full causal attention
+    # --- SSM / hybrid ---
+    ssm_state: int = 0
+    ssm_heads: int = 0                # number of SSM heads (mamba2)
+    ssm_expand: int = 2
+    conv_width: int = 4
+    chunk_size: int = 256             # chunked linear-attention block size
+    block_pattern: Tuple[str, ...] = ()   # per-group kinds for xlstm ("m", "s")
+    shared_attn_every: int = 0        # zamba2: shared attn block after every k blocks
     frontend: str = "none"            # none | vision (precomputed embeddings)
     num_prefix_tokens: int = 0        # prefix embeddings a VLM batch carries
     dtype: str = "bfloat16"
@@ -51,7 +61,9 @@ class ModelConfig:
     def smoke(self) -> "ModelConfig":
         """The reference's reduced variant: 2 layers, d_model <= 256, <= 4
         heads, vocab <= 512, <= 4 experts with <= 2 a token and
-        ``moe_d_ff`` <= 128, a window <= 16, fp32, no remat."""
+        ``moe_d_ff`` <= 128, ``ssm_state`` <= 16 and ``ssm_heads`` <= 4,
+        chunk 32, the first two kinds of ``block_pattern``, a shared
+        attention block every 2, a window <= 16, fp32, no remat."""
         d = min(self.d_model, 256)
         n_heads = min(self.n_heads, 4)
         small = dict(
@@ -66,6 +78,11 @@ class ModelConfig:
             n_experts=min(self.n_experts, 4),
             experts_per_token=min(self.experts_per_token, 2),
             moe_d_ff=min(self.moe_d_ff, 128) if self.moe_d_ff else 0,
+            ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            ssm_heads=min(self.ssm_heads, 4) if self.ssm_heads else 0,
+            chunk_size=32,
+            block_pattern=self.block_pattern[:2] if self.block_pattern else (),
+            shared_attn_every=2 if self.shared_attn_every else 0,
             sliding_window=min(self.sliding_window, 16) if self.sliding_window else 0,
             num_prefix_tokens=min(self.num_prefix_tokens, 8),
             dtype="float32",

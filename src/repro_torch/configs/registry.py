@@ -1,10 +1,11 @@
 """Architecture registry: ``--arch <id>`` resolution, for the architectures
 the port runs so far: the decoder-only configs (dense, MoE and the VLM's
 prefix-LM decoder; head dim up to 256, tied or untied, with or without a
-sliding window) and the paper's own MLP."""
+sliding window), the SSM (xlstm-1.3b) and hybrid (zamba2-1.2b) configs and
+the paper's own MLP."""
 from repro_torch.configs import (arctic_480b, deepseek_67b, gemma_7b, glm4_9b,
                                  mnist_mlp, paligemma_3b, qwen2_5_3b,
-                                 qwen3_moe_30b_a3b)
+                                 qwen3_moe_30b_a3b, xlstm_1_3b, zamba2_1_2b)
 
 ARCHS = {
     "paligemma-3b": paligemma_3b.CONFIG,
@@ -15,6 +16,8 @@ ARCHS = {
     "deepseek-67b": deepseek_67b.CONFIG,
     "glm4-9b": glm4_9b.CONFIG,
     "glm4-9b-swa": glm4_9b.LONG_VARIANT,     # beyond-paper long-context variant
+    "xlstm-1.3b": xlstm_1_3b.CONFIG,
+    "zamba2-1.2b": zamba2_1_2b.CONFIG,
     "mnist-mlp": mnist_mlp.CONFIG,           # the paper's own model
 }
 
@@ -25,6 +28,5 @@ def get_config(name: str):
     except KeyError:
         raise KeyError(
             f"unknown arch {name!r}; the port has {sorted(ARCHS)}; the "
-            "reference's other archs wait on ROADMAP queue 1, item 12 (the "
-            "SSM/hybrid families xlstm-1.3b and zamba2-1.2b, the "
-            "encoder-decoder seamless-m4t-medium)") from None
+            "reference's other arch waits on ROADMAP queue 1, item 12 step 3 "
+            "(the encoder-decoder seamless-m4t-medium)") from None

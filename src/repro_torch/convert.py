@@ -33,8 +33,9 @@ def tensor_to_numpy(t) -> np.ndarray:
 
 
 def params_from_numpy(tree, device=None) -> dict:
-    """A nested dict of numpy arrays (a params pytree, stacked layers
-    included) -> the same nesting of tensors on device."""
+    """A nested dict of numpy arrays (a params pytree, stacked (L, ...) and
+    (G, n, ...) blocks included) -> the same nesting of tensors on
+    device."""
     return {k: params_from_numpy(v, device) if isinstance(v, dict)
             else tensor_from_numpy(v, device) for k, v in tree.items()}
 
@@ -44,27 +45,43 @@ def params_to_numpy(tree) -> dict:
             for k, v in tree.items()}
 
 
+# the caches' sequence-axis entries (axis 2 of (L, B, S, KV, Hd)), as the
+# reference's ``launch.serve.grow_cache`` names them; every other entry (an
+# SSM state, a conv tail, ``pos``) is O(1) in the sequence
+SEQ_CACHE_KEYS = ("k", "v", "attn_k", "attn_v")
+
+
 def cache_from_numpy(cache, max_seq=None, device=None) -> dict:
-    """A KV cache {"k", "v"}: (L, B, S, KV, Hd) arrays -> tensors with the
-    sequence axis zero-padded to ``max_seq`` rows (default: S), so a cache
-    from the reference's prefill can take the port's decode steps in place."""
+    """A cache (nested dict of arrays) -> tensors. The K/V entries
+    (``SEQ_CACHE_KEYS``: (L, B, S, KV, Hd)) get their sequence axis
+    zero-padded to ``max_seq`` rows (default: S), as the reference's
+    ``grow_cache`` pads them, so a cache from the reference's prefill can
+    take the port's decode steps in place; the other entries pass
+    through."""
     out = {}
     for k, v in cache.items():
+        if isinstance(v, dict):
+            out[k] = cache_from_numpy(v, max_seq, device)
+            continue
         t = tensor_from_numpy(v, device)
-        extra = (max_seq or t.shape[2]) - t.shape[2]
-        if extra < 0:
-            raise ValueError(f"cache_from_numpy: {k} has {t.shape[2]} rows, "
-                             f"more than max_seq={max_seq}")
-        if extra:
-            pad = t.new_zeros((*t.shape[:2], extra, *t.shape[3:]))
-            t = torch.cat([t, pad], dim=2)
+        if k in SEQ_CACHE_KEYS:
+            extra = (max_seq or t.shape[2]) - t.shape[2]
+            if extra < 0:
+                raise ValueError(f"cache_from_numpy: {k} has {t.shape[2]} rows, "
+                                 f"more than max_seq={max_seq}")
+            if extra:
+                pad = t.new_zeros((*t.shape[:2], extra, *t.shape[3:]))
+                t = torch.cat([t, pad], dim=2)
         out[k] = t
     return out
 
 
 def cache_to_numpy(cache, length=None) -> dict:
-    """The port's cache -> numpy, its first ``length`` rows (default: all)."""
-    return {k: tensor_to_numpy(v[:, :, :length]) for k, v in cache.items()}
+    """The port's cache -> numpy: the K/V entries' first ``length`` rows
+    (default: all), the other entries whole."""
+    return {k: cache_to_numpy(v, length) if isinstance(v, dict)
+            else tensor_to_numpy(v[:, :, :length] if k in SEQ_CACHE_KEYS else v)
+            for k, v in cache.items()}
 
 
 def key_from_numpy(key, device=None) -> torch.Tensor:

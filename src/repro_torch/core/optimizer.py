@@ -5,7 +5,12 @@
 ``ssca_update`` kernel: the state keeps params and the fp32 surrogate buffer
 as views into one flat contiguous buffer each, so a round updates every
 leaf in ONE launch. Params may be nested dicts (the model zoo's); the flat
-layout takes the leaves in ``jax.tree.leaves`` order, the reference's.
+layout takes the leaves in ``jax.tree.leaves`` order, the reference's. A
+bf16 or fp16 model may keep some fp32 leaves (zamba2's Mamba2 decay and dt
+bias): those go to a second flat fp32 buffer (``w_side``, with its own
+surrogate buffer ``g_side``), laid out the same way, so each leaf keeps its
+dtype, as the reference's tree update keeps it; the step then takes a
+second launch.
 
 `momentum_form_*` implements eqs. (11)-(12), the identical sequence written
 as momentum SGD (Remark 2), in plain PyTorch.
@@ -23,7 +28,7 @@ so no full-size fp32 temporary is made at the train size. ν and slack stay
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -32,17 +37,19 @@ from repro_torch.core.solvers import (lemma1_nu_from_disc,
                                       solve_constrained_single)
 from repro_torch.core.surrogate import (QuadSurrogate, chunks, recurse_g_,
                                         update_surrogate_)
-from repro_torch.core.tree import (flatten, leaves, tree_map, tree_zeros_like,
-                                   views)
+from repro_torch.core.tree import (flatten, leaves, split_views, tree_map,
+                                   tree_zeros_like, views)
 from repro_torch.kernels.ssca_update import ssca_update_
 
 
 class SSCAState(NamedTuple):
-    params: dict              # views into w_flat
-    g: dict                   # linear surrogate buffer (eq. 9, λ folded): views into g_flat
+    params: dict              # views into w_flat (and w_side)
+    g: dict                   # linear surrogate buffer (eq. 9, λ folded): views into g_flat (and g_side)
     t: int                    # 1-based round counter
-    w_flat: torch.Tensor      # (P,) all params, leaves in jax.tree order
+    w_flat: torch.Tensor      # (P,) params of the main dtype, leaves in jax.tree order
     g_flat: torch.Tensor      # (P,) fp32 surrogate buffer, same layout
+    w_side: Optional[torch.Tensor] = None   # (P_side,) a bf16/fp16 model's fp32 params
+    g_side: Optional[torch.Tensor] = None   # (P_side,) their fp32 surrogate buffer
 
 
 def _sched(fl, t, rho_t=None, gamma_t=None, device=None):
@@ -65,20 +72,34 @@ def _sched(fl, t, rho_t=None, gamma_t=None, device=None):
 # ---------------------------------------------------------------------------
 
 
-def _flat_params(params):
-    """Copies ``params`` (a nested dict, all leaves of one dtype) into one
-    flat buffer, leaf by leaf; the caller's tensors are never written.
-    Returns (the dict of views, the buffer)."""
+def _flat_params(params, side: bool = False):
+    """Copies ``params`` (a nested dict) into one flat buffer, leaf by leaf;
+    the caller's tensors are never written. Returns (the dict of views, the
+    buffer, the side buffer or None). The leaves share one dtype, or, with
+    ``side``, are bf16 or fp16 with some fp32 leaves: those go, in the same
+    order, to a flat fp32 side buffer and keep their dtype. Any other mix
+    raises TypeError."""
     src = leaves(params)
     dtypes = {t.dtype for t in src}
-    if len(dtypes) != 1:
-        raise TypeError(f"ssca_init: all params need one dtype, got {dtypes}")
-    w_flat = torch.empty(sum(t.numel() for t in src), dtype=src[0].dtype,
-                         device=src[0].device)
-    state_params = views(w_flat, params)
+    low = dtypes - {torch.float32}
+    if len(dtypes) == 1:
+        dtype = src[0].dtype
+    elif (side and len(low) == 1
+          and next(iter(low)) in (torch.bfloat16, torch.float16)):
+        dtype = next(iter(low))
+    else:
+        allowed = "one dtype, or bf16/fp16 with fp32" if side else "one dtype"
+        raise TypeError(f"params need {allowed}, got {dtypes}")
+    dev = src[0].device
+    main = [t for t in src if t.dtype == dtype]
+    w_flat = torch.empty(sum(t.numel() for t in main), dtype=dtype, device=dev)
+    w_side = (torch.empty(sum(t.numel() for t in src) - w_flat.numel(),
+                          dtype=torch.float32, device=dev)
+              if len(dtypes) > 1 else None)
+    state_params = split_views(w_flat, w_side, params, dtype)
     for dst, t in zip(leaves(state_params), src):
         dst.copy_(t)
-    return state_params, w_flat
+    return state_params, w_flat, w_side
 
 
 def _zeros_flat(w_flat):
@@ -92,10 +113,33 @@ def _as_flat(grad):
 
 
 def ssca_init(params) -> SSCAState:
-    state_params, w_flat = _flat_params(params)
+    state_params, w_flat, w_side = _flat_params(params, side=True)
     g_flat = _zeros_flat(w_flat)
-    return SSCAState(params=state_params, g=views(g_flat, params), t=1,
-                     w_flat=w_flat, g_flat=g_flat)
+    g_side = None if w_side is None else _zeros_flat(w_side)
+    return SSCAState(params=state_params,
+                     g=split_views(g_flat, g_side, params, w_flat.dtype), t=1,
+                     w_flat=w_flat, g_flat=g_flat, w_side=w_side, g_side=g_side)
+
+
+def _split_grad(state: SSCAState, grad):
+    """``grad`` -> (its part in w_flat's layout, its part in w_side's or
+    None). A (nested) dict like params is split by the params' dtypes; a
+    flat tensor is w_flat's part and needs a state with no side buffer; a
+    pair is the two parts."""
+    if isinstance(grad, dict):
+        if state.w_side is None:
+            return flatten(grad), None
+        side = [t.dtype != state.w_flat.dtype for t in leaves(state.params)]
+        gl = leaves(grad)
+        return (torch.cat([g.reshape(-1) for g, s in zip(gl, side) if not s]),
+                torch.cat([g.reshape(-1) for g, s in zip(gl, side) if s]))
+    if isinstance(grad, torch.Tensor):
+        if state.w_side is not None:
+            raise ValueError("ssca_step: the state has an fp32 side buffer; "
+                             "pass the gradient as a dict or a "
+                             "(main, side) pair")
+        return grad, None
+    return grad
 
 
 def ssca_step(state: SSCAState, grad, fl, rho_t=None, gamma_t=None) -> SSCAState:
@@ -109,11 +153,18 @@ def ssca_step(state: SSCAState, grad, fl, rho_t=None, gamma_t=None) -> SSCAState
     every view of them, the input state's included) hold the new values
     after the call; the returned state shares those buffers, with t + 1.
     grad is cast to the params' dtype, as the kernel takes it (no copy when
-    it is a flat contiguous tensor of that dtype already)."""
+    it is a flat contiguous tensor of that dtype already). With a side
+    buffer, grad is a dict or a (main, side) pair, and the side buffer
+    takes a second launch, in fp32."""
     rho_t, gamma_t = _sched(fl, state.t, rho_t, gamma_t, state.w_flat.device)
-    g = _as_flat(grad).to(state.w_flat.dtype).contiguous()
-    ssca_update_(state.w_flat, state.g_flat, g, rho_t, gamma_t,
+    g, g_side = _split_grad(state, grad)
+    ssca_update_(state.w_flat, state.g_flat,
+                 g.to(state.w_flat.dtype).contiguous(), rho_t, gamma_t,
                  fl.tau, fl.l2_lambda)
+    if state.w_side is not None:
+        ssca_update_(state.w_side, state.g_side,
+                     g_side.to(torch.float32).contiguous(), rho_t, gamma_t,
+                     fl.tau, fl.l2_lambda)
     return state._replace(t=state.t + 1)
 
 
@@ -175,7 +226,7 @@ def _zero(w_flat):
 
 
 def ssca_constrained_init(params) -> SSCAConstrainedState:
-    state_params, w_flat = _flat_params(params)
+    state_params, w_flat, _ = _flat_params(params)
     g_flat = _zeros_flat(w_flat)
     return SSCAConstrainedState(
         params=state_params, cons=QuadSurrogate(d=_zero(w_flat),
@@ -243,7 +294,7 @@ class SSCAGeneralConstrainedState(NamedTuple):
 
 
 def ssca_general_constrained_init(params) -> SSCAGeneralConstrainedState:
-    state_params, w_flat = _flat_params(params)
+    state_params, w_flat, _ = _flat_params(params)
     obj_flat, g_flat = _zeros_flat(w_flat), _zeros_flat(w_flat)
     return SSCAGeneralConstrainedState(
         params=state_params, obj_g=views(obj_flat, params),

@@ -39,6 +39,23 @@ def views(flat, like):
     return tree_map(view, like)
 
 
+def split_views(main, side, like, dtype):
+    """``views`` over two flat buffers: ``like``'s leaves of ``dtype`` over
+    ``main``, the others over ``side``, each in ``jax.tree.leaves`` order
+    (``side`` None: all over ``main``)."""
+    if side is None:
+        return views(main, like)
+    o = [0, 0]
+
+    def view(t):
+        i = int(t.dtype != dtype)
+        n = math.prod(t.shape)
+        o[i] += n
+        return (main, side)[i][o[i] - n:o[i]].view(t.shape)
+
+    return tree_map(view, like)
+
+
 def flatten(tree):
     """The leaves concatenated into one (P,) tensor, in ``leaves`` order."""
     return torch.cat([leaf.reshape(-1) for leaf in leaves(tree)])

@@ -69,6 +69,7 @@ SIGNATURES = {
     "cohort_sample": {
         # round keys, rounds, ids, cohort, num_clients, hi_bits, lo_bits
         "cohort_sample": [_P, _I, _P, _I, _LL, _I, _I, _P],
+        "cohort_sample_empty": [_P, _I, _P, _I, _LL, _I, _I, _P],
     },
     "flash_attention": {
         # q, k, v, o, strides, lse, b, h, kvh, sq, sk, d, causal, window,

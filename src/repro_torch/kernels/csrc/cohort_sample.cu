@@ -66,6 +66,10 @@ __global__ void cohort_sample_kernel(const uint32_t* __restrict__ round_keys, in
   ids[i] = (int32_t)x;
 }
 
+// The launch floor: the same grid, block and arguments, no work.
+__global__ void cohort_sample_empty_kernel(const uint32_t*, int, int32_t*, int, uint32_t,
+                                           int, int) {}
+
 }  // namespace
 
 // round_keys: (rounds,) uint32; ids: (cohort,) int32. hi_bits + lo_bits is
@@ -79,6 +83,19 @@ extern "C" int cohort_sample(const void* round_keys, int rounds, void* ids, int 
   if (cohort <= 0) return 0;
   const int blocks = (cohort + kThreads - 1) / kThreads;
   cohort_sample_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)round_keys, rounds, (int32_t*)ids, cohort, (uint32_t)num_clients,
+      hi_bits, lo_bits);
+  return (int)cudaGetLastError();
+}
+
+// Measurement only (chip_smoke.py's floor_ms): an empty kernel launched with
+// the arguments, grid and block of a cohort_sample call.
+extern "C" int cohort_sample_empty(const void* round_keys, int rounds, void* ids, int cohort,
+                                   long long num_clients, int hi_bits, int lo_bits,
+                                   void* stream) {
+  if (cohort <= 0) return 0;
+  const int blocks = (cohort + kThreads - 1) / kThreads;
+  cohort_sample_empty_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)round_keys, rounds, (int32_t*)ids, cohort, (uint32_t)num_clients,
       hi_bits, lo_bits);
   return (int)cudaGetLastError();

@@ -5,10 +5,12 @@ on the local or the sharded client topology).
 A step draws a batch of token windows (``sample_window``), takes the mean
 next-token cross-entropy and its gradient by autograd, and applies
 Algorithm 1's example update (``optimizer.ssca_step``): one launch of the
-``ssca_update`` kernel over every parameter. With ``constrained=True`` the
-update is the Algorithm-2 example instead, min ‖ω‖² s.t. mean-loss <= U
-(formulation (40), Lemma 1: ``optimizer.ssca_constrained_step``), which
-runs as PyTorch ops in place on the flat buffers. The gradient lands in one
+``ssca_update`` kernel over every parameter (and a second over a bf16
+model's fp32 leaves, which the state keeps in a flat buffer of their own).
+With ``constrained=True`` the update is the Algorithm-2 example instead,
+min ‖ω‖² s.t. mean-loss <= U (formulation (40), Lemma 1:
+``optimizer.ssca_constrained_step``), which runs as PyTorch ops in place
+on the flat buffers. The gradient lands in one
 flat buffer laid out as the params' flat buffer (``grad_leaves``), so
 either update takes it with no copy. On a card every RMSNorm and attention,
 forward and backward, runs on its hand-written kernel.
@@ -95,12 +97,12 @@ from repro_torch.core import privacy as privacy_lib
 from repro_torch.core import topology as topology_lib
 from repro_torch.core.rounds import unwrap_comm
 from repro_torch.core.surrogate import CHUNK, chunks
-from repro_torch.core.tree import leaves, tree_map, views
+from repro_torch.core.tree import leaves, split_views, tree_map
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.data.synthetic import (VirtualFedData, classification_dataset,
                                         sample_window, token_dataset)
 from repro_torch.kernels.dp_noise import dp_noise
-from repro_torch.models import mlp
+from repro_torch.models import mlp, transformer
 from repro_torch.models.api import get_model
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import sinks as obs_sinks
@@ -135,28 +137,40 @@ def _make_stream(log_jsonl, log_stream_every, profile_dir, name):
     return stream, spans, prof
 
 
-def grad_leaves(state, grad_flat):
+def _parts(grad):
+    """The flat gradient's buffers: (main,) or (main, side)."""
+    return (grad,) if isinstance(grad, torch.Tensor) else tuple(grad)
+
+
+def grad_leaves(state, grad, stacked=transformer.STACKED):
     """The state's params as autograd leaves for ``loss_fn``: each a detached
-    view of ``state.w_flat`` that requires grad, whose ``.grad`` is the same
-    span of ``grad_flat`` (so backward accumulates every gradient into that
-    one buffer, in place). The stacked (L, ...) leaves under "layers" are cut
-    into a list of L per-layer dicts of such views: a select's backward
-    would build a full-size zero tensor for every use."""
-    gviews = views(grad_flat, state.params)
+    view of the state's flat buffers that requires grad, whose ``.grad`` is
+    the same span of ``grad`` (w_flat's layout, or a (main, side) pair in
+    w_flat's and w_side's), so backward accumulates every gradient into
+    those buffers, in place. The entries that ``stacked`` names (the
+    model's ``Model.stacked``; by default the decoders') are cut into lists
+    of per-block dicts of such views, nested once per stacked axis: a
+    select's backward would build a full-size zero tensor for every use."""
+    main, *side = _parts(grad)
+    gviews = split_views(main, side[0] if side else None, state.params,
+                         state.w_flat.dtype)
 
     def leaf(w, g):
         t = w.detach().requires_grad_()
         t.grad = g
         return t
 
+    def cut(w, g, axes):
+        if not axes:
+            return tree_map(leaf, w, g)
+        n = leaves(w)[0].shape[0]
+        return [cut(tree_map(lambda t: t[i], w), tree_map(lambda t: t[i], g),
+                    axes - 1) for i in range(n)]
+
     out = {}
     for k in state.params:
-        if k == "layers":
-            n = leaves(state.params[k])[0].shape[0]
-            out[k] = [tree_map(lambda w, g: leaf(w[i], g[i]),
-                               state.params[k], gviews[k]) for i in range(n)]
-        elif isinstance(state.params[k], dict):
-            out[k] = tree_map(leaf, state.params[k], gviews[k])
+        if isinstance(state.params[k], dict):
+            out[k] = cut(state.params[k], gviews[k], stacked.get(k, 0))
         else:
             out[k] = leaf(state.params[k], gviews[k])
     return out
@@ -185,17 +199,22 @@ def _ssca_update(state, loss, grad, fl: FLConfig, rho_t, gamma_t,
 
 def _make_grad(model, cfg):
     """grad_of(state, batch) -> (loss, flat gradient): the gradient buffer
-    (w_flat's dtype and layout) and the leaves that point into it are made
-    once per state and zeroed each step."""
+    (w_flat's dtype and layout; with the state's fp32 side buffer, a
+    (main, side) pair) and the leaves that point into it are made once per
+    state and zeroed each step."""
     held = {}
 
     def grad_of(state, batch):
         if held.get("w") is not state.w_flat:
             held.clear()
+            side = getattr(state, "w_side", None)
             grad = torch.empty_like(state.w_flat)
+            if side is not None:
+                grad = (grad, torch.empty_like(side))
             held.update(w=state.w_flat, grad=grad,
-                        leaves=grad_leaves(state, grad))
-        held["grad"].zero_()
+                        leaves=grad_leaves(state, grad, model.stacked))
+        for g in _parts(held["grad"]):
+            g.zero_()
         loss = model.loss_fn(held["leaves"], batch, cfg)
         loss.backward()
         return loss.detach(), held["grad"]
@@ -247,7 +266,13 @@ def comm_update_(grad, ef, key, codec=None, dp=None, piece: int = None, *,
     quantize kernel at its own counter offset, which draws exactly the
     normals and bits of the reference's whole-vector draws. The norm is a
     first pass in fp32 chunks. Returns the DP stats {"clipped", "noise_sq"}
-    as 0-d device tensors, or None without ``dp``."""
+    as 0-d device tensors, or None without ``dp``. A (main, side)
+    gradient pair (a bf16 model's fp32 leaves) is refused."""
+    if not isinstance(grad, torch.Tensor):
+        raise TypeError(
+            "the upload (codec=, dp=) takes one flat gradient, and these "
+            "params keep fp32 leaves in a second flat buffer; train without "
+            "an upload, or in float32")
     n = grad.numel()
     piece = COMM_PIECE if piece is None else piece
     if piece % 256:
@@ -364,9 +389,11 @@ def _sharded_step(model, cfg, fl, tokens, batch, seq, constrained, codec,
                         codec, dp, codec_key=ckey, dp_key=dkey)
             if shards > 1:              # a scale by 1 changes no bit
                 with phase("aggregate"):
-                    grad.mul_(1.0 / shards)
+                    for g in _parts(grad):
+                        g.mul_(1.0 / shards)
             with phase("collective"):
-                dist.all_reduce(grad, group=topo.group)
+                for g in _parts(grad):
+                    dist.all_reduce(g, group=topo.group)
                 parts = {"loss": loss.float() * (1.0 / shards)}
                 if dp is not None:
                     parts.update(clip=dstats["clipped"],

@@ -1,6 +1,6 @@
 """Model registry: the reference's uniform interface over the zoo, for the
-families the port runs so far (``dense``, ``moe``, ``vlm`` and the paper's
-``mlp``).
+families the port runs so far (``dense``, ``moe``, ``vlm``, ``ssm``,
+``hybrid`` and the paper's ``mlp``).
 
   init(key, cfg, device=None) -> params
   loss_fn(params, batch, cfg) -> the training loss (0-d)
@@ -10,10 +10,10 @@ families the port runs so far (``dense``, ``moe``, ``vlm`` and the paper's
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Optional
 
-from repro_torch.models import mlp, transformer
+from repro_torch.models import mlp, transformer, xlstm, zamba
 
 
 @dataclass(frozen=True)
@@ -24,6 +24,9 @@ class Model:
     prefill: Optional[Callable] = None
     decode_step: Optional[Callable] = None
     init_cache: Optional[Callable] = None
+    # entries of the params that stack blocks, and how many axes each
+    # stacks (``launch.train.grad_leaves`` cuts them into per-block leaves)
+    stacked: dict = field(default_factory=dict)
 
     @property
     def has_decode(self) -> bool:
@@ -33,12 +36,18 @@ class Model:
 def get_model(cfg) -> Model:
     if cfg.family == "mlp":
         return Model(name=cfg.name, init=mlp.zoo_init, loss_fn=mlp.zoo_loss_fn)
-    if cfg.family not in transformer.FAMILIES:
+    if cfg.family in transformer.FAMILIES:
+        m = transformer
+    elif cfg.family == "ssm":
+        m = xlstm
+    elif cfg.family == "hybrid":
+        m = zamba
+    elif cfg.family == "audio":
         raise NotImplementedError(
-            f"family {cfg.family!r}: the port has the dense, MoE and VLM "
-            "decoders and the paper's MLP; the SSM/hybrid and encoder-decoder "
-            "families come in later slices (ROADMAP queue 1, item 12)")
-    m = transformer
+            "family 'audio': the encoder-decoder comes in a later slice "
+            "(ROADMAP queue 1, item 12 step 3)")
+    else:
+        raise ValueError(f"unknown family {cfg.family!r}")
     return Model(name=cfg.name, init=m.init, loss_fn=m.loss_fn,
                  prefill=m.prefill, decode_step=m.decode_step,
-                 init_cache=m.init_cache)
+                 init_cache=m.init_cache, stacked=m.STACKED)

@@ -25,8 +25,45 @@ import torch.nn.functional as F
 
 from repro_torch import device as device_lib
 from repro_torch import random as rnd
+from repro_torch.core.tree import tree_map
 from repro_torch.kernels.flash_attention import FlashAttention, flash_attention
 from repro_torch.kernels.rmsnorm import RMSNorm
+
+# ---------------------------------------------------------------------------
+# stacked parameters
+# ---------------------------------------------------------------------------
+
+
+def take(stacked, i: int):
+    """Entry i of stacked parameters or states: views into the (N, ...)
+    tensors of a nested dict, or entry i of a list (the training path's
+    per-layer autograd leaves, ``launch.train.grad_leaves``)."""
+    if isinstance(stacked, (list, tuple)):
+        return stacked[i]
+    return tree_map(lambda t: t[i], stacked)
+
+
+def copy_into(dst, src):
+    """Copies a nested dict of tensors into another of the same nesting."""
+    for k, v in src.items():
+        if isinstance(v, dict):
+            copy_into(dst[k], v)
+        else:
+            dst[k].copy_(v)
+
+
+def stack_draws(draws, n: int):
+    """``draws(i)`` for i < n, a nested dict each, copied into stacked
+    (n, ...) tensors allocated from the first: the draw's temporaries never
+    exceed one entry's."""
+    stacked = None
+    for i in range(n):
+        one = draws(i)
+        if stacked is None:
+            stacked = tree_map(lambda t: t.new_empty((n, *t.shape)), one)
+        copy_into(take(stacked, i), one)
+    return stacked
+
 
 # ---------------------------------------------------------------------------
 # init helpers

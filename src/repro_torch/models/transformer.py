@@ -43,6 +43,9 @@ def _dt(cfg):
 
 
 FAMILIES = ("dense", "moe", "vlm")
+# the params' stacked entries and their stacked axes (``Model.stacked``):
+# the (L, ...) layers
+STACKED = {"layers": 1}
 
 
 def _check_decoder(cfg):
@@ -51,31 +54,11 @@ def _check_decoder(cfg):
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r}; the port's transformer serves "
-            f"{FAMILIES} (the SSM/hybrid and encoder-decoder families: "
-            "ROADMAP queue 1, item 12)")
+            f"{FAMILIES} (the SSM and hybrid families: models/xlstm.py and "
+            "models/zamba.py; the encoder-decoder: ROADMAP queue 1, item 12 "
+            "step 3)")
     if cfg.n_experts:
         L.check_moe_sharding(cfg)
-
-
-def _map(fn, tree):
-    return {k: _map(fn, v) if isinstance(v, dict) else fn(v)
-            for k, v in tree.items()}
-
-
-def _layer(layers, i: int):
-    """Layer i's parameters: views into the stacked (L, ...) tensors, or
-    entry i of a list of per-layer dicts."""
-    if isinstance(layers, (list, tuple)):
-        return layers[i]
-    return _map(lambda t: t[i], layers)
-
-
-def _copy_into(dst, src):
-    for k, v in src.items():
-        if isinstance(v, dict):
-            _copy_into(dst[k], v)
-        else:
-            dst[k].copy_(v)
 
 
 # ---------------------------------------------------------------------------
@@ -108,13 +91,8 @@ def init(key, cfg, device=None):
     k_embed, k_layers, k_out = rnd.split(key, 3).unbind(0)
     layer_keys = rnd.split(k_layers, cfg.n_layers)
     params = {"embed": L.embed_init(k_embed, (cfg.vocab_size, cfg.d_model), dt)}
-    stacked = None
-    for i in range(cfg.n_layers):
-        lp = init_layer(layer_keys[i], cfg)
-        if stacked is None:
-            stacked = _map(lambda t: t.new_empty((cfg.n_layers, *t.shape)), lp)
-        _copy_into(_layer(stacked, i), lp)
-    params["layers"] = stacked
+    params["layers"] = L.stack_draws(lambda i: init_layer(layer_keys[i], cfg),
+                                     cfg.n_layers)
     params["ln_f"] = L.rmsnorm_init(cfg.d_model, dt, key.device)
     if not cfg.tie_embeddings:
         params["unembed"] = L.embed_init(k_out, (cfg.d_model, cfg.vocab_size),
@@ -169,7 +147,7 @@ def backbone(params, x, rope_cs, cfg, prefix_len: int = 0):
     runs again in the backward."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
+        lp = L.take(params["layers"], i)
         if cfg.remat:
             x, a = checkpoint(_block, lp, x, rope_cs, cfg, prefix_len,
                               use_reentrant=False)
@@ -242,7 +220,7 @@ def prefill(params, batch, cfg, cache=None):
     if cache is None:
         cache = init_cache(cfg, b, t, device=h.device)
     for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
+        lp = L.take(params["layers"], i)
         hn = L.norm(lp["ln1"], h, cfg)
         h = h + L.attention(lp["attn"], hn, rope_cs, cfg,
                             cache["k"][i], cache["v"][i], pfx)
@@ -263,7 +241,7 @@ def decode_step(params, cache, token, pos: int, cfg):
     positions = torch.full((1, 1), pos, dtype=torch.int64, device=token.device)
     rope_cs = L.rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
     for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
+        lp = L.take(params["layers"], i)
         hn = L.norm(lp["ln1"], h, cfg)
         o, _, _ = L.attention_decode(lp["attn"], hn, cache["k"][i],
                                      cache["v"][i], pos, rope_cs, cfg)

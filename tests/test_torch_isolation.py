@@ -60,7 +60,12 @@ def test_port_files_exist():
                    "repro_torch/checkpoint/msgpack_ckpt.py",
                    "repro_torch/core/topology.py",
                    "repro_torch/launch/mesh.py",
-                   "repro_torch/launch/feature_dist.py"):
+                   "repro_torch/launch/feature_dist.py",
+                   "repro_torch/models/ssm.py",
+                   "repro_torch/models/xlstm.py",
+                   "repro_torch/models/zamba.py",
+                   "repro_torch/configs/xlstm_1_3b.py",
+                   "repro_torch/configs/zamba2_1_2b.py"):
         assert needed in names
     assert (ROOT / "chip_smoke.py").exists()
 

@@ -110,7 +110,7 @@ def test_attention_decode_matches_reference(weights):
                                             jnp.asarray(cv), jnp.int32(pos), JCFG)
     tk, tv = torch.from_numpy(ck.copy()), torch.from_numpy(cv.copy())
     rope_cs = tlayers.rope_tables(torch.full((1, 1), pos), 64, TCFG.rope_theta)
-    got, gk, gv = tlayers.attention_decode(ttr._layer(tp["layers"], 0)["attn"],
+    got, gk, gv = tlayers.attention_decode(tlayers.take(tp["layers"], 0)["attn"],
                                            torch.from_numpy(x), tk, tv, pos,
                                            rope_cs, TCFG)
     assert gk is tk and gv is tv                       # written in place
@@ -265,10 +265,10 @@ def test_other_families_are_refused(change):
 
 def test_get_model_refuses_other_families():
     assert tapi.get_model(TCFG).decode_step is ttr.decode_step
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tapi.get_model(dataclasses.replace(TCFG, family="ssm"))
-    with pytest.raises(KeyError, match="item 12"):
-        get_config("xlstm-1.3b")
+    with pytest.raises(NotImplementedError, match="item 12 step 3"):
+        tapi.get_model(dataclasses.replace(TCFG, family="audio"))
+    with pytest.raises(KeyError, match="item 12 step 3"):
+        get_config("seamless-m4t-medium")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

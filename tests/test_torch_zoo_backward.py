@@ -133,6 +133,45 @@ def test_flash_bwd_ref_matches_cattn_vjp(b, h, kv, sq, sk, d, causal, window):
     _close(dv, jdv, 2e-5, "dv")
 
 
+def test_flash_bwd_ref_at_saturated_logits_stays_within_the_rowsum_rounding():
+    """Logits up to ~4e4 (q, k of scale 100): each row's softmax is one-hot
+    in fp32, and the exact dq, dk are ~1e-35. The reference's softmax VJP
+    (autodiff of ``dot_attention``) gives that, its row sum of P·dP
+    cancelling exactly. The flash formulation's delta = rowsum(dO·O) does
+    not cancel exactly, since O comes from the online softmax: the port's
+    dq and dk read up to ~1.5e-4 there, each element within the first-order
+    rounding of that delta, scale · max_j |k_jc| · 2(D + 4)·2^-24 ·
+    Σ_c |dO_ic|·max_j |v_jc| (dk the same with q and the rows' sums). dv
+    and the output stay within 2e-5 of the reference's."""
+    b, h, s, d = 1, 2, 24, 16
+    rng = np.random.default_rng(0)
+    q, k = ((100 * rng.standard_normal((b, h, s, d))).astype(np.float32)
+            for _ in range(2))
+    v, do = (rng.standard_normal((b, h, s, d)).astype(np.float32) for _ in range(2))
+    mask = jlayers.make_attention_mask(jnp.arange(s)[None], jnp.arange(s)[None])
+
+    def f(qq, kk, vv):
+        return jlayers.dot_attention(*(a.transpose(0, 2, 1, 3) for a in (qq, kk, vv)),
+                                     mask, kv_heads_repeat=1).transpose(0, 2, 1, 3)
+
+    jo, vjp = jax.vjp(f, *map(jnp.asarray, (q, k, v)))
+    jdq, jdk, jdv = map(np.asarray, vjp(jnp.asarray(do)))
+    assert np.abs(jdq).max() < 1e-30 and np.abs(jdk).max() < 1e-30
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = ref.flash_attention_fwd_ref(tq, tk, tv, return_lse=True)
+    dq, dk, dv = ref.flash_attention_bwd_ref(tq, tk, tv, o, lse, tdo)
+    _close(o, jo, 2e-5, "forward")
+    _close(dv, jdv, 2e-5, "dv")
+    scale, u = d ** -0.5, 2.0 ** -24
+    row = 2 * (d + 4) * u * (np.abs(do) @ np.abs(v).max(axis=2, keepdims=True)
+                             .transpose(0, 1, 3, 2))          # (b, h, s, 1)
+    causal = np.tril(np.ones((s, s), bool))
+    dq_bound = scale * row * np.abs(k).max(axis=2, keepdims=True)
+    dk_bound = scale * np.einsum("ij,bhic->bhjc", causal, row * np.abs(q))
+    assert np.all(np.abs(_np(dq) - jdq) <= dq_bound), "dq"
+    assert np.all(np.abs(_np(dk) - jdk) <= dk_bound), "dk"
+
+
 def test_flash_bwd_ref_gives_zero_for_rows_that_see_no_key():
     """Sq > Sk, causal: the first Sq - Sk rows see no key (lse = -inf); their
     dq is 0 and they add nothing to dk, dv (the backward's counterpart of
