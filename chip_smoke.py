@@ -101,7 +101,7 @@ Phases, one JSON line each:
            within 1e-5 of the one-rank run (ef_norm 1e-5 + 1e-4 of it),
            axis_bytes 813,056; and which collectives gloo takes on CUDA
            tensors
-  train_comm_parity  full width, 2 layers, fp32: the upload path with DP,
+  train_comm_parity  full width, 1 layer, fp32: the upload path with DP,
            with int8 + DP, and with int8 + DP through the sharded step
            (one rank; a gloo group on the CPU), card against CPU (step 1
            and step 2's loss)
@@ -140,6 +140,27 @@ Phases, one JSON line each:
            train_loop (remat, batch 8, sequence 512): 2 warm-up and 3 timed
            steps; step ms, tokens/s, mfu, peak memory, losses, launches
            per step (asserted)
+  serve_xlstm, serve_zamba, ssm_consistency, ssm_parity, train_xlstm,
+  train_zamba, ssm_train_parity  the SSM and hybrid families (xlstm-1.3b,
+           zamba2-1.2b) served, held to a longer prefill and to the CPU,
+           and trained, as the decoders are
+  serve_seamless  seamless-m4t-medium (12 encoder and 12 decoder layers,
+           d_model 1024, 614,739,968 parameters) at full width and depth
+           in bf16 through generate: batch 8, prompt 512 after 2,048 drawn
+           frame embeddings, 32 tokens; launches asserted (a prefill 62
+           rmsnorm and 36 flash, a decode step 37 and 24)
+  encdec_consistency  its fp32 decode after a 61-token prefill (244 frames)
+           against a 62-token prefill within 1e-4, caches too; the decode
+           with its cross K/V zeroed as the control outside the gate
+  encdec_parity  2 + 2 layers at full width, fp32, card against CPU:
+           prefill and 4 decode steps, logits 1e-4
+  train_seamless  full width and depth, bf16, remat, through
+           make_train_step: batch 8 of 512 tokens and 2,048 frames, 2
+           warm-up and 3 timed steps; step ms, tokens/s, mfu from the
+           model's FLOPs, peak memory, launches a step (asserted)
+  encdec_train_parity  2 + 2 layers at full width, fp32, 2 steps card
+           against CPU: losses rtol 1e-5, params 1e-4 after each step
+           started from the CPU's state
 The kernels phase also holds the backward kernels (rmsnorm_bwd,
 flash_attention_bwd) against their plain versions and times them against
 the PyTorch library's backward calls, the keyed quantize entry bit-equal
@@ -148,7 +169,8 @@ paths' shapes and two pieces of the train-size vector at nonzero offsets),
 and the DP-noise kernel against its plain version. No main path launches
 the bits-operand quantize entry any more (its row says so). Each main path (dense, int8, serve,
 train, each paper run, train_constrained, serve_moe, serve_glm4,
-train_moe, serve_gemma, serve_paligemma, train_paligemma) runs with every
+train_moe, serve_gemma, serve_paligemma, train_paligemma, the SSM serve
+and train phases, serve_seamless, train_seamless) runs with every
 launch counter
 set to 0 just before it and read just after. The kernels' JSON line comes second to
 last and the verdict
@@ -208,7 +230,10 @@ COHORT = dict(clients=1_000_000, participation=256, rounds=ROUNDS,
 COHORT_RUNS = (("alg1_dense", None, False), ("alg1_int8", "int8", False),
                ("alg1_topk8", "topk8", False), ("alg2_int8", "int8", True))
 COHORT_DIM = 4 * 16 + 16 * 32                     # mlp 32-16-4: 576
-COHORT_PROFILE_ROUNDS = 5         # cut from 10 for the script's time
+# rounds of each cohort profile window (cut from 10 to 5, then to 2 for the
+# script's time: the trace's analysis grows with the window's launches and
+# took 16.1 of a 5-round window's 19.3 s; PERF.md §7)
+COHORT_PROFILE_ROUNDS = 2
 COHORT_PARITY = dict(clients=48, participation=12, rounds=5, log_every=5)
 # examples/heterogeneous_fl.py: N, clients, S, rounds (its default is 200)
 HETERO = dict(n=20_000, clients=10, participation=3, rounds=50, topk_frac=0.05)
@@ -234,6 +259,20 @@ def emit(phase, **fields):
     script started (``elapsed_s``)."""
     print(json.dumps({"phase": phase, **fields,
                       "elapsed_s": time.perf_counter() - T0}), flush=True)
+
+
+class Laps:
+    """Host seconds between calls, summed by name (``laps("name")`` closes
+    the span since the last call): a phase line's ``split_s``, where the
+    phase's seconds go."""
+
+    def __init__(self):
+        self.t, self.s = time.perf_counter(), {}
+
+    def __call__(self, name):
+        now = time.perf_counter()
+        self.s[name] = self.s.get(name, 0.0) + now - self.t
+        self.t = now
 
 
 def bound_ms(nbytes, flops, peak=FP32_FLOPS_PER_S, int_ops=0):
@@ -903,11 +942,14 @@ def check_rmsnorm(torch, rms, build):
     bf16. Tolerance, absolute plus relative: 1e-5 in fp32 (another
     summation order, CUDA's 2-ulp rsqrtf), 2e-2 in bf16 (the JAX kernel
     test's). Timed at d = 2048 (``rms_timing``) and, as ``d4096``, at the
-    Mamba2 norm's shapes."""
+    Mamba2 norm's shapes; and at seamless-m4t-medium's d = 1024 (16,384
+    encoder rows: 8 × 2,048 frames; 4,096 decoder rows; 8 decode rows),
+    timed as ``d1024``."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     worst = {}
     for rows, d in ((4096, 2048), (8, 2048), (4096, 4096), (8, 4096),
-                    (4609, 4096), (37, 512), (5, 100), (3, 3000)):
+                    (4609, 4096), (16384, 1024), (4096, 1024), (8, 1024),
+                    (37, 512), (5, 100), (3, 3000)):
         for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
             x = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
             sc = (torch.randn(d, generator=gen, device="cuda") * 0.1).to(dtype)
@@ -922,11 +964,16 @@ def check_rmsnorm(torch, rms, build):
     # 4096 rows and decode's 8
     d4096 = {tag: rms_timing(torch, rms, build, gen, rows, 4096, cold=tag == "prefill")
              for tag, rows in (("prefill", 4096), ("decode", 8))}
+    # seamless-m4t-medium: the encoder's 16,384 rows at serve_seamless's
+    # prefill, its decode's 8
+    d1024 = {tag: rms_timing(torch, rms, build, gen, rows, 1024, cold=tag == "encoder")
+             for tag, rows in (("encoder", 16384), ("decode", 8))}
     return {"name": "rmsnorm", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
             "replaces": "src/repro/kernels/rmsnorm.py:30",
             "max_abs_err": max(worst.values()), "max_abs_err_by_case": worst,
-            **timings["prefill"], "decode": timings["decode"], "d4096": d4096}
+            **timings["prefill"], "decode": timings["decode"], "d4096": d4096,
+            "d1024": d1024}
 
 
 def rms_timing(torch, rms, build, gen, rows, d, cold):
@@ -982,11 +1029,13 @@ def check_rmsnorm_bwd(torch, rms, build):
     tolerance of the sum of its terms' magnitudes in fp32. Timed warm and
     cold at the train shape in bf16 from a CUDA graph, against
     torch.ops.aten._fused_rms_norm_backward (weight 1 + scale, rstd given),
-    and so, as ``d4096``, at d = 4096 (``rms_bwd_timing``)."""
+    and so, as ``d4096``, at d = 4096 (``rms_bwd_timing``) and, as
+    ``d1024``, at train_seamless's encoder rows (16,384 of 1,024; its
+    decoder's 4,096 rows are a case)."""
     gen = torch.Generator(device="cuda").manual_seed(12)
     worst = {}
-    for rows, d in ((4096, 2048), (4096, 4096), (37, 512), (5, 100), (3, 3000),
-                    (1, 2048)):
+    for rows, d in ((4096, 2048), (4096, 4096), (16384, 1024), (4096, 1024),
+                    (37, 512), (5, 100), (3, 3000), (1, 2048)):
         for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
             x = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
             sc = (torch.randn(d, generator=gen, device="cuda") * 0.1).to(dtype)
@@ -1011,7 +1060,9 @@ def check_rmsnorm_bwd(torch, rms, build):
            "max_abs_err": max(worst.values()), "max_abs_err_by_case": worst,
            **rms_bwd_timing(torch, rms, build, gen, 4096, 2048),
            # Mamba2's inner norm at zamba2's train shape
-           "d4096": rms_bwd_timing(torch, rms, build, gen, 4096, 4096)}
+           "d4096": rms_bwd_timing(torch, rms, build, gen, 4096, 4096),
+           # train_seamless's encoder norms
+           "d1024": rms_bwd_timing(torch, rms, build, gen, 16384, 1024)}
     return out
 
 
@@ -1065,10 +1116,12 @@ def attn_operands(torch, gen, b, h, kv, sq, sk, d, dtype, cache_rows=None, lo=0)
             v.transpose(1, 2)[:, :, lo:lo + sk])
 
 
-def visible_pairs(sq, sk, window=0, prefix=0):
+def visible_pairs(sq, sk, window=0, prefix=0, causal=True):
     """The query-key pairs a right-aligned causal call sees: each row's
     causal keys (within ``window`` when given) and the first ``prefix``
-    keys, counted once."""
+    keys, counted once; every pair without ``causal``."""
+    if not causal:
+        return sq * sk
     pairs = 0
     for i in range(sq):
         hi = min(sk, i + sk - sq + 1)           # keys 0 .. hi-1 are causal
@@ -1079,11 +1132,11 @@ def visible_pairs(sq, sk, window=0, prefix=0):
     return pairs
 
 
-def attn_work(b, h, kv, sq, sk, d, esize, window=0, prefix=0):
+def attn_work(b, h, kv, sq, sk, d, esize, window=0, prefix=0, causal=True):
     """Bytes (q, k, v read once, o written once) and FLOPs (4·d per visible
-    query-key pair: causal, windowed, and the prefix block) of one
-    attention call."""
-    pairs = visible_pairs(sq, sk, window, prefix)
+    query-key pair: causal, windowed, and the prefix block; every pair
+    without ``causal``) of one attention call."""
+    pairs = visible_pairs(sq, sk, window, prefix, causal)
     nbytes = esize * d * (2 * b * h * sq + 2 * b * kv * sk)
     return nbytes, 4 * d * pairs * b * h
 
@@ -1111,13 +1164,13 @@ def sdpa_backends(torch, call):
 
 
 def flash_timing(torch, fa, build, gen, b, h, kv, sq, sk, d, rows=None,
-                 prefix=0, cold=False):
-    """The bf16 forward kernel at one shape, timed from a CUDA graph beside
-    the library call (SDPA: causal, or for a prefix an explicit boolean
-    mask, which its flash backend refuses; the backends that take it are
-    listed), the plain version, and the bound."""
+                 prefix=0, cold=False, causal=True):
+    """The bf16 forward kernel at one shape, causal or not, timed from a
+    CUDA graph beside the library call (SDPA: causal or not, or for a
+    prefix an explicit boolean mask, which its flash backend refuses; the
+    backends that take it are listed), the plain version, and the bound."""
     import torch.nn.functional as F
-    nbytes, flops = attn_work(b, h, kv, sq, sk, d, 2, prefix=prefix)
+    nbytes, flops = attn_work(b, h, kv, sq, sk, d, 2, prefix=prefix, causal=causal)
     lib = build.library("flash_attention")
     qpos = torch.arange(sq, device="cuda")[:, None] + (sk - sq)
     kpos = torch.arange(sk, device="cuda")[None, :]
@@ -1126,7 +1179,7 @@ def flash_timing(torch, fa, build, gen, b, h, kv, sq, sk, d, rows=None,
     def make():
         q, k, v = attn_operands(torch, gen, b, h, kv, sq, sk, d, torch.bfloat16, rows)
         out = torch.empty_like(q)       # held here: args hold its pointer
-        return q, k, v, out, fa.kernel_args(q, k, v, out, causal=True, prefix_len=prefix)
+        return q, k, v, out, fa.kernel_args(q, k, v, out, causal=causal, prefix_len=prefix)
 
     def launch(q, k, v, out, args):
         code = lib.flash_attention(*args, torch.cuda.current_stream().cuda_stream)
@@ -1137,20 +1190,24 @@ def flash_timing(torch, fa, build, gen, b, h, kv, sq, sk, d, rows=None,
     def library(q, k, v, out, args):
         if mask is not None:
             return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
-        return F.scaled_dot_product_attention(q, k, v, is_causal=sq > 1, enable_gqa=True)
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal and sq > 1,
+                                              enable_gqa=True)
 
     sets = cold_sets(make, nbytes) if cold else [make()]
     b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
     q, k, v, _, args = sets[0]
     out = {"shape": {"q": list(q.shape), "kv": list(k.shape)}, "prefix": prefix,
-           "bytes": nbytes, "flops": flops, **timed_pair(launch, library, sets, cold),
+           "causal": causal, "bytes": nbytes, "flops": flops,
+           **timed_pair(launch, library, sets, cold),
            "eager_ms": event_ms(rotating(launch, sets[:1])),
            "library_eager_ms": event_ms(rotating(library, sets[:1])),
-           "plain_ms": event_ms(lambda: fa.plain(q, k, v, prefix_len=prefix), iters=20),
+           "plain_ms": event_ms(lambda: fa.plain(q, k, v, causal=causal,
+                                                 prefix_len=prefix), iters=20),
            "bound_ms": b_ms, "bound_by": b_by, "decode_splits": args[-1]}
     if mask is not None:
         out["library_backends"] = sdpa_backends(torch, lambda: library(*sets[0]))
-    err, ok = close_err(library(*sets[0]), fa.plain(q, k, v, prefix_len=prefix), 3e-2)
+    err, ok = close_err(library(*sets[0]), fa.plain(q, k, v, causal=causal,
+                                                    prefix_len=prefix), 3e-2)
     check(ok, f"flash {q.shape} prefix {prefix}: the library yardstick disagrees by {err}")
     del sets
     return out
@@ -1172,11 +1229,17 @@ def check_flash(torch, fa, build):
     shapes, a ragged prefix (100 of 261) and a prefix inside and past a
     window; and head dim 64 at zamba2-1.2b's shapes (32 heads over 32: the
     serve prefill and decode in bf16, ssm_parity's and ssm_consistency's
-    fp32 prefills and decodes), timed as ``d64``. Tolerance, absolute plus
+    fp32 prefills and decodes), timed as ``d64``; and non-causal at
+    seamless-m4t-medium's shapes (16 heads over 16, head dim 64): its
+    encoder over 2,048 frames, its cross-attention of 512 tokens and of one
+    decode row over 2,048 frames in bf16, and encdec_consistency's and
+    encdec_parity's fp32 shapes (61 tokens over 244 frames, and 62; 244
+    frames), the bf16 three timed in ``d64`` too. Tolerance, absolute plus
     relative: 2e-5 in fp32, 3e-2 in bf16 (the JAX kernel test's; the online
-    softmax sums in another order). A planted control, the kernel with the
-    prefix against the plain version without it, must read outside the
-    bf16 tolerance."""
+    softmax sums in another order). Two planted controls must read outside
+    the tolerance: the kernel with the prefix against the plain version
+    without it (bf16), and the non-causal cross-attention against the
+    plain version with the causal mask (fp32)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [  # b, h, kv, sq, sk, d, dtype, cache_rows, window[, first row]
@@ -1231,24 +1294,40 @@ def check_flash(torch, fa, build):
         (2, 32, 32, 1, 304, 64, f32, 304, 0, 0, 0),
         (2, 32, 32, 304, 304, 64, f32, None, 0, 0, 0),
     ]
+    cases = [(*c, True) for c in cases] + [
+        # seamless-m4t-medium, non-causal: the encoder, the cross-attention
+        # at prefill and at decode (over the cross cache's rows)
+        (8, 16, 16, 2048, 2048, 64, bf16, None, 0, 0, 0, False),   # serve_seamless
+        (8, 16, 16, 512, 2048, 64, bf16, None, 0, 0, 0, False),
+        (8, 16, 16, 1, 2048, 64, bf16, 2048, 0, 0, 0, False),
+        (2, 16, 16, 244, 244, 64, f32, None, 0, 0, 0, False),     # encdec_consistency
+        (2, 16, 16, 61, 244, 64, f32, None, 0, 0, 0, False),
+        (2, 16, 16, 62, 244, 64, f32, None, 0, 0, 0, False),
+        (2, 16, 16, 1, 244, 64, f32, 244, 0, 0, 0, False),
+    ]
     worst = {}
-    for b, h, kv, sq, sk, d, dtype, rows, window, lo, prefix in cases:
+    for b, h, kv, sq, sk, d, dtype, rows, window, lo, prefix, causal in cases:
         q, k, v = attn_operands(torch, gen, b, h, kv, sq, sk, d, dtype, rows, lo)
-        got = fa.flash_attention(q, k, v, causal=True, window=window, prefix_len=prefix)
+        got = fa.flash_attention(q, k, v, causal=causal, window=window, prefix_len=prefix)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got).all()), f"flash {q.shape}: not finite")
-        if sq > sk:
+        if sq > sk and causal:
             check(not got[:, :, :sq - sk].any(), "flash: masked rows not 0")
         tol = 2e-5 if dtype == f32 else 3e-2
-        err, ok = close_err(got, fa.plain(q, k, v, causal=True, window=window,
+        err, ok = close_err(got, fa.plain(q, k, v, causal=causal, window=window,
                                           prefix_len=prefix), tol)
         check(ok, f"flash b={b} h={h} kv={kv} sq={sq} sk={sk} d={d} {dtype} "
-                  f"window={window} prefix={prefix}: max |diff| {err}")
-        worst[f"{b}x{h}/{kv}x{sq}x{sk}x{d}/w{window}p{prefix}/{str(dtype)[6:]}"] = err
+                  f"causal={causal} window={window} prefix={prefix}: max |diff| {err}")
+        worst[f"{b}x{h}/{kv}x{sq}x{sk}x{d}/c{int(causal)}w{window}p{prefix}/"
+              f"{str(dtype)[6:]}"] = err
         if prefix and dtype == bf16 and d == 256 and sq == 768:
             control, ok = close_err(got, fa.plain(q, k, v), 3e-2)
             check(not ok, f"flash: the prefix does not show ({control} without it)")
             worst["control_without_prefix"] = control
+        if not causal and dtype == f32 and sq == 61:
+            control, ok = close_err(got, fa.plain(q, k, v, causal=True), tol)
+            check(not ok, f"flash: non-causal reads as causal ({control})")
+            worst["control_causal_mask"] = control
         del q, k, v, got
 
     timings = {"prefill": flash_timing(torch, fa, build, gen, 8, 16, 2, 512, 512, 128,
@@ -1263,13 +1342,21 @@ def check_flash(torch, fa, build):
                                                800)}
     d64 = {"zamba2_prefill": flash_timing(torch, fa, build, gen, 8, 32, 32, 512, 512, 64,
                                           cold=True),
-           "zamba2_decode": flash_timing(torch, fa, build, gen, 8, 32, 32, 1, 543, 64, 544)}
+           "zamba2_decode": flash_timing(torch, fa, build, gen, 8, 32, 32, 1, 543, 64, 544),
+           "seamless_encoder": flash_timing(torch, fa, build, gen, *ENC_ATTN, cold=True,
+                                            causal=False),
+           "seamless_cross_prefill": flash_timing(torch, fa, build, gen, *CROSS_ATTN,
+                                                  causal=False),
+           "seamless_cross_decode": flash_timing(torch, fa, build, gen, *CROSS_ATTN[:3], 1,
+                                                 *CROSS_ATTN[4:], rows=CROSS_ATTN[4],
+                                                 causal=False)}
     control = worst.pop("control_without_prefix")
+    causal_control = worst.pop("control_causal_mask")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:84",
             "max_abs_err": max(worst.values()), "max_abs_err_by_case": worst,
-            "control_without_prefix": control,
+            "control_without_prefix": control, "control_causal_mask": causal_control,
             **timings["prefill"], "decode": timings["decode"], "d256": d256, "d64": d64}
 
 
@@ -1278,6 +1365,10 @@ TRAIN_ATTN = (8, 16, 2, 512, 512, 128)      # b, h, kv, sq, sk, d at batch 8, se
 
 PALI_TRAIN_ATTN = (8, 8, 1, 512, 512, 256)  # train_paligemma's attention
 ZAMBA_TRAIN_ATTN = (8, 32, 32, 512, 512, 64)  # train_zamba's shared attention
+# seamless-m4t-medium at serve_seamless's and train_seamless's batch 8, 512
+# tokens and 2,048 frames (non-causal): its encoder, its cross-attention
+ENC_ATTN = (8, 16, 16, 2048, 2048, 64)
+CROSS_ATTN = (8, 16, 16, 512, 2048, 64)
 
 
 def check_flash_bwd(torch, fa, build):
@@ -1301,7 +1392,11 @@ def check_flash_bwd(torch, fa, build):
     expanded to the query heads (its dK, dV then need a sum over each
     group, not timed); the same at train_paligemma's head dim 256 and at
     train_zamba's head dim 64 (32 heads over 32), which the cases also
-    hold, with ssm_train_parity's fp32 shape."""
+    hold, with ssm_train_parity's fp32 shape; and non-causal at
+    train_seamless's encoder (2,048 frames) and cross-attention (512
+    tokens over 2,048 frames; the dk/dv kernel's pairs of key tiles cover
+    the frames), which the cases hold with encdec_train_parity's fp32
+    shapes and a ragged cross shape."""
     gen = torch.Generator(device="cuda").manual_seed(13)
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [  # b, h, kv, sq, sk, d, dtype, causal, window[, prefix]
@@ -1326,6 +1421,12 @@ def check_flash_bwd(torch, fa, build):
         (2, 8, 1, 333, 333, 256, bf16, True, 0, 77),    # rep 8, D 256, a prefix
         (*ZAMBA_TRAIN_ATTN, bf16, True, 0),              # train_zamba
         (2, 32, 32, 64, 64, 64, f32, True, 0),          # ssm_train_parity
+        (*ENC_ATTN, bf16, False, 0),                     # train_seamless
+        (*CROSS_ATTN, bf16, False, 0),
+        (2, 16, 16, 256, 256, 64, f32, False, 0),       # encdec_train_parity
+        (2, 16, 16, 64, 256, 64, f32, False, 0),
+        (2, 16, 16, 61, 244, 64, bf16, False, 0),       # ragged cross-attention
+        (2, 16, 16, 61, 244, 64, f32, False, 0),
     ]
     worst, rel_norms = {}, {}
     for b, h, kv, sq, sk, d, dtype, causal, window, *pre in cases:
@@ -1379,28 +1480,32 @@ def check_flash_bwd(torch, fa, build):
            "d256": {"paligemma3b_train": flash_bwd_timing(torch, fa, build, gen,
                                                           *PALI_TRAIN_ATTN)},
            "d64": {"zamba2_train": flash_bwd_timing(torch, fa, build, gen,
-                                                    *ZAMBA_TRAIN_ATTN)}}
+                                                    *ZAMBA_TRAIN_ATTN),
+                   "seamless_encoder_train": flash_bwd_timing(torch, fa, build, gen,
+                                                              *ENC_ATTN, causal=False),
+                   "seamless_cross_train": flash_bwd_timing(torch, fa, build, gen,
+                                                            *CROSS_ATTN, causal=False)}}
     return out
 
 
-def flash_bwd_timing(torch, fa, build, gen, b, h, kv, sq, sk, d):
-    """The bf16 backward at one causal shape, timed warm and cold from a
-    CUDA graph beside aten's flash backward (K and V expanded to the query
-    heads), the plain version, and the bound."""
+def flash_bwd_timing(torch, fa, build, gen, b, h, kv, sq, sk, d, causal=True):
+    """The bf16 backward at one shape, causal or not, timed warm and cold
+    from a CUDA graph beside aten's flash backward (K and V expanded to the
+    query heads), the plain version, and the bound."""
     lib = build.library("flash_attention")
     bf16 = torch.bfloat16
     rep = h // kv
-    fwd_bytes, fwd_flops = attn_work(b, h, kv, sq, sk, d, 2)
+    fwd_bytes, fwd_flops = attn_work(b, h, kv, sq, sk, d, 2, causal=causal)
     nbytes = 2 * d * (4 * b * h * sq + 4 * b * kv * sk) + 2 * 4 * b * h * sq
     flops = 5 * fwd_flops // 2
 
     def make():
         q, k, v = attn_operands(torch, gen, b, h, kv, sq, sk, d, bf16)
         do = torch.randn(q.shape, generator=gen, device="cuda").to(bf16)
-        o, lse = fa.flash_attention(q, k, v, return_lse=True)
+        o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         delta = torch.empty(q.shape[:3], device="cuda")
-        args = fa.bwd_kernel_args(q, k, v, o, lse, do, dq, dk, dv, delta)
+        args = fa.bwd_kernel_args(q, k, v, o, lse, do, dq, dk, dv, delta, causal=causal)
         return q, k, v, o, lse, do, dq, dk, dv, delta, args, None
 
     def launch(*ops):
@@ -1412,29 +1517,31 @@ def flash_bwd_timing(torch, fa, build, gen, b, h, kv, sq, sk, d):
         qc = q.contiguous()
         ke = k.repeat_interleave(rep, dim=1).contiguous()
         ve = v.repeat_interleave(rep, dim=1).contiguous()
-        res = torch.ops.aten._scaled_dot_product_flash_attention(qc, ke, ve, 0.0, True,
+        res = torch.ops.aten._scaled_dot_product_flash_attention(qc, ke, ve, 0.0, causal,
                                                                   False)
         return (*ops[:11], (qc, ke, ve, res, do.contiguous()))
 
     def library(*ops):
         qc, ke, ve, res, doc = ops[11]
         return torch.ops.aten._scaled_dot_product_flash_attention_backward(
-            doc, qc, ke, ve, *res[:6], 0.0, True, res[6], res[7])
+            doc, qc, ke, ve, *res[:6], 0.0, causal, res[6], res[7])
 
     sets = [with_library(s_) for s_ in cold_sets(make, nbytes)]
     b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
     q, k, v, o, lse, do = sets[0][:6]
     gq, gk, gv = library(*sets[0])
-    want = fa.plain_bwd(q, k, v, o, lse, do)
+    want = fa.plain_bwd(q, k, v, o, lse, do, causal=causal)
     gk = gk.view(b, kv, rep, sk, d).float().sum(2)
     gv = gv.view(b, kv, rep, sk, d).float().sum(2)
     for name, got, w in (("dq", gq, want[0]), ("dk", gk, want[1]), ("dv", gv, want[2])):
         err, ok = close_err(got, w, 3e-2)
         check(ok, f"flash_bwd {name}: the library yardstick disagrees by {err}")
-    out = {"shape": {"q": list(q.shape), "kv": list(k.shape)}, "bytes": nbytes,
-           "flops": flops, "chunks": sets[0][10][-1], **timed_pair(launch, library, sets, True),
+    out = {"shape": {"q": list(q.shape), "kv": list(k.shape)}, "causal": causal,
+           "bytes": nbytes, "flops": flops, "chunks": sets[0][10][-1],
+           **timed_pair(launch, library, sets, True),
            "eager_ms": event_ms(rotating(launch, sets[:1]), iters=20),
-           "plain_ms": event_ms(lambda: fa.plain_bwd(q, k, v, o, lse, do), iters=5),
+           "plain_ms": event_ms(lambda: fa.plain_bwd(q, k, v, o, lse, do, causal=causal),
+                                iters=5),
            "bound_ms": b_ms, "bound_by": b_by}
     del sets
     return out
@@ -1648,6 +1755,7 @@ def run_train_parity(torch, m):
     must read above that normwise limit: the gate tells a loss of precision
     that size from fp32."""
     rnd, train, rounds, optimizer = m.rnd, m.train, m.rounds, m.optimizer
+    laps = Laps()
     cfg = dataclasses.replace(m.qwen, n_layers=2, dtype="float32")
     model = m.get_model(cfg)
     key = rnd.PRNGKey(3)
@@ -1655,35 +1763,44 @@ def run_train_parity(torch, m):
     fl = m.train_fl
     b, s, steps = TRAIN_PARITY["batch"], TRAIN_PARITY["seq"], TRAIN_PARITY["steps"]
     toks = m.token_dataset(rnd.fold_in(key, 1), cfg.vocab_size, 200_000)
+    laps("init")
 
     def run(p, device):
-        """The params after each step, and each step's loss."""
+        """The params after each step (copies on the run's device), and
+        each step's loss."""
         dev_key = key.to(device)
         step = train.make_scanned_step(model, cfg, fl, toks.to(device), b, s)
         inputs = rounds.make_inputs(fl, 1, steps, rnd.fold_in(dev_key, 2))
         state, ws, losses = optimizer.ssca_init(p), [], []
         for r in range(steps):
             state, ms = step(state, inputs.round(r))
-            ws.append(state.w_flat.to("cpu", copy=True))
+            ws.append(state.w_flat.clone())
             losses.append(ms["loss"].item())
         return ws, losses
 
     t0 = time.perf_counter()
     card_w, card_loss = run(params, "cuda")
     card_s = time.perf_counter() - t0
+    laps("card")
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
         tf32_w, tf32_loss = run(params, "cuda")
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+    laps("tf32_control")
     on_cpu = tree_map(lambda t: t.cpu(), params)
     del params
+    laps("to_cpu")
     t0 = time.perf_counter()
     cpu_w, cpu_loss = run(on_cpu, "cpu")
     cpu_s = time.perf_counter() - t0
+    laps("cpu")
+    # compared on the card: the CPU's passes over these 466 M-element
+    # vectors took a fifth of the phase
+    cpu_w = [c.to(CARD) for c in cpu_w]
 
     def normwise(ws):
-        return [((a - c).norm() / c.norm()).item() for a, c in zip(ws, cpu_w)]
+        return [rel_norm(a, c) for a, c in zip(ws, cpu_w)]
 
     diff = [(a - c).abs().max().item() for a, c in zip(card_w, cpu_w)]
     loss_rel = [abs(a - c) / abs(c) for a, c in zip(card_loss, cpu_loss)]
@@ -1696,12 +1813,15 @@ def run_train_parity(torch, m):
            "tf32_control": {"losses": tf32_loss, "normwise_param_diff_by_step":
                             normwise(tf32_w)},
            "card_s": card_s, "cpu_s": cpu_s}
-    emit("train_parity", **out)
+    del card_w, tf32_w, cpu_w
+    laps("compare")
+    emit("train_parity", **out, split_s=laps.s)
     check(all(map(math.isfinite, card_loss)), "train parity: losses not finite")
     check(max(loss_rel) <= 1e-5, f"train parity: card vs CPU losses differ by {loss_rel}")
     gated = diff[:TRAIN_PARITY_PARAM_STEPS]
     check(max(gated) <= 1e-4, f"train parity: card vs CPU params differ by {gated}")
-    last, control = out["normwise_param_diff_by_step"][-1], normwise(tf32_w)[-1]
+    last = out["normwise_param_diff_by_step"][-1]
+    control = out["tf32_control"]["normwise_param_diff_by_step"][-1]
     check(last <= TRAIN_PARITY_NORMWISE,
           f"train parity: card vs CPU params differ normwise by {last} after the last step")
     check(control > TRAIN_PARITY_NORMWISE,
@@ -1962,6 +2082,7 @@ def run_train_constrained_parity(torch, m):
     minimum's recursion dropped (``planted_update``); each must break the
     ν gate at step 2 or 3."""
     rnd, train, rounds, optimizer = m.rnd, m.train, m.rounds, m.optimizer
+    laps = Laps()
     cfg = dataclasses.replace(m.qwen, n_layers=2, dtype="float32")
     model = m.get_model(cfg)
     key = rnd.PRNGKey(3)
@@ -1969,6 +2090,7 @@ def run_train_constrained_parity(torch, m):
     fl = train.TRAIN_FL
     b, s, steps = TRAIN_PARITY["batch"], TRAIN_PARITY["seq"], TRAIN_PARITY["steps"]
     toks = m.token_dataset(rnd.fold_in(key, 1), cfg.vocab_size, 200_000)
+    laps("init")
 
     def run(p, device):
         """The params after each step, each step's metrics, and the
@@ -1979,7 +2101,7 @@ def run_train_constrained_parity(torch, m):
         state, ws, ms_all, mins = optimizer.ssca_constrained_init(p), [], [], []
         for r in range(steps):
             state, ms = step(state, inputs.round(r))
-            ws.append(state.w_flat.to("cpu", copy=True))
+            ws.append(state.w_flat.clone())
             ms_all.append({k: v.item() for k, v in ms.items()})
             mins.append(state.cons_min.item())
         return ws, ms_all, mins
@@ -1987,6 +2109,7 @@ def run_train_constrained_parity(torch, m):
     t0 = time.perf_counter()
     card_w, card_m, card_min = run(params, "cuda")
     card_s = time.perf_counter() - t0
+    laps("card")
     planted = {}
     sound = optimizer.update_surrogate_
     for drop in ("carry", "jump"):
@@ -1995,17 +2118,21 @@ def run_train_constrained_parity(torch, m):
             planted[drop] = run(params, "cuda")
         finally:
             optimizer.update_surrogate_ = sound
+    laps("planted_controls")
     on_cpu = tree_map(lambda t: t.cpu(), params)
     del params
+    laps("to_cpu")
     t0 = time.perf_counter()
     cpu_w, cpu_m, cpu_min = run(on_cpu, "cpu")
     cpu_s = time.perf_counter() - t0
+    laps("cpu")
+    cpu_w = [c.to(CARD) for c in cpu_w]       # compared on the card
 
     def rel(ms, k):
         return [abs(a[k] - c[k]) / max(abs(c[k]), 1e-30) for a, c in zip(ms, cpu_m)]
 
     def normwise(ws):
-        return [((a - c).norm() / c.norm()).item() for a, c in zip(ws, cpu_w)]
+        return [rel_norm(a, c) for a, c in zip(ws, cpu_w)]
 
     cond = [(1 + x["nu"] * fl.tau) / max(2 * x["nu"] * fl.tau, 1e-30) for x in cpu_m]
     nu_limit = [c * TRAIN_CONSTRAINED_NU_RTOL for c in cond]
@@ -2036,7 +2163,9 @@ def run_train_constrained_parity(torch, m):
            "max_abs_param_diff_by_step": diff,
            "normwise_param_diff_by_step": normwise(card_w),
            "planted_controls": controls, "card_s": card_s, "cpu_s": cpu_s}
-    emit("train_constrained_parity", **out)
+    del card_w, cpu_w, planted
+    laps("compare")
+    emit("train_constrained_parity", **out, split_s=laps.s)
     loss_rel, nu_rel = out["rel_loss_diff_by_step"], out["rel_nu_diff_by_step"]
     check(all(math.isfinite(x["loss"]) for x in card_m), "constrained parity: losses not finite")
     check(max(loss_rel[:2]) <= 1e-5,
@@ -2092,9 +2221,9 @@ def cohort_expected(m, codec, constrained):
         COHORT_DIM, COHORT["clients"], m.codecs.make_codec(codec),
         participation=COHORT["participation"], with_value=constrained)["up"]
     counts = {k: 0 for k in m.counted}
-    counts.update(ssca_update=0 if constrained else ROUNDS,
-                  stochastic_quantize_keyed=ROUNDS if codec else 0,
-                  cohort_sample=ROUNDS)
+    counts.update(ssca_update=0 if constrained else COHORT["rounds"],
+                  stochastic_quantize_keyed=COHORT["rounds"] if codec else 0,
+                  cohort_sample=COHORT["rounds"])
     return up, counts
 
 
@@ -2110,11 +2239,13 @@ def run_cohort(torch, m, data, name_power):
     num, cohort = COHORT["clients"], COHORT["participation"]
     totals = {}
     for name, codec, constrained in COHORT_RUNS:
+        laps = Laps()
         # warm-up of this path's shapes (S = 256 of 1,000); not counted
         m.train.cohort_train_loop(clients=1000, participation=cohort, rounds=2,
                                   log_every=2, codec=codec,
                                   constrained=constrained)
         torch.cuda.synchronize()
+        laps("warmup")
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         zero_counts(m.counted)
@@ -2124,6 +2255,7 @@ def run_cohort(torch, m, data, name_power):
                                             constrained=constrained)
             torch.cuda.synchronize()
             t_end = time.perf_counter()
+        laps("run")
         seconds, round_s = t_end - t0, t_end - draws.t_first
         counts = read_counts(m.counted)
         peak = torch.cuda.max_memory_allocated()
@@ -2133,7 +2265,8 @@ def run_cohort(torch, m, data, name_power):
         for k, v in res.params.items():
             check(bool(torch.isfinite(v).all()), f"cohort {name}: param {k} not finite")
         ids = torch.stack(draws.ids)
-        check(tuple(ids.shape) == (ROUNDS, cohort), f"cohort {name}: {ids.shape} draws")
+        check(tuple(ids.shape) == (COHORT["rounds"], cohort),
+              f"cohort {name}: {ids.shape} draws")
         srt = torch.sort(ids.long(), dim=1).values
         check(bool((srt[:, 1:] > srt[:, :-1]).all()) and int(srt.min()) >= 0
               and int(srt.max()) < num,
@@ -2141,7 +2274,8 @@ def run_cohort(torch, m, data, name_power):
         want_bytes, want_counts = cohort_expected(m, codec, constrained)
         line = {"run": name, "codec": codec or "none", "constrained": constrained,
                 **COHORT, "params": COHORT_DIM, "seconds": seconds,
-                "setup_s": draws.t_first - t0, "rounds_per_s": ROUNDS / round_s,
+                "setup_s": draws.t_first - t0,
+                "rounds_per_s": COHORT["rounds"] / round_s,
                 "peak_mem_bytes": peak, "base_mem_bytes": base,
                 "run_peak_mem_bytes": peak - base,
                 "population_total": data.total,
@@ -2168,8 +2302,9 @@ def run_cohort(torch, m, data, name_power):
                   f"cohort {name}: the EF store is not the (I, P) backing on the card")
             line["ef_rows_written"] = int(ef.any(dim=1).sum())
             del ef
-            check(line["ef_rows_written"] <= cohort * ROUNDS,
+            check(line["ef_rows_written"] <= cohort * COHORT["rounds"],
                   f"cohort {name}: {line['ef_rows_written']} EF rows written")
+        laps("checks")
         # one round under sync-debug "error", then the profile window
         fl = cohort_fl(m, constrained)
         make = (m.algorithms.make_algorithm2_step if constrained
@@ -2177,7 +2312,7 @@ def run_cohort(torch, m, data, name_power):
         step = make(m.mlp.per_sample_loss, data, fl, participation=cohort,
                     codec=m.codecs.make_codec(codec), cohort=True)
         k = COHORT_PROFILE_ROUNDS
-        inputs = m.rounds.make_inputs(fl, ROUNDS + 1, 2 + 3 * k,
+        inputs = m.rounds.make_inputs(fl, COHORT["rounds"] + 1, 2 + 3 * k,
                                       m.rnd.PRNGKey(11))
         held = {"state": step(state, inputs.round(0))[0], "r": 2}
         torch.cuda.synchronize()
@@ -2188,6 +2323,7 @@ def run_cohort(torch, m, data, name_power):
             torch.cuda.set_sync_debug_mode("default")
         check(bool(torch.isfinite(met["stat_res"])), f"cohort {name}: sync round")
         line["sync_free_round"] = True
+        laps("sync_round")
 
         def rounds_k():
             for _ in range(k):
@@ -2199,10 +2335,12 @@ def run_cohort(torch, m, data, name_power):
                     device_busy=prof["device_busy_share"],
                     profiled_ms_per_round=prof["profiled_ms_per_call"],
                     unprofiled_ms_per_round=prof["ms_per_call"],
-                    top_kernels=prof["top_kernels"][:5])
+                    top_kernels=prof["top_kernels"][:5],
+                    profile_rounds=k, profile_analysis_s=prof["analysis_s"])
         del res, state, held, step
         torch.cuda.empty_cache()
-        emit("cohort", **line, **name_power)
+        laps("profile")
+        emit("cohort", **line, split_s=laps.s, **name_power)
         for n, v in counts.items():
             totals[n] = totals.get(n, 0) + v
     return totals
@@ -2409,7 +2547,10 @@ def run_slice(torch, m, codec_name, data, params0, test, topology=None,
 TRAIN_COMM_TIMED = 3
 # (codec, DP ε) of the three full-width upload runs; δ = 1e-5, C = 1
 TRAIN_COMM_RUNS = (("int8", None), (None, 8.0), ("int8", 8.0))
-TRAIN_COMM_PARITY = dict(batch=2, seq=64)
+# one layer at full width (cut from 2 for the script's time: the CPU halves'
+# elementwise chains run over every parameter, the embedding's 311 M of them
+# the most; PERF.md §7)
+TRAIN_COMM_PARITY = dict(batch=2, seq=64, layers=1)
 # comm_update_'s piece on the CPU half of train_comm_parity
 CPU_COMM_PIECE = 1 << 20
 DP_EPS = 8.0
@@ -2533,7 +2674,7 @@ def train_comm_run(torch, m, host_params, codec, eps, topology="local"):
 
 
 def run_train_comm_parity(torch, m):
-    """The upload path card against CPU at full width, 2 layers, fp32,
+    """The upload path card against CPU at full width, 1 layer, fp32,
     batch 2, seq 64, from the same weights, tokens and keys: DP alone and
     int8 + DP (ε = 8) on the local step, and int8 + DP through the sharded
     step on one rank (NCCL on the card, a gloo group on the CPU: the same
@@ -2541,7 +2682,7 @@ def run_train_comm_parity(torch, m):
     both devices, then step 2's loss at the updated params. The card runs
     comm_update_ in its COMM_PIECE pieces, the CPU in CPU_COMM_PIECE ones:
     the draws are the same in any 256-aligned pieces, and the plain
-    versions' chains of elementwise ops over the 466 M parameters run
+    versions' chains of elementwise ops over the 388 M parameters run
     about 8x faster on the CPU on a piece that stays in cache. Gates,
     train_parity's tolerances: the step-1 loss
     (before any upload) rtol 1e-5; the step-1 DP metrics rtol 1e-5 (ε and
@@ -2549,7 +2690,9 @@ def run_train_comm_parity(torch, m):
     1e-3 with int8 (a 1-ulp difference may move a rounding decision by a
     level); the params after step 1 normwise within TRAIN_PARITY_NORMWISE."""
     rnd, train, rounds, optimizer = m.rnd, m.train, m.rounds, m.optimizer
-    cfg = dataclasses.replace(m.qwen, n_layers=2, dtype="float32")
+    laps = Laps()
+    cfg = dataclasses.replace(m.qwen, n_layers=TRAIN_COMM_PARITY["layers"],
+                              dtype="float32")
     model = m.get_model(cfg)
     key = rnd.PRNGKey(3)
     params = model.init(key, cfg)
@@ -2587,9 +2730,11 @@ def run_train_comm_parity(torch, m):
                     {k: v.item() if hasattr(v, "item") else v for k, v in ms.items()},
                     loss2)
 
+        laps("init")
         t0 = time.perf_counter()
         card_w, card_m, card_l2 = run(params, "cuda")
         card_s = time.perf_counter() - t0
+        laps("card")
         t0 = time.perf_counter()
         train.COMM_PIECE = CPU_COMM_PIECE
         try:
@@ -2597,14 +2742,17 @@ def run_train_comm_parity(torch, m):
         finally:
             train.COMM_PIECE = COMM_PIECE
         cpu_s = time.perf_counter() - t0
+        laps("cpu")
         normwise = ((card_w - cpu_w).norm() / cpu_w.norm()).item()
-        line = {"run": name, "layers": 2, "dtype": "float32", **TRAIN_COMM_PARITY,
+        line = {"run": name, "dtype": "float32", **TRAIN_COMM_PARITY,
                 "metrics_card": card_m, "metrics_cpu": cpu_m,
                 "loss2_card": card_l2, "loss2_cpu": cpu_l2,
                 "normwise_param_diff": normwise,
                 "max_abs_param_diff": (card_w - cpu_w).abs().max().item(),
                 "card_s": card_s, "cpu_s": cpu_s, "cpu_piece": CPU_COMM_PIECE}
-        emit("train_comm_parity", **line)
+        laps("compare")
+        emit("train_comm_parity", **line, split_s=laps.s)
+        laps = Laps()
         rel = {k: abs(card_m[k] - cpu_m[k]) / max(abs(cpu_m[k]), 1e-30)
                for k in ("loss", "dp_epsilon", "dp_noise_norm")}
         check(max(rel.values()) <= 1e-5, f"train_comm_parity {name}: {rel}")
@@ -2641,7 +2789,7 @@ def paper_dp_run(m, name, rounds, inputs, dp, device=None):
 
 PAPER_DP_RUNS = ("alg1_dense", "alg1_int8", "alg2_int8", "alg3")
 # whole runs of this many rounds (profile_torch_round.py --paper takes 20)
-PAPER_DP_PROFILE_ROUNDS = 10
+PAPER_DP_PROFILE_ROUNDS = 3       # cut from 10 for the script's time
 
 
 def profile_cohort_dp(torch, m, population, dp, profile_window):
@@ -2690,6 +2838,7 @@ def run_paper_dp(torch, m, inputs, population, name_power):
     totals = {}
     num, cohort = COHORT["clients"], COHORT["participation"]
     for name in PAPER_DP_RUNS + ("cohort_int8",):
+        laps = Laps()
         is_cohort = name == "cohort_int8"
         if is_cohort:
             def drive(rounds, with_dp=True):
@@ -2704,11 +2853,13 @@ def run_paper_dp(torch, m, inputs, population, name_power):
                                     dp if with_dp else None)
             drive(2)
         torch.cuda.synchronize()
+        laps("warmup")
         zero_counts(m.counted)
         t0 = time.perf_counter()
         res = drive(ROUNDS)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
+        laps("run")
         counts = read_counts(m.counted)
         h = {kk: v.cpu().double() for kk, v in res.history.items()}
         for kk, v in h.items():
@@ -2726,6 +2877,7 @@ def run_paper_dp(torch, m, inputs, population, name_power):
                         (ROUNDS if "int8" in name else 0)),
                     cohort_sample=ROUNDS if is_cohort else 0)
         check(counts == want, f"paper_dp {name}: launches {counts} != {want}")
+        laps("checks")
         prof, base = (profile_cohort_dp(torch, m, population, dp, profile_window)
                       if is_cohort else
                       (profile_window(lambda: drive(PAPER_DP_PROFILE_ROUNDS),
@@ -2744,11 +2896,15 @@ def run_paper_dp(torch, m, inputs, population, name_power):
                 "profiled_ms_per_round": prof["profiled_ms_per_call"],
                 "no_dp_launches_per_round": base["kernel_launches_per_call"],
                 "no_dp_device_busy": base["device_busy_share"],
-                "no_dp_profiled_ms_per_round": base["profiled_ms_per_call"]}
+                "no_dp_profiled_ms_per_round": base["profiled_ms_per_call"],
+                "profile_rounds": k if is_cohort else PAPER_DP_PROFILE_ROUNDS,
+                "profile_seconds": [prof["seconds"], base["seconds"]],
+                "profile_analysis_s": [prof["analysis_s"], base["analysis_s"]]}
         if is_cohort:
             line.update(clients=num, participation=cohort,
                         eval_loss=h["loss"].tolist())
-        emit("paper_dp", **line, **name_power)
+        laps("profile")
+        emit("paper_dp", **line, split_s=laps.s, **name_power)
         for kk, v in counts.items():
             totals[kk] = totals.get(kk, 0) + v
         del res
@@ -2865,11 +3021,11 @@ def run_obs(torch, m, data, params0, host_params, name_power):
 # turns, so each pair shares the call's machine)
 SHARDED_FEATURE_ROUNDS = 20
 SHARDED_COHORT_ROUNDS = 30
-SHARDED_PROFILE_ROUNDS = 10
+SHARDED_PROFILE_ROUNDS = 3        # cut from 10 for the script's time
 # rounds/s sharded against local: this many pairs of SHARDED_PAIR_ROUNDS-
 # round runs, the order alternating (the host clock of a round varies more
-# between windows than the topology moves it)
-SHARDED_PAIRS, SHARDED_PAIR_ROUNDS = 6, 20
+# between windows than the topology moves it); cut from 6 pairs
+SHARDED_PAIRS, SHARDED_PAIR_ROUNDS = 3, 20
 # two gloo ranks on the one card: Algorithm 1, int8 + EF, S = 3 of I = 10
 SHARDED_2RANK = dict(world=2, rounds=10, participation=3, timeout_s=240)
 # the collectives probed on CUDA tensors under gloo
@@ -3273,7 +3429,7 @@ TRAIN_MOE_WARMUP, TRAIN_MOE_TIMED = 2, 3
 # head dim 256 and the VLM prefix
 VLM_ARCH = "paligemma-3b"
 VLM_CONSISTENCY = dict(batch=8, prompt_len=512)
-ZOO256_PARITY = dict(batch=2, prompt_len=61, steps=4, seq=64)
+ZOO256_PARITY = dict(batch=1, prompt_len=61, steps=4, seq=64)   # batch cut from 2
 TRAIN_VLM = dict(batch=8, seq=512)
 TRAIN_VLM_WARMUP, TRAIN_VLM_TIMED = 2, 3
 
@@ -3307,15 +3463,23 @@ def hybrid_groups(cfg):
 
 
 def forward_launches(cfg) -> dict:
-    """rmsnorm and flash launches a forward of ``cfg``'s model makes, and
-    those that remat recomputes in the backward, worked out from the
-    models' code: the decoders run two norms and one attention a layer and
+    """rmsnorm and flash launches a forward of ``cfg``'s model makes (a
+    prefill, and ``decode_`` a decode step, where that differs), and those
+    that remat recomputes in the backward, worked out from the models'
+    code: the decoders run two norms and one attention a layer and
     recompute every layer; xLSTM two norms a block, no attention, and
     recomputes its mLSTM blocks; zamba2 two norms a Mamba2 block, two and
     one attention a shared-block application, and recomputes the Mamba2
-    blocks of its groups (not the tail's, nor the shared block). Each adds
-    the final norm."""
+    blocks of its groups (not the tail's, nor the shared block); the
+    encoder-decoder two norms and one attention an encoder layer, three and
+    two (self and cross) a decoder layer, and a decode step the decoder's
+    alone, and recomputes every layer. Each adds its final norms."""
     L = cfg.n_layers
+    if cfg.is_encdec:
+        le = cfg.encoder_layers
+        return {"rmsnorm": 2 * le + 1 + 3 * L + 1, "flash_attention": le + 2 * L,
+                "decode_rmsnorm": 3 * L + 1, "decode_flash_attention": 2 * L,
+                "remat_rmsnorm": 2 * le + 3 * L, "remat_flash_attention": le + 2 * L}
     if cfg.family == "ssm":
         g, n_m, n_s = ssm_groups(cfg)
         return {"rmsnorm": 2 * g * (n_m + n_s) + 1, "flash_attention": 0,
@@ -3364,7 +3528,10 @@ def decoder_params(cfg) -> int:
     (d, 4d) and (d, d) matrices and block-diagonal recurrence; for zamba2
     (``hybrid``) each Mamba2 block's two norms, in- and out-projections,
     conv, decay and dt bias, and the shared block's concat projection, two
-    norms, attention and GeGLU MLP."""
+    norms, attention and GeGLU MLP; for the encoder-decoder (``audio``) the
+    tied embedding, two final norms, each encoder layer's two norms,
+    attention and MLP, and each decoder layer's three norms, self- and
+    cross-attention and MLP."""
     d = cfg.d_model
     if cfg.family == "ssm":
         g, n_m, n_s = ssm_groups(cfg)
@@ -3387,6 +3554,10 @@ def decoder_params(cfg) -> int:
     ffn = (d * cfg.n_experts + 3 * cfg.n_experts * d * cfg.moe_d_ff
            + mlp * cfg.dense_residual) if cfg.n_experts else mlp
     embeds = 1 if cfg.tie_embeddings else 2
+    if cfg.is_encdec:
+        return (embeds * cfg.vocab_size * d + 2 * d
+                + cfg.encoder_layers * (2 * d + attn + ffn)
+                + cfg.n_layers * (3 * d + 2 * attn + ffn))
     return embeds * cfg.vocab_size * d + d + cfg.n_layers * (2 * d + attn + ffn)
 
 
@@ -3398,8 +3569,10 @@ def run_serve_zoo(torch, m, arch, phase, name_power):
     checked exactly a forward (``forward_launches``: 2·L+1 rmsnorm and L
     flash for a decoder, 97 and 0 for xlstm-1.3b, 89 and 6 for
     zamba2-1.2b; every other kernel 0: the MoE and the SSM scans run none
-    of their own); the decode's split check where there is attention.
-    Emits the phase's line and returns (counts, the generated tokens)."""
+    of their own; seamless-m4t-medium's prefill 62 and 36, each decode step
+    37 and 24); the decode's split check where there is attention (the
+    encoder-decoder's cross-attention over its 4·prompt frames too). Emits
+    the phase's line and returns (counts, the generated tokens)."""
     cfg = m.get_config(arch)
     t0 = time.perf_counter()
     m.serve.generate(arch, **dict(SERVE, gen=2))
@@ -3416,21 +3589,27 @@ def run_serve_zoo(torch, m, arch, phase, name_power):
     n_params = decoder_params(cfg)
     param_bytes = n_params * (2 if cfg.dtype == "bfloat16" else 4)
     per_forward = {k: v / SERVE["gen"] for k, v in counts.items()}
-    fwd = forward_launches(cfg)
-    want = {**{k: 0 for k in m.counted}, "rmsnorm": fwd["rmsnorm"],
-            "flash_attention": fwd["flash_attention"]}
-    check(per_forward == want,
-          f"{arch} serve launches per forward {per_forward} != {want}")
+    fwd, steps = forward_launches(cfg), SERVE["gen"] - 1
+    want = {**{k: 0 for k in m.counted}, **{
+        k: fwd[k] + steps * fwd.get("decode_" + k, fwd[k])
+        for k in ("rmsnorm", "flash_attention")}}
+    check(counts == want, f"{arch} serve launches {counts} != {want} (a prefill "
+          f"and {steps} decode steps)")
     check(tuple(seqs.shape) == (SERVE["batch"], SERVE["gen"]), seqs.shape)
     check(0 <= int(seqs.min()) and int(seqs.max()) < cfg.vocab_size,
           f"{arch}: generated tokens outside the vocabulary")
     b, s = SERVE["batch"], SERVE["prompt_len"]
     pfx = cfg.num_prefix_tokens if cfg.family == "vlm" else 0
-    splits = None
+    splits = cross_splits = None
     if fwd["flash_attention"]:
         splits = m.fa.decode_splits(torch.bfloat16, b, cfg.n_heads, cfg.n_kv_heads,
                                     1, pfx + s + SERVE["gen"] - 1, d=cfg.resolved_head_dim)
         check(splits > 0, f"{arch}: decode leaves the split kernel")
+    if cfg.is_encdec:
+        cross_splits = m.fa.decode_splits(torch.bfloat16, b, cfg.n_heads,
+                                          cfg.n_kv_heads, 1, 4 * s,
+                                          d=cfg.resolved_head_dim)
+        check(cross_splits > 0, f"{arch}: the cross decode leaves the split kernel")
     step_ms = b * 1e3 / stats["tokens_per_s"]
     line = {"arch": arch, "dtype": cfg.dtype, "layers": cfg.n_layers, **SERVE,
             "prefix_tokens": pfx, "params": n_params, "param_bytes": param_bytes,
@@ -3440,6 +3619,9 @@ def run_serve_zoo(torch, m, arch, phase, name_power):
             "decode_ms_per_step": step_ms, "decode_splits_last": splits,
             "peak_mem_bytes": peak, "launches": counts,
             "launches_per_forward": per_forward}
+    if cfg.is_encdec:
+        line.update(frames=4 * s, encoder_layers=cfg.encoder_layers,
+                    cross_decode_splits=cross_splits)
     if cfg.n_experts:
         line.update(moe_decode_bounds(cfg, param_bytes),
                     decode_capacity=m.layers.moe_capacity(cfg, b),
@@ -3791,7 +3973,8 @@ def run_vlm_consistency(torch, m):
 
 
 def run_zoo256_parity(torch, m):
-    """gemma-7b and paligemma-3b at full width, 2 layers, fp32: the weights
+    """gemma-7b and paligemma-3b at full width, 2 layers, fp32, batch
+    ZOO256_PARITY["batch"]: the weights
     drawn on the card and copied to the CPU; a prefill of 61 tokens (after
     256 drawn prefix embeddings for paligemma) and 4 greedy decode steps on
     both, the card fed the CPU's tokens, logits within 1e-4 (serve_parity's
@@ -3803,11 +3986,13 @@ def run_zoo256_parity(torch, m):
     out = {}
     b, s, steps = (ZOO256_PARITY[k] for k in ("batch", "prompt_len", "steps"))
     for arch in ("gemma-7b", VLM_ARCH):
+        laps = Laps()
         cfg = dataclasses.replace(m.get_config(arch), n_layers=2, dtype="float32")
         model = m.get_model(cfg)
         key = rnd.PRNGKey(1)
         params = model.init(key, cfg)
         on_cpu = tree_map(lambda t: t.cpu(), params)
+        laps("init")
         vlm = cfg.family == "vlm"
         pfx = cfg.num_prefix_tokens if vlm else 0
         tokens, pref = vlm_prompt(m, cfg, key, b, s)
@@ -3829,7 +4014,9 @@ def run_zoo256_parity(torch, m):
         t0 = time.perf_counter()
         cpu_logits, cpu_toks = run(on_cpu, "cpu")
         cpu_s = time.perf_counter() - t0
+        laps("serve_cpu")
         card_logits, _ = run(params, "cuda", cpu_toks)
+        laps("serve_card")
         line = {"max_abs_logit_diff": (card_logits - cpu_logits).abs().max().item(),
                 "argmax_equal": bool(torch.equal(card_logits.argmax(-1),
                                                  cpu_logits.argmax(-1))),
@@ -3869,7 +4056,9 @@ def run_zoo256_parity(torch, m):
             check(line["max_abs_grad_diff"] <= 1e-4,
                   f"vlm parity: card vs CPU gradients differ by {line['max_abs_grad_diff']}")
             del grads, card_g, cpu_g
+            laps("loss_and_grad")
         out[arch] = line
+        line["split_s"] = laps.s
         del params, on_cpu
         torch.cuda.empty_cache()
     emit("zoo256_parity", layers=2, dtype="float32", **ZOO256_PARITY,
@@ -3944,7 +4133,9 @@ SSM_TRAIN_PARITY = dict(batch=2, seq=64, steps=2)
 # 2.36 to 9.54); at τ = 5 the step is ĝ/20 at most
 SSM_TRAIN_PARITY_TAU = 5.0
 TRAIN_SSM = dict(batch=8, seq=512)
-TRAIN_SSM_WARMUP, TRAIN_SSM_TIMED = 2, 3
+# cut from 2 + 3 for the script's time (xlstm's steps are host-bound, 3-7 s
+# each): the median stays over 2 timed steps
+TRAIN_SSM_WARMUP, TRAIN_SSM_TIMED = 1, 2
 CARD = "cuda"                  # the parity phases' card side
 
 
@@ -4100,21 +4291,23 @@ def run_ssm_train_parity(torch, m):
     fl = dataclasses.replace(m.train_fl, tau=SSM_TRAIN_PARITY_TAU)
     out, gates = {}, []
     for arch in SSM_ARCHS:
+        laps = Laps()
         cfg = dataclasses.replace(m.get_config(arch), dtype="float32",
                                   **SSM_PARITY_CUTS[arch])
         model = m.get_model(cfg)
         key = rnd.PRNGKey(3)
         params = model.init(key, cfg)
         toks = m.token_dataset(rnd.fold_in(key, 1), cfg.vocab_size, 200_000)
+        laps("init")
 
         def buffers(state):
             return [t for t in (state.w_flat, state.g_flat, getattr(state, "w_side", None),
                                 getattr(state, "g_side", None)) if t is not None]
 
         def run(p, device, before=None):
-            """The state's buffers (CPU copies) after each step, and each
-            step's loss; with ``before``, each step r starts from
-            ``before[r - 1]``'s buffers."""
+            """The state's buffers (copies on the run's device) after each
+            step, and each step's loss; with ``before``, each step r starts
+            from ``before[r - 1]``'s buffers."""
             step = train.make_scanned_step(model, cfg, fl, toks.to(device), b, seq)
             inputs = rounds.make_inputs(fl, 1, steps, rnd.fold_in(key.to(device), 2))
             state, after, losses = optimizer.ssca_init(p), [], []
@@ -4123,19 +4316,24 @@ def run_ssm_train_parity(torch, m):
                     for dst, src in zip(buffers(state), before[r - 1]):
                         dst.copy_(src)
                 state, ms = step(state, inputs.round(r))
-                after.append([t.to("cpu", copy=True) for t in buffers(state)])
+                after.append([t.clone() for t in buffers(state)])
                 losses.append(ms["loss"].item())
             return after, losses
 
         zero_counts(m.counted)
         _, card_loss = run(params, CARD)
         counts = read_counts(m.counted)
+        laps("card")
         on_cpu = tree_map(lambda t: t.cpu(), params)
+        laps("to_cpu")
         t0 = time.perf_counter()
         cpu_after, cpu_loss = run(on_cpu, "cpu")
         cpu_s = time.perf_counter() - t0
+        laps("cpu")
+        cpu_after = [[t.to(CARD) for t in a] for a in cpu_after]   # compared on the card
         started, _ = run(params, CARD, before=cpu_after)
         del params
+        laps("card_started")
         # buffers(): the params at the even places, their surrogates after
         diff, g_diff = ([max((a[i] - c[i]).abs().max().item()
                              for i in range(first, len(c), 2))
@@ -4153,6 +4351,8 @@ def run_ssm_train_parity(torch, m):
         gates.append((arch, per_step == train_launches(cfg, m.counted), out[arch]))
         del on_cpu, started, cpu_after
         torch.cuda.empty_cache()
+        laps("compare")
+        out[arch]["split_s"] = laps.s
     emit("ssm_train_parity", dtype="float32", tau=SSM_TRAIN_PARITY_TAU,
          **SSM_TRAIN_PARITY, **out)
     for arch, launches_ok, line in gates:
@@ -4165,6 +4365,322 @@ def run_ssm_train_parity(torch, m):
         check(max(line["max_abs_param_diff_by_step"]) <= 1e-4,
               f"{arch} train parity: card vs CPU params differ by "
               f"{line['max_abs_param_diff_by_step']}")
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder: seamless-m4t-medium
+# ---------------------------------------------------------------------------
+
+ENCDEC_ARCH = "seamless-m4t-medium"
+FRAMES_PER_TOKEN = 4           # configs/shapes.py's train and serve convention
+# prompt 61 after 244 frames, then one decode step, against a prefill of 62
+ENCDEC_CONSISTENCY = dict(batch=2, prompt_len=61)
+ENCDEC_PARITY_CUT = dict(n_layers=2, encoder_layers=2)
+ENCDEC_PARITY = dict(batch=2, prompt_len=61, steps=4)
+ENCDEC_TRAIN_PARITY = dict(batch=2, seq=64, steps=2)
+TRAIN_ENCDEC = dict(batch=8, seq=512)
+TRAIN_ENCDEC_WARMUP, TRAIN_ENCDEC_TIMED = 2, 3
+
+
+def encdec_train_flops(cfg, batch, seq, frames) -> int:
+    """FLOPs of one train step of the encoder-decoder, worked out from
+    ``models/encdec.py``: three times its forward's (the backward twice the
+    forward; remat's recompute not counted, as 6·P·tokens does not count
+    it). The forward: the encoder's products and bidirectional attention
+    over the frames, the decoder's self-attention products and causal
+    attention over the tokens, its cross-attention's q and output products
+    on the tokens and K/V products on the frames and attention of every
+    token over every frame, its MLP, and the tied logits product over the
+    tokens only. 6·P·tokens would charge the frames' work at the token
+    count and the logits at the frame count."""
+    d, ff, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    hd, h, kv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    te, td = batch * frames, batch * seq
+    proj = 2 * d * h * hd + 2 * d * kv * hd          # wq, wo; wk, wv
+    mlp = (2 if cfg.activation == "gelu" else 3) * d * ff
+    enc = cfg.encoder_layers * (2 * te * (proj + mlp)
+                                + 4 * hd * h * batch * frames * frames)
+    causal_pairs = seq * (seq + 1) // 2
+    dec = cfg.n_layers * (2 * td * (proj + mlp) + 4 * hd * h * batch * causal_pairs
+                          + 2 * td * 2 * d * h * hd + 2 * te * 2 * d * kv * hd
+                          + 4 * hd * h * batch * seq * frames)
+    return 3 * (enc + dec + 2 * td * d * v)
+
+
+def encdec_batch(m, cfg, key, b, s, dtype):
+    """frame_embeddings normal(fold_in(key, 3), (b, 4·s, D)) in ``dtype``,
+    serve.generate's draw, and tokens randint(fold_in(key, 1), (b, s))."""
+    rnd = m.rnd
+    return {"frame_embeddings": rnd.normal(rnd.fold_in(key, 3),
+                                           (b, FRAMES_PER_TOKEN * s, cfg.d_model)).to(dtype),
+            "tokens": rnd.randint(rnd.fold_in(key, 1), (b, s), 0, cfg.vocab_size)}
+
+
+def run_encdec_consistency(torch, m):
+    """seamless-m4t-medium at full width and depth in fp32 (2.46 GB of
+    weights), batch 2: a prefill of 61 tokens after 244 frames, then a
+    decode step at position 61, against one prefill of the 62 tokens: the
+    last logits within CONSISTENCY_FP32, and the caches (the 62 self K/V
+    rows, every cross K/V row, pos) within 1e-4 of max(1, max |entry|).
+    The control decodes the same token from the prefill's cache with its
+    cross K/V zeroed: its logits must read outside the gate."""
+    rnd = m.rnd
+    b, s = ENCDEC_CONSISTENCY["batch"], ENCDEC_CONSISTENCY["prompt_len"]
+    cfg = dataclasses.replace(m.get_config(ENCDEC_ARCH), dtype="float32")
+    model = m.get_model(cfg)
+    key = rnd.PRNGKey(SERVE["seed"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(key, cfg)
+    data = encdec_batch(m, cfg, key, b, s + 1, torch.float32)
+    frames = data["frame_embeddings"][:, :FRAMES_PER_TOKEN * s]
+    tokens = data["tokens"]
+    enc_len = frames.shape[1]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, cache = model.prefill(params, {"frame_embeddings": frames, "tokens": tokens[:, :s]},
+                             cfg, cache=model.init_cache(cfg, b, s + 1, enc_len=enc_len))
+    zeroed = tree_map(lambda t: t.clone(), cache)
+    zeroed["cross_k"].zero_()
+    zeroed["cross_v"].zero_()
+    decoded, cache = model.decode_step(params, cache, tokens[:, s:], s, cfg)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    control, _ = model.decode_step(params, zeroed, tokens[:, s:], s, cfg)
+    del zeroed
+    full, full_cache = model.prefill(params, {"frame_embeddings": frames, "tokens": tokens},
+                                     cfg, cache=model.init_cache(cfg, b, s + 1,
+                                                                 enc_len=enc_len))
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated()
+
+    def dist(a, c):
+        return (a[:, -1].float() - c[:, -1].float()).abs().max().item()
+
+    caches = rel_gate(cache, full_cache)
+    out = {"arch": ENCDEC_ARCH, "dtype": "float32", "layers": cfg.n_layers,
+           "encoder_layers": cfg.encoder_layers, **ENCDEC_CONSISTENCY,
+           "frames": enc_len, "decode_pos": s, "decode_vs_full": dist(decoded, full),
+           "limit": CONSISTENCY_FP32, "cache_by_entry": caches,
+           "control_cross_zeroed_vs_full": dist(control, full),
+           "logits_abs_max": full[:, -1].abs().max().item(),
+           "init_s": t1 - t0, "prefill_and_decode_s": t2 - t1,
+           "control_and_full_s": t3 - t2, "peak_mem_bytes": peak}
+    del params, cache, full_cache
+    torch.cuda.empty_cache()
+    emit("encdec_consistency", **out)
+    for name, lg in (("decode", decoded), ("full", full)):
+        check(bool(torch.isfinite(lg).all()), f"encdec: {name} logits not finite")
+    check(out["decode_vs_full"] <= CONSISTENCY_FP32,
+          f"encdec: decode after the prefill differs from the full forward by "
+          f"{out['decode_vs_full']}")
+    for name, (err, lim) in caches.items():
+        check(err <= lim, f"encdec consistency: cache {name} differs by {err} > {lim}")
+    check(out["control_cross_zeroed_vs_full"] > CONSISTENCY_FP32,
+          "encdec: the decode with its cross K/V zeroed reads within the tolerance")
+
+
+def run_encdec_parity(torch, m):
+    """seamless-m4t-medium at full width, 2 encoder and 2 decoder layers,
+    fp32: the weights drawn on the card and copied to the CPU; a prefill of
+    61 tokens after 244 frames and 4 greedy decode steps on both, the card
+    fed the CPU's tokens: the prefill's and every step's logits within 1e-4
+    (serve_parity's gate), the final caches within 1e-4 of max(1, max
+    |entry|)."""
+    rnd = m.rnd
+    b, s, steps = (ENCDEC_PARITY[k] for k in ("batch", "prompt_len", "steps"))
+    cfg = dataclasses.replace(m.get_config(ENCDEC_ARCH), dtype="float32",
+                              **ENCDEC_PARITY_CUT)
+    model = m.get_model(cfg)
+    key = rnd.PRNGKey(1)
+    params = model.init(key, cfg)
+    on_cpu = tree_map(lambda t: t.cpu(), params)
+    batch = encdec_batch(m, cfg, key, b, s, torch.float32)
+
+    def run(p, device, fed=None):
+        cache = model.init_cache(cfg, b, s + steps, device=device,
+                                 enc_len=FRAMES_PER_TOKEN * s)
+        logits, cache = model.prefill(p, {k: v.to(device) for k, v in batch.items()},
+                                      cfg, cache=cache)
+        lg, toks = [logits[:, -1].cpu()], []
+        for i in range(steps):
+            tok = (torch.argmax(lg[-1], -1).to(torch.int32)[:, None]
+                   if fed is None else fed[i])
+            toks.append(tok)
+            logits, cache = model.decode_step(p, cache, tok.to(device), s + i, cfg)
+            lg.append(logits[:, -1].cpu())
+        return torch.stack(lg), toks, tree_map(lambda t: t.cpu(), cache)
+
+    t0 = time.perf_counter()
+    cpu_logits, cpu_toks, cpu_cache = run(on_cpu, "cpu")
+    cpu_s = time.perf_counter() - t0
+    zero_counts(m.counted)
+    card_logits, _, card_cache = run(params, CARD, cpu_toks)
+    counts = read_counts(m.counted)
+    gates = rel_gate(card_cache, cpu_cache)
+    fwd = forward_launches(cfg)
+    want = {**{k: 0 for k in m.counted}, **{
+        k: fwd[k] + steps * fwd["decode_" + k] for k in ("rmsnorm", "flash_attention")}}
+    line = {"cut": ENCDEC_PARITY_CUT, "frames": FRAMES_PER_TOKEN * s,
+            "max_abs_logit_diff": (card_logits - cpu_logits).abs().max().item(),
+            "argmax_equal": bool(torch.equal(card_logits.argmax(-1),
+                                             cpu_logits.argmax(-1))),
+            "cache_by_entry": gates, "launches": counts, "cpu_s": cpu_s}
+    del params, on_cpu
+    torch.cuda.empty_cache()
+    emit("encdec_parity", arch=ENCDEC_ARCH, dtype="float32", **ENCDEC_PARITY, **line)
+    check(counts == want, f"encdec parity launches {counts} != {want}")
+    check(line["max_abs_logit_diff"] <= 1e-4,
+          f"encdec parity: card vs CPU logits differ by {line['max_abs_logit_diff']}")
+    for name, (err, lim) in gates.items():
+        check(err <= lim, f"encdec parity: cache {name} differs by {err} > {lim}")
+
+
+def encdec_step(m, model, cfg, fl, toks, b, seq, dtype):
+    """step(state, round inputs) -> (state, metrics): make_train_step on a
+    batch of token windows of ``toks`` (``sample_window`` with the round's
+    key, as make_scanned_step draws them) and frame embeddings
+    normal(fold_in(key, 3), (b, 4·seq, D)) in ``dtype``, the round's ρ and
+    γ."""
+    rnd = m.rnd
+    step = m.train.make_train_step(model, cfg, fl)
+
+    def run(state, inp):
+        data = m.sample_window(toks, inp.key, b, seq)
+        data["frame_embeddings"] = rnd.normal(
+            rnd.fold_in(inp.key, 3), (b, FRAMES_PER_TOKEN * seq, cfg.d_model)).to(dtype)
+        return step(state, data, rho_t=inp.rho, gamma_t=inp.gamma)
+
+    return run
+
+
+def run_train_seamless(torch, m, name_power):
+    """seamless-m4t-medium at full width and depth in bf16 with remat
+    through make_train_step: batch 8 of 512 tokens (``token_dataset`` via
+    ``sample_window``) and 2,048 frames a sample (drawn from each step's
+    key), the keys and FLConfig as train_loop's (train_loop refuses the
+    arch: it feeds token windows only, as the reference's), warm-up +
+    timed steps, every launch counter zeroed just before and read just
+    after, checked exactly a step (``train_launches``: 62 rmsnorm + 60
+    remat, 62 rmsnorm_bwd, 36 + 36 flash, 36 flash_bwd, 1 ssca_update).
+    Step ms is the median of the timed steps (host clock, each step ending
+    in a read of its loss); ``mfu`` from ``encdec_train_flops``."""
+    rnd, cfg = m.rnd, m.get_config(ENCDEC_ARCH)
+    model = m.get_model(cfg)
+    b, seq = TRAIN_ENCDEC["batch"], TRAIN_ENCDEC["seq"]
+    steps = TRAIN_ENCDEC_WARMUP + TRAIN_ENCDEC_TIMED
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(m.counted)
+    t0 = time.perf_counter()
+    key = rnd.PRNGKey(SERVE["seed"])
+    state = m.optimizer.ssca_init(model.init(key, cfg))
+    toks = m.token_dataset(rnd.fold_in(key, 1), cfg.vocab_size,
+                           max(200_000, b * (seq + 1) * 4))
+    step = encdec_step(m, model, cfg, m.train_fl, toks, b, seq, torch.bfloat16)
+    inputs = m.rounds.make_inputs(m.train_fl, 1, steps, rnd.fold_in(key, 2))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    losses, walls = [], [time.perf_counter()]
+    for r in range(steps):
+        state, ms = step(state, inputs.round(r))
+        losses.append(ms["loss"].item())
+        walls.append(time.perf_counter())
+    counts = read_counts(m.counted)
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(w.numel() for w in flat_params(state))
+    per_step = {k: v / steps for k, v in counts.items()}
+    want = train_launches(cfg, m.counted)
+    check(per_step == want, f"train_seamless launches per step {per_step} != {want}")
+    check(all(map(math.isfinite, losses)), f"train_seamless losses: {losses}")
+    check(state.t == steps + 1 and bool(torch.isfinite(state.w_flat).all()),
+          "train_seamless: the state did not take every step, or is not finite")
+    check(n_params == decoder_params(cfg) == 614_739_968,
+          f"{ENCDEC_ARCH} has {n_params} parameters")
+    del state
+    torch.cuda.empty_cache()
+    step_s = [c - a for a, c in zip(walls, walls[1:])]
+    med = statistics.median(step_s[TRAIN_ENCDEC_WARMUP:])
+    frames = FRAMES_PER_TOKEN * seq
+    flops = encdec_train_flops(cfg, b, seq, frames)
+    emit("train_seamless", arch=ENCDEC_ARCH, dtype=cfg.dtype, layers=cfg.n_layers,
+         encoder_layers=cfg.encoder_layers, remat=cfg.remat, params=n_params,
+         **TRAIN_ENCDEC, frames=frames, warmup_steps=TRAIN_ENCDEC_WARMUP,
+         timed_steps=TRAIN_ENCDEC_TIMED, setup_s=setup_s, step_ms=med * 1e3,
+         step_ms_each=[t * 1e3 for t in step_s], tokens_per_s=b * seq / med,
+         frames_per_s=b * frames / med, flops_per_step=flops,
+         mfu=flops / (med * BF16_FLOPS_PER_S), peak_mem_bytes=peak, losses=losses,
+         launches=counts, launches_per_step=per_step, **name_power)
+    return counts
+
+
+def run_encdec_train_parity(torch, m):
+    """seamless-m4t-medium at encdec_parity's cut (2 + 2 layers, full width)
+    in fp32, remat on: ENCDEC_TRAIN_PARITY's steps of ``encdec_step`` (64
+    tokens and 256 frames a sample) under train_fl from the same weights
+    (drawn on the card, copied to the CPU), tokens and round keys, on the
+    CPU and on the card twice: free-running, and with each step started
+    from the CPU's state before it. Gates, as ssm_train_parity's: the
+    free-running losses within rtol 1e-5, the params after every started
+    step within atol 1e-4; the card's launches a step (free-running) held
+    to ``train_launches``."""
+    rnd, rounds, optimizer = m.rnd, m.rounds, m.optimizer
+    b, seq, steps = (ENCDEC_TRAIN_PARITY[k] for k in ("batch", "seq", "steps"))
+    fl = m.train_fl
+    cfg = dataclasses.replace(m.get_config(ENCDEC_ARCH), dtype="float32",
+                              **ENCDEC_PARITY_CUT)
+    model = m.get_model(cfg)
+    key = rnd.PRNGKey(3)
+    params = model.init(key, cfg)
+    toks = m.token_dataset(rnd.fold_in(key, 1), cfg.vocab_size, 200_000)
+
+    def run(p, device, before=None):
+        """The params and surrogate buffers (copies on the run's device)
+        after each step and each step's loss; with ``before``, each step r
+        starts from ``before[r - 1]``'s buffers."""
+        step = encdec_step(m, model, cfg, fl, toks.to(device), b, seq, torch.float32)
+        inputs = rounds.make_inputs(fl, 1, steps, rnd.fold_in(key.to(device), 2))
+        state, after, losses = optimizer.ssca_init(p), [], []
+        for r in range(steps):
+            if before is not None and r:
+                for dst, src in zip((state.w_flat, state.g_flat), before[r - 1]):
+                    dst.copy_(src)
+            state, ms = step(state, inputs.round(r))
+            after.append([t.clone() for t in (state.w_flat, state.g_flat)])
+            losses.append(ms["loss"].item())
+        return after, losses
+
+    zero_counts(m.counted)
+    _, card_loss = run(params, CARD)
+    counts = read_counts(m.counted)
+    on_cpu = tree_map(lambda t: t.cpu(), params)
+    t0 = time.perf_counter()
+    cpu_after, cpu_loss = run(on_cpu, "cpu")
+    cpu_s = time.perf_counter() - t0
+    cpu_after = [[t.to(CARD) for t in a] for a in cpu_after]   # compared on the card
+    started, _ = run(params, CARD, before=cpu_after)
+    del params, on_cpu
+    diff = [(a[0] - c[0]).abs().max().item() for a, c in zip(started, cpu_after)]
+    loss_rel = [abs(a - c) / abs(c) for a, c in zip(card_loss, cpu_loss)]
+    per_step = {k: v / steps for k, v in counts.items()}
+    line = {"losses_card": card_loss, "losses_cpu": cpu_loss,
+            "max_rel_loss_diff_by_step": loss_rel, "max_abs_param_diff_by_step": diff,
+            "max_abs_surrogate_diff_by_step": [(a[1] - c[1]).abs().max().item()
+                                               for a, c in zip(started, cpu_after)],
+            "normwise_param_diff_by_step": [rel_norm(a[0], c[0])
+                                            for a, c in zip(started, cpu_after)],
+            "launches_per_step": per_step, "cpu_s": cpu_s}
+    del started, cpu_after
+    torch.cuda.empty_cache()
+    emit("encdec_train_parity", arch=ENCDEC_ARCH, dtype="float32", cut=ENCDEC_PARITY_CUT,
+         frames=FRAMES_PER_TOKEN * seq, **ENCDEC_TRAIN_PARITY, **line)
+    check(all(map(math.isfinite, card_loss)), "encdec train parity: losses not finite")
+    check(per_step == train_launches(cfg, m.counted),
+          f"encdec train parity launches per step {per_step}")
+    check(max(loss_rel) <= 1e-5,
+          f"encdec train parity: card vs CPU losses differ by {loss_rel}")
+    check(max(diff) <= 1e-4, f"encdec train parity: card vs CPU params differ by {diff}")
 
 
 def main() -> int:
@@ -4429,6 +4945,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_ssm_train_parity(torch, mods)
 
+    # the encoder-decoder: seamless-m4t-medium
+    encdec_counts = {}
+    torch.cuda.empty_cache()
+    encdec_counts["serve_seamless"], _ = run_serve_zoo(
+        torch, mods, ENCDEC_ARCH, "serve_seamless", {"device": name, "power": smi})
+    torch.cuda.empty_cache()
+    run_encdec_consistency(torch, mods)
+    run_encdec_parity(torch, mods)
+    torch.cuda.empty_cache()
+    encdec_counts["train_seamless"] = run_train_seamless(
+        torch, mods, {"device": name, "power": smi})
+    run_encdec_train_parity(torch, mods)
+
     for kr in kernels:
         n = kr["name"]
         kr["launches"] = (dense_counts[n] + int8_counts[n] + serve_counts[n]
@@ -4440,14 +4969,15 @@ def main() -> int:
                           + glm_serve_counts[n] + train_moe_counts[n]
                           + gemma_serve_counts[n] + pali_serve_counts[n]
                           + train_pali_counts[n]
-                          + sum(c[n] for c in ssm_counts.values()))
+                          + sum(c[n] for c in ssm_counts.values())
+                          + sum(c[n] for c in encdec_counts.values()))
         check(kr["launches"] > 0 or not kr.get("main_path", True),
               f"{n} never launched on a main path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("cold_ms", "library_cold_ms", "floor_ms",  # where measured
              "main_path", "bits_operand_ms", "train_step_ms", "train_launches",
-             "train_bound_ms", "train_bound_by", "d256", "d64", "d4096")
+             "train_bound_ms", "train_bound_by", "d256", "d64", "d4096", "d1024")
     import torch.distributed as dist
     if dist.is_initialized():
         dist.destroy_process_group()

@@ -25,9 +25,10 @@ PHASES = ("train_xlstm", "train_zamba", "ssm_train_parity")
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("phases", nargs="*", choices=PHASES, default=list(PHASES))
+    ap.add_argument("phases", nargs="*", choices=PHASES)
     ap.add_argument("--tau", type=float, default=None)
     args = ap.parse_args()
+    args.phases = args.phases or list(PHASES)
     import torch
     if not torch.cuda.is_available():
         print("chip_ssm_phases: no CUDA device", file=sys.stderr)

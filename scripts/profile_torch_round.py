@@ -48,11 +48,15 @@ def profile_window(fn, per: int) -> dict:
     rounds or decode steps one call of fn makes. The busy share divides the profiled
     device kernel time by the profiled window's own host time: both come
     from one window. ``ms_per_call`` is the unprofiled window's.
+    ``seconds``: the host seconds of the three calls, the profiler's set-up
+    and the trace's analysis, of which ``analysis_s`` the analysis
+    (``key_averages`` and the sums below).
     ``host_ms_by_range``: the host time inside each labelled range (the
     port's ``obs.trace.phase`` labels, such as the SSM scans'), nested ones
     counted in each."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    start = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -65,6 +69,7 @@ def profile_window(fn, per: int) -> dict:
         fn()
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3 / per
+    t_analysis = time.perf_counter()
     kernels, host, ranges = [], [], {}
     for e in prof.key_averages():
         dev_us = e.self_device_time_total
@@ -79,7 +84,10 @@ def profile_window(fn, per: int) -> dict:
     kernels.sort(reverse=True)
     host.sort(reverse=True)
     dev_ms = sum(k[0] for k in kernels) / 1e3 / per
+    end = time.perf_counter()
     return {
+        "seconds": end - start,
+        "analysis_s": end - t_analysis,
         "ms_per_call": wall_ms,
         "profiled_ms_per_call": prof_ms,
         "device_kernel_ms_per_call": dev_ms,

@@ -9,17 +9,19 @@ from typing import Tuple
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """``repro.configs.base.ModelConfig`` cut to the families the port
-    runs: the decoder-only transformer (dense, MoE and the VLM's
-    prefix-LM decoder; tied or untied embeddings, causal attention with an
-    optional sliding window, SwiGLU, GeGLU or GELU), the SSM (xLSTM) and
-    hybrid (Mamba2 with a shared attention block) families, and the
-    paper's MLP (``mlp``): the fields their forward and backward read
+    """``repro.configs.base.ModelConfig`` cut to the fields the port reads,
+    for every family of the reference: the decoder-only transformer (dense,
+    MoE and the VLM's prefix-LM decoder; tied or untied embeddings, causal
+    attention with an optional sliding window, SwiGLU, GeGLU or GELU), the
+    SSM (xLSTM) and hybrid (Mamba2 with a shared attention block) families,
+    the encoder-decoder (``audio``: ``encoder_layers`` encoder layers
+    before the ``n_layers`` decoder layers) and the paper's MLP (``mlp``)
     (``remat``: each layer recomputed in the backward; ``frontend`` and
-    ``num_prefix_tokens``: the stubbed modality frontend whose embeddings a
-    VLM batch carries)."""
+    ``num_prefix_tokens``: the stubbed modality frontend, whose embeddings
+    a VLM batch (``vision``) or an encoder-decoder batch (``audio``, its
+    frame embeddings) carries)."""
     name: str
-    family: str                       # dense | moe | ssm | hybrid | vlm | mlp (the families ported)
+    family: str                       # dense | moe | ssm | hybrid | vlm | audio | mlp
     n_layers: int
     d_model: int
     n_heads: int
@@ -47,7 +49,9 @@ class ModelConfig:
     chunk_size: int = 256             # chunked linear-attention block size
     block_pattern: Tuple[str, ...] = ()   # per-group kinds for xlstm ("m", "s")
     shared_attn_every: int = 0        # zamba2: shared attn block after every k blocks
-    frontend: str = "none"            # none | vision (precomputed embeddings)
+    # --- encoder-decoder ---
+    encoder_layers: int = 0           # >0 -> enc-dec model (decoder uses n_layers)
+    frontend: str = "none"            # none | vision | audio (precomputed embeddings)
     num_prefix_tokens: int = 0        # prefix embeddings a VLM batch carries
     dtype: str = "bfloat16"
     remat: bool = True                # recompute each layer in the backward
@@ -58,12 +62,17 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
+    @property
+    def is_encdec(self) -> bool:
+        return self.encoder_layers > 0
+
     def smoke(self) -> "ModelConfig":
         """The reference's reduced variant: 2 layers, d_model <= 256, <= 4
         heads, vocab <= 512, <= 4 experts with <= 2 a token and
         ``moe_d_ff`` <= 128, ``ssm_state`` <= 16 and ``ssm_heads`` <= 4,
         chunk 32, the first two kinds of ``block_pattern``, a shared
-        attention block every 2, a window <= 16, fp32, no remat."""
+        attention block every 2, a window <= 16, 2 encoder layers for an
+        encoder-decoder, fp32, no remat."""
         d = min(self.d_model, 256)
         n_heads = min(self.n_heads, 4)
         small = dict(
@@ -83,6 +92,7 @@ class ModelConfig:
             chunk_size=32,
             block_pattern=self.block_pattern[:2] if self.block_pattern else (),
             shared_attn_every=2 if self.shared_attn_every else 0,
+            encoder_layers=2 if self.encoder_layers else 0,
             sliding_window=min(self.sliding_window, 16) if self.sliding_window else 0,
             num_prefix_tokens=min(self.num_prefix_tokens, 8),
             dtype="float32",

@@ -1,15 +1,18 @@
-"""Architecture registry: ``--arch <id>`` resolution, for the architectures
-the port runs so far: the decoder-only configs (dense, MoE and the VLM's
-prefix-LM decoder; head dim up to 256, tied or untied, with or without a
-sliding window), the SSM (xlstm-1.3b) and hybrid (zamba2-1.2b) configs and
-the paper's own MLP."""
+"""Architecture registry: ``--arch <id>`` resolution, for every
+architecture of the reference: the decoder-only configs (dense, MoE and the
+VLM's prefix-LM decoder; head dim up to 256, tied or untied, with or
+without a sliding window), the SSM (xlstm-1.3b) and hybrid (zamba2-1.2b)
+configs, the encoder-decoder (seamless-m4t-medium) and the paper's own
+MLP."""
 from repro_torch.configs import (arctic_480b, deepseek_67b, gemma_7b, glm4_9b,
                                  mnist_mlp, paligemma_3b, qwen2_5_3b,
-                                 qwen3_moe_30b_a3b, xlstm_1_3b, zamba2_1_2b)
+                                 qwen3_moe_30b_a3b, seamless_m4t_medium,
+                                 xlstm_1_3b, zamba2_1_2b)
 
 ARCHS = {
     "paligemma-3b": paligemma_3b.CONFIG,
     "arctic-480b": arctic_480b.CONFIG,
+    "seamless-m4t-medium": seamless_m4t_medium.CONFIG,
     "qwen2.5-3b": qwen2_5_3b.CONFIG,
     "gemma-7b": gemma_7b.CONFIG,
     "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b.CONFIG,
@@ -26,7 +29,4 @@ def get_config(name: str):
     try:
         return ARCHS[name]
     except KeyError:
-        raise KeyError(
-            f"unknown arch {name!r}; the port has {sorted(ARCHS)}; the "
-            "reference's other arch waits on ROADMAP queue 1, item 12 step 3 "
-            "(the encoder-decoder seamless-m4t-medium)") from None
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}") from None

@@ -47,8 +47,9 @@ def params_to_numpy(tree) -> dict:
 
 # the caches' sequence-axis entries (axis 2 of (L, B, S, KV, Hd)), as the
 # reference's ``launch.serve.grow_cache`` names them; every other entry (an
-# SSM state, a conv tail, ``pos``) is O(1) in the sequence
-SEQ_CACHE_KEYS = ("k", "v", "attn_k", "attn_v")
+# SSM state, a conv tail, ``pos``, the encoder-decoder's cross K/V over the
+# encoder's rows) does not grow with the decoded sequence
+SEQ_CACHE_KEYS = ("k", "v", "attn_k", "attn_v", "self_k", "self_v")
 
 
 def cache_from_numpy(cache, max_seq=None, device=None) -> dict:

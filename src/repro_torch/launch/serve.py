@@ -10,13 +10,17 @@ before the prompt, and its decode step i writes cache row Pfx + prompt_len
 + i: the row after the prefill's last. The reference decodes from
 prompt_len + i (its transformer cache has no "pos"), which overwrites a
 prompt row and sees only part of the prompt; the port deliberately does not
-follow it (ROADMAP §3).
+follow it (ROADMAP §3). An encoder-decoder (seamless-m4t-medium) encodes
+4·prompt_len drawn frame embeddings, the reference's draw; its cache holds
+their cross K/V beside the decoder's self K/V, and decode step i takes row
+prompt_len + i, as the reference's (its encoder-decoder cache carries
+``pos``).
 
 CLI:  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
           --smoke --device cpu --batch 2 --prompt-len 16 --gen 8
       (``--arch`` takes any decoder of ``configs/registry.py``: qwen2.5-3b,
       qwen3-moe-30b-a3b, arctic-480b, glm4-9b, glm4-9b-swa, deepseek-67b,
-      gemma-7b, paligemma-3b)
+      gemma-7b, paligemma-3b, xlstm-1.3b, zamba2-1.2b, seamless-m4t-medium)
 """
 from __future__ import annotations
 
@@ -51,7 +55,9 @@ def generate(arch: str, *, smoke: bool = False, batch: int = 2,
     """Batched greedy generation from random weights (``seed``) and random
     prompt tokens (``fold_in(key, 1)``, bit-equal to the reference's); a
     VLM's prefix embeddings are ``normal(fold_in(key, 2), (batch, Pfx,
-    d_model))`` cast to the model dtype, the reference's draw. Returns
+    d_model))`` and an encoder-decoder's frame embeddings ``normal(fold_in(
+    key, 3), (batch, 4·prompt_len, d_model))``, each cast to the model
+    dtype, the reference's draws. Returns
     (seqs (batch, gen) int32, stats): ``tokens_per_s`` counts the
     batch·(gen-1) decode-step tokens over the decode loop's host time,
     ``prefill_ms`` the prefill's, ``init_s`` the weights' draw; each ends
@@ -71,13 +77,19 @@ def generate(arch: str, *, smoke: bool = False, batch: int = 2,
     init_s = time.perf_counter() - t0
     batch_in = {"tokens": rnd.randint(rnd.fold_in(key, 1), (batch, prompt_len),
                                       0, cfg.vocab_size)}
-    pfx = 0
+    pfx, cache_kw = 0, {}
+    dt = transformer.DTYPES[cfg.dtype]
     if cfg.family == "vlm":
         pfx = cfg.num_prefix_tokens
         batch_in["prefix_embeddings"] = rnd.normal(
-            rnd.fold_in(key, 2), (batch, pfx, cfg.d_model)).to(
-                transformer.DTYPES[cfg.dtype])
-    cache = model.init_cache(cfg, batch, pfx + prompt_len + gen, device=dev)
+            rnd.fold_in(key, 2), (batch, pfx, cfg.d_model)).to(dt)
+    if cfg.family == "audio":
+        frames = 4 * prompt_len
+        batch_in["frame_embeddings"] = rnd.normal(
+            rnd.fold_in(key, 3), (batch, frames, cfg.d_model)).to(dt)
+        cache_kw["enc_len"] = frames
+    cache = model.init_cache(cfg, batch, pfx + prompt_len + gen, device=dev,
+                             **cache_kw)
     step_fn = make_decode_step(model, cfg)
 
     _sync(dev)

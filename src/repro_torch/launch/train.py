@@ -237,9 +237,11 @@ def _make_step(model, cfg, fl: FLConfig, constrained: bool):
 
 def make_train_step(model, cfg, fl: FLConfig):
     """Algorithm 1's unconstrained example update (momentum SGD with
-    diminishing step sizes) on the batch's loss gradient. ρ^t/γ^t default to
-    the state.t-derived schedule; the scanned step passes them per round.
-    Metrics: ``loss``, ``t``."""
+    diminishing step sizes) on the batch's loss gradient: the batch is what
+    the model's ``loss_fn`` takes (tokens and targets; an encoder-decoder's
+    also frame_embeddings). ρ^t/γ^t default to the state.t-derived
+    schedule; the scanned step passes them per round. Metrics: ``loss``,
+    ``t``."""
     return _make_step(model, cfg, fl, constrained=False)
 
 
@@ -448,6 +450,13 @@ def train_loop(arch: str, steps: int, batch: int, seq: int, *,
             "labels_onehot) and the train loop feeds token windows; the "
             "paper's MLP trains through the federated drivers (--mode "
             "feature, --mode cohort, core.algorithms)")
+    if cfg.is_encdec:
+        raise ValueError(
+            f"{arch}: its loss takes frame_embeddings beside the tokens and "
+            "the train loop feeds token windows only (sample_window), as the "
+            "reference's loop does (which fails on it with KeyError "
+            "'frame_embeddings'); train it through make_train_step with "
+            "batches of frame_embeddings, tokens and targets")
     dev = device_lib.resolve(device)
     topo = topology_lib.make_topology(
         topology, mesh=(mesh_lib.make_client_mesh(shards, device=dev)

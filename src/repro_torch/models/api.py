@@ -1,19 +1,20 @@
-"""Model registry: the reference's uniform interface over the zoo, for the
-families the port runs so far (``dense``, ``moe``, ``vlm``, ``ssm``,
-``hybrid`` and the paper's ``mlp``).
+"""Model registry: the reference's uniform interface over the zoo, for every
+family of the reference (``dense``, ``moe``, ``vlm``, ``ssm``, ``hybrid``,
+the encoder-decoder ``audio`` and the paper's ``mlp``).
 
   init(key, cfg, device=None) -> params
   loss_fn(params, batch, cfg) -> the training loss (0-d)
   prefill(params, batch, cfg, cache=None) -> (logits, cache)   (decoders)
   decode_step(params, cache, token, pos, cfg) -> (logits, cache)
   init_cache(cfg, batch, max_seq, device=None) -> cache
+      (the encoder-decoder's also takes ``enc_len``, its cross rows)
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
-from repro_torch.models import mlp, transformer, xlstm, zamba
+from repro_torch.models import encdec, mlp, transformer, xlstm, zamba
 
 
 @dataclass(frozen=True)
@@ -43,9 +44,7 @@ def get_model(cfg) -> Model:
     elif cfg.family == "hybrid":
         m = zamba
     elif cfg.family == "audio":
-        raise NotImplementedError(
-            "family 'audio': the encoder-decoder comes in a later slice "
-            "(ROADMAP queue 1, item 12 step 3)")
+        m = encdec
     else:
         raise ValueError(f"unknown family {cfg.family!r}")
     return Model(name=cfg.name, init=m.init, loss_fn=m.loss_fn,

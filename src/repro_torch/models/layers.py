@@ -8,9 +8,11 @@ stacked layer parameters with a leading L axis; the KV cache
 (L, B, S_max, KV, Hd). ``norm`` runs the rmsnorm kernel (through its
 autograd Function, so its backward runs the rmsnorm backward kernel) and
 every attention path runs the flash kernel on a CUDA device (their plain
-versions on the CPU), with ``cfg.sliding_window`` as its window;
+versions on the CPU), with ``cfg.sliding_window`` as a decoder's window;
 ``self_attention``, the training path, runs it through its autograd
-Function, whose backward is the flash backward kernel. The reference's own
+Function, whose backward is the flash backward kernel, causal or (an
+encoder's) not; ``cross_attention`` runs it non-causal, decoder rows
+against encoder rows. The reference's own
 forward calls neither Pallas kernel but jnp versions with the same math.
 ``moe`` is the reference's top-k MoE with fixed per-expert capacity: its
 dispatch, expert products and combine are PyTorch ops, as the reference's
@@ -122,7 +124,7 @@ def apply_rope(x, cos, sin):
 
 
 # ---------------------------------------------------------------------------
-# Attention (GQA, causal; prefill and one-token decode)
+# Attention (GQA, causal; prefill and one-token decode; cross-attention)
 # ---------------------------------------------------------------------------
 
 
@@ -156,14 +158,14 @@ def _qkv(params, x, cfg):
     return q.view(b, s, h, hd), k.view(b, s, kv, hd), v.view(b, s, kv, hd)
 
 
-def _flash(q, k, v, window: int = 0, prefix_len: int = 0):
+def _flash(q, k, v, window: int = 0, prefix_len: int = 0, causal: bool = True):
     """(B, Sq, H, Hd) against (B, Sk, KV, Hd) -> (B, Sq, H·Hd), causal and
     right-aligned, each query seeing the keys less than ``window`` positions
-    back (0: all) and the first ``prefix_len`` keys: one flash launch on
-    transposed views, whose output comes back in q's (B, Sq, H, Hd) layout,
-    so the reshape is a view."""
+    back (0: all) and the first ``prefix_len`` keys, or with ``causal``
+    off every key: one flash launch on transposed views, whose output comes
+    back in q's (B, Sq, H, Hd) layout, so the reshape is a view."""
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                        causal=True, window=window, prefix_len=prefix_len)
+                        causal=causal, window=window, prefix_len=prefix_len)
     b, sq, h, hd = q.shape
     return o.transpose(1, 2).reshape(b, sq, h * hd)
 
@@ -183,19 +185,21 @@ def attention(params, x, rope_cs, cfg, cache_k, cache_v, prefix_len: int = 0):
     return _flash(q, k, v, cfg.sliding_window, prefix_len) @ params["wo"]
 
 
-def self_attention(params, x, rope_cs, cfg, prefix_len: int = 0):
+def self_attention(params, x, rope_cs, cfg, prefix_len: int = 0,
+                   causal: bool = True):
     """Training self-attention, with no cache: q/k/v (with bias), RoPE from
     ``rope_cs`` (``rope_tables`` of positions 0..S-1), causal flash attention
     through its autograd Function, then ``wo``. The reference's
     ``attention(params, x, positions, cfg, mask=...)`` with its causal mask,
     ``cfg.sliding_window`` and the prefix-LM block of ``prefix_len`` (the
-    ``dot_attention`` path the configs take)."""
+    ``dot_attention`` path the configs take); with ``causal`` off, its
+    all-true mask (an encoder's bidirectional attention: no window)."""
     q, k, v = _qkv(params, x, cfg)
     q = apply_rope(q, *rope_cs)
     k = apply_rope(k, *rope_cs)
     o = FlashAttention.apply(q.transpose(1, 2), k.transpose(1, 2),
-                             v.transpose(1, 2), True, cfg.sliding_window,
-                             prefix_len)
+                             v.transpose(1, 2), causal,
+                             cfg.sliding_window if causal else 0, prefix_len)
     b, s, h, hd = q.shape
     return o.transpose(1, 2).reshape(b, s, h * hd) @ params["wo"]
 
@@ -218,6 +222,34 @@ def attention_decode(params, x, cache_k, cache_v, pos: int, rope_cs, cfg):
     lo = max(0, pos - window + 1) if window else 0
     out = _flash(q, cache_k[:, lo:pos + 1], cache_v[:, lo:pos + 1], window)
     return out @ params["wo"], cache_k, cache_v
+
+
+def cross_kv(params, enc, cfg):
+    """The reference's ``encdec._cross_kv``: K and V (B, Se, KV, Hd) of the
+    encoder states enc (B, Se, D), ``wk`` and ``wv`` alone (no bias, no
+    RoPE)."""
+    b, s, _ = enc.shape
+    kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    return (enc @ params["wk"]).view(b, s, kv, hd), (enc @ params["wv"]).view(b, s, kv, hd)
+
+
+def cross_attention(params, x, k, v, cfg):
+    """Cross-attention of x (B, Sq, D) over every row of k, v (B, Sk, KV,
+    Hd) (``cross_kv``, or the cache's rows): q = x·wq with no bias and no
+    RoPE, one non-causal flash launch (Sq decoder rows against Sk encoder
+    rows), then ``wo``; the reference's ``dot_attention`` with an all-true
+    mask. Where autograd needs it (training), the launch goes through the
+    flash autograd Function; otherwise through ``flash_attention`` alone,
+    which takes the split decode kernel for one query row."""
+    b, s, _ = x.shape
+    q = (x @ params["wq"]).view(b, s, cfg.n_heads, cfg.resolved_head_dim)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        o = FlashAttention.apply(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), False, 0, 0)
+        o = o.transpose(1, 2).reshape(b, s, -1)
+    else:
+        o = _flash(q, k, v, causal=False)
+    return o @ params["wo"]
 
 
 # ---------------------------------------------------------------------------

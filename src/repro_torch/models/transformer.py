@@ -55,8 +55,7 @@ def _check_decoder(cfg):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r}; the port's transformer serves "
             f"{FAMILIES} (the SSM and hybrid families: models/xlstm.py and "
-            "models/zamba.py; the encoder-decoder: ROADMAP queue 1, item 12 "
-            "step 3)")
+            "models/zamba.py; the encoder-decoder: models/encdec.py)")
     if cfg.n_experts:
         L.check_moe_sharding(cfg)
 

@@ -371,6 +371,10 @@ def _attn_inputs(cuda, b, h, kv, sq, sk, d, dtype, seed):
     (2, 32, 2, 512, 512, 128),     # glm4-9b's serve prefill, batch cut to 2
     (2, 32, 4, 1, 65, 128),        # qwen3-moe: 32 heads over 4 at decode
     (2, 32, 4, 61, 61, 128),       # and at prefill
+    (2, 16, 16, 2048, 2048, 64),   # seamless-m4t's encoder (frames), batch cut to 2
+    (2, 16, 16, 512, 2048, 64),    # its cross-attention at prefill: Sq != Sk
+    (2, 16, 16, 1, 2048, 64),      # and at decode
+    (2, 16, 16, 61, 244, 64),      # ragged cross-attention (61 tokens, 244 frames)
 ])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 20), (False, 0)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -738,6 +742,9 @@ BWD_CASES = [  # b, h, kv, sq, sk, d
     (2, 8, 2, 77, 133, 64),         # lengths off the 64-row tiles; an odd key tile unpaired
     (9, 16, 2, 200, 200, 128),      # rep 8 in 3 head chunks on an H100 (bwd_chunks), 3 not dividing 8
     (1, 16, 2, 1000, 1000, 128),    # a long sequence: 8 pairs of key tiles
+    (2, 16, 16, 2048, 2048, 64),    # seamless-m4t's encoder at its train shape, batch cut to 2
+    (2, 16, 16, 512, 2048, 64),     # its cross-attention: 512 tokens over 2,048 frames
+    (2, 16, 16, 61, 244, 64),       # ragged cross-attention
 ]
 
 

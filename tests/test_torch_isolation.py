@@ -65,7 +65,9 @@ def test_port_files_exist():
                    "repro_torch/models/xlstm.py",
                    "repro_torch/models/zamba.py",
                    "repro_torch/configs/xlstm_1_3b.py",
-                   "repro_torch/configs/zamba2_1_2b.py"):
+                   "repro_torch/configs/zamba2_1_2b.py",
+                   "repro_torch/models/encdec.py",
+                   "repro_torch/configs/seamless_m4t_medium.py"):
         assert needed in names
     assert (ROOT / "chip_smoke.py").exists()
 

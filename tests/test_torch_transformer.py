@@ -264,11 +264,18 @@ def test_other_families_are_refused(change):
 
 
 def test_get_model_refuses_other_families():
+    """Family ``audio`` gets the encoder-decoder's functions; the
+    transformer itself refuses it, naming the module that serves it."""
+    from repro_torch.models import encdec
     assert tapi.get_model(TCFG).decode_step is ttr.decode_step
-    with pytest.raises(NotImplementedError, match="item 12 step 3"):
-        tapi.get_model(dataclasses.replace(TCFG, family="audio"))
-    with pytest.raises(KeyError, match="item 12 step 3"):
-        get_config("seamless-m4t-medium")
+    m = tapi.get_model(dataclasses.replace(TCFG, family="audio"))
+    assert (m.init, m.loss_fn, m.prefill, m.decode_step, m.init_cache) == (
+        encdec.init, encdec.loss_fn, encdec.prefill, encdec.decode_step,
+        encdec.init_cache)
+    assert get_config("seamless-m4t-medium").family == "audio"
+    with pytest.raises(NotImplementedError, match="models/encdec.py"):
+        ttr.init(rnd.PRNGKey(0, device="cpu"),
+                 dataclasses.replace(TCFG, family="audio"), device="cpu")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -38,7 +38,7 @@ HEAD_DIM_256 = ["gemma-7b", "paligemma-3b"]
 N_PARAMS = {"qwen3-moe-30b-a3b": 30_220_945_408, "glm4-9b": 8_779_194_368,
             "glm4-9b-swa": 8_779_194_368, "deepseek-67b": 67_425_001_472,
             "arctic-480b": 476_620_899_328, "gemma-7b": 8_537_680_896,
-            "paligemma-3b": 2_508_662_784}
+            "paligemma-3b": 2_508_662_784, "seamless-m4t-medium": 614_739_968}
 B = 2
 TOL = 2e-5
 
@@ -106,18 +106,23 @@ def test_full_size_shapes_match_reference(arch, monkeypatch):
 
 @pytest.mark.parametrize("arch", ["xlstm-1.3b", "zamba2-1.2b",
                                   "seamless-m4t-medium"])
-def test_other_archs_are_refused_naming_their_item(arch):
-    """The SSM and hybrid archs resolve to the reference's configs; the
-    encoder-decoder is still refused, naming its item."""
-    assert arch in JARCHS
-    if arch == "seamless-m4t-medium":
-        assert arch not in ARCHS
-        with pytest.raises(KeyError, match="item 12 step 3"):
-            get_config(arch)
-        return
+def test_other_archs_are_refused_naming_their_item(arch, monkeypatch):
+    """The SSM, hybrid and encoder-decoder archs, which the port once
+    refused, resolve to the reference's configs, field by field; no arch of
+    the reference is refused any more. The encoder-decoder's init at full
+    size (on the meta device, the normal draw stubbed) has the parameters
+    quoted."""
+    assert arch in JARCHS and sorted(ARCHS) == sorted(JARCHS)
     t, j = get_config(arch), JARCHS[arch]
     for f in dataclasses.fields(t):
         assert getattr(t, f.name) == getattr(j, f.name), f.name
+    if arch == "seamless-m4t-medium":
+        from repro_torch.models import api as tapi
+        monkeypatch.setattr(rnd, "normal", lambda key, shape: torch.empty(
+            *key.shape[:-1], *shape, device=key.device))
+        got = tapi.get_model(t).init(torch.zeros(2, dtype=torch.int64, device="meta"),
+                                     t, device="meta")
+        assert sum(x.numel() for x in leaves(got)) == N_PARAMS[arch]
 
 
 # ---------------------------------------------------------------------------
