@@ -2049,10 +2049,12 @@ def planted_update(torch, m, drop):
     recursion dropped: "carry" the (1-ρ)·m term, "jump" the
     ρ(1-ρ)·‖inj − g‖²/(4τ) term. Both vanish at step 1 (ρ = 1)."""
     def update_(g_flat, mn, rho_t, omega_flat, grad_flat, value_est, tau,
-                extra_linear=0.0):
+                extra_linear=0.0, spans=None, reduce=None):
         rho_t = torch.as_tensor(rho_t, dtype=torch.float32, device=g_flat.device)
         qmin, jump, bsq = m.surrogate.recurse_g_(g_flat, rho_t, omega_flat,
-                                                 grad_flat, tau, extra_linear)
+                                                 grad_flat, tau, extra_linear, spans)
+        if reduce is not None:
+            qmin, jump, bsq = reduce(qmin, jump, bsq)
         carry = 0.0 if drop == "carry" else (1.0 - rho_t) * mn
         jumped = 0.0 if drop == "jump" else rho_t * (1.0 - rho_t) * jump / (4.0 * tau)
         return carry + rho_t * (value_est + qmin) + jumped, bsq
@@ -3561,7 +3563,7 @@ def decoder_params(cfg) -> int:
     return embeds * cfg.vocab_size * d + d + cfg.n_layers * (2 * d + attn + ffn)
 
 
-def run_serve_zoo(torch, m, arch, phase, name_power):
+def run_serve_zoo(torch, m, arch, phase, name_power, keep=None):
     """``arch`` at full width and depth in bf16 through the serving entry
     point: a 2-token call (the seeded draw, and a warm-up of cuBLAS and
     the allocator), then the counted call, which draws the same weights
@@ -3572,7 +3574,8 @@ def run_serve_zoo(torch, m, arch, phase, name_power):
     of their own; seamless-m4t-medium's prefill 62 and 36, each decode step
     37 and 24); the decode's split check where there is attention (the
     encoder-decoder's cross-attention over its 4·prompt frames too). Emits
-    the phase's line and returns (counts, the generated tokens)."""
+    the phase's line and returns (counts, the generated tokens); with
+    ``keep`` (a dict) the counted call's params stay in keep["params"]."""
     cfg = m.get_config(arch)
     t0 = time.perf_counter()
     m.serve.generate(arch, **dict(SERVE, gen=2))
@@ -3581,10 +3584,16 @@ def run_serve_zoo(torch, m, arch, phase, name_power):
     torch.cuda.reset_peak_memory_stats()
     zero_counts(m.counted)
     t0 = time.perf_counter()
-    seqs, stats = m.serve.generate(arch, **SERVE)
+    kept, undo = init_recorder(m) if keep is not None else ({}, lambda: None)
+    try:
+        seqs, stats = m.serve.generate(arch, **SERVE)
+    finally:
+        undo()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = read_counts(m.counted)
+    if keep is not None:
+        keep.update(kept)
     peak = torch.cuda.max_memory_allocated()
     n_params = decoder_params(cfg)
     param_bytes = n_params * (2 if cfg.dtype == "bfloat16" else 4)
@@ -3637,8 +3646,8 @@ def routing_recorder(m):
     keep) on the CPU to the returned list; the second value undoes it."""
     calls, orig = [], m.layers.moe_route
 
-    def recording(router, xt, cfg):
-        out = orig(router, xt, cfg)
+    def recording(router, xt, cfg, **kw):
+        out = orig(router, xt, cfg, **kw)
         calls.append((out[0].cpu(), out[2].cpu(), out[4].cpu()))
         return out
 
@@ -4683,6 +4692,503 @@ def run_encdec_train_parity(torch, m):
     check(max(diff) <= 1e-4, f"encdec train parity: card vs CPU params differ by {diff}")
 
 
+# ---------------------------------------------------------------------------
+# the model-parallel launch layer: data x model meshes
+# ---------------------------------------------------------------------------
+
+MP_SERVE = dict(batch=8, prompt_len=512, steps=16)    # a run; 32 sharded steps in all
+MP_TRAIN = dict(batch=8, seq=512, steps=2)
+MP_2X2 = dict(world=4, shape=(2, 2), layers=2, timeout_s=300,
+              moe=dict(batch=8, prompt_len=64, steps=8),
+              kv16=dict(arch="seamless-m4t-medium", batch=8, prompt_len=31, steps=1),
+              train=dict(batch=8, seq=128, steps=2))
+MP_PARAM_ATOL = 1e-5                # PR 19's two-rank standard
+MP_PROBES = ("all_gather_into_tensor", "reduce_scatter_tensor", "all_reduce")
+
+
+def init_recorder(m):
+    """Wraps ``transformer.init`` so that its last call's params stay in
+    the returned dict; the second value undoes it."""
+    kept, orig = {}, m.transformer.init
+
+    def recording(key, cfg, device=None):
+        kept["params"] = orig(key, cfg, device=device)
+        return kept["params"]
+
+    m.transformer.init = recording
+    return kept, lambda: setattr(m.transformer, "init", orig)
+
+
+def decode_run(torch, step, params, cache, tok, pos0, steps, m, counted=None):
+    """``steps`` greedy steps of ``step(params, cache, token, pos) ->
+    (logits, cache)``: (tokens (B, steps), every step's logits, seconds
+    between synchronizes, launches a step)."""
+    if counted is not None:
+        zero_counts(counted)
+    toks, logits = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        lg, cache = step(params, cache, tok, pos0 + i)
+        tok = m.serve._greedy(lg)
+        toks.append(tok)
+        logits.append(lg)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    per_step = (None if counted is None else
+                {k: v / steps for k, v in read_counts(counted).items()})
+    return torch.cat(toks, dim=1), logits, seconds, per_step
+
+
+MP_ORDER = ("local", "sharded", "sharded", "local")    # each pair in turns
+
+
+def run_mp_serve_moe(torch, m, params, name_power):
+    """qwen3-moe-30b-a3b with moe_sharding="expert_parallel" at full width
+    and depth through ``serve.sharded_decode_step`` on a 1x1 ("data",
+    "model") NCCL mesh, on serve_moe's params placed as they are (views:
+    ``shard_tree`` on size-1 axes is the tensor itself): a local prefill of
+    MP_SERVE's batch, then MP_SERVE["steps"] decode steps from a copy of
+    its cache in each run of MP_ORDER, local ``decode_step``s and sharded
+    steps (the cache placed by cache_specs) in turns. Gates: every run's
+    tokens equal, the sharded logits within 1e-6 of the local ones (bit
+    equal is what the 1x1 mesh computes), launches a step equal. Returns
+    the sharded runs' counts."""
+    rnd, serve, mesh_lib = m.rnd, m.serve, m.mesh
+    cfg = dataclasses.replace(m.get_config(MOE_ARCH), moe_sharding="expert_parallel")
+    model = m.get_model(cfg)
+    b, s, steps = MP_SERVE["batch"], MP_SERVE["prompt_len"], MP_SERVE["steps"]
+    torch.cuda.reset_peak_memory_stats()
+    key = rnd.PRNGKey(SERVE["seed"])
+    tokens = rnd.randint(rnd.fold_in(key, 1), (b, s), 0, cfg.vocab_size)
+    cache = model.init_cache(cfg, b, s + steps)
+    with torch.no_grad():
+        logits, cache = model.prefill(params, {"tokens": tokens}, cfg, cache=cache)
+    tok0 = serve._greedy(logits)
+    mesh = mesh_lib.make_mesh((1, 1))
+    cspecs = mesh_lib.adapt_for_mesh(model.cache_specs(cfg), mesh)
+    placed = mesh_lib.shard_tree(params, mesh, model.param_specs(cfg, "serve"))
+    views = all(a is b for a, b in zip(m.leaves(placed), m.leaves(params)))
+    sharded = serve.sharded_decode_step(model, cfg, mesh)
+
+    def local_step(p, c, t, pos):
+        with torch.no_grad():
+            return model.decode_step(p, c, t, pos, cfg)
+
+    runs = {"local": (local_step, params), "sharded": (sharded.forward, placed)}
+    seconds = {k: [] for k in runs}
+    tok_ref = logits_ref = None
+    counts, per_step, diff = {k: 0 for k in m.counted}, {}, 0.0
+    for kind in MP_ORDER:
+        step, p = runs[kind]
+        c = mesh_lib.shard_tree(tree_map(lambda t: t.clone(), cache), mesh, cspecs)
+        toks, lgs, sec, per_step[kind] = decode_run(torch, step, p, c, tok0, s,
+                                                    steps, m, m.counted)
+        seconds[kind].append(sec)
+        if tok_ref is None:
+            tok_ref, logits_ref = toks, lgs
+        check(torch.equal(toks, tok_ref), f"mp_serve_moe: a {kind} run's tokens differ")
+        diff = max(diff, max((a.float() - r.float()).abs().max().item()
+                             for a, r in zip(lgs, logits_ref)))
+        if kind == "sharded":
+            counts = {k: counts[k] + int(v * steps) for k, v in per_step[kind].items()}
+        del c, lgs
+    peak = torch.cuda.max_memory_allocated()
+    del cache, logits_ref, placed
+    torch.cuda.empty_cache()
+    check(views, "mp_serve_moe: placing the params on a 1x1 mesh copied them")
+    check(diff <= 1e-6, f"mp_serve_moe: logits differ by {diff}")
+    check(per_step["sharded"] == per_step["local"],
+          f"mp_serve_moe: launches a step {per_step['sharded']} != {per_step['local']}")
+    rate = {k: [b * steps / t for t in v] for k, v in seconds.items()}
+    emit("mp_serve_moe", arch=MOE_ARCH, moe_sharding=cfg.moe_sharding, dtype=cfg.dtype,
+         layers=cfg.n_layers, mesh=[1, 1], backend=m.dist.get_backend(), **MP_SERVE,
+         order=list(MP_ORDER), params_placed_as_views=views, tokens_equal=True,
+         max_abs_logit_diff=diff, decode_tokens_per_s=rate["sharded"],
+         local_decode_tokens_per_s=rate["local"],
+         decode_ms_per_step=[t * 1e3 / steps for t in seconds["sharded"]],
+         local_decode_ms_per_step=[t * 1e3 / steps for t in seconds["local"]],
+         peak_mem_bytes=peak, launches_per_step=per_step["sharded"], **name_power)
+    return counts
+
+
+def run_mp_train(torch, m, name_power):
+    """qwen2.5-3b at full width and depth in bf16 (remat) through
+    ``train.sharded_train_step`` on the 1x1 NCCL mesh, dense and
+    constrained (train_loop's FLConfig, U = 3.0): MP_TRAIN["steps"] steps
+    from one seeded draw in each run of MP_ORDER, the local
+    make_train_step and the sharded step in turns, on the same batches
+    (step ms: each run's last step; peak memory without the first run's
+    params, which the comparison keeps). Gates: every run's params after
+    its last step bit-equal to the first's, the losses equal, one
+    ssca_update a dense step (none constrained), the kernels' launches a
+    step equal. Returns the sharded runs' counts."""
+    rnd, train, mesh_lib = m.rnd, m.train, m.mesh
+    cfg, model = m.qwen, m.get_model(m.qwen)
+    b, seq, steps = MP_TRAIN["batch"], MP_TRAIN["seq"], MP_TRAIN["steps"]
+    key = rnd.PRNGKey(SERVE["seed"])
+    params = model.init(key, cfg)
+    toks = m.token_dataset(rnd.fold_in(key, 1), cfg.vocab_size,
+                           n_tokens=max(200_000, b * (seq + 1) * 4))
+    keys = rnd.split(rnd.fold_in(key, 2), steps)
+    batches = [m.sample_window(toks, keys[r], b, seq) for r in range(steps)]
+    mesh = mesh_lib.make_mesh((1, 1))
+    fl = train.TRAIN_FL
+    total = {k: 0 for k in m.counted}
+    line = {"arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.n_layers,
+            "remat": cfg.remat, **MP_TRAIN, "mesh": [1, 1], "order": list(MP_ORDER)}
+
+    for constrained in (False, True):
+        name = "constrained" if constrained else "dense"
+        init = (m.optimizer.ssca_constrained_init if constrained
+                else m.optimizer.ssca_init)
+        specs = train.state_specs(model, cfg, constrained)
+        ref = ref_loss = None
+        res = {k: {"step_ms": [], "peak_mem_bytes": []} for k in ("local", "sharded")}
+        per_step = {}
+        for kind in MP_ORDER:
+            state = init(params)
+            if kind == "sharded":
+                check(train.shard_state(state, mesh, specs) is state,
+                      f"mp_train {name}: placing the state copied it")
+                step_fn = train.sharded_train_step(model, cfg, fl, mesh, batches[0],
+                                                   constrained)
+            else:
+                step_fn = (train.make_constrained_train_step if constrained
+                           else train.make_train_step)(model, cfg, fl)
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts(m.counted)
+            losses = []
+            for r in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, ms = step_fn(state, batches[r])
+                losses.append(ms["loss"].item())
+                last_ms = (time.perf_counter() - t0) * 1e3
+            counts = read_counts(m.counted)
+            kept = 0 if ref is None else ref.nbytes
+            res[kind]["step_ms"].append(last_ms)
+            res[kind]["peak_mem_bytes"].append(torch.cuda.max_memory_allocated() - kept)
+            per_step[kind] = {k: v / steps for k, v in counts.items()}
+            if ref is None:
+                ref, ref_loss = state.w_flat.clone(), losses
+            check(torch.equal(state.w_flat, ref) and losses == ref_loss,
+                  f"mp_train {name}: a {kind} run's params or losses differ")
+            if kind == "sharded":
+                total = {k: total[k] + counts[k] for k in total}
+            del state, step_fn         # the step holds its gradient buffers
+            torch.cuda.empty_cache()
+        del ref
+        torch.cuda.empty_cache()
+        # the constrained update is PyTorch ops (no ssca_update launch)
+        check(per_step["sharded"] == per_step["local"]
+              and per_step["sharded"]["ssca_update"] == int(not constrained),
+              f"mp_train {name}: launches {per_step}")
+        line[name] = {"params_bit_equal": True, "losses": ref_loss,
+                      "step_ms": res["sharded"]["step_ms"],
+                      "local_step_ms": res["local"]["step_ms"],
+                      "peak_mem_bytes": res["sharded"]["peak_mem_bytes"],
+                      "local_peak_mem_bytes": res["local"]["peak_mem_bytes"],
+                      "launches_per_step": per_step["sharded"]}
+    del params
+    torch.cuda.empty_cache()
+    emit("mp_train", **line, backend=m.dist.get_backend(), **name_power)
+    return total
+
+
+def mp_namespace():
+    """The port's modules that the 2x2 cases take (the ranks import them
+    themselves)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from repro_torch import random as rnd
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import optimizer
+    from repro_torch.core.tree import leaves
+    from repro_torch.launch import mesh, serve, train
+    from repro_torch.models.api import get_model
+    return SimpleNamespace(rnd=rnd, get_config=get_config, get_model=get_model,
+                           optimizer=optimizer, leaves=leaves, mesh=mesh,
+                           serve=serve, train=train, dist=dist)
+
+
+def mp_cut(m, arch, **fields):
+    """``arch`` at full width, MP_2X2["layers"] layers, fp32."""
+    return dataclasses.replace(m.get_config(arch), n_layers=MP_2X2["layers"],
+                               dtype="float32", **fields)
+
+
+def mp_decode_case(torch, m, mesh, cfg, shape, blocks=1):
+    """A local prefill of ``shape``'s batch (every rank the whole batch),
+    then its steps through sharded_decode_step on ``mesh``, the params,
+    cache and token placed by their specs: (tokens (B, steps), the last
+    step's logits), whole, on the CPU. With ``blocks`` the steps run on
+    each of that many blocks of rows in turn: on a 1x1 mesh, what the
+    expert-parallel MoE computes on a data axis of that size (each data
+    shard's capacity and slots its own, the reference's shard_map
+    body)."""
+    rnd, mesh_lib, serve = m.rnd, m.mesh, m.serve
+    model = m.get_model(cfg)
+    key = rnd.PRNGKey(SERVE["seed"])
+    b, s, steps = shape["batch"], shape["prompt_len"], shape["steps"]
+    t0 = time.perf_counter()
+    params = model.init(key, cfg)
+    batch = {"tokens": rnd.randint(rnd.fold_in(key, 1), (b, s), 0, cfg.vocab_size)}
+    kw = {}
+    if cfg.is_encdec:                   # generate's frames: 4 a token
+        batch["frame_embeddings"] = rnd.normal(rnd.fold_in(key, 3),
+                                               (b, 4 * s, cfg.d_model))
+        kw["enc_len"] = 4 * s
+    cache = model.init_cache(cfg, b, s + steps, **kw)
+    with torch.no_grad():
+        logits, cache = model.prefill(params, batch, cfg, cache=cache)
+    cspecs = mesh_lib.adapt_for_mesh(model.cache_specs(cfg), mesh)
+    data = {"t": mesh_lib.P(mesh_lib.data_axes(mesh))}
+    placed = mesh_lib.shard_tree(params, mesh, model.param_specs(cfg, "serve"))
+    step = serve.sharded_decode_step(model, cfg, mesh)
+    torch.cuda.synchronize()
+    split = {"init_prefill_place": time.perf_counter() - t0}
+    k = b // blocks
+    toks, lgs = [], []
+    for j in range(blocks):
+        rows = slice(j * k, (j + 1) * k)
+        tok = mesh_lib.shard_tree({"t": serve._greedy(logits[rows])}, mesh, data)["t"]
+        lcache = mesh_lib.shard_tree({n: c[:, rows] if c.dim() else c.clone()
+                                      for n, c in cache.items()}, mesh, cspecs)
+        block = []
+        for i in range(steps):
+            lg, lcache = step.forward(placed, lcache, tok, s + i)
+            tok = serve._greedy(lg)
+            block.append(mesh_lib.gather_tree({"t": tok}, mesh, data)["t"])
+        toks.append(torch.cat(block, dim=1).cpu())
+        lgs.append(mesh_lib.gather_tree({"t": lg}, mesh, data)["t"].float().cpu())
+        del lcache
+    del params, placed, cache, logits, batch
+    torch.cuda.empty_cache()
+    split["steps"] = time.perf_counter() - t0 - split["init_prefill_place"]
+    return torch.cat(toks), torch.cat(lgs), split
+
+
+def mp_train_case(torch, m, mesh, cfg, shape, constrained):
+    """Two sharded train steps on ``mesh`` from the seeded params, on token
+    windows of ``shape``: (losses, the params whole, on the card)."""
+    rnd, mesh_lib, train = m.rnd, m.mesh, m.train
+    model = m.get_model(cfg)
+    key = rnd.PRNGKey(SERVE["seed"])
+    b, seq = shape["batch"], shape["seq"]
+    tok = rnd.randint(rnd.fold_in(key, 1), (b, seq + 1), 0, cfg.vocab_size)
+    batch = {"tokens": tok[:, :seq], "targets": tok[:, 1:]}
+    specs = train.state_specs(model, cfg, constrained)
+    init = m.optimizer.ssca_constrained_init if constrained else m.optimizer.ssca_init
+    t0 = time.perf_counter()
+    state = train.shard_state(init(model.init(key, cfg)), mesh, specs)
+    torch.cuda.empty_cache()
+    step = train.sharded_train_step(model, cfg, train.TRAIN_FL, mesh, batch, constrained)
+    local = mesh_lib.shard_tree(batch, mesh, train.batch_specs(batch, mesh))
+    torch.cuda.synchronize()
+    split, losses = {"init_place": time.perf_counter() - t0}, []
+    for _ in range(shape["steps"]):
+        state, ms = step(state, local)
+        losses.append(ms["loss"].item())
+    split["steps"] = time.perf_counter() - t0 - split["init_place"]
+    whole = mesh_lib.gather_tree(state.params, mesh, specs.params)
+    flat = torch.cat([t.reshape(-1) for t in m.leaves(whole)])
+    torch.cuda.synchronize()
+    split["gather"] = time.perf_counter() - t0 - split["init_place"] - split["steps"]
+    return losses, flat, split
+
+
+def fingerprint(torch, flat, piece=1 << 24):
+    """A float64 digest of a vector's bits, weighted by position (a piece
+    at a time): equal vectors give equal digests (deterministic reductions
+    on the card)."""
+    bits, total = flat.view(torch.int32), 0.0
+    for a in range(0, bits.numel(), piece):
+        w = torch.arange(a, min(a + piece, bits.numel()), device=flat.device,
+                         dtype=torch.float64) % 9973 + 1
+        total += (bits[a:a + piece].to(torch.float64) * w).sum().item()
+    return total
+
+
+def mp_cases(torch, m, mesh, save_dir=None, moe_blocks=1):
+    """mp_2x2's cases on ``mesh``: the expert-parallel qwen3-moe decode,
+    seamless-m4t-medium's decode (16 K/V heads: the head-sharded self and
+    cross caches), qwen2.5-3b's dense and constrained train steps; the MoE decode on ``moe_blocks``
+    blocks of rows in turn (``mp_decode_case``). Each train case's params,
+    whole, go to ``save_dir`` (a file a case) or, with none, into the
+    result (on the card); their fingerprint into the result either way."""
+    out, seconds = {}, {}
+    t0 = time.perf_counter()
+    splits = {}
+    moe = mp_cut(m, MOE_ARCH, moe_sharding="expert_parallel")
+    out["moe_tokens"], out["moe_logits"], splits["moe"] = mp_decode_case(
+        torch, m, mesh, moe, MP_2X2["moe"], blocks=moe_blocks)
+    seconds["moe"] = time.perf_counter() - t0
+    kv16 = MP_2X2["kv16"]
+    out["kv16_tokens"], out["kv16_logits"], splits["kv16"] = mp_decode_case(
+        torch, m, mesh, mp_cut(m, kv16["arch"], encoder_layers=MP_2X2["layers"]), kv16)
+    seconds["kv16"] = time.perf_counter() - t0 - sum(seconds.values())
+    torch.cuda.empty_cache()
+    for constrained in (False, True):
+        name = "train_constrained" if constrained else "train_dense"
+        losses, flat, splits[name] = mp_train_case(
+            torch, m, mesh, mp_cut(m, "qwen2.5-3b"), MP_2X2["train"], constrained)
+        out[name + "_losses"] = losses
+        out[name + "_fingerprint"] = fingerprint(torch, flat)
+        if save_dir is None:
+            out[name + "_params"] = flat
+        else:
+            torch.save(flat.cpu(), Path(save_dir) / f"{name}.pt")
+            del flat
+        torch.cuda.empty_cache()
+        seconds[name] = time.perf_counter() - t0 - sum(seconds.values())
+    out["case_seconds"], out["case_split_s"] = seconds, splits
+    return out
+
+
+def gloo_rate(torch, dist, group, dev, nbytes=64 * 2**20, iters=3):
+    """GB/s of all_gather_into_tensor's output over ``group`` on CUDA
+    tensors of ``nbytes`` a rank (gloo stages them through the host)."""
+    n = dist.get_world_size(group)
+    x = torch.ones(nbytes // 4, device=dev)
+    out = torch.empty(n * x.numel(), device=dev)
+    dist.all_gather_into_tensor(out, x, group=group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        dist.all_gather_into_tensor(out, x, group=group)
+    torch.cuda.synchronize()
+    return iters * out.numel() * 4 / (time.perf_counter() - t0) / 1e9
+
+
+def mp_rank(rank: int, store: str, out: str) -> int:
+    """One of mp_2x2's gloo ranks on the card (``python3 chip_smoke.py
+    --mp-rank R STORE OUT``, started by run_mp_2x2): which collectives gloo
+    takes on CUDA tensors over the 2x2 mesh's data and model groups and
+    its all-gather rate, then ``mp_cases`` on that mesh (rank 0 saving
+    the train cases' params to OUT); its results go to
+    OUT/mp_rank<R>.pt."""
+    import datetime
+    import torch
+    m = mp_namespace()
+    dist = m.dist
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=MP_2X2["world"],
+                            timeout=datetime.timedelta(seconds=MP_2X2["timeout_s"]))
+    dev = m.mesh.init_group()           # the card, and fp32 matmuls pinned
+    mesh = m.mesh.make_mesh(MP_2X2["shape"])
+    probe = {}
+    for axis in ("data", "model"):
+        g, n = mesh.get_group(axis), 2
+        x = torch.full((4,), float(rank + 1), device=dev)
+        calls = {"all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+                     torch.empty(4 * n, device=dev), x, group=g),
+                 "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+                     torch.empty(4 // n, device=dev), x, group=g),
+                 "all_reduce": lambda: dist.all_reduce(x.clone(), group=g)}
+        for op in MP_PROBES:
+            try:
+                calls[op]()
+                torch.cuda.synchronize()
+                probe[f"{axis}:{op}"] = "ok"
+            except Exception as e:          # noqa: BLE001 — the probe's answer
+                probe[f"{axis}:{op}"] = f"{type(e).__name__}: {str(e)[:200]}"
+            dist.barrier()
+    ok = all(v == "ok" for v in probe.values())
+    rate = gloo_rate(torch, dist, mesh.get_group("model"), dev) if ok else None
+    t0 = time.perf_counter()
+    res = mp_cases(torch, m, mesh, save_dir=out if rank == 0 else None) if ok else {}
+    for k in [k for k in res if k.endswith("_params")]:
+        del res[k]
+    torch.save({"probe": probe, "backend": dist.get_backend(), "gloo_gb_per_s": rate,
+                "seconds": time.perf_counter() - t0,
+                "peak_mem_bytes": torch.cuda.max_memory_allocated(), **res},
+               f"{out}/mp_rank{rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def run_mp_2x2(torch, m, name_power):
+    """The script re-run as MP_2X2["world"] gloo ranks on the one card (NCCL
+    refuses two ranks on one GPU), a (2, 2) ("data", "model") mesh, full
+    width at MP_2X2["layers"] layers in fp32: qwen3-moe-30b-a3b's
+    expert-parallel decode, seamless-m4t-medium's decode (2 + 2 layers;
+    its 16 K/V heads shard the caches' heads: gemma-7b's would too, but its
+    3.15 GB fp32 embedding through gloo took 12.9 s a step), qwen2.5-3b's
+    dense and constrained train steps; held to
+    the same cases on the 1x1 NCCL mesh, run in this process while the
+    ranks run: tokens equal, params within MP_PARAM_ATOL of rank 0's, every
+    rank's tokens, logits, losses and params (a fingerprint) equal. Also
+    what gloo took on CUDA tensors over the mesh's groups, and its
+    all-gather rate."""
+    import tempfile
+    torch.cuda.empty_cache()
+    world = MP_2X2["world"]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--mp-rank",
+             str(r), f"{tmp}/store", tmp],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+        logs = []
+        try:
+            # the MoE decode on the 1x1 mesh a data shard's rows at a time:
+            # the expert-parallel layer's capacity and slots are its data
+            # shard's
+            one = mp_cases(torch, m, m.mesh.make_mesh((1, 1)),
+                           moe_blocks=MP_2X2["shape"][0])
+            one_s = time.perf_counter() - t0
+            for p in procs:
+                logs.append(p.communicate(timeout=MP_2X2["timeout_s"])[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        check(all(p.returncode == 0 for p in procs),
+              "mp_2x2: a rank failed:\n" + "\n".join(g[-3000:] for g in logs))
+        ranks = [torch.load(f"{tmp}/mp_rank{r}.pt") for r in range(world)]
+        r0 = ranks[0]
+        check(all(v == "ok" for v in r0["probe"].values()),
+              f"mp_2x2: gloo refused a collective on CUDA tensors: {r0['probe']}")
+        diffs = {}
+        for k in ("train_dense", "train_constrained"):
+            got = torch.load(f"{tmp}/{k}.pt", map_location=one[k + "_params"].device)
+            diffs[k] = (got - one.pop(k + "_params")).abs().max().item()
+            del got
+    torch.cuda.empty_cache()
+    for r in ranks[1:]:
+        for k in ("moe_tokens", "kv16_tokens", "moe_logits", "kv16_logits"):
+            check(torch.equal(r[k], r0[k]), f"mp_2x2: the ranks' {k} differ")
+        for k in ("train_dense", "train_constrained"):
+            check(r[k + "_fingerprint"] == r0[k + "_fingerprint"]
+                  and r[k + "_losses"] == r0[k + "_losses"],
+                  f"mp_2x2: the ranks' {k} params or losses differ")
+    for k in ("moe_tokens", "kv16_tokens"):
+        check(torch.equal(r0[k], one[k]), f"mp_2x2: {k} differ from the 1x1 run's")
+    check(max(diffs.values()) <= MP_PARAM_ATOL,
+          f"mp_2x2: params off the 1x1 run's by {diffs}")
+    emit("mp_2x2", world=world, mesh=list(MP_2X2["shape"]), backend=r0["backend"],
+         layers=MP_2X2["layers"], dtype="float32",
+         cases={"moe": {"arch": MOE_ARCH, "moe_sharding": "expert_parallel",
+                        **MP_2X2["moe"]},
+                "kv16": MP_2X2["kv16"], "train": {"arch": "qwen2.5-3b",
+                                                  **MP_2X2["train"]}},
+         tokens_equal=True, max_abs_param_diff=diffs,
+         max_abs_logit_diff={k: (r0[k + "_logits"] - one[k + "_logits"]).abs().max().item()
+                             for k in ("moe", "kv16")},
+         losses={k: r0[k + "_losses"] for k in ("train_dense", "train_constrained")},
+         one_losses={k: one[k + "_losses"] for k in ("train_dense", "train_constrained")},
+         rank_seconds=[r["seconds"] for r in ranks], one_rank_seconds=one_s,
+         rank0_case_seconds=r0["case_seconds"], one_case_seconds=one["case_seconds"],
+         rank0_split_s=r0["case_split_s"],
+         wall_s=wall, rank_peak_mem_bytes=[r["peak_mem_bytes"] for r in ranks],
+         gloo_on_cuda=r0["probe"], gloo_all_gather_gb_per_s=[r["gloo_gb_per_s"] for r in ranks],
+         **name_power)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4720,6 +5226,7 @@ def main() -> int:
     from repro_torch.launch import serve, train
     from repro_torch.models import layers, mlp, transformer
     from repro_torch.models.api import get_model
+    import torch.distributed as dist
 
     device_lib.resolve(None)            # pins fp32 matmuls: no TF32
     name = torch.cuda.get_device_name(0)
@@ -4782,7 +5289,7 @@ def main() -> int:
                            error_feedback=error_feedback,
                            VirtualFedData=VirtualFedData, privacy=privacy,
                            obs=obs, checkpoint=checkpoint,
-                           topology=topology_lib, mesh=mesh_lib,
+                           topology=topology_lib, mesh=mesh_lib, dist=dist,
                            sample_window=sample_window,
                            classification_dataset=classification_dataset,
                            # train_loop's default: the reference's FLConfig
@@ -4904,8 +5411,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit("zoo_memory", allocated_bytes=torch.cuda.memory_allocated(),
          reserved_bytes=torch.cuda.memory_reserved())
+    kept = {}
     moe_serve_counts, _ = run_serve_zoo(torch, mods, MOE_ARCH, "serve_moe",
-                                        {"device": name, "power": smi})
+                                        {"device": name, "power": smi}, keep=kept)
+    # the model-parallel decode on serve_moe's params, before they go
+    mp_serve_counts = run_mp_serve_moe(torch, mods, kept.pop("params"),
+                                       {"device": name, "power": smi})
+    torch.cuda.empty_cache()
     run_serve_moe_parity(torch, mods)
     glm_serve_counts, _ = run_serve_zoo(torch, mods, "glm4-9b", "serve_glm4",
                                         {"device": name, "power": smi})
@@ -4958,6 +5470,12 @@ def main() -> int:
         torch, mods, {"device": name, "power": smi})
     run_encdec_train_parity(torch, mods)
 
+    # the model-parallel launch layer: the 1x1 mesh at full size, then 4
+    # gloo ranks on a 2x2 mesh
+    torch.cuda.empty_cache()
+    mp_train_counts = run_mp_train(torch, mods, {"device": name, "power": smi})
+    run_mp_2x2(torch, mods, {"device": name, "power": smi})
+
     for kr in kernels:
         n = kr["name"]
         kr["launches"] = (dense_counts[n] + int8_counts[n] + serve_counts[n]
@@ -4970,7 +5488,8 @@ def main() -> int:
                           + gemma_serve_counts[n] + pali_serve_counts[n]
                           + train_pali_counts[n]
                           + sum(c[n] for c in ssm_counts.values())
-                          + sum(c[n] for c in encdec_counts.values()))
+                          + sum(c[n] for c in encdec_counts.values())
+                          + mp_serve_counts[n] + mp_train_counts[n])
         check(kr["launches"] > 0 or not kr.get("main_path", True),
               f"{n} never launched on a main path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -4978,7 +5497,6 @@ def main() -> int:
     extra = ("cold_ms", "library_cold_ms", "floor_ms",  # where measured
              "main_path", "bits_operand_ms", "train_step_ms", "train_launches",
              "train_bound_ms", "train_bound_by", "d256", "d64", "d4096", "d1024")
-    import torch.distributed as dist
     if dist.is_initialized():
         dist.destroy_process_group()
     print(smi, flush=True)
@@ -4994,4 +5512,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--gloo-rank"]:       # a rank of sharded_2rank
         sys.exit(gloo_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
+    if sys.argv[1:2] == ["--mp-rank"]:         # a rank of mp_2x2
+        sys.exit(mp_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

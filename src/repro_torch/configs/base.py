@@ -55,7 +55,12 @@ class ModelConfig:
     num_prefix_tokens: int = 0        # prefix embeddings a VLM batch carries
     dtype: str = "bfloat16"
     remat: bool = True                # recompute each layer in the backward
-    moe_sharding: str = "fsdp"        # fsdp | expert2d (one computation here)
+    # the param specs' policy (``param_specs(cfg, mode)``, launch/mesh.py):
+    train_sharding: str = "fsdp"      # fsdp | tp
+    serve_sharding: str = "tp"
+    # fsdp and expert2d compute one ``layers.moe`` and differ in their
+    # param specs; expert_parallel runs ``layers.moe_expert_parallel``
+    moe_sharding: str = "fsdp"        # fsdp | expert2d | expert_parallel
     source: str = ""
 
     @property

@@ -239,16 +239,18 @@ def _tensor(x, like):
     return torch.as_tensor(x, dtype=torch.float32, device=like.device)
 
 
-def _update_cons_(state, grad, value, fl, rho_t):
+def _update_cons_(state, grad, value, fl, rho_t, spans=None, reduce=None):
     """The constraint surrogate's recursion in place on ``state.g_flat``;
     returns (its new QuadSurrogate, its minimum, b = ‖g‖²)."""
     m, b = update_surrogate_(state.g_flat, state.cons_min, rho_t, state.w_flat,
-                             _as_flat(grad), value - fl.cost_limit, fl.tau)
+                             _as_flat(grad), value - fl.cost_limit, fl.tau,
+                             spans=spans, reduce=reduce)
     return QuadSurrogate(d=m + b / (4.0 * fl.tau), g=state.cons.g), m, b
 
 
 def ssca_constrained_step(state: SSCAConstrainedState, loss_grad, loss_value,
-                          fl, rho_t=None, gamma_t=None) -> SSCAConstrainedState:
+                          fl, rho_t=None, gamma_t=None, spans=None,
+                          reduce=None) -> SSCAConstrainedState:
     """min ‖ω‖² s.t. F(ω) <= U  (eq. 40). The objective is deterministic and
     kept exact (τ0 = 1 quadratic); the loss constraint is approximated per
     (15). loss_grad is a dict like params or flat in w_flat's layout;
@@ -261,10 +263,15 @@ def ssca_constrained_step(state: SSCAConstrainedState, loss_grad, loss_value,
     at the solution, F̄_1(ω̄) = m + b/(4τ(1+ντ)²), is the reference's
     d + ⟨g, ω̄⟩ + τ‖ω̄‖² without the terms that cancel. Each element is read
     and written once a pass: 20 B an element for bf16 params and gradient
-    (12 + 8)."""
+    (12 + 8).
+
+    On this rank's block of a sharded state (``launch.train.
+    sharded_train_step``), ``spans`` and ``reduce`` make the sums global
+    (``surrogate.update_surrogate_``); the rest is elementwise."""
     rho_t, gamma_t = _sched(fl, state.t, rho_t, gamma_t, state.w_flat.device)
     gamma_t = _tensor(gamma_t, state.w_flat)
-    cons, m, b = _update_cons_(state, loss_grad, loss_value, fl, rho_t)
+    cons, m, b = _update_cons_(state, loss_grad, loss_value, fl, rho_t, spans,
+                               reduce)
     nu = lemma1_nu_from_disc(b, -4.0 * fl.tau * m, fl.tau, fl.penalty_c)
     t_ = 1.0 + nu * fl.tau
     keep, step = 1.0 - gamma_t, gamma_t * (-nu / (2.0 * t_))

@@ -65,40 +65,62 @@ def chunks(n: int):
     return [slice(i, min(i + CHUNK, n)) for i in range(0, n, CHUNK)]
 
 
+def counted_chunks(segments):
+    """``chunks`` over each of ``segments``, (start, end, counted) spans of
+    a flat buffer, as (slice, counted) pairs: the spans that the sums of
+    ``recurse_g_`` take (a block of a sharded state that another rank
+    also holds is counted on one rank only)."""
+    return [(slice(a + sl.start, a + sl.stop), counted)
+            for a, b, counted in segments for sl in chunks(b - a)]
+
+
 def recurse_g_(g_flat, rho_t, omega_flat, grad_flat, tau: float,
-               extra_linear: float = 0.0):
+               extra_linear: float = 0.0, spans=None):
     """g ← (1-ρ)·g + ρ·inj, inj = ĝ + (extra_linear - 2τ)·ω, in place on the
     flat fp32 ``g_flat`` (eq. (9); ``extra_linear`` folds an exact-gradient
     term such as 2λω in), ω and ĝ flat in any float dtype, computed in fp32
     a chunk at a time; ρ a 0-d fp32 tensor. Returns the fp32 sums the
-    minimum's recursion needs: (min q_t − F̂, ‖inj − g_old‖², ‖g'‖²)."""
+    minimum's recursion needs: (min q_t − F̂, ‖inj − g_old‖², ‖g'‖²).
+    ``spans`` (``counted_chunks``) replaces the chunks: every span is
+    updated, and only the counted ones enter the sums."""
     zero = torch.zeros((), device=g_flat.device)
     qmin, jump, bsq = zero, zero, zero
     keep = 1.0 - rho_t
-    for sl in chunks(g_flat.numel()):
+    if spans is None:
+        spans = [(sl, True) for sl in chunks(g_flat.numel())]
+    for sl, counted in spans:
         gr = grad_flat[sl].to(torch.float32, copy=True)
         w = omega_flat[sl].float()
         if extra_linear:
             gr.add_(w, alpha=extra_linear)
-            qmin = qmin + extra_linear * torch.dot(w, w)
-        qmin = qmin - torch.dot(gr, gr) / (4.0 * tau)
+            if counted:
+                qmin = qmin + extra_linear * torch.dot(w, w)
+        if counted:
+            qmin = qmin - torch.dot(gr, gr) / (4.0 * tau)
         inj = gr.add_(w, alpha=-2.0 * tau)
         g = g_flat[sl]
-        diff = torch.sub(inj, g)
-        jump = jump + torch.dot(diff, diff)
+        if counted:
+            diff = torch.sub(inj, g)
+            jump = jump + torch.dot(diff, diff)
         g.mul_(keep).addcmul_(inj, rho_t)
-        bsq = bsq + torch.dot(g, g)
+        if counted:
+            bsq = bsq + torch.dot(g, g)
     return qmin, jump, bsq
 
 
 def update_surrogate_(g_flat, m, rho_t, omega_flat, grad_flat, value_est,
-                      tau: float, extra_linear: float = 0.0):
+                      tau: float, extra_linear: float = 0.0, spans=None,
+                      reduce=None):
     """One recursion step in place on ``g_flat`` (see ``recurse_g_``), with
     the surrogate's minimum ``m`` (0-d). Returns (m', ‖g'‖²); the
-    reference's d' is m' + ‖g'‖²/(4τ)."""
+    reference's d' is m' + ‖g'‖²/(4τ). On a sharded state, ``spans`` says
+    which of this rank's spans its sums count and ``reduce`` sums the
+    three partial sums over the ranks."""
     rho_t = torch.as_tensor(rho_t, dtype=torch.float32, device=g_flat.device)
     qmin, jump, bsq = recurse_g_(g_flat, rho_t, omega_flat, grad_flat, tau,
-                                 extra_linear)
+                                 extra_linear, spans)
+    if reduce is not None:
+        qmin, jump, bsq = reduce(qmin, jump, bsq)
     m = ((1.0 - rho_t) * m + rho_t * (value_est + qmin)
          + rho_t * (1.0 - rho_t) * jump / (4.0 * tau))
     return m, bsq

@@ -1,5 +1,7 @@
 """Serving: prefill, then greedy one-token decode steps (counterpart of
-``repro.launch.serve``, single device).
+``repro.launch.serve``): ``generate`` on one device, and
+``sharded_decode_step``, the reference's ``jit_decode_step``, on a data x
+model mesh.
 
 The cache is allocated once at ``prompt_len + gen`` rows (plus a VLM's
 prefix) and written in place by prefill and every decode step; the
@@ -32,16 +34,90 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch import random as rnd
 from repro_torch.configs.registry import get_config
+from repro_torch.core.tree import tree_map
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models import layers as L
 from repro_torch.models import transformer
 from repro_torch.models.api import get_model
+
+
+def _greedy(logits):
+    """The next token (B, 1) int32 of logits (B, 1, V)."""
+    return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
 
 
 def make_decode_step(model, cfg):
     def serve_step(params, cache, token, pos):
         logits, cache = model.decode_step(params, cache, token, pos, cfg)
-        next_tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
-        return next_tok, cache
+        return _greedy(logits), cache
 
+    return serve_step
+
+
+def _model_axes(spec, data) -> list:
+    """(dim, axes) of a cache spec's entries that name no data axis (the
+    rows of the rank's batch stay local); an entry that mixes both is
+    refused."""
+    out = []
+    for i, e in enumerate(spec):
+        names = mesh_lib.entry_axes(e)
+        rest = tuple(a for a in names if a not in data)
+        if rest and len(rest) != len(names):
+            raise ValueError(f"cache spec {spec}: entry {e!r} mixes data and "
+                             "other axes")
+        if rest:
+            out.append((i, rest))
+    return out
+
+
+def sharded_decode_step(model, cfg, mesh):
+    """The reference's ``jit_decode_step``: serve_step(params, cache, token,
+    pos) -> (next token, cache) on ``mesh``, one process a rank. params is
+    this rank's block of the params placed by ``param_specs(cfg,
+    "serve")``, cache its block of a cache placed by ``adapt_for_mesh(
+    cache_specs(cfg))``, token its rows (B/D, 1) of the global batch
+    (placed by the data axes); ``pos`` is replicated. Returns this rank's
+    rows of the next token and its block of the cache, written in place.
+
+    Each param leaf is gathered whole where the model code reads it
+    (``mesh.Gathered``, as the train step; the expert-parallel experts
+    stay this rank's), and the cache's model-axis dims (the K/V heads, or
+    the rows where the heads do not divide) are gathered for the step:
+    ``decode_step`` runs unchanged, with its kernels, on this rank's batch
+    rows, and this rank's block of what it wrote goes back into the cache.
+    On a mesh of one rank nothing is gathered or copied: the step is the
+    local step, bit for bit. ``serve_step.forward`` returns the logits of
+    this rank's rows (B/D, 1, V) in place of the token."""
+    if not model.has_decode:
+        raise ValueError(f"{cfg.name} has no decode path")
+    plans = L.param_plans(cfg, model.param_specs(cfg, mode="serve"), mesh)
+    cspecs = mesh_lib.adapt_for_mesh(model.cache_specs(cfg), mesh)
+    data = mesh_lib.data_axes(mesh)
+
+    def whole(spec, t):
+        for i, axes in _model_axes(spec, data):
+            t = mesh_lib.all_gather_axes(t, mesh, axes, dim=i)
+        return t
+
+    def write_back(spec, t, w):
+        if w is not t:
+            for i, axes in _model_axes(spec, data):
+                w = mesh_lib.slice_axes(w, mesh, axes, dim=i)
+            t.copy_(w)
+        return t
+
+    def forward(params, cache, token, pos):
+        full = tree_map(whole, cspecs, cache)
+        with torch.no_grad(), mesh_lib.use_mesh(mesh):
+            logits, full = model.decode_step(
+                mesh_lib.Gathered(params, plans, mesh), full, token, pos, cfg)
+        return logits, tree_map(write_back, cspecs, cache, full)
+
+    def serve_step(params, cache, token, pos):
+        logits, cache = forward(params, cache, token, pos)
+        return _greedy(logits), cache
+
+    serve_step.forward = forward
     return serve_step
 
 
@@ -95,7 +171,7 @@ def generate(arch: str, *, smoke: bool = False, batch: int = 2,
     _sync(dev)
     t0 = time.perf_counter()
     logits, cache = model.prefill(params, batch_in, cfg, cache=cache)
-    tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+    tok = _greedy(logits)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
 

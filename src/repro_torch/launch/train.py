@@ -76,6 +76,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import math
 import time
 from typing import Optional
 
@@ -96,12 +97,15 @@ from repro_torch.core import algorithms, fed, optimizer, rounds
 from repro_torch.core import privacy as privacy_lib
 from repro_torch.core import topology as topology_lib
 from repro_torch.core.rounds import unwrap_comm
-from repro_torch.core.surrogate import CHUNK, chunks
+from repro_torch.core.surrogate import (CHUNK, QuadSurrogate, chunks,
+                                        counted_chunks)
 from repro_torch.core.tree import leaves, split_views, tree_map
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch.mesh import P
 from repro_torch.data.synthetic import (VirtualFedData, classification_dataset,
                                         sample_window, token_dataset)
 from repro_torch.kernels.dp_noise import dp_noise
+from repro_torch.models import layers as L
 from repro_torch.models import mlp, transformer
 from repro_torch.models.api import get_model
 from repro_torch.obs import metrics as obs_metrics
@@ -176,32 +180,38 @@ def grad_leaves(state, grad, stacked=transformer.STACKED):
     return out
 
 
-def _sq_norm(flat):
-    """‖flat‖² in fp32, a chunk at a time (no full-size fp32 temporary)."""
+def _sq_norm(flat, spans=None, reduce=None):
+    """‖flat‖² in fp32, a chunk at a time (no full-size fp32 temporary);
+    on a sharded state over the counted ``spans``, summed over the ranks
+    by ``reduce`` (``surrogate.update_surrogate_``'s)."""
     total = torch.zeros((), device=flat.device)
-    for sl in chunks(flat.numel()):
-        x = flat[sl].float()
-        total = total + torch.dot(x, x)
-    return total
+    for sl, counted in (spans or [(sl, True) for sl in chunks(flat.numel())]):
+        if counted:
+            x = flat[sl].float()
+            total = total + torch.dot(x, x)
+    return total if reduce is None else reduce(total)[0]
 
 
 def _ssca_update(state, loss, grad, fl: FLConfig, rho_t, gamma_t,
-                 constrained: bool):
-    """The update and metrics shared by both train steps."""
+                 constrained: bool, spans=None, reduce=None):
+    """The update and metrics shared by the train steps (``spans`` and
+    ``reduce``: the sharded step's global sums)."""
     if constrained:
         new = optimizer.ssca_constrained_step(state, grad, loss, fl,
-                                              rho_t=rho_t, gamma_t=gamma_t)
+                                              rho_t=rho_t, gamma_t=gamma_t,
+                                              spans=spans, reduce=reduce)
         return new, {"loss": loss, "nu": new.nu, "slack": new.slack,
-                     "l2": _sq_norm(new.w_flat)}
+                     "l2": _sq_norm(new.w_flat, spans, reduce)}
     new = optimizer.ssca_step(state, grad, fl, rho_t=rho_t, gamma_t=gamma_t)
     return new, {"loss": loss, "t": state.t}
 
 
-def _make_grad(model, cfg):
+def _make_grad(model, cfg, wrap=None):
     """grad_of(state, batch) -> (loss, flat gradient): the gradient buffer
     (w_flat's dtype and layout; with the state's fp32 side buffer, a
     (main, side) pair) and the leaves that point into it are made once per
-    state and zeroed each step."""
+    state and zeroed each step. ``wrap`` (the sharded step's) turns the
+    leaves into what ``loss_fn`` reads, each step."""
     held = {}
 
     def grad_of(state, batch):
@@ -215,7 +225,8 @@ def _make_grad(model, cfg):
                         leaves=grad_leaves(state, grad, model.stacked))
         for g in _parts(held["grad"]):
             g.zero_()
-        loss = model.loss_fn(held["leaves"], batch, cfg)
+        params = held["leaves"] if wrap is None else wrap(held["leaves"])
+        loss = model.loss_fn(params, batch, cfg)
         loss.backward()
         return loss.detach(), held["grad"]
 
@@ -250,6 +261,143 @@ def make_constrained_train_step(model, cfg, fl: FLConfig):
     (40)), on an ``SSCAConstrainedState``. Metrics: ``loss``, ``nu``,
     ``slack``, ``l2`` (‖ω‖² after the step)."""
     return _make_step(model, cfg, fl, constrained=True)
+
+
+# ---------------------------------------------------------------------------
+# the model-parallel step (data x model meshes)
+# ---------------------------------------------------------------------------
+
+
+def state_specs(model, cfg, constrained: bool):
+    """The state's partition specs: its params and surrogate buffer by
+    ``param_specs(cfg, "train")``, its scalars replicated; the flat
+    buffers are the params' storage (None)."""
+    ps = model.param_specs(cfg, mode="train")
+    if constrained:
+        return optimizer.SSCAConstrainedState(
+            params=ps, cons=QuadSurrogate(d=P(), g=ps), t=P(), nu=P(),
+            slack=P(), w_flat=None, g_flat=None, cons_min=P())
+    return optimizer.SSCAState(params=ps, g=ps, t=P(), w_flat=None,
+                               g_flat=None)
+
+
+def batch_specs(batch_tree, mesh):
+    """Every batch entry's rows over the mesh's data axes."""
+    axes = mesh_lib.data_axes(mesh)
+    return tree_map(lambda _: P(axes), batch_tree)
+
+
+def shard_state(state, mesh, specs):
+    """A (whole) SSCA state cut to this rank's blocks by ``specs``
+    (``state_specs``): its params and surrogate buffer in a state of the
+    same kind with flat buffers of their own, its scalars as they are.
+    Where no leaf is cut (every named axis of size 1) it is the state
+    itself."""
+    params = mesh_lib.shard_tree(state.params, mesh, specs.params, "params")
+    if all(a is b for a, b in zip(leaves(params), leaves(state.params))):
+        return state
+    if isinstance(state, optimizer.SSCAConstrainedState):
+        new = optimizer.ssca_constrained_init(params)
+        g = mesh_lib.shard_tree(state.cons.g, mesh, specs.params, "cons.g")
+        for dst, src in zip(leaves(new.cons.g), leaves(g)):
+            dst.copy_(src)
+        return new._replace(cons=new.cons._replace(d=state.cons.d.clone()),
+                            t=state.t, nu=state.nu.clone(),
+                            slack=state.slack.clone(),
+                            cons_min=state.cons_min.clone())
+    new = optimizer.ssca_init(params)
+    g = mesh_lib.shard_tree(state.g, mesh, specs.params, "g")
+    for dst, src in zip(leaves(new.g), leaves(g)):
+        dst.copy_(src)
+    return new._replace(t=state.t)
+
+
+def _counted_spans(mesh, specs, like):
+    """(start, end, counted) spans of this rank's flat buffer (the leaves
+    of ``like`` in order): a leaf counts where this rank sits at
+    coordinate 0 of every axis it is replicated over, so that the
+    constrained step's sums add each element once."""
+    live = [a for a, n in mesh_lib.axis_sizes(mesh).items() if n > 1]
+    out, o = [], 0
+    for spec, t in zip(leaves(specs), leaves(like)):
+        named_axes = {a for e in spec for a in mesh_lib.entry_axes(e)}
+        counted = all(mesh_lib.axis_index(mesh, a) == 0
+                      for a in live if a not in named_axes)
+        if out and out[-1][2] == counted:
+            out[-1] = (out[-1][0], o + t.numel(), counted)
+        else:
+            out.append((o, o + t.numel(), counted))
+        o += t.numel()
+    return out
+
+
+def sharded_train_step(model, cfg, fl: FLConfig, mesh, batch_like,
+                       constrained: bool = False):
+    """The reference's ``jit_train_step``: train_step(state, batch[, rho_t,
+    gamma_t]) -> (state, metrics) on ``mesh``, one process a rank. The
+    state is this rank's block of a state placed by ``state_specs``
+    (``shard_state``) and stays so between steps; the batch is this rank's
+    rows of the global batch, whose shapes ``batch_like`` gives (placed by
+    ``batch_specs``: ``shard_tree``). Raises where an entry does not divide
+    over its axes.
+
+    Each param leaf is gathered whole from the ranks' blocks where the
+    model code reads it (``mesh.Gathered``; a stacked layer one layer at a
+    time, inside its checkpoint), and ``loss_fn`` runs unchanged, with its
+    kernels, on this rank's rows: the gradient of their mean loss comes
+    back through the gathers' backwards, summed over the data axes and
+    kept to this rank's block, into the local flat gradient, which is then
+    divided by the data-axis size (the global batch's mean). The update is
+    the local one on the local flat buffers: one ``ssca_update`` launch a
+    buffer, or, ``constrained``, Lemma 1 with its sums over the counted
+    spans (``_counted_spans``) all-reduced over every axis. The loss is
+    the global batch's mean. On a mesh of one rank every gather, sum and
+    division is skipped: the step is the local step, bit for bit.
+    ``train_step.grad_of(state, batch)`` returns (the loss, this rank's
+    flat gradient) without the update."""
+    specs = state_specs(model, cfg, constrained)
+    for k, spec in batch_specs(batch_like, mesh).items():
+        mesh_lib.check_fits(spec, tuple(batch_like[k].shape), mesh,
+                             f"batch {k!r}")
+    plans = L.param_plans(cfg, specs.params, mesh)
+    data = mesh_lib.data_axes(mesh)
+    n_data = mesh_lib.axis_size(mesh, data)
+    axes = tuple(mesh.mesh_dim_names)
+    one_rank = math.prod(mesh_lib.axis_sizes(mesh).values()) == 1
+    grad_of = _make_grad(model, cfg, wrap=lambda leaves_: mesh_lib.Gathered(
+        leaves_, plans, mesh))
+    held = {}
+
+    def reduce(*sums):
+        return mesh_lib.all_reduce_axes(torch.stack(sums), mesh,
+                                        axes).unbind(0)
+
+    def sharded_grad(state, batch):
+        with mesh_lib.use_mesh(mesh):
+            loss, grad = grad_of(state, batch)
+        if n_data > 1:
+            with torch.no_grad():
+                for g in _parts(grad):
+                    g.mul_(1.0 / n_data)
+                loss = mesh_lib.all_reduce_axes(loss.float().clone(), mesh,
+                                                data) / n_data
+        return loss, grad
+
+    def train_step(state, batch, rho_t=None, gamma_t=None):
+        loss, grad = sharded_grad(state, batch)
+        with torch.no_grad():
+            spans = None
+            if constrained and not one_rank:
+                if held.get("w") is not state.w_flat:
+                    held.update(w=state.w_flat, spans=counted_chunks(
+                        _counted_spans(mesh, specs.params, state.params)))
+                spans = held["spans"]
+            return _ssca_update(state, loss, grad, fl, rho_t, gamma_t,
+                                constrained, spans,
+                                None if spans is None else reduce)
+
+    train_step.grad_of = sharded_grad
+    return train_step
 
 
 def comm_update_(grad, ef, key, codec=None, dp=None, piece: int = None, *,

@@ -32,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_lib
 from repro_torch import random as rnd
+from repro_torch.launch.mesh import P
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import DTYPES, logits_fn
 
@@ -246,3 +247,42 @@ def decode_step(params, cache, token, pos, cfg):
     h = L.norm(params["ln_f"], h, cfg)
     cache["pos"].add_(1)
     return logits_fn(params, h, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# sharding specs
+# ---------------------------------------------------------------------------
+
+
+def param_specs(cfg, mode: str = "train"):
+    """The reference's partition specs of ``init``'s tree: encoder and
+    decoder layers stacked (L, ...); d_model rows over "data" under fsdp,
+    heads and MLP columns over "model", the K/V heads only where
+    ``n_kv_heads % 16 == 0``."""
+    policy = cfg.train_sharding if mode == "train" else cfg.serve_sharding
+    fsdp = "data" if policy == "fsdp" else None
+    kv = "model" if cfg.n_kv_heads % 16 == 0 else None
+
+    def attn():
+        return {"wq": P(None, fsdp, "model"), "wk": P(None, fsdp, kv),
+                "wv": P(None, fsdp, kv), "wo": P(None, "model", fsdp)}
+
+    def mlp_s():
+        return {"wi": P(None, fsdp, "model"), "wo": P(None, "model", fsdp)}
+
+    norm = {"scale": P(None, None)}
+    enc = {"ln1": dict(norm), "attn": attn(), "ln2": dict(norm), "mlp": mlp_s()}
+    dec = {"ln1": dict(norm), "self_attn": attn(), "ln_x": dict(norm),
+           "cross_attn": attn(), "ln2": dict(norm), "mlp": mlp_s()}
+    return {"embed": P("model", fsdp), "encoder": enc, "decoder": dec,
+            "ln_enc": {"scale": P(None)}, "ln_f": {"scale": P(None)}}
+
+
+def cache_specs(cfg):
+    """``init_cache``'s tree: the batch over "data", the K/V heads over
+    "model" where ``n_kv_heads % 16 == 0``, else the rows (self and
+    cross); ``pos`` replicated."""
+    spec = (P(None, "data", None, "model", None) if cfg.n_kv_heads % 16 == 0
+            else P(None, "data", "model", None, None))
+    return {"self_k": spec, "self_v": spec, "cross_k": spec, "cross_v": spec,
+            "pos": P()}

@@ -16,7 +16,17 @@ against encoder rows. The reference's own
 forward calls neither Pallas kernel but jnp versions with the same math.
 ``moe`` is the reference's top-k MoE with fixed per-expert capacity: its
 dispatch, expert products and combine are PyTorch ops, as the reference's
-are jnp ops outside any Pallas kernel.
+are jnp ops outside any Pallas kernel. Under an ambient mesh
+(``launch.mesh.use_mesh``) whose data axes have more than one rank, each
+rank holds its data shard's rows, and ``moe`` computes what the
+reference's one ``moe`` over the global batch computes: its capacity,
+slots and aux are global. ``moe_expert_parallel`` is the reference's
+shard_map body: the experts split over the model axis, the combine one
+all-reduce.
+
+The reference's activation constraints (``shard_batch``, ``shard_spec``,
+``cfg.seq_shard_activations``) have no counterpart: they tell GSPMD where
+activations live, and here each rank already computes on its own rows.
 """
 from __future__ import annotations
 
@@ -30,6 +40,7 @@ from repro_torch import random as rnd
 from repro_torch.core.tree import tree_map
 from repro_torch.kernels.flash_attention import FlashAttention, flash_attention
 from repro_torch.kernels.rmsnorm import RMSNorm
+from repro_torch.launch import mesh as mesh_lib
 
 # ---------------------------------------------------------------------------
 # stacked parameters
@@ -38,11 +49,15 @@ from repro_torch.kernels.rmsnorm import RMSNorm
 
 def take(stacked, i: int):
     """Entry i of stacked parameters or states: views into the (N, ...)
-    tensors of a nested dict, or entry i of a list (the training path's
-    per-layer autograd leaves, ``launch.train.grad_leaves``)."""
+    tensors of a nested dict, entry i of a list (the training path's
+    per-layer autograd leaves, ``launch.train.grad_leaves``), or entry i
+    of a ``launch.mesh.Gathered`` tree (params read whole on a mesh, one
+    entry at a time)."""
     if isinstance(stacked, (list, tuple)):
         return stacked[i]
-    return tree_map(lambda t: t[i], stacked)
+    if isinstance(stacked, dict):
+        return tree_map(lambda t: t[i], stacked)
+    return stacked.take(i)
 
 
 def copy_into(dst, src):
@@ -297,16 +312,18 @@ def mlp(params, x, activation: str):
 # ---------------------------------------------------------------------------
 
 
+MOE_SHARDINGS = ("fsdp", "expert2d", "expert_parallel")
+
+
 def check_moe_sharding(cfg) -> None:
-    """"fsdp" and "expert2d" compute the same ``moe`` (the reference's two
-    differ only in their sharding specs); the expert-parallel form needs a
-    model axis, which the port does not have yet."""
-    if cfg.moe_sharding == "expert_parallel":
-        raise NotImplementedError(
-            f"{cfg.name}: moe_sharding 'expert_parallel' needs the mesh's "
-            "model axis (ROADMAP queue 1, item 13)")
-    if cfg.moe_sharding not in ("fsdp", "expert2d"):
-        raise ValueError(f"{cfg.name}: unknown moe_sharding {cfg.moe_sharding!r}")
+    """The reference's three MoE shardings: "fsdp" and "expert2d" compute
+    the same ``moe`` (they differ only in their param specs);
+    "expert_parallel" runs ``moe_expert_parallel``, which is ``moe`` itself
+    outside a mesh with a model axis."""
+    if cfg.moe_sharding not in MOE_SHARDINGS:
+        raise ValueError(f"{cfg.name}: unknown moe_sharding "
+                         f"{cfg.moe_sharding!r}; the reference has "
+                         f"{MOE_SHARDINGS}")
 
 
 def moe_init(key, cfg, dtype):
@@ -339,7 +356,7 @@ def _count(idx, n: int):
         0, idx, torch.ones_like(idx))
 
 
-def moe_route(router, xt, cfg):
+def moe_route(router, xt, cfg, over=None):
     """The router of ``moe`` over xt (T, D): logits in the model dtype cast
     to fp32, their softmax, the top k of a stable descending sort (on ties
     the lower expert first, as ``jax.lax.top_k``) with their probabilities
@@ -347,6 +364,13 @@ def moe_route(router, xt, cfg):
     counted token-major, k minor (the reference's cumsum over the (T·k, E)
     one-hot; here a stable sort by expert, O(T·k) memory); an assignment at
     slot >= cap is dropped.
+
+    ``over`` = (mesh, axes): xt is one shard of a global batch split over
+    those mesh axes, the shards in their flattened order. The capacity is
+    then the global batch's, and an assignment's global slot adds the
+    counts of the lower shards (one all-gather of the (E,) counts), so the
+    same assignments are dropped as in one call over the global batch; the
+    returned slot stays the local one, which indexes this shard's buffer.
 
     Returns (probs (T, E) fp32, top_p (T, k) fp32, top_e (T, k) int64,
     slot (T·k,) int64 with the dropped ones at cap-1, keep (T·k,) bool,
@@ -364,37 +388,226 @@ def moe_route(router, xt, cfg):
     rank = torch.arange(flat_e.numel(), device=xt.device)
     slot = torch.empty_like(flat_e)
     slot[order] = rank - first[flat_e[order]]
-    keep = slot < cap
+    if over is None:
+        keep = slot < cap
+    else:
+        mesh, axes = over
+        shards = mesh_lib.all_gather_axes(counts[None], mesh, axes)   # (n, E)
+        before = shards[:mesh_lib.axis_index(mesh, axes)].sum(dim=0)
+        cap = moe_capacity(cfg, xt.shape[0] * shards.shape[0])
+        keep = slot + before[flat_e] < cap
     slot = torch.where(keep, slot, torch.full_like(slot, cap - 1))
     return probs, top_p, top_e, slot, keep, cap
 
 
+def _experts(params, xt, flat_e, slot, keep, top_p, n_exp: int, cap: int):
+    """The dispatch, the SwiGLU experts and the combine of ``moe``: each
+    assignment's token row, times keep, added into its expert's slot of an
+    (n_exp, cap, D) buffer (``index_put`` with accumulate: a dropped row
+    adds exact zeros to its slot), the experts as batched products, and
+    each token's k rows gathered back and summed, weighted by keep·top_p.
+    Returns (T, D)."""
+    t, d = xt.shape
+    k = top_p.shape[1]
+    src = xt.repeat_interleave(k, dim=0) * keep[:, None].to(xt.dtype)
+    buf = xt.new_zeros((n_exp, cap, d)).index_put((flat_e, slot), src,
+                                                  accumulate=True)
+    h = F.silu(torch.bmm(buf, params["wg"])) * torch.bmm(buf, params["wi"])
+    out_buf = torch.bmm(h, params["wo"])                   # (n_exp, cap, D)
+    weight = (keep.float() * top_p.reshape(-1)).to(xt.dtype)
+    return (out_buf[flat_e, slot] * weight[:, None]).view(t, k, d).sum(dim=1)
+
+
+def _data_shards(mesh):
+    """(mesh, its data axes) where the ambient mesh's data axes have more
+    than one rank, else None."""
+    if mesh is None:
+        return None
+    axes = mesh_lib.data_axes(mesh)
+    return (mesh, axes) if mesh_lib.axis_size(mesh, axes) > 1 else None
+
+
 def moe(params, x, cfg):
     """``repro.models.layers.moe``: x (B, S, D) -> (out (B, S, D), aux 0-d
-    fp32). Each assignment's token row, times keep, is added into its
-    expert's slot of an (E, cap, D) buffer (``index_put`` with accumulate:
-    a dropped row adds exact zeros to slot cap-1), the SwiGLU experts run
-    as batched products over all E experts, and each token sums its k rows
-    gathered back, weighted by keep·top_p. aux is the Switch load-balance
-    loss from each token's first expert. With ``cfg.dense_residual`` the
-    dense SwiGLU MLP ``params["dense"]`` is added."""
+    fp32), the capacity layout of ``moe_route`` and ``_experts`` over all E
+    experts. aux is the Switch load-balance loss from each token's first
+    expert. With ``cfg.dense_residual`` the dense SwiGLU MLP
+    ``params["dense"]`` is added.
+
+    Under an ambient mesh whose data axes have more than one rank, x is
+    this rank's rows of the global batch: the capacity and the slots are
+    the global batch's (``moe_route(over=)``), and aux's means are taken
+    over the global batch (the mean router probabilities through an
+    all-reduce whose backward sums the cotangents too, which is the global
+    loss's gradient once the train step averages the ranks'
+    gradients)."""
     check_moe_sharding(cfg)
     b, s, d = x.shape
-    e, k = cfg.n_experts, cfg.experts_per_token
+    e = cfg.n_experts
     t = b * s
     xt = x.reshape(t, d)
-    probs, top_p, top_e, slot, keep, cap = moe_route(params["router"], xt, cfg)
-    flat_e = top_e.reshape(-1)
-    src = xt.repeat_interleave(k, dim=0) * keep[:, None].to(xt.dtype)
-    buf = xt.new_zeros((e, cap, d)).index_put((flat_e, slot), src,
-                                              accumulate=True)
-    h = F.silu(torch.bmm(buf, params["wg"])) * torch.bmm(buf, params["wi"])
-    out_buf = torch.bmm(h, params["wo"])                       # (E, cap, D)
-    weight = (keep.float() * top_p.reshape(-1)).to(xt.dtype)
-    out = (out_buf[flat_e, slot] * weight[:, None]).view(t, k, d).sum(dim=1)
+    over = _data_shards(mesh_lib.ambient())
+    probs, top_p, top_e, slot, keep, cap = moe_route(params["router"], xt,
+                                                     cfg, over=over)
+    out = _experts(params, xt, top_e.reshape(-1), slot, keep, top_p, e, cap)
     me = probs.mean(dim=0)
     ce = _count(top_e[:, 0], e).float() / t
+    if over is not None:
+        n = mesh_lib.axis_size(*over)
+        me = _AllReduce.apply(me, *over) / n
+        ce = mesh_lib.all_reduce_axes(ce, *over) / n
     aux = e * torch.sum(me * ce)
     if cfg.dense_residual:
         out = out + mlp(params["dense"], xt, "swiglu")
     return out.view(b, s, d), aux
+
+
+def moe_expert_parallel(params, x, cfg):
+    """The reference's expert-parallel MoE (its shard_map body), on the
+    ambient mesh's model axis of M ranks: this rank holds experts
+    [m·E/M, (m+1)·E/M) of ``wi``, ``wg`` and ``wo`` (the param specs shard
+    their expert dim over "model"; ``launch.train`` keeps them local), the
+    router and the dense residual whole, and x is its data shard's rows,
+    the same on every model rank. Each rank routes every token
+    (``moe_route``: the capacity and slots of this data shard's tokens,
+    the reference's ``cap`` of the local ``t``), dispatches the assignments
+    to its own experts only, runs them, and the k rows a token gathers are
+    summed over the model axis in one all-reduce: the combine. aux, from
+    the rank's own rows, is data shard 0's on every rank, as the
+    reference's ``out_specs=P()`` returns it.
+
+    The gradient (the Megatron pair): x enters through an identity whose
+    backward sums the cotangent over the model axis, and the combine's
+    backward is the identity, so x's gradient is every expert's once; the
+    router's gradient is each model rank's part (``launch.train`` sums it
+    over the model axis); aux's gradient is carried by one rank, model
+    rank 0 of data shard 0, scaled by the data-axis size, which the train
+    step's average over data shards takes back.
+
+    Outside a mesh with a model axis, or where M does not divide E, this
+    is ``moe``, as in the reference."""
+    check_moe_sharding(cfg)
+    mesh = mesh_lib.ambient()
+    if mesh is None or "model" not in mesh.mesh_dim_names:
+        return moe(params, x, cfg)
+    m = mesh_lib.axis_size(mesh, "model")
+    e = cfg.n_experts
+    if e % m:
+        return moe(params, x, cfg)
+    e_loc = e // m
+    if params["wi"].shape[0] != e_loc:
+        raise ValueError(
+            f"{cfg.name}: moe_expert_parallel takes this rank's {e_loc} of "
+            f"{e} experts on a {m}-rank model axis, got "
+            f"{params['wi'].shape[0]}")
+    b, s, d = x.shape
+    t = b * s
+    xm = _ToModel.apply(x, mesh) if m > 1 else x
+    xt = xm.reshape(t, d)
+    probs, top_p, top_e, slot, keep, cap = moe_route(params["router"], xt, cfg)
+    local = top_e.reshape(-1) - mesh_lib.axis_index(mesh, "model") * e_loc
+    mine = (local >= 0) & (local < e_loc)
+    out = _experts(params, xt, local.clamp(0, e_loc - 1), slot, keep & mine,
+                   top_p, e_loc, cap)
+    if m > 1:
+        out = _combine(out, mesh)
+    me = probs.mean(dim=0)
+    ce = _count(top_e[:, 0], e).float() / t
+    aux = e * torch.sum(me * ce)
+    if math.prod(mesh_lib.axis_sizes(mesh).values()) > 1:
+        aux = _AuxOfShard0.apply(aux, mesh, _aux_grad_weight(mesh))
+    if cfg.dense_residual:
+        out = out + mlp(params["dense"], x.reshape(t, d), "swiglu")
+    return out.view(b, s, d), aux
+
+
+def param_plans(cfg, specs, mesh):
+    """``launch.mesh.leaf_plan`` of every leaf of a param spec tree: each
+    read whole from this rank's block, except, with
+    ``cfg.moe_sharding == "expert_parallel"``, the experts ``wi``, ``wg``,
+    ``wo``, which ``moe_expert_parallel`` takes as this rank's (kept local
+    over "model"), and the router, whose gradient each model rank holds a
+    part of (summed over "model")."""
+    ep = cfg.moe_sharding == "expert_parallel" and bool(cfg.n_experts)
+
+    def walk(spec, path):
+        if isinstance(spec, dict):
+            return {k: walk(v, path + (k,)) for k, v in spec.items()}
+        moe_leaf = ep and len(path) >= 2 and path[-2] == "moe"
+        return mesh_lib.leaf_plan(
+            spec, mesh, model_local=moe_leaf and path[-1] in ("wi", "wg", "wo"),
+            model_partial=moe_leaf and path[-1] == "router")
+
+    return walk(specs, ())
+
+
+class _AllReduce(torch.autograd.Function):
+    """A sum over mesh axes whose backward sums the cotangents over them."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return mesh_lib.all_reduce_axes(x.clone(), mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return mesh_lib.all_reduce_axes(g.clone(), ctx.mesh, ctx.axes), None, None
+
+
+class _ToModel(torch.autograd.Function):
+    """The identity, whose backward sums the cotangent over the model
+    axis (Megatron's f)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return mesh_lib.all_reduce_axes(g.contiguous().clone(), ctx.mesh,
+                                        "model"), None
+
+
+class _FromModel(torch.autograd.Function):
+    """The combine: a sum over the model axis, whose backward is the
+    identity (Megatron's g)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return mesh_lib.all_reduce_axes(x.contiguous().clone(), mesh, "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _combine(out, mesh):
+    return _FromModel.apply(out, mesh)
+
+
+def _aux_grad_weight(mesh) -> float:
+    """The scale of aux's gradient on this rank: the data-axis size on
+    model rank 0 of data shard 0, 0 elsewhere (aux enters the global loss
+    once)."""
+    data = mesh_lib.data_axes(mesh)
+    first = (mesh_lib.axis_index(mesh, data) == 0
+             and mesh_lib.axis_index(mesh, "model") == 0)
+    return float(mesh_lib.axis_size(mesh, data)) if first else 0.0
+
+
+class _AuxOfShard0(torch.autograd.Function):
+    """Data shard 0's value on every rank (a sum over the data axes of it
+    and zeros); the backward scales the cotangent by ``weight``."""
+
+    @staticmethod
+    def forward(ctx, aux, mesh, weight):
+        ctx.weight = weight
+        axes = mesh_lib.data_axes(mesh)
+        v = aux.clone() if mesh_lib.axis_index(mesh, axes) == 0 else \
+            torch.zeros_like(aux)
+        return mesh_lib.all_reduce_axes(v, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.weight, None, None

@@ -22,6 +22,7 @@ import torch
 
 from repro_torch import device as device_lib
 from repro_torch import random as rnd
+from repro_torch.launch.mesh import P
 
 
 def swish(z):
@@ -122,3 +123,10 @@ def zoo_loss_fn(params, batch, cfg):
     """``repro.models.mlp.zoo_loss_fn``: the mean cross-entropy of a batch of
     ``features`` (B, P) and ``labels_onehot`` (B, L)."""
     return mean_loss(params, batch["features"], batch["labels_onehot"])
+
+
+def param_specs(cfg, mode: str = "train"):
+    """The reference's partition specs of ``zoo_init``'s tree: the hidden
+    cells over "model" in both modes."""
+    del mode
+    return {"w0": P(None, "model"), "w1": P("model", None)}

@@ -33,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_lib
 from repro_torch import random as rnd
+from repro_torch.launch.mesh import P
 from repro_torch.models import layers as L
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -122,7 +123,9 @@ def _block_tail(lp, h, cfg):
     """h plus the MLP (or MoE) of its norm: (h, the MoE aux or None)."""
     y = L.norm(lp["ln2"], h, cfg)
     if cfg.n_experts:
-        m, aux = L.moe(lp["moe"], y, cfg)
+        moe_fn = (L.moe_expert_parallel
+                  if cfg.moe_sharding == "expert_parallel" else L.moe)
+        m, aux = moe_fn(lp["moe"], y, cfg)
         return h + m, aux
     return h + L.mlp(lp["mlp"], y, cfg.activation), None
 
@@ -247,3 +250,64 @@ def decode_step(params, cache, token, pos: int, cfg):
         h, _ = _block_tail(lp, h + o, cfg)
     h = L.norm(params["ln_f"], h, cfg)
     return logits_fn(params, h, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# sharding specs
+# ---------------------------------------------------------------------------
+
+
+def param_specs(cfg, mode: str = "train"):
+    """The reference's partition specs of ``init``'s tree (``launch.mesh.P``
+    a leaf): mode "train" takes ``cfg.train_sharding`` (fsdp: a weight's
+    d_model dim over "data"; tp: none), "serve" ``cfg.serve_sharding``;
+    heads, MLP columns, the vocabulary and the experts over "model", the
+    K/V heads only where ``n_kv_heads % 16 == 0`` (the reference's literal
+    test); the MoE's by ``cfg.moe_sharding``."""
+    policy = cfg.train_sharding if mode == "train" else cfg.serve_sharding
+    fsdp = "data" if policy == "fsdp" else None
+    kv = "model" if cfg.n_kv_heads % 16 == 0 else None
+    attn = {"wq": P(None, fsdp, "model"), "wk": P(None, fsdp, kv),
+            "wv": P(None, fsdp, kv), "wo": P(None, "model", fsdp)}
+    if cfg.qkv_bias:
+        attn.update(bq=P(None, "model"), bk=P(None, kv), bv=P(None, kv))
+    lp = {"ln1": {"scale": P(None, None)}, "ln2": {"scale": P(None, None)},
+          "attn": attn}
+    ffn = {"wi": P(None, fsdp, "model"), "wg": P(None, fsdp, "model"),
+           "wo": P(None, "model", fsdp)}
+    if cfg.n_experts:
+        if cfg.moe_sharding == "expert_parallel":
+            # experts resident on the model axis, replicated over data
+            moe = {"router": P(None, None, None), "wi": P(None, "model", None, None),
+                   "wg": P(None, "model", None, None),
+                   "wo": P(None, "model", None, None)}
+        elif cfg.moe_sharding == "expert2d":
+            moe = {"router": P(None, None, None), "wi": P(None, "model", None, "data"),
+                   "wg": P(None, "model", None, "data"),
+                   "wo": P(None, "model", "data", None)}
+        else:
+            moe = {"router": P(None, fsdp, None), "wi": P(None, "model", fsdp, None),
+                   "wg": P(None, "model", fsdp, None),
+                   "wo": P(None, "model", None, fsdp)}
+        if cfg.dense_residual:
+            moe["dense"] = ffn
+        lp["moe"] = moe
+    else:
+        lp["mlp"] = ffn
+        if cfg.activation == "gelu":
+            del ffn["wg"]
+    specs = {"embed": P("model", fsdp), "layers": lp, "ln_f": {"scale": P(None)}}
+    if not cfg.tie_embeddings:
+        specs["unembed"] = P(fsdp, "model")
+    return specs
+
+
+def cache_specs(cfg):
+    """The KV cache (L, B, S_max, KV, Hd): the batch over "data"; the K/V
+    heads over "model" where ``n_kv_heads % 16 == 0``, else the
+    sequence."""
+    if cfg.n_kv_heads % 16 == 0:
+        spec = P(None, "data", None, "model", None)
+    else:
+        spec = P(None, "data", "model", None, None)
+    return {"k": spec, "v": spec}

@@ -23,6 +23,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import device as device_lib
 from repro_torch import random as rnd
 from repro_torch.core.tree import tree_map
+from repro_torch.launch.mesh import P
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
 from repro_torch.models.transformer import DTYPES, logits_fn
@@ -159,3 +160,44 @@ def decode_step(params, cache, token, pos, cfg):
     h = L.norm(params["ln_f"], x[:, None, :], cfg)
     cache["pos"].add_(1)
     return logits_fn(params, h, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# sharding specs
+# ---------------------------------------------------------------------------
+
+
+def param_specs(cfg, mode: str = "train"):
+    """The reference's partition specs of ``init``'s tree: the blocks'
+    (G, n) stacked dims whole, their d_model rows over "data" under fsdp
+    and columns over "model"."""
+    policy = cfg.train_sharding if mode == "train" else cfg.serve_sharding
+    fsdp = "data" if policy == "fsdp" else None
+    g2 = (None, None)                       # group, index in the group
+    specs = {"embed": P("model", fsdp), "ln_f": {"scale": P(None)},
+             "m_blocks": {
+                 "ln": {"scale": P(*g2, None)},
+                 "wq": P(*g2, fsdp, "model"), "wk": P(*g2, fsdp, "model"),
+                 "wv": P(*g2, fsdp, "model"), "wz": P(*g2, fsdp, "model"),
+                 "wif": P(*g2, fsdp, None), "norm": {"scale": P(*g2, None)},
+                 "wo": P(*g2, "model", fsdp),
+                 "conv": {"w": P(*g2, None, "model"), "b": P(*g2, "model")}}}
+    if _groups(cfg)[2]:
+        specs["s_blocks"] = {
+            "ln": {"scale": P(*g2, None)}, "w": P(*g2, fsdp, "model"),
+            "r": P(*g2, None, None, None), "norm": {"scale": P(*g2, None)},
+            "wo": P(*g2, "model", fsdp)}
+    return specs
+
+
+def cache_specs(cfg):
+    """``init_cache``'s tree: the batch over "data", each head's dim over
+    "model" (4 heads do not divide the model axis); ``pos`` a replicated
+    0-d tensor, as the reference's."""
+    specs = {"m": {"state": P(None, None, "data", None, "model", None),
+                   "conv": P(None, None, "data", None, "model")},
+             "pos": P()}
+    if _groups(cfg)[2]:
+        specs["s"] = {k: P(None, None, "data", None, "model")
+                      for k in ("c", "n", "h")}
+    return specs

@@ -26,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import device as device_lib
 from repro_torch import random as rnd
 from repro_torch.core.tree import tree_map
+from repro_torch.launch.mesh import P
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
 from repro_torch.models.transformer import DTYPES, logits_fn
@@ -187,3 +188,41 @@ def decode_step(params, cache, token, pos, cfg):
     h = L.norm(params["ln_f"], x[:, None, :], cfg)
     cache["pos"].add_(1)
     return logits_fn(params, h, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# sharding specs
+# ---------------------------------------------------------------------------
+
+
+def param_specs(cfg, mode: str = "train"):
+    """The reference's partition specs of ``init``'s tree: the Mamba2
+    blocks stacked (L, ...), the shared block once; d_model rows over
+    "data" under fsdp, columns and channels over "model", the K/V heads
+    only where ``n_kv_heads % 16 == 0``."""
+    policy = cfg.train_sharding if mode == "train" else cfg.serve_sharding
+    fsdp = "data" if policy == "fsdp" else None
+    kv = "model" if cfg.n_kv_heads % 16 == 0 else None
+    mamba = {"ln": {"scale": P(None, None)}, "w_in": P(None, fsdp, "model"),
+             "conv": {"w": P(None, None, "model"), "b": P(None, "model")},
+             "a_log": P(None, None), "dt_bias": P(None, None),
+             "norm": {"scale": P(None, None)}, "w_out": P(None, "model", fsdp)}
+    shared = {"w_cat": P(fsdp, "model"), "ln1": {"scale": P(None)},
+              "attn": {"wq": P(fsdp, "model"), "wk": P(fsdp, kv),
+                       "wv": P(fsdp, kv), "wo": P("model", fsdp)},
+              "ln2": {"scale": P(None)},
+              "mlp": {"wi": P(fsdp, "model"), "wg": P(fsdp, "model"),
+                      "wo": P("model", fsdp)}}
+    return {"embed": P("model", fsdp), "mamba": mamba, "shared": shared,
+            "ln_f": {"scale": P(None)}}
+
+
+def cache_specs(cfg):
+    """``init_cache``'s tree: the batch over "data"; the Mamba2 state's
+    head dim and the conv tail's channels over "model"; each application's
+    K/V cache as the transformer's; ``pos`` replicated."""
+    attn = (P(None, "data", None, "model", None) if cfg.n_kv_heads % 16 == 0
+            else P(None, "data", "model", None, None))
+    return {"mamba": {"state": P(None, "data", None, None, "model"),
+                      "conv": P(None, "data", None, "model")},
+            "attn_k": attn, "attn_v": attn, "pos": P()}

@@ -137,3 +137,31 @@ def test_rank_side_of_the_topology_tests_imports_no_jax():
     path = ROOT / "tests" / "torch_topology_ranks.py"
     bad = [(line, mod) for line, mod in _imports(path) if _forbidden(mod)]
     assert not bad, bad
+
+
+def test_rank_side_of_the_model_parallel_tests_imports_no_jax():
+    """The gloo ranks of the model-parallel tests run the port alone:
+    tests/torch_model_parallel_ranks.py imports neither jax nor the JAX
+    package (its JAX side is tests/jax_model_parallel_oracle.py, a process
+    of its own)."""
+    path = ROOT / "tests" / "torch_model_parallel_ranks.py"
+    bad = [(line, mod) for line, mod in _imports(path) if _forbidden(mod)]
+    assert not bad, bad
+
+
+def test_importing_the_model_parallel_layer_starts_no_group():
+    """launch/mesh.py, which the layers now import for the ambient mesh,
+    and the steps' modules start no process group and load no jax when
+    imported; no mesh is ambient."""
+    code = ("import sys; import repro_torch.launch.mesh as m, "
+            "repro_torch.models.layers, repro_torch.models.api, "
+            "repro_torch.launch.serve, repro_torch.launch.train; "
+            "import torch.distributed as dist; "
+            "assert not dist.is_initialized(), 'a group at import'; "
+            "assert m.ambient() is None; "
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')); assert not bad, bad")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr

@@ -362,19 +362,26 @@ def test_moe_shardings_compute_the_same_layer(weights):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
-def test_expert_parallel_is_refused(weights):
-    """The expert-parallel MoE needs the mesh's model axis (ROADMAP item
-    13): init, the layer and the loss refuse it; nothing falls back."""
+def test_expert_parallel_without_a_mesh_is_moe(weights):
+    """Outside a mesh with a model axis the expert-parallel MoE is ``moe``
+    itself, as the reference's falls back to its GSPMD path
+    (``test_fallback_without_mesh_matches_gspmd_path``): init, the layer
+    and the loss equal the fsdp ones exactly."""
     arch, _, npp = weights
-    _, tcfg = _cfgs(arch, moe_sharding="expert_parallel")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ttr.init(rnd.PRNGKey(0, device="cpu"), tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tlayers.moe(convert.params_from_numpy(_layer_moe(npp), "cpu"),
-                    torch.zeros(B, 4, tcfg.d_model), tcfg)
-    tb = {k: torch.from_numpy(v) for k, v in _batch(tcfg.vocab_size).items()}
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ttr.loss_fn(convert.params_from_numpy(npp, "cpu"), tb, tcfg)
+    _, fsdp = _cfgs(arch)
+    _, ep = _cfgs(arch, moe_sharding="expert_parallel")
+    key = rnd.PRNGKey(0, device="cpu")
+    for a, b in zip(leaves(ttr.init(key, ep, device="cpu")),
+                    leaves(ttr.init(key, fsdp, device="cpu"))):
+        assert torch.equal(a, b)
+    p = convert.params_from_numpy(_layer_moe(npp), "cpu")
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (B, 8, fsdp.d_model), dtype=np.float32))
+    got, want = tlayers.moe_expert_parallel(p, x, ep), tlayers.moe(p, x, fsdp)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    tb = {k: torch.from_numpy(v) for k, v in _batch(fsdp.vocab_size).items()}
+    params = convert.params_from_numpy(npp, "cpu")
+    assert torch.equal(ttr.loss_fn(params, tb, ep), ttr.loss_fn(params, tb, fsdp))
 
 
 def test_chip_smoke_routing_gate_passes_only_near_ties():
