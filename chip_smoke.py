@@ -34,6 +34,17 @@ Phases, one JSON line each:
            remat), from serve_consistency's weights: 2 warm-up and 5 timed
            steps; step ms, tokens/s, mfu, peak memory, each step's loss,
            launches per step (asserted)
+  cost     the cost counter (repro_torch.roofline.cost) over one untimed
+           train step at the train phase's shape and one decode step at the
+           serve phase's, on the card and traced on the meta device: FLOPs
+           equal (asserted), launches equal the wrappers' counters
+           (asserted), model FLOPs, bytes, roofline terms on the H100's
+           data-sheet rates, each step's measured ms
+  contracts  repro_torch.analysis's 16-config contract matrix on the card
+           (one recorded Algorithm-1 round each, under sync-debug "error":
+           no host sync, DP before encode, collectives on the topology's
+           group, wire dtypes, no f64, the metric stream's pinned copies)
+           and the launch sentinel over 5 dense and int8 rounds (asserted)
   ssca_train_size  ssca_update on the train state's buffers (3.09 B bf16
            params, fp32 surrogate buffer), 10 launches, against its bound
   train_parity  full width, 2 layers, fp32, batch 2, seq 64, 3 steps: the
@@ -57,8 +68,8 @@ Phases, one JSON line each:
            faults in the surrogate minimum's recursion that its gates catch
   cohort   repro_torch.launch.train.cohort_train_loop at the README's size:
            a VirtualFedData population of 1,000,000 clients, 256 a round,
-           the mlp 32-16-4 (576 parameters), batch 16, 100 rounds, evals
-           every 50; Algorithm 1 dense, int8 + EF, topk8 + EF, and
+           the mlp 32-16-4 (576 parameters), batch 16, 60 rounds, evals
+           every 30; Algorithm 1 dense, int8 + EF, topk8 + EF, and
            Algorithm 2 int8 + EF (the EFStore: 1e6 x 576 fp32 on the card);
            rounds/s, launches a round, device busy, peak memory, EF bytes,
            the population total, eval losses, upload bytes (asserted), ids
@@ -192,18 +203,25 @@ from pathlib import Path
 from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-FP32_FLOPS_PER_S = 67e12           # H100 SXM, fp32 outside the tensor cores
-BF16_FLOPS_PER_S = 989e12          # H100 SXM, bf16 tensor cores, dense
-# the data sheet's fp32 rate counts an FMA on 128 lanes an SM as two
-# operations: fp32 instructions (an FMA one) issue at half of it, 32-bit
-# integer instructions (add, xor, shift: 64 INT32 lanes an SM) at a quarter
-FP32_INSTR_PER_S = FP32_FLOPS_PER_S / 2
-INT32_OPS_PER_S = FP32_FLOPS_PER_S / 4
-L2_BYTES = 50 * 2**20             # H100 SXM
+sys.path.insert(0, str(ROOT / "src"))
+try:
+    # the H100 SXM's data-sheet rates and each kernel's work formula: one
+    # copy, which the cost counter reads too
+    from repro_torch.roofline import HW
+    from repro_torch.roofline import kernels as work
+except ImportError:          # alone, without the repository: main() refuses
+    HW = work = None
+_HW = HW() if HW else None
+HBM_BYTES_PER_S = _HW and _HW.hbm_bw
+FP32_FLOPS_PER_S = _HW and _HW.fp32_flops
+BF16_FLOPS_PER_S = _HW and _HW.peak_flops
+FP32_INSTR_PER_S = _HW and _HW.fp32_instr
+INT32_OPS_PER_S = _HW and _HW.int32_ops
+L2_BYTES = _HW and _HW.l2_bytes
 # rounds of each paper-width and cohort run (cut from 200 for the script's
 # time as the DP, upload and obs phases joined it)
 ROUNDS = 100
+CARD = "cuda"                  # the card side of the parity and cost phases
 OBS_ROUNDS = 200
 EVAL_EVERY = 50
 SERVE = dict(batch=8, prompt_len=512, gen=32, seed=0)
@@ -224,9 +242,10 @@ PAPER_FL_C = dict(batch_size=100, a1=0.9, a2=0.5, alpha_rho=0.1,
                   penalty_c=1e5)
 PAPER_RUNS = ("alg2", "alg2_general", "alg3", "alg4", "alg3_int8", "fedsgd",
               "sgdm")
-# the cohort engine at the README's size (cohort_train_loop's defaults)
-COHORT = dict(clients=1_000_000, participation=256, rounds=ROUNDS,
-              log_every=EVAL_EVERY)
+# the cohort engine at the README's size (cohort_train_loop's defaults),
+# 60 rounds a run with evals at 30 and 60 (cut from 100 for the script's
+# time as the cost and contracts phases joined it)
+COHORT = dict(clients=1_000_000, participation=256, rounds=60, log_every=30)
 COHORT_RUNS = (("alg1_dense", None, False), ("alg1_int8", "int8", False),
                ("alg1_topk8", "topk8", False), ("alg2_int8", "int8", True))
 COHORT_DIM = 4 * 16 + 16 * 32                     # mlp 32-16-4: 576
@@ -276,12 +295,8 @@ class Laps:
 
 
 def bound_ms(nbytes, flops, peak=FP32_FLOPS_PER_S, int_ops=0):
-    """(ms, "bytes" or "operations"): the larger of the bytes at the HBM
-    rate and the operations at theirs; `int_ops` 32-bit integer operations
-    run on their own lanes, beside the `flops` at `peak`."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(flops / peak, int_ops / INT32_OPS_PER_S) * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    """``roofline.kernels.bound_ms``: (ms, "bytes" or "operations")."""
+    return work.bound_ms(nbytes, flops, peak, int_ops)
 
 
 def close_err(got, want, tol):
@@ -470,7 +485,8 @@ def check_ssca_update(torch, ssca, build):
     def library(w, buf, g):
         fused_sgd_step(torch, w, g, buf, 0.3, 0.3, 0.3, tau, lam)
 
-    nbytes = 20 * n
+    ssca_work = work.ssca_update(n)
+    nbytes = ssca_work.bytes
     sets = cold_sets(make, 12 * n)      # by footprint: w, buf, g of a set
     w, buf, g = sets[0]
     timed = timed_pair(launch, library, sets, True)
@@ -481,7 +497,7 @@ def check_ssca_update(torch, ssca, build):
         code = lib.ssca_update_f32(*args, torch.cuda.current_stream().cuda_stream)
         build.check(code, "ssca_update_f32")
 
-    b_ms, b_by = bound_ms(nbytes, 7 * n)
+    b_ms, b_by = ssca_work.bound_ms()
     out = {"name": "ssca_update", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/ssca_update.cu",
            "replaces": "src/repro/kernels/ssca_update.py:43",
@@ -549,8 +565,9 @@ def check_quantize(torch, qz, build):
     ms = graph_ms(launch)
     eager = event_ms(launch)
     plain_ms = event_ms(lambda: qz.plain(x, bits, 127, 256))
-    nbytes = 13 * rows * p + 4 * rows * chunks
-    b_ms, b_by = bound_ms(nbytes, 10 * rows * p, FP32_INSTR_PER_S)
+    q_work = work.stochastic_quantize(rows, p)
+    nbytes = q_work.bytes
+    b_ms, b_by = q_work.bound_ms()
 
     def at_shape(r, n):
         """Graph-timed ms and the bound at the cohort's and the grid's
@@ -590,13 +607,6 @@ def check_quantize(torch, qz, build):
 # (launch.train.COMM_PIECE)
 TRAIN_PARAMS = 3_085_938_688
 COMM_PIECE = 1 << 25
-# threefry2x32 a lane: 20 rounds of add, rotate (one funnel shift) and xor,
-# 5 key injections of 3 adds, the third key word, the counter's split and
-# the initial adds, the output xor: about 82 32-bit integer operations
-THREEFRY_OPS = 20 * 3 + 5 * 3 + 7
-# fp32 instructions a lane beside them
-QUANT_LANE_OPS = 12          # absmax share, divide, add, floor, clip, store
-DP_LANE_OPS = 40             # uniform, erfinvf (~30), the scale and noise
 # comm_update_'s pieces of the train-size vector: (offset, elements)
 TRAIN_PIECES = [(a, min(COMM_PIECE, TRAIN_PARAMS - a))
                 for a in range(0, TRAIN_PARAMS, COMM_PIECE)]
@@ -677,14 +687,9 @@ def check_quantize_keyed(torch, qz, build, rnd):
         build.check(code, "stochastic_quantize")
 
     def bound(rows, p, launches=1):
-        """x read, int8 values (padded lanes too), scales and xhat written,
-        the keys read a launch; threefry's integer operations and the
-        rounding's fp32 instructions over every lane."""
-        c = -(-p // 256)
-        lanes = rows * c * 256
-        nbytes = 9 * rows * p + rows * (c * 256 - p) + 4 * rows * c + 16 * rows * launches
-        return (nbytes, *bound_ms(nbytes, QUANT_LANE_OPS * lanes, FP32_INSTR_PER_S,
-                                  int_ops=THREEFRY_OPS * lanes))
+        """(bytes, ms, bound_by) of ``roofline.kernels.quantize_keyed``."""
+        w = work.quantize_keyed(rows, p, launches=launches)
+        return (w.bytes, *w.bound_ms())
 
     rows, p = 10, 101_632
     x, keys, values, scales, xhat, c = operands(rows, p)
@@ -789,12 +794,9 @@ def check_dp_noise(torch, dpn, build, rnd):
         build.check(code, "dp_noise")
 
     def bound(rows, p, launches=1):
-        """x read, out and the block sums written, keys, factor and scale
-        read a launch; threefry's integer operations and the normal's and
-        the noise's fp32 instructions a lane."""
-        nbytes = 8 * rows * p + 4 * rows * -(-p // per) + 24 * rows * launches
-        return (nbytes, *bound_ms(nbytes, DP_LANE_OPS * rows * p, FP32_INSTR_PER_S,
-                                  int_ops=THREEFRY_OPS * rows * p))
+        """(bytes, ms, bound_by) of ``roofline.kernels.dp_noise``."""
+        w = work.dp_noise(rows, p, launches=launches)
+        return (w.bytes, *w.bound_ms())
 
     rows, p = 10, 101_632
     ops_ = operands(rows, p)
@@ -844,9 +846,6 @@ def check_dp_noise(torch, dpn, build, rnd):
 
 COHORT_SAMPLE_GRID = [(n, s) for n in (10, 48, 1_000_000)
                       for s in sorted({1, max(1, n // 4), min(256, n)})]
-# integer operations a walk step costs a slot: six rounds of the murmur3 mix
-# (7), the key xor, the add and the mask, the split and the join, the test
-FEISTEL_STEP_OPS = 6 * 10 + 4 + 1
 
 
 def check_cohort_sample(torch, cs, build):
@@ -856,7 +855,7 @@ def check_cohort_sample(torch, cs, build):
     S = 256: warm from a CUDA graph of 200 launches, cold as single launches
     between CUDA events after a 100 MB write that evicts the L2, and the
     plain walk on the card. The bound: the walk steps this run's keys need,
-    FEISTEL_STEP_OPS integer operations each, at the card's 32-bit
+    work.FEISTEL_STEP_OPS integer operations each, at the card's 32-bit
     integer rate, against 24 B read and 4 B a slot written. ``floor_ms``:
     an empty kernel of the same grid and arguments from a CUDA graph, the
     launch's own least time."""
@@ -919,8 +918,8 @@ def check_cohort_sample(torch, cs, build):
         out = x >= num
         steps += out.long()
         x = torch.where(out, feistel(x, ks, hi, lo), x)
-    ops = int(steps.sum()) * FEISTEL_STEP_OPS
-    b_ms, b_by = bound_ms(24 + 4 * cohort, 0, int_ops=ops)
+    walk = work.cohort_sample(keys.numel(), cohort, int(steps.sum()))
+    b_ms, b_by = walk.bound_ms()
     return {"name": "cohort_sample", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/cohort_sample.cu",
             "replaces": "src/repro/core/fed.py:254",
@@ -931,7 +930,7 @@ def check_cohort_sample(torch, cs, build):
                                  iters=20, warmup=2),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "walk_steps": int(steps.sum()), "shape": [num, cohort],
-            "bytes": 24 + 4 * cohort, "operations": ops}
+            "bytes": walk.bytes, "operations": walk.int_ops}
 
 
 def check_rmsnorm(torch, rms, build):
@@ -982,7 +981,8 @@ def rms_timing(torch, rms, build, gen, rows, d, cold):
     the bound (one read and one write an element)."""
     import torch.nn.functional as F
     lib = build.library("rmsnorm")
-    nbytes = 2 * (2 * rows * d + d)
+    rms_work = work.rmsnorm(rows, d, 2)
+    nbytes = rms_work.bytes
 
     def make():
         x = torch.randn(rows, d, generator=gen, device="cuda").to(torch.bfloat16)
@@ -999,7 +999,7 @@ def rms_timing(torch, rms, build, gen, rows, d, cold):
         F.rms_norm(x, (d,), weight=weight, eps=1e-6)
 
     sets = cold_sets(make, nbytes) if cold else [make()]
-    b_ms, b_by = bound_ms(nbytes, 4 * rows * d)
+    b_ms, b_by = rms_work.bound_ms()
     x, sc = sets[0][:2]
     out = {"shape": [rows, d], "bytes": nbytes,
            **timed_pair(launch, library, sets, cold),
@@ -1071,7 +1071,8 @@ def rms_bwd_timing(torch, rms, build, gen, rows, d):
     aten._fused_rms_norm_backward, eager, the plain version, the bound (x
     and dy read, dx written, scale read and dscale written) and the plan."""
     lib = build.library("rmsnorm")
-    nbytes = 2 * (3 * rows * d + 2 * d)
+    bwd_work = work.rmsnorm_bwd(rows, d, 2)
+    nbytes = bwd_work.bytes
     plan = rms.bwd_plan(rows, d, 2, True, build.query(lib.rmsnorm_bwd_capacity, d, 1))
 
     def make():
@@ -1091,7 +1092,7 @@ def rms_bwd_timing(torch, rms, build, gen, rows, d):
         return torch.ops.aten._fused_rms_norm_backward(dy, x, [d], r, weight, [True, True])
 
     sets = cold_sets(make, nbytes)
-    b_ms, b_by = bound_ms(nbytes, 10 * rows * d)
+    b_ms, b_by = bwd_work.bound_ms()
     x, sc, dy = sets[0][:3]
     err, ok = close_err(library(*sets[0])[0], rms.plain_bwd(x, sc, dy, 1e-6)[0], 2e-2)
     check(ok, f"rmsnorm_bwd: the library yardstick disagrees by {err}")
@@ -1114,31 +1115,6 @@ def attn_operands(torch, gen, b, h, kv, sq, sk, d, dtype, cache_rows=None, lo=0)
     v = torch.randn(b, rows, kv, d, generator=gen, device="cuda").to(dtype)
     return (q.transpose(1, 2), k.transpose(1, 2)[:, :, lo:lo + sk],
             v.transpose(1, 2)[:, :, lo:lo + sk])
-
-
-def visible_pairs(sq, sk, window=0, prefix=0, causal=True):
-    """The query-key pairs a right-aligned causal call sees: each row's
-    causal keys (within ``window`` when given) and the first ``prefix``
-    keys, counted once; every pair without ``causal``."""
-    if not causal:
-        return sq * sk
-    pairs = 0
-    for i in range(sq):
-        hi = min(sk, i + sk - sq + 1)           # keys 0 .. hi-1 are causal
-        lo = max(0, hi - window) if window else 0
-        seen = max(0, hi - lo)
-        pre = min(prefix, sk)
-        pairs += max(hi, pre) if pre >= lo else seen + pre
-    return pairs
-
-
-def attn_work(b, h, kv, sq, sk, d, esize, window=0, prefix=0, causal=True):
-    """Bytes (q, k, v read once, o written once) and FLOPs (4·d per visible
-    query-key pair: causal, windowed, and the prefix block; every pair
-    without ``causal``) of one attention call."""
-    pairs = visible_pairs(sq, sk, window, prefix, causal)
-    nbytes = esize * d * (2 * b * h * sq + 2 * b * kv * sk)
-    return nbytes, 4 * d * pairs * b * h
 
 
 def sdpa_backends(torch, call):
@@ -1170,7 +1146,7 @@ def flash_timing(torch, fa, build, gen, b, h, kv, sq, sk, d, rows=None,
     prefix an explicit boolean mask, which its flash backend refuses; the
     backends that take it are listed), the plain version, and the bound."""
     import torch.nn.functional as F
-    nbytes, flops = attn_work(b, h, kv, sq, sk, d, 2, prefix=prefix, causal=causal)
+    nbytes, flops = work.attn_work(b, h, kv, sq, sk, d, 2, prefix=prefix, causal=causal)
     lib = build.library("flash_attention")
     qpos = torch.arange(sq, device="cuda")[:, None] + (sk - sq)
     kpos = torch.arange(sk, device="cuda")[None, :]
@@ -1495,9 +1471,8 @@ def flash_bwd_timing(torch, fa, build, gen, b, h, kv, sq, sk, d, causal=True):
     lib = build.library("flash_attention")
     bf16 = torch.bfloat16
     rep = h // kv
-    fwd_bytes, fwd_flops = attn_work(b, h, kv, sq, sk, d, 2, causal=causal)
-    nbytes = 2 * d * (4 * b * h * sq + 4 * b * kv * sk) + 2 * 4 * b * h * sq
-    flops = 5 * fwd_flops // 2
+    bwd_work = work.flash_attention_bwd(b, h, kv, sq, sk, d, 2, causal=causal)
+    nbytes, flops = bwd_work.bytes, bwd_work.flops
 
     def make():
         q, k, v = attn_operands(torch, gen, b, h, kv, sq, sk, d, bf16)
@@ -1713,6 +1688,105 @@ def run_train(torch, m, weights):
         "launches_per_step": per_step}, counts
 
 
+def cost_steps(torch, m, device, state=None):
+    """qwen2.5-3b's local train step at TRAIN's shape and decode step at
+    SERVE's, on ``device``: (train step, state, batch, decode step, params,
+    cache, token, pos). On the card the train phase's state and its params;
+    on the meta device the same shapes from ``dryrun.param_shapes``."""
+    from repro_torch.launch import dryrun
+    cfg, b, s = m.qwen, TRAIN["batch"], TRAIN["seq"]
+    model = m.get_model(cfg)
+    if state is None:
+        state = m.optimizer.ssca_init(dryrun.param_shapes(model, cfg))
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    toks = (torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen).to(device)
+            if device != "meta" else torch.empty(b, s + 1, dtype=torch.int64,
+                                                 device="meta"))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    sb, sp = SERVE["batch"], SERVE["prompt_len"]
+    cache = model.init_cache(cfg, sb, sp + SERVE["gen"], device=device)
+    token = toks[:sb, :1].to(torch.int32)
+    return (m.train.make_train_step(model, cfg, m.train_fl), state, batch,
+            m.serve.make_decode_step(model, cfg), state.params, cache, token, sp)
+
+
+def run_cost(torch, m, state, trained):
+    """The cost counter (``roofline.cost``) over one untimed qwen2.5-3b
+    train step at TRAIN's shape (full width and depth, bf16, remat; the
+    train phase's state) and one decode step at SERVE's (prompt_len cache
+    rows behind it), on the card, with every launch counter zeroed just
+    before and read just after each. Gates: the counted FLOPs equal those
+    of the same steps traced on the meta device (the dry run's count of
+    the local step), and the counted launches equal the wrappers'
+    counters. Beside them: model FLOPs (6·N·tokens, 2·N a decoded token),
+    bytes, ``roofline_terms`` on the H100's data-sheet rates, and each
+    step's measured ms (CUDA events, 2 untimed + 3 timed calls)."""
+    from repro_torch.roofline import (CostCounter, count_params, model_flops,
+                                      roofline_terms)
+    t0 = time.perf_counter()
+    out = {}
+    card = cost_steps(torch, m, CARD, state)
+    meta = cost_steps(torch, m, "meta")
+    n_params = count_params(state.params)
+    for part in ("train", "decode"):
+        counts = {}
+        for where, (step, st, batch, decode, params, cache, token, pos) in (
+                (CARD, card), ("meta", meta)):
+            run = ((lambda: step(st, batch)) if part == "train" else
+                   (lambda: decode(params, cache, token, pos)))
+            zero_counts(m.counted)
+            with CostCounter() as c, torch.set_grad_enabled(part == "train"):
+                run()
+            if where == CARD:
+                torch.cuda.synchronize()
+                wrappers = {k: v for k, v in read_counts(m.counted).items() if v}
+                check(c.summary()["kernels"] == wrappers,
+                      f"cost {part}: counted launches {c.summary()['kernels']} != "
+                      f"the wrappers' {wrappers}")
+                with torch.set_grad_enabled(part == "train"):
+                    ms = event_ms(run, iters=3, warmup=2)
+            counts[where] = c.summary()
+        card_c, meta_c = counts[CARD], counts["meta"]
+        check(card_c["flops"] == meta_c["flops"],
+              f"cost {part}: the card's counted FLOPs {card_c['flops']} != the "
+              f"meta trace's {meta_c['flops']}")
+        tokens = (TRAIN["batch"] * TRAIN["seq"] if part == "train"
+                  else SERVE["batch"])
+        mflops = model_flops(m.qwen, tokens, n_params)
+        if part == "decode":
+            mflops /= 3.0
+        out[part] = {"model_flops": mflops, "flops": card_c["flops"],
+                     "meta_flops": meta_c["flops"], "bytes": card_c["bytes"],
+                     "meta_bytes": meta_c["bytes"], "kernels": card_c["kernels"],
+                     "kernel_work": card_c["kernel_work"],
+                     "useful_flop_ratio": mflops / card_c["flops"],
+                     "roofline": roofline_terms(card_c, card_c["collectives"]["total"]),
+                     "measured_ms": ms}
+    out["train"]["train_phase_step_ms"] = trained["step_ms"]
+    del card, meta
+    return {**out, "hw": "H100 SXM data sheet: 989e12 bf16 FLOP/s, 3.35e12 B/s",
+            "seconds": time.perf_counter() - t0}
+
+
+def run_contracts(torch, m):
+    """``repro_torch.analysis``'s contracts on the card: the 16-config
+    matrix of one recorded Algorithm-1 round each (under sync-debug
+    "error"), the TopK wire check, the metric stream's staging (pinned
+    non-blocking copies), and the launch sentinel over 5 rounds of dense
+    and int8 + EF Algorithm 1. Every check must pass."""
+    from repro_torch.analysis import contracts, launches
+    t0 = time.perf_counter()
+    report = contracts.run_matrix(device=CARD)
+    check(report.ok, "contracts: " + report.render_text())
+    sentinel = launches.run(device=CARD, num_rounds=5)
+    bad = [v.render() for _, _, vs in sentinel for v in vs]
+    check(not bad, f"launch sentinel: {bad}")
+    return {"configs": report.configs, "violations": [],
+            "launches_per_round": {n: c["kernels"] for n, c, _ in sentinel},
+            "ops_per_round": {n: sum(c["ops"].values()) for n, c, _ in sentinel},
+            "seconds": time.perf_counter() - t0}
+
+
 def ssca_at_train_size(torch, ssca, state, fl, launches=10):
     """ssca_update on the train state's own flat buffers (bf16 params, fp32
     surrogate buffer) and a bf16 gradient of the same size: device ms a
@@ -1723,8 +1797,9 @@ def ssca_at_train_size(torch, ssca, state, fl, launches=10):
     grad = torch.randn(n, device="cuda", dtype=torch.bfloat16)
     ms = event_ms(lambda: ssca.ssca_update_(state.w_flat, state.g_flat, grad, 0.5, 0.3,
                                             fl.tau, fl.l2_lambda), iters=launches, warmup=1)
-    nbytes = 14 * n
-    b_ms, b_by = bound_ms(nbytes, 7 * n)
+    train_work = work.ssca_update(n, 2)
+    nbytes = train_work.bytes
+    b_ms, b_by = train_work.bound_ms()
     check(bool(torch.isfinite(state.g_flat[:4096]).all()), "ssca at train size: not finite")
     # the library yardstick, timed alike: torch._fused_sgd_ on Remark 2's
     # momentum form over the same bf16 elements (a bf16 momentum buffer)
@@ -4145,7 +4220,6 @@ TRAIN_SSM = dict(batch=8, seq=512)
 # cut from 2 + 3 for the script's time (xlstm's steps are host-bound, 3-7 s
 # each): the median stays over 2 timed steps
 TRAIN_SSM_WARMUP, TRAIN_SSM_TIMED = 1, 2
-CARD = "cuda"                  # the parity phases' card side
 
 
 def named_leaves(tree, prefix=""):
@@ -5384,6 +5458,11 @@ def main() -> int:
 
     state, trained, train_counts = run_train(torch, mods, weights)
     emit("train", **trained, device=name, power=smi)
+    # the tooling: the cost counter against the meta trace, the contracts
+    t_tool = time.perf_counter()
+    emit("cost", **run_cost(torch, mods, state, trained), device=name, power=smi)
+    emit("contracts", **run_contracts(torch, mods), device=name, power=smi,
+         tooling_s=time.perf_counter() - t_tool)
     emit("ssca_train_size", **ssca_at_train_size(torch, ssca, state, mods.train_fl),
          device=name, power=smi)
     del state

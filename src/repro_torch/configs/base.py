@@ -71,13 +71,14 @@ class ModelConfig:
     def is_encdec(self) -> bool:
         return self.encoder_layers > 0
 
-    def smoke(self) -> "ModelConfig":
+    def smoke(self, **overrides) -> "ModelConfig":
         """The reference's reduced variant: 2 layers, d_model <= 256, <= 4
         heads, vocab <= 512, <= 4 experts with <= 2 a token and
         ``moe_d_ff`` <= 128, ``ssm_state`` <= 16 and ``ssm_heads`` <= 4,
         chunk 32, the first two kinds of ``block_pattern``, a shared
         attention block every 2, a window <= 16, 2 encoder layers for an
-        encoder-decoder, fp32, no remat."""
+        encoder-decoder, fp32, no remat; ``overrides`` (field values)
+        applied after the cut."""
         d = min(self.d_model, 256)
         n_heads = min(self.n_heads, 4)
         small = dict(
@@ -103,7 +104,17 @@ class ModelConfig:
             dtype="float32",
             remat=False,
         )
+        small.update(overrides)
         return dataclasses.replace(self, **small)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """An input shape of the dry run (``configs/shapes.py``)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                  # train | prefill | decode
 
 
 @dataclass(frozen=True)

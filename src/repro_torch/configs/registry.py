@@ -24,6 +24,11 @@ ARCHS = {
     "mnist-mlp": mnist_mlp.CONFIG,           # the paper's own model
 }
 
+# the archs the dry run sweeps: the reference's list, in its order
+ASSIGNED = ["paligemma-3b", "arctic-480b", "seamless-m4t-medium", "qwen2.5-3b",
+            "gemma-7b", "xlstm-1.3b", "qwen3-moe-30b-a3b", "deepseek-67b",
+            "glm4-9b", "zamba2-1.2b"]
+
 
 def get_config(name: str):
     try:

@@ -16,7 +16,10 @@ waits on the host). Bound: a few operations and 4 B of output a slot; at
 S = 256 it is launch-bound.
 
 ``cohort_sample`` takes the plain version (``ref.cohort_sample_ref``) only
-for round keys on the CPU; for CUDA ones it launches the kernel or raises.
+for round keys on the CPU; for CUDA ones it launches the kernel or raises;
+on the meta device it returns empty ids. Under a cost counter
+(``roofline.cost``) each call reports its launch at its work
+(``roofline.kernels``: the walk's least steps, one a slot).
 """
 from __future__ import annotations
 
@@ -24,6 +27,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import cohort_sample_ref
+from repro_torch.roofline import cost
+from repro_torch.roofline import kernels as work
 
 plain = cohort_sample_ref
 
@@ -43,10 +48,14 @@ def cohort_sample(round_keys, num_clients: int, cohort: int):
         raise ValueError(f"cohort_sample: need 1 <= cohort <= num_clients "
                          f"< 2^32, got cohort={cohort}, "
                          f"num_clients={num_clients}")
+    if cost.ACTIVE and not cost.INSIDE[0]:
+        with cost.kernel("cohort_sample", work.cohort_sample(round_keys.numel(),
+                                                            cohort)):
+            return cohort_sample(round_keys, num_clients, cohort)
     hi_bits, lo_bits = domain_bits(num_clients)
     if round_keys.device.type == "cpu":
         return plain(round_keys, num_clients, cohort, hi_bits, lo_bits)
-    if round_keys.device.type != "cuda":
+    if round_keys.device.type not in ("cuda", "meta"):
         raise ValueError(f"cohort_sample: unsupported device {round_keys.device}")
     if round_keys.dim() != 1 or round_keys.dtype not in (torch.int32, torch.int64):
         raise TypeError("cohort_sample: round keys must be a (R,) int32 or "
@@ -54,6 +63,8 @@ def cohort_sample(round_keys, num_clients: int, cohort: int):
                         f"{tuple(round_keys.shape)}")
     keys32 = round_keys.to(torch.int32).contiguous()   # the low 32 bits
     ids = torch.empty((cohort,), dtype=torch.int32, device=round_keys.device)
+    if ids.device.type == "meta":
+        return ids
     with torch.cuda.device(ids.device):
         stream = torch.cuda.current_stream(ids.device).cuda_stream
         code = build.library("cohort_sample").cohort_sample(

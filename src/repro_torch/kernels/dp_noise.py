@@ -24,7 +24,10 @@ integer and erfinv's ~40 floating-point operations an element, 1.8 ns a
 thousand at the H100's 67 T/s: the bytes bound it, but not by much.
 
 ``dp_noise`` takes the plain version (``ref.dp_noise_ref``) only for
-tensors on the CPU; for CUDA tensors it launches the kernel or raises.
+tensors on the CPU; for CUDA tensors it launches the kernel or raises; on
+the meta device it checks the operands and returns empty outputs. Under a
+cost counter (``roofline.cost``) each call reports its launch at its work
+(``roofline.kernels``).
 """
 from __future__ import annotations
 
@@ -33,6 +36,8 @@ import torch
 from repro_torch import random as rnd
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import dp_noise_ref
+from repro_torch.roofline import cost
+from repro_torch.roofline import kernels as work
 
 plain = dp_noise_ref
 BLOCK_ELEMS = 2048        # elements a block: csrc/dp_noise.cu's kThreads * kItems
@@ -44,13 +49,17 @@ def dp_noise(x, keys, factor, scale, sigma: float, offset: int = 0,
     (rows, 2) keys and (rows,) factor/scale, all on x's device (factor and
     scale fp32). ``out`` (x's shape, fp32; may be x) receives the result.
     Returns (out, Σ (σ·n)² per row: 0-d or (rows,))."""
+    if cost.ACTIVE and not cost.INSIDE[0]:
+        rows_p = (1, x.shape[0]) if x.dim() == 1 else (x.shape[0], x[0].numel())
+        with cost.kernel("dp_noise", work.dp_noise(*rows_p)):
+            return dp_noise(x, keys, factor, scale, sigma, offset, out)
     if x.device.type == "cpu":
         res, sq = plain(x, keys, factor, scale, sigma, offset)
         if out is not None:
             out.copy_(res)
             res = out
         return res, sq
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"dp_noise: unsupported device {x.device}")
     squeeze = x.dim() == 1
     x2 = x.reshape(1, -1) if squeeze else x
@@ -73,6 +82,9 @@ def dp_noise(x, keys, factor, scale, sigma: float, offset: int = 0,
     res = torch.empty_like(x2) if out is None else out.view(rows, n)
     if not res.is_contiguous():
         raise ValueError("dp_noise: out must be contiguous")
+    if x.device.type == "meta":
+        sq = torch.empty((rows,), dtype=torch.float32, device=x.device)
+        return (res.view(n), sq[0]) if squeeze else (res, sq)
     lib = build.library("dp_noise")
     partial = torch.empty((rows, -(-n // BLOCK_ELEMS)), dtype=torch.float32,
                           device=x.device)

@@ -58,7 +58,10 @@ D 128, bf16, causal) it must move 76.0 MB, 22.7 µs at 3.35 TB/s, and do
 autograd Function of the two.
 
 ``flash_attention`` and ``flash_attention_bwd`` take the plain versions only
-for tensors on the CPU; for CUDA tensors they launch the kernels or raise.
+for tensors on the CPU; for CUDA tensors they launch the kernels or raise;
+on the meta device they check the operands and return empty outputs. Under
+a cost counter (``roofline.cost``) each call reports its launch at its work
+(``roofline.kernels``).
 """
 from __future__ import annotations
 
@@ -70,6 +73,8 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                      flash_attention_fwd_ref)
+from repro_torch.roofline import cost
+from repro_torch.roofline import kernels as work
 
 plain = flash_attention_fwd_ref
 plain_bwd = flash_attention_bwd_ref
@@ -195,6 +200,12 @@ def _like(t):
     return out
 
 
+def _dims(q, k) -> tuple:
+    """(B, H, KV, Sq, Sk, D) of a call."""
+    b, h, sq, d = q.shape
+    return b, h, k.shape[1], sq, k.shape[2], d
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     prefix_len: int = 0, return_lse: bool = False):
     """Attention of q (B, H, Sq, D) over k, v (B, KV, Sk, D), scaled by
@@ -204,15 +215,23 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     transposed output), and with ``return_lse`` also the (B, H, Sq) fp32
     logsumexp of each row. On a CUDA device this is one launch of the
     kernel, counted in ``flash_attention.launches``."""
+    if cost.ACTIVE and not cost.INSIDE[0]:
+        with cost.kernel("flash_attention", work.flash_attention(
+                *_dims(q, k), q.element_size(), window, prefix_len, causal,
+                lse=return_lse)):
+            return flash_attention(q, k, v, causal=causal, window=window,
+                                   prefix_len=prefix_len, return_lse=return_lse)
     if q.device.type == "cpu":
         return plain(q, k, v, causal=causal, window=window,
                      prefix_len=prefix_len, return_lse=return_lse)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check(q, k, v)
     out = _like(q)
     lse = (torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
            if return_lse else None)
+    if q.device.type == "meta":
+        return (out, lse) if return_lse else out
     with torch.cuda.device(q.device):
         args = kernel_args(q, k, v, out, causal=causal, window=window,
                            prefix_len=prefix_len, lse=lse)
@@ -284,10 +303,15 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     dk, dv), laid out as q, k and v. On a CUDA device this is one call of
     the backward (two launches, dq first), counted in
     ``flash_attention_bwd.launches``."""
+    if cost.ACTIVE and not cost.INSIDE[0]:
+        with cost.kernel("flash_attention_bwd", work.flash_attention_bwd(
+                *_dims(q, k), q.element_size(), window, prefix_len, causal)):
+            return flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                       window=window, prefix_len=prefix_len)
     if q.device.type == "cpu":
         return plain_bwd(q, k, v, o, lse, do, causal=causal, window=window,
                          prefix_len=prefix_len)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
     _check(q, k, v)
     for name, t in (("o", o), ("do", do)):
@@ -303,6 +327,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         raise ValueError(f"flash_attention_bwd: lse must be contiguous fp32 "
                          f"{tuple(q.shape[:3])} on {q.device}")
     dq, dk, dv = _like(q), _like(k), _like(v)
+    if q.device.type == "meta":
+        return dq, dk, dv
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         args = bwd_kernel_args(q, k, v, o, lse, do, dq, dk, dv, delta,
@@ -333,7 +359,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        if do.device.type == "cuda" and not _aligned(do):
+        if do.device.type != "cpu" and not _aligned(do):
             do = do.contiguous()
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do,
                                          causal=ctx.causal, window=ctx.window,

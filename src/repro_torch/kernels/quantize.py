@@ -26,7 +26,10 @@ pieces, each at its own offset. The codecs use it on every device; the
 bits-operand entry stays as the portable path's counterpart.
 
 Both take the plain version only for tensors on the CPU; for CUDA tensors
-they launch the kernel or raise.
+they launch the kernel or raise; on the meta device they check the
+operands and return empty outputs. Under a cost counter
+(``roofline.cost``) each call reports its launch at its work
+(``roofline.kernels``).
 """
 from __future__ import annotations
 
@@ -36,6 +39,8 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import (stochastic_quantize_keyed_ref,
                                      stochastic_quantize_ref)
+from repro_torch.roofline import cost
+from repro_torch.roofline import kernels as work
 
 plain = stochastic_quantize_ref
 plain_keyed = stochastic_quantize_keyed_ref
@@ -46,9 +51,13 @@ def stochastic_quantize(x, bits, qmax: int, chunk: int = 256):
     (rows, C·chunk) uint32 values in an int32 tensor (the bit pattern) or an
     int64 tensor (CPU only). Returns (values int8 (…, C·chunk), scales fp32
     (…, C), xhat fp32 (…, P)), C = ceil(P/chunk)."""
+    if cost.ACTIVE and not cost.INSIDE[0]:
+        with cost.kernel("stochastic_quantize", work.stochastic_quantize(
+                *_rows_p(x), chunk)):
+            return stochastic_quantize(x, bits, qmax, chunk)
     if x.device.type == "cpu":
         return plain(x, bits, qmax, chunk)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"stochastic_quantize: unsupported device {x.device}")
     squeeze = x.dim() == 1
     x2 = x.reshape(1, -1) if squeeze else x
@@ -69,6 +78,8 @@ def stochastic_quantize(x, bits, qmax: int, chunk: int = 256):
         raise ValueError(f"stochastic_quantize: bits on {b2.device}, x on {x2.device}")
     x2, b2 = x2.contiguous(), b2.contiguous()
     values, scales, xhat = _outputs(x2, chunk)
+    if x.device.type == "meta":
+        return _squeezed(squeeze, values, scales, xhat)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = build.library("quantize").stochastic_quantize(
@@ -77,12 +88,21 @@ def stochastic_quantize(x, bits, qmax: int, chunk: int = 256):
             float(np.float32(1.0 / qmax)), int(qmax), stream)
     build.check(code, "stochastic_quantize")
     stochastic_quantize.launches += 1
-    if squeeze:
-        return values[0], scales[0], xhat[0]
-    return values, scales, xhat
+    return _squeezed(squeeze, values, scales, xhat)
 
 
 stochastic_quantize.launches = 0
+
+
+def _rows_p(x) -> tuple:
+    """(rows, P) of a (P,) or (rows, P) upload."""
+    return (1, x.shape[0]) if x.dim() == 1 else (x.shape[0], x[0].numel())
+
+
+def _squeezed(squeeze, values, scales, xhat):
+    if squeeze:
+        return values[0], scales[0], xhat[0]
+    return values, scales, xhat
 
 
 def _check_shape(name, x2, chunk):
@@ -111,9 +131,13 @@ def stochastic_quantize_keyed(x, keys, qmax: int, chunk: int = 256,
     (padded lanes included) takes the bits of its row's key at counter
     ``offset + col``; ``offset`` is a multiple of ``chunk`` when x is a
     piece of a longer row. Returns what ``stochastic_quantize`` returns."""
+    if cost.ACTIVE and not cost.INSIDE[0]:
+        with cost.kernel("stochastic_quantize_keyed", work.quantize_keyed(
+                *_rows_p(x), chunk)):
+            return stochastic_quantize_keyed(x, keys, qmax, chunk, offset)
     if x.device.type == "cpu":
         return plain_keyed(x, keys, qmax, chunk, offset)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"stochastic_quantize_keyed: unsupported device "
                          f"{x.device}")
     squeeze = x.dim() == 1
@@ -136,6 +160,8 @@ def stochastic_quantize_keyed(x, keys, qmax: int, chunk: int = 256,
                          f"non-negative multiple of {chunk}, got {offset}")
     x2, k2 = x2.contiguous(), k2.contiguous()
     values, scales, xhat = _outputs(x2, chunk)
+    if x.device.type == "meta":
+        return _squeezed(squeeze, values, scales, xhat)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = build.library("quantize").stochastic_quantize_keyed(
@@ -144,9 +170,7 @@ def stochastic_quantize_keyed(x, keys, qmax: int, chunk: int = 256,
             float(np.float32(1.0 / qmax)), int(qmax), stream)
     build.check(code, "stochastic_quantize_keyed")
     stochastic_quantize_keyed.launches += 1
-    if squeeze:
-        return values[0], scales[0], xhat[0]
-    return values, scales, xhat
+    return _squeezed(squeeze, values, scales, xhat)
 
 
 stochastic_quantize_keyed.launches = 0

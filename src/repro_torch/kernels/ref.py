@@ -70,8 +70,8 @@ def _visible(sq: int, sk: int, causal: bool, window: int, device,
     ``make_attention_mask`` in its order, ``(causal ∧ window) ∨ k_pos <
     prefix_len``: a right-aligned causal mask, an optional window, and the
     prefix keys, seen by every row even outside its window."""
-    qpos = torch.arange(sq, device=device)[:, None] + (sk - sq)
-    kpos = torch.arange(sk, device=device)[None, :]
+    qpos = torch.arange(sq, dtype=torch.int64, device=device)[:, None] + (sk - sq)
+    kpos = torch.arange(sk, dtype=torch.int64, device=device)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
     if causal:
         mask &= kpos <= qpos
@@ -206,7 +206,8 @@ def stochastic_round_chunks(xc, u, qmax: int):
     absmax times the float32 constant fp32(1/qmax), rounded once from the
     double, exactly as the reference and the kernel compute it."""
     absmax = torch.amax(torch.abs(xc), dim=-1, keepdim=True)
-    scale = absmax * torch.tensor(np.float32(1.0 / qmax), device=xc.device)
+    scale = absmax * torch.tensor(np.float32(1.0 / qmax), dtype=torch.float32,
+                                  device=xc.device)
     safe = torch.where(scale > 0, scale, torch.ones_like(scale))
     q = torch.clamp(torch.floor(xc / safe + u), -qmax, qmax)
     return q.to(torch.int8), scale[..., 0]

@@ -31,7 +31,10 @@ whole 16-byte vectors, or more than 1,024 of them, take a general path
 ``rmsnorm``.
 
 ``rmsnorm`` and ``rmsnorm_bwd`` take the plain versions only for tensors on
-the CPU; for CUDA tensors they launch the kernels or raise.
+the CPU; for CUDA tensors they launch the kernels or raise; on the meta
+device they check the operands and return empty outputs. Under a cost
+counter (``roofline.cost``) each call reports its launch at its work
+(``roofline.kernels``).
 """
 from __future__ import annotations
 
@@ -39,6 +42,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import rmsnorm_bwd_ref, rmsnorm_ref
+from repro_torch.roofline import cost
+from repro_torch.roofline import kernels as work
 
 plain = rmsnorm_ref
 plain_bwd = rmsnorm_bwd_ref
@@ -63,19 +68,29 @@ def _check(x, scale, name):
         raise ValueError(f"{name}: x and scale must be contiguous")
 
 
+def _rows(x) -> int:
+    d = x.shape[-1]
+    return x.numel() // d if d else 0
+
+
 def rmsnorm(x, scale, eps: float = 1e-6):
     """x: (..., D) contiguous, fp32 or bf16; scale: (D,) (on a CUDA device,
     in x's dtype). Returns a new tensor of x's shape and dtype. On a CUDA
     device this is one launch of the kernel, counted in
-    ``rmsnorm.launches``."""
+    ``rmsnorm.launches``; on the meta device an empty output."""
+    if cost.ACTIVE and not cost.INSIDE[0]:
+        with cost.kernel("rmsnorm", work.rmsnorm(_rows(x), x.shape[-1],
+                                                 x.element_size())):
+            return rmsnorm(x, scale, eps)
     if x.device.type == "cpu":
         return plain(x, scale, eps)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"rmsnorm: unsupported device {x.device}")
     _check(x, scale, "rmsnorm")
-    d = x.shape[-1]
+    if x.device.type == "meta":
+        return torch.empty_like(x)
+    d, rows = x.shape[-1], _rows(x)
     out = torch.empty_like(x)
-    rows = x.numel() // d if d else 0
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = build.library("rmsnorm").rmsnorm(
@@ -141,10 +156,15 @@ def rmsnorm_bwd(x, scale, dy, eps: float = 1e-6):
     """The gradient of ``rmsnorm(x, scale, eps)`` for the output gradient dy
     (x's shape and dtype, contiguous): returns (dx in x's dtype, dscale in
     scale's). On a CUDA device this is one call of the backward (two
-    launches), counted in ``rmsnorm_bwd.launches``."""
+    launches), counted in ``rmsnorm_bwd.launches``; on the meta device
+    empty outputs."""
+    if cost.ACTIVE and not cost.INSIDE[0]:
+        with cost.kernel("rmsnorm_bwd", work.rmsnorm_bwd(_rows(x), x.shape[-1],
+                                                         x.element_size())):
+            return rmsnorm_bwd(x, scale, dy, eps)
     if x.device.type == "cpu":
         return plain_bwd(x, scale, dy, eps)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"rmsnorm_bwd: unsupported device {x.device}")
     _check(x, scale, "rmsnorm_bwd")
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
@@ -154,6 +174,8 @@ def rmsnorm_bwd(x, scale, dy, eps: float = 1e-6):
         raise ValueError("rmsnorm_bwd: dy must be contiguous")
     dx = torch.empty_like(x)
     dscale = torch.empty_like(scale)
+    if x.device.type == "meta":
+        return dx, dscale
     with torch.cuda.device(x.device):
         partials = bwd_partials(x, scale, dy)
         stream = torch.cuda.current_stream(x.device).cuda_stream

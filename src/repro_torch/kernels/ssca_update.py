@@ -19,7 +19,9 @@ the per-round entries of run_rounds' schedule arrays: the host never waits
 for them and nothing is launched to assemble them. τ/λ are float arguments.
 
 ``ssca_update_`` takes the plain version only for tensors on the CPU; for
-CUDA tensors it launches the kernel or raises.
+CUDA tensors it launches the kernel or raises; on the meta device it checks
+the operands and writes nothing. Under a cost counter (``roofline.cost``)
+each call reports its launch at its work (``roofline.kernels``).
 """
 from __future__ import annotations
 
@@ -31,6 +33,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import ssca_update_ref
+from repro_torch.roofline import cost
+from repro_torch.roofline import kernels as work
 
 plain = ssca_update_ref
 
@@ -130,7 +134,11 @@ def ssca_update_(w, buf, grad, rho, gamma, tau: float, lam: float):
     or 0-d fp32 tensors on w's device. Returns ``(w, buf)``. On a CUDA
     device this is one launch of the kernel, counted in
     ``ssca_update_.launches``, and nothing else."""
-    if w.device.type not in ("cpu", "cuda"):
+    if cost.ACTIVE and not cost.INSIDE[0]:
+        with cost.kernel("ssca_update", work.ssca_update(
+                w.numel(), w.element_size(), grad.element_size())):
+            return ssca_update_(w, buf, grad, rho, gamma, tau, lam)
+    if w.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"ssca_update: unsupported device {w.device}")
     rho, gamma = (_scalar(x, name, w.device)
                   for x, name in ((rho, "rho"), (gamma, "gamma")))
@@ -140,6 +148,8 @@ def ssca_update_(w, buf, grad, rho, gamma, tau: float, lam: float):
         buf.copy_(new_buf)
         return w, buf
     _check(w, buf, grad)
+    if w.device.type == "meta":
+        return w, buf
     entry = _ENTRY[w.dtype]
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream(w.device).cuda_stream

@@ -34,6 +34,11 @@ The collectives over a tuple of axes run one axis at a time and skip an
 axis of size 1: there the result is the tensor itself, no copy and no
 collective, so a 1x1 mesh computes exactly what the local path does.
 
+``StandInMesh`` is a mesh of any shape with no process group behind it,
+seen from rank 0 (the dry run's production meshes): its collectives take
+meta tensors, return meta outputs of the right shapes, move nothing, and
+report their bytes to the running cost counters (``roofline.cost``).
+
 The ambient mesh (``use_mesh``, ``ambient``) is the counterpart of the
 reference's ``with mesh:``: the layer code finds the model and data axes
 there (``layers.moe``, ``layers.moe_expert_parallel``). It is process-wide,
@@ -54,6 +59,7 @@ import torch.distributed as dist
 
 from repro_torch import device as device_lib
 from repro_torch.core.tree import tree_map
+from repro_torch.roofline import cost
 
 
 def backend_for(device) -> str:
@@ -141,6 +147,26 @@ def make_production_mesh(*, multi_pod: bool = False, device=None):
     (2, 16, 16) ("pod", "data", "model") with ``multi_pod``. Raises, before
     starting any group, unless the group has that many ranks."""
     return make_mesh(*PRODUCTION[multi_pod], device=device)
+
+
+class StandInMesh:
+    """A mesh of ``shape`` over ``axes`` with no process group: rank 0's
+    view of it (every coordinate 0). The collectives over its axes take
+    meta tensors only (see the module doc)."""
+
+    def __init__(self, shape, axes):
+        self.shape, self.mesh_dim_names = tuple(shape), tuple(axes)
+
+    def get_local_rank(self, axis) -> int:
+        return 0
+
+    def __repr__(self):
+        return f"StandInMesh({self.shape}, {self.mesh_dim_names})"
+
+
+def production_stand_in(multi_pod: bool = False) -> StandInMesh:
+    """The production mesh as a stand-in (no group, no ranks needed)."""
+    return StandInMesh(*PRODUCTION[multi_pod])
 
 
 # ---------------------------------------------------------------------------
@@ -327,6 +353,19 @@ def _live(mesh, axes) -> tuple:
     return tuple(a for a in entry_axes(axes) if sizes.get(a, 1) > 1)
 
 
+def _stand_in(mesh, x, kind, out) -> bool:
+    """Whether ``mesh`` is a stand-in; if so, ``kind`` of ``x`` into
+    ``out`` is reported to the cost counters (x must be on the meta
+    device: the stand-in moves nothing)."""
+    if not isinstance(mesh, StandInMesh):
+        return False
+    if x.device.type != "meta":
+        raise ValueError(f"{mesh!r}: collectives take meta tensors, got "
+                         f"{x.device}")
+    cost.collective(kind, out, x)
+    return True
+
+
 def all_gather_axes(x, mesh, axes, dim: int = 0):
     """Every rank's ``x`` over ``axes`` concatenated along ``dim`` in their
     flattened order (the minor axis gathered first)."""
@@ -335,7 +374,8 @@ def all_gather_axes(x, mesh, axes, dim: int = 0):
         n = sizes[a]
         x = x.contiguous()
         out = x.new_empty((n * x.shape[0], *x.shape[1:]))
-        _all_gather_single(out, x, group=mesh.get_group(a))
+        if not _stand_in(mesh, x, "all-gather", out):
+            _all_gather_single(out, x, group=mesh.get_group(a))
         x = out.view(n, *x.shape).movedim(0, dim).flatten(dim, dim + 1)
     return x
 
@@ -348,8 +388,9 @@ def reduce_scatter_axes(x, mesh, axes, dim: int = 0):
         parts = x.contiguous().unflatten(dim, (sizes[a], -1)).movedim(
             dim, 0).contiguous()
         out = parts.new_empty(parts.shape[1:])
-        _reduce_scatter_single(out, parts.flatten(0, 1),
-                               group=mesh.get_group(a))
+        if not _stand_in(mesh, parts, "reduce-scatter", out):
+            _reduce_scatter_single(out, parts.flatten(0, 1),
+                                   group=mesh.get_group(a))
         x = out
     return x
 
@@ -367,7 +408,8 @@ def slice_axes(x, mesh, axes, dim: int = 0):
 def all_reduce_axes(x, mesh, axes):
     """``x`` summed over ``axes``, in place (returned)."""
     for a in _live(mesh, axes):
-        dist.all_reduce(x, group=mesh.get_group(a))
+        if not _stand_in(mesh, x, "all-reduce", x):
+            dist.all_reduce(x, group=mesh.get_group(a))
     return x
 
 

@@ -54,14 +54,21 @@ def make_decode_step(model, cfg):
     return serve_step
 
 
-def _model_axes(spec, data) -> list:
-    """(dim, axes) of a cache spec's entries that name no data axis (the
-    rows of the rank's batch stay local); an entry that mixes both is
-    refused."""
+def _batch_dim(spec, data):
+    """The dim of a cache spec whose entry names a data axis (the batch's),
+    or None."""
+    return next((i for i, e in enumerate(spec)
+                 if any(a in data for a in mesh_lib.entry_axes(e))), None)
+
+
+def _gathered_axes(spec, batch_dim, data) -> list:
+    """(dim, axes) of a cache spec that the step gathers: every named axis,
+    except the data axes on the batch's dim (the rows of the rank's batch
+    stay local); an entry there that mixes both is refused."""
     out = []
     for i, e in enumerate(spec):
         names = mesh_lib.entry_axes(e)
-        rest = tuple(a for a in names if a not in data)
+        rest = tuple(a for a in names if a not in data) if i == batch_dim else names
         if rest and len(rest) != len(names):
             raise ValueError(f"cache spec {spec}: entry {e!r} mixes data and "
                              "other axes")
@@ -70,7 +77,7 @@ def _model_axes(spec, data) -> list:
     return out
 
 
-def sharded_decode_step(model, cfg, mesh):
+def sharded_decode_step(model, cfg, mesh, param_specs=None, cache_specs=None):
     """The reference's ``jit_decode_step``: serve_step(params, cache, token,
     pos) -> (next token, cache) on ``mesh``, one process a rank. params is
     this rank's block of the params placed by ``param_specs(cfg,
@@ -87,31 +94,41 @@ def sharded_decode_step(model, cfg, mesh):
     rows, and this rank's block of what it wrote goes back into the cache.
     On a mesh of one rank nothing is gathered or copied: the step is the
     local step, bit for bit. ``serve_step.forward`` returns the logits of
-    this rank's rows (B/D, 1, V) in place of the token."""
+    this rank's rows (B/D, 1, V) in place of the token.
+
+    ``param_specs`` and ``cache_specs`` default to the model's (the
+    cache's adapted to the mesh); the dry run passes them fitted to the
+    shapes (``mesh.fit_specs``). Where the fit moved a data axis off the
+    batch's dim (a batch of 1), that dim is gathered for the step too, and
+    every rank decodes the whole batch."""
     if not model.has_decode:
         raise ValueError(f"{cfg.name} has no decode path")
-    plans = L.param_plans(cfg, model.param_specs(cfg, mode="serve"), mesh)
-    cspecs = mesh_lib.adapt_for_mesh(model.cache_specs(cfg), mesh)
+    plans = L.param_plans(cfg, param_specs or model.param_specs(cfg, mode="serve"),
+                          mesh)
+    default = mesh_lib.adapt_for_mesh(model.cache_specs(cfg), mesh)
+    cspecs = cache_specs or default
     data = mesh_lib.data_axes(mesh)
+    gathered = tree_map(lambda d, s: _gathered_axes(s, _batch_dim(d, data), data),
+                        default, cspecs)
 
-    def whole(spec, t):
-        for i, axes in _model_axes(spec, data):
-            t = mesh_lib.all_gather_axes(t, mesh, axes, dim=i)
+    def whole(axes, t):
+        for i, a in axes:
+            t = mesh_lib.all_gather_axes(t, mesh, a, dim=i)
         return t
 
-    def write_back(spec, t, w):
+    def write_back(axes, t, w):
         if w is not t:
-            for i, axes in _model_axes(spec, data):
-                w = mesh_lib.slice_axes(w, mesh, axes, dim=i)
+            for i, a in axes:
+                w = mesh_lib.slice_axes(w, mesh, a, dim=i)
             t.copy_(w)
         return t
 
     def forward(params, cache, token, pos):
-        full = tree_map(whole, cspecs, cache)
+        full = tree_map(whole, gathered, cache)
         with torch.no_grad(), mesh_lib.use_mesh(mesh):
             logits, full = model.decode_step(
                 mesh_lib.Gathered(params, plans, mesh), full, token, pos, cfg)
-        return logits, tree_map(write_back, cspecs, cache, full)
+        return logits, tree_map(write_back, gathered, cache, full)
 
     def serve_step(params, cache, token, pos):
         logits, cache = forward(params, cache, token, pos)

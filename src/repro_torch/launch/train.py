@@ -332,7 +332,7 @@ def _counted_spans(mesh, specs, like):
 
 
 def sharded_train_step(model, cfg, fl: FLConfig, mesh, batch_like,
-                       constrained: bool = False):
+                       constrained: bool = False, specs=None):
     """The reference's ``jit_train_step``: train_step(state, batch[, rho_t,
     gamma_t]) -> (state, metrics) on ``mesh``, one process a rank. The
     state is this rank's block of a state placed by ``state_specs``
@@ -354,8 +354,10 @@ def sharded_train_step(model, cfg, fl: FLConfig, mesh, batch_like,
     the global batch's mean. On a mesh of one rank every gather, sum and
     division is skipped: the step is the local step, bit for bit.
     ``train_step.grad_of(state, batch)`` returns (the loss, this rank's
-    flat gradient) without the update."""
-    specs = state_specs(model, cfg, constrained)
+    flat gradient) without the update. ``specs`` defaults to
+    ``state_specs``; the dry run passes them fitted to the shapes
+    (``mesh.fit_specs``)."""
+    specs = specs or state_specs(model, cfg, constrained)
     for k, spec in batch_specs(batch_like, mesh).items():
         mesh_lib.check_fits(spec, tuple(batch_like[k].shape), mesh,
                              f"batch {k!r}")

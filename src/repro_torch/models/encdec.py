@@ -176,13 +176,15 @@ def loss_fn(params, batch, cfg):
 # ---------------------------------------------------------------------------
 
 
-def init_cache(cfg, batch, max_seq, device=None, enc_len=None):
-    """{"self_k", "self_v" (L, B, min(max_seq, 4096), KV, Hd), "cross_k",
-    "cross_v" (L, B, enc_len (default max_seq), KV, Hd), "pos"}."""
+def init_cache(cfg, batch, max_seq, device=None, enc_len=None, self_rows=None):
+    """{"self_k", "self_v" (L, B, self_rows (default min(max_seq, 4096)),
+    KV, Hd), "cross_k", "cross_v" (L, B, enc_len (default max_seq), KV, Hd),
+    "pos"}."""
     dev = device_lib.resolve(device)
     dt = _dt(cfg)
     kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-    self_shape = (cfg.n_layers, batch, min(max_seq, SELF_CACHE_MAX), kv, hd)
+    rows = min(max_seq, SELF_CACHE_MAX) if self_rows is None else self_rows
+    self_shape = (cfg.n_layers, batch, rows, kv, hd)
     cross_shape = (cfg.n_layers, batch, enc_len or max_seq, kv, hd)
     return {
         "self_k": torch.zeros(self_shape, dtype=dt, device=dev),
@@ -205,7 +207,12 @@ def prefill(params, batch, cfg, cache=None):
     tokens = batch["tokens"]
     b, s = tokens.shape
     if cache is None:
-        cache = init_cache(cfg, b, s, device=enc.device, enc_len=enc.shape[1])
+        # S self rows, past SELF_CACHE_MAX too, as the reference returns
+        cache = init_cache(cfg, b, s, device=enc.device, enc_len=enc.shape[1],
+                           self_rows=s)
+    if cache["self_k"].shape[2] < s:
+        raise ValueError(f"prefill: the cache holds {cache['self_k'].shape[2]} "
+                         f"self rows for {s} tokens")
     if cache["cross_k"].shape[2] != enc.shape[1]:
         raise ValueError(f"prefill: the cache holds {cache['cross_k'].shape[2]} "
                          f"cross rows for {enc.shape[1]} encoder rows "

@@ -109,7 +109,7 @@ def embed(params, tokens, cfg):
     """Token embeddings times sqrt(d_model), the factor rounded to the
     model's dtype first, as the reference does."""
     dt = _dt(cfg)
-    factor = float(torch.tensor(np.float32(np.sqrt(float(cfg.d_model)))).to(dt))
+    factor = float(torch.tensor(np.float32(np.sqrt(float(cfg.d_model)))).to(dt))  # flint: disable=FLT001 (a CPU scalar rounded to the model dtype: no device sync)
     return params["embed"][tokens].to(dt) * factor
 
 

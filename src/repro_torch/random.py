@@ -184,11 +184,14 @@ def normal(key, shape):
 
     The draw is made ``NORMAL_CHUNK`` counters at a time into its output
     (the same values as one whole draw): the int64 threefry temporaries of
-    a 311M-value embedding draw would otherwise take ~20 GB."""
+    a 311M-value embedding draw would otherwise take ~20 GB. On the meta
+    device it is the empty output: nothing is drawn."""
     shape = tuple(shape)
     n = math.prod(shape)
     out = torch.empty(*key.shape[:-1], n, dtype=torch.float32,
                       device=key.device)
+    if key.device.type == "meta":
+        return out.reshape(*key.shape[:-1], *shape)
     for start in range(0, n, NORMAL_CHUNK):
         count = min(NORMAL_CHUNK, n - start)
         out[..., start:start + count] = normal_from_bits(

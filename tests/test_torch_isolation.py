@@ -67,7 +67,22 @@ def test_port_files_exist():
                    "repro_torch/configs/xlstm_1_3b.py",
                    "repro_torch/configs/zamba2_1_2b.py",
                    "repro_torch/models/encdec.py",
-                   "repro_torch/configs/seamless_m4t_medium.py"):
+                   "repro_torch/configs/seamless_m4t_medium.py",
+                   "repro_torch/configs/shapes.py",
+                   "repro_torch/roofline/__init__.py",
+                   "repro_torch/roofline/analysis.py",
+                   "repro_torch/roofline/cost.py",
+                   "repro_torch/roofline/kernels.py",
+                   "repro_torch/launch/dryrun.py",
+                   "repro_torch/analysis/__init__.py",
+                   "repro_torch/analysis/__main__.py",
+                   "repro_torch/analysis/lint.py",
+                   "repro_torch/analysis/contracts.py",
+                   "repro_torch/analysis/launches.py",
+                   *(f"repro_torch/analysis/rules/{r}.py" for r in (
+                       "__init__", "flt001_host_sync", "flt002_prng",
+                       "flt003_host_entropy", "flt004_deprecated",
+                       "flt005_dtype", "flt006_carry"))):
         assert needed in names
     assert (ROOT / "chip_smoke.py").exists()
 
@@ -147,6 +162,25 @@ def test_rank_side_of_the_model_parallel_tests_imports_no_jax():
     path = ROOT / "tests" / "torch_model_parallel_ranks.py"
     bad = [(line, mod) for line, mod in _imports(path) if _forbidden(mod)]
     assert not bad, bad
+
+
+def test_importing_the_tooling_loads_no_jax():
+    """The tooling this slice adds (shapes, roofline, dry run, analysis and
+    its rules) imports neither jax nor the JAX package, and starts no
+    process group when imported."""
+    code = ("import sys; import repro_torch.configs.shapes, repro_torch.roofline, "
+            "repro_torch.roofline.kernels, repro_torch.launch.dryrun, "
+            "repro_torch.analysis, repro_torch.analysis.__main__, "
+            "repro_torch.analysis.contracts, repro_torch.analysis.launches, "
+            "repro_torch.analysis.rules; "
+            "import torch.distributed as dist; "
+            "assert not dist.is_initialized(), 'a group at import'; "
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')); assert not bad, bad")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
 
 
 def test_importing_the_model_parallel_layer_starts_no_group():

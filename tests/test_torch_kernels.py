@@ -9,6 +9,7 @@ themselves are held against these plain versions on the card, by
 chip_smoke.py and tests/test_torch_gpu.py.
 """
 import ctypes
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -208,16 +209,28 @@ def test_quantize_stacked_bit_equal_to_jax_rows(rows, n):
         assert torch.equal(a, b)
 
 
-def test_wrappers_refuse_other_devices():
-    """A tensor that is on neither the CPU nor a CUDA device is refused,
-    never computed with the plain version."""
+def test_wrappers_refuse_other_devices(monkeypatch):
+    """A tensor on neither the CPU, a CUDA device nor the meta device is
+    refused, never computed with the plain version; a meta tensor (the dry
+    run's) gets the kernel's empty outputs, never the plain version's."""
+    other = types.SimpleNamespace(device=torch.device("xpu"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        ssca_update.ssca_update_(other, other, other, 0.5, 0.5, 0.1, 0.0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        quantize.stochastic_quantize(other, other, 127)
+
+    def never(*a, **k):
+        raise AssertionError("the plain version ran on the meta device")
+
+    monkeypatch.setattr(ssca_update, "plain", never)
+    monkeypatch.setattr(quantize, "plain", never)
     w = torch.zeros(8, device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        ssca_update.ssca_update_(w, w, w, 0.5, 0.5, 0.1, 0.0)
-    with pytest.raises(ValueError, match="unsupported device"):
-        quantize.stochastic_quantize(torch.zeros(2, 8, device="meta"),
-                                     torch.zeros(2, 256, dtype=torch.int32,
-                                                 device="meta"), 127)
+    assert ssca_update.ssca_update_(w, w, w, 0.5, 0.5, 0.1, 0.0) == (w, w)
+    v, s, xhat = quantize.stochastic_quantize(
+        torch.zeros(2, 8, device="meta"),
+        torch.zeros(2, 256, dtype=torch.int32, device="meta"), 127)
+    assert (v.shape, s.shape, xhat.shape) == ((2, 256), (2, 1), (2, 8))
+    assert v.device.type == "meta" and v.dtype == torch.int8
 
 
 def test_build_bindings_pass_pointers_as_void_p():

@@ -22,12 +22,12 @@ import torch.distributed as dist
 from repro.configs.registry import ARCHS as JARCHS
 from repro.launch import mesh as jmesh
 from repro.models import get_model as jget_model
-from repro_torch import random as rnd
 from repro_torch.configs.base import FLConfig
 from repro_torch.configs.registry import ARCHS, get_config
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as ttrain
+from repro_torch.launch.dryrun import param_shapes
 from repro_torch.launch.mesh import P
 from repro_torch.models.api import get_model
 
@@ -174,21 +174,15 @@ def _jax_shapes(shapes):
             else SimpleNamespace(shape=v) for k, v in shapes.items()}
 
 
-def _meta_params(model, cfg, cache={}):
+_PARAM_SHAPES = {}
+
+
+def _meta_params(model, cfg):
     """The params' shapes of ``cfg`` (a full-size or smoke config), from
-    init on the meta device with the normal draw stubbed (nothing
-    drawn)."""
-    if cfg.name not in cache:
-        orig = rnd.normal
-        rnd.normal = lambda key, shape: torch.empty(*key.shape[:-1], *shape,
-                                                    device=key.device)
-        try:
-            cache[cfg.name] = _shapes(model.init(
-                torch.zeros(2, dtype=torch.int64, device="meta"), cfg,
-                device="meta"))
-        finally:
-            rnd.normal = orig
-    return cache[cfg.name]
+    init on the meta device (``dryrun.param_shapes``: nothing drawn)."""
+    if cfg.name not in _PARAM_SHAPES:
+        _PARAM_SHAPES[cfg.name] = _shapes(param_shapes(model, cfg))
+    return _PARAM_SHAPES[cfg.name]
 
 
 def test_named_gives_the_placements_of_a_spec():

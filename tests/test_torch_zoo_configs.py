@@ -28,6 +28,8 @@ from repro_torch import random as rnd
 from repro_torch.configs.registry import ARCHS, get_config
 from repro_torch.core.tree import leaves
 from repro_torch.launch import serve as tserve
+from repro_torch.launch.dryrun import param_shapes
+from repro_torch.models import api as tapi
 from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as ttr
 
@@ -88,15 +90,12 @@ def test_config_matches_reference(arch, smoke):
 
 
 @pytest.mark.parametrize("arch", NEW + HEAD_DIM_256)
-def test_full_size_shapes_match_reference(arch, monkeypatch):
-    """The port's init at full size on the meta device, with the normal
-    draw stubbed by an empty tensor of its shape (nothing drawn), gives the
-    reference's shapes (``jax.eval_shape`` of its init), leaf by leaf, and
-    the counts quoted."""
-    monkeypatch.setattr(rnd, "normal", lambda key, shape: torch.empty(
-        *key.shape[:-1], *shape, device=key.device))
-    got = ttr.init(torch.zeros(2, dtype=torch.int64, device="meta"),
-                   get_config(arch), device="meta")
+def test_full_size_shapes_match_reference(arch):
+    """The port's init at full size on the meta device
+    (``dryrun.param_shapes``: nothing drawn) gives the reference's shapes
+    (``jax.eval_shape`` of its init), leaf by leaf, and the counts
+    quoted."""
+    got = param_shapes(tapi.get_model(get_config(arch)), get_config(arch))
     want = jax.eval_shape(lambda k: jtr.init(k, JARCHS[arch]),
                           jax.random.PRNGKey(0))
     assert [tuple(t.shape) for t in leaves(got)] == \
@@ -106,22 +105,18 @@ def test_full_size_shapes_match_reference(arch, monkeypatch):
 
 @pytest.mark.parametrize("arch", ["xlstm-1.3b", "zamba2-1.2b",
                                   "seamless-m4t-medium"])
-def test_other_archs_are_refused_naming_their_item(arch, monkeypatch):
+def test_other_archs_are_refused_naming_their_item(arch):
     """The SSM, hybrid and encoder-decoder archs, which the port once
     refused, resolve to the reference's configs, field by field; no arch of
     the reference is refused any more. The encoder-decoder's init at full
-    size (on the meta device, the normal draw stubbed) has the parameters
+    size (on the meta device, ``dryrun.param_shapes``) has the parameters
     quoted."""
     assert arch in JARCHS and sorted(ARCHS) == sorted(JARCHS)
     t, j = get_config(arch), JARCHS[arch]
     for f in dataclasses.fields(t):
         assert getattr(t, f.name) == getattr(j, f.name), f.name
     if arch == "seamless-m4t-medium":
-        from repro_torch.models import api as tapi
-        monkeypatch.setattr(rnd, "normal", lambda key, shape: torch.empty(
-            *key.shape[:-1], *shape, device=key.device))
-        got = tapi.get_model(t).init(torch.zeros(2, dtype=torch.int64, device="meta"),
-                                     t, device="meta")
+        got = param_shapes(tapi.get_model(t), t)
         assert sum(x.numel() for x in leaves(got)) == N_PARAMS[arch]
 
 

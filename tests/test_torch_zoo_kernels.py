@@ -8,6 +8,8 @@ sums in another order than the one-shot softmax) and 3e-2 in bf16. The CUDA
 kernels themselves are held against these plain versions on the card, by
 chip_smoke.py and tests/test_torch_gpu.py.
 """
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -145,10 +147,24 @@ def test_flash_wrapper_on_cpu_is_plain_and_takes_views():
     assert tflash.flash_attention.launches == before
 
 
-def test_wrappers_refuse_other_devices():
+def test_wrappers_refuse_other_devices(monkeypatch):
+    """A tensor on neither the CPU, a CUDA device nor the meta device is
+    refused; a meta tensor (the dry run's) gets the kernel's empty output,
+    never the plain version's."""
+    other = types.SimpleNamespace(device=torch.device("xpu"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        trms.rmsnorm(other, other)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tflash.flash_attention(other, other, other)
+
+    def never(*a, **k):
+        raise AssertionError("the plain version ran on the meta device")
+
+    monkeypatch.setattr(trms, "plain", never)
+    monkeypatch.setattr(tflash, "plain", never)
     x = torch.zeros(2, 64, device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        trms.rmsnorm(x, torch.zeros(64, device="meta"))
+    y = trms.rmsnorm(x, torch.zeros(64, device="meta"))
+    assert (y.shape, y.device.type) == ((2, 64), "meta")
     q = torch.zeros(1, 2, 4, 32, device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        tflash.flash_attention(q, q, q)
+    o = tflash.flash_attention(q, q, q)
+    assert (o.shape, o.device.type) == ((1, 2, 4, 32), "meta")
