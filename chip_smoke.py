@@ -155,6 +155,20 @@ Phases, one JSON line each:
   train_zamba, ssm_train_parity  the SSM and hybrid families (xlstm-1.3b,
            zamba2-1.2b) served, held to a longer prefill and to the CPU,
            and trained, as the decoders are
+  train_zamba_mixed  zamba2-1.2b at full width and depth at its own bf16
+           (its Mamba2 a_log and dt bias fp32, in the state's side buffer)
+           through train_loop, batch 8, sequence 512: under the
+           constrained update and with the int8 + EF upload under DP
+           (ε = 8), a line each: step ms, tokens/s, peak memory, losses,
+           ν in [0, c] and the slack, launches per step (asserted: one
+           keyed quantize and one dp_noise a piece, two ssca_update), the
+           constrained update's device ms beside its bound
+  zamba_mixed_parity  the same at full width, 1 layer, bf16, card
+           against CPU: the bf16 loss (rtol 1e-4) and each leaf's
+           gradient normwise (1e-2) at one batch, with two planted
+           rmsnorm backwards that must read past that gate; then each
+           card step from the CPU's state on the CPU's gradient (ν,
+           ‖ω‖², the params, the surrogates, the DP metrics)
   serve_seamless  seamless-m4t-medium (12 encoder and 12 decoder layers,
            d_model 1024, 614,739,968 parameters) at full width and depth
            in bf16 through generate: batch 8, prompt 512 after 2,048 drawn
@@ -181,7 +195,8 @@ and the DP-noise kernel against its plain version. No main path launches
 the bits-operand quantize entry any more (its row says so). Each main path (dense, int8, serve,
 train, each paper run, train_constrained, serve_moe, serve_glm4,
 train_moe, serve_gemma, serve_paligemma, train_paligemma, the SSM serve
-and train phases, serve_seamless, train_seamless) runs with every
+and train phases, train_zamba_mixed's two runs, serve_seamless,
+train_seamless) runs with every
 launch counter
 set to 0 just before it and read just after. The kernels' JSON line comes second to
 last and the verdict
@@ -2049,23 +2064,28 @@ def run_paper_parity(torch, m, inputs):
 
 def constrained_update_ms(torch, m, state, fl):
     """The constrained update (``optimizer.ssca_constrained_step``, Lemma 1)
-    on the train state's own flat buffers and a bf16 gradient of their
-    size: device ms of one call between CUDA events after one warm-up call,
-    in surrogate.CHUNK-element chunks. The bound: 20 B an element (pass 1
-    reads ĝ, ω and g and writes g; pass 2 reads g and ω and writes ω: 12 + 8
-    in bf16 params and gradient)."""
+    on the train state's own flat buffers and a random gradient of their
+    dtypes: device ms of one call between CUDA events after one warm-up
+    call, in surrogate.CHUNK-element chunks, beside the bound of
+    ``roofline.kernels.constrained_update``'s bytes (20 B an element of a
+    bf16 buffer, 28 of an fp32 side buffer)."""
     n = state.w_flat.numel()
-    grad = torch.randn(n, device="cuda", dtype=torch.bfloat16)
-    loss = torch.full((), 5.0, device="cuda")
-    rho, gamma = (torch.full((), x, device="cuda") for x in (0.5, 0.3))
+    side = sum(map(torch.numel, state.buffers[1:]))
+    dev = state.w_flat.device
+    grad = tuple(torch.randn(w.numel(), device=dev, dtype=w.dtype)
+                 for w in state.buffers)
+    loss = torch.full((), 5.0, device=dev)
+    rho, gamma = (torch.full((), x, device=dev) for x in (0.5, 0.3))
     ms = event_ms(lambda: m.optimizer.ssca_constrained_step(
         state, grad, loss, fl, rho_t=rho, gamma_t=gamma), iters=1, warmup=1)
     check(bool(torch.isfinite(state.w_flat[:4096].float()).all())
           and bool(torch.isfinite(state.nu)), "constrained update: not finite")
     del grad
-    b_ms, b_by = bound_ms(20 * n, 12 * n)
-    return {"elements": n, "dtype": "bfloat16", "ms": ms,
-            "chunk": m.surrogate.CHUNK, "bytes": 20 * n, "bound_ms": b_ms,
+    update = work.constrained_update(n, state.w_flat.element_size(), side)
+    b_ms, b_by = update.bound_ms()
+    return {"elements": n, "fp32_elements": side,
+            "dtype": str(state.w_flat.dtype).removeprefix("torch."), "ms": ms,
+            "chunk": m.surrogate.CHUNK, "bytes": update.bytes, "bound_ms": b_ms,
             "bound_by": b_by, "share_of_bound": b_ms / ms}
 
 
@@ -2123,11 +2143,11 @@ def planted_update(torch, m, drop):
     """surrogate.update_surrogate_ with one carried term of the minimum's
     recursion dropped: "carry" the (1-ρ)·m term, "jump" the
     ρ(1-ρ)·‖inj − g‖²/(4τ) term. Both vanish at step 1 (ρ = 1)."""
-    def update_(g_flat, mn, rho_t, omega_flat, grad_flat, value_est, tau,
+    def update_(g_bufs, mn, rho_t, omega_bufs, grad_bufs, value_est, tau,
                 extra_linear=0.0, spans=None, reduce=None):
-        rho_t = torch.as_tensor(rho_t, dtype=torch.float32, device=g_flat.device)
-        qmin, jump, bsq = m.surrogate.recurse_g_(g_flat, rho_t, omega_flat,
-                                                 grad_flat, tau, extra_linear, spans)
+        rho_t = torch.as_tensor(rho_t, dtype=torch.float32, device=g_bufs[0].device)
+        qmin, jump, bsq = m.surrogate.recurse_g_(g_bufs, rho_t, omega_bufs,
+                                                 grad_bufs, tau, extra_linear, spans)
         if reduce is not None:
             qmin, jump, bsq = reduce(qmin, jump, bsq)
         carry = 0.0 if drop == "carry" else (1.0 - rho_t) * mn
@@ -3576,13 +3596,6 @@ def ssca_buffers(cfg) -> int:
     return 2 if cfg.family == "hybrid" and cfg.dtype != "float32" else 1
 
 
-def flat_params(state) -> list:
-    """The state's flat param buffers (w_flat, and w_side where there is
-    one)."""
-    side = getattr(state, "w_side", None)
-    return [state.w_flat] + ([] if side is None else [side])
-
-
 def train_launches(cfg, counted) -> dict:
     """Every counted kernel's launches a train step of ``cfg``'s model: the
     forward, remat's recompute, one backward launch a forward norm and
@@ -4169,14 +4182,14 @@ def run_train_zoo(torch, m, arch, phase, name_power, shape, warmup, timed):
     seconds = time.perf_counter() - t0
     counts = read_counts(m.counted)
     peak = torch.cuda.max_memory_allocated()
-    n_params = sum(w.numel() for w in flat_params(state))
+    n_params = sum(map(torch.numel, state.buffers))
     per_step = {k: v / steps for k, v in counts.items()}
     want = train_launches(cfg, m.counted)
     check(per_step == want, f"{phase} launches per step {per_step} != {want}")
     losses = [lg["loss"] for lg in logs]
     check(all(map(math.isfinite, losses)), f"{phase} losses: {losses}")
     check(state.t == steps + 1
-          and all(bool(torch.isfinite(w).all()) for w in flat_params(state)),
+          and all(bool(torch.isfinite(w).all()) for w in state.buffers),
           f"{phase}: the state did not take every step, or is not finite")
     check(n_params == decoder_params(cfg), f"{arch} has {n_params} parameters")
     fp32 = sorted(k for k, t in named_leaves(state.params) if t.dtype == torch.float32)
@@ -4384,8 +4397,7 @@ def run_ssm_train_parity(torch, m):
         laps("init")
 
         def buffers(state):
-            return [t for t in (state.w_flat, state.g_flat, getattr(state, "w_side", None),
-                                getattr(state, "g_side", None)) if t is not None]
+            return [t for pair in zip(state.buffers, state.g_buffers) for t in pair]
 
         def run(p, device, before=None):
             """The state's buffers (copies on the run's device) after each
@@ -4448,6 +4460,370 @@ def run_ssm_train_parity(torch, m):
         check(max(line["max_abs_param_diff_by_step"]) <= 1e-4,
               f"{arch} train parity: card vs CPU params differ by "
               f"{line['max_abs_param_diff_by_step']}")
+
+
+# ---------------------------------------------------------------------------
+# bf16 zamba2-1.2b with fp32 leaves: the constrained update and the uploads
+# ---------------------------------------------------------------------------
+
+ZAMBA = "zamba2-1.2b"
+# (run, codec, DP ε, constrained) of the full-width mixed-dtype runs
+ZAMBA_MIXED_RUNS = (("constrained", None, None, True),
+                    ("int8+dp", "int8", DP_EPS, False))
+# card against CPU: full width, 1 layer, bf16 (its fp32 a_log and dt_bias
+# in the side buffer); the constrained run takes 2 steps, the upload 1 (its
+# CPU half draws threefry over every parameter, PERF.md §7)
+ZAMBA_MIXED_PARITY = dict(batch=2, seq=64, layers=1,
+                          steps={"constrained": 2, "int8+dp": 1})
+# the bf16 model's own forward and backward, card against CPU, in
+# zamba_mixed_parity: the loss's relative gap, and the gradient's normwise
+# gap in each leaf (so in each flat buffer too), which the planted rmsnorm
+# backwards (planted_rmsnorm_bwd) must read past (PERF.md §6)
+ZAMBA_MIXED_LOSS_RTOL = 1e-4
+ZAMBA_MIXED_GRAD_NORMWISE = 1e-2
+
+
+def mixed_launches(cfg, counted, constrained, pieces, codec, dp) -> dict:
+    """``train_launches`` of a bf16 zamba2 step under the constrained update
+    (no ssca_update: Lemma 1 runs as PyTorch ops) or with the upload (one
+    keyed quantize and one dp_noise launch a piece of the reference's flat
+    vector, fp32 leaves included)."""
+    want = train_launches(cfg, counted)
+    if constrained:
+        want["ssca_update"] = 0
+    want["stochastic_quantize_keyed"] = pieces if codec else 0
+    want["dp_noise"] = pieces if dp else 0
+    return want
+
+
+def run_train_zamba_mixed(torch, m, name_power):
+    """zamba2-1.2b at full width and depth at its own dtype (bf16, its
+    Mamba2 a_log and dt_bias fp32 in the state's side buffer) through
+    train_loop, batch 8, sequence 512, remat: under the constrained update
+    (U = 3.0, Lemma 1 over both buffers) and with the int8 + EF upload
+    under DP (ε = 8), TRAIN_SSM_WARMUP + TRAIN_SSM_TIMED steps each, a line
+    each, every launch counter zeroed just before and read just after:
+    step ms, tokens/s, peak memory, losses, launches per step (asserted:
+    ``mixed_launches``: two ssca_update launches a step with the upload),
+    ν in [0, c] and the slack, upload bytes of the P-element vector, the
+    noise norm against σ·C·√P, ε against the accountant; the constrained
+    update's own device ms on the pair beside its bound. Returns the
+    launches summed over the runs."""
+    cfg, batch, seq = m.get_config(ZAMBA), TRAIN_SSM["batch"], TRAIN_SSM["seq"]
+    steps = TRAIN_SSM_WARMUP + TRAIN_SSM_TIMED
+    fl = m.train.TRAIN_FL
+    totals = {}
+    for run, codec, eps, constrained in ZAMBA_MIXED_RUNS:
+        dp = m.privacy.DPConfig(epsilon=eps) if eps else None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(m.counted)
+        t0 = time.perf_counter()
+        state, logs = m.train.train_loop(ZAMBA, steps, batch, seq, log_every=1,
+                                         seed=SERVE["seed"], constrained=constrained,
+                                         codec=codec, dp=dp)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts(m.counted)
+        peak = torch.cuda.max_memory_allocated()
+        opt = m.rounds.unwrap_comm(state)
+        n = sum(map(torch.numel, opt.buffers))
+        pieces = -(-n // COMM_PIECE)
+        per_step = {k: v / steps for k, v in counts.items()}
+        want = mixed_launches(cfg, m.counted, constrained, pieces, codec, dp)
+        check(per_step == want, f"train_zamba_mixed {run}: launches per step "
+              f"{per_step} != {want}")
+        check(opt.w_side is not None and opt.w_side.dtype == torch.float32
+              and opt.w_flat.dtype == torch.bfloat16,
+              f"train_zamba_mixed {run}: the state's buffers")
+        check(n == decoder_params(cfg), f"train_zamba_mixed {run}: {n} parameters")
+        losses = [lg["loss"] for lg in logs]
+        check(all(map(math.isfinite, losses)) and opt.t == steps + 1
+              and all(bool(torch.isfinite(w).all()) for w in opt.buffers),
+              f"train_zamba_mixed {run}: losses {losses} or params not finite")
+        walls = [0.0] + [lg["wall_s"] for lg in logs]
+        step_s = [c - a for a, c in zip(walls, walls[1:])]
+        med = statistics.median(step_s[TRAIN_SSM_WARMUP:])
+        tokens = batch * seq
+        line = {"run": run, "arch": ZAMBA, "dtype": cfg.dtype,
+                "layers": cfg.n_layers, "remat": cfg.remat, "params": n,
+                "fp32_params": opt.w_side.numel(), **TRAIN_SSM,
+                "warmup_steps": TRAIN_SSM_WARMUP, "timed_steps": TRAIN_SSM_TIMED,
+                "seconds": seconds, "step_ms": med * 1e3,
+                "step_ms_each": [t * 1e3 for t in step_s],
+                "tokens_per_s": tokens / med, "peak_mem_bytes": peak,
+                "losses": losses, "launches_per_step": per_step,
+                "piece": COMM_PIECE, "pieces": pieces}
+        if constrained:
+            line.update(nu=[lg["nu"] for lg in logs], slack=[lg["slack"] for lg in logs],
+                        l2=[lg["l2"] for lg in logs], cost_limit=fl.cost_limit,
+                        penalty_c=fl.penalty_c)
+            check(all(0.0 <= v <= fl.penalty_c for v in line["nu"]),
+                  f"train_zamba_mixed {run}: ν {line['nu']} outside [0, c]")
+            check(all(v >= 0.0 and math.isfinite(v) for v in line["slack"]),
+                  f"train_zamba_mixed {run}: slack {line['slack']}")
+            line["update"] = constrained_update_ms(torch, m, opt, fl)
+        if codec:
+            line["upload_bytes"] = m.codecs.make_codec(codec).nbytes(n)
+            check(logs[-1]["upload_bytes"] == float(torch.tensor(float(line["upload_bytes"]))),
+                  f"train_zamba_mixed {run}: upload bytes {logs[-1]['upload_bytes']}")
+            check(tuple(state.ef.shape) == (n,), f"train_zamba_mixed {run}: EF {state.ef.shape}")
+            line["ef_norm"] = state.ef.norm().item()
+        if dp:
+            sigma = m.privacy.sigma_of(dp)
+            eps_t = m.privacy.epsilon_schedule(dp, 1.0, steps)
+            line.update({k: [lg[k] for lg in logs]
+                         for k in ("dp_epsilon", "dp_clip_frac", "dp_noise_norm")})
+            line["noise_norm_expected"] = sigma * n ** 0.5
+            rel = max(abs(v / line["noise_norm_expected"] - 1)
+                      for v in line["dp_noise_norm"])
+            check(rel <= 5 / (2 * n) ** 0.5 + 1e-6,
+                  f"train_zamba_mixed {run}: noise norm {line['dp_noise_norm']} "
+                  f"vs σ·C·√P {line['noise_norm_expected']}")
+            check(all(abs(a - b) <= 1e-5 * b for a, b in zip(line["dp_epsilon"], eps_t)),
+                  f"train_zamba_mixed {run}: ε {line['dp_epsilon']} != {list(eps_t)}")
+        del state, opt
+        torch.cuda.empty_cache()
+        emit("train_zamba_mixed", **line, **name_power)
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+    return totals
+
+
+def mixed_state_on(torch, m, state, device):
+    """A copy of a mixed-dtype SSCA or constrained state (or a CommCarry of
+    one) on ``device``: a fresh state of the same kind from its params, its
+    surrogate buffers, scalars and residual copied in."""
+    opt = m.rounds.unwrap_comm(state)
+    constrained = hasattr(opt, "cons")
+    init = m.optimizer.ssca_constrained_init if constrained else m.optimizer.ssca_init
+    new = init(tree_map(lambda t: t.to(device), opt.params))
+    for dst, src in zip(new.g_buffers, opt.g_buffers, strict=True):
+        dst.copy_(src)
+    if constrained:
+        new = new._replace(cons=new.cons._replace(d=opt.cons.d.to(device)),
+                           nu=opt.nu.to(device), slack=opt.slack.to(device),
+                           cons_min=opt.cons_min.to(device))
+    new = new._replace(t=opt.t)
+    if opt is state:
+        return new
+    return m.error_feedback.CommCarry(opt=new, ef=state.ef.to(device))
+
+
+def mixed_grad(torch, m, model, cfg, state, batch):
+    """The loss and its gradient pair (w_flat's and w_side's layouts) at the
+    state's params, on the state's device."""
+    opt = m.rounds.unwrap_comm(state)
+    grad = tuple(map(torch.zeros_like, opt.buffers))
+    loss = model.loss_fn(m.train.grad_leaves(opt, grad, model.stacked), batch, cfg)
+    loss.backward()
+    return loss.detach(), grad
+
+
+def planted_rmsnorm_bwd(torch, sound, fault):
+    """``RMSNorm.backward`` (``sound``) with a planted fault: "dscale" drops
+    the scale's gradient (zeros), "dx_mean" drops dx's projection term (dx
+    = (1 + scale)·dy·r, without -x·r³·Σ(x·(1 + scale)·dy)/D)."""
+    def backward(ctx, dy):
+        dx, dscale, rest = sound(ctx, dy)
+        if fault == "dscale":
+            return dx, torch.zeros_like(dscale), rest
+        x, scale = ctx.saved_tensors
+        r = torch.rsqrt(x.float().square().mean(-1, keepdim=True) + ctx.eps)
+        return ((1.0 + scale.float()) * dy.float() * r).to(x.dtype), dscale, rest
+    return staticmethod(backward)
+
+
+def mixed_forward_gate(torch, m, model, cfg, state, batch, value, grad):
+    """The bf16 model's own forward and backward on the card at ``state``
+    and ``batch`` against the CPU's loss ``value`` and gradient pair
+    ``grad`` there: the loss's relative gap (gate ZAMBA_MIXED_LOSS_RTOL),
+    each flat buffer's normwise gradient gap, and the three largest of a
+    leaf (gate ZAMBA_MIXED_GRAD_NORMWISE on the largest, which bounds the
+    buffers' too); then the same with each planted rmsnorm backward
+    (``planted_rmsnorm_bwd``), whose gradient must read past the gate.
+    Returns (line, failures)."""
+    from repro_torch.kernels import rmsnorm as rms_mod
+    like = m.rounds.unwrap_comm(state)
+    cpu = [g.to(CARD) for g in grad]
+    cpu_leaves = list(named_leaves(m.split_views(*cpu, like.params, like.w_flat.dtype)))
+
+    def gaps(card_value, card_grad):
+        got = named_leaves(m.split_views(*card_grad, like.params, like.w_flat.dtype))
+        by_leaf = {k: rel_norm(a, b) for (k, a), (_, b) in zip(got, cpu_leaves)
+                   if bool(b.any())}
+        return {"rel_loss_diff": abs(card_value.item() / value.item() - 1),
+                "normwise_grad_diff": [rel_norm(c, g) for c, g in zip(card_grad, cpu)],
+                "max_leaf_grad_diff": max(by_leaf.values()),
+                "largest_leaf_grad_diff": dict(sorted(
+                    by_leaf.items(), key=lambda kv: -kv[1])[:3])}
+
+    card_value, card_grad = mixed_grad(torch, m, model, cfg, state, batch)
+    line = {"loss_card": card_value.item(), "loss_cpu": value.item(),
+            **gaps(card_value, card_grad)}
+    del card_grad
+    fails = []
+    if line["rel_loss_diff"] > ZAMBA_MIXED_LOSS_RTOL:
+        fails.append(f"bf16 loss card {line['loss_card']} vs CPU {line['loss_cpu']}")
+    if line["max_leaf_grad_diff"] > ZAMBA_MIXED_GRAD_NORMWISE:
+        fails.append(f"bf16 gradient card vs CPU normwise: buffers "
+                     f"{line['normwise_grad_diff']}, leaves {line['largest_leaf_grad_diff']}")
+    sound, controls = rms_mod.RMSNorm.backward, {}
+    for fault in ("dscale", "dx_mean"):
+        rms_mod.RMSNorm.backward = planted_rmsnorm_bwd(torch, sound, fault)
+        try:
+            controls[fault] = gaps(*mixed_grad(torch, m, model, cfg, state, batch))
+        finally:
+            rms_mod.RMSNorm.backward = staticmethod(sound)
+        if controls[fault]["max_leaf_grad_diff"] <= ZAMBA_MIXED_GRAD_NORMWISE:
+            fails.append(f"the planted {fault} rmsnorm backward passes the gradient "
+                         f"gate: {controls[fault]['largest_leaf_grad_diff']}")
+    line["planted_controls"] = controls
+    del cpu, cpu_leaves
+    return line, fails
+
+
+def replay_model(m, value, grad, like):
+    """A model whose loss at any params reads ``value`` and whose gradient
+    is ``grad`` (a pair in ``like``'s layouts): backward accumulates it,
+    unrounded, into a step's own gradient buffers."""
+    gl = m.leaves(m.split_views(*grad, like.params, like.w_flat.dtype))
+
+    def loss_fn(params, batch, cfg):
+        s = sum((p * g).sum().float() for p, g in zip(m.leaves(params), gl))
+        return value + (s - s.detach())
+
+    return SimpleNamespace(loss_fn=loss_fn, stacked={})
+
+
+def run_zamba_mixed_parity(torch, m):
+    """zamba2-1.2b at full width, ZAMBA_MIXED_PARITY's layers, bf16 with its
+    fp32 leaves, batch 2, seq 64, the card against the CPU from the same
+    params (drawn on the card, copied), tokens and round keys, under the
+    constrained update and the int8 + DP (ε = 8) upload.
+
+    The model's own bf16 forward and backward is held once, at the first
+    step's params and batch (``mixed_forward_gate``): the loss within rtol
+    ZAMBA_MIXED_LOSS_RTOL, each leaf's gradient (so each flat buffer's)
+    normwise within ZAMBA_MIXED_GRAD_NORMWISE, and two planted rmsnorm
+    backwards past that gate. The steps are then held as ssm_train_parity
+    and train_comm_parity hold them, each card step started from the CPU's
+    state before it and fed the CPU's loss and gradient at that state
+    (``replay_model``): bf16 forwards on two devices round differently, and
+    these steps are about what the update and the upload do with one
+    gradient. Gates: ν rtol 1e-5 times max(1, (1+ντ)/(2ντ)) (its interior
+    condition factor), ‖ω‖² rtol 1e-5; the fp32 leaves and the surrogate
+    buffers within 1e-4; the bf16 params within 1e-4 plus one bf16 ulp of
+    the value (2^-7 relative: fp32 results a few ulps apart may round to
+    neighbours); with the upload the DP metrics rtol 1e-5 (ε and the clip
+    fraction exactly) and the params normwise within TRAIN_PARITY_NORMWISE
+    (a normal's ulp may move a stochastic rounding by a level). The CPU
+    runs comm_update_ in CPU_COMM_PIECE pieces, the card in COMM_PIECE."""
+    rnd, train, rounds = m.rnd, m.train, m.rounds
+    laps = Laps()
+    cfg = dataclasses.replace(m.get_config(ZAMBA), n_layers=ZAMBA_MIXED_PARITY["layers"])
+    model = m.get_model(cfg)
+    key = rnd.PRNGKey(3)
+    params = model.init(key, cfg)
+    on_cpu = tree_map(lambda t: t.cpu(), params)
+    b, s = ZAMBA_MIXED_PARITY["batch"], ZAMBA_MIXED_PARITY["seq"]
+    toks = {CARD: m.token_dataset(rnd.fold_in(key, 1), cfg.vocab_size, 200_000)}
+    toks["cpu"] = toks[CARD].cpu()
+    fl = m.train_fl
+    dp = m.privacy.DPConfig(epsilon=DP_EPS)
+    laps("init")
+    out, fails = {"dtype": cfg.dtype, "layers": cfg.n_layers, "batch": b, "seq": s}, []
+    for run, codec, eps, constrained in ZAMBA_MIXED_RUNS:
+        steps = ZAMBA_MIXED_PARITY["steps"][run]
+        inputs = {d: rounds.make_inputs(fl, 1, steps, rnd.fold_in(key.to(d), 2))
+                  for d in (CARD, "cpu")}
+        init = m.optimizer.ssca_constrained_init if constrained else m.optimizer.ssca_init
+        states = {"cpu": init(on_cpu)}
+        if codec:
+            n = sum(map(torch.numel, states["cpu"].buffers))
+            states["cpu"] = m.error_feedback.CommCarry(
+                opt=states["cpu"], ef=m.error_feedback.ef_init(n, "cpu"))
+        line = {"steps": steps, "codec": codec or "none", "dp_epsilon_target": eps,
+                "by_step": []}
+        for r in range(steps):
+            cpu_state = states["cpu"]
+            batch = {d: m.sample_window(toks[d], inputs[d].round(r).key, b, s)
+                     for d in (CARD, "cpu")}
+            value, grad = mixed_grad(torch, m, model, cfg, cpu_state, batch["cpu"])
+            laps("cpu_grad")
+            card_state = mixed_state_on(torch, m, cpu_state, CARD)
+            if r == 0 and run == ZAMBA_MIXED_RUNS[0][0]:
+                out["forward"], failed = mixed_forward_gate(
+                    torch, m, model, cfg, card_state, batch[CARD], value, grad)
+                fails += failed
+                laps("card_grad")
+            results = {}
+            for d, st in (("cpu", cpu_state), (CARD, card_state)):
+                like = rounds.unwrap_comm(st)
+                step = train.make_scanned_step(
+                    replay_model(m, value.to(d), tuple(g.to(d) for g in grad), like),
+                    cfg, fl, toks[d], b, s, constrained,
+                    codec=m.codecs.make_codec(codec), dp=dp if eps else None)
+                train.COMM_PIECE = COMM_PIECE if d == CARD else CPU_COMM_PIECE
+                try:
+                    results[d] = step(st, inputs[d].round(r))
+                finally:
+                    train.COMM_PIECE = COMM_PIECE
+                laps(f"{d}_step")
+            (card_new, card_ms), (cpu_new, cpu_ms) = results[CARD], results["cpu"]
+            card_opt, cpu_opt = rounds.unwrap_comm(card_new), rounds.unwrap_comm(cpu_new)
+            # compared on the card, the CPU's buffers copied there
+            cpu_w = cpu_opt.w_flat.to(CARD).float()
+            w_gap = (card_opt.w_flat.float() - cpu_w).abs()
+            w_lim = 1e-4 + 2.0 ** -7 * cpu_w.abs()
+            sur = [(card_opt.g_flat - cpu_opt.g_flat.to(CARD)).abs().max().item(),
+                   (card_opt.g_side - cpu_opt.g_side.to(CARD)).abs().max().item()]
+            got = {"max_abs_param_diff": w_gap.max().item(),
+                   "params_over_gate": int((w_gap > w_lim).sum()),
+                   "normwise_param_diff": rel_norm(card_opt.w_flat, cpu_w),
+                   "max_abs_fp32_param_diff": (card_opt.w_side - cpu_opt.w_side.to(CARD)
+                                               ).abs().max().item(),
+                   "max_abs_surrogate_diff": sur,
+                   "metrics_card": {k: float(v) for k, v in card_ms.items()},
+                   "metrics_cpu": {k: float(v) for k, v in cpu_ms.items()}}
+            del w_gap, w_lim, cpu_w
+            line["by_step"].append(got)
+            mc, mp = got["metrics_card"], got["metrics_cpu"]
+            where = f"zamba_mixed_parity {run} step {r + 1}"
+            if constrained:
+                nu = mp["nu"]
+                cond = max(1.0, (1 + nu * fl.tau) / max(2 * nu * fl.tau, 1e-30))
+                if abs(mc["nu"] - nu) > 1e-5 * cond * max(abs(nu), 1e-30):
+                    fails.append(f"{where}: ν {mc['nu']} vs {nu} (factor {cond})")
+                if abs(mc["l2"] - mp["l2"]) > 1e-5 * mp["l2"]:
+                    fails.append(f"{where}: ‖ω‖² {mc['l2']} vs {mp['l2']}")
+                if not 0.0 <= mc["nu"] <= fl.penalty_c:
+                    fails.append(f"{where}: ν {mc['nu']} outside [0, c]")
+            if eps:
+                for k in ("dp_epsilon", "dp_noise_norm"):
+                    if abs(mc[k] - mp[k]) > 1e-5 * abs(mp[k]):
+                        fails.append(f"{where}: {k} {mc[k]} vs {mp[k]}")
+                if mc["dp_clip_frac"] != mp["dp_clip_frac"]:
+                    fails.append(f"{where}: clip fraction {mc} vs {mp}")
+                if got["normwise_param_diff"] > TRAIN_PARITY_NORMWISE:
+                    fails.append(f"{where}: params normwise {got['normwise_param_diff']}")
+            else:
+                if got["params_over_gate"]:
+                    fails.append(f"{where}: {got['params_over_gate']} bf16 params past "
+                                 f"1e-4 + one ulp (max {got['max_abs_param_diff']})")
+                if max(sur + [got["max_abs_fp32_param_diff"]]) > 1e-4:
+                    fails.append(f"{where}: fp32 leaves or surrogates {sur}, "
+                                 f"{got['max_abs_fp32_param_diff']}")
+            states["cpu"] = cpu_new
+            del card_new, card_state, results
+            torch.cuda.empty_cache()
+            laps("compare")
+        out[run] = line
+        del states
+    del params, on_cpu
+    torch.cuda.empty_cache()
+    emit("zamba_mixed_parity", **out, split_s=laps.s)
+    check(not fails, "; ".join(fails))
 
 
 # ---------------------------------------------------------------------------
@@ -4672,7 +5048,7 @@ def run_train_seamless(torch, m, name_power):
         walls.append(time.perf_counter())
     counts = read_counts(m.counted)
     peak = torch.cuda.max_memory_allocated()
-    n_params = sum(w.numel() for w in flat_params(state))
+    n_params = sum(map(torch.numel, state.buffers))
     per_step = {k: v / steps for k, v in counts.items()}
     want = train_launches(cfg, m.counted)
     check(per_step == want, f"train_seamless launches per step {per_step} != {want}")
@@ -4775,7 +5151,10 @@ MP_TRAIN = dict(batch=8, seq=512, steps=2)
 MP_2X2 = dict(world=4, shape=(2, 2), layers=2, timeout_s=300,
               moe=dict(batch=8, prompt_len=64, steps=8),
               kv16=dict(arch="seamless-m4t-medium", batch=8, prompt_len=31, steps=1),
-              train=dict(batch=8, seq=128, steps=2))
+              # one step a train case (cut from 2 for the script's time as
+              # the mixed-dtype phases joined it: each step gathers the
+              # fp32 embedding through the host, ~12 s a case; PERF.md §7)
+              train=dict(batch=8, seq=128, steps=1))
 MP_PARAM_ATOL = 1e-5                # PR 19's two-rank standard
 MP_PROBES = ("all_gather_into_tensor", "reduce_scatter_tensor", "all_reduce")
 
@@ -5044,8 +5423,9 @@ def mp_decode_case(torch, m, mesh, cfg, shape, blocks=1):
 
 
 def mp_train_case(torch, m, mesh, cfg, shape, constrained):
-    """Two sharded train steps on ``mesh`` from the seeded params, on token
-    windows of ``shape``: (losses, the params whole, on the card)."""
+    """``shape["steps"]`` sharded train steps on ``mesh`` from the seeded
+    params, on token windows of ``shape``: (losses, the params whole, on
+    the card)."""
     rnd, mesh_lib, train = m.rnd, m.mesh, m.train
     model = m.get_model(cfg)
     key = rnd.PRNGKey(SERVE["seed"])
@@ -5294,7 +5674,7 @@ def main() -> int:
     from repro_torch.core import optimizer, privacy, rounds
     from repro_torch.core import topology as topology_lib
     from repro_torch.launch import mesh as mesh_lib
-    from repro_torch.core.tree import leaves
+    from repro_torch.core.tree import leaves, split_views
     from repro_torch.data.synthetic import (VirtualFedData, sample_window,
                                             token_dataset)
     from repro_torch.launch import serve, train
@@ -5357,7 +5737,8 @@ def main() -> int:
                            get_config=get_config, layers=layers,
                            transformer=transformer, fa=fa,
                            train=train, rounds=rounds, optimizer=optimizer,
-                           leaves=leaves, token_dataset=token_dataset,
+                           leaves=leaves, split_views=split_views,
+                           token_dataset=token_dataset,
                            baselines=baselines, accounting=accounting,
                            surrogate=surrogate, fed=fed, FLConfig=FLConfig,
                            error_feedback=error_feedback,
@@ -5535,6 +5916,12 @@ def main() -> int:
                                           TRAIN_SSM_WARMUP, TRAIN_SSM_TIMED)
     torch.cuda.empty_cache()
     run_ssm_train_parity(torch, mods)
+    # bf16 zamba2-1.2b with its fp32 leaves: the constrained update and the
+    # int8 + DP upload over both flat buffers
+    torch.cuda.empty_cache()
+    ssm_counts["train_zamba_mixed"] = run_train_zamba_mixed(
+        torch, mods, {"device": name, "power": smi})
+    run_zamba_mixed_parity(torch, mods)
 
     # the encoder-decoder: seamless-m4t-medium
     encdec_counts = {}

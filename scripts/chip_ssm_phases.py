@@ -4,7 +4,13 @@ kernel built from the checkout first: a shorter loop than the whole script
 while one of these phases is worked on.
 
     python3 scripts/chip_ssm_phases.py [train_xlstm] [train_zamba]
-                                       [ssm_train_parity] [--tau 0.2]
+                                       [ssm_train_parity]
+                                       [train_zamba_mixed]
+                                       [zamba_mixed_parity] [--tau 0.2]
+
+``train_zamba_mixed`` and ``zamba_mixed_parity`` are bf16 zamba2-1.2b
+under the constrained update and the int8 + DP upload (its fp32 leaves in
+the state's side buffer), at full depth and against the CPU.
 
 ``--tau`` runs ssm_train_parity under train_fl with that τ in place of
 chip_smoke.SSM_TRAIN_PARITY_TAU (0.2 is train_fl's own). Prints the
@@ -20,7 +26,8 @@ from pathlib import Path
 from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent.parent
-PHASES = ("train_xlstm", "train_zamba", "ssm_train_parity")
+PHASES = ("train_xlstm", "train_zamba", "ssm_train_parity",
+          "train_zamba_mixed", "zamba_mixed_parity")
 
 
 def main() -> int:
@@ -39,10 +46,14 @@ def main() -> int:
     from repro_torch import random as rnd
     from repro_torch.configs.base import FLConfig
     from repro_torch.configs.registry import get_config
-    from repro_torch.core import optimizer, rounds
-    from repro_torch.data.synthetic import token_dataset
+    from repro_torch.comm import codecs, error_feedback
+    from repro_torch.core import optimizer, privacy, rounds, surrogate
+    from repro_torch.core.tree import leaves, split_views
+    from repro_torch.data.synthetic import sample_window, token_dataset
     from repro_torch.kernels import build
+    from repro_torch.kernels import dp_noise as dpn
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import rmsnorm as rms
     from repro_torch.kernels import ssca_update as ssca
     from repro_torch.launch import train
@@ -67,17 +78,26 @@ def main() -> int:
     m = SimpleNamespace(
         rnd=rnd, train=train, rounds=rounds, optimizer=optimizer,
         get_config=get_config, get_model=get_model, token_dataset=token_dataset,
+        privacy=privacy, codecs=codecs, error_feedback=error_feedback,
+        surrogate=surrogate, leaves=leaves, split_views=split_views,
+        sample_window=sample_window,
         # train_loop's default: the reference's FLConfig
         train_fl=FLConfig(a1=0.9, a2=0.5, alpha_rho=0.1, alpha_gamma=0.6,
                           tau=0.2, l2_lambda=1e-5),
         counted={"ssca_update": ssca.ssca_update_, "rmsnorm": rms.rmsnorm,
                  "flash_attention": fa.flash_attention,
                  "rmsnorm_bwd": rms.rmsnorm_bwd,
-                 "flash_attention_bwd": fa.flash_attention_bwd})
+                 "flash_attention_bwd": fa.flash_attention_bwd,
+                 "stochastic_quantize_keyed": qz.stochastic_quantize_keyed,
+                 "dp_noise": dpn.dp_noise})
     name_power = {"device": torch.cuda.get_device_name(0), "power": smi}
     for phase in args.phases:
         if phase == "ssm_train_parity":
             cs.run_ssm_train_parity(torch, m)
+        elif phase == "train_zamba_mixed":
+            cs.run_train_zamba_mixed(torch, m, name_power)
+        elif phase == "zamba_mixed_parity":
+            cs.run_zamba_mixed_parity(torch, m)
         else:
             arch = dict(zip(("train_xlstm", "train_zamba"), cs.SSM_ARCHS))[phase]
             cs.run_train_zoo(torch, m, arch, phase, name_power, cs.TRAIN_SSM,

@@ -9,6 +9,7 @@ FLConfig).
                                            [--seq 512] [--steps 1]
                                            [--json PATH] [--codec int8]
                                            [--dp-epsilon 8]
+                                           [--constrained]
 
 ``--steps`` SSCA steps through ``launch.train.make_scanned_step``, each
 call through profile_torch_round.profile_window: host-clock ms per step,
@@ -21,8 +22,14 @@ elementwise work and copies; with ``--codec``/``--dp-epsilon`` also the
 step's upload: the DP-noise kernel, the keyed quantize kernel and the
 norm's dot products). ``--codec`` and ``--dp-epsilon`` put the gradient
 through ``train.comm_update_`` as ``train_loop(codec=, dp=)`` does (int8 +
-EF, DP at (ε, 1e-5), C = 1). Prints one JSON line; --json PATH writes all
-of it, top kernels and host operators included, to PATH.
+EF, DP at (ε, 1e-5), C = 1). ``--constrained`` takes the constrained
+update (formulation (40), U = 3.0, Lemma 1) in place of the SSCA kernel's;
+its device ms alone (``chip_smoke.constrained_update_ms``: CUDA events
+on the state's own buffers and a random gradient of their dtypes) is
+printed beside its bound (``roofline.kernels.constrained_update``: 20 B
+an element of a bf16 buffer, 28 of an fp32 side buffer; the H100 SXM's
+data-sheet HBM rate). Prints one JSON line; --json PATH writes all of it,
+top kernels and host operators included, to PATH.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ import json
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import profile_torch_round
 
@@ -100,19 +108,20 @@ def main() -> int:
                     help="write the full profile here")
     ap.add_argument("--codec", default=None, help="e.g. int8")
     ap.add_argument("--dp-epsilon", type=float, default=None)
+    ap.add_argument("--constrained", action="store_true")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("profile_torch_train: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+    import chip_smoke
     from repro_torch import device as device_lib
     from repro_torch import random as rnd
-    from repro_torch.configs.base import FLConfig
     from repro_torch.comm.codecs import make_codec
     from repro_torch.comm.error_feedback import CommCarry, ef_init
     from repro_torch.configs.registry import get_config
-    from repro_torch.core import optimizer, privacy, rounds
+    from repro_torch.core import optimizer, privacy, rounds, surrogate
     from repro_torch.core.tree import leaves
     from repro_torch.data.synthetic import token_dataset
     from repro_torch.launch import train
@@ -124,19 +133,21 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     cfg = get_config(args.arch)
     model = get_model(cfg)
-    fl = FLConfig(a1=0.9, a2=0.5, alpha_rho=0.1, alpha_gamma=0.6, tau=0.2,
-                  l2_lambda=1e-5)
+    fl = train.TRAIN_FL
     key = rnd.PRNGKey(0)
-    state = optimizer.ssca_init(model.init(key, cfg))
+    init = (optimizer.ssca_constrained_init if args.constrained
+            else optimizer.ssca_init)
+    state = init(model.init(key, cfg))
     toks = token_dataset(rnd.fold_in(key, 1), cfg.vocab_size,
                          max(200_000, args.batch * (args.seq + 1) * 4))
     codec = make_codec(args.codec)
     dp = (privacy.DPConfig(epsilon=args.dp_epsilon)
           if args.dp_epsilon is not None else None)
+    n_params = sum(t.numel() for t in leaves(state.params))
     if codec is not None:
-        state = CommCarry(opt=state, ef=ef_init(state.w_flat.numel()))
+        state = CommCarry(opt=state, ef=ef_init(n_params))
     step = train.make_scanned_step(model, cfg, fl, toks, args.batch, args.seq,
-                                   codec=codec, dp=dp)
+                                   args.constrained, codec=codec, dp=dp)
     inputs = rounds.make_inputs(fl, 1, args.steps, rnd.fold_in(key, 2))
     held = {"state": state}
     del state
@@ -147,13 +158,17 @@ def main() -> int:
 
     res = profile_with_groups(run, args.steps)
     tokens = args.batch * args.seq
-    n_params = sum(t.numel() for t in leaves(rounds.unwrap_comm(held["state"]).params))
+    if args.constrained:
+        res["constrained_update"] = chip_smoke.constrained_update_ms(
+            torch, SimpleNamespace(optimizer=optimizer, surrogate=surrogate),
+            rounds.unwrap_comm(held["state"]), fl)
     res["tokens_per_s"] = tokens * 1e3 / res["ms_per_call"]
     res["mfu"] = 6 * n_params * tokens / (res["ms_per_call"] / 1e3 * 989e12)
     out = {"device": smi, "arch": cfg.name, "batch": args.batch,
            "seq": args.seq, "steps": args.steps, "remat": cfg.remat,
            "params": n_params, "codec": args.codec,
-           "dp_epsilon": args.dp_epsilon, **res}
+           "dp_epsilon": args.dp_epsilon, "constrained": args.constrained,
+           **res}
     print(json.dumps({k: v for k, v in out.items() if not k.startswith("top_")}),
           flush=True)
     if args.json is not None:

@@ -16,6 +16,9 @@ use_bin_type=True)``. ``save_checkpoint`` streams the file leaf by leaf
 (one leaf's host copy at a time, so a 6.17 GB save never holds the file in
 memory); ``load_checkpoint`` reads each leaf's bytes straight into a
 buffer that becomes the tensor (``torch.frombuffer``, bf16 included).
+``save_state`` and ``load_state_`` keep an optimizer state (its params,
+surrogates, scalars and an EF residual) in the same format and read it
+back into the state's own flat buffers.
 """
 from __future__ import annotations
 
@@ -295,3 +298,63 @@ def load_checkpoint(path: str, like, cast: bool = False):
     restored = [_tensor(s).to(w.dtype).reshape(w.shape).to(w.device)
                 for s, w in zip(stored, want)]
     return _rebuild(like, iter(restored)), payload["step"]
+
+
+# ---------------------------------------------------------------------------
+# optimizer states
+# ---------------------------------------------------------------------------
+
+
+def _is_state(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def _storage(field: str) -> bool:
+    """A flat buffer that a state's views lie in (w_flat, g_flat, w_side,
+    g_side, obj_flat, obj_side): saved through its views."""
+    return field.endswith(("_flat", "_side"))
+
+
+def state_tree(state) -> dict:
+    """An optimizer state (``core.optimizer``'s, or a ``CommCarry`` of one)
+    as a checkpoint tree: its fields by name, nested states as dicts, the
+    round counter ``t`` as a 0-d int64 tensor. The flat buffers are left
+    out: the params and surrogate views over them (a bf16 model's fp32
+    leaves among them, from its side buffers) carry every value once."""
+    out = {}
+    for f in state._fields:
+        v = getattr(state, f)
+        if v is None or _storage(f):
+            continue
+        out[f] = (state_tree(v) if _is_state(v)
+                  else torch.tensor(v, dtype=torch.int64) if isinstance(v, int)
+                  else v)
+    return out
+
+
+def save_state(path: str, state, step: int = 0):
+    """``save_checkpoint`` of ``state_tree(state)``."""
+    save_checkpoint(path, state_tree(state), step)
+
+
+def _restore_(state, tree):
+    kw = {}
+    for f, v in tree.items():
+        old = getattr(state, f)
+        if _is_state(old):
+            kw[f] = _restore_(old, v)
+        elif isinstance(old, int):
+            kw[f] = int(v)
+        else:
+            for dst, src in zip(_flatten(old), _flatten(v), strict=True):
+                dst.copy_(src)
+    return state._replace(**kw)
+
+
+def load_state_(path: str, state):
+    """Reads a ``save_state`` file into ``state``'s own tensors, in place:
+    its views, so into its flat buffers, and its 0-d tensors (dtypes and
+    the tree as ``load_checkpoint`` checks them). Returns (the state with
+    the stored ``t``, step)."""
+    tree, step = load_checkpoint(path, state_tree(state))
+    return _restore_(state, tree), step

@@ -123,10 +123,11 @@ def ssca_constrained_state_from_numpy(params, cons_g, cons_d, t, nu, slack,
         return tensor_from_numpy(np.asarray(x, np.float32), device)
 
     d = scalar(cons_d)
+    bsq = sum(torch.dot(g, g) for g in (state.g_flat, state.g_side)
+              if g is not None)
     return state._replace(cons=state.cons._replace(d=d), t=int(np.asarray(t)),
                           nu=scalar(nu), slack=scalar(slack),
-                          cons_min=d - torch.dot(state.g_flat, state.g_flat)
-                          / (4.0 * tau))
+                          cons_min=d - bsq / (4.0 * tau))
 
 
 def ssca_constrained_state_to_numpy(state) -> dict:

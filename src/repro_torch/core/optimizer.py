@@ -19,8 +19,11 @@ as momentum SGD (Remark 2), in plain PyTorch.
 constrained formulation (40), min ‖ω‖² s.t. mean-loss <= U, via Lemma 1;
 `ssca_general_constrained_step` the full Algorithm 2/4 (sampled objective
 and constraint, bisection). Their states keep the same flat layout: params
-as views of ``w_flat``, each surrogate buffer as views of one flat fp32
-buffer, so the zoo's train step (``train.grad_leaves``) works unchanged.
+as views of ``w_flat`` (and a bf16 model's fp32 leaves of ``w_side``),
+each surrogate buffer as views of one flat fp32 buffer (and its side
+part), so the zoo's train step (``train.grad_leaves``) works unchanged;
+the sums that Lemma 1 and the bisection read add up over both buffers,
+and each buffer is written in its own dtype.
 They have no kernel (the reference has no Pallas counterpart): they run as
 PyTorch ops, in place, a chunk of ``surrogate.CHUNK`` elements at a time,
 so no full-size fp32 temporary is made at the train size. ν and slack stay
@@ -38,7 +41,7 @@ from repro_torch.core.solvers import (lemma1_nu_from_disc,
 from repro_torch.core.surrogate import (QuadSurrogate, chunks, recurse_g_,
                                         update_surrogate_)
 from repro_torch.core.tree import (flatten, leaves, split_views, tree_map,
-                                   tree_zeros_like, views)
+                                   tree_zeros_like)
 from repro_torch.kernels.ssca_update import ssca_update_
 
 
@@ -50,6 +53,20 @@ class SSCAState(NamedTuple):
     g_flat: torch.Tensor      # (P,) fp32 surrogate buffer, same layout
     w_side: Optional[torch.Tensor] = None   # (P_side,) a bf16/fp16 model's fp32 params
     g_side: Optional[torch.Tensor] = None   # (P_side,) their fp32 surrogate buffer
+
+    @property
+    def buffers(self) -> tuple:
+        """The flat param buffers: (w_flat,) or (w_flat, w_side)."""
+        return _present(self.w_flat, self.w_side)
+
+    @property
+    def g_buffers(self) -> tuple:
+        """The surrogate buffers, laid out as ``buffers``."""
+        return _present(self.g_flat, self.g_side)
+
+
+def _present(*bufs) -> tuple:
+    return tuple(b for b in bufs if b is not None)
 
 
 def _sched(fl, t, rho_t=None, gamma_t=None, device=None):
@@ -72,24 +89,23 @@ def _sched(fl, t, rho_t=None, gamma_t=None, device=None):
 # ---------------------------------------------------------------------------
 
 
-def _flat_params(params, side: bool = False):
+def _flat_params(params):
     """Copies ``params`` (a nested dict) into one flat buffer, leaf by leaf;
     the caller's tensors are never written. Returns (the dict of views, the
-    buffer, the side buffer or None). The leaves share one dtype, or, with
-    ``side``, are bf16 or fp16 with some fp32 leaves: those go, in the same
-    order, to a flat fp32 side buffer and keep their dtype. Any other mix
-    raises TypeError."""
+    buffer, the side buffer or None). The leaves share one dtype, or are
+    bf16 or fp16 with some fp32 leaves: those go, in the same order, to a
+    flat fp32 side buffer and keep their dtype. Any other mix raises
+    TypeError."""
     src = leaves(params)
     dtypes = {t.dtype for t in src}
     low = dtypes - {torch.float32}
     if len(dtypes) == 1:
         dtype = src[0].dtype
-    elif (side and len(low) == 1
-          and next(iter(low)) in (torch.bfloat16, torch.float16)):
+    elif len(low) == 1 and next(iter(low)) in (torch.bfloat16, torch.float16):
         dtype = next(iter(low))
     else:
-        allowed = "one dtype, or bf16/fp16 with fp32" if side else "one dtype"
-        raise TypeError(f"params need {allowed}, got {dtypes}")
+        raise TypeError("params need one dtype, or bf16/fp16 with fp32, got "
+                        f"{dtypes}")
     dev = src[0].device
     main = [t for t in src if t.dtype == dtype]
     w_flat = torch.empty(sum(t.numel() for t in main), dtype=dtype, device=dev)
@@ -106,40 +122,39 @@ def _zeros_flat(w_flat):
     return torch.zeros(w_flat.shape, dtype=torch.float32, device=w_flat.device)
 
 
-def _as_flat(grad):
-    """A gradient given as a (nested) dict like params, or already flat in
-    w_flat's layout."""
-    return grad if isinstance(grad, torch.Tensor) else flatten(grad)
+def _surrogate_buffers(params, w_flat, w_side):
+    """A zero fp32 surrogate buffer for each flat buffer (None for no
+    side), and their views laid out as ``params``."""
+    g_flat = _zeros_flat(w_flat)
+    g_side = None if w_side is None else _zeros_flat(w_side)
+    return g_flat, g_side, split_views(g_flat, g_side, params, w_flat.dtype)
 
 
 def ssca_init(params) -> SSCAState:
-    state_params, w_flat, w_side = _flat_params(params, side=True)
-    g_flat = _zeros_flat(w_flat)
-    g_side = None if w_side is None else _zeros_flat(w_side)
-    return SSCAState(params=state_params,
-                     g=split_views(g_flat, g_side, params, w_flat.dtype), t=1,
-                     w_flat=w_flat, g_flat=g_flat, w_side=w_side, g_side=g_side)
+    state_params, w_flat, w_side = _flat_params(params)
+    g_flat, g_side, g = _surrogate_buffers(params, w_flat, w_side)
+    return SSCAState(params=state_params, g=g, t=1, w_flat=w_flat,
+                     g_flat=g_flat, w_side=w_side, g_side=g_side)
 
 
-def _split_grad(state: SSCAState, grad):
-    """``grad`` -> (its part in w_flat's layout, its part in w_side's or
-    None). A (nested) dict like params is split by the params' dtypes; a
+def _split_grad(state, grad) -> tuple:
+    """``grad`` laid out as ``state.buffers``, for any state of this
+    module: a (nested) dict like params is split by the params' dtypes; a
     flat tensor is w_flat's part and needs a state with no side buffer; a
-    pair is the two parts."""
+    (main, side) pair is the two parts."""
     if isinstance(grad, dict):
         if state.w_side is None:
-            return flatten(grad), None
+            return (flatten(grad),)
         side = [t.dtype != state.w_flat.dtype for t in leaves(state.params)]
         gl = leaves(grad)
         return (torch.cat([g.reshape(-1) for g, s in zip(gl, side) if not s]),
                 torch.cat([g.reshape(-1) for g, s in zip(gl, side) if s]))
     if isinstance(grad, torch.Tensor):
         if state.w_side is not None:
-            raise ValueError("ssca_step: the state has an fp32 side buffer; "
-                             "pass the gradient as a dict or a "
-                             "(main, side) pair")
-        return grad, None
-    return grad
+            raise ValueError("the state has an fp32 side buffer; pass the "
+                             "gradient as a dict or a (main, side) pair")
+        return (grad,)
+    return tuple(grad)
 
 
 def ssca_step(state: SSCAState, grad, fl, rho_t=None, gamma_t=None) -> SSCAState:
@@ -153,17 +168,14 @@ def ssca_step(state: SSCAState, grad, fl, rho_t=None, gamma_t=None) -> SSCAState
     every view of them, the input state's included) hold the new values
     after the call; the returned state shares those buffers, with t + 1.
     grad is cast to the params' dtype, as the kernel takes it (no copy when
-    it is a flat contiguous tensor of that dtype already). With a side
-    buffer, grad is a dict or a (main, side) pair, and the side buffer
-    takes a second launch, in fp32."""
+    it is a flat contiguous tensor of that dtype already). grad may also
+    be a tuple laid out as ``state.buffers``; with a side buffer it is a
+    dict or a (main, side) pair, and the side buffer takes a second
+    launch, in fp32."""
     rho_t, gamma_t = _sched(fl, state.t, rho_t, gamma_t, state.w_flat.device)
-    g, g_side = _split_grad(state, grad)
-    ssca_update_(state.w_flat, state.g_flat,
-                 g.to(state.w_flat.dtype).contiguous(), rho_t, gamma_t,
-                 fl.tau, fl.l2_lambda)
-    if state.w_side is not None:
-        ssca_update_(state.w_side, state.g_side,
-                     g_side.to(torch.float32).contiguous(), rho_t, gamma_t,
+    for w, g, gr in zip(state.buffers, state.g_buffers,
+                        _split_grad(state, grad), strict=True):
+        ssca_update_(w, g, gr.to(w.dtype).contiguous(), rho_t, gamma_t,
                      fl.tau, fl.l2_lambda)
     return state._replace(t=state.t + 1)
 
@@ -211,14 +223,19 @@ def momentum_form_step(state: MomentumForm, grad, fl, rho_t=None,
 
 
 class SSCAConstrainedState(NamedTuple):
-    params: dict              # views into w_flat
-    cons: QuadSurrogate       # constraint surrogate: d (0-d), g views into g_flat
+    params: dict              # views into w_flat (and w_side)
+    cons: QuadSurrogate       # constraint surrogate: d (0-d), g views into g_flat (and g_side)
     t: int                    # 1-based round counter
     nu: torch.Tensor          # last dual value (0-d; diagnostic)
     slack: torch.Tensor       # last slack (0-d; Theorem 2: -> 0)
-    w_flat: torch.Tensor      # (P,) all params, leaves in jax.tree order
+    w_flat: torch.Tensor      # (P,) params of the main dtype, leaves in jax.tree order
     g_flat: torch.Tensor      # (P,) fp32 constraint surrogate buffer
     cons_min: torch.Tensor    # 0-d min of the constraint surrogate, d - ‖g‖²/(4τ)
+    w_side: Optional[torch.Tensor] = None   # (P_side,) a bf16/fp16 model's fp32 params
+    g_side: Optional[torch.Tensor] = None   # (P_side,) their constraint surrogate buffer
+
+    buffers = SSCAState.buffers
+    g_buffers = SSCAState.g_buffers
 
 
 def _zero(w_flat):
@@ -226,13 +243,12 @@ def _zero(w_flat):
 
 
 def ssca_constrained_init(params) -> SSCAConstrainedState:
-    state_params, w_flat, _ = _flat_params(params)
-    g_flat = _zeros_flat(w_flat)
+    state_params, w_flat, w_side = _flat_params(params)
+    g_flat, g_side, g = _surrogate_buffers(params, w_flat, w_side)
     return SSCAConstrainedState(
-        params=state_params, cons=QuadSurrogate(d=_zero(w_flat),
-                                                g=views(g_flat, params)),
+        params=state_params, cons=QuadSurrogate(d=_zero(w_flat), g=g),
         t=1, nu=_zero(w_flat), slack=_zero(w_flat), w_flat=w_flat,
-        g_flat=g_flat, cons_min=_zero(w_flat))
+        g_flat=g_flat, cons_min=_zero(w_flat), w_side=w_side, g_side=g_side)
 
 
 def _tensor(x, like):
@@ -240,11 +256,13 @@ def _tensor(x, like):
 
 
 def _update_cons_(state, grad, value, fl, rho_t, spans=None, reduce=None):
-    """The constraint surrogate's recursion in place on ``state.g_flat``;
-    returns (its new QuadSurrogate, its minimum, b = ‖g‖²)."""
-    m, b = update_surrogate_(state.g_flat, state.cons_min, rho_t, state.w_flat,
-                             _as_flat(grad), value - fl.cost_limit, fl.tau,
-                             spans=spans, reduce=reduce)
+    """The constraint surrogate's recursion in place on ``state.g_flat``
+    (and ``g_side``); returns (its new QuadSurrogate, its minimum, b =
+    ‖g‖² over both buffers)."""
+    m, b = update_surrogate_(state.g_buffers, state.cons_min, rho_t,
+                             state.buffers, _split_grad(state, grad),
+                             value - fl.cost_limit, fl.tau, spans=spans,
+                             reduce=reduce)
     return QuadSurrogate(d=m + b / (4.0 * fl.tau), g=state.cons.g), m, b
 
 
@@ -253,8 +271,9 @@ def ssca_constrained_step(state: SSCAConstrainedState, loss_grad, loss_value,
                           reduce=None) -> SSCAConstrainedState:
     """min ‖ω‖² s.t. F(ω) <= U  (eq. 40). The objective is deterministic and
     kept exact (τ0 = 1 quadratic); the loss constraint is approximated per
-    (15). loss_grad is a dict like params or flat in w_flat's layout;
-    loss_value a 0-d tensor.
+    (15). loss_grad is a dict like params, flat in w_flat's layout, or a
+    tuple laid out as ``state.buffers`` (with a side buffer, a (main,
+    side) pair); loss_value a 0-d tensor.
 
     Updates IN PLACE, as ``ssca_step``, in two passes over the flat buffers
     a chunk at a time: (1) the surrogate recursion of g, with its minimum m
@@ -263,7 +282,9 @@ def ssca_constrained_step(state: SSCAConstrainedState, loss_grad, loss_value,
     at the solution, F̄_1(ω̄) = m + b/(4τ(1+ντ)²), is the reference's
     d + ⟨g, ω̄⟩ + τ‖ω̄‖² without the terms that cancel. Each element is read
     and written once a pass: 20 B an element for bf16 params and gradient
-    (12 + 8).
+    (12 + 8). A side buffer takes both passes after the main one: m and b
+    are sums over both, and ω is written in each buffer's dtype, as the
+    reference's ``.astype(w.dtype)`` writes each leaf.
 
     On this rank's block of a sharded state (``launch.train.
     sharded_train_step``), ``spans`` and ``reduce`` make the sums global
@@ -275,12 +296,13 @@ def ssca_constrained_step(state: SSCAConstrainedState, loss_grad, loss_value,
     nu = lemma1_nu_from_disc(b, -4.0 * fl.tau * m, fl.tau, fl.penalty_c)
     t_ = 1.0 + nu * fl.tau
     keep, step = 1.0 - gamma_t, gamma_t * (-nu / (2.0 * t_))
-    for sl in chunks(state.w_flat.numel()):
-        w = state.w_flat[sl]
-        w32 = w.float().mul_(keep) if w.dtype != torch.float32 else w.mul_(keep)
-        w32.addcmul_(state.g_flat[sl], step)
-        if w32 is not w:
-            w.copy_(w32)
+    for w_buf, g_buf in zip(state.buffers, state.g_buffers):
+        for sl in chunks(w_buf.numel()):
+            w = w_buf[sl]
+            w32 = w.float().mul_(keep) if w.dtype != torch.float32 else w.mul_(keep)
+            w32.addcmul_(g_buf[sl], step)
+            if w32 is not w:
+                w.copy_(w32)
     slack = torch.clamp(m + b / (4.0 * fl.tau * t_ * t_), min=0.0)
     return state._replace(cons=cons, t=state.t + 1, nu=nu, slack=slack,
                           cons_min=m)
@@ -288,9 +310,9 @@ def ssca_constrained_step(state: SSCAConstrainedState, loss_grad, loss_value,
 
 class SSCAGeneralConstrainedState(NamedTuple):
     """Full Algorithm 2/4 state: sampled objective + sampled constraint."""
-    params: dict              # views into w_flat
-    obj_g: dict               # objective linear buffer (eq. 9): views into obj_flat
-    cons: QuadSurrogate       # constraint surrogate: g views into g_flat
+    params: dict              # views into w_flat (and w_side)
+    obj_g: dict               # objective linear buffer (eq. 9): views into obj_flat (and obj_side)
+    cons: QuadSurrogate       # constraint surrogate: g views into g_flat (and g_side)
     t: int
     nu: torch.Tensor
     slack: torch.Tensor
@@ -298,16 +320,29 @@ class SSCAGeneralConstrainedState(NamedTuple):
     obj_flat: torch.Tensor    # (P,) fp32
     g_flat: torch.Tensor      # (P,) fp32
     cons_min: torch.Tensor    # 0-d min of the constraint surrogate
+    w_side: Optional[torch.Tensor] = None    # (P_side,) a bf16/fp16 model's fp32 params
+    obj_side: Optional[torch.Tensor] = None  # (P_side,) their objective buffer
+    g_side: Optional[torch.Tensor] = None    # (P_side,) their constraint buffer
+
+    buffers = SSCAState.buffers
+    g_buffers = SSCAState.g_buffers
+
+    @property
+    def obj_buffers(self) -> tuple:
+        """The objective buffers, laid out as ``buffers``."""
+        return _present(self.obj_flat, self.obj_side)
 
 
 def ssca_general_constrained_init(params) -> SSCAGeneralConstrainedState:
-    state_params, w_flat, _ = _flat_params(params)
-    obj_flat, g_flat = _zeros_flat(w_flat), _zeros_flat(w_flat)
+    state_params, w_flat, w_side = _flat_params(params)
+    obj_flat, obj_side, obj_g = _surrogate_buffers(params, w_flat, w_side)
+    g_flat, g_side, g = _surrogate_buffers(params, w_flat, w_side)
     return SSCAGeneralConstrainedState(
-        params=state_params, obj_g=views(obj_flat, params),
-        cons=QuadSurrogate(d=_zero(w_flat), g=views(g_flat, params)), t=1,
+        params=state_params, obj_g=obj_g,
+        cons=QuadSurrogate(d=_zero(w_flat), g=g), t=1,
         nu=_zero(w_flat), slack=_zero(w_flat), w_flat=w_flat,
-        obj_flat=obj_flat, g_flat=g_flat, cons_min=_zero(w_flat))
+        obj_flat=obj_flat, g_flat=g_flat, cons_min=_zero(w_flat),
+        w_side=w_side, obj_side=obj_side, g_side=g_side)
 
 
 def ssca_general_constrained_step(state: SSCAGeneralConstrainedState, obj_grad,
@@ -315,15 +350,20 @@ def ssca_general_constrained_step(state: SSCAGeneralConstrainedState, obj_grad,
                                   gamma_t=None) -> SSCAGeneralConstrainedState:
     """Full Algorithm 2/4 example: both the objective and the constraint are
     sampled nonconvex losses; Problem 5/10 solved by monotone bisection on
-    the Gram scalars. In place, as ``ssca_step``."""
+    the Gram scalars. In place, as ``ssca_step``; with a side buffer the
+    Gram scalars add up over both buffers and each buffer is written in
+    its own dtype."""
     rho_t, gamma_t = _sched(fl, state.t, rho_t, gamma_t, state.w_flat.device)
     rho_t = _tensor(rho_t, state.w_flat)
-    recurse_g_(state.obj_flat, rho_t, state.w_flat, _as_flat(obj_grad), fl.tau)
+    recurse_g_(state.obj_buffers, rho_t, state.buffers,
+               _split_grad(state, obj_grad), fl.tau)
     cons, m, _ = _update_cons_(state, cons_grad, cons_value, fl, rho_t)
-    sol = solve_constrained_single(state.obj_flat, fl.tau,
-                                   cons._replace(g=state.g_flat), fl.tau,
-                                   fl.penalty_c)
-    w = state.w_flat
-    w.copy_((1 - gamma_t) * w.float() + gamma_t * sol.omega_bar)
+    # the buffers as trees keyed by their index, which the Gram sums run over
+    sol = solve_constrained_single(
+        dict(enumerate(state.obj_buffers)), fl.tau,
+        cons._replace(g=dict(enumerate(state.g_buffers))), fl.tau,
+        fl.penalty_c)
+    for i, w in enumerate(state.buffers):
+        w.copy_((1 - gamma_t) * w.float() + gamma_t * sol.omega_bar[i])
     return state._replace(cons=cons, t=state.t + 1, nu=sol.nu[0],
                           slack=sol.slack[0], cons_min=m)

@@ -42,9 +42,9 @@ import torch
 from repro_torch.core.tree import (flatten, leaves, tree_dot, tree_l2sq,
                                    tree_map, tree_zeros_like, views)
 
-# elements a chunk: 134 MB fp32 temporaries. 2^27 runs the train-size
-# update 5% faster on the H100, but the CPU's fp32 dot over a chunk then
-# loses the digits that card-vs-CPU parity of Lemma 1's ν needs (PERF.md).
+# elements a chunk: 134 MB fp32 temporaries. 2^27 ran the train-size
+# update 5% faster on the H100 (PERF.md) with 537 MB temporaries; the
+# card-vs-CPU parity gates of Lemma 1's ν were set at 2^25.
 CHUNK = 1 << 25
 
 
@@ -58,6 +58,17 @@ def init_surrogate(params, dtype=torch.float32) -> QuadSurrogate:
     dev = leaves(params)[0].device
     return QuadSurrogate(d=torch.zeros((), device=dev),
                          g=tree_zeros_like(params, dtype))
+
+
+def dot(x, y):
+    """⟨x, y⟩ of two flat fp32 tensors. The CPU's BLAS dot adds each
+    thread's share in sequence, 6e-5 off float64 over a 2^25-element chunk
+    and 1e-6 over 1.7 M; there the products are summed by ``torch.sum``'s
+    pairwise reduction instead (1e-7 off, a chunk-sized temporary, ~5x
+    the time). On the card it is ``torch.dot``."""
+    if x.device.type == "cpu":
+        return torch.sum(x * y)
+    return torch.dot(x, y)
 
 
 def chunks(n: int):
@@ -74,50 +85,63 @@ def counted_chunks(segments):
             for a, b, counted in segments for sl in chunks(b - a)]
 
 
-def recurse_g_(g_flat, rho_t, omega_flat, grad_flat, tau: float,
+def buffer_spans(bufs, spans=None):
+    """(buffer, its (slice, counted) spans) for each of a tuple of flat
+    buffers: ``spans`` is None (every chunk counted) or a tuple of one
+    span list a buffer (``counted_chunks``)."""
+    if spans is None:
+        return [(b, [(sl, True) for sl in chunks(b.numel())]) for b in bufs]
+    return list(zip(bufs, spans, strict=True))
+
+
+def recurse_g_(g_bufs, rho_t, omega_bufs, grad_bufs, tau: float,
                extra_linear: float = 0.0, spans=None):
-    """g ← (1-ρ)·g + ρ·inj, inj = ĝ + (extra_linear - 2τ)·ω, in place on the
-    flat fp32 ``g_flat`` (eq. (9); ``extra_linear`` folds an exact-gradient
-    term such as 2λω in), ω and ĝ flat in any float dtype, computed in fp32
-    a chunk at a time; ρ a 0-d fp32 tensor. Returns the fp32 sums the
-    minimum's recursion needs: (min q_t − F̂, ‖inj − g_old‖², ‖g'‖²).
-    ``spans`` (``counted_chunks``) replaces the chunks: every span is
+    """g ← (1-ρ)·g + ρ·inj, inj = ĝ + (extra_linear - 2τ)·ω, in place on
+    each flat fp32 buffer of the tuple ``g_bufs`` (eq. (9); ``extra_linear``
+    folds an exact-gradient term such as 2λω in), ω and ĝ tuples of flat
+    buffers laid out alike in any float dtype (a bf16 state's main and
+    fp32 side buffers, or one buffer), computed in fp32 a chunk at a time;
+    ρ a 0-d fp32 tensor. Returns the fp32 sums the minimum's recursion
+    needs, over all the buffers: (min q_t − F̂, ‖inj − g_old‖², ‖g'‖²).
+    ``spans`` (``buffer_spans``) replaces the chunks: every span is
     updated, and only the counted ones enter the sums."""
-    zero = torch.zeros((), device=g_flat.device)
+    zero = torch.zeros((), device=g_bufs[0].device)
     qmin, jump, bsq = zero, zero, zero
     keep = 1.0 - rho_t
-    if spans is None:
-        spans = [(sl, True) for sl in chunks(g_flat.numel())]
-    for sl, counted in spans:
-        gr = grad_flat[sl].to(torch.float32, copy=True)
-        w = omega_flat[sl].float()
-        if extra_linear:
-            gr.add_(w, alpha=extra_linear)
+    for (g_buf, sps), w_buf, gr_buf in zip(buffer_spans(g_bufs, spans),
+                                           omega_bufs, grad_bufs, strict=True):
+        for sl, counted in sps:
+            gr = gr_buf[sl].to(torch.float32, copy=True)
+            w = w_buf[sl].float()
+            if extra_linear:
+                gr.add_(w, alpha=extra_linear)
+                if counted:
+                    qmin = qmin + extra_linear * dot(w, w)
             if counted:
-                qmin = qmin + extra_linear * torch.dot(w, w)
-        if counted:
-            qmin = qmin - torch.dot(gr, gr) / (4.0 * tau)
-        inj = gr.add_(w, alpha=-2.0 * tau)
-        g = g_flat[sl]
-        if counted:
-            diff = torch.sub(inj, g)
-            jump = jump + torch.dot(diff, diff)
-        g.mul_(keep).addcmul_(inj, rho_t)
-        if counted:
-            bsq = bsq + torch.dot(g, g)
+                qmin = qmin - dot(gr, gr) / (4.0 * tau)
+            inj = gr.add_(w, alpha=-2.0 * tau)
+            g = g_buf[sl]
+            if counted:
+                diff = torch.sub(inj, g)
+                jump = jump + dot(diff, diff)
+            g.mul_(keep).addcmul_(inj, rho_t)
+            if counted:
+                bsq = bsq + dot(g, g)
     return qmin, jump, bsq
 
 
-def update_surrogate_(g_flat, m, rho_t, omega_flat, grad_flat, value_est,
+def update_surrogate_(g_bufs, m, rho_t, omega_bufs, grad_bufs, value_est,
                       tau: float, extra_linear: float = 0.0, spans=None,
                       reduce=None):
-    """One recursion step in place on ``g_flat`` (see ``recurse_g_``), with
-    the surrogate's minimum ``m`` (0-d). Returns (m', ‖g'‖²); the
-    reference's d' is m' + ‖g'‖²/(4τ). On a sharded state, ``spans`` says
-    which of this rank's spans its sums count and ``reduce`` sums the
-    three partial sums over the ranks."""
-    rho_t = torch.as_tensor(rho_t, dtype=torch.float32, device=g_flat.device)
-    qmin, jump, bsq = recurse_g_(g_flat, rho_t, omega_flat, grad_flat, tau,
+    """One recursion step in place on the tuple ``g_bufs`` (see
+    ``recurse_g_``; the sums over all the buffers are added before m is
+    formed), with the surrogate's minimum ``m`` (0-d). Returns (m',
+    ‖g'‖²); the reference's d' is m' + ‖g'‖²/(4τ). On a sharded state,
+    ``spans`` says which of this rank's spans its sums count and
+    ``reduce`` sums the three partial sums over the ranks."""
+    rho_t = torch.as_tensor(rho_t, dtype=torch.float32,
+                            device=g_bufs[0].device)
+    qmin, jump, bsq = recurse_g_(g_bufs, rho_t, omega_bufs, grad_bufs, tau,
                                  extra_linear, spans)
     if reduce is not None:
         qmin, jump, bsq = reduce(qmin, jump, bsq)
@@ -131,9 +155,9 @@ def update_surrogate(s: QuadSurrogate, rho_t, omega, grad_est, value_est,
     """One recursion step on trees; ``s`` is not written. extra_linear adds
     ``extra_linear * ω`` to the injected gradient (e.g. 2λω for λ‖ω‖²)."""
     g = flatten(s.g).float()                # a new buffer: cat copies
-    m, bsq = update_surrogate_(g, s.d - torch.dot(g, g) / (4.0 * tau), rho_t,
-                               flatten(omega), flatten(grad_est), value_est,
-                               tau, extra_linear)
+    m, bsq = update_surrogate_((g,), s.d - dot(g, g) / (4.0 * tau), rho_t,
+                               (flatten(omega),), (flatten(grad_est),),
+                               value_est, tau, extra_linear)
     return QuadSurrogate(d=m + bsq / (4.0 * tau), g=views(g, s.g))
 
 

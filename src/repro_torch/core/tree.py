@@ -56,6 +56,24 @@ def split_views(main, side, like, dtype):
     return tree_map(view, like)
 
 
+def split_runs(like, dtype):
+    """Where ``split_views`` lays ``like``'s leaves, read in the order of
+    the reference's one flat vector (every leaf in ``jax.tree.leaves``
+    order): (start, end, part, part_start) runs of that vector, part 0
+    the ``dtype`` leaves' buffer and part 1 the others', consecutive
+    leaves of one buffer merged."""
+    runs, o, at = [], 0, [0, 0]
+    for t in leaves(like):
+        n, i = math.prod(t.shape), int(t.dtype != dtype)
+        if runs and runs[-1][2] == i:
+            runs[-1] = (runs[-1][0], o + n, i, runs[-1][3])
+        else:
+            runs.append((o, o + n, i, at[i]))
+        o += n
+        at[i] += n
+    return runs
+
+
 def flatten(tree):
     """The leaves concatenated into one (P,) tensor, in ``leaves`` order."""
     return torch.cat([leaf.reshape(-1) for leaf in leaves(tree)])

@@ -36,7 +36,11 @@ and then compressed through an error-feedback roundtrip (``codec``, key
 its threefry bits at its own counter offset on the ``dp_noise`` and keyed
 quantize kernels; the EF residual (fp32, one per parameter) is updated in
 place and is the only full-size state the codec adds. TopK and Chain select
-over the whole vector, so they take the vector as one piece.
+over the whole vector, so they take the vector as one piece. A bf16 model's
+fp32 leaves (its second flat buffer) sit between its bf16 leaves in the
+reference's one flat vector, so the upload walks that vector's order
+(``tree.split_runs``): a piece that spans both buffers is gathered into
+fp32, run through the kernels at its offset, and scattered back.
 
 Every mode takes the reference's observability: ``log_jsonl`` streams the
 round rows through an ``obs.MetricStream`` (rows built off the dispatch
@@ -97,9 +101,9 @@ from repro_torch.core import algorithms, fed, optimizer, rounds
 from repro_torch.core import privacy as privacy_lib
 from repro_torch.core import topology as topology_lib
 from repro_torch.core.rounds import unwrap_comm
-from repro_torch.core.surrogate import (CHUNK, QuadSurrogate, chunks,
-                                        counted_chunks)
-from repro_torch.core.tree import leaves, split_views, tree_map
+from repro_torch.core.surrogate import (CHUNK, QuadSurrogate, buffer_spans,
+                                        counted_chunks, dot)
+from repro_torch.core.tree import leaves, split_runs, split_views, tree_map
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.mesh import P
 from repro_torch.data.synthetic import (VirtualFedData, classification_dataset,
@@ -180,15 +184,17 @@ def grad_leaves(state, grad, stacked=transformer.STACKED):
     return out
 
 
-def _sq_norm(flat, spans=None, reduce=None):
-    """‖flat‖² in fp32, a chunk at a time (no full-size fp32 temporary);
-    on a sharded state over the counted ``spans``, summed over the ranks
-    by ``reduce`` (``surrogate.update_surrogate_``'s)."""
-    total = torch.zeros((), device=flat.device)
-    for sl, counted in (spans or [(sl, True) for sl in chunks(flat.numel())]):
-        if counted:
-            x = flat[sl].float()
-            total = total + torch.dot(x, x)
+def _sq_norm(bufs, spans=None, reduce=None):
+    """‖·‖² in fp32 over a tuple of flat buffers, a chunk at a time (no
+    full-size fp32 temporary); on a sharded state over the counted
+    ``spans`` (``surrogate.buffer_spans``), summed over the ranks by
+    ``reduce`` (``surrogate.update_surrogate_``'s)."""
+    total = torch.zeros((), device=bufs[0].device)
+    for buf, sps in buffer_spans(bufs, spans):
+        for sl, counted in sps:
+            if counted:
+                x = buf[sl].float()
+                total = total + dot(x, x)
     return total if reduce is None else reduce(total)[0]
 
 
@@ -201,29 +207,26 @@ def _ssca_update(state, loss, grad, fl: FLConfig, rho_t, gamma_t,
                                               rho_t=rho_t, gamma_t=gamma_t,
                                               spans=spans, reduce=reduce)
         return new, {"loss": loss, "nu": new.nu, "slack": new.slack,
-                     "l2": _sq_norm(new.w_flat, spans, reduce)}
+                     "l2": _sq_norm(new.buffers, spans, reduce)}
     new = optimizer.ssca_step(state, grad, fl, rho_t=rho_t, gamma_t=gamma_t)
     return new, {"loss": loss, "t": state.t}
 
 
 def _make_grad(model, cfg, wrap=None):
-    """grad_of(state, batch) -> (loss, flat gradient): the gradient buffer
-    (w_flat's dtype and layout; with the state's fp32 side buffer, a
-    (main, side) pair) and the leaves that point into it are made once per
-    state and zeroed each step. ``wrap`` (the sharded step's) turns the
+    """grad_of(state, batch) -> (loss, flat gradient): the gradient buffers,
+    one a flat param buffer (``state.buffers``: w_flat's dtype and layout,
+    and an fp32 one for a side buffer), and the leaves that point into
+    them are made once per state and zeroed each step. ``wrap`` (the sharded step's) turns the
     leaves into what ``loss_fn`` reads, each step."""
     held = {}
 
     def grad_of(state, batch):
         if held.get("w") is not state.w_flat:
             held.clear()
-            side = getattr(state, "w_side", None)
-            grad = torch.empty_like(state.w_flat)
-            if side is not None:
-                grad = (grad, torch.empty_like(side))
+            grad = tuple(map(torch.empty_like, state.buffers))
             held.update(w=state.w_flat, grad=grad,
                         leaves=grad_leaves(state, grad, model.stacked))
-        for g in _parts(held["grad"]):
+        for g in held["grad"]:
             g.zero_()
         params = held["leaves"] if wrap is None else wrap(held["leaves"])
         loss = model.loss_fn(params, batch, cfg)
@@ -312,23 +315,27 @@ def shard_state(state, mesh, specs):
     return new._replace(t=state.t)
 
 
-def _counted_spans(mesh, specs, like):
-    """(start, end, counted) spans of this rank's flat buffer (the leaves
-    of ``like`` in order): a leaf counts where this rank sits at
+def _counted_spans(mesh, specs, like, dtype):
+    """(start, end, counted) spans of this rank's flat buffers (the leaves
+    of ``like`` in order: those of ``dtype`` in the main buffer, the
+    others in the side one): a leaf counts where this rank sits at
     coordinate 0 of every axis it is replicated over, so that the
-    constrained step's sums add each element once."""
+    constrained step's sums add each element once. A tuple of one list a
+    buffer, as the state's ``buffers``."""
     live = [a for a, n in mesh_lib.axis_sizes(mesh).items() if n > 1]
-    out, o = [], 0
+    out, o = {}, [0, 0]
     for spec, t in zip(leaves(specs), leaves(like)):
         named_axes = {a for e in spec for a in mesh_lib.entry_axes(e)}
         counted = all(mesh_lib.axis_index(mesh, a) == 0
                       for a in live if a not in named_axes)
-        if out and out[-1][2] == counted:
-            out[-1] = (out[-1][0], o + t.numel(), counted)
+        i, n = int(t.dtype != dtype), t.numel()
+        spans = out.setdefault(i, [])
+        if spans and spans[-1][2] == counted:
+            spans[-1] = (spans[-1][0], o[i] + n, counted)
         else:
-            out.append((o, o + t.numel(), counted))
-        o += t.numel()
-    return out
+            spans.append((o[i], o[i] + n, counted))
+        o[i] += n
+    return tuple(out[i] for i in sorted(out))
 
 
 def sharded_train_step(model, cfg, fl: FLConfig, mesh, batch_like,
@@ -354,7 +361,8 @@ def sharded_train_step(model, cfg, fl: FLConfig, mesh, batch_like,
     the global batch's mean. On a mesh of one rank every gather, sum and
     division is skipped: the step is the local step, bit for bit.
     ``train_step.grad_of(state, batch)`` returns (the loss, this rank's
-    flat gradient) without the update. ``specs`` defaults to
+    flat gradient buffers, a tuple as ``state.buffers``) without the
+    update. ``specs`` defaults to
     ``state_specs``; the dry run passes them fitted to the shapes
     (``mesh.fit_specs``)."""
     specs = specs or state_specs(model, cfg, constrained)
@@ -379,7 +387,7 @@ def sharded_train_step(model, cfg, fl: FLConfig, mesh, batch_like,
             loss, grad = grad_of(state, batch)
         if n_data > 1:
             with torch.no_grad():
-                for g in _parts(grad):
+                for g in grad:
                     g.mul_(1.0 / n_data)
                 loss = mesh_lib.all_reduce_axes(loss.float().clone(), mesh,
                                                 data) / n_data
@@ -391,8 +399,10 @@ def sharded_train_step(model, cfg, fl: FLConfig, mesh, batch_like,
             spans = None
             if constrained and not one_rank:
                 if held.get("w") is not state.w_flat:
-                    held.update(w=state.w_flat, spans=counted_chunks(
-                        _counted_spans(mesh, specs.params, state.params)))
+                    held.update(w=state.w_flat, spans=tuple(map(
+                        counted_chunks, _counted_spans(
+                            mesh, specs.params, state.params,
+                            state.w_flat.dtype))))
                 spans = held["spans"]
             return _ssca_update(state, loss, grad, fl, rho_t, gamma_t,
                                 constrained, spans,
@@ -403,7 +413,7 @@ def sharded_train_step(model, cfg, fl: FLConfig, mesh, batch_like,
 
 
 def comm_update_(grad, ef, key, codec=None, dp=None, piece: int = None, *,
-                 dp_key=None, codec_key=None):
+                 dp_key=None, codec_key=None, runs=None):
     """The train step's upload, in place on the flat gradient ``grad`` (the
     params' dtype): privatize it (``dp``: clip to C at the whole vector's
     norm, add N(0, σ²C²) drawn with ``dp_key``, default ``fold_in(key,
@@ -418,14 +428,21 @@ def comm_update_(grad, ef, key, codec=None, dp=None, piece: int = None, *,
     quantize kernel at its own counter offset, which draws exactly the
     normals and bits of the reference's whole-vector draws. The norm is a
     first pass in fp32 chunks. Returns the DP stats {"clipped", "noise_sq"}
-    as 0-d device tensors, or None without ``dp``. A (main, side)
-    gradient pair (a bf16 model's fp32 leaves) is refused."""
-    if not isinstance(grad, torch.Tensor):
-        raise TypeError(
-            "the upload (codec=, dp=) takes one flat gradient, and these "
-            "params keep fp32 leaves in a second flat buffer; train without "
-            "an upload, or in float32")
-    n = grad.numel()
+    as 0-d device tensors, or None without ``dp``.
+
+    ``grad`` may be a (main, side) pair (a bf16 model's fp32 leaves in a
+    second flat buffer); ``runs`` (``tree.split_runs`` of the params) then
+    lays the reference's vector, whose order ``ef`` and the offsets
+    follow, over the two buffers. A piece inside one run is taken in
+    place; one across runs is gathered into an fp32 piece and its decoded
+    upload scattered back. The norm is over both buffers."""
+    parts = _parts(grad)
+    if runs is None:
+        if len(parts) > 1:
+            raise ValueError("comm_update_: a (main, side) gradient needs "
+                             "runs= (tree.split_runs of the params)")
+        runs = [(0, parts[0].numel(), 0, 0)]
+    n = runs[-1][1]
     piece = COMM_PIECE if piece is None else piece
     if piece % 256:
         raise ValueError(f"comm_update_: piece must be a multiple of 256, "
@@ -433,31 +450,55 @@ def comm_update_(grad, ef, key, codec=None, dp=None, piece: int = None, *,
     if codec is not None and not isinstance(codec, (Identity,
                                                     StochasticQuantizer)):
         piece = n
+    dev = parts[0].device
     stats = None
     if dp is not None:
         dkey = rnd.fold_in(key, 0xD9) if dp_key is None else dp_key
-        norm = torch.sqrt(_sq_norm(grad))
+        norm = torch.sqrt(_sq_norm(parts))
         factor = privacy_lib.clip_factor(norm, dp)
-        one = torch.ones((), device=grad.device)
+        one = torch.ones((), device=dev)
         sigma = privacy_lib.sigma_of(dp)
-        noise_sq = torch.zeros((), device=grad.device)
+        noise_sq = torch.zeros((), device=dev)
         stats = {"clipped": (norm > dp.clip_norm).float()}
     ckey = None
     if codec is not None:
         ckey = rnd.fold_in(key, 0xC0DEC) if codec_key is None else codec_key
     for a in range(0, n, piece):
-        g = grad[a:a + piece]
-        x = g.float()
+        b = min(a + piece, n)
+        # (part, its offset, the piece's offset, length) of each run in [a, b)
+        spans = [(p, ps + max(a, s) - s, max(a, s) - a, min(b, e) - max(a, s))
+                 for s, e, p, ps in runs if s < b and e > a]
+        if len(spans) == 1:
+            p, lo, _, m = spans[0]
+            g = parts[p][lo:lo + m]
+            x = g.float()
+        else:
+            g = None
+            x = torch.empty(b - a, dtype=torch.float32, device=dev)
+            for p, lo, xo, m in spans:
+                x[xo:xo + m].copy_(parts[p][lo:lo + m])
         if dp is not None:
             x, sq = dp_noise(x, dkey, factor, one, sigma, offset=a, out=x)
             noise_sq = noise_sq + sq
         if codec is not None:
-            _, x = ef_roundtrip_(codec, x, ef[a:a + piece], ckey, offset=a)
-        if x is not g:
+            _, x = ef_roundtrip_(codec, x, ef[a:b], ckey, offset=a)
+        if g is None:
+            for p, lo, xo, m in spans:
+                parts[p][lo:lo + m].copy_(x[xo:xo + m])
+        elif x is not g:
             g.copy_(x)
     if dp is not None:
         stats["noise_sq"] = noise_sq
     return stats
+
+
+def _upload_runs(held, state):
+    """``split_runs`` of the state's params, made once per state (keyed on
+    its flat buffer) into ``held``."""
+    if held.get("w") is not state.w_flat:
+        held.update(w=state.w_flat,
+                    runs=split_runs(state.params, state.w_flat.dtype))
+    return held["runs"]
 
 
 def make_scanned_step(model, cfg, fl: FLConfig, tokens, batch: int, seq: int,
@@ -494,16 +535,19 @@ def make_scanned_step(model, cfg, fl: FLConfig, tokens, batch: int, seq: int,
     grad_of = _make_grad(model, cfg)
     eps_fn = (privacy_lib.make_eps_fn(dp, 1.0, device=tokens.device)
               if dp is not None else None)
+    held = {}
 
     def comm_body(state, inp, ef):
         data = sample_window(tokens, inp.key, batch, seq)
         loss, grad = grad_of(state, data)
         with torch.no_grad():
-            dstats = comm_update_(grad, ef, inp.key, codec, dp)
+            dstats = comm_update_(grad, ef, inp.key, codec, dp,
+                                  runs=_upload_runs(held, state))
             new, metrics = _ssca_update(state, loss, grad, fl, inp.rho,
                                         inp.gamma, constrained)
         if codec is not None:
-            metrics["upload_bytes"] = float(codec.nbytes(grad.numel()))
+            metrics["upload_bytes"] = float(codec.nbytes(
+                sum(map(torch.numel, state.buffers))))
         if dp is not None:
             metrics.update({"dp_epsilon": eps_fn(inp.t),
                             "dp_clip_frac": dstats["clipped"],
@@ -524,6 +568,7 @@ def _sharded_step(model, cfg, fl, tokens, batch, seq, constrained, codec,
     grad_of = _make_grad(model, cfg)
     eps_fn = (privacy_lib.make_eps_fn(dp, 1.0, device=tokens.device)
               if dp is not None else None)
+    held = {}
 
     def body(state, inp, ef):
         data = sample_window(tokens, inp.key, batch, seq)
@@ -538,13 +583,14 @@ def _sharded_step(model, cfg, fl, tokens, batch, seq, constrained, codec,
                 with phase("codec-encode"):
                     dstats = comm_update_(
                         grad, ef[0] if codec is not None else None, inp.key,
-                        codec, dp, codec_key=ckey, dp_key=dkey)
+                        codec, dp, codec_key=ckey, dp_key=dkey,
+                        runs=_upload_runs(held, state))
             if shards > 1:              # a scale by 1 changes no bit
                 with phase("aggregate"):
-                    for g in _parts(grad):
+                    for g in grad:
                         g.mul_(1.0 / shards)
             with phase("collective"):
-                for g in _parts(grad):
+                for g in grad:
                     dist.all_reduce(g, group=topo.group)
                 parts = {"loss": loss.float() * (1.0 / shards)}
                 if dp is not None:
@@ -555,7 +601,7 @@ def _sharded_step(model, cfg, fl, tokens, batch, seq, constrained, codec,
                                         inp.rho, inp.gamma, constrained)
         if codec is not None:
             metrics["upload_bytes"] = float(shards * codec.nbytes(
-                grad.numel()))
+                sum(map(torch.numel, state.buffers))))
         if dp is not None:
             metrics.update({"dp_epsilon": eps_fn(inp.t),
                             "dp_clip_frac": sums["clip"] / shards,
@@ -623,7 +669,7 @@ def train_loop(arch: str, steps: int, batch: int, seq: int, *,
         # sharded: the rank's (1, P) row of the reference's (D, P) carry,
         # made as that row (D full-size residuals would not fit beside the
         # step at full width)
-        dim = state.w_flat.numel()
+        dim = sum(map(torch.numel, state.buffers))
         state = CommCarry(opt=state, ef=(
             ef_init_stacked(1, dim, dev) if topo.name == "sharded"
             else ef_init(dim, dev)))

@@ -62,6 +62,16 @@ def ssca_update(n: int, w_esize: int = 4, g_esize: int = None) -> Work:
     return Work(n * (2 * w_esize + 8 + g_esize), 7 * n)
 
 
+def constrained_update(n: int, w_esize: int = 2, side: int = 0) -> Work:
+    """``optimizer.ssca_constrained_step`` (Lemma 1, no kernel: PyTorch ops
+    a chunk at a time) on n params of ``w_esize`` bytes with a gradient of
+    their dtype, and ``side`` fp32 params with an fp32 gradient: pass 1
+    reads ĝ, ω and the fp32 surrogate and writes the surrogate, pass 2
+    reads the surrogate and ω and writes ω (20 B an element in bf16, 28 in
+    fp32); about 12 flops an element."""
+    return Work(n * (4 * w_esize + 12) + side * (4 * 4 + 12), 12 * (n + side))
+
+
 def stochastic_quantize(rows: int, p: int, chunk: int = 256) -> Work:
     """The bits-operand entry: x and bits read, int8 values and xhat
     written (13 B an element), a scale a chunk; 10 fp32 instructions an

@@ -145,9 +145,9 @@ def test_chunked_recursion_matches_one_chunk(monkeypatch):
     for size in (1 << 25, 1000):
         monkeypatch.setattr(tsur, "CHUNK", size)
         g = g0.clone()
-        d, b = tsur.update_surrogate_(g, torch.tensor(0.3), 0.6, w,
-                                      gr.to(torch.bfloat16), torch.tensor(1.0),
-                                      0.2)
+        d, b = tsur.update_surrogate_((g,), torch.tensor(0.3), 0.6, (w,),
+                                      (gr.to(torch.bfloat16),),
+                                      torch.tensor(1.0), 0.2)
         outs.append((g, d, b))
     torch.testing.assert_close(outs[1][0], outs[0][0], atol=0, rtol=0)
     torch.testing.assert_close(outs[1][1], outs[0][1], atol=1e-5, rtol=1e-5)
@@ -444,7 +444,7 @@ def test_reference_vdot_sum_is_the_gap():
                 for a in jax.tree.leaves(jp))
     flat = convert.tensor_from_numpy(np.concatenate(
         [np.asarray(a).ravel() for a in jax.tree.leaves(jp)]), "cpu")
-    assert abs(ttrain._sq_norm(flat).item() - exact) <= 1e-6 * exact
+    assert abs(ttrain._sq_norm((flat,)).item() - exact) <= 1e-6 * exact
     ref = float(jsur.tree_l2sq(jp))
     assert abs(ref - exact) > 1e-5 * exact, (ref, exact)
 

@@ -422,9 +422,11 @@ def test_bf16_state_keeps_fp32_leaves_and_steps_as_the_reference():
     surrogate buffers (which take the rounded params in the second step).
     Through the train step (``grad_leaves`` with a (main, side) gradient
     pair) each leaf's gradient lands in its own buffer, equal to autograd's
-    on the plain params. A flat gradient is refused, and so are the
-    constrained state and the upload (codec=, dp=), which take one flat
-    buffer."""
+    on the plain params. A flat gradient is refused. The constrained state
+    keeps the same side buffer, with an fp32 constraint surrogate of its
+    own, and the upload (codec=, dp=) takes the (main, side) pair with the
+    runs that lay the reference's flat vector over it
+    (tests/test_torch_mixed_dtype.py holds both against the reference)."""
     _, tcfg = _configs("zamba2-1.2b")
     tcfg = dataclasses.replace(tcfg, dtype="bfloat16")
     tm = tapi.get_model(tcfg)
@@ -479,9 +481,14 @@ def test_bf16_state_keeps_fp32_leaves_and_steps_as_the_reference():
     for k, t in _named(plain):
         assert got[k].dtype == t.dtype, k
         assert torch.equal(got[k], t.grad), k
-    with pytest.raises(TypeError, match="one dtype"):
-        topt.ssca_constrained_init(convert.params_from_numpy(_np_tree(jp), "cpu"))
-    with pytest.raises(TypeError, match="upload"):
+    cstate = topt.ssca_constrained_init(convert.params_from_numpy(_np_tree(jp), "cpu"))
+    assert {k: t.dtype for k, t in _named(cstate.params)} == dtypes
+    assert cstate.w_side.numel() == cstate.g_side.numel() == state.w_side.numel()
+    assert cstate.g_side.dtype == torch.float32
+    assert torch.equal(cstate.w_side, state.w_side.new_tensor(
+        np.concatenate([np.asarray(x).ravel() for k, x in _named(_np_tree(jp))
+                        if k in fp32])))
+    with pytest.raises(ValueError, match="runs="):
         ttrain.comm_update_(grad, torch.zeros(state.w_flat.numel()),
                             rnd.PRNGKey(0, device="cpu"))
 

@@ -261,7 +261,7 @@ def ep_grad(mesh, in_dir):
     state = train.shard_state(optimizer.ssca_init(params), mesh, specs)
     step = train.sharded_train_step(model, cfg, FLConfig(**FL_KW), mesh, batch)
     loss, grad = step.grad_of(state, _rows(mesh, batch))
-    whole = mesh_lib.gather_tree(views(grad, state.params), mesh, specs.params)
+    whole = mesh_lib.gather_tree(views(grad[0], state.params), mesh, specs.params)
     return {"loss": loss.numpy(),
             **{"g/" + k: v for k, v in flat(
                 convert.params_to_numpy(whole)).items()}}
