@@ -106,16 +106,26 @@ Phases, one JSON line each:
            int8 + EF (30 rounds; the store equal, one round under sync-debug
            "error"), and qwen2.5-3b at full width and depth with int8 + EF
            and DP (ε = 8) beside train_comm's local int8 + DP run
-  sharded_2rank  two gloo ranks on the card (this script with --gloo-rank,
-           two processes) run Algorithm 1 with int8 + EF, S = 3 of 10, for
-           10 rounds: both ranks equal, every series and the params
-           within 1e-5 of the one-rank run (ef_norm 1e-5 + 1e-4 of it),
-           axis_bytes 813,056; and which collectives gloo takes on CUDA
-           tensors
+  sharded_2rank  three gloo ranks on the card (this script with
+           --gloo-rank, three processes) run Algorithm 1 with int8 + EF,
+           S = 3 of 10, for 10 rounds through sharded_for(10): the first
+           2 ranks hold the clients, rank 2 idle; every rank's history
+           and params equal, every series and the params within 1e-5 of
+           the one-rank run (ef_norm 1e-5 + 1e-4 of it), axis_bytes
+           813,056; and which collectives gloo takes on CUDA tensors
   train_comm_parity  full width, 1 layer, fp32: the upload path with DP,
            with int8 + DP, and with int8 + DP through the sharded step
            (one rank; a gloo group on the CPU), card against CPU (step 1
            and step 2's loss)
+  serve_d80, train_d80  qwen2.5-3b with head_dim 80 (the reference's
+           ModelConfig override; D = 80 runs at the flash kernels'
+           padded width 128) at full width and depth in bf16 through
+           get_model(cfg): batch 8, prompt 512, 32 tokens (32 forwards'
+           launches asserted), then one train step (batch 8, sequence
+           512, remat; a step's launches asserted)
+  d80_parity  the same at full width, 2 layers, fp32, card against CPU:
+           prefill and 7 greedy decodes (tokens equal, logits 1e-4), 2
+           make_scanned_step steps (losses rtol 1e-5, params 1e-4)
   serve_moe  qwen3-moe-30b-a3b at full width and depth in bf16 (48 layers,
            128 experts, top-8; 60.44 GB) through generate, batch 8, prompt
            512, 32 tokens, from one seeded draw: prefill ms, decode
@@ -190,10 +200,14 @@ The kernels phase also holds the backward kernels (rmsnorm_bwd,
 flash_attention_bwd) against their plain versions and times them against
 the PyTorch library's backward calls, the keyed quantize entry bit-equal
 to the bits-operand entry on random.bits of the same keys (at the main
-paths' shapes and two pieces of the train-size vector at nonzero offsets),
-and the DP-noise kernel against its plain version. No main path launches
+paths' shapes, two pieces of the train-size vector at nonzero offsets,
+and at chunks 1, 100, 1,200 and 2,048 and 70,000 rows), and the DP-noise
+kernel against its plain version (70,000 rows too); flash_any_dims holds
+the flash forward and backward at head dims 16-192 at qwen2.5-3b's
+shapes and 100 and 320 at a small shape, bf16 and fp32, and times D =
+80, 192, 100 and 320 (the rows' d80, d192, d100, d320). No main path launches
 the bits-operand quantize entry any more (its row says so). Each main path (dense, int8, serve,
-train, each paper run, train_constrained, serve_moe, serve_glm4,
+train, serve_d80, train_d80, each paper run, train_constrained, serve_moe, serve_glm4,
 train_moe, serve_gemma, serve_paligemma, train_paligemma, the SSM serve
 and train phases, train_zamba_mixed's two runs, serve_seamless,
 train_seamless) runs with every
@@ -628,6 +642,12 @@ TRAIN_PIECES = [(a, min(COMM_PIECE, TRAIN_PARAMS - a))
 KEYED_SHAPES = ((10, 101_632, 0), (256, 576, 0), (256, 6, 0), (10, 50_816, 0),
                 (1, COMM_PIECE, TRAIN_PIECES[45][0]),
                 (1, TRAIN_PIECES[-1][1], TRAIN_PIECES[-1][0]))
+# (rows, p, chunk) off the default chunk of 256: one element, not a multiple
+# of 32, above a block's 1,024, and more rows than a grid's y dimension
+# (65,535) takes
+ANY_CHUNK_SHAPES = ((10, 101_632, 1), (10, 101_632, 100), (10, 101_632, 2048),
+                    (3, 5000, 1200), (70_000, 7, 1), (70_000, 300, 100),
+                    (70_000, 300, 256))
 
 
 def as_int32_bits(torch, b):
@@ -647,9 +667,29 @@ def check_quantize_keyed(torch, qz, build, rnd):
     version on the card, bit for bit. Timed from a CUDA graph at (10,
     101,632) beside the bits-operand kernel, with events over a 2^25-element
     piece beside it, and with events around a train step's 92 launches over
-    the pieces of a 3,085,938,688-element vector (train_step_ms)."""
+    the pieces of a 3,085,938,688-element vector (train_step_ms). Both
+    entries also at every chunk and row count of ANY_CHUNK_SHAPES (int8),
+    the keyed equal to the bits entry on the same bits and to the plain
+    version; the keyed timed at (10, 101,632) at chunks 1, 100 and 2,048
+    beside its bound (``any_chunk``)."""
     import numpy as np
     cases = 0
+    for rows, p, chunk in ANY_CHUNK_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(rows + p + chunk)
+        x = torch.randn(rows, p, generator=gen, device="cuda") * 3.0
+        x[0, :5] = 0.0
+        keys = rnd.split(rnd.PRNGKey(rows + chunk), rows)
+        bits = as_int32_bits(torch, rnd._bits_range(keys, 0, -(-p // chunk) * chunk))
+        want = qz.stochastic_quantize(x, bits, 127, chunk)
+        del bits
+        got = qz.stochastic_quantize_keyed(x, keys, 127, chunk)
+        plain = qz.plain_keyed(x, keys, 127, chunk)
+        torch.cuda.synchronize()
+        for name, a, b, c in zip(("values", "scales", "xhat"), got, want, plain):
+            check(a.shape == b.shape == c.shape and torch.equal(a, b) and torch.equal(a, c),
+                  f"quantize rows={rows} p={p} chunk={chunk}: {name} differs")
+        del x, got, want, plain
+        cases += 1
     for rows, p, off in KEYED_SHAPES:
         for qmax in (127, 7):
             gen = torch.Generator(device="cuda").manual_seed(rows * 7 + p + qmax)
@@ -739,6 +779,24 @@ def check_quantize_keyed(torch, qz, build, rnd):
     train_ms = event_ms(train_step, iters=5, warmup=1)
     del full, pv, ps, ph
     _, t_ms, t_by = bound(1, TRAIN_PARAMS, len(TRAIN_PIECES))
+
+    def at_chunk(chunk):
+        c = -(-p // chunk)
+        x, keys = torch.randn(rows, p, generator=gen, device="cuda"), rnd.split(
+            rnd.PRNGKey(6), rows).contiguous()
+        outs = (torch.empty((rows, c * chunk), dtype=torch.int8, device="cuda"),
+                torch.empty((rows, c), device="cuda"), torch.empty((rows, p), device="cuda"))
+
+        def go():
+            code = lib.stochastic_quantize_keyed(
+                x.data_ptr(), keys.data_ptr(), 0, *(t.data_ptr() for t in outs), rows, p,
+                c, chunk, inv, 127, torch.cuda.current_stream().cuda_stream)
+            build.check(code, "stochastic_quantize_keyed")
+
+        w = work.quantize_keyed(rows, p, chunk)
+        return {"ms": graph_ms(go), "bound_ms": w.bound_ms()[0], "bytes": w.bytes}
+
+    any_chunk = {str(c): at_chunk(c) for c in (1, 100, 2048)}
     return {"name": "stochastic_quantize_keyed", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/quantize.cu",
             "replaces": "src/repro/kernels/quantize.py:62",
@@ -748,7 +806,7 @@ def check_quantize_keyed(torch, qz, build, rnd):
             "shape": [rows, p], "bytes": nbytes,
             "piece_ms": piece_ms, "piece_bits_operand_ms": piece_bits_ms,
             "train_step_ms": train_ms, "train_launches": len(TRAIN_PIECES),
-            "train_bound_ms": t_ms, "train_bound_by": t_by}
+            "train_bound_ms": t_ms, "train_bound_by": t_by, "any_chunk": any_chunk}
 
 
 def check_dp_noise(torch, dpn, build, rnd):
@@ -757,7 +815,8 @@ def check_dp_noise(torch, dpn, build, rnd):
     torch.erfinv, a few ulps), each row's noise-square sum within rtol 1e-5,
     at Algorithm 1's stacked (10, 101,632) with per-client 1/B scales, the
     cohort's (256, 576), and a 2^25-element piece of the train-size vector
-    at a nonzero offset; the normals themselves (x = 0, s = f = σ = 1) have
+    at a nonzero offset, and 70,000 rows of 7 (past the grid's y
+    dimension); the normals themselves (x = 0, s = f = σ = 1) have
     mean and variance within 5σ of 0 and 1 over 2^24 draws. Timed from a
     CUDA graph at (10, 101,632), with events over a 2^25 piece, and with
     events around a train step's 92 launches, in place over the pieces of a
@@ -766,7 +825,7 @@ def check_dp_noise(torch, dpn, build, rnd):
     elements."""
     sigma, err_max = 0.6, 0.0
     for rows, p, off in ((10, 101_632, 0), (256, 576, 0),
-                         (1, COMM_PIECE, TRAIN_PIECES[45][0])):
+                         (1, COMM_PIECE, TRAIN_PIECES[45][0]), (70_000, 7, 0)):
         gen = torch.Generator(device="cuda").manual_seed(p)
         x = torch.randn(rows, p, generator=gen, device="cuda") * 0.01
         keys = rnd.split(rnd.PRNGKey(p), rows)
@@ -1479,10 +1538,15 @@ def check_flash_bwd(torch, fa, build):
     return out
 
 
-def flash_bwd_timing(torch, fa, build, gen, b, h, kv, sq, sk, d, causal=True):
+def flash_bwd_timing(torch, fa, build, gen, b, h, kv, sq, sk, d, causal=True,
+                     yardstick_norm=None):
     """The bf16 backward at one shape, causal or not, timed warm and cold
     from a CUDA graph beside aten's flash backward (K and V expanded to the
-    query heads), the plain version, and the bound."""
+    query heads), the plain version, and the bound. The yardstick is held
+    to the plain version elementwise at 3e-2, or with ``yardstick_norm``
+    normwise within it (aten's dK and dV come as bf16 per query head and
+    are summed over the group here, so their rounding adds up: at D = 80
+    one of its dV entries read 0.048 off)."""
     lib = build.library("flash_attention")
     bf16 = torch.bfloat16
     rep = h // kv
@@ -1523,9 +1587,13 @@ def flash_bwd_timing(torch, fa, build, gen, b, h, kv, sq, sk, d, causal=True):
     want = fa.plain_bwd(q, k, v, o, lse, do, causal=causal)
     gk = gk.view(b, kv, rep, sk, d).float().sum(2)
     gv = gv.view(b, kv, rep, sk, d).float().sum(2)
+    yardstick = {}
     for name, got, w in (("dq", gq, want[0]), ("dk", gk, want[1]), ("dv", gv, want[2])):
         err, ok = close_err(got, w, 3e-2)
-        check(ok, f"flash_bwd {name}: the library yardstick disagrees by {err}")
+        yardstick[name] = {"max_abs_err": err, "rel_norm": rel_norm(got, w)}
+        if yardstick_norm is not None:
+            ok = yardstick[name]["rel_norm"] <= yardstick_norm
+        check(ok, f"flash_bwd {name}: the library yardstick disagrees by {yardstick[name]}")
     out = {"shape": {"q": list(q.shape), "kv": list(k.shape)}, "causal": causal,
            "bytes": nbytes, "flops": flops, "chunks": sets[0][10][-1],
            **timed_pair(launch, library, sets, True),
@@ -1533,8 +1601,111 @@ def flash_bwd_timing(torch, fa, build, gen, b, h, kv, sq, sk, d, causal=True):
            "plain_ms": event_ms(lambda: fa.plain_bwd(q, k, v, o, lse, do, causal=causal),
                                 iters=5),
            "bound_ms": b_ms, "bound_by": b_by}
+    if yardstick_norm is not None:
+        out["library_vs_plain"] = yardstick
     del sets
     return out
+
+
+# any head dim: qwen2.5-3b's serve and train attention shapes (B 8, H 16,
+# KV 2, S 512; decode over 543 of 544 cache rows) at head dims off the tile
+# widths (the tiled kernels at their padded widths), and the kernels of any
+# width at a small shape: D = 100 (bf16 rows not whole 16-byte vectors) and
+# D = 320 (past 256)
+ANY_DIMS = (16, 48, 80, 96, 112, 160, 192)
+ANY_SMALL_DIMS = (100, 320)
+ANY_SMALL = dict(prefill=(2, 16, 2, 61, 61), decode=(2, 16, 2, 1, 37, 69),
+                 bwd=(2, 8, 2, 77, 133))
+
+
+def check_flash_any_dims(torch, fa, build):
+    """Forward (prefill and decode) and backward against their plain
+    versions at every head dim of ANY_DIMS at qwen2.5-3b's shapes, and of
+    ANY_SMALL_DIMS at ANY_SMALL's, bf16 and fp32: the forward's tolerances
+    (2e-5 fp32, 3e-2 bf16; the logsumexp 2e-5), the backward's the same
+    and in bf16 normwise within BF16_BWD_REL_NORM. Returns (the forward's
+    and the backward's worst error by case, and their timings: prefill,
+    decode and backward at D = 80 and 192 beside SDPA and aten's flash
+    backward, bound at the real D; the kernels of any width at the small
+    shapes beside the plain version, forward also beside SDPA)."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    bf16, f32 = torch.bfloat16, torch.float32
+    fwd, bwd = {}, {}
+    cases = [(d, (8, 16, 2, 512, 512), (8, 16, 2, 1, 543, 544), (8, 16, 2, 512, 512))
+             for d in ANY_DIMS]
+    cases += [(d, ANY_SMALL["prefill"], ANY_SMALL["decode"], ANY_SMALL["bwd"])
+              for d in ANY_SMALL_DIMS]
+    for d, pre, dec, back in cases:
+        for dtype in (bf16, f32):
+            tol, tag = (2e-5 if dtype == f32 else 3e-2), f"d{d}/{str(dtype)[6:]}"
+            for name, (b, h, kv, sq, sk, *rows) in (("prefill", pre), ("decode", dec)):
+                q, k, v = attn_operands(torch, gen, b, h, kv, sq, sk, d, dtype,
+                                        rows[0] if rows else None)
+                got = fa.flash_attention(q, k, v)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(got).all()), f"flash {tag} {name}: not finite")
+                err, ok = close_err(got, fa.plain(q, k, v), tol)
+                check(ok, f"flash {tag} {name} {tuple(q.shape)}: max |diff| {err}")
+                fwd[f"{tag}/{name}"] = err
+                del q, k, v, got
+            b, h, kv, sq, sk = back
+            q, k, v = attn_operands(torch, gen, b, h, kv, sq, sk, d, dtype)
+            do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+            o, lse = fa.flash_attention(q, k, v, return_lse=True)
+            _, want_lse = fa.plain(q, k, v, return_lse=True)
+            err_l, ok = close_err(lse, want_lse, 2e-5)
+            check(ok, f"flash lse {tag}: max |diff| {err_l}")
+            grads = fa.flash_attention_bwd(q, k, v, o, lse, do)
+            torch.cuda.synchronize()
+            errs = [err_l]
+            for gname, got, w in zip(("dq", "dk", "dv"), grads,
+                                     fa.plain_bwd(q, k, v, o, lse, do)):
+                check(bool(torch.isfinite(got).all()), f"flash_bwd {gname} {tag}: not finite")
+                err, ok = close_err(got, w, tol)
+                check(ok, f"flash_bwd {gname} {tag}: max |diff| {err}")
+                rel = rel_norm(got, w)
+                check(dtype == f32 or rel <= BF16_BWD_REL_NORM,
+                      f"flash_bwd {gname} {tag}: |diff| / |want| {rel}")
+                errs.append(err)
+            bwd[tag] = max(errs)
+            del q, k, v, do, o, lse, grads
+
+    def small_timing(d):
+        """The kernels of any width at the small shapes, bf16: the forward
+        (prefill and decode) from flash_timing, the backward by events
+        beside the plain version."""
+        out = {"prefill": flash_timing(torch, fa, build, gen, *ANY_SMALL["prefill"], d),
+               "decode": flash_timing(torch, fa, build, gen, *ANY_SMALL["decode"][:5], d,
+                                      ANY_SMALL["decode"][5])}
+        b, h, kv, sq, sk = ANY_SMALL["bwd"]
+        q, k, v = attn_operands(torch, gen, b, h, kv, sq, sk, d, bf16)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(bf16)
+        o, lse = fa.flash_attention(q, k, v, return_lse=True)
+        w = work.flash_attention_bwd(b, h, kv, sq, sk, d, 2)
+        b_ms, b_by = bound_ms(w.bytes, w.flops, BF16_FLOPS_PER_S)
+        out["bwd"] = {"shape": {"q": list(q.shape), "kv": list(k.shape)},
+                      "ms": event_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
+                                     iters=20),
+                      "plain_ms": event_ms(lambda: fa.plain_bwd(q, k, v, o, lse, do),
+                                           iters=5),
+                      "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        return out
+
+    fwd_t, bwd_t = {}, {}
+    for d in (80, 192):
+        fwd_t[f"d{d}"] = {
+            "prefill": flash_timing(torch, fa, build, gen, 8, 16, 2, 512, 512, d),
+            "decode": flash_timing(torch, fa, build, gen, 8, 16, 2, 1, 543, d, 544),
+            "padded_width": fa.padded_width(d)}
+        bwd_t[f"d{d}"] = {**flash_bwd_timing(torch, fa, build, gen, 8, 16, 2, 512, 512, d,
+                                             yardstick_norm=BF16_BWD_REL_NORM),
+                          "padded_width": fa.padded_width(d)}
+    for d in ANY_SMALL_DIMS:
+        t = small_timing(d)
+        fwd_t[f"d{d}"] = {"prefill": t["prefill"], "decode": t["decode"],
+                          "padded_width": 0}
+        bwd_t[f"d{d}"] = {**t["bwd"], "padded_width": 0}
+    return fwd, bwd, fwd_t, bwd_t
 
 
 def zero_counts(counted) -> None:
@@ -3124,7 +3295,9 @@ SHARDED_PROFILE_ROUNDS = 3        # cut from 10 for the script's time
 # between windows than the topology moves it); cut from 6 pairs
 SHARDED_PAIRS, SHARDED_PAIR_ROUNDS = 3, 20
 # two gloo ranks on the one card: Algorithm 1, int8 + EF, S = 3 of I = 10
-SHARDED_2RANK = dict(world=2, rounds=10, participation=3, timeout_s=240)
+# three gloo ranks on the card, 10 clients: sharded_for fits them to the
+# first 2 (the largest rank count that divides 10), rank 2 idle
+SHARDED_2RANK = dict(world=3, rounds=10, participation=3, timeout_s=240)
 # the collectives probed on CUDA tensors under gloo
 GLOO_PROBES = ("all_reduce", "broadcast", "all_gather",
                "all_gather_into_tensor", "reduce_scatter_tensor")
@@ -3369,7 +3542,8 @@ def gloo_rank(rank: int, store: str, out: str) -> int:
     """One of SHARDED_2RANK's gloo ranks on the card (``python3
     chip_smoke.py --gloo-rank R STORE OUT``, started by run_sharded_2rank):
     which collectives gloo takes on CUDA tensors, then Algorithm 1 at paper
-    width with int8 + EF and S of I clients on a two-rank sharded topology;
+    width with int8 + EF and S of I clients on ``sharded_for``'s topology
+    (the first 2 of the 3 ranks; the third idle, handed rank 0's result);
     its history, params and times go to OUT/rank<R>.pt."""
     import datetime
     import torch
@@ -3385,16 +3559,16 @@ def gloo_rank(rank: int, store: str, out: str) -> int:
     world = SHARDED_2RANK["world"]
     dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
                             world_size=world, timeout=datetime.timedelta(seconds=120))
-    x = torch.full((4,), float(rank + 1), device="cuda")
+    x = torch.full((12,), float(rank + 1), device="cuda")
     probe = {}
     calls = {"all_reduce": lambda: dist.all_reduce(x.clone()),
              "broadcast": lambda: dist.broadcast(x.clone(), 0),
              "all_gather": lambda: dist.all_gather(
                  [torch.empty_like(x) for _ in range(world)], x),
              "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
-                 torch.empty(4 * world, device="cuda"), x),
+                 torch.empty(12 * world, device="cuda"), x),
              "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
-                 torch.empty(4 // world, device="cuda"), x)}
+                 torch.empty(12 // world, device="cuda"), x)}
     for op in GLOO_PROBES:
         try:
             calls[op]()
@@ -3424,7 +3598,7 @@ def gloo_rank(rank: int, store: str, out: str) -> int:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     torch.save({"probe": probe, "backend": dist.get_backend(),
-                "num_shards": topo.num_shards, "seconds": seconds,
+                "num_shards": topo.num_shards, "idle": topo.idle, "seconds": seconds,
                 "history": {k: v.cpu() for k, v in res.history.items()},
                 "params": {k: v.cpu() for k, v in res.params.items()},
                 "ef_rows": tuple(res.final_state.ef.shape)},
@@ -3434,11 +3608,14 @@ def gloo_rank(rank: int, store: str, out: str) -> int:
 
 
 def run_sharded_2rank(torch, m, data, params0, name_power):
-    """Two gloo ranks on the one card (NCCL refuses two ranks on one GPU),
+    """Three gloo ranks on the one card (NCCL refuses two ranks on one GPU),
     each a process of this script, run Algorithm 1 at paper width with int8
-    + EF and S = 3 of 10 for SHARDED_2RANK["rounds"] rounds, held to the
-    one-rank NCCL run of the same inputs in this process: every rank's
-    history equal, every series and the params within 1e-5 of the one-rank
+    + EF and S = 3 of 10 for SHARDED_2RANK["rounds"] rounds through
+    ``sharded_for(10)``: the first 2 ranks hold the clients (the largest
+    rank count that divides 10, the reference's fit) and rank 2 sits idle.
+    Held to the one-rank NCCL run of the same inputs in this process: every
+    rank's history and params equal (the idle rank's by rank 0's
+    broadcast), every series and the params within 1e-5 of the one-rank
     run (ef_norm, a norm of residuals whose sums of squares the two ranks
     reassociate, within 1e-5 + 1e-4 of it, tests/test_torch_topology.py's
     tolerance), upload bytes equal, axis_bytes 2·(2−1)·4·101,632. Also what
@@ -3492,15 +3669,21 @@ def run_sharded_2rank(torch, m, data, params0, name_power):
         tol = 0.0 if k == "round_upload_bytes" else 1e-5
         if not bool((err <= tol + rtol * want.abs()).all()):
             over[k] = series[k]
+    fit = max(d for d in range(1, world + 1) if 10 % d == 0)
+    check([r["num_shards"] for r in ranks] == [fit] * world
+          and [r["idle"] for r in ranks] == [r >= fit for r in range(world)],
+          f"sharded_2rank: shards {[r['num_shards'] for r in ranks]}, idle "
+          f"{[r['idle'] for r in ranks]}")
     axis = sorted(set(h0["round_axis_bytes"].tolist()))
-    want_axis = float(2 * (world - 1) * 4 * 101_632)
+    want_axis = float(2 * (fit - 1) * 4 * 101_632)
     check(axis == [want_axis], f"sharded_2rank: axis_bytes {axis} != {want_axis}")
     check(not over and pdiff <= 1e-5,
           f"sharded_2rank: series {over} of {series}, params {pdiff} off the "
           "one-rank run")
-    check(ranks[0]["ef_rows"] == (10 // world, 101_632), ranks[0]["ef_rows"])
+    check(ranks[0]["ef_rows"] == (10 // fit, 101_632), ranks[0]["ef_rows"])
     emit("sharded_2rank", world=world, backend=ranks[0]["backend"],
-         num_shards=ranks[0]["num_shards"], rounds=rounds,
+         num_shards=ranks[0]["num_shards"], idle=[r["idle"] for r in ranks],
+         rounds=rounds,
          participation=SHARDED_2RANK["participation"], codec="int8",
          rounds_per_s=[rounds / r["seconds"] for r in ranks],
          one_rank_rounds_per_s=rounds / one_s, axis_bytes=axis[0],
@@ -3508,6 +3691,188 @@ def run_sharded_2rank(torch, m, data, params0, name_power):
          ef_rows=list(ranks[0]["ef_rows"]),
          gloo_on_cuda=ranks[0]["probe"], **name_power)
 
+
+
+# ---------------------------------------------------------------------------
+# a head dim off the tile widths: qwen2.5-3b at head_dim 80
+# ---------------------------------------------------------------------------
+
+D80 = 80                    # pythia-2.8b's, phi-2's and OPT-2.7b's head dim
+D80_TRAIN_PARITY_STEPS = 2
+
+
+def d80_config(m, **overrides):
+    """qwen2.5-3b with ``head_dim=80``, the override the reference's
+    ModelConfig takes (16 query heads of 80 over 2 KV heads on d_model
+    2048), and ``overrides``."""
+    return dataclasses.replace(m.qwen, head_dim=D80, **overrides)
+
+
+def greedy_serve(torch, model, cfg, params, prompt, gen, device=None):
+    """The serving path through the model API: prefill into a cache with
+    room for ``gen`` tokens, then gen - 1 greedy decode steps
+    (``model.decode_step``). Returns (tokens (B, gen), each step's
+    last-row logits stacked, prefill s, decode s)."""
+    b, s = prompt.shape
+    cache = model.init_cache(cfg, b, s + gen, device=device)
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, {"tokens": prompt}, cfg, cache=cache)
+    toks, steps = [torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]], [logits[:, -1]]
+    if prompt.is_cuda:
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for i in range(gen - 1):
+        logits, cache = model.decode_step(params, cache, toks[-1], s + i, cfg)
+        steps.append(logits[:, -1])
+        toks.append(torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None])
+    if prompt.is_cuda:
+        torch.cuda.synchronize()
+    return torch.cat(toks, 1), torch.stack(steps), t1 - t0, time.perf_counter() - t1
+
+
+def run_serve_train_d80(torch, m, name_power):
+    """qwen2.5-3b at head_dim 80, full width and depth in bf16, through
+    get_model(cfg): serving (SERVE's batch 8, prompt 512, 32 tokens; a
+    2-token warm-up first) and one train step (make_train_step, batch 8,
+    sequence 512, remat; a warm-up step first), each with every launch
+    counter zeroed just before and read just after, checked exactly: a
+    forward each of the 32 (a
+    prefill and 31 decode steps; ``forward_launches``) and a step
+    (``train_launches``). On the card D = 80 runs the tiled kernels at
+    their padded width of 128; the decode's splits are asserted. Emits
+    ``serve_d80`` and ``train_d80``; returns the two phases' counts."""
+    rnd = m.rnd
+    cfg = d80_config(m)
+    model = m.get_model(cfg)
+    key = rnd.PRNGKey(SERVE["seed"])
+    t0 = time.perf_counter()
+    params = model.init(key, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    b, s, gen = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
+    prompt = rnd.randint(rnd.fold_in(key, 1), (b, s), 0, cfg.vocab_size)
+    greedy_serve(torch, model, cfg, params, prompt, 2)            # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(m.counted)
+    toks, logits, prefill_s, decode_s = greedy_serve(torch, model, cfg, params, prompt, gen)
+    counts = read_counts(m.counted)
+    fwd = forward_launches(cfg)
+    want = {**{k: 0 for k in m.counted},
+            "rmsnorm": gen * fwd["rmsnorm"], "flash_attention": gen * fwd["flash_attention"]}
+    check(counts == want, f"serve_d80 launches {counts} != {want} ({gen} forwards)")
+    check(tuple(toks.shape) == (b, gen) and 0 <= int(toks.min())
+          and int(toks.max()) < cfg.vocab_size, f"serve_d80 tokens {toks.shape}")
+    check(bool(torch.isfinite(logits).all()), "serve_d80: logits not finite")
+    splits = m.fa.decode_splits(torch.bfloat16, b, cfg.n_heads, cfg.n_kv_heads, 1,
+                                s + gen - 1, d=D80)
+    check(splits > 0 and m.fa.padded_width(D80) == 128,
+          f"serve_d80: decode splits {splits}, padded width {m.fa.padded_width(D80)}")
+    n_params = decoder_params(cfg)
+    emit("serve_d80", arch="qwen2.5-3b", head_dim=D80, padded_width=m.fa.padded_width(D80),
+         dtype=cfg.dtype, layers=cfg.n_layers, **SERVE, params=n_params,
+         init_s=init_s, prefill_ms=prefill_s * 1e3,
+         decode_ms_per_step=decode_s * 1e3 / (gen - 1),
+         decode_tokens_per_s=b * (gen - 1) / decode_s, decode_splits_last=splits,
+         peak_mem_bytes=torch.cuda.max_memory_allocated(), launches=counts,
+         launches_per_forward={k: v / gen for k, v in counts.items()}, **name_power)
+    serve_counts = counts
+    del logits, toks
+
+    state = m.optimizer.ssca_init(params)
+    del params
+    torch.cuda.empty_cache()
+    step = m.train.make_train_step(model, cfg, m.train_fl)
+    bt, st = TRAIN["batch"], TRAIN["seq"]
+    tt = rnd.randint(rnd.fold_in(key, 2), (bt, st + 1), 0, cfg.vocab_size)
+    batch = {"tokens": tt[:, :-1], "targets": tt[:, 1:]}
+    state, _ = step(state, batch)            # warm-up: autograd's and the allocator's first step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(m.counted)
+    t0 = time.perf_counter()
+    state, ms = step(state, batch)
+    loss = ms["loss"].item()
+    step_s = time.perf_counter() - t0
+    counts = read_counts(m.counted)
+    want = train_launches(cfg, m.counted)
+    check(counts == want, f"train_d80 launches {counts} != {want} (one step)")
+    check(math.isfinite(loss) and all(bool(torch.isfinite(w).all()) for w in state.buffers),
+          f"train_d80: loss {loss}, or params not finite")
+    n_state = sum(map(torch.numel, state.buffers))
+    check(n_state == n_params, f"train_d80: {n_state} parameters, not {n_params}")
+    emit("train_d80", arch="qwen2.5-3b", head_dim=D80, dtype=cfg.dtype,
+         layers=cfg.n_layers, remat=cfg.remat, **TRAIN, steps=1, params=n_state,
+         step_ms=step_s * 1e3, loss=loss, peak_mem_bytes=torch.cuda.max_memory_allocated(),
+         launches=counts, **name_power)
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return serve_counts, counts
+
+
+def run_d80_parity(torch, m):
+    """qwen2.5-3b at head_dim 80, full width, 2 layers, fp32, card against
+    CPU (the plain kernel versions) from the same weights (drawn on the
+    card, copied to the CPU): serving as serve_parity (prompt 61, 8 greedy
+    tokens: the tokens equal, every step's logits within 1e-4), then
+    D80_TRAIN_PARITY_STEPS steps of make_scanned_step as train_parity
+    (batch 2, seq 64): each loss within rtol 1e-5, the params within atol
+    1e-4 after the first step and normwise within TRAIN_PARITY_NORMWISE
+    after the last. The first step (ρ = 1, γ = 0.5) leaves this 2-layer
+    model at a loss of 27.5, where fp32 resolves the softmax only to
+    about 1e-4, so the second step's params differ elementwise by ~1.7e-4
+    whether the card starts it from its own state or from the CPU's
+    (PERF.md): train_parity's third step, one step sooner. fp32 sums run
+    in another order on the two devices. Emits ``d80_parity``."""
+    rnd, laps = m.rnd, Laps()
+    cfg = d80_config(m, n_layers=2, dtype="float32")
+    model = m.get_model(cfg)
+    key = rnd.PRNGKey(5)
+    params = model.init(key, cfg)
+    on_cpu = tree_map(lambda t: t.cpu(), params)
+    b, s, gen = PARITY_SERVE["batch"], PARITY_SERVE["prompt_len"], PARITY_SERVE["gen"]
+    prompt = rnd.randint(rnd.fold_in(key, 1), (b, s), 0, cfg.vocab_size)
+    card_toks, card_logits, *_ = greedy_serve(torch, model, cfg, params, prompt, gen)
+    cpu_toks, cpu_logits, *_ = greedy_serve(torch, model, cfg, on_cpu, prompt.cpu(), gen,
+                                            device="cpu")
+    logit_diff = (card_logits.cpu() - cpu_logits).abs().max().item()
+    laps("serve")
+    fl, bt, st = m.train_fl, TRAIN_PARITY["batch"], TRAIN_PARITY["seq"]
+    toks = m.token_dataset(rnd.fold_in(key, 2), cfg.vocab_size, 200_000)
+
+    def run(p, device):
+        """The params after each step (copies) and each step's loss."""
+        step = m.train.make_scanned_step(model, cfg, fl, toks.to(device), bt, st)
+        inputs = m.rounds.make_inputs(fl, 1, D80_TRAIN_PARITY_STEPS,
+                                      rnd.fold_in(key.to(device), 3))
+        state, ws, losses = m.optimizer.ssca_init(p), [], []
+        for r in range(D80_TRAIN_PARITY_STEPS):
+            state, ms = step(state, inputs.round(r))
+            ws.append(state.w_flat.clone())
+            losses.append(ms["loss"].item())
+        return ws, losses
+
+    card_w, card_loss = run(params, "cuda")
+    del params
+    laps("train_card")
+    cpu_w, cpu_loss = run(on_cpu, "cpu")
+    laps("train_cpu")
+    cpu_w = [c.to(CARD) for c in cpu_w]
+    diff = [(a - c).abs().max().item() for a, c in zip(card_w, cpu_w)]
+    normwise = [rel_norm(a, c) for a, c in zip(card_w, cpu_w)]
+    loss_rel = [abs(a - c) / abs(c) for a, c in zip(card_loss, cpu_loss)]
+    del card_w, cpu_w
+    emit("d80_parity", head_dim=D80, layers=2, dtype="float32", **PARITY_SERVE,
+         tokens_equal=bool(torch.equal(card_toks.cpu(), cpu_toks)),
+         max_abs_logit_diff=logit_diff, train_steps=D80_TRAIN_PARITY_STEPS,
+         train_batch=bt, train_seq=st, losses_card=card_loss, losses_cpu=cpu_loss,
+         max_rel_loss_diff_by_step=loss_rel, max_abs_param_diff_by_step=diff,
+         normwise_param_diff_by_step=normwise, split_s=laps.s)
+    check(torch.equal(card_toks.cpu(), cpu_toks), "d80 parity: other tokens")
+    check(logit_diff <= 1e-4, f"d80 parity: logits differ by {logit_diff}")
+    check(max(loss_rel) <= 1e-5, f"d80 parity: losses differ by {loss_rel}")
+    check(diff[0] <= 1e-4, f"d80 parity: params differ by {diff[0]} after step 1")
+    check(normwise[-1] <= TRAIN_PARITY_NORMWISE,
+          f"d80 parity: params differ normwise by {normwise[-1]} after the last step")
 
 
 # ---------------------------------------------------------------------------
@@ -5706,6 +6071,16 @@ def main() -> int:
                check_cohort_sample(torch, cs, build),
                check_quantize_keyed(torch, qz, build, rnd),
                check_dp_noise(torch, dpn, build, rnd)]
+    # any head dim: the forward's and the backward's cases and timings join
+    # their rows
+    t_any = time.perf_counter()
+    any_fwd, any_bwd, any_fwd_t, any_bwd_t = check_flash_any_dims(torch, fa, build)
+    for kr, errs, timed in ((kernels[3], any_fwd, any_fwd_t), (kernels[5], any_bwd, any_bwd_t)):
+        kr["max_abs_err_any_dims"] = errs
+        kr["max_abs_err"] = max(kr["max_abs_err"], *errs.values())
+        kr.update(timed)
+    emit("flash_any_dims", seconds=time.perf_counter() - t_any,
+         forward=any_fwd, backward=any_bwd)
     # since the codecs draw their bits in the kernel, no main path launches
     # the bits-operand entry; it is held to its plain version above
     kernels[1]["main_path"] = False
@@ -5866,6 +6241,14 @@ def main() -> int:
     run_train_constrained_parity(torch, mods)
     run_train_comm_parity(torch, mods)
 
+    # head dim 80 (off the tile widths): qwen2.5-3b served and trained at
+    # full width and depth, and held to the CPU at 2 layers
+    torch.cuda.empty_cache()
+    t_d80 = time.perf_counter()
+    d80_counts = run_serve_train_d80(torch, mods, {"device": name, "power": smi})
+    run_d80_parity(torch, mods)
+    emit("d80_phases", seconds=time.perf_counter() - t_d80)
+
     # the MoE decoder and the sliding window, after every
     # qwen2.5-3b phase has freed its tensors: qwen3-moe takes 60.44 GB
     torch.cuda.empty_cache()
@@ -5955,14 +6338,16 @@ def main() -> int:
                           + train_pali_counts[n]
                           + sum(c[n] for c in ssm_counts.values())
                           + sum(c[n] for c in encdec_counts.values())
-                          + mp_serve_counts[n] + mp_train_counts[n])
+                          + mp_serve_counts[n] + mp_train_counts[n]
+                          + sum(c[n] for c in d80_counts))
         check(kr["launches"] > 0 or not kr.get("main_path", True),
               f"{n} never launched on a main path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("cold_ms", "library_cold_ms", "floor_ms",  # where measured
              "main_path", "bits_operand_ms", "train_step_ms", "train_launches",
-             "train_bound_ms", "train_bound_by", "d256", "d64", "d4096", "d1024")
+             "train_bound_ms", "train_bound_by", "d256", "d64", "d4096", "d1024",
+             "d80", "d192", "d100", "d320", "any_chunk")
     if dist.is_initialized():
         dist.destroy_process_group()
     print(smi, flush=True)

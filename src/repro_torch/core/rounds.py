@@ -154,9 +154,27 @@ def run_rounds(step_fn: Callable, state, fl, key, rounds: int,
     (an ``obs.MetricStream``) streams every round's metrics and each eval
     result; the trajectory and the history are unchanged. ``topology`` (the
     client engine the step runs on) cuts a full per-client EF carry down to
-    this rank's rows first (``place_state``)."""
-    if topology is not None:
-        state = topology.place_state(state)
+    this rank's rows first (``place_state``); a rank it leaves idle runs no
+    round and returns rank 0's result (``share``)."""
+    place = None if topology is None else topology.place_state
+    return _on(topology, place, step_fn, state, fl, key, rounds, eval_fn,
+               eval_every, obs)
+
+
+def _on(topology, place, *run):
+    """``_run(*run)`` on this rank, its carry placed by ``place``, the
+    result shared by the topology: an idle rank runs nothing and takes
+    rank 0's."""
+    if topology is None:
+        return _run(*run)
+    if topology.idle:
+        return topology.share(None)
+    step_fn, state, *rest = run
+    return topology.share(_run(step_fn, place(state), *rest))
+
+
+def _run(step_fn, state, fl, key, rounds, eval_fn, eval_every, obs):
+    """run_rounds' loop on this rank, its carry placed."""
     dev = key.device
     if rounds <= 0:
         return RunResult(unwrap_comm(state).params,
@@ -195,8 +213,7 @@ def run_feature_rounds(step_fn: Callable, state, fl, key, rounds: int,
     """Feature-based (vertical FL, Algorithms 3/4) counterpart of
     :func:`run_rounds`: a sharded ``topology`` cuts the feature EF carry's
     block residuals to this rank's rows (``place_feature_state``) and keeps
-    the head stream whole."""
-    if topology is not None:
-        state = topology.place_feature_state(state)
-    return run_rounds(step_fn, state, fl, key, rounds, eval_fn=eval_fn,
-                      eval_every=eval_every, obs=obs)
+    the head stream whole; a rank it leaves idle returns rank 0's result."""
+    place = None if topology is None else topology.place_feature_state
+    return _on(topology, place, step_fn, state, fl, key, rounds, eval_fn,
+               eval_every, obs)

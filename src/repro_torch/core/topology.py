@@ -39,6 +39,14 @@ server then collects every client's decoded block upload (an all-gather)
 for the replicated update. Metrics that reduce over clients pass their
 per-rank partial sums through :meth:`ShardedTopology.all_sum`, one small
 all-reduce. No collective is skipped at D = 1.
+
+A client mesh may span the first D ranks of a larger group (``sharded_for``
+takes the largest D that divides the client count, as the reference does):
+ranks D.. are idle. They hold no clients, join none of the mesh's
+collectives and compute no round; at the end of a run the drivers
+(``rounds.run_rounds``, ``train.train_loop``) hand them rank 0's result
+through :meth:`ShardedTopology.share`, one broadcast over the whole group,
+so every rank returns the reference's result.
 """
 from __future__ import annotations
 
@@ -147,6 +155,11 @@ class LocalTopology:
 
     name = "local"
     num_shards = 1
+    idle = False
+
+    def share(self, result):
+        """A run's result: with one device, as it is."""
+        return result
 
     def num_local(self, num_clients: int) -> int:
         """How many of ``num_clients`` clients this rank holds: all."""
@@ -248,7 +261,9 @@ class ShardedTopology:
     mesh: a ``DeviceMesh`` (``launch.mesh.make_client_mesh`` or
     ``make_feature_mesh``) whose one axis carries the clients. The client count I must
     be divisible by the axis size D; rank r executes the clients
-    ``[r·I/D, (r+1)·I/D)``.
+    ``[r·I/D, (r+1)·I/D)``. On a mesh over the first D ranks of a larger
+    group a rank outside it is ``idle``: it runs no round and takes rank
+    0's result (``share``).
 
     Inputs are full-size on every rank (every rank runs the same driver on
     the same data and keys) and are sliced to the rank's rows here; the EF
@@ -266,9 +281,19 @@ class ShardedTopology:
             raise ValueError(
                 f"ShardedTopology takes one client axis of the mesh's "
                 f"{names}, got {self.axes}: the port's client meshes are 1-D")
-        self.group = mesh.get_group(self.axes[0])
-        self.num_shards = dist.get_world_size(self.group)
-        self.rank = dist.get_rank(self.group)
+        from repro_torch.launch.mesh import outside
+        self.num_shards = mesh.size()
+        self.idle = outside(mesh)
+        self.group = None if self.idle else mesh.get_group(self.axes[0])
+        self.rank = None if self.idle else dist.get_rank(self.group)
+
+    def share(self, result):
+        """A run's result on every rank of the group: an idle rank (outside
+        the mesh, passing None) takes rank 0's, its tensors on this rank's
+        device; the mesh's ranks keep their own. Every rank of the group
+        must call it; a mesh over the whole group issues no collective."""
+        from repro_torch.launch.mesh import from_first_rank
+        return from_first_rank(self.mesh, result)
 
     def _check_divisible(self, num_clients: int):
         if num_clients % self.num_shards:
@@ -444,39 +469,31 @@ def make_topology(name: str, mesh=None, axes=None, device=None):
     raise ValueError(f"unknown topology {name!r} (choose local|sharded)")
 
 
-def _best_fit(num_clients: int, device, what: str) -> int:
-    """The rank count D of the group (started if none runs), which must
-    divide ``num_clients``. The reference takes the largest device count d
-    that divides it and leaves the other devices idle; one process a rank
-    would have to make those ranks replicas, so the port raises instead."""
+def _best_fit(num_clients: int, device) -> int:
+    """The reference's device fit: the largest rank count d <= the group's
+    (started if none runs) that divides ``num_clients``."""
     from repro_torch.launch.mesh import init_group
     init_group(device)
-    world = dist.get_world_size()
-    d = world
+    d = dist.get_world_size()
     while num_clients % d:
         d -= 1
-    if d < world:
-        raise ValueError(
-            f"{what}: {num_clients} clients do not divide over the {world} "
-            f"ranks (the largest rank count that divides them is {d}); a "
-            "rank without clients is not supported: run with a rank count "
-            f"that divides {num_clients}")
     return d
 
 
 def sharded_for(num_clients: int, device=None) -> ShardedTopology:
-    """ShardedTopology over every rank of the group, which must divide the
-    client count (``_best_fit``); a one-rank group still runs the
-    all-reduce."""
+    """ShardedTopology over the most ranks that divide the client count
+    (``_best_fit``), the first d of the group: ranks d.. are idle and take
+    rank 0's result (the reference's devices past d sit idle). Every rank
+    of the group calls it; a one-rank fit still runs the all-reduce."""
     from repro_torch.launch.mesh import make_client_mesh
-    d = _best_fit(num_clients, device, "sharded_for")
-    return ShardedTopology(make_client_mesh(d, device=device))
+    return ShardedTopology(make_client_mesh(_best_fit(num_clients, device),
+                                            device=device))
 
 
 def feature_sharded_for(num_clients: int, device=None) -> ShardedTopology:
     """Feature-based analog of :func:`sharded_for`, over a "model"-axis
-    mesh (feature clients are model shards); a one-rank group still runs
-    the all-gathers."""
+    mesh (feature clients are model shards); a one-rank fit still runs the
+    all-gathers."""
     from repro_torch.launch.mesh import make_feature_mesh
-    d = _best_fit(num_clients, device, "feature_sharded_for")
-    return ShardedTopology(make_feature_mesh(d, device=device))
+    return ShardedTopology(make_feature_mesh(_best_fit(num_clients, device),
+                                             device=device))

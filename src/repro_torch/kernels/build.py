@@ -46,11 +46,13 @@ SIGNATURES = {
         "ssca_update_empty": _SSCA,
     },
     "quantize": {
-        "stochastic_quantize": [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _F, _I,
-                                _P],
+        # x, bits, values, scales, xhat, rows, p, chunks, chunk, 1/qmax,
+        # qmax, stream
+        "stochastic_quantize": [_P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _F,
+                                _I, _P],
         # x, keys, offset, values, scales, xhat, rows, p, chunks, chunk,
         # 1/qmax, qmax, stream
-        "stochastic_quantize_keyed": [_P, _P, _LL, _P, _P, _P, _LL, _LL, _I,
+        "stochastic_quantize_keyed": [_P, _P, _LL, _P, _P, _P, _LL, _LL, _LL,
                                       _I, _F, _I, _P],
     },
     "dp_noise": {
@@ -72,15 +74,16 @@ SIGNATURES = {
         "cohort_sample_empty": [_P, _I, _P, _I, _LL, _I, _I, _P],
     },
     "flash_attention": {
-        # q, k, v, o, strides, lse, b, h, kvh, sq, sk, d, causal, window,
-        # prefix, scale, is_bf16, splits, stream
+        # q, k, v, o, strides, lse, b, h, kvh, sq, sk, d, aligned, causal,
+        # window, prefix, scale, is_bf16, splits, stream
         "flash_attention": [_P, _P, _P, _P, _PLL, _P, _LL, _I, _I, _I, _I, _I,
-                            _I, _I, _I, _F, _I, _I, _P],
+                            _I, _I, _I, _I, _F, _I, _I, _P],
         # q, k, v, o, do, lse, dq, dk, dv, delta, strides, b, h, kvh, sq,
-        # sk, d, causal, window, prefix, scale, is_bf16, chunks, stream
-        "flash_attention_bwd": [_P] * 10 + [_PLL, _LL] + [_I] * 8
+        # sk, d, aligned, causal, window, prefix, scale, is_bf16, chunks,
+        # stream
+        "flash_attention_bwd": [_P] * 10 + [_PLL, _LL] + [_I] * 9
         + [_F, _I, _I, _P],
-        # d, chunks, &count, stream
+        # padded width, chunks, &count, stream
         "flash_bwd_capacity": [_I, _I, _P, _P],
     },
 }

@@ -3,8 +3,15 @@
 // sits at position i + Sk - Sq), an optional sliding window, an optional
 // prefix-LM block (every row sees the keys at positions below prefix_len,
 // inside or outside its window: the reference's (causal ∧ window) ∨ k_pos <
-// prefix_len), and fully masked rows giving 0 (never NaN). Head dims 32, 64,
-// 128 and 256. q: (B, H, Sq, D); k, v: (B, KV, Sk, D);
+// prefix_len), and fully masked rows giving 0 (never NaN). Any head dim D
+// from 1 to ANY_MAX_D: the kernels below are built at the widths 32, 64, 128
+// and 256 and take any D up to the width they run at (padded_width: the
+// smallest that holds D), the columns past D read as zeros, which add nothing
+// to Q·Kᵀ, and never stored; the scale stays 1/sqrt(D). They need D a
+// multiple of 16 bytes of elements (8 in bf16, 4 in fp32) and every row
+// 16-byte aligned; any other D (or a D above 256) takes the CUDA-core kernels
+// of any width (flash_any_*: unaligned rows read element by element).
+// q: (B, H, Sq, D); k, v: (B, KV, Sk, D);
 // o: (B, H, Sq, D); query head h reads KV head h / (H / KV). Every operand is
 // addressed through its own (b, h, s) element strides with a contiguous last
 // dimension, so decode reads the first pos+1 rows of a (B, S, KV, D) cache
@@ -373,18 +380,19 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[
   }
 }
 
-// ROWS rows of a D-wide bf16 operand (row i at src + i·stride) into a Tile
-// by cp.async; rows at or past `valid` become zeros.
+// ROWS rows of an hd-wide bf16 operand (row i at src + i·stride) into a
+// Tile of width D >= hd by cp.async; rows at or past `valid`, and the
+// columns from hd on (hd a multiple of 8), become zeros.
 template <int D, int ROWS, int THREADS>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long stride,
-                                          int valid) {
+                                          int valid, int hd) {
   constexpr int CPR = D / 8;
   static_assert(ROWS * CPR % THREADS == 0, "tile chunks must split evenly");
 #pragma unroll
   for (int n = 0; n < ROWS * CPR / THREADS; ++n) {
     const int i = threadIdx.x + n * THREADS;
     const int r = i / CPR, c = i % CPR;
-    const bool ok = r < valid;
+    const bool ok = r < valid && c * 8 < hd;
     cp_async16(dst + Tile<D>::template off<ROWS>(r, c),
                src + (ok ? (int64_t)r * stride + c * 8 : 0), ok);
   }
@@ -407,8 +415,8 @@ template <int D, bool PFX>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, bf16* __restrict__ o, Strides qs, Strides ks,
-                Strides vs, Strides os, int rep, int sq, int sk, int causal, int window,
-                int prefix, float scale_log2, float* __restrict__ lse) {
+                Strides vs, Strides os, int rep, int sq, int sk, int hd, int causal,
+                int window, int prefix, float scale_log2, float* __restrict__ lse) {
   using T = Tile<D>;
   constexpr int W = T::W, CPR = D / 8;
   extern __shared__ unsigned char smem_raw[];
@@ -444,17 +452,17 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto load_k = [&](int t) {         // K tile t into stage t % 2, by cp.async
     const int t0 = t * TC_BK;
     load_tile<D, TC_BK, TC_THREADS>(k_s + (t & 1) * TC_BK * D, kb + (int64_t)t0 * ks.s, ks.s,
-                                    sk - t0);
+                                    sk - t0, hd);
   };
   auto load_v = [&](int t) {
     const int t0 = t * TC_BK;
     load_tile<D, TC_BK, TC_THREADS>(v_s + (t & 1) * TC_BK * D, vb + (int64_t)t0 * vs.s, vs.s,
-                                    sk - t0);
+                                    sk - t0, hd);
   };
   // copy groups, in order: {q, K, V of the first tile}, {K of the second},
   // {V of the second}, then per tile t a group {K of t+1} and a group {V of
   // t+1} (empty past the last tile), so a fixed wait count finds each
-  load_tile<D, TC_BQ, TC_THREADS>(q_s, qb + (int64_t)q0 * qs.s, qs.s, sq - q0);
+  load_tile<D, TC_BQ, TC_THREADS>(q_s, qb + (int64_t)q0 * qs.s, qs.s, sq - q0, hd);
   if (t_beg < t_end) {
     load_k(t_beg);
     load_v(t_beg);
@@ -592,7 +600,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();
 
   // O / l through the q tile in shared memory (no longer read), then out as
-  // 16-byte stores
+  // 16-byte stores of the columns below hd
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -615,7 +623,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int n = 0; n < CPR / 2; ++n) {    // the warp's 16 rows of CPR chunks
     const int i = lane + 32 * n, r = warp * 16 + i / CPR, c = i % CPR;
-    if (q0 + r < sq)
+    if (q0 + r < sq && c * 8 < hd)
       *reinterpret_cast<uint4*>(ob + (int64_t)(q0 + r) * os.s + c * 8) =
           *reinterpret_cast<const uint4*>(q_s + T::template off<TC_BQ>(r, c));
   }
@@ -703,13 +711,12 @@ template <int D, bool PFX>
 __global__ void __launch_bounds__(SPLIT_THREADS)
 flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, bf16* __restrict__ o, Strides qs, Strides ks,
-                   Strides vs, Strides os, int rep, int sq, int sk, int causal, int window,
-                   int prefix, float scale_log2, int chunk) {
+                   Strides vs, Strides os, int rep, int sq, int sk, int hd, int causal,
+                   int window, int prefix, float scale_log2, int chunk) {
   constexpr int THREADS = SPLIT_THREADS, R = SPLIT_ROWS, BK = SPLIT_BK;
   constexpr int CPR = D / 8, P = D + 8;        // 16-byte chunks a row; q, K, V row pitch
   constexpr int PP = BK + 8;                   // P's row pitch
   constexpr int NT = (D / 8 + 7) / 8;          // P·V's 8-column tiles a warp
-  constexpr int C4 = D / 4;                    // 4-column chunks of an output row
   static_assert(BK == 8 * (THREADS / 32), "a warp scores 8 keys of a tile");
   static_assert(BK * CPR % THREADS == 0, "whole K/V tiles a thread");
   static_assert(R * D * sizeof(float) <= BK * P * sizeof(bf16), "the partial fits in k_s");
@@ -731,6 +738,7 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int grp = blockIdx.y;
   const int64_t b = blockIdx.z;
   const int rows = rep * sq, off = sk - sq;
+  const int c4 = hd / 4;                       // 4-column chunks of an output row
   const bf16* kb = k + b * ks.b + grp * ks.h;
   const bf16* vb = v + b * vs.b + grp * vs.h;
   // query row r of the group: head grp·rep + r / sq, position r % sq
@@ -740,13 +748,14 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // this split's keys, cut to those some row can see (possibly none)
   const int k_lo = window && !PFX ? max(0, off - window + 1) : 0;
   const int k_first = max(split * chunk, k_lo), k_stop = min((split + 1) * chunk, sk);
-  // keys t0.. of the split by cp.async, zeros past it: K, then V, one group each
+  // keys t0.. of the split by cp.async, zeros past it and past column hd: K,
+  // then V, one group each
   auto load = [&](bf16* dst, const bf16* src, long long stride, int t0) {
     const int n = min(BK, k_stop - t0);
 #pragma unroll
     for (int it = 0; it < BK * CPR / THREADS; ++it) {
       const int i = tid + it * THREADS, r = i / CPR, c = i % CPR;
-      const bool ok = r < n;
+      const bool ok = r < n && c * 8 < hd;
       cp_async16(dst + r * P + c * 8, src + (ok ? (int64_t)(t0 + r) * stride + c * 8 : 0), ok);
     }
     cp_async_commit();
@@ -757,8 +766,9 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int n = 0; n < QN; ++n) {
     const int i = tid + n * THREADS, r = i / CPR;
-    qraw[n] = i < R * CPR && r < rows ? *reinterpret_cast<const uint4*>(q_row(r) + (i % CPR) * 8)
-                                      : make_uint4(0, 0, 0, 0);
+    qraw[n] = i < R * CPR && r < rows && (i % CPR) * 8 < hd
+                  ? *reinterpret_cast<const uint4*>(q_row(r) + (i % CPR) * 8)
+                  : make_uint4(0, 0, 0, 0);
   }
   if (k_first < k_stop) {
     load(k_s, kb, ks.s, k_first);
@@ -855,7 +865,7 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
           const int col = (warp + 8 * nt) * 8;
-          if (col < D)
+          if (col < hd)
             mma_16816(acc[nt], pa, ld_two(vr + col, vr + P + col),
                       ld_two(vr + 8 * P + col, vr + 9 * P + col));
         }
@@ -886,8 +896,8 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cg::cluster_group cluster = cg::this_cluster();
   float2* ml_s = reinterpret_cast<float2*>(merge_s + splits * rows * D);
   cluster_wait();
-  for (int i = tid; i < rows * C4; i += THREADS) {
-    const int r = i / C4, c = i % C4;
+  for (int i = tid; i < rows * c4; i += THREADS) {
+    const int r = i / c4, c = i % c4;
     float* to = cluster.map_shared_rank(merge_s, c % splits);
     *reinterpret_cast<float4*>(to + (split * rows + r) * D + c * 4) =
         *reinterpret_cast<const float4*>(o_s + r * D + c * 4);
@@ -901,7 +911,7 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // each (row, chunk) of this block: weights exp2(m_s - M) over the splits'
   // maxima M, an empty split (m = -inf) weighing 0, normalised by Σ
   // exp2(m_s - M)·l_s; a row no split sees (every l = 0) gives 0
-  const int mine = (C4 - split + splits - 1) / splits;   // chunks split, split + splits, ...
+  const int mine = (c4 - split + splits - 1) / splits;   // chunks split, split + splits, ...
   for (int i = tid; i < rows * mine; i += THREADS) {
     const int r = i / mine, c = split + (i % mine) * splits;
     float2 ml[SPLIT_MAX];
@@ -949,11 +959,12 @@ constexpr int f32_smem_bytes() {
 }
 
 // Stage NROWS rows of D floats (row i at src + i·stride, 16-byte aligned)
-// into dst (row i at dst + i·dst_stride); rows at or past `valid` read as
-// zeros. Every thread loads its vectors before storing any.
+// into dst (row i at dst + i·dst_stride); rows at or past `valid`, and the
+// columns from hd on (a multiple of 4), read as zeros. Every thread loads
+// its vectors before storing any.
 template <int D, int THREADS, int NROWS>
 __device__ __forceinline__ void stage_f32(const float* __restrict__ src, long long stride,
-                                          int valid, float* dst, int dst_stride) {
+                                          int valid, int hd, float* dst, int dst_stride) {
   constexpr int PER_ROW = D / 4;
   constexpr int TOTAL = NROWS * PER_ROW;
   constexpr int PER_THREAD = (TOTAL + THREADS - 1) / THREADS;
@@ -963,7 +974,7 @@ __device__ __forceinline__ void stage_f32(const float* __restrict__ src, long lo
     const int i = threadIdx.x + n * THREADS;
     const int row = i / PER_ROW, col = (i % PER_ROW) * 4;
     raw[n] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (i < TOTAL && row < valid)
+    if (i < TOTAL && row < valid && col < hd)
       raw[n] = *reinterpret_cast<const float4*>(src + (int64_t)row * stride + col);
   }
 #pragma unroll
@@ -983,7 +994,7 @@ template <int D, int R, int W>
 __global__ void __launch_bounds__(W * 32)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, Strides qs,
-                 Strides ks, Strides vs, Strides os, int rep, int sq, int sk,
+                 Strides ks, Strides vs, Strides os, int rep, int sq, int sk, int hd,
                  int causal, int window, int prefix, float scale, float* __restrict__ lse) {
   extern __shared__ __align__(16) float smem[];
   constexpr int bq = W * R;
@@ -1001,7 +1012,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* vb = v + b * vs.b + (h / rep) * vs.h;
   float* ob = o + b * os.b + h * os.h;
 
-  stage_f32<D, W * 32, bq>(qb + (int64_t)q0 * qs.s, qs.s, sq - q0, q_s, D);
+  stage_f32<D, W * 32, bq>(qb + (int64_t)q0 * qs.s, qs.s, sq - q0, hd, q_s, D);
 
   // the keys any row of this block can see
   const int off = sk - sq;
@@ -1022,8 +1033,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int t0 = (k_beg / F32_BK) * F32_BK; t0 < k_end; t0 += F32_BK) {
     __syncthreads();                     // the previous tile is consumed
-    stage_f32<D, W * 32, F32_BK>(kb + (int64_t)t0 * ks.s, ks.s, sk - t0, k_s, D + 1);
-    stage_f32<D, W * 32, F32_BK>(vb + (int64_t)t0 * vs.s, vs.s, sk - t0, v_s, D);
+    stage_f32<D, W * 32, F32_BK>(kb + (int64_t)t0 * ks.s, ks.s, sk - t0, hd, k_s, D + 1);
+    stage_f32<D, W * 32, F32_BK>(vb + (int64_t)t0 * vs.s, vs.s, sk - t0, hd, v_s, D);
     __syncthreads();
     if (!active) continue;               // warp-uniform: all of its rows lie past Sq
 
@@ -1083,7 +1094,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (row < sq) {
       const float denom = l[r] == 0.0f ? 1.0f : l[r];   // fully masked row -> 0
 #pragma unroll
-      for (int i = 0; i < D / 32; ++i) ob[(int64_t)row * os.s + lane + 32 * i] = acc[r][i] / denom;
+      for (int i = 0; i < D / 32; ++i)
+        if (lane + 32 * i < hd) ob[(int64_t)row * os.s + lane + 32 * i] = acc[r][i] / denom;
       if (lse != nullptr && lane == 0)
         lse[(b * gridDim.y + h) * sq + row] = l[r] > 0.0f ? m[r] + logf(l[r]) : -INFINITY;
     }
@@ -1099,16 +1111,18 @@ constexpr int BWD_BK = 32;           // keys per tile
 constexpr int BWD_THREADS = 256;
 
 // ROWS rows of D floats (row i at src + i·stride, 16-byte aligned) into
-// shared memory of row pitch D + 1; rows at or past `valid` are 0
+// shared memory of row pitch D + 1; rows at or past `valid`, and the columns
+// from hd on (a multiple of 4), are 0
 template <int D, int ROWS>
 __device__ __forceinline__ void stage_bwd(float* dst, const float* __restrict__ src,
-                                          long long stride, int valid) {
+                                          long long stride, int valid, int hd) {
   constexpr int CPR = D / 4;
   for (int i = threadIdx.x; i < ROWS * CPR; i += BWD_THREADS) {
     const int r = i / CPR, c = (i % CPR) * 4;
     float* d = dst + r * (D + 1) + c;
-    const float4 v = r < valid ? *reinterpret_cast<const float4*>(src + (int64_t)r * stride + c)
-                               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const float4 v = r < valid && c < hd
+                         ? *reinterpret_cast<const float4*>(src + (int64_t)r * stride + c)
+                         : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     d[0] = v.x;
     d[1] = v.y;
     d[2] = v.z;
@@ -1128,7 +1142,7 @@ struct BwdArgs {
   float* delta;
   Strides q_st, k_st, v_st, o_st, do_st, dq_st, dk_st, dv_st;
   long long b;
-  int h, kvh, rep, sq, sk, causal, window, prefix;
+  int h, kvh, rep, sq, sk, hd, causal, window, prefix;   // hd: the head dim
   int chunks;                        // bf16: the dk/dv kernel's head chunks (its cluster)
   float scale;
   cudaStream_t stream;
@@ -1211,14 +1225,14 @@ flash_bwd_dq_kernel(BwdArgs a) {
   float* dqb = (float*)a.dq + b * a.dq_st.b + h * a.dq_st.h;
   const int64_t row_base = (b * a.h + h) * a.sq;
 
-  stage_bwd<D, BWD_BQ>(q_s, qb + (int64_t)q0 * a.q_st.s, a.q_st.s, a.sq - q0);
-  stage_bwd<D, BWD_BQ>(do_s, dob + (int64_t)q0 * a.do_st.s, a.do_st.s, a.sq - q0);
+  stage_bwd<D, BWD_BQ>(q_s, qb + (int64_t)q0 * a.q_st.s, a.q_st.s, a.sq - q0, a.hd);
+  stage_bwd<D, BWD_BQ>(do_s, dob + (int64_t)q0 * a.do_st.s, a.do_st.s, a.sq - q0, a.hd);
   // delta = Σ_d dO∘O of each row, a warp a row
   for (int r = warp; r < BWD_BQ; r += BWD_THREADS / 32) {
     const int i = q0 + r;
     float acc = 0.0f;
     if (i < a.sq)
-      for (int d = lane; d < D; d += 32)
+      for (int d = lane; d < a.hd; d += 32)
         acc += dob[(int64_t)i * a.do_st.s + d] * ob[(int64_t)i * a.o_st.s + d];
     acc = warp_sum(acc);
     if (lane == 0) {
@@ -1242,8 +1256,8 @@ flash_bwd_dq_kernel(BwdArgs a) {
 
   for (int k0 = (k_beg / BWD_BK) * BWD_BK; k0 < k_end; k0 += BWD_BK) {
     __syncthreads();                 // the previous tile is consumed
-    stage_bwd<D, BWD_BK>(k_s, kb + (int64_t)k0 * a.k_st.s, a.k_st.s, a.sk - k0);
-    stage_bwd<D, BWD_BK>(v_s, vb + (int64_t)k0 * a.v_st.s, a.v_st.s, a.sk - k0);
+    stage_bwd<D, BWD_BK>(k_s, kb + (int64_t)k0 * a.k_st.s, a.k_st.s, a.sk - k0, a.hd);
+    stage_bwd<D, BWD_BK>(v_s, vb + (int64_t)k0 * a.v_st.s, a.v_st.s, a.sk - k0, a.hd);
     __syncthreads();
     bwd_scores<D>(q_s, do_s, k_s, v_s, lse_s, delta_s, nullptr, ds_s, q0, k0, a.sq, a.sk, off,
                   a.causal, a.window, a.prefix, a.scale);
@@ -1265,7 +1279,8 @@ flash_bwd_dq_kernel(BwdArgs a) {
     const int i = q0 + rg + 16 * r;
     if (i < a.sq)
 #pragma unroll
-      for (int c = 0; c < NC; ++c) dqb[(int64_t)i * a.dq_st.s + cl + 16 * c] = acc[r][c];
+      for (int c = 0; c < NC; ++c)
+        if (cl + 16 * c < a.hd) dqb[(int64_t)i * a.dq_st.s + cl + 16 * c] = acc[r][c];
   }
 }
 
@@ -1290,8 +1305,8 @@ flash_bwd_dkdv_kernel(BwdArgs a) {
   float* dkb = (float*)a.dk + b * a.dk_st.b + grp * a.dk_st.h;
   float* dvb = (float*)a.dv + b * a.dv_st.b + grp * a.dv_st.h;
 
-  stage_bwd<D, BWD_BK>(k_s, kb + (int64_t)k0 * a.k_st.s, a.k_st.s, a.sk - k0);
-  stage_bwd<D, BWD_BK>(v_s, vb + (int64_t)k0 * a.v_st.s, a.v_st.s, a.sk - k0);
+  stage_bwd<D, BWD_BK>(k_s, kb + (int64_t)k0 * a.k_st.s, a.k_st.s, a.sk - k0, a.hd);
+  stage_bwd<D, BWD_BK>(v_s, vb + (int64_t)k0 * a.v_st.s, a.v_st.s, a.sk - k0, a.hd);
 
   // the query rows that see some key of this tile (all, when it holds a
   // prefix key)
@@ -1313,8 +1328,8 @@ flash_bwd_dkdv_kernel(BwdArgs a) {
     const int64_t row_base = (b * a.h + hh) * a.sq;
     for (int q0 = (i_beg / BWD_BQ) * BWD_BQ; q0 < i_end; q0 += BWD_BQ) {
       __syncthreads();               // the previous q tile is consumed
-      stage_bwd<D, BWD_BQ>(q_s, qb + (int64_t)q0 * a.q_st.s, a.q_st.s, a.sq - q0);
-      stage_bwd<D, BWD_BQ>(do_s, dob + (int64_t)q0 * a.do_st.s, a.do_st.s, a.sq - q0);
+      stage_bwd<D, BWD_BQ>(q_s, qb + (int64_t)q0 * a.q_st.s, a.q_st.s, a.sq - q0, a.hd);
+      stage_bwd<D, BWD_BQ>(do_s, dob + (int64_t)q0 * a.do_st.s, a.do_st.s, a.sq - q0, a.hd);
       if (threadIdx.x < BWD_BQ) {
         const int i = q0 + threadIdx.x;
         lse_s[threadIdx.x] = i < a.sq ? a.lse[row_base + i] : -INFINITY;
@@ -1345,10 +1360,11 @@ flash_bwd_dkdv_kernel(BwdArgs a) {
     const int j = k0 + rg + 16 * r;
     if (j < a.sk)
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        dkb[(int64_t)j * a.dk_st.s + cl + 16 * c] = dk[r][c];
-        dvb[(int64_t)j * a.dv_st.s + cl + 16 * c] = dv[r][c];
-      }
+      for (int c = 0; c < NC; ++c)
+        if (cl + 16 * c < a.hd) {
+          dkb[(int64_t)j * a.dk_st.s + cl + 16 * c] = dk[r][c];
+          dvb[(int64_t)j * a.dv_st.s + cl + 16 * c] = dv[r][c];
+        }
   }
 }
 
@@ -1496,13 +1512,15 @@ flash_bwd_dq_wg_kernel(BwdArgs a) {
   auto load_kv = [&](int i) {        // key tile i into stage i % 2
     const int k0 = k_first + i * BK;
     load_tile<D, BK, WB_THREADS>(k_s + (i & 1) * BK * D, kb + (int64_t)k0 * a.k_st.s,
-                                 a.k_st.s, a.sk - k0);
+                                 a.k_st.s, a.sk - k0, a.hd);
     load_tile<D, BK, WB_THREADS>(v_s + (i & 1) * BK * D, vb + (int64_t)k0 * a.v_st.s,
-                                 a.v_st.s, a.sk - k0);
+                                 a.v_st.s, a.sk - k0, a.hd);
   };
 
-  load_tile<D, WB_ROWS, WB_THREADS>(q_s, qb + (int64_t)q0 * a.q_st.s, a.q_st.s, a.sq - q0);
-  load_tile<D, WB_ROWS, WB_THREADS>(do_s, dob + (int64_t)q0 * a.do_st.s, a.do_st.s, a.sq - q0);
+  load_tile<D, WB_ROWS, WB_THREADS>(q_s, qb + (int64_t)q0 * a.q_st.s, a.q_st.s, a.sq - q0,
+                                    a.hd);
+  load_tile<D, WB_ROWS, WB_THREADS>(do_s, dob + (int64_t)q0 * a.do_st.s, a.do_st.s, a.sq - q0,
+                                    a.hd);
   if (tiles > 0) load_kv(0);
   cp_async_commit();
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;          // this thread's rows
@@ -1522,7 +1540,7 @@ flash_bwd_dq_wg_kernel(BwdArgs a) {
 
   // delta = Σ_d dO∘O of the warp's 16 rows, written for the dk/dv kernel:
   // lanes 2r and 2r + 1 take half of row r each, up to 8 16-byte loads of
-  // each in flight at once
+  // each in flight at once (the columns from hd on read as zeros)
   float dl0, dl1;
   {
     constexpr int NV = D / 16, CH = NV < 8 ? NV : 8;
@@ -1536,8 +1554,9 @@ flash_bwd_dq_wg_kernel(BwdArgs a) {
         uint4 ov[CH], dv[CH];
 #pragma unroll
         for (int n = 0; n < CH; ++n) {
-          ov[n] = *reinterpret_cast<const uint4*>(orow + 8 * (n0 + n));
-          dv[n] = *reinterpret_cast<const uint4*>(drow + 8 * (n0 + n));
+          const bool in = c0 + 8 * (n0 + n) < a.hd;
+          ov[n] = in ? *reinterpret_cast<const uint4*>(orow + 8 * (n0 + n)) : make_uint4(0, 0, 0, 0);
+          dv[n] = in ? *reinterpret_cast<const uint4*>(drow + 8 * (n0 + n)) : make_uint4(0, 0, 0, 0);
         }
 #pragma unroll
         for (int n = 0; n < CH; ++n) {
@@ -1625,7 +1644,7 @@ flash_bwd_dq_wg_kernel(BwdArgs a) {
 #pragma unroll
   for (int n = 0; n < CPR / 2; ++n) {    // the warp's 16 rows of CPR chunks
     const int i = lane + 32 * n, r = warp * 16 + i / CPR, c = i % CPR;
-    if (q0 + r < a.sq)
+    if (q0 + r < a.sq && c * 8 < a.hd)
       *reinterpret_cast<uint4*>(dqb + (int64_t)(q0 + r) * a.dq_st.s + c * 8) =
           *reinterpret_cast<const uint4*>(q_s + T::template off<WB_ROWS>(r, c));
   }
@@ -1701,9 +1720,9 @@ flash_bwd_dkdv_wg_kernel(BwdArgs a) {
       const bf16* qb = (const bf16*)a.q + b * a.q_st.b + hh * a.q_st.h;
       const bf16* dob = (const bf16*)a.dout + b * a.do_st.b + hh * a.do_st.h;
       load_tile<D, R, THREADS>(q_s + j * R * D, qb + (int64_t)q0 * a.q_st.s, a.q_st.s,
-                               a.sq - q0);
+                               a.sq - q0, a.hd);
       load_tile<D, R, THREADS>(do_s + j * R * D, dob + (int64_t)q0 * a.do_st.s, a.do_st.s,
-                               a.sq - q0);
+                               a.sq - q0, a.hd);
       if (threadIdx.x < 2 * R) {
         const int r = threadIdx.x % R, i = q0 + r;
         const int64_t row = (b * a.h + hh) * a.sq + (i < a.sq ? i : 0);
@@ -1713,8 +1732,8 @@ flash_bwd_dkdv_wg_kernel(BwdArgs a) {
           cp_async4(&delta_s[j][r], a.delta + row, i < a.sq);
       }
     };
-    load_tile<D, R, THREADS>(k_s, kb + (int64_t)k0 * a.k_st.s, a.k_st.s, a.sk - k0);
-    load_tile<D, R, THREADS>(v_s, vb + (int64_t)k0 * a.v_st.s, a.v_st.s, a.sk - k0);
+    load_tile<D, R, THREADS>(k_s, kb + (int64_t)k0 * a.k_st.s, a.k_st.s, a.sk - k0, a.hd);
+    load_tile<D, R, THREADS>(v_s, vb + (int64_t)k0 * a.v_st.s, a.v_st.s, a.sk - k0, a.hd);
     if (total > 0) load_q(0, 0);
     cp_async_commit();
 
@@ -1807,7 +1826,7 @@ flash_bwd_dkdv_wg_kernel(BwdArgs a) {
       for (int n = 0; n < D / 8; ++n)
 #pragma unroll
         for (int r = 0; r < 2; ++r)
-          if (kr0 + 8 * r < a.sk)
+          if (kr0 + 8 * r < a.sk && 8 * n < a.hd)
             *reinterpret_cast<__nv_bfloat162*>(base + (int64_t)(kr0 + 8 * r) * stride + 8 * n +
                                                2 * tig) =
                 __floats2bfloat162_rn(acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1]);
@@ -1852,7 +1871,7 @@ flash_bwd_dkdv_wg_kernel(BwdArgs a) {
           f[2] += v[src].z;
           f[3] += v[src].w;
         }
-      if (key < a.sk) {
+      if (key < a.sk && (i % C4) * 4 < a.hd) {
         uint2 out;
         *reinterpret_cast<__nv_bfloat162*>(&out.x) = __floats2bfloat162_rn(f[0], f[1]);
         *reinterpret_cast<__nv_bfloat162*>(&out.y) = __floats2bfloat162_rn(f[2], f[3]);
@@ -1861,6 +1880,230 @@ flash_bwd_dkdv_wg_kernel(BwdArgs a) {
       }
     }
     __syncthreads();                 // the buffers are read before the next tile's copies
+  }
+}
+
+// ---------------------------------------------------------------------------
+// any head dim, any row alignment: CUDA cores, element by element
+// ---------------------------------------------------------------------------
+
+// The kernels above take a head dim up to 256 that is a whole number of
+// 16-byte chunks (8 bf16, 4 fp32) with 16-byte aligned rows. Every other call
+// (D = 100 in bf16, D = 320, a view at an odd element offset) takes these,
+// in either type: one warp a query row (the forward and the dq kernel) or a
+// key (the dk/dv kernel), ANY_WARPS warps a block, the warp's row operands
+// and accumulators in fp32 in shared memory (ANY_MAX_D columns at most: the
+// dk/dv kernel's four rows of D floats a warp fill 128 KB of a block's 227).
+// Lane j takes key (or row) t0 + j of a 32-wide step: its dot products over
+// D, one lane each; the products with V, dO or Q then run over the columns,
+// a lane a column, with the step's p or dS read from shared memory. Every
+// element is read on its own, so nothing is assumed of a row's alignment.
+// No tensor cores and no reuse of K and V across query rows: these are for
+// the head dims no model of the registry has, and are not fast.
+constexpr int ANY_WARPS = 4;
+constexpr int ANY_MAX_D = 2048;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16_rn(x); }
+
+// Σ_c a[c]·row[c] over c < hd: a in shared memory, row in global memory
+template <typename T>
+__device__ __forceinline__ float dot_row(const float* a, const T* row, int hd) {
+  float s = 0.0f;
+  for (int c = 0; c < hd; ++c) s = fmaf(a[c], to_f(row[c]), s);
+  return s;
+}
+
+// the keys query position qp can see: [k_beg, k_end)
+__device__ __forceinline__ void any_key_range(int qp, int sk, int causal, int window,
+                                              int prefix, int& k_beg, int& k_end) {
+  k_end = max(causal ? min(sk, qp + 1) : sk, min(prefix, sk));
+  k_beg = window && prefix <= 0 ? max(0, qp - window + 1) : 0;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(ANY_WARPS * 32)
+flash_any_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 T* __restrict__ o, Strides qs, Strides ks, Strides vs, Strides os, int rep,
+                 int sq, int sk, int hd, int causal, int window, int prefix, float scale,
+                 float* __restrict__ lse) {
+  extern __shared__ float any_smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* q_s = any_smem + warp * (2 * hd + 32);     // the row's q, O, and a step's p
+  float* acc = q_s + hd;
+  float* p_s = acc + hd;
+  const int h = blockIdx.y;
+  const int64_t b = blockIdx.z;
+  const int row = blockIdx.x * ANY_WARPS + warp;
+  if (row >= sq) return;                            // warp-uniform; no block barrier
+  const T* qr = q + b * qs.b + h * qs.h + (int64_t)row * qs.s;
+  const T* kb = k + b * ks.b + (h / rep) * ks.h;
+  const T* vb = v + b * vs.b + (h / rep) * vs.h;
+  for (int c = lane; c < hd; c += 32) {
+    q_s[c] = to_f(qr[c]);
+    acc[c] = 0.0f;
+  }
+  __syncwarp();
+  const int qp = row + sk - sq;
+  int k_beg, k_end;
+  any_key_range(qp, sk, causal, window, prefix, k_beg, k_end);
+  float m = -INFINITY, l = 0.0f;
+  for (int t0 = k_beg; t0 < k_end; t0 += 32) {
+    const int j = t0 + lane;
+    const bool ok = j < k_end && sees(qp, j, causal, window, prefix);
+    const float s = ok ? dot_row(q_s, kb + (int64_t)j * ks.s, hd) * scale : -INFINITY;
+    const float m_new = fmaxf(m, warp_max(s));
+    if (m_new == -INFINITY) continue;               // warp-uniform: no key seen yet
+    const float p = ok ? expf(s - m_new) : 0.0f;
+    const float alpha = expf(m - m_new);            // 0 while m = -inf
+    l = l * alpha + warp_sum(p);
+    m = m_new;
+    p_s[lane] = p;
+    __syncwarp();
+    const int n = min(32, k_end - t0);
+    for (int c = lane; c < hd; c += 32) {
+      float a = acc[c] * alpha;
+      for (int jj = 0; jj < n; ++jj) a = fmaf(p_s[jj], to_f(vb[(int64_t)(t0 + jj) * vs.s + c]), a);
+      acc[c] = a;
+    }
+    __syncwarp();                                   // p_s is read before it is rewritten
+  }
+  T* orow = o + b * os.b + h * os.h + (int64_t)row * os.s;
+  const float denom = l == 0.0f ? 1.0f : l;         // fully masked row -> 0
+  for (int c = lane; c < hd; c += 32) orow[c] = from_f<T>(acc[c] / denom);
+  if (lse != nullptr && lane == 0)
+    lse[(b * gridDim.y + h) * sq + row] = l > 0.0f ? m + logf(l) : -INFINITY;
+}
+
+// dq and delta: one warp a query row
+template <typename T>
+__global__ void __launch_bounds__(ANY_WARPS * 32)
+flash_any_bwd_dq_kernel(BwdArgs a) {
+  extern __shared__ float any_smem[];
+  const int hd = a.hd, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* q_s = any_smem + warp * (3 * hd + 32);     // q, dO, dQ, a step's dS
+  float* do_s = q_s + hd;
+  float* dq_s = do_s + hd;
+  float* ds_s = dq_s + hd;
+  const int h = blockIdx.y;
+  const int64_t b = blockIdx.z;
+  const int i = blockIdx.x * ANY_WARPS + warp;
+  if (i >= a.sq) return;
+  const T* qr = (const T*)a.q + b * a.q_st.b + h * a.q_st.h + (int64_t)i * a.q_st.s;
+  const T* orr = (const T*)a.o + b * a.o_st.b + h * a.o_st.h + (int64_t)i * a.o_st.s;
+  const T* dor = (const T*)a.dout + b * a.do_st.b + h * a.do_st.h + (int64_t)i * a.do_st.s;
+  const T* kb = (const T*)a.k + b * a.k_st.b + (h / a.rep) * a.k_st.h;
+  const T* vb = (const T*)a.v + b * a.v_st.b + (h / a.rep) * a.v_st.h;
+  const int64_t row = (b * a.h + h) * a.sq + i;
+  float delta = 0.0f;
+  for (int c = lane; c < hd; c += 32) {
+    q_s[c] = to_f(qr[c]);
+    do_s[c] = to_f(dor[c]);
+    dq_s[c] = 0.0f;
+    delta = fmaf(do_s[c], to_f(orr[c]), delta);
+  }
+  delta = warp_sum(delta);
+  if (lane == 0) a.delta[row] = delta;
+  __syncwarp();
+  const float l = a.lse[row];
+  const int qp = i + a.sk - a.sq;
+  int k_beg, k_end;
+  any_key_range(qp, a.sk, a.causal, a.window, a.prefix, k_beg, k_end);
+  if (l == -INFINITY) k_end = k_beg;                // a row that sees no key: p = 0
+  for (int t0 = k_beg; t0 < k_end; t0 += 32) {
+    const int j = t0 + lane;
+    float ds = 0.0f;
+    if (j < k_end && sees(qp, j, a.causal, a.window, a.prefix)) {
+      const float p = expf(dot_row(q_s, kb + (int64_t)j * a.k_st.s, hd) * a.scale - l);
+      ds = p * (dot_row(do_s, vb + (int64_t)j * a.v_st.s, hd) - delta) * a.scale;
+    }
+    ds_s[lane] = ds;
+    __syncwarp();
+    const int n = min(32, k_end - t0);
+    for (int c = lane; c < hd; c += 32) {
+      float acc = dq_s[c];
+      for (int jj = 0; jj < n; ++jj)
+        acc = fmaf(ds_s[jj], to_f(kb[(int64_t)(t0 + jj) * a.k_st.s + c]), acc);
+      dq_s[c] = acc;
+    }
+    __syncwarp();
+  }
+  T* dqr = (T*)a.dq + b * a.dq_st.b + h * a.dq_st.h + (int64_t)i * a.dq_st.s;
+  for (int c = lane; c < hd; c += 32) dqr[c] = from_f<T>(dq_s[c]);
+}
+
+// dk and dv: one warp a key, over the group's query heads (after the dq
+// kernel, whose delta it reads)
+template <typename T>
+__global__ void __launch_bounds__(ANY_WARPS * 32)
+flash_any_bwd_dkdv_kernel(BwdArgs a) {
+  extern __shared__ float any_smem[];
+  const int hd = a.hd, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* k_s = any_smem + warp * (4 * hd + 64);     // k, v, dK, dV, a step's p and dS
+  float* v_s = k_s + hd;
+  float* dk_s = v_s + hd;
+  float* dv_s = dk_s + hd;
+  float* p_s = dv_s + hd;
+  float* ds_s = p_s + 32;
+  const int grp = blockIdx.y;
+  const int64_t b = blockIdx.z;
+  const int j = blockIdx.x * ANY_WARPS + warp;
+  if (j >= a.sk) return;
+  const T* kr = (const T*)a.k + b * a.k_st.b + grp * a.k_st.h + (int64_t)j * a.k_st.s;
+  const T* vr = (const T*)a.v + b * a.v_st.b + grp * a.v_st.h + (int64_t)j * a.v_st.s;
+  for (int c = lane; c < hd; c += 32) {
+    k_s[c] = to_f(kr[c]);
+    v_s[c] = to_f(vr[c]);
+    dk_s[c] = dv_s[c] = 0.0f;
+  }
+  __syncwarp();
+  // the query rows that see key j (all, when it is a prefix key)
+  const int off = a.sk - a.sq;
+  const bool pre = j < a.prefix;
+  const int i_beg = a.causal && !pre ? max(0, j - off) : 0;
+  const int i_end = a.window && !pre ? min(a.sq, j - off + a.window) : a.sq;
+  for (int hh = grp * a.rep; hh < (grp + 1) * a.rep; ++hh) {
+    const T* qb = (const T*)a.q + b * a.q_st.b + hh * a.q_st.h;
+    const T* dob = (const T*)a.dout + b * a.do_st.b + hh * a.do_st.h;
+    const int64_t row_base = (b * a.h + hh) * a.sq;
+    for (int i0 = i_beg; i0 < i_end; i0 += 32) {
+      const int i = i0 + lane;
+      float p = 0.0f, ds = 0.0f;
+      if (i < i_end && sees(i + off, j, a.causal, a.window, a.prefix)) {
+        const float l = a.lse[row_base + i];
+        if (l != -INFINITY) {
+          p = expf(dot_row(k_s, qb + (int64_t)i * a.q_st.s, hd) * a.scale - l);
+          ds = p * (dot_row(v_s, dob + (int64_t)i * a.do_st.s, hd) - a.delta[row_base + i]) *
+               a.scale;
+        }
+      }
+      p_s[lane] = p;
+      ds_s[lane] = ds;
+      __syncwarp();
+      const int n = min(32, i_end - i0);
+      for (int c = lane; c < hd; c += 32) {
+        float dk = dk_s[c], dv = dv_s[c];
+        for (int ii = 0; ii < n; ++ii) {
+          dv = fmaf(p_s[ii], to_f(dob[(int64_t)(i0 + ii) * a.do_st.s + c]), dv);
+          dk = fmaf(ds_s[ii], to_f(qb[(int64_t)(i0 + ii) * a.q_st.s + c]), dk);
+        }
+        dk_s[c] = dk;
+        dv_s[c] = dv;
+      }
+      __syncwarp();
+    }
+  }
+  T* dkr = (T*)a.dk + b * a.dk_st.b + grp * a.dk_st.h + (int64_t)j * a.dk_st.s;
+  T* dvr = (T*)a.dv + b * a.dv_st.b + grp * a.dv_st.h + (int64_t)j * a.dv_st.s;
+  for (int c = lane; c < hd; c += 32) {
+    dkr[c] = from_f<T>(dk_s[c]);
+    dvr[c] = from_f<T>(dv_s[c]);
   }
 }
 
@@ -1874,7 +2117,7 @@ struct Args {
   float* lse;                        // (B, H, Sq) fp32, or null
   Strides st[4];
   long long b;
-  int h, kvh, rep, sq, sk, causal, window, prefix;
+  int h, kvh, rep, sq, sk, hd, causal, window, prefix;   // hd: the head dim
   float scale;
   cudaStream_t stream;
 };
@@ -1899,7 +2142,7 @@ int launch_f32(const Args& a) {
   const dim3 grid((unsigned)((a.sq + bq - 1) / bq), (unsigned)a.h, (unsigned)a.b);
   flash_f32_kernel<D, R, W><<<grid, W * 32, bytes, a.stream>>>(
       (const float*)a.q, (const float*)a.k, (const float*)a.v, (float*)a.o, a.st[0], a.st[1],
-      a.st[2], a.st[3], a.rep, a.sq, a.sk, a.causal, a.window, a.prefix, a.scale, a.lse);
+      a.st[2], a.st[3], a.rep, a.sq, a.sk, a.hd, a.causal, a.window, a.prefix, a.scale, a.lse);
   return (int)cudaGetLastError();
 }
 
@@ -1911,8 +2154,8 @@ int launch_tc(const Args& a) {
   const dim3 grid((unsigned)((a.sq + TC_BQ - 1) / TC_BQ), (unsigned)a.h, (unsigned)a.b);
   flash_tc_kernel<D, PFX><<<grid, TC_THREADS, bytes, a.stream>>>(
       (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v, (bf16*)a.o, a.st[0], a.st[1],
-      a.st[2], a.st[3], a.rep, a.sq, a.sk, a.causal, a.window, a.prefix, a.scale * LOG2E,
-      a.lse);
+      a.st[2], a.st[3], a.rep, a.sq, a.sk, a.hd, a.causal, a.window, a.prefix,
+      a.scale * LOG2E, a.lse);
   return (int)cudaGetLastError();
 }
 
@@ -1947,8 +2190,8 @@ int launch_split(const Args& a, int chunk, int splits) {
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, flash_split_kernel<D, PFX>, (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
-      (bf16*)a.o, a.st[0], a.st[1], a.st[2], a.st[3], a.rep, a.sq, a.sk, a.causal, a.window,
-      a.prefix, a.scale * LOG2E, chunk);
+      (bf16*)a.o, a.st[0], a.st[1], a.st[2], a.st[3], a.rep, a.sq, a.sk, a.hd, a.causal,
+      a.window, a.prefix, a.scale * LOG2E, chunk);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
@@ -1968,6 +2211,44 @@ int launch_d(const Args& a, int is_bf16, int splits) {
   return a.prefix > 0 ? launch_tc<D, true>(a) : launch_tc<D, false>(a);
 }
 
+// the kernels of any width: ANY_WARPS rows (keys) a block
+template <typename T>
+int launch_any(const Args& a) {
+  const int bytes = ANY_WARPS * (2 * a.hd + 32) * (int)sizeof(float);
+  static bool opted = false;
+  if (int e = opt_in(flash_any_kernel<T>, ANY_WARPS * (2 * ANY_MAX_D + 32) * 4, opted)) return e;
+  const dim3 grid((unsigned)((a.sq + ANY_WARPS - 1) / ANY_WARPS), (unsigned)a.h, (unsigned)a.b);
+  flash_any_kernel<T><<<grid, ANY_WARPS * 32, bytes, a.stream>>>(
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.o, a.st[0], a.st[1], a.st[2], a.st[3],
+      a.rep, a.sq, a.sk, a.hd, a.causal, a.window, a.prefix, a.scale, a.lse);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd_any(const BwdArgs& a) {
+  static bool opted_dq = false, opted_dkdv = false;
+  if (int e = opt_in(flash_any_bwd_dq_kernel<T>, ANY_WARPS * (3 * ANY_MAX_D + 32) * 4, opted_dq))
+    return e;
+  if (int e = opt_in(flash_any_bwd_dkdv_kernel<T>, ANY_WARPS * (4 * ANY_MAX_D + 64) * 4,
+                     opted_dkdv))
+    return e;
+  const dim3 grid_q((unsigned)((a.sq + ANY_WARPS - 1) / ANY_WARPS), (unsigned)a.h, (unsigned)a.b);
+  flash_any_bwd_dq_kernel<T><<<grid_q, ANY_WARPS * 32,
+                               ANY_WARPS * (3 * a.hd + 32) * sizeof(float), a.stream>>>(a);
+  if (cudaError_t e = cudaGetLastError()) return (int)e;
+  const dim3 grid_k((unsigned)((a.sk + ANY_WARPS - 1) / ANY_WARPS), (unsigned)a.kvh, (unsigned)a.b);
+  flash_any_bwd_dkdv_kernel<T><<<grid_k, ANY_WARPS * 32,
+                                 ANY_WARPS * (4 * a.hd + 64) * sizeof(float), a.stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The width head dim d runs at on the padded kernels, or 0 where the call
+// takes the kernels of any width: d above 256, not a whole number of 16-byte
+// chunks of its type, or rows that are not 16-byte aligned.
+int padded_width(int d, int is_bf16, int aligned) {
+  if (!aligned || d > 256 || d % (is_bf16 ? 8 : 4)) return 0;
+  return d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 256;
+}
 
 template <int D>
 int launch_bwd_f32(const BwdArgs& a) {
@@ -2046,7 +2327,7 @@ int launch_bwd_d(const BwdArgs& a, int is_bf16) {
 extern "C" int flash_bwd_capacity(int d, int chunks, void* count, void* stream) {
   (void)stream;
   int* n = (int*)count;
-  switch (d) {
+  switch (padded_width(d, 1, 1)) {
     case 32: *n = dkdv_capacity<32>(chunks); break;
     case 64: *n = dkdv_capacity<64>(chunks); break;
     case 128: *n = dkdv_capacity<128>(chunks); break;
@@ -2056,22 +2337,25 @@ extern "C" int flash_bwd_capacity(int d, int chunks, void* count, void* stream) 
   return (int)cudaGetLastError();
 }
 
-// strides: 12 element strides, (b, h, s) for q, k, v and o in that order;
-// q, k, v 16-byte aligned with their (b, h, s) strides multiples of 16
-// bytes. d in {32, 64, 128, 256}; h a multiple of kvh; b, h at most 65535.
+// strides: 12 element strides, (b, h, s) for q, k, v and o in that order,
+// the last dim contiguous. d from 1 to ANY_MAX_D; aligned: whether every
+// operand is 16-byte aligned with (b, h, s) strides multiples of 16 bytes
+// (padded_width picks the kernels). h a multiple of kvh; b, h at most 65535.
 // prefix: keys at positions below it are seen by every row (0: none).
-// splits: 0 for the bf16 prefill kernel; for the bf16 decode kernel the
-// number of key splits (at most split_cap: 16, 9 at d = 256; each
+// splits: 0 for the bf16 prefill kernel (and the kernels of any width); for
+// the bf16 decode kernel the number of key splits (at most split_cap: 16, 9
+// at a padded width of 256; each
 // ceil(sk / splits) keys; h / kvh ·
 // sq <= 16 query rows per group). fp32 ignores splits. lse: null, or (b, h,
 // sq) fp32 for each row's logsumexp (the bf16 prefill and fp32 kernels; a
 // call with splits > 0 and an lse is refused).
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o,
                                const long long* strides, void* lse, long long b, int h, int kvh,
-                               int sq, int sk, int d, int causal, int window, int prefix,
-                               float scale, int is_bf16, int splits, void* stream) {
+                               int sq, int sk, int d, int aligned, int causal, int window,
+                               int prefix, float scale, int is_bf16, int splits, void* stream) {
   if (b <= 0 || sq <= 0) return 0;
-  if (kvh <= 0 || h % kvh != 0 || b > 65535 || h > 65535 || sk <= 0 || splits < 0)
+  if (kvh <= 0 || h % kvh != 0 || b > 65535 || h > 65535 || sk <= 0 || splits < 0 || d < 1 ||
+      d > ANY_MAX_D)
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q;
@@ -2087,16 +2371,19 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
   a.rep = h / kvh;
   a.sq = sq;
   a.sk = sk;
+  a.hd = d;
   a.causal = causal;
   a.window = window;
   a.prefix = prefix;
   a.scale = scale;
   a.stream = (cudaStream_t)stream;
+  const int width = padded_width(d, is_bf16, aligned);
+  if (width == 0) return is_bf16 ? launch_any<bf16>(a) : launch_any<float>(a);
   if (is_bf16 && splits > 0) {
     if (a.rep * sq > SPLIT_ROWS || splits > SPLIT_MAX || splits > sk || lse != nullptr)
       return (int)cudaErrorInvalidValue;
   }
-  switch (d) {
+  switch (width) {
     case 32: return launch_d<32>(a, is_bf16, splits);
     case 64: return launch_d<64>(a, is_bf16, splits);
     case 128: return launch_d<128>(a, is_bf16, splits);
@@ -2109,20 +2396,22 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
 // (b, kvh, sk, d); lse and delta (b, h, sq) fp32 contiguous, lse from the
 // forward, delta written here (scratch of the second kernel). strides: 24
 // element strides, (b, h, s) for q, k, v, o, do, dq, dk and dv in that order,
-// the last dim contiguous, every operand 16-byte aligned with (b, h, s)
-// strides multiples of 16 bytes. d in {32, 64, 128, 256}; prefix as the
-// forward's. chunks (bf16): the chunks the dk/dv kernel splits each KV
-// head's query heads into, 1 .. min(8, h / kvh); fp32 ignores it. Two
+// the last dim contiguous; d and aligned as the forward's (every operand
+// counted), prefix as the forward's. chunks (bf16, padded kernels): the
+// chunks the dk/dv kernel splits each KV head's query heads into, 1 ..
+// min(8, h / kvh); fp32 and the kernels of any width ignore it. Two
 // launches: dq (and delta), then dk and dv.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const void* lse, void* dq, void* dk,
                                    void* dv, void* delta, const long long* strides, long long b,
-                                   int h, int kvh, int sq, int sk, int d, int causal, int window,
-                                   int prefix, float scale, int is_bf16, int chunks,
+                                   int h, int kvh, int sq, int sk, int d, int aligned, int causal,
+                                   int window, int prefix, float scale, int is_bf16, int chunks,
                                    void* stream) {
   if (b <= 0 || sq <= 0 || sk <= 0) return 0;
-  if (kvh <= 0 || h % kvh != 0 || b > 65535 || h > 65535) return (int)cudaErrorInvalidValue;
-  if (is_bf16 && (chunks < 1 || chunks > WB_CHUNKS_MAX || chunks > h / kvh))
+  if (kvh <= 0 || h % kvh != 0 || b > 65535 || h > 65535 || d < 1 || d > ANY_MAX_D)
+    return (int)cudaErrorInvalidValue;
+  const int width = padded_width(d, is_bf16, aligned);
+  if (width > 0 && is_bf16 && (chunks < 1 || chunks > WB_CHUNKS_MAX || chunks > h / kvh))
     return (int)cudaErrorInvalidValue;
   BwdArgs a;
   a.q = q;
@@ -2144,13 +2433,15 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   a.rep = h / kvh;
   a.sq = sq;
   a.sk = sk;
+  a.hd = d;
   a.causal = causal;
   a.window = window;
   a.prefix = prefix;
   a.chunks = chunks;
   a.scale = scale;
   a.stream = (cudaStream_t)stream;
-  switch (d) {
+  if (width == 0) return is_bf16 ? launch_bwd_any<bf16>(a) : launch_bwd_any<float>(a);
+  switch (width) {
     case 32: return launch_bwd_d<32>(a, is_bf16);
     case 64: return launch_bwd_d<64>(a, is_bf16);
     case 128: return launch_bwd_d<128>(a, is_bf16);

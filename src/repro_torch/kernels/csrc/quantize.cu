@@ -25,11 +25,19 @@
 // keyed entry reads no bits (9 B an element) and adds threefry's ~85
 // integer operations an element.
 //
-// Design: one block per (chunk, row), one thread per element, so x and bits
-// are read once, coalesced, and the chunk's absmax is a warp-shuffle
-// reduction followed by one across the block's warps in shared memory. The
-// ragged end of a row (P not a multiple of chunk) reads as zeros; those
-// lanes still get their int8 value (always 0) as the reference pads them.
+// Design: one block per (chunk, row), so x and bits are read coalesced, and
+// the chunk's absmax is a warp-shuffle reduction followed by one across the
+// block's warps in shared memory. The block has one thread per element of
+// the chunk rounded up to whole warps, at most 1,024: a longer chunk is
+// walked by the block's stride (a second build of the kernel), each
+// thread's first element held in a register and the others read again
+// after the absmax (from L2); a chunk that is not a multiple of 32 leaves
+// the last warp's tail lanes idle (at chunk 1, 31 of 32: such chunks are
+// correct, not fast). Past 65,535 rows (the grid's y limit) each block walks
+// the rows by the grid's stride. The ragged end of a row (P not a multiple
+// of chunk) reads as zeros; those lanes still get their int8 value (always
+// 0) as the reference pads them. The absmax is a max, exact in any order,
+// so the results do not depend on the block shape.
 //
 // Bit-exact with repro.comm.codecs.stochastic_round_chunks on the same bits:
 // - x / safe is a correctly rounded fp32 division (__fdiv_rn; nvcc's default
@@ -55,69 +63,125 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// KEYED: bits from threefry of keys[row] (two uint32 words held in int64)
-// at counter offset + column; otherwise read from the bits operand.
-template <bool KEYED>
-__global__ void stochastic_quantize_kernel(const float* __restrict__ x,
-                                           const uint32_t* __restrict__ bits,
-                                           const int64_t* __restrict__ keys,
-                                           int64_t offset,
-                                           int8_t* __restrict__ values,
-                                           float* __restrict__ scales,
-                                           float* __restrict__ xhat, int64_t p,
-                                           int chunks, float inv_qmax, float qmax) {
-  __shared__ float partial[32];
-  const int64_t row = blockIdx.y;
+// Chunk c of row `row`. KEYED: bits from threefry of keys[row] (two uint32
+// words held in int64) at counter offset + column; otherwise read from the
+// bits operand. STRIDED: the chunk is longer than the block, whose threads
+// walk it by the block's stride; otherwise each thread takes at most one
+// element (a thread past the chunk's end only joins the absmax with 0).
+template <bool KEYED, bool STRIDED>
+__device__ __forceinline__ void quantize_chunk(float* partial, const float* __restrict__ x,
+                                               const uint32_t* __restrict__ bits,
+                                               const int64_t* __restrict__ keys,
+                                               int64_t offset, int8_t* __restrict__ values,
+                                               float* __restrict__ scales,
+                                               float* __restrict__ xhat, int64_t row,
+                                               int64_t p, int chunks, int chunk, float inv_qmax,
+                                               float qmax) {
   const int c = blockIdx.x;
-  const int j = threadIdx.x;
-  const int64_t padded = (int64_t)chunks * blockDim.x;
-  const int64_t col = (int64_t)c * blockDim.x + j;
-
-  const float xv = col < p ? x[row * p + col] : 0.0f;
-  float m = warp_max(fabsf(xv));
-  if ((j & 31) == 0) partial[j >> 5] = m;
+  const int j0 = threadIdx.x;
+  const int64_t padded = (int64_t)chunks * chunk;
+  const int64_t c0 = (int64_t)c * chunk;
+  auto load = [&](int j) { return j < chunk && c0 + j < p ? x[row * p + c0 + j] : 0.0f; };
+  const float x0 = load(j0);
+  float m = fabsf(x0);
+  if (STRIDED)
+    for (int j = j0 + blockDim.x; j < chunk; j += blockDim.x) m = fmaxf(m, fabsf(load(j)));
+  m = warp_max(m);
+  if ((j0 & 31) == 0) partial[j0 >> 5] = m;
   __syncthreads();
-  if (j < 32) {
-    m = j < (int)(blockDim.x >> 5) ? partial[j] : 0.0f;
+  if (j0 < 32) {
+    m = j0 < (int)(blockDim.x >> 5) ? partial[j0] : 0.0f;
     m = warp_max(m);
-    if (j == 0) partial[0] = m;
+    if (j0 == 0) partial[0] = m;
   }
   __syncthreads();
   const float absmax = partial[0];
 
   const float scale = __fmul_rn(absmax, inv_qmax);
   const float safe = scale > 0.0f ? scale : 1.0f;
-  uint32_t b;
-  if (KEYED) {
-    b = threefry::bits((uint32_t)keys[2 * row], (uint32_t)keys[2 * row + 1],
-                       (uint64_t)(offset + col));
-  } else {
-    b = bits[row * padded + col];
+  auto quantize_one = [&](int j, float xv) {
+    const int64_t col = c0 + j;
+    uint32_t b;
+    if (KEYED) {
+      b = threefry::bits((uint32_t)keys[2 * row], (uint32_t)keys[2 * row + 1],
+                         (uint64_t)(offset + col));
+    } else {
+      b = bits[row * padded + col];
+    }
+    const float u = __fmul_rn((float)(b >> 8), 5.9604644775390625e-08f);  // 2^-24
+    float q = floorf(__fadd_rn(__fdiv_rn(xv, safe), u));
+    q = fminf(fmaxf(q, -qmax), qmax);
+    const int qi = (int)q;
+    values[row * padded + col] = (int8_t)qi;
+    if (col < p) xhat[row * p + col] = __fmul_rn((float)qi, scale);
+  };
+  if (j0 < chunk) quantize_one(j0, x0);
+  if (STRIDED)
+    for (int j = j0 + blockDim.x; j < chunk; j += blockDim.x) quantize_one(j, load(j));
+  if (j0 == 0) scales[row * chunks + c] = scale;
+}
+
+// One block per (chunk, row); WALK (more than 65,535 rows, the grid's y
+// limit): each block walks the rows by the grid's stride.
+template <bool KEYED, bool STRIDED, bool WALK>
+__global__ void stochastic_quantize_kernel(const float* __restrict__ x,
+                                           const uint32_t* __restrict__ bits,
+                                           const int64_t* __restrict__ keys,
+                                           int64_t offset,
+                                           int8_t* __restrict__ values,
+                                           float* __restrict__ scales,
+                                           float* __restrict__ xhat, int64_t rows,
+                                           int64_t p, int chunks, int chunk,
+                                           float inv_qmax, float qmax) {
+  __shared__ float partial[32];
+  if (!WALK) {
+    quantize_chunk<KEYED, STRIDED>(partial, x, bits, keys, offset, values, scales, xhat,
+                                   blockIdx.y, p, chunks, chunk, inv_qmax, qmax);
+    return;
   }
-  const float u = __fmul_rn((float)(b >> 8), 5.9604644775390625e-08f);  // 2^-24
-  float q = floorf(__fadd_rn(__fdiv_rn(xv, safe), u));
-  q = fminf(fmaxf(q, -qmax), qmax);
-  const int qi = (int)q;
-  values[row * padded + col] = (int8_t)qi;
-  if (j == 0) scales[row * chunks + c] = scale;
-  if (col < p) xhat[row * p + col] = __fmul_rn((float)qi, scale);
+  for (int64_t row = blockIdx.y; row < rows; row += gridDim.y) {
+    quantize_chunk<KEYED, STRIDED>(partial, x, bits, keys, offset, values, scales, xhat, row,
+                                   p, chunks, chunk, inv_qmax, qmax);
+    __syncthreads();                 // partial[0] is read before it is rewritten
+  }
+}
+
+constexpr int kMaxThreads = 1024;
+
+// The kernel for `chunk` and `rows`: whole warps a block, at most
+// kMaxThreads threads.
+template <bool KEYED>
+int launch(const float* x, const uint32_t* bits, const int64_t* keys, int64_t offset,
+           int8_t* values, float* scales, float* xhat, long long rows, long long p,
+           long long chunks, int chunk, float inv_qmax, int qmax, cudaStream_t stream) {
+  if (rows <= 0 || chunks <= 0) return 0;
+  if (chunk < 1 || chunks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)chunks, (unsigned)(rows < 65535 ? rows : 65535));
+  const int threads = chunk >= kMaxThreads ? kMaxThreads : (chunk + 31) / 32 * 32;
+  auto go = [&](auto kernel) {
+    kernel<<<grid, threads, 0, stream>>>(x, bits, keys, offset, values, scales, xhat, rows, p,
+                                         (int)chunks, chunk, inv_qmax, (float)qmax);
+  };
+  const bool strided = chunk > kMaxThreads, walk = rows > 65535;
+  if (strided && walk) go(stochastic_quantize_kernel<KEYED, true, true>);
+  else if (strided) go(stochastic_quantize_kernel<KEYED, true, false>);
+  else if (walk) go(stochastic_quantize_kernel<KEYED, false, true>);
+  else go(stochastic_quantize_kernel<KEYED, false, false>);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x: (rows, p) fp32; bits: (rows, chunks*chunk) uint32; values: (rows,
 // chunks*chunk) int8; scales: (rows, chunks) fp32; xhat: (rows, p) fp32.
-// chunk is the block size: a multiple of 32, at most 1024.
+// Any chunk >= 1 and any row count.
 extern "C" int stochastic_quantize(const void* x, const void* bits, void* values,
                                    void* scales, void* xhat, long long rows,
-                                   long long p, int chunks, int chunk,
+                                   long long p, long long chunks, int chunk,
                                    float inv_qmax, int qmax, void* stream) {
-  if (rows <= 0 || chunks <= 0) return 0;
-  dim3 grid((unsigned)chunks, (unsigned)rows);
-  stochastic_quantize_kernel<false><<<grid, chunk, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const uint32_t*)bits, nullptr, 0, (int8_t*)values,
-      (float*)scales, (float*)xhat, (int64_t)p, chunks, inv_qmax, (float)qmax);
-  return (int)cudaGetLastError();
+  return launch<false>((const float*)x, (const uint32_t*)bits, nullptr, 0, (int8_t*)values,
+                       (float*)scales, (float*)xhat, rows, p, chunks, chunk, inv_qmax, qmax,
+                       (cudaStream_t)stream);
 }
 
 // As stochastic_quantize, with keys: (rows, 2) int64 holding uint32 words
@@ -127,13 +191,9 @@ extern "C" int stochastic_quantize_keyed(const void* x, const void* keys,
                                          long long offset, void* values,
                                          void* scales, void* xhat,
                                          long long rows, long long p,
-                                         int chunks, int chunk, float inv_qmax,
+                                         long long chunks, int chunk, float inv_qmax,
                                          int qmax, void* stream) {
-  if (rows <= 0 || chunks <= 0) return 0;
-  dim3 grid((unsigned)chunks, (unsigned)rows);
-  stochastic_quantize_kernel<true><<<grid, chunk, 0, (cudaStream_t)stream>>>(
-      (const float*)x, nullptr, (const int64_t*)keys, (int64_t)offset,
-      (int8_t*)values, (float*)scales, (float*)xhat, (int64_t)p, chunks,
-      inv_qmax, (float)qmax);
-  return (int)cudaGetLastError();
+  return launch<true>((const float*)x, nullptr, (const int64_t*)keys, (int64_t)offset,
+                      (int8_t*)values, (float*)scales, (float*)xhat, rows, p, chunks, chunk,
+                      inv_qmax, qmax, (cudaStream_t)stream);
 }

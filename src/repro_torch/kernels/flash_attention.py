@@ -3,7 +3,8 @@ its launch counter.
 
 Replaces ``src/repro/kernels/flash_attention.py:flash_attention_pallas``
 (``_flash_kernel``): online-softmax attention over q (B, H, Sq, D) and
-k, v (B, KV, Sk, D), D in {32, 64, 128, 256}, GQA through ``h // (H/KV)``,
+k, v (B, KV, Sk, D), any D from 1 to ``MAX_HEAD_DIM`` (the Pallas kernel's
+block is the whole head dim), GQA through ``h // (H/KV)``,
 a causal mask that is right-aligned when Sq < Sk, an optional sliding
 window, an optional prefix-LM block (``prefix_len``: every row sees the keys
 at positions below it, inside or outside its window, the rule of the
@@ -32,8 +33,21 @@ paths chosen here by type and shape:
 - fp32: exact fp32 on the CUDA cores (the serve parity gates run in fp32).
 
 Lengths need not divide any tile, and every operand is read through its own
-strides (last dim contiguous, rows 16-byte aligned), so decode hands it a
-permuted view of the cache's first pos+1 rows.
+strides (last dim contiguous), so decode hands it a permuted view of the
+cache's first pos+1 rows.
+
+Head dims: the three kernels are built at the widths ``PADDED_WIDTHS`` and
+run a call at the smallest that holds D (``padded_width``): the columns past
+D are zero-filled in shared memory, where they add nothing to Q·Kᵀ, and are
+never stored; the scale stays 1/sqrt(D). So D = 80 runs at 128 and D = 192
+at 256, the padded columns' products the price. They read rows as 16-byte
+vectors, so they take a D whose rows are whole 16-byte vectors (a multiple
+of 8 in bf16, 4 in fp32) with every operand 16-byte aligned (``_aligned``).
+Any other call (D = 100 in bf16, a view at an odd element offset, D above
+256) takes the kernels of any width: CUDA cores, one warp a query row (the
+forward, dq) or a key (dk/dv), every element read on its own, so no
+operand is ever padded or copied. They are slow and are for the head dims
+no model of the registry has.
 
 With ``return_lse`` the bf16 prefill and fp32 kernels also write each
 row's fp32 logsumexp (natural-log units, -inf for a row that sees no key),
@@ -80,7 +94,8 @@ plain = flash_attention_fwd_ref
 plain_bwd = flash_attention_bwd_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (32, 64, 128, 256)
+PADDED_WIDTHS = (32, 64, 128, 256)   # the widths the tiled kernels are built at
+MAX_HEAD_DIM = 2048      # the kernels of any width: a warp's rows in shared memory
 SPLIT_ROWS = 16          # the decode kernel's query rows per KV head, at most
 SPLIT_KEYS = 64          # keys per tile of a decode split
 SPLIT_BLOCKS = 264       # decode blocks wanted: two per SM of an H100
@@ -90,22 +105,36 @@ BWD_ROWS = 64            # the bf16 backward's tiles: q rows (dq), keys (dk/dv)
 BWD_CHUNKS_MAX = 8       # the dk/dv kernel's head chunks at most: a portable cluster
 
 
+def padded_width(d: int, dtype=torch.bfloat16, aligned: bool = True) -> int:
+    """The width of ``PADDED_WIDTHS`` a call at head dim d runs at (the C
+    entry's ``padded_width``): the smallest that holds d; 0 where the call
+    takes the kernels of any width (d above 256, rows not whole 16-byte
+    vectors of the dtype, or operands not ``aligned``)."""
+    if not aligned or d > PADDED_WIDTHS[-1] or d % (16 // dtype.itemsize):
+        return 0
+    return next(w for w in PADDED_WIDTHS if d <= w)
+
+
 def split_smem_bytes(d: int, splits: int) -> int:
     """A decode block's dynamic shared memory at SPLIT_ROWS rows (the
-    kernel's ``SplitSmem``): its q rows, K and V tiles (row pitch d + 8,
-    bf16), scores (fp32) and P (bf16), then the merge buffer of every
-    split's O and (m, l) per row."""
-    pitch = d + 8
+    kernel's ``SplitSmem``) at head dim d, built at its padded width w: its
+    q rows, K and V tiles (row pitch w + 8, bf16), scores (fp32) and P
+    (bf16), then the merge buffer of every split's O and (m, l) per row."""
+    w = padded_width(d)
+    pitch = w + 8
     staging = (SPLIT_ROWS * pitch + 2 * SPLIT_KEYS * pitch) * 2 \
         + SPLIT_ROWS * (SPLIT_KEYS + 1) * 4 + SPLIT_ROWS * (SPLIT_KEYS + 8) * 2
-    return staging + splits * SPLIT_ROWS * (d + 2) * 4
+    return staging + splits * SPLIT_ROWS * (w + 2) * 4
 
 
 def split_cap(d: int) -> int:
     """The most key splits of the decode kernel at head dim d (its
-    ``split_cap``): those whose tiles and merge buffer for SPLIT_ROWS rows
-    fit a block's shared memory with 1 KB to spare: 16 up to d = 128, 9 at
-    d = 256."""
+    ``split_cap`` at d's padded width): those whose tiles and merge buffer
+    for SPLIT_ROWS rows fit a block's shared memory with 1 KB to spare: 16
+    up to a width of 128, 9 at 256; 0 for a d the decode kernel does not
+    take (``padded_width`` 0)."""
+    if not padded_width(d):
+        return 0
     n = SPLIT_MAX
     while n > 1 and split_smem_bytes(d, n) > SMEM_OPT_IN_MAX - 1024:
         n -= 1
@@ -122,8 +151,9 @@ def _check(q, k, v):
                          f"got {tuple(k.shape)} and {tuple(v.shape)}")
     if kvh == 0 or h % kvh:
         raise ValueError(f"flash_attention: {h} query heads over {kvh} KV heads")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {d} outside 1.."
+                         f"{MAX_HEAD_DIM}")
     if sq < 1 or sk < 1 or b > 65535 or h > 65535:
         raise ValueError(f"flash_attention: unsupported sizes B={b} H={h} "
                          f"Sq={sq} Sk={sk}")
@@ -138,8 +168,9 @@ def _check(q, k, v):
 
 
 def _aligned(t) -> bool:
-    """Whether the kernels can read t: a contiguous last dim, 16-byte
-    aligned, its (b, h, s) strides whole 16-byte vectors."""
+    """Whether the tiled kernels can read t as 16-byte vectors: a contiguous
+    last dim, 16-byte aligned, its (b, h, s) strides whole 16-byte vectors
+    (else the call takes the kernels of any width)."""
     vec = 16 // t.element_size()
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
             and all(t.stride(i) % vec == 0 for i in range(3) if t.shape[i] > 1))
@@ -148,21 +179,18 @@ def _aligned(t) -> bool:
 def _check_layout(fn, name, t):
     if t.stride(-1) != 1:
         raise ValueError(f"{fn}: {name}'s last dim must be contiguous")
-    if not _aligned(t):
-        raise ValueError(f"{fn}: {name} must be 16-byte aligned, with (b, h, "
-                         f"s) strides multiples of {16 // t.element_size()} "
-                         "elements")
 
 
 def decode_splits(dtype, b: int, h: int, kvh: int, sq: int, sk: int, *,
-                  d: int = 128, prefix_len: int = 0) -> int:
+                  d: int = 128, prefix_len: int = 0, aligned: bool = True) -> int:
     """Key splits of the bf16 decode kernel, or 0 where the call takes
-    another kernel (fp32, more than SPLIT_ROWS query rows per KV head, or a
-    prefix). Enough splits for SPLIT_BLOCKS blocks, each at least one 64-key
-    tile, at most ``split_cap(d)``: 9 splits of 61 keys at the serve path's
-    decode (8 × 2 groups, Sk 543); at d = 256 paligemma-3b's 8 groups hit
-    the cap of 9."""
-    if dtype != torch.bfloat16 or (h // kvh) * sq > SPLIT_ROWS or prefix_len > 0:
+    another kernel (fp32, more than SPLIT_ROWS query rows per KV head, a
+    prefix, or a head dim or layout the tiled kernels do not take). Enough
+    splits for SPLIT_BLOCKS blocks, each at least one 64-key tile, at most
+    ``split_cap(d)``: 9 splits of 61 keys at the serve path's decode (8 × 2
+    groups, Sk 543); at d = 256 paligemma-3b's 8 groups hit the cap of 9."""
+    if (dtype != torch.bfloat16 or (h // kvh) * sq > SPLIT_ROWS or prefix_len > 0
+            or not padded_width(d, dtype, aligned)):
         return 0
     tiles = -(-sk // SPLIT_KEYS)
     return min(tiles, split_cap(d), max(1, -(-SPLIT_BLOCKS // (b * kvh))))
@@ -182,11 +210,12 @@ def kernel_args(q, k, v, out, *, causal: bool = True, window: int = 0,
     it)."""
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
+    aligned = all(map(_aligned, (q, k, v, out)))
     splits = 0 if lse is not None else decode_splits(
-        q.dtype, b, h, kvh, sq, sk, d=d, prefix_len=prefix_len)
+        q.dtype, b, h, kvh, sq, sk, d=d, prefix_len=prefix_len, aligned=aligned)
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _strides(q, k, v, out), 0 if lse is None else lse.data_ptr(),
-            b, h, kvh, sq, sk, d, int(bool(causal)), int(window),
+            b, h, kvh, sq, sk, d, int(aligned), int(bool(causal)), int(window),
             int(prefix_len), 1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16),
             splits)
 
@@ -265,14 +294,14 @@ def bwd_chunks(b: int, h: int, kvh: int, sk: int, capacity) -> int:
 _CAPACITY: dict = {}
 
 
-def _capacity(device, d: int):
-    """``capacity`` for ``bwd_chunks`` on this card at head dim d: the C
+def _capacity(device, width: int):
+    """``capacity`` for ``bwd_chunks`` on this card at a padded width: the C
     entry's count of clusters of c dk/dv blocks held at once, cached."""
-    key = (torch.device(device), d)
+    key = (torch.device(device), width)
     if key not in _CAPACITY:
         with torch.cuda.device(device):
             lib = build.library("flash_attention")
-            _CAPACITY[key] = {c: build.query(lib.flash_bwd_capacity, d, c)
+            _CAPACITY[key] = {c: build.query(lib.flash_bwd_capacity, width, c)
                               for c in range(2, BWD_CHUNKS_MAX + 1)}
     return _CAPACITY[key].__getitem__
 
@@ -281,16 +310,18 @@ def bwd_kernel_args(q, k, v, o, lse, do, dq, dk, dv, delta, *,
                     causal: bool = True, window: int = 0,
                     prefix_len: int = 0) -> tuple:
     """The backward C entry's arguments, all but the stream; the dk/dv
-    kernel's head chunks last (``bwd_chunks`` on q's card in bf16; fp32
-    takes 1)."""
+    kernel's head chunks last (``bwd_chunks`` on q's card in bf16 on the
+    tiled kernels; fp32 and the kernels of any width take 1)."""
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
-    chunks = (bwd_chunks(b, h, kvh, sk, _capacity(q.device, d))
-              if q.dtype == torch.bfloat16 else 1)
+    aligned = all(map(_aligned, (q, k, v, o, do, dq, dk, dv)))
+    width = padded_width(d, q.dtype, aligned)
+    chunks = (bwd_chunks(b, h, kvh, sk, _capacity(q.device, width))
+              if q.dtype == torch.bfloat16 and width else 1)
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), delta.data_ptr(), _strides(q, k, v, o, do, dq, dk, dv),
-            b, h, kvh, sq, sk, d, int(bool(causal)), int(window),
+            b, h, kvh, sq, sk, d, int(aligned), int(bool(causal)), int(window),
             int(prefix_len), 1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16),
             int(chunks))
 

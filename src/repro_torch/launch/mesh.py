@@ -11,7 +11,10 @@ axis names: one axis for the client meshes ("data" for the sample-based
 clients, "model" for the feature clients), ("data", "model") or ("pod",
 "data", "model") for the production meshes (``make_production_mesh``,
 ``make_mesh``). Rank r sits at the mesh coordinate of r in row-major
-order, as ``init_device_mesh`` lays it out.
+order, as ``init_device_mesh`` lays it out. A mesh of n ranks on a group
+of more spans ranks 0..n-1, as the reference takes ``devices[:n]``; the
+others are outside it (``outside``): they hold no block and join none of
+its collectives, and ``from_first_rank`` hands them rank 0's result.
 
 The device picks the backend: NCCL on a CUDA device (with
 ``torch.cuda.set_device(LOCAL_RANK)``), gloo on the CPU. A group the caller
@@ -50,6 +53,7 @@ Functions only: importing this module touches no process group.
 from __future__ import annotations
 
 import contextlib
+import io
 import math
 import os
 from typing import NamedTuple
@@ -93,11 +97,11 @@ def init_group(device=None) -> torch.device:
 
 def make_client_mesh(num_devices: int | None = None, axis: str = "data",
                      device=None):
-    """1-D client mesh over every rank of the group (started by
-    ``init_group`` when none runs): ``axis`` carries the paper's clients,
-    rank r holds the r-th contiguous block of them. ``num_devices``, when
-    given, must be the group's size: a rank left out of the mesh would hold
-    no clients."""
+    """1-D client mesh (the group started by ``init_group`` when none
+    runs): ``axis`` carries the paper's clients, rank r holds the r-th
+    contiguous block of them. Over every rank by default; ``num_devices``
+    ranks, at most the group's, span ranks 0..num_devices-1 and leave the
+    others idle (``make_mesh``)."""
     n = _world() if num_devices is None else num_devices
     return make_mesh((n,), (axis,), device=device)
 
@@ -125,27 +129,83 @@ def _world() -> int:
 
 
 def make_mesh(shape, axes=("data", "model"), device=None):
-    """A ``DeviceMesh`` of ``shape`` with axis names ``axes`` over every
-    rank of the group (started by ``init_group`` when none runs), whose
-    size must be the product of ``shape``: a rank left out would hold
-    nothing (the check comes before any group starts)."""
+    """A ``DeviceMesh`` of ``shape`` with axis names ``axes`` over ranks
+    0..n-1 of the group (started by ``init_group`` when none runs), n the
+    product of ``shape``, as the reference builds its mesh from
+    ``devices[:n]``. Every rank of the group must call it (the mesh's
+    groups are made collectively); on a group of more than n ranks the
+    others are ``outside`` the mesh. A group of fewer raises, before any
+    group starts."""
     shape, axes = tuple(shape), tuple(axes)
     if len(shape) != len(axes):
         raise ValueError(f"mesh shape {shape} and axes {axes} differ in length")
     n = math.prod(shape)
-    if _world() != n:
+    if _world() < n:
         raise RuntimeError(
             f"need {n} ranks for a {shape} mesh, the group has {_world()}; "
             f"run under torchrun --nproc-per-node {n}")
     dev = init_group(device)
-    from torch.distributed.device_mesh import init_device_mesh
-    return init_device_mesh(dev.type, shape, mesh_dim_names=axes)
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+    if n == dist.get_world_size():
+        return init_device_mesh(dev.type, shape, mesh_dim_names=axes)
+    return DeviceMesh(dev.type, torch.arange(n).reshape(shape),
+                      mesh_dim_names=axes)
+
+
+def outside(mesh) -> bool:
+    """Whether this rank lies outside ``mesh`` (a mesh over the first n
+    ranks of a larger group): it holds no block and joins none of the
+    mesh's collectives. False for a ``StandInMesh``."""
+    coordinate = getattr(mesh, "get_coordinate", None)
+    return coordinate is not None and coordinate() is None
+
+
+def rank_device(mesh) -> torch.device:
+    """The device this rank computes on for ``mesh``: the current card for
+    a CUDA mesh, else the CPU."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def idle_step(mesh):
+    """The step of a rank ``outside`` ``mesh``: whatever it is passed, it
+    computes nothing and returns rank 0's result of the same call
+    (``from_first_rank``); its ``grad_of`` and ``forward`` alike."""
+    def step(*args, **kwargs):
+        return from_first_rank(mesh, None)
+    step.grad_of = step.forward = step
+    return step
+
+
+def from_first_rank(mesh, result):
+    """``result`` on every rank of the group. Where ``mesh`` spans fewer
+    ranks than the group, rank 0 sends its result once, by one broadcast
+    over the whole group (every rank must call this), and a rank outside
+    the mesh returns that copy, its tensors on its ``rank_device``; a rank
+    inside keeps its own. A mesh over the whole group (or a stand-in)
+    returns ``result`` with no collective."""
+    if (not dist.is_initialized() or isinstance(mesh, StandInMesh)
+            or mesh.size() == dist.get_world_size()):
+        return result
+    payload = None
+    if dist.get_rank() == 0:
+        buf = io.BytesIO()
+        torch.save(result, buf)
+        payload = buf.getvalue()
+    box = [payload]
+    dist.broadcast_object_list(box, src=0)
+    if not outside(mesh):
+        return result
+    return torch.load(io.BytesIO(box[0]), map_location=rank_device(mesh),
+                      weights_only=False)
 
 
 def make_production_mesh(*, multi_pod: bool = False, device=None):
     """The reference's production mesh: (16, 16) ("data", "model"), or
-    (2, 16, 16) ("pod", "data", "model") with ``multi_pod``. Raises, before
-    starting any group, unless the group has that many ranks."""
+    (2, 16, 16) ("pod", "data", "model") with ``multi_pod``, over the
+    first 256 (512) ranks. Raises, before starting any group, unless the
+    group has at least that many."""
     return make_mesh(*PRODUCTION[multi_pod], device=device)
 
 

@@ -100,9 +100,13 @@ def sharded_decode_step(model, cfg, mesh, param_specs=None, cache_specs=None):
     cache's adapted to the mesh); the dry run passes them fitted to the
     shapes (``mesh.fit_specs``). Where the fit moved a data axis off the
     batch's dim (a batch of 1), that dim is gathered for the step too, and
-    every rank decodes the whole batch."""
+    every rank decodes the whole batch. On a mesh over the first ranks of a
+    larger group every rank calls the step: a rank outside the mesh
+    computes nothing and returns rank 0's result (``mesh.idle_step``)."""
     if not model.has_decode:
         raise ValueError(f"{cfg.name} has no decode path")
+    if mesh_lib.outside(mesh):
+        return mesh_lib.idle_step(mesh)
     plans = L.param_plans(cfg, param_specs or model.param_specs(cfg, mode="serve"),
                           mesh)
     default = mesh_lib.adapt_for_mesh(model.cache_specs(cfg), mesh)
@@ -123,16 +127,20 @@ def sharded_decode_step(model, cfg, mesh, param_specs=None, cache_specs=None):
             t.copy_(w)
         return t
 
-    def forward(params, cache, token, pos):
+    def local_forward(params, cache, token, pos):
         full = tree_map(whole, gathered, cache)
         with torch.no_grad(), mesh_lib.use_mesh(mesh):
             logits, full = model.decode_step(
                 mesh_lib.Gathered(params, plans, mesh), full, token, pos, cfg)
         return logits, tree_map(write_back, gathered, cache, full)
 
+    def forward(params, cache, token, pos):
+        return mesh_lib.from_first_rank(
+            mesh, local_forward(params, cache, token, pos))
+
     def serve_step(params, cache, token, pos):
-        logits, cache = forward(params, cache, token, pos)
-        return _greedy(logits), cache
+        logits, cache = local_forward(params, cache, token, pos)
+        return mesh_lib.from_first_rank(mesh, (_greedy(logits), cache))
 
     serve_step.forward = forward
     return serve_step

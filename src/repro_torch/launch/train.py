@@ -59,7 +59,10 @@ D)[r]``, ``split(fold_in(key, 0xC0DEC), D)[r]``, as the reference draws
 them), scales it by 1/D and all-reduces the flat gradient in place; its EF
 residual is its (1, P) row. Feature mode puts I/D feature clients on each
 rank, cohort mode S/D of the cohort. Output, logs, manifests, profiles and
-checkpoints come from rank 0 only.
+checkpoints come from rank 0 only. A client mesh of fewer ranks than the
+group (``--shards D`` below the rank count; feature and cohort mode take
+the most ranks that divide the clients, as the reference does) spans the
+first D ranks; the others run no round and return rank 0's result.
 
 CLI:  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
           --steps 20 --batch 8 --seq 512 [--constrained --cost-limit 3.0] \\
@@ -364,7 +367,11 @@ def sharded_train_step(model, cfg, fl: FLConfig, mesh, batch_like,
     flat gradient buffers, a tuple as ``state.buffers``) without the
     update. ``specs`` defaults to
     ``state_specs``; the dry run passes them fitted to the shapes
-    (``mesh.fit_specs``)."""
+    (``mesh.fit_specs``). On a mesh over the first ranks of a larger group
+    every rank calls the step: a rank outside the mesh computes nothing and
+    returns rank 0's result (``mesh.idle_step``), as ``grad_of`` does."""
+    if mesh_lib.outside(mesh):
+        return mesh_lib.idle_step(mesh)
     specs = specs or state_specs(model, cfg, constrained)
     for k, spec in batch_specs(batch_like, mesh).items():
         mesh_lib.check_fits(spec, tuple(batch_like[k].shape), mesh,
@@ -382,7 +389,7 @@ def sharded_train_step(model, cfg, fl: FLConfig, mesh, batch_like,
         return mesh_lib.all_reduce_axes(torch.stack(sums), mesh,
                                         axes).unbind(0)
 
-    def sharded_grad(state, batch):
+    def local_grad(state, batch):
         with mesh_lib.use_mesh(mesh):
             loss, grad = grad_of(state, batch)
         if n_data > 1:
@@ -393,8 +400,11 @@ def sharded_train_step(model, cfg, fl: FLConfig, mesh, batch_like,
                                                 data) / n_data
         return loss, grad
 
+    def sharded_grad(state, batch):
+        return mesh_lib.from_first_rank(mesh, local_grad(state, batch))
+
     def train_step(state, batch, rho_t=None, gamma_t=None):
-        loss, grad = sharded_grad(state, batch)
+        loss, grad = local_grad(state, batch)
         with torch.no_grad():
             spans = None
             if constrained and not one_rank:
@@ -404,9 +414,9 @@ def sharded_train_step(model, cfg, fl: FLConfig, mesh, batch_like,
                             mesh, specs.params, state.params,
                             state.w_flat.dtype))))
                 spans = held["spans"]
-            return _ssca_update(state, loss, grad, fl, rho_t, gamma_t,
-                                constrained, spans,
-                                None if spans is None else reduce)
+            return mesh_lib.from_first_rank(mesh, _ssca_update(
+                state, loss, grad, fl, rho_t, gamma_t, constrained, spans,
+                None if spans is None else reduce))
 
     train_step.grad_of = sharded_grad
     return train_step
@@ -631,10 +641,10 @@ def train_loop(arch: str, steps: int, batch: int, seq: int, *,
     put the gradient upload through ``comm_update_``; ``log_jsonl``,
     ``log_stream_every``, ``profile_dir`` and ``ckpt_path`` are the
     reference's observability and checkpoint options. ``topology`` is
-    "local" or "sharded" (over every rank of the group; ``shards``, the
-    reference's spelling, must equal the rank count; the module docstring
-    says how the step splits). Returns
-    (state, logs), logs one dict per printed line."""
+    "local" or "sharded" (over every rank of the group, or the first
+    ``shards``, the reference's spelling: the other ranks run no step and
+    return rank 0's result; the module docstring says how the step
+    splits). Returns (state, logs), logs one dict per printed line."""
     cfg = get_config(arch)
     if smoke:
         cfg = cfg.smoke()
@@ -657,6 +667,8 @@ def train_loop(arch: str, steps: int, batch: int, seq: int, *,
     topo = topology_lib.make_topology(
         topology, mesh=(mesh_lib.make_client_mesh(shards, device=dev)
                         if topology == "sharded" else None))
+    if topo.idle:                # outside a mesh of ``shards`` < the group's
+        return topo.share(None)
     if not _lead(topo):
         log_jsonl = profile_dir = ckpt_path = None
     key = rnd.PRNGKey(seed, device=dev)
@@ -714,7 +726,7 @@ def train_loop(arch: str, steps: int, batch: int, seq: int, *,
     if ckpt_path:
         save_checkpoint(ckpt_path, unwrap_comm(state).params, step=steps)
     stream.close()
-    return state, logs
+    return topo.share((state, logs))
 
 
 def feature_train_loop(*, clients: int = 4, rounds: int = 200,
@@ -938,8 +950,9 @@ def main():
                          "torchrun --nproc-per-node D)")
     ap.add_argument("--shards", type=int, default=None,
                     help="sample mode's client-shard count with --topology "
-                         "sharded: the reference's spelling, which must "
-                         "equal the rank count (default: every rank)")
+                         "sharded: the reference's spelling, at most the "
+                         "rank count; ranks past it sit idle (default: "
+                         "every rank)")
     ap.add_argument("--dp-epsilon", type=float, default=None, metavar="EPS",
                     help="DP on the q-uploads: per-release (ε, δ) target of "
                          "the analytic Gaussian calibration; the streamed "

@@ -178,3 +178,27 @@ def test_deprecated_feature_dist_shim(out, local_runs, world):
     np.testing.assert_array_equal(res["blocks"], local["p/blocks"])
     np.testing.assert_array_equal(res["losses"],
                                   local["h/round_loss_est"])
+
+
+@pytest.mark.parametrize("world", WORLDS[1:])
+def test_feature_sharded_for_idles_the_ranks_past_the_fit(out, world):
+    """feature_sharded_for over I feature clients whose largest divisor d
+    within the group is below D (3 on 2 ranks, 6 on 4): Algorithm 3 with
+    int8 on the first d ranks, the others idle; every rank returns the
+    port's local run's history and params bit for bit (as the sharded
+    feature runs do) and its axis_bytes is the reference's at d."""
+    for n in ranks.IDLE_FEATURE_CLIENTS[world]:
+        local = ranks.feature_idle_run(None, n)
+        d = max(k for k in range(1, world + 1) if n % k == 0)
+        for r in range(world):
+            res = ranks.load(out, "feature_idle", world, r)
+            assert int(res[f"i{n}/num_shards"]) == d < world
+            assert bool(res[f"i{n}/idle"]) == (r >= d)
+            for k, v in local.items():
+                got = res[f"i{n}/{k}"]
+                if k == "h/round_axis_bytes":
+                    want = jacc.all_gather_axis_bytes(
+                        n * ranks.FL_KW["batch_size"] * ranks.J, d)
+                    assert set(got.tolist()) == {float(want)}, (got, want)
+                else:
+                    np.testing.assert_array_equal(got, v, err_msg=f"I={n} r{r} {k}")

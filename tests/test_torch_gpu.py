@@ -126,6 +126,32 @@ def test_quantize_kernel_bit_exact(cuda, rows, p, qmax):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
+@pytest.mark.parametrize("rows,p,chunk", [(3, 1000, 1), (3, 1000, 100), (2, 4500, 2048),
+                                          (1, 17, 2048), (5, 3000, 1000), (2, 70_000, 1200),
+                                          (70_000, 7, 1), (70_000, 7, 100),
+                                          (70_000, 300, 256)])
+@pytest.mark.parametrize("qmax", [127, 7])
+def test_quantize_any_chunk_and_row_count_bit_exact(cuda, rows, p, chunk, qmax):
+    """Both entries at any chunk (1, not a multiple of 32, above 1,024) and
+    above 65,535 rows: the bits entry equal to the plain version on the same
+    bits, the keyed entry to the bits entry on ``random.bits`` of its keys
+    and to the CPU's plain version, bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(p + chunk + qmax)
+    x = torch.randn(rows, p, generator=gen, device=cuda) * 3.0
+    x[0, :min(p, 5)] = 0.0
+    keys = rnd.split(rnd.PRNGKey(p + chunk, device=cuda), rows)
+    b = rnd._bits_range(keys, 0, -(-p // chunk) * chunk)
+    bits = (b - ((b >> 31) << 32)).to(torch.int32)
+    got = quantize.stochastic_quantize(x, bits, qmax, chunk)
+    keyed = quantize.stochastic_quantize_keyed(x, keys, qmax, chunk)
+    torch.cuda.synchronize()
+    want = quantize.plain(x, bits, qmax, chunk)
+    cpu = quantize.stochastic_quantize_keyed(x.cpu(), keys.cpu(), qmax, chunk)
+    for a, k, w, c in zip(got, keyed, want, cpu):
+        assert a.dtype == w.dtype and torch.equal(a, w) and torch.equal(k, a)
+        assert torch.equal(k.cpu(), c)
+
+
 def test_quantize_kernel_rejects_bad_operands(cuda):
     x = torch.zeros(2, 300, device=cuda)
     with pytest.raises(TypeError, match="int32"):
@@ -210,6 +236,21 @@ def test_dp_noise_kernel_matches_plain(cuda, rows, n, offset):
     res, sq2 = dp_noise.dp_noise(inplace, keys, f, s, sigma, offset, out=inplace)
     assert res.data_ptr() == inplace.data_ptr() and torch.equal(inplace, got)
     assert torch.equal(sq2, sq)
+
+
+def test_dp_noise_takes_any_row_count(cuda):
+    """70,000 rows (past the grid's y limit) of 3 elements: the plain
+    version's, row for row."""
+    rows, n = 70_000, 3
+    gen = torch.Generator(device=cuda).manual_seed(rows)
+    x = torch.randn(rows, n, generator=gen, device=cuda)
+    keys = rnd.split(rnd.PRNGKey(rows, device=cuda), rows)
+    f = torch.rand(rows, generator=gen, device=cuda)
+    s = torch.ones(rows, device=cuda)
+    got, sq = dp_noise.dp_noise(x, keys, f, s, 0.7)
+    want, wsq = dp_noise.plain(x, keys, f, s, 0.7)
+    assert bool(((got - want).abs() <= 1e-6 * want.abs() + 0.7 * 2e-6).all())
+    torch.testing.assert_close(sq, wsq, rtol=1e-5, atol=0)
 
 
 def test_dp_noise_kernel_normals_are_standard(cuda):
@@ -565,7 +606,7 @@ def test_flash_decode_at_head_dim_256_within_the_smem_cap(cuda, b, kv, sk, split
 
 
 def test_flash_kernel_rejects_bad_operands(cuda):
-    q = torch.zeros(1, 4, 8, 48, device=cuda)
+    q = torch.zeros(1, 4, 8, flash_attention.MAX_HEAD_DIM + 1, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention.flash_attention(q, q, q)
     q = torch.zeros(1, 4, 8, 64, device=cuda)
@@ -576,9 +617,55 @@ def test_flash_kernel_rejects_bad_operands(cuda):
     kt = torch.zeros(1, 4, 64, 8, device=cuda).transpose(2, 3)   # stride(-1) = 8
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention.flash_attention(q, kt, kt)
-    ragged = torch.zeros(1, 4, 8 * 64 + 1, device=cuda)[:, :, 1:].view(1, 4, 8, 64)
-    with pytest.raises(ValueError, match="aligned"):
-        flash_attention.flash_attention(ragged, q, q)
+
+
+# any head dim: the tiled kernels at their padded widths (16 and 24 at 32,
+# 48 at 64, 80, 96 and 112 at 128, 160 and 192 at 256), the kernels of any
+# width below (1, 20 in fp32 only; 36, 100 and 250 in bf16: rows not whole
+# 16-byte vectors) and above 256 (320, 520)
+ANY_DIMS = [1, 16, 20, 24, 36, 48, 80, 96, 100, 112, 160, 192, 250, 320, 520]
+
+
+@pytest.mark.parametrize("d", ANY_DIMS)
+@pytest.mark.parametrize("b,h,kv,sq,sk", [(2, 16, 2, 61, 61), (2, 16, 2, 1, 37),
+                                          (1, 4, 4, 130, 130)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 20), (False, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_any_head_dim_matches_plain(cuda, d, b, h, kv, sq, sk, causal, window,
+                                          dtype):
+    q, k, v = _attn_inputs(cuda, b, h, kv, sq, sk, d, dtype, sq * 17 + d)
+    got, lse = flash_attention.flash_attention(q, k, v, causal=causal, window=window,
+                                               return_lse=True)
+    dec = flash_attention.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    want, want_lse = flash_attention.plain(q, k, v, causal=causal, window=window,
+                                           return_lse=True)
+    for out in (got, dec):          # the decode kernel where it takes the call
+        assert out.shape == q.shape and torch.isfinite(out).all()
+        torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    seen = torch.isfinite(want_lse)
+    assert torch.isneginf(lse[~seen]).all()
+    torch.testing.assert_close(lse[seen], want_lse[seen], atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("d", [80, 100, 192, 320])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_any_head_dim_reads_strided_cache_views(cuda, d, dtype):
+    """Decode at pos 100 through a permuted view of a (B, S, KV, D) cache,
+    and a q at a 1-element offset (rows not 16-byte aligned: the kernels of
+    any width, never a copy)."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    cache = torch.randn(2, 128, 2, 2 * d, generator=gen, device=cuda).to(dtype)
+    k, v = cache[:, :101, :, :d].transpose(1, 2), cache[:, :101, :, d:].transpose(1, 2)
+    flat = torch.randn(2 * 16 * d + 1, generator=gen, device=cuda).to(dtype)
+    q = flat[1:].view(2, 1, 16, d).transpose(1, 2)
+    assert not flash_attention._aligned(q)
+    got = flash_attention.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), flash_attention.plain(q, k, v).float(),
+                               atol=tol, rtol=tol)
 
 
 def test_serve_smoke_card_matches_cpu_and_counts_launches(cuda):
@@ -807,6 +894,15 @@ BWD_256_PREFIX_CASES = [
 def test_flash_bwd_head_dim_256_and_prefix_match_plain(cuda, b, h, kv, sq, sk, d, prefix,
                                                        window, dtype):
     _check_flash_bwd(cuda, b, h, kv, sq, sk, d, True, window, dtype, prefix)
+
+
+@pytest.mark.parametrize("d", ANY_DIMS)
+@pytest.mark.parametrize("b,h,kv,sq,sk", [(2, 8, 2, 77, 133), (1, 4, 4, 130, 130)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 20), (False, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_any_head_dim_matches_plain(cuda, d, b, h, kv, sq, sk, causal, window,
+                                              dtype):
+    _check_flash_bwd(cuda, b, h, kv, sq, sk, d, causal, window, dtype)
 
 
 def test_flash_bwd_is_two_kernels_dq_first_and_deterministic(cuda, bwd_kernel_names):

@@ -209,6 +209,60 @@ def test_quantize_stacked_bit_equal_to_jax_rows(rows, n):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("chunk", [1, 100, 2048])
+@pytest.mark.parametrize("name", ["int8", "int4"])
+def test_codec_any_chunk_bit_equal_to_the_reference_wire(chunk, name):
+    """``make_codec(name, chunk=)`` in both packages, 3 clients of 2,500
+    (a ragged last chunk at 100 and 2,048) on the same keys: the port's
+    keyed quantize gives the reference codec's wire values, scales and
+    decoded uploads bit for bit; its bits-operand entry (the plain version
+    on the CPU) gives the reference's oracle on the same bits."""
+    import jax
+    from repro.comm import codecs as jcodecs
+    from repro_torch import convert
+    from repro_torch.comm import codecs as tcodecs
+    rng = np.random.default_rng(chunk)
+    x = (rng.standard_normal((3, 2500)) * 3.0).astype(np.float32)
+    x[0, :150] = 0.0
+    jkeys = jax.random.split(jax.random.PRNGKey(chunk), 3)
+    tkeys = convert.key_from_numpy(np.asarray(jkeys), "cpu")
+    jc, tc = jcodecs.make_codec(name, chunk=chunk), tcodecs.make_codec(name, chunk=chunk)
+    tenc, txhat = tc.roundtrip(torch.from_numpy(x), tkeys)
+    for r in range(3):
+        jenc, jxhat = jc.roundtrip(jnp.asarray(x[r]), jkeys[r])
+        np.testing.assert_array_equal(tenc.values[r].numpy(), np.asarray(jenc.values))
+        np.testing.assert_array_equal(tenc.scales[r].numpy(), np.asarray(jenc.scales))
+        np.testing.assert_array_equal(txhat[r].numpy(), np.asarray(jxhat))
+    bits = rng.integers(0, 2**32, (3, -(-2500 // chunk) * chunk),
+                        dtype=np.uint64).astype(np.uint32)
+    got = quantize.stochastic_quantize(torch.from_numpy(x), _int32_pattern(bits),
+                                       tc.qmax, chunk)
+    for r in range(3):
+        want = jref.stochastic_quantize_ref(jnp.asarray(x[r]), jnp.asarray(bits[r]),
+                                            tc.qmax, chunk)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a[r].numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("chunk", [1, 100, 256, 2048])
+def test_meta_quantize_and_dp_noise_take_any_chunk_and_row_count(chunk):
+    """The wrappers' meta branch (the dry run's): 70,000 rows, past the
+    grid's y limit, at any chunk: outputs of the kernel's shapes."""
+    from repro_torch.kernels import dp_noise
+    rows, p = 70_000, 300
+    x = torch.empty(rows, p, device="meta")
+    c = -(-p // chunk)
+    bits = torch.empty(rows, c * chunk, dtype=torch.int32, device="meta")
+    keys = torch.empty(rows, 2, dtype=torch.int64, device="meta")
+    for v, s, xhat in (quantize.stochastic_quantize(x, bits, 127, chunk),
+                       quantize.stochastic_quantize_keyed(x, keys, 127, chunk)):
+        assert (v.shape, s.shape, xhat.shape) == ((rows, c * chunk), (rows, c), (rows, p))
+        assert v.dtype == torch.int8 and v.device.type == "meta"
+    f = torch.empty(rows, device="meta")
+    out, sq = dp_noise.dp_noise(x, keys, f, f, 1.0)
+    assert out.shape == (rows, p) and sq.shape == (rows,)
+
+
 def test_wrappers_refuse_other_devices(monkeypatch):
     """A tensor on neither the CPU, a CUDA device nor the meta device is
     refused, never computed with the plain version; a meta tensor (the dry

@@ -172,8 +172,9 @@ def test_each_wrapper_counts_one_launch_at_its_formula(device):
 
 
 def test_meta_wrappers_check_their_operands():
-    q = torch.empty(2, 4, 8, 48, dtype=torch.bfloat16, device="meta")
-    with pytest.raises(ValueError, match="head dim 48"):
+    q = torch.empty(2, 4, 8, fa.MAX_HEAD_DIM + 1, dtype=torch.bfloat16,
+                    device="meta")
+    with pytest.raises(ValueError, match=f"head dim {fa.MAX_HEAD_DIM + 1}"):
         fa.flash_attention(q, q[:, :2], q[:, :2])
     x = torch.empty(6, 64, device="meta")
     with pytest.raises(TypeError, match="share one dtype"):

@@ -273,13 +273,59 @@ def test_accounting_closed_forms_equal_the_reference(args):
         jacc.all_gather_axis_bytes(*args[:2])
 
 
+def _jax_idle_fit(n):
+    """The reference's local Algorithm 1 over n clients (``case_idle_fit``)."""
+    z, y, p0 = ranks.sample_inputs(240)
+    data = jfed.partition_samples(jnp.asarray(z), jnp.asarray(y), n)
+    r = jalg.algorithm1(jmlp.per_sample_loss,
+                        {k: jnp.asarray(v) for k, v in p0.items()}, data, _fl(),
+                        12, key=jax.random.PRNGKey(ranks.KEY), eval_every=0)
+    return ({k: np.asarray(v) for k, v in r.history.items()},
+            {k: np.asarray(v) for k, v in r.params.items()})
+
+
 @pytest.mark.parametrize("world", WORLDS[1:])
 def test_divisibility_and_fit_refusals(out, world):
     """I = D + 1 clients on D ranks: sample_round raises the reference's
-    divisibility message; sharded_for raises (a rank without clients) with
-    the sizes in its message."""
-    res = ranks.load(out, "refusals", world, 0)
-    assert res["checked"] and res["divisible"] and res["refused"]
+    divisibility message. The fit: sharded_for over I clients whose largest
+    divisor d within the group is below D (3 on 2 ranks; 6 and 10 on 4)
+    spans the first d ranks, the reference's device fit, and leaves the
+    others idle; every rank, idle or not, returns the reference's local
+    history and params at 1e-5, and axis_bytes is the reference's at d."""
+    for r in range(world):
+        res = ranks.load(out, "refusals", world, r)
+        assert res["checked"] and res["divisible"]
+        for n in ranks.IDLE_CLIENTS[world]:
+            d = max(k for k in range(1, world + 1) if n % k == 0)
+            assert d < world and int(res[f"i{n}/num_shards"]) == d
+            assert bool(res[f"i{n}/idle"]) == (r >= d)
+            jh, jp = _jax_idle_fit(n)
+            for k, v in jh.items():
+                if k == "round_axis_bytes":
+                    assert set(res[f"i{n}/h/{k}"].tolist()) == {
+                        float(jacc.psum_axis_bytes(DIM, d))}
+                elif k.startswith("round_") and k != "round_t":
+                    _close(res[f"i{n}/h/{k}"], v, f"I={n} D={world} rank {r} {k}",
+                           **LOOSE.get(k, dict(atol=1e-5)))
+            for k, v in jp.items():
+                _close(res[f"i{n}/p/{k}"], v, f"I={n} rank {r} param {k}", atol=1e-5)
+
+
+@pytest.mark.parametrize("world", WORLDS[1:])
+def test_make_mesh_spans_the_first_ranks(out, world):
+    """make_mesh((2,)) on a group of D >= 2 ranks: ranks 0 and 1 form it
+    (coordinates 0, 1; an all-reduce over its group sums to 1), the others
+    are outside it (coordinate None) and receive rank 0's result through
+    ``from_first_rank``, the mesh's ranks keep their own; a mesh of more
+    ranks than the group has is refused."""
+    for r in range(world):
+        res = ranks.load(out, "mesh_subset", world, r)
+        assert res["checked"] and res["refused"]
+        assert bool(res["outside"]) == (r >= 2)
+        assert int(res["coordinate"]) == (r if r < 2 else -1)
+        if r < 2:
+            assert res["sum"].tolist() == [1.0]
+        assert res["shared"].tolist() == [r if r < 2 else 0]
 
 
 @pytest.mark.parametrize("world", WORLDS)
@@ -294,6 +340,23 @@ def test_cohort_train_loop_sharded_matches_local(out, world):
         _close(res[k], v, k, atol=1e-5)
 
 
+def test_sharded_steps_on_a_mesh_of_the_first_ranks(out):
+    """sharded_train_step and sharded_decode_step on a (1, 2) mesh over
+    ranks 0 and 1 of 4: every rank returns the same loss and next token,
+    ranks 2 and 3 rank 0's flat params (its block of the model-axis
+    shards); the loss is the local step's (atol 1e-5, the model-parallel
+    tests' standard) and the token the local decode's."""
+    res = [ranks.load(out, "mp_subset", 4, r) for r in range(4)]
+    assert all(r["checked"] for r in res)
+    assert [bool(r["outside"]) for r in res] == [False, False, True, True]
+    for r in res:
+        np.testing.assert_array_equal(r["loss"], res[0]["loss"])
+        np.testing.assert_array_equal(r["token"], res[0]["local_token"])
+        _close(r["loss"], r["local_loss"], "loss", atol=1e-5)
+    for r in res[2:]:
+        np.testing.assert_array_equal(r["w"], res[0]["w"])
+
+
 def test_make_topology_names_and_the_one_rank_mesh():
     """make_topology's names; a one-rank mesh still issues the collective
     (the reference's 1-device mesh runs the psum); a mesh of more ranks
@@ -303,6 +366,7 @@ def test_make_topology_names_and_the_one_rank_mesh():
     assert topo.name == "sharded" and topo.num_shards == 1 and topo.rank == 0
     assert topo.mesh.mesh_dim_names == ("data",)
     assert topo.all_sum({"x": torch.tensor(2.0)})["x"].item() == 2.0
+    assert not topo.idle and topo.share("r") == "r"
     assert tmesh.make_feature_mesh(device="cpu").mesh_dim_names == ("model",)
     with pytest.raises(RuntimeError, match="need 2 ranks"):
         tmesh.make_client_mesh(2, device="cpu")

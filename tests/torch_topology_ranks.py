@@ -221,9 +221,17 @@ def case_cohort_train_loop(topo):
     return _result(r)
 
 
+# client counts whose largest divisor within the group is below its size:
+# sharded_for fits them to the first d ranks and leaves the others idle
+IDLE_CLIENTS = {2: (3,), 4: (6, 10)}
+IDLE_FEATURE_CLIENTS = {2: (3,), 4: (6,)}     # dividing the PF features
+
+
 def case_refusals(topo):
-    """The divisibility error and sharded_for's refusal, as booleans (the
-    messages checked on the rank)."""
+    """The divisibility error (the reference's), as a boolean, and the fit:
+    for each client count of ``IDLE_CLIENTS``, ``sharded_for`` and Algorithm
+    1 over the first d ranks, the others idle: every rank's history and
+    params, the topology's shard count and whether this rank is idle."""
     out = {}
     if topo is None or topo.num_shards < 2:
         return {"checked": np.array(False)}
@@ -238,14 +246,50 @@ def case_refusals(topo):
         out["divisible"] = np.array("must be divisible by the "
                                     f"{topo.num_shards} client shards"
                                     in str(e))
-    try:
-        topo_lib.sharded_for(topo.num_shards + 1, device="cpu")
-        out["refused"] = np.array(False)
-    except ValueError as e:
-        out["refused"] = np.array(
-            f"{topo.num_shards + 1} clients do not divide over the "
-            f"{topo.num_shards} ranks" in str(e))
+    for n in IDLE_CLIENTS[topo.num_shards]:
+        fit = topo_lib.sharded_for(n, device="cpu")
+        res = case_idle_fit(fit, n)
+        out.update({f"i{n}/{k}": v for k, v in res.items()})
+        out[f"i{n}/num_shards"] = np.array(fit.num_shards)
+        out[f"i{n}/idle"] = np.array(fit.idle)
     out["checked"] = np.array(True)
+    return out
+
+
+def case_idle_fit(topo, n):
+    """Algorithm 1 over ``n`` clients of ``sample_inputs``, 12 rounds."""
+    z, y, p0 = sample_inputs(240)
+    data = fed.partition_samples(_t(z), _t(y), n)
+    return _result(algorithms.algorithm1(
+        mlp.per_sample_loss, convert.params_from_numpy(p0, "cpu"), data,
+        FLConfig(**FL_KW), 12, _key(), eval_every=0, topology=topo,
+        device="cpu"))
+
+
+def case_mesh_subset(topo):
+    """``make_mesh((2,))`` on the group (every rank calls it): this rank's
+    coordinate (-1 outside), the sum of the mesh's ranks by an all-reduce
+    over its group, rank 0's tensor through ``from_first_rank``, and
+    whether a mesh of more ranks than the group has is refused."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    if topo is None or dist.get_world_size() < 2:
+        return {"checked": np.array(False)}
+    m = mesh_lib.make_mesh((2,), ("data",), device="cpu")
+    out = {"outside": np.array(mesh_lib.outside(m)), "checked": np.array(True)}
+    coord = m.get_coordinate()
+    out["coordinate"] = np.array(-1 if coord is None else coord[0])
+    if coord is not None:
+        t = torch.tensor([float(dist.get_rank())])
+        dist.all_reduce(t, group=m.get_group("data"))
+        out["sum"] = t.numpy()
+    shared = mesh_lib.from_first_rank(m, {"rank": torch.tensor([dist.get_rank()])})
+    out["shared"] = shared["rank"].numpy()
+    try:
+        mesh_lib.make_mesh((2 * dist.get_world_size(),), ("data",), device="cpu")
+        out["refused"] = np.array(False)
+    except RuntimeError as e:
+        out["refused"] = np.array("ranks for a" in str(e))
     return out
 
 
@@ -379,6 +423,92 @@ def case_feature_train_loop(topo):
     return _result(r)
 
 
+def case_mp_subset(topo):
+    """``sharded_train_step`` and ``sharded_decode_step`` of qwen2.5-3b's
+    smoke model on a (1, 2) ("data", "model") mesh over ranks 0 and 1 of a
+    group of 4: ranks 2 and 3 pass nothing and take rank 0's returns. This
+    rank's loss and flat params after one step and its next token, beside
+    the local step's and the local decode's (the same in every process)."""
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import optimizer
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import serve
+    from repro_torch.models.api import get_model
+    if topo is None or dist.get_world_size() < 4:
+        return {"checked": np.array(False)}
+    cfg = get_config("qwen2.5-3b").smoke()
+    model = get_model(cfg)
+
+    def params():
+        return model.init(rnd.PRNGKey(0, device="cpu"), cfg, device="cpu")
+
+    rng = np.random.default_rng(3)
+    toks = _t(rng.integers(0, cfg.vocab_size, (4, 9)).astype(np.int32))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    fl = FLConfig(**ZOO_FL)
+    m = mesh_lib.make_mesh((1, 2), device="cpu")
+    outside = mesh_lib.outside(m)
+    step = train.sharded_train_step(model, cfg, fl, m, batch)
+    state = None if outside else train.shard_state(
+        optimizer.ssca_init(params()), m, train.state_specs(model, cfg, False))
+    new, ms = step(state, None if outside else batch)
+    _, local = train.make_train_step(model, cfg, fl)(optimizer.ssca_init(params()),
+                                                     batch)
+    out = {"checked": np.array(True), "outside": np.array(outside),
+           "loss": ms["loss"].numpy(), "w": new.w_flat.numpy(),
+           "local_loss": local["loss"].numpy()}
+    p = params()
+    cache = model.init_cache(cfg, 4, 12, device="cpu")
+    logits, cache = model.prefill(p, {"tokens": toks[:, :8]}, cfg, cache=cache)
+    tok = serve._greedy(logits)
+    decode = serve.sharded_decode_step(model, cfg, m)
+    if outside:
+        got, _ = decode(None, None, None, 8)
+    else:
+        cspecs = mesh_lib.adapt_for_mesh(model.cache_specs(cfg), m)
+        got, _ = decode(mesh_lib.shard_tree(p, m, model.param_specs(cfg, "serve")),
+                        mesh_lib.shard_tree(tree_clone(cache), m, cspecs), tok, 8)
+    want, _ = serve.make_decode_step(model, cfg)(p, cache, tok, 8)
+    out.update(token=got.numpy(), local_token=want.numpy())
+    return out
+
+
+def tree_clone(tree):
+    return {k: tree_clone(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+def case_feature_idle(topo):
+    """Algorithm 3 with int8 through ``feature_sharded_for`` over each
+    client count of ``IDLE_FEATURE_CLIENTS``: the first d ranks, the others
+    idle; every rank's history and params, the shard count, idle or not."""
+    import torch.distributed as dist
+    if topo is None or dist.get_world_size() < 2:
+        return {"checked": np.array(False)}
+    out = {"checked": np.array(True)}
+    for n in IDLE_FEATURE_CLIENTS[dist.get_world_size()]:
+        fit = topo_lib.feature_sharded_for(n, device="cpu")
+        out.update({f"i{n}/{k}": v for k, v in feature_idle_run(fit, n).items()})
+        out[f"i{n}/num_shards"] = np.array(fit.num_shards)
+        out[f"i{n}/idle"] = np.array(fit.idle)
+    return out
+
+
+def feature_idle_run(topo, n):
+    """Algorithm 3 with int8 on ``n`` feature clients of ``feature_inputs``
+    (the blocks of its params re-cut to n), 8 rounds."""
+    z, y, p0 = feature_inputs()
+    data = fed.partition_features(_t(z), _t(y), n)
+    w1 = np.concatenate(list(p0["blocks"]), axis=-1)           # (J, PF)
+    blocks = np.stack(np.split(w1, n, axis=-1))
+    params = convert.params_from_numpy({"w0": p0["w0"], "blocks": blocks}, "cpu")
+    return _result(algorithms.algorithm3(
+        mlp.per_sample_loss_from_h, mlp.client_h, params, data,
+        FLConfig(**FL_KW), 8, _key(), eval_every=0,
+        codec=codecs.make_codec("int8"), topology=topo, device="cpu"))
+
+
 def case_feature_dist(topo):
     """The deprecated shim's train_feature_distributed on a "model" mesh."""
     import warnings
@@ -404,11 +534,12 @@ SUITES = {
     "sample": ["alg1_dense", "alg1_int8_ef_part", "alg2_int8_ef_part",
                "alg2g_topk_ef", "ragged_dirichlet", "sample_sgd",
                "alg1_local", "alg1_dp", "cohort_int8_ef", "wire_int8",
-               "cohort_train_loop", "refusals", "zoo_int8_dp"],
+               "cohort_train_loop", "refusals", "mesh_subset", "mp_subset",
+               "zoo_int8_dp"],
     "feature": ["alg3_dense", "alg4_dense", "alg3_int8", "alg4_int8_dp",
                 "alg3_dp", "feature_sgd", "frank_wolfe", "dual_decomposition",
                 "feature_round_int8_dp", "feature_train_loop",
-                "feature_dist"],
+                "feature_dist", "feature_idle"],
 }
 FEATURE = set(SUITES["feature"])
 
